@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It needs one CUDA device and ``nvcc``.  It builds the package's CUDA kernels
+from the sources in the checkout, holds each kernel against its plain PyTorch
+version on the card at the shapes the Monte-Carlo main path gives it, drives
+the main path (``MonteCarloSimulator`` over the polar SC and the LDPC BP /
+min-sum pipelines) at full code size through the kernels, checks the
+frame-id invariance of the counters and checkpoint/resume, and prints one
+JSON line per phase.  Any failure raises, and the exit code is then non-zero.
+
+The second line from the end lists every kernel with its launches on the main
+path, its error against the plain version, its time, the plain version's
+time and its roofline bound; the last line is
+``{"ok": true, "device": {...}}``.
+
+``--quick`` cuts the frame counts (for a first run after a kernel change);
+``--phases a,b`` runs a subset (then no final ``ok`` line is printed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import polarcode_and_ldpc_tpu_torch as fec
+from polarcode_and_ldpc_tpu_torch import ops
+from polarcode_and_ldpc_tpu_torch.channels.awgn import awgn_noise_std, awgn_transmit
+from polarcode_and_ldpc_tpu_torch.core import rng
+from polarcode_and_ldpc_tpu_torch.models.ldpc.encoder import gf2_matmul
+from polarcode_and_ldpc_tpu_torch.models.ldpc.graph import TannerGraph
+from polarcode_and_ldpc_tpu_torch.models.polar.construction import frozen_mask_from_positions
+from polarcode_and_ldpc_tpu_torch.models.polar.encoder import polar_transform
+from polarcode_and_ldpc_tpu_torch.ops import build
+from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda
+from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import SCProgram, sc_decode_cuda
+from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
+                                              make_polar_pipeline)
+
+DEV = "cuda"
+
+# published peaks of one H100 SXM (dense, full power limit): device-memory
+# rate and float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# float operations per edge and iteration that the LDPC kernel performs
+# (check update + variable update), transcendental calls counted as one each
+OPS_PER_EDGE_ITER = {"bp": 14, "ms": 12}
+
+POLAR_N, POLAR_K = 1024, 512
+POLAR_CHUNK = 16384
+LDPC_N, LDPC_K, LDPC_CHUNK, LDPC_ITERS = 504, 252, 4096, 20
+# an SNR (Es/N0) at which both codes make frame errors often enough (about
+# one frame in seven) for the early-stop and invariance phases to count some
+LOW_SNR_DB = -1.0
+
+PHASES = ("device", "build", "kernels", "polar_sc_mc", "ldpc_mc", "invariance", "stages")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn()`` by CUDA events, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def seeded_llrs(codewords: torch.Tensor, snr_db: float, seed: int) -> torch.Tensor:
+    """Channel LLRs of int8 codewords on the card from seeded numpy noise."""
+    std = awgn_noise_std(snr_db)
+    noise = np.random.default_rng(seed).standard_normal(tuple(codewords.shape), dtype=np.float32)
+    y = (1.0 - 2.0 * codewords.to(torch.float32)) + std * torch.from_numpy(noise).to(DEV)
+    return (2.0 * y / (std * std)).contiguous()
+
+
+# -- phases --------------------------------------------------------------------
+
+def phase_device() -> dict:
+    line = nvidia_smi_line()
+    emit("device", nvidia_smi=line, name=torch.cuda.get_device_name(0),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+    # known-answer test of the cipher on the card (Random123 test vector)
+    k = torch.tensor([0x13198a2e, 0x03707344], dtype=torch.int64, device=DEV).to(torch.int32)
+    x = torch.tensor([0x243f6a88, 0x85a308d3 - (1 << 32)], dtype=torch.int64,
+                     device=DEV).to(torch.int32)
+    y0, y1 = rng.threefry2x32(k[0], k[1], x[0], x[1])
+    got = [int(y0) & 0xFFFFFFFF, int(y1) & 0xFFFFFFFF]
+    if got != [0xc4923a9c, 0x483df7a0]:
+        raise AssertionError(f"threefry2x32 known-answer test failed on the card: {got}")
+    return {"nvidia_smi": line}
+
+
+def phase_build(verbose: bool) -> None:
+    seconds = build.build_all(verbose=verbose)
+    for name in build.SOURCES:
+        build.load(name)
+    emit("build", seconds=round(seconds, 3), sources=[f"{s}.cu" for s in build.SOURCES],
+         flags=" ".join(build.NVCC_FLAGS))
+
+
+def polar_code():
+    frozen, info = fec.construct_polar_code(POLAR_N, POLAR_K, "bhattacharyya", 2.0)
+    return frozen, info, frozen_mask_from_positions(POLAR_N, frozen)
+
+
+def ldpc_code():
+    return fec.LDPCEncoder(LDPC_N, LDPC_K, dv=3, dc=6, seed=42, device=DEV)
+
+
+def check_sc_kernel(results: dict, reps: int) -> None:
+    frozen, info, mask = polar_code()
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, device=DEV)
+    cases = []
+    worst = 0
+    for fast in (True, False):
+        program = SCProgram(POLAR_N, mask, fast_nodes=fast)
+        for B in (4096, 1000):
+            for snr in (-1.0, 1.0, 3.0):
+                msgs = np.random.default_rng(B + int(snr)).integers(0, 2, (B, POLAR_K))
+                llr = seeded_llrs(enc.encode(msgs), snr, seed=7 * B + int(10 * snr) + 100)
+                got = sc_decode_cuda(llr, program)
+                torch.cuda.synchronize()
+                want = program.plain(llr)
+                diff = int((got != want).sum())
+                worst = max(worst, diff)
+                cases.append({"B": B, "snr_db": snr, "fast_nodes": fast, "diff_bits": diff})
+        # tie-adversarial input: small integer LLRs with many zeros and ties
+        q = torch.from_numpy(np.random.default_rng(5).integers(
+            -3, 4, (512, POLAR_N)).astype(np.float32)).to(DEV)
+        diff = int((sc_decode_cuda(q, program) != program.plain(q)).sum())
+        worst = max(worst, diff)
+        cases.append({"B": 512, "input": "integer ties", "fast_nodes": fast, "diff_bits": diff})
+    # the main path's shape: one Monte-Carlo chunk
+    program = SCProgram(POLAR_N, mask, fast_nodes=True)
+    msgs = np.random.default_rng(11).integers(0, 2, (POLAR_CHUNK, POLAR_K))
+    llr = seeded_llrs(enc.encode(msgs), 3.0, seed=12)
+    got = sc_decode_cuda(llr, program)
+    want = program.plain(llr)
+    max_abs = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    worst = max(worst, int((got != want).sum()))
+    ms = time_ms(lambda: sc_decode_cuda(llr, program), reps)
+    plain_ms = time_ms(lambda: program.plain(llr), max(1, reps // 5), warmup=1)
+    byts = POLAR_CHUNK * POLAR_N * 5
+    flops = POLAR_CHUNK * POLAR_N * int(math.log2(POLAR_N))
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    results["sc_decode"] = {
+        "name": "sc_decode", "route": "cuda",
+        "source": "polarcode_and_ldpc_tpu_torch/ops/csrc/sc_decode.cu",
+        "replaces": "polarcode_and_ldpc_tpu/ops/sc_mega_pallas.py:126",
+        "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": None,
+        "shape": [POLAR_CHUNK, POLAR_N], "n_ops": int(program.ops.shape[0]),
+        "tolerance": "bit-identical", "cases": cases,
+    }
+    if worst:
+        raise AssertionError(f"sc_decode disagrees with its plain version: {cases}")
+
+
+def check_bp_kernel(results: dict, reps: int) -> None:
+    enc = ldpc_code()
+    graph = TannerGraph.from_H(enc.H, DEV)
+    irregular = TannerGraph.from_H(
+        fec.mackay_construction(LDPC_N, LDPC_K, 3, 6, seed=1), DEV)
+    rules = {"bp": ("bp", 1.0, 0.0), "ms": ("ms", 1.0, 0.0),
+             "nms": ("ms", 0.75, 0.0), "oms": ("ms", 1.0, 0.5)}
+    cases = []
+    sp_frames = sp_differ = 0
+    for name, (rule, alpha, beta) in rules.items():
+        for early in (True, False):
+            plan = BPKernelPlan(graph, LDPC_ITERS, early, rule, alpha, beta)
+            for B in (4096, 999):
+                for snr in (-1.0, 1.0, 3.0):
+                    msgs = np.random.default_rng(B + int(snr)).integers(0, 2, (B, LDPC_K))
+                    llr = seeded_llrs(enc.encode(msgs), snr, seed=3 * B + int(10 * snr) + 100)
+                    bits, iters = bp_decode_cuda(llr, plan)
+                    torch.cuda.synchronize()
+                    pbits, piters = plan.plain(llr)
+                    differ = int(((bits != pbits).any(dim=1) | (iters != piters)).sum())
+                    cases.append({"rule": name, "early_stop": early, "B": B,
+                                  "snr_db": snr, "frames_differ": differ})
+                    if rule == "bp":
+                        sp_frames += B
+                        sp_differ += differ
+                    elif differ:
+                        raise AssertionError(f"bp_decode[{name}] is not bit-identical: {cases[-1]}")
+        # padded slots: an irregular (MacKay) graph of the same size, odd batch
+        plan = BPKernelPlan(irregular, LDPC_ITERS, True, rule, alpha, beta)
+        llr = seeded_llrs(torch.zeros((777, LDPC_N), dtype=torch.int8, device=DEV), 2.0, seed=99)
+        bits, iters = bp_decode_cuda(llr, plan)
+        pbits, piters = plan.plain(llr)
+        differ = int(((bits != pbits).any(dim=1) | (iters != piters)).sum())
+        cases.append({"rule": name, "graph": "mackay (padded slots)", "B": 777,
+                      "frames_differ": differ})
+        if rule == "bp":
+            sp_frames += 777
+            sp_differ += differ
+        elif differ:
+            raise AssertionError(f"bp_decode[{name}] is not bit-identical: {cases[-1]}")
+    if sp_differ > 1e-3 * sp_frames:
+        raise AssertionError(
+            f"bp_decode[bp]: {sp_differ} of {sp_frames} frames differ from the plain version")
+
+    # the main path's shape: one Monte-Carlo chunk at 3 dB, bp and nms
+    msgs = np.random.default_rng(21).integers(0, 2, (LDPC_CHUNK, LDPC_K))
+    llr = seeded_llrs(enc.encode(msgs), 3.0, seed=22)
+    for key, (rule, alpha) in {"bp_decode_bp": ("bp", 1.0), "bp_decode_ms": ("ms", 0.75)}.items():
+        plan = BPKernelPlan(graph, LDPC_ITERS, True, rule, alpha, 0.0)
+        bits, iters = bp_decode_cuda(llr, plan)
+        pbits, piters = plan.plain(llr)
+        max_abs = max(int((bits.to(torch.int16) - pbits.to(torch.int16)).abs().max()),
+                      int((iters - piters).abs().max()))
+        ms = time_ms(lambda: bp_decode_cuda(llr, plan), reps)
+        plain_ms = time_ms(lambda: plan.plain(llr), max(1, reps // 5), warmup=1)
+        byts = LDPC_CHUNK * (5 * LDPC_N + 4)
+        flops = graph.num_edges * int(iters.sum()) * OPS_PER_EDGE_ITER[rule]
+        t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        results[key] = {
+            "name": key, "route": "cuda",
+            "source": "polarcode_and_ldpc_tpu_torch/ops/csrc/bp_decode.cu",
+            "replaces": "polarcode_and_ldpc_tpu/ops/bp_pallas.py:140",
+            "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None,
+            "shape": [LDPC_CHUNK, LDPC_N], "mean_iterations": float(iters.float().mean()),
+            "tolerance": ("bit-identical bits and iteration counts" if rule == "ms" else
+                          "identical bits and iteration counts on >= 99.9 % of frames"),
+            "sum_product_frames_differ": sp_differ if rule == "bp" else None,
+            "sum_product_frames": sp_frames if rule == "bp" else None,
+        }
+        if rule == "ms" and max_abs:
+            raise AssertionError("bp_decode[nms] is not bit-identical at the main path's shape")
+    results["bp_decode_bp"]["cases"] = cases
+
+
+def phase_kernels(results: dict, reps: int) -> None:
+    check_sc_kernel(results, reps)
+    check_bp_kernel(results, reps)
+    emit("kernels", kernels=[
+        {k: v for k, v in r.items() if k != "cases"} for r in results.values()],
+        sc_cases=results["sc_decode"]["cases"], bp_cases=results["bp_decode_bp"]["cases"])
+
+
+def record_launches(results: dict, keys) -> dict:
+    counts = ops.launch_counts()
+    for key in keys:
+        if counts[key] < 1:
+            raise AssertionError(f"the main path launched the {key} kernel no time: {counts}")
+        if key in results:
+            results[key]["launches"] += counts[key]
+    return counts
+
+
+def result_fields(res) -> dict:
+    return {"frames": res.frames, "bit_errors": res.bit_errors,
+            "frame_errors": res.frame_errors, "ber": res.ber, "fer": res.fer,
+            "seconds": res.elapsed_seconds, "info_mbps": res.throughput_mbps}
+
+
+def phase_polar_sc_mc(results: dict, mbps: dict, frames: int) -> None:
+    frozen, info, mask = polar_code()
+    step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="sc", device=DEV)
+    sim = MonteCarloSimulator(step, POLAR_K, chunk_frames=POLAR_CHUNK)
+    sim.run(POLAR_CHUNK, seed=1)  # warm-up: first use of every op on the card
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0)
+    counts = record_launches(results, ["sc_decode"])
+    if res.frames != frames or not (0.0 <= res.fer < 0.05):
+        raise AssertionError(f"polar SC at 3 dB: unexpected result {res.to_dict()}")
+
+    # early stop: stop at 100 frame errors, the crossing frame included.  At
+    # 1 dB this code makes no error in 10^5 frames, so the run is at LOW_SNR_DB
+    step1 = make_polar_pipeline(POLAR_N, POLAR_K, frozen, LOW_SNR_DB, decoder="sc", device=DEV)
+    res1 = MonteCarloSimulator(step1, POLAR_K, chunk_frames=POLAR_CHUNK).run(
+        8 * POLAR_CHUNK, max_errors=100, seed=0)
+    if res1.frame_errors != 100 or not (100 <= res1.frames < 8 * POLAR_CHUNK):
+        raise AssertionError(f"early stop did not cross at 100 errors: {res1.to_dict()}")
+
+    # the kernel path against the plain pipeline on the same frame ids and seed
+    plain = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="sc",
+                                sc_impl="unrolled", device=DEV)
+    key = rng.prng_key(0, DEV)
+    ids = torch.arange(POLAR_CHUNK, device=DEV)
+    a, b = step(key, ids), plain(key, ids)
+    if not (torch.equal(a["bit_errors"], b["bit_errors"])
+            and torch.equal(a["frame_error"], b["frame_error"])):
+        raise AssertionError("kernel pipeline and plain pipeline disagree on the first chunk")
+
+    # a small input against the CPU pipeline: integer randomness is equal bit
+    # for bit; the float noise may differ in its last bits between the CPU's
+    # and the card's log1p/sqrt, so at most 1 frame in 256 may decode otherwise
+    cpu = make_polar_pipeline(POLAR_N, POLAR_K, frozen, LOW_SNR_DB, decoder="sc", device="cpu")
+    ids256 = torch.arange(256)
+    c = cpu(rng.prng_key(0, "cpu"), ids256)
+    g = step1(key, ids256.to(DEV))
+    differ = int((c["bit_errors"] != g["bit_errors"].cpu()).sum())
+    if differ > 1:
+        raise AssertionError(f"card and CPU pipelines differ on {differ} of 256 frames")
+    emit("polar_sc_mc", **result_fields(res), chunk_frames=POLAR_CHUNK, launches=counts,
+         early_stop={"snr_db": LOW_SNR_DB, "max_errors": 100, **result_fields(res1)}, first_chunk_equals_plain=True,
+         cpu_reference_frames_differ=differ)
+    mbps["polar_sc"] = res.throughput_mbps
+
+
+def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
+    enc = ldpc_code()
+    summary = {}
+    for name, key, kw in (("bp", "bp_decode_bp", {}),
+                          ("nms", "bp_decode_ms", {"normalization": 0.75})):
+        step = make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder=name, max_iter=LDPC_ITERS,
+                                  message_idx=enc.info_positions, device=DEV, **kw)
+        sim = MonteCarloSimulator(step, LDPC_K, chunk_frames=LDPC_CHUNK)
+        sim.run(LDPC_CHUNK, seed=1)  # warm-up
+        ops.reset_launch_counts()
+        res = sim.run(frames, max_errors=None, seed=0)
+        counts = record_launches(results, [key])
+        if res.frames != frames or not (res.ber < 1e-3) or not (1.0 <= res.avg_iterations <= LDPC_ITERS):
+            raise AssertionError(f"LDPC {name} at 3 dB: unexpected result {res.to_dict()}")
+        plain = make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder=name, max_iter=LDPC_ITERS,
+                                   message_idx=enc.info_positions, bp_impl="torch",
+                                   device=DEV, **kw)
+        rk = rng.prng_key(0, DEV)
+        ids = torch.arange(LDPC_CHUNK, device=DEV)
+        a, b = step(rk, ids), plain(rk, ids)
+        differ = int(((a["bit_errors"] != b["bit_errors"]) | (a["iterations"] != b["iterations"])).sum())
+        allowed = 0 if name == "nms" else LDPC_CHUNK // 1000
+        if differ > allowed:
+            raise AssertionError(f"LDPC {name}: kernel and plain pipelines differ on {differ} frames")
+        summary[name] = {**result_fields(res), "mean_iterations": res.avg_iterations,
+                         "launches": counts, "first_chunk_frames_differ_from_plain": differ}
+        mbps[f"ldpc_{name}"] = res.throughput_mbps
+    emit("ldpc_mc", chunk_frames=LDPC_CHUNK, max_iter=LDPC_ITERS, **summary)
+
+
+def phase_invariance() -> None:
+    frozen, info, mask = polar_code()
+    enc = ldpc_code()
+    steps = {
+        "polar_sc": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, LOW_SNR_DB, decoder="sc",
+                                         device=DEV), POLAR_K),
+        "ldpc_nms": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, decoder="nms", normalization=0.75,
+                                        max_iter=LDPC_ITERS, message_idx=enc.info_positions,
+                                        device=DEV), LDPC_K),
+    }
+    out = {}
+    for name, (step, k) in steps.items():
+        def counters(res):
+            return (res.frames, res.bit_errors, res.frame_errors, res.total_iterations)
+
+        one = MonteCarloSimulator(step, k, chunk_frames=8192).run(8192, seed=3)
+        eight = MonteCarloSimulator(step, k, chunk_frames=1024).run(8192, seed=3)
+        multi = MonteCarloSimulator(step, k, chunk_frames=1024, chunks_per_dispatch=4).run(8192, seed=3)
+        scalar = MonteCarloSimulator(step, k, chunk_frames=1024, reduction="scalar").run(8192, seed=3)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = Path(tmp) / "mc.json"
+            sim = MonteCarloSimulator(step, k, chunk_frames=1024)
+            sim.run(3072, seed=3, checkpoint_path=ck, checkpoint_every_chunks=1)
+            resumed = sim.run(8192, seed=3, checkpoint_path=ck)
+        ref = counters(one)
+        for label, res in (("8x1024", eight), ("chunks_per_dispatch=4", multi),
+                           ("scalar", scalar), ("resumed", resumed)):
+            if counters(res) != ref:
+                raise AssertionError(
+                    f"{name}: {label} gives {counters(res)}, 1x8192 gives {ref}")
+        if one.frame_errors == 0:
+            raise AssertionError(f"{name}: the invariance run saw no error to count")
+        out[name] = {"frames": ref[0], "bit_errors": ref[1], "frame_errors": ref[2],
+                     "total_iterations": ref[3]}
+    emit("invariance", identical=["1x8192", "8x1024", "chunks_per_dispatch=4", "scalar",
+                                  "checkpoint+resume"], **out)
+
+
+def phase_stages(reps: int) -> None:
+    """Where a chunk's time goes: each stage of the Monte-Carlo step timed
+    alone by CUDA events at the main path's shapes, then the whole step, and
+    the card's busy share over a short run from the profiler."""
+    frozen, info, mask = polar_code()
+    enc = ldpc_code()
+    key = rng.prng_key(0, DEV)
+    out = {}
+    configs = {
+        "polar_sc": (POLAR_CHUNK, POLAR_K, POLAR_N,
+                     make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="sc", device=DEV)),
+        "ldpc_bp": (LDPC_CHUNK, LDPC_K, LDPC_N,
+                    make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="bp", max_iter=LDPC_ITERS,
+                                       message_idx=enc.info_positions, device=DEV)),
+    }
+    info_idx = torch.as_tensor(info, device=DEV)
+    G = torch.as_tensor(enc.G.astype(np.float32), device=DEV)
+    sc_program = SCProgram(POLAR_N, mask)
+    bp_plan = BPKernelPlan(TannerGraph.from_H(enc.H, DEV), LDPC_ITERS, True, "bp")
+    for name, (chunk, k, n, step) in configs.items():
+        ids = torch.arange(chunk, device=DEV)
+        fkeys = rng.frame_keys(key, ids)
+        mkeys, nkeys = rng.fold_in(fkeys, 0), rng.fold_in(fkeys, 1)
+        msgs = rng.bernoulli_half(mkeys, k)
+        if name == "polar_sc":
+            def encode():
+                u = torch.zeros((chunk, n), dtype=torch.int8, device=DEV)
+                u[:, info_idx] = msgs
+                return polar_transform(u)
+        else:
+            def encode():
+                return gf2_matmul(msgs, G)
+        cw = encode()
+        noise = rng.normal(nkeys, n)
+        llr = awgn_transmit(None, cw, 3.0, noise=noise).contiguous()
+        decode = ((lambda: sc_decode_cuda(llr, sc_program)) if name == "polar_sc"
+                  else (lambda: bp_decode_cuda(llr, bp_plan)))
+        stages = {
+            "frame_keys_ms": lambda: [rng.fold_in(fk, j) for fk in [rng.frame_keys(key, ids)]
+                                      for j in (0, 1)],
+            "message_bits_ms": lambda: rng.bernoulli_half(mkeys, k),
+            "encode_ms": encode,
+            "noise_normal_ms": lambda: rng.normal(nkeys, n),
+            "channel_arith_ms": lambda: awgn_transmit(None, cw, 3.0, noise=noise),
+            "decode_kernel_ms": decode,
+            "whole_step_ms": lambda: step(key, ids),
+        }
+        out[name] = {label: time_ms(fn, reps) for label, fn in stages.items()}
+        out[name]["chunk_frames"] = chunk
+        # busy share of the card: kernel time from the profiler (CUPTI times
+        # each kernel on the device, whatever the tracing costs the host)
+        # over the host-clock time of the same run without the profiler
+        sim = MonteCarloSimulator(step, k, chunk_frames=chunk)
+        sim.run(2 * chunk, seed=1)
+        wall_ms = min(sim.run(8 * chunk, seed=2).elapsed_seconds for _ in range(3)) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sim.run(8 * chunk, seed=2)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        seen = device_ms > 0
+        out[name]["run_wall_ms_8_chunks"] = wall_ms
+        out[name]["device_kernel_ms_8_chunks"] = device_ms if seen else "not measured"
+        out[name]["device_busy_share"] = device_ms / wall_ms if seen else "not measured"
+        out[name]["device_launches_per_chunk"] = (
+            sum(e.count for e in kernels) / 8 if seen else "not measured")
+    emit("stages", **out)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true", help="cut frame counts and repetitions")
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--verbose-build", action="store_true", help="print ptxas resource usage")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases: {sorted(unknown)}")
+    t0 = time.perf_counter()
+    results: dict = {}  # kernel name → its line of the final kernel table
+    mbps: dict = {}
+    reps = 3 if args.quick else 20
+    dev_info = phase_device() if "device" in phases else {"nvidia_smi": nvidia_smi_line()}
+    if "build" in phases:
+        phase_build(args.verbose_build)
+    if "kernels" in phases:
+        phase_kernels(results, reps)
+    if "polar_sc_mc" in phases:
+        phase_polar_sc_mc(results, mbps, 4 * POLAR_CHUNK if args.quick else 16 * POLAR_CHUNK)
+    if "ldpc_mc" in phases:
+        phase_ldpc_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
+    if "invariance" in phases:
+        phase_invariance()
+    if "stages" in phases:
+        phase_stages(reps)
+    torch.cuda.synchronize()
+    if set(phases) != set(PHASES):
+        emit("partial", phases=phases, seconds=round(time.perf_counter() - t0, 1))
+        return 0
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit("summary", seconds=round(time.perf_counter() - t0, 1), info_mbps=mbps)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}), flush=True)
+    print(dev_info["nvidia_smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

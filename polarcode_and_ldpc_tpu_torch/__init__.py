@@ -1,0 +1,38 @@
+"""polarcode_and_ldpc_tpu_torch — the PyTorch/CUDA port of the
+``polarcode_and_ldpc_tpu`` channel-coding framework, for one NVIDIA H100.
+
+Ported so far: the Monte-Carlo main path with SC polar decoding and flooding
+BP / min-sum LDPC decoding —
+
+* Polar codes: construction, Kronecker-butterfly encoder, SC decoder (the
+  whole decode in one hand-written CUDA kernel).
+* LDPC codes: constructions, GF(2) encoder, BP (sum-product) and Min-Sum
+  (normalized + offset) decoders (the whole decode in one CUDA kernel).
+* AWGN channel with BPSK modulation and LLR demodulation.
+* Monte-Carlo BER/FER simulation with per-frame keyed randomness.
+
+Sub-packages mirror the JAX package so each counterpart is easy to find.
+Every factory function and class takes ``device=`` and defaults to ``"cuda"``; the CPU
+is used only when the caller asks for it.  Importing the package builds no
+kernel and imports neither ``jax`` nor the JAX package.
+"""
+
+from .channels import AWGNChannel
+from .models.ldpc import (BPDecoder, LDPCEncoder, MSDecoder, NMSDecoder,
+                          OMSDecoder, check_matrix_rank,
+                          create_systematic_generator, generate_ldpc_matrix,
+                          gf2_rank, mackay_construction, regular_construction)
+from .models.polar import (PolarEncoder, SCDecoder, bhattacharyya_bounds,
+                           construct_polar_code, gaussian_approximation,
+                           generate_frozen_bits, polar_transform)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PolarEncoder", "SCDecoder", "construct_polar_code",
+    "bhattacharyya_bounds", "gaussian_approximation", "generate_frozen_bits",
+    "polar_transform", "LDPCEncoder", "BPDecoder", "MSDecoder", "NMSDecoder",
+    "OMSDecoder", "generate_ldpc_matrix", "mackay_construction",
+    "regular_construction", "create_systematic_generator",
+    "check_matrix_rank", "gf2_rank", "AWGNChannel",
+]

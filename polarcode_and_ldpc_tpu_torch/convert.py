@@ -1,0 +1,75 @@
+"""State carried across from the JAX package.
+
+The system has no learned weights; its state is the code definition.  These
+functions take the JAX package's objects **as numpy arrays** (the caller does
+the ``np.asarray``) and return this package's objects.  Nothing here imports
+JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .core.device import resolve_device
+from .models.ldpc.encoder import LDPCEncoder
+from .models.ldpc.graph import TABLE_NAMES, TannerGraph
+from .models.polar.construction import frozen_mask_from_positions
+
+
+def polar_code_from_numpy(N: int, frozen_mask: Optional[np.ndarray] = None,
+                          frozen_bits: Optional[np.ndarray] = None) -> dict:
+    """A polar code definition from either a boolean frozen mask ``[N]`` or
+    sorted frozen positions: ``{"N", "K", "frozen_bits", "info_bits",
+    "frozen_mask"}`` as the functions of ``models.polar`` take them."""
+    if (frozen_mask is None) == (frozen_bits is None):
+        raise ValueError("give exactly one of frozen_mask and frozen_bits")
+    if frozen_mask is not None:
+        mask = np.asarray(frozen_mask).astype(bool)
+        if mask.shape != (N,):
+            raise ValueError(f"frozen_mask must have shape ({N},), got {mask.shape}")
+    else:
+        mask = frozen_mask_from_positions(N, np.asarray(frozen_bits))
+    frozen = np.nonzero(mask)[0].astype(np.int64)
+    info = np.nonzero(~mask)[0].astype(np.int64)
+    return {"N": N, "K": int(info.size), "frozen_bits": frozen,
+            "info_bits": info, "frozen_mask": mask}
+
+
+def ldpc_code_from_numpy(H: np.ndarray, G: np.ndarray,
+                         info_positions: Optional[np.ndarray] = None,
+                         device="cuda") -> LDPCEncoder:
+    """An ``LDPCEncoder`` that carries the given ``H [m, n]``, generator
+    ``G [k, n]`` and message positions instead of deriving its own."""
+    H = np.asarray(H)
+    G = np.asarray(G)
+    k, n = G.shape
+    enc = LDPCEncoder(n, k, H=H, G=G, device=device)
+    if info_positions is not None:
+        info = np.asarray(info_positions, dtype=np.int64)
+        enc.info_positions = info
+        enc._info_idx = torch.as_tensor(info, dtype=torch.int64, device=enc._G_dev.device)
+        enc.use_direct_solving = not bool((info == np.arange(k)).all())
+    return enc
+
+
+def tanner_graph_from_numpy(tables: dict, device="cuda") -> TannerGraph:
+    """A ``TannerGraph`` from the six index/mask arrays of the JAX package's
+    graph (``check_vars, check_mask, cv_gather, var_checks, var_mask,
+    vc_gather``)."""
+    missing = [k for k in TABLE_NAMES if k not in tables]
+    if missing:
+        raise KeyError(f"missing graph tables: {missing}")
+    return TannerGraph({k: np.asarray(tables[k]) for k in TABLE_NAMES}, device)
+
+
+def key_from_numpy(key_data: np.ndarray, device="cuda") -> torch.Tensor:
+    """A key of ``core.rng`` from the two ``uint32`` words of a
+    ``jax.random.PRNGKey``'s data."""
+    words = np.asarray(key_data)
+    if words.shape != (2,):
+        raise ValueError(f"expected uint32[2] key data, got shape {words.shape}")
+    words = words.astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32).copy()).to(resolve_device(device))

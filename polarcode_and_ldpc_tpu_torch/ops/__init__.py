@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels and their wrappers.
+
+Each wrapper keeps a count of the launches it made (``launch_counts``), so a
+run can show that it went through the kernels.  Importing this package builds
+nothing; kernels are compiled at first use (``ops/build.py``).
+"""
+
+from __future__ import annotations
+
+# the LDPC kernel counts its two check rules apart: they are two code paths
+_LAUNCHES = {"sc_decode": 0, "bp_decode_bp": 0, "bp_decode_ms": 0}
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0

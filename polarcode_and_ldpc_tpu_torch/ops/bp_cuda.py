@@ -1,0 +1,166 @@
+"""Fused LDPC decode kernel (flooding schedule): wrapper, kernel tables,
+implementation policy.
+
+``csrc/bp_decode.cu`` replaces the TPU kernel
+``polarcode_and_ldpc_tpu/ops/bp_pallas.py::make_bp_decoder_pallas`` in its
+flooding form: sum-product or min-sum (NMS α / OMS β) message passing,
+syndrome, per-frame iteration count and early exit in one launch, one thread
+block per frame, every message in shared memory, the two message layouts
+linked by gather index tables.  Bound: operations (the iterations each frame
+actually runs); see the note at the top of the source.  The layered schedule
+of the same TPU kernel is not ported yet.
+
+The plain PyTorch versions of the same function are
+``models.ldpc.bp.make_bp_decoder`` / ``models.ldpc.minsum.make_ms_decoder``.
+``bp_decode`` uses them only for a tensor that lies on the CPU; on a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models.ldpc.bp import make_bp_decoder
+from ..models.ldpc.graph import TannerGraph
+from ..models.ldpc.minsum import make_ms_decoder
+from . import build, count_launch
+
+#: shared memory one thread block may use on Hopper (bytes)
+SMEM_LIMIT_BYTES = 232448
+_RULES = {"bp": 0, "ms": 1}
+_THREADS = 256
+
+
+def kernel_tables(graph: TannerGraph) -> dict:
+    """The kernel's three slot-major int32 tables from a graph's gather
+    tables: ``cv_idx [dc*m]`` (slot ``s`` of check ``c`` → index of its edge
+    in the var-major message array ``V[sp*n + v]``), ``vc_idx [dv*n]`` (slot
+    ``sp`` of variable ``v`` → index in ``C[s*m + c]``) and ``chk_var
+    [dc*m]`` (the variable of the slot); −1 marks a padded slot."""
+    t = graph.numpy_tables()
+    n, m, dv, dc = graph.n, graph.m, graph.dv_max, graph.dc_max
+    cv = t["cv_gather"].astype(np.int64)          # [m, dc] flat v*dv + sp
+    cv_idx = (cv % dv) * n + cv // dv
+    cv_idx = np.where(t["check_mask"], cv_idx, -1).T  # [dc, m]
+    vc = t["vc_gather"].astype(np.int64)          # [n, dv] flat c*dc + s
+    vc_idx = (vc % dc) * m + vc // dc
+    vc_idx = np.where(t["var_mask"], vc_idx, -1).T    # [dv, n]
+    chk_var = np.where(t["check_mask"], t["check_vars"], -1).T
+    return {k: np.ascontiguousarray(a, np.int32).reshape(-1)
+            for k, a in (("cv_idx", cv_idx), ("vc_idx", vc_idx), ("chk_var", chk_var))}
+
+
+def smem_bytes(graph: TannerGraph) -> int:
+    """Shared memory the kernel needs for one frame of this graph."""
+    return (graph.dv_max * graph.n + 2 * graph.dc_max * graph.m + graph.n) * 4 + graph.n
+
+
+class BPKernelPlan:
+    """One decoder configuration for the kernel: tables on the graph's device
+    plus the plain decoder of the same configuration."""
+
+    def __init__(self, graph: TannerGraph, max_iter: int = 20, early_stop: bool = True,
+                 check_rule: str = "bp", normalization: float = 1.0, offset: float = 0.0):
+        if check_rule not in _RULES:
+            raise ValueError(f"unknown check_rule {check_rule!r}")
+        need = smem_bytes(graph)
+        if need > SMEM_LIMIT_BYTES:
+            raise ValueError(
+                f"this code needs {need} bytes of shared memory per frame "
+                f"(n={graph.n}, m={graph.m}, dv={graph.dv_max}, dc={graph.dc_max}); "
+                f"one thread block has {SMEM_LIMIT_BYTES}")
+        self.graph = graph
+        self.max_iter = int(max_iter)
+        self.early_stop = bool(early_stop)
+        self.check_rule = check_rule
+        self.normalization = float(normalization)
+        self.offset = float(offset)
+        self.tables = {k: torch.from_numpy(v).to(graph.device)
+                       for k, v in kernel_tables(graph).items()}
+        if check_rule == "bp":
+            self.plain = make_bp_decoder(graph, max_iter, early_stop, torch.float32)
+        else:
+            self.plain = make_ms_decoder(graph, max_iter, normalization, offset,
+                                         early_stop, torch.float32)
+
+
+def bp_decode_cuda(llr: torch.Tensor, plan: BPKernelPlan):
+    """Launch the kernel: ``llr [B, n]`` float32 CUDA contiguous →
+    ``(bits [B, n] int8, iters [B] int32)``.  Does not synchronise."""
+    g = plan.graph
+    if llr.device.type != "cuda":
+        raise ValueError(f"bp_decode_cuda needs a CUDA tensor, got {llr.device}")
+    if llr.device != g.device:
+        raise ValueError(f"llr is on {llr.device}, the graph on {g.device}")
+    if llr.dtype != torch.float32:
+        raise TypeError(
+            f"the LDPC kernel is float32 only, got {llr.dtype}; ask for the "
+            "plain implementation (impl='torch') for other dtypes")
+    if llr.dim() != 2 or llr.shape[1] != g.n or llr.shape[0] < 1:
+        raise ValueError(f"expected llr [B>=1, {g.n}], got {tuple(llr.shape)}")
+    if not llr.is_contiguous():
+        raise ValueError("bp_decode_cuda needs a contiguous tensor")
+    lib = build.load("bp_decode")
+    B = llr.shape[0]
+    bits = torch.empty((B, g.n), dtype=torch.int8, device=llr.device)
+    iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
+    fn = lib.bp_decode_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    t = plan.tables
+    with torch.cuda.device(llr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(llr.data_ptr(), bits.data_ptr(), iters.data_ptr(),
+                  t["cv_idx"].data_ptr(), t["vc_idx"].data_ptr(),
+                  t["chk_var"].data_ptr(), B, g.n, g.m, g.dv_max, g.dc_max,
+                  plan.max_iter, int(plan.early_stop), _RULES[plan.check_rule],
+                  plan.normalization, plan.offset, _THREADS, stream)
+    build.check_launch(lib, code, "bp_decode")
+    count_launch(f"bp_decode_{plan.check_rule}")
+    return bits, iters
+
+
+def bp_decode(llr: torch.Tensor, plan: BPKernelPlan):
+    """``llr [B, n]`` → ``(bits, iters)``: the plain version for a CPU
+    tensor, the kernel for a CUDA tensor."""
+    if llr.device.type == "cpu":
+        return plan.plain(llr)
+    return bp_decode_cuda(llr, plan)
+
+
+def resolve_bp_impl(graph: TannerGraph, plain_decode, max_iter: int,
+                    early_stop: bool, dtype, impl: Optional[str] = None,
+                    check_rule: str = "bp", normalization: float = 1.0,
+                    offset: float = 0.0):
+    """The one place that picks the LDPC decoder implementation (used by
+    ``BPDecoder`` and ``sim.pipelines.make_ldpc_pipeline``).
+
+    ``impl``: ``"cuda"`` (the fused kernel; float32 only; the default when
+    the graph is on a CUDA device) or ``"torch"`` (the given plain decoder;
+    the default on the CPU).  Returns ``(decode_fn, impl)`` with
+    ``decode_fn(llr [B, n]) -> (bits, iters)``.  Nothing falls back: a
+    float64 decoder on a CUDA device must ask for ``impl="torch"``.
+    """
+    if impl is None:
+        impl = "cuda" if graph.device.type == "cuda" else "torch"
+    if impl == "torch":
+        return plain_decode, "torch"
+    if impl != "cuda":
+        raise ValueError(f"unknown impl {impl!r} (expected 'cuda' or 'torch')")
+    if dtype != torch.float32:
+        raise TypeError(
+            f"the LDPC kernel is float32 only, got {dtype}; ask for the "
+            "plain implementation (impl='torch') for other dtypes")
+    plan = BPKernelPlan(graph, max_iter, early_stop, check_rule, normalization, offset)
+
+    def decode(llr):
+        llr = torch.as_tensor(llr, device=graph.device)
+        return bp_decode(llr.contiguous(), plan)
+
+    decode.plan = plan
+    return decode, "cuda"

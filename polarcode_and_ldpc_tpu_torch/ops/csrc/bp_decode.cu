@@ -1,0 +1,192 @@
+// Whole-decode LDPC message passing (flooding schedule) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel polarcode_and_ldpc_tpu/ops/bp_pallas.py
+// (make_bp_decoder_pallas, flooding schedule): sum-product (tanh clipped to
+// +-0.999999, 2*atanh written log1p(p) - log1p(-p)) or min-sum with
+// normalization alpha / offset beta, syndrome check, per-frame iteration
+// count and early exit, in ONE kernel.
+//
+// What bounds it: device memory sees 4 bytes in and 1 byte out per code bit
+// plus 4 bytes per frame, so the roofline is set by operations: every
+// iteration that a frame actually runs costs, per edge, one tanhf and two
+// log1pf (sum-product) or a handful of compares (min-sum).  Design: ONE
+// THREAD BLOCK PER FRAME.  Both message layouts (var-major V, check-major C),
+// the channel LLRs and the hard decisions stay in shared memory for the whole
+// decode; the two layouts are linked by gather index tables (no permutation
+// tensor, no matrix unit); a frame stops at its own first zero syndrome, so
+// the work follows the data, and blocks of converged frames make room for the
+// next frames.  Messages are stored slot-major (V[slot*n + v], C[slot*m + c])
+// so that neighbouring threads touch neighbouring words.
+//
+// Exactness: the exclusive prefix/suffix sweeps run over the slots in the
+// same order as the plain PyTorch version, the slot sum of the variable
+// update is taken in slot order, and the file is compiled without fast-math
+// and without multiply-add contraction; min-sum rules are association-free.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kTanhClip = 0.999999f;
+constexpr int RULE_BP = 0;  // sum-product; any other value: min-sum
+
+__device__ __forceinline__ float clipf(float x) {
+  return fminf(fmaxf(x, -kTanhClip), kTanhClip);
+}
+
+__global__ void bp_decode_kernel(const float* __restrict__ llr,
+                                 int8_t* __restrict__ bits_out,
+                                 int* __restrict__ iters_out,
+                                 const int* __restrict__ cv_idx,   // [dc*m] index into V, -1 = padded
+                                 const int* __restrict__ vc_idx,   // [dv*n] index into C, -1 = padded
+                                 const int* __restrict__ chk_var,  // [dc*m] variable of the slot, -1 = padded
+                                 int n, int m, int dv, int dc, int max_iter,
+                                 int early_stop, int rule, float normalization,
+                                 float offset) {
+  extern __shared__ __align__(16) float smem[];
+  float* V = smem;                // [dv*n] variable-to-check messages
+  float* C = V + (size_t)dv * n;  // [dc*m] check-to-variable messages
+  float* T = C + (size_t)dc * m;  // [dc*m] sweep scratch
+  float* L = T + (size_t)dc * m;  // [n] channel LLRs
+  uint8_t* hard = reinterpret_cast<uint8_t*>(L + n);  // [n] hard decisions
+
+  const int frame = blockIdx.x;
+  const float* in = llr + (size_t)frame * n;
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    const float l = in[v];
+    L[v] = l;
+    for (int sp = 0; sp < dv; ++sp) V[sp * n + v] = l;
+    hard[v] = l <= 0.0f ? 1 : 0;
+  }
+  __syncthreads();
+
+  int iters = max_iter;
+  for (int it = 0; it < max_iter; ++it) {
+    // ---- check-node update: exclusive prefix, then exclusive suffix ----
+    for (int c = threadIdx.x; c < m; c += blockDim.x) {
+      if (rule == RULE_BP) {
+        float run = 1.0f;
+        for (int s = 0; s < dc; ++s) {
+          const int e = s * m + c;
+          const int idx = __ldg(cv_idx + e);
+          const float t = idx >= 0 ? clipf(tanhf(V[idx] * 0.5f)) : 1.0f;
+          T[e] = t;
+          C[e] = run;
+          run = run * t;
+        }
+        run = 1.0f;
+        for (int s = dc - 1; s >= 0; --s) {
+          const int e = s * m + c;
+          const float prod = clipf(C[e] * run);
+          C[e] = log1pf(prod) - log1pf(-prod);
+          run = run * T[e];
+        }
+      } else {
+        float run_s = 1.0f, run_m = CUDART_INF_F;
+        for (int s = 0; s < dc; ++s) {
+          const int e = s * m + c;
+          const int idx = __ldg(cv_idx + e);
+          float sg = 1.0f, mg = CUDART_INF_F;
+          if (idx >= 0) {
+            const float x = V[idx];
+            sg = (float)((x > 0.0f) - (x < 0.0f));
+            mg = fabsf(x);
+          }
+          T[e] = run_s;
+          C[e] = run_m;
+          run_s = run_s * sg;
+          run_m = fminf(run_m, mg);
+        }
+        run_s = 1.0f;
+        run_m = CUDART_INF_F;
+        for (int s = dc - 1; s >= 0; --s) {
+          const int e = s * m + c;
+          const int idx = __ldg(cv_idx + e);
+          float sg = 1.0f, mg = CUDART_INF_F;
+          if (idx >= 0) {
+            const float x = V[idx];
+            sg = (float)((x > 0.0f) - (x < 0.0f));
+            mg = fabsf(x);
+          }
+          float mag = fminf(C[e], run_m);
+          if (offset != 0.0f) mag = fmaxf(mag - offset, 0.0f);
+          float out = (T[e] * run_s) * mag;
+          out = out * normalization;
+          C[e] = isfinite(out) ? out : 0.0f;
+          run_s = run_s * sg;
+          run_m = fminf(run_m, mg);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- variable-node update: total minus self, hard decision ----
+    for (int v = threadIdx.x; v < n; v += blockDim.x) {
+      float acc = 0.0f;
+      for (int sp = 0; sp < dv; ++sp) {
+        const int idx = __ldg(vc_idx + sp * n + v);
+        const float c2v = idx >= 0 ? C[idx] : 0.0f;
+        acc = sp == 0 ? c2v : acc + c2v;
+      }
+      const float total = L[v] + acc;
+      for (int sp = 0; sp < dv; ++sp) {
+        const int idx = __ldg(vc_idx + sp * n + v);
+        const float c2v = idx >= 0 ? C[idx] : 0.0f;
+        V[sp * n + v] = total - c2v;
+      }
+      hard[v] = total <= 0.0f ? 1 : 0;
+    }
+    __syncthreads();
+
+    // ---- syndrome; the frame stops at its own first zero syndrome ----
+    if (early_stop) {
+      int bad = 0;
+      for (int c = threadIdx.x; c < m; c += blockDim.x) {
+        int parity = 0;
+        for (int s = 0; s < dc; ++s) {
+          const int v = __ldg(chk_var + s * m + c);
+          if (v >= 0) parity ^= hard[v];
+        }
+        bad |= parity;
+      }
+      if (!__syncthreads_or(bad)) {
+        iters = it + 1;
+        break;
+      }
+    }
+  }
+
+  int8_t* out = bits_out + (size_t)frame * n;
+  for (int v = threadIdx.x; v < n; v += blockDim.x) out[v] = (int8_t)hard[v];
+  if (threadIdx.x == 0) iters_out[frame] = iters;
+}
+
+}  // namespace
+
+extern "C" const char* pl_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// bytes of shared memory one frame (one block) needs
+extern "C" long long bp_decode_smem_bytes(int n, int m, int dv, int dc) {
+  return ((long long)dv * n + 2LL * dc * m + n) * 4 + n;
+}
+
+// Launches on `stream`; returns the cudaGetLastError code (0 = ok).
+extern "C" int bp_decode_launch(const float* llr, int8_t* bits, int* iters,
+                                const int* cv_idx, const int* vc_idx,
+                                const int* chk_var, int B, int n, int m, int dv,
+                                int dc, int max_iter, int early_stop, int rule,
+                                float normalization, float offset, int threads,
+                                void* stream) {
+  const long long smem = bp_decode_smem_bytes(n, m, dv, dc);
+  cudaError_t err = cudaFuncSetAttribute(
+      bp_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bp_decode_kernel<<<B, threads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+      llr, bits, iters, cv_idx, vc_idx, chk_var, n, m, dv, dc, max_iter,
+      early_stop, rule, normalization, offset);
+  return (int)cudaGetLastError();
+}

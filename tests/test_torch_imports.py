@@ -1,0 +1,119 @@
+"""The port stands alone: no module of it (nor ``chip_smoke.py``) imports
+``jax`` or the JAX package, and importing it builds no kernel."""
+
+import ast
+import importlib
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "polarcode_and_ldpc_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "polarcode_and_ldpc_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_sources_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for expected in ("polarcode_and_ldpc_tpu_torch/core/rng.py",
+                     "polarcode_and_ldpc_tpu_torch/ops/sc_mega_cuda.py",
+                     "polarcode_and_ldpc_tpu_torch/ops/bp_cuda.py",
+                     "polarcode_and_ldpc_tpu_torch/sim/montecarlo.py",
+                     "polarcode_and_ldpc_tpu_torch/convert.py", "chip_smoke.py"):
+        assert expected in names
+    assert (PKG / "ops" / "csrc" / "sc_decode.cu").exists()
+    assert (PKG / "ops" / "csrc" / "bp_decode.cu").exists()
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = [(p.relative_to(ROOT).as_posix(), line, root)
+           for p in _sources() for root, line in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_every_module_imports_in_a_process_without_jax():
+    """Walk every module in a fresh interpreter (this process has JAX loaded
+    by ``conftest.py``) and check what ended up in ``sys.modules``; the
+    kernel build directory must stay untouched."""
+    code = f"""
+import importlib, os, pkgutil, sys, tempfile
+sys.path.insert(0, {str(ROOT)!r})
+build = tempfile.mkdtemp()
+os.environ["POLAR_LDPC_TORCH_BUILD_DIR"] = os.path.join(build, "kernels")
+import polarcode_and_ldpc_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+assert not os.path.exists(os.environ["POLAR_LDPC_TORCH_BUILD_DIR"]), "import built something"
+assert len(names) >= 20, names
+print("walked", len(names))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "walked" in out.stdout
+
+
+def test_public_names():
+    import polarcode_and_ldpc_tpu_torch as fec
+
+    for name in fec.__all__:
+        assert hasattr(fec, name), name
+    for name in ("construct_polar_code", "PolarEncoder", "SCDecoder", "AWGNChannel",
+                 "LDPCEncoder", "BPDecoder", "MSDecoder", "NMSDecoder", "OMSDecoder"):
+        assert name in fec.__all__
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    import numpy as np
+    import torch
+
+    import polarcode_and_ldpc_tpu_torch as fec
+    from polarcode_and_ldpc_tpu_torch.sim import make_polar_pipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a host without a CUDA device")
+    frozen, _ = fec.construct_polar_code(32, 16, "bhattacharyya", 2.0)
+    for build in (lambda: fec.SCDecoder(32, 16, frozen_bits=frozen),
+                  lambda: fec.PolarEncoder(32, 16, frozen_bits=frozen),
+                  lambda: fec.AWGNChannel(3.0),
+                  lambda: fec.BPDecoder(np.eye(4, 8, dtype=np.int64)),
+                  lambda: make_polar_pipeline(32, 16, frozen, 3.0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
+def test_unported_options_raise_not_implemented():
+    import numpy as np
+
+    import polarcode_and_ldpc_tpu_torch as fec
+    from polarcode_and_ldpc_tpu_torch.sim import make_ldpc_pipeline, make_polar_pipeline
+
+    frozen, _ = fec.construct_polar_code(32, 16, "bhattacharyya", 2.0)
+    for dec in ("scl", "ca-scl"):
+        with pytest.raises(NotImplementedError):
+            make_polar_pipeline(32, 16, frozen, 3.0, decoder=dec, device="cpu")
+    enc = fec.LDPCEncoder(24, 12, dv=3, dc=6, seed=1, device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="nms", schedule="layered", device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_ldpc_pipeline(enc.H, enc.G, 3.0, qc_base=np.zeros((1, 2)), z=12, device="cpu")
