@@ -8,15 +8,22 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA device and ``nvcc``.  It builds the package's CUDA kernels
 from the sources in the checkout, holds each kernel against its plain PyTorch
 version on the card at the shapes the Monte-Carlo main path gives it, drives
-the main path (``MonteCarloSimulator`` over the polar SC and the LDPC BP /
-min-sum pipelines) at full code size through the kernels, checks the
-frame-id invariance of the counters and checkpoint/resume, and prints one
-JSON line per phase.  Any failure raises, and the exit code is then non-zero.
+the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8
+and the LDPC BP / min-sum pipelines) at full code size through the kernels,
+checks the frame-id invariance of the counters and checkpoint/resume, and
+prints one JSON line per phase.  Any failure raises, and the exit code is then non-zero.
 
 The second line from the end lists every kernel with its launches on the main
 path, its error against the plain version, its time, the plain version's
 time and its roofline bound; the last line is
 ``{"ok": true, "device": {...}}``.
+
+Phases: ``device``, ``build``, ``kernels`` (SC and LDPC kernels against their
+plain versions), ``scl_kernels`` (the three list-decode kernels: the chunk body
+on every chunk pattern of the code, the chunk step on the level stacks of every
+chunk position, the last chunk, whole decodes, other codes), ``polar_sc_mc``,
+``polar_cascl_mc``, ``ldpc_mc`` (the Monte-Carlo paths, each with the launch
+counts set to 0 just before and read just after), ``invariance``, ``stages``.
 
 ``--quick`` cuts the frame counts (for a first run after a kernel change);
 ``--phases a,b`` runs a subset (then no final ``ok`` line is printed).
@@ -44,11 +51,19 @@ from polarcode_and_ldpc_tpu_torch.channels.awgn import awgn_noise_std, awgn_tran
 from polarcode_and_ldpc_tpu_torch.core import rng
 from polarcode_and_ldpc_tpu_torch.models.ldpc.encoder import gf2_matmul
 from polarcode_and_ldpc_tpu_torch.models.ldpc.graph import TannerGraph
-from polarcode_and_ldpc_tpu_torch.models.polar.construction import frozen_mask_from_positions
+from polarcode_and_ldpc_tpu_torch.models.polar.construction import (bit_reverse_permutation,
+                                                                    frozen_mask_from_positions)
+from polarcode_and_ldpc_tpu_torch.models.polar.crc import CRCCodec
 from polarcode_and_ldpc_tpu_torch.models.polar.encoder import polar_transform
+from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (build_scl_schedule,
+                                                               super_touch_sets)
+from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder, select_best_path
 from polarcode_and_ldpc_tpu_torch.ops import build
 from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda
 from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import SCProgram, sc_decode_cuda
+from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, SCLState,
+                                                       make_step_specs, scl_chunk_body_cuda,
+                                                       scl_chunk_step_cuda, scl_last_chunk_cuda)
 from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
                                               make_polar_pipeline)
 
@@ -68,8 +83,14 @@ LDPC_N, LDPC_K, LDPC_CHUNK, LDPC_ITERS = 504, 252, 4096, 20
 # an SNR (Es/N0) at which both codes make frame errors often enough (about
 # one frame in seven) for the early-stop and invariance phases to count some
 LOW_SNR_DB = -1.0
+# the CA-SCL-8 path: CRC-8, list 8, subtree chunk 128 (8 chunks: 7 chunk-step
+# launches and 1 last-chunk launch per decode), 4096 frames per Monte-Carlo
+# chunk; the list decoder still makes about one frame error in seven at -2 dB
+SCL_L, SCL_S, SCL_CRC, SCL_CHUNK = 8, 128, "CRC-8", 4096
+SCL_LOW_SNR_DB = -2.0
 
-PHASES = ("device", "build", "kernels", "polar_sc_mc", "ldpc_mc", "invariance", "stages")
+PHASES = ("device", "build", "kernels", "scl_kernels", "polar_sc_mc", "polar_cascl_mc",
+          "ldpc_mc", "invariance", "stages")
 
 
 def emit(phase: str, **fields) -> None:
@@ -267,6 +288,298 @@ def check_bp_kernel(results: dict, reps: int) -> None:
     results["bp_decode_bp"]["cases"] = cases
 
 
+# -- the SCL kernels -------------------------------------------------------------
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest absolute difference; equal infinities count as 0, an integer
+    mismatch as 1, a float that differs only in its bit pattern (-0.0 against
+    0.0) as the smallest subnormal."""
+    if not a.dtype.is_floating_point:
+        return float((a != b).any())
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    worst = float(torch.nan_to_num(d, nan=math.inf).max())
+    if worst == 0.0 and not torch.equal(a.contiguous().view(torch.int32),
+                                        b.contiguous().view(torch.int32)):
+        return 1.4e-45
+    return worst
+
+
+def first_difference(a: torch.Tensor, b: torch.Tensor) -> dict:
+    if a.dtype.is_floating_point:
+        bad = a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)
+    else:
+        bad = a != b
+    where = torch.nonzero(bad)[0].tolist()
+    return {"frame": where[0], "index": where[1:], "kernel": a[tuple(where)].item(),
+            "plain": b[tuple(where)].item(), "differing_elements": int(bad.sum())}
+
+
+def hold_equal(what: str, pairs: dict, context: dict) -> float:
+    """Every named (kernel, plain) pair must be bit-identical."""
+    worst = 0.0
+    for name, (got, want) in pairs.items():
+        err = max_err(got, want)
+        if err:
+            raise AssertionError(
+                f"{what}: {name} differs from the plain version: "
+                f"{json.dumps({**context, **first_difference(got, want)})}")
+        worst = max(worst, err)
+    return worst
+
+
+def scl_flagship():
+    frozen, info, mask = polar_code()
+    sched = build_scl_schedule(POLAR_N, mask, SCL_L, SCL_S)
+    steps, last = make_step_specs(sched)
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(POLAR_N)), dtype=torch.int64,
+                          device=DEV)
+    return frozen, info, mask, sched, steps, last, rev
+
+
+def cascl_llrs(frozen, B: int, snr_db: float, seed: int) -> torch.Tensor:
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, use_crc=True,
+                           crc_polynomial=SCL_CRC, device=DEV)
+    msgs = np.random.default_rng(seed).integers(0, 2, (B, enc.K_data))
+    return seeded_llrs(enc.encode(msgs), snr_db, seed=seed + 1000)
+
+
+def body_flops(program) -> int:
+    """Float and compare operations of one chunk body per frame (estimate:
+    3 per f or g element, 7 per log-likelihood, 2 per candidate pair)."""
+    L, total = program.L, 0
+    for op, _, sz, _ in program.ops.tolist():
+        kind = op & 0xFF
+        if kind in (OP_F, OP_G):
+            total += 3 * L * sz
+        elif kind == OP_COMBINE:
+            total += sz * (1 + L)
+        elif kind == OP_LEAF:
+            total += 14 * L + 2 * (2 * L) ** 2
+        else:  # rate-0 / REP: zero-decision pass, log-likelihoods, tree sum
+            total += L * sz * (2 * int(math.log2(sz)) + 8) + 14 * L + 2 * (2 * L) ** 2
+    return total
+
+
+def step_cost(sched, c: int, spec) -> tuple[int, int]:
+    """(bytes, operations) per frame of chunk step ``c``: every touched level
+    read once and written once (``super_touch_sets``), pendings and metrics."""
+    t, L, sizes = sched.t, sched.L, sched.sizes
+    touch = super_touch_sets(int(sched.desc_k[c]), int(sched.asc_j[c]), t,
+                             sched.comp_a[c], sched.comp_b[c])
+    rows = 1 if spec.inv or spec.k == t else L
+    byts = (4 * sched.N * touch["needs_llr"]
+            + sum(4 * rows * sizes[i + 1] for i in touch["alpha_read"])
+            + sum(4 * sizes[i + 1] for i in touch["beta_read"])
+            + 4 * L * (len(touch["pend_a_in"]) + len(touch["pend_b_in"]) + 1)
+            + sum(4 * L * sizes[i + 1] for i in touch["alpha_write"])
+            + sum(4 * sizes[i + 1] for i in touch["beta_write"])
+            + 4 * L * (len(touch["pend_a_out"]) + len(touch["pend_a_eye"])
+                       + len(touch["pend_b_out"]) + len(touch["pend_b_eye"]) + 1))
+    flops = (body_flops(spec.program) + sum(3 * L * sizes[i + 1] for i in touch["alpha_write"])
+             + sum((1 + L) * sizes[i + 1] for i in touch["beta_read"]))
+    return byts, flops
+
+
+def last_cost(sched, spec) -> tuple[int, int]:
+    t, L, N, S = sched.t, sched.L, sched.N, sched.S
+    byts = (4 * (N if t == 1 else 2 * S * L) + 4 * (N - S) + 4 * L * (t + 2)
+            + L * N + 4 * L)
+    flops = body_flops(spec.program) + 3 * L * S + (1 + L) * (N - S) + N * int(math.log2(N)) // 2
+    return byts, flops
+
+
+def kernel_row(name, source_line, ms, plain_ms, byts, flops, err, **extra) -> dict:
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"name": name, "route": "cuda",
+            "source": "polarcode_and_ldpc_tpu_torch/ops/csrc/scl_decode.cu",
+            "replaces": source_line, "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": None,
+            "tolerance": "bit-identical", **extra}
+
+
+def check_scl_bodies(sched, programs, B: int) -> float:
+    """K5 alone against the plain chunk body on every distinct frozen pattern
+    of the code's chunks."""
+    worst = 0.0
+    L, S = sched.L, sched.S
+    for pid, program in enumerate(programs):
+        for case in ("random", "phantoms", "ties"):
+            g = np.random.default_rng(100 * pid + len(case) + B)
+            if case == "ties":
+                alpha = g.integers(-2, 3, (B, L, S)).astype(np.float32)
+                pm = -g.integers(0, 3, (B, L)).astype(np.float32)
+            else:
+                alpha = (2 * g.standard_normal((B, L, S))).astype(np.float32)
+                pm = -np.abs(g.standard_normal((B, L))).astype(np.float32)
+            if case == "phantoms":
+                pm[:, 2:] = -np.inf
+            alpha, pm = torch.from_numpy(alpha).to(DEV), torch.from_numpy(pm).to(DEV)
+            got = scl_chunk_body_cuda(alpha, pm, program)
+            torch.cuda.synchronize()
+            want = program.plain(alpha, pm)
+            worst = max(worst, hold_equal(
+                "scl_chunk_body", dict(zip(("beta", "pm", "R"), zip(got, want))),
+                {"pattern": pid, "case": case, "B": B}))
+    return worst
+
+
+def check_scl_steps(sched, steps, last, rev, llr: torch.Tensor, context: dict) -> float:
+    """K3 on the level stacks of every chunk position reached by the plain
+    version, then K4 on the stacks before the last chunk."""
+    worst = 0.0
+    llr_rev = llr[:, rev].contiguous()
+    state = SCLState(sched, llr_rev)
+    fields = ("alpha", "beta", "pend_a", "pend_b", "pm")
+    for c, spec in enumerate(steps):
+        kern = state.clone()
+        scl_chunk_step_cuda(kern, spec)
+        torch.cuda.synchronize()
+        state.load_plain(*spec.plain(llr_rev, *state.to_plain()))
+        worst = max(worst, hold_equal(
+            "scl_chunk_step", {f: (getattr(kern, f), getattr(state, f)) for f in fields},
+            {**context, "chunk": c}))
+    u, pm = scl_last_chunk_cuda(state, last)
+    torch.cuda.synchronize()
+    u_rev, pm_plain = last.plain(llr_rev, *state.to_plain())
+    worst = max(worst, hold_equal(
+        "scl_last_chunk", {"u": (u, u_rev[..., rev]), "pm": (pm, pm_plain)},
+        {**context, "chunk": sched.C - 1}))
+    return worst
+
+
+def check_scl_other_codes() -> list:
+    """One compiled build serves every code: other lengths, chunk sizes and
+    list sizes (a single-chunk code, L = 1, L = 32 with path 31 in a word's
+    sign bit) through the kernel control against the plain decoder."""
+    out = []
+    for N, K, S, L in ((256, 128, 32, 4), (128, 64, 128, 2), (128, 100, 8, 1),
+                       (2048, 1024, 64, 16), (512, 256, 128, 32), (64, 20, 16, 3)):
+        frozen, _ = fec.construct_polar_code(N, K, "bhattacharyya", 2.0)
+        mask = frozen_mask_from_positions(N, frozen)
+        g = np.random.default_rng(N + L)
+        llr = torch.from_numpy((1.0 + 1.6 * g.standard_normal((203, N))).astype(np.float32))
+        llr[:3] = torch.from_numpy(g.integers(-2, 3, (3, N)).astype(np.float32))
+        llr = llr.to(DEV)
+        want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused",
+                                live_width=False, device=DEV)(llr)
+        context = {"N": N, "K": K, "S": S, "L": L}
+        for kw in ({}, {"control_impl": "unroll-fused", "body_impl": "cuda"}):
+            got = make_scl_decoder(N, mask, L, chunk=S, device=DEV, **kw)(llr)
+            torch.cuda.synchronize()
+            hold_equal(f"whole decode {kw or 'unroll-kernel'}",
+                       {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, context)
+        out.append({**context, "kernels_equal_plain": True})
+    return out
+
+
+def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
+    frozen, info, mask, sched, steps, last, rev = scl_flagship()
+    programs = [s.program for s in steps] + [last.program]
+    by_id = {id(p): p for p in programs}
+    unique = list(by_id.values())
+    info_idx = torch.as_tensor(info, dtype=torch.int64, device=DEV)
+    crc = CRCCodec(POLAR_K - 8, SCL_CRC, DEV)
+    cases = []
+    worst = {"body": 0.0, "step": 0.0}
+    for B in (512, 1000):
+        worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
+
+    decoders = {
+        "plain": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="unroll-fused",
+                                  live_width=False, device=DEV),
+        "plain live width": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S,
+                                             control_impl="unroll-fused", device=DEV),
+        "unroll-kernel": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, device=DEV),
+        "body_impl=cuda": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S,
+                                           control_impl="unroll-fused", body_impl="cuda",
+                                           device=DEV),
+    }
+    assert decoders["unroll-kernel"].control_impl == "unroll-kernel"
+    assert decoders["plain live width"].live_width
+    inputs = [(B, snr, cascl_llrs(frozen, B, snr, seed=B + int(10 * snr) + 50))
+              for B in (512, 1000) for snr in (-1.0, 1.0, 3.0)]
+    ties = torch.from_numpy(np.random.default_rng(6).integers(
+        -3, 4, (512, POLAR_N)).astype(np.float32)).to(DEV)
+    inputs.append((512, "integer ties", ties))
+    for B, snr, llr in inputs:
+        context = {"B": B, "snr_db": snr}
+        worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr, context))
+        u0, m0 = decoders["plain"](llr)
+        sel0 = select_best_path(u0[..., info_idx], m0, crc)
+        for name in ("plain live width", "unroll-kernel", "body_impl=cuda"):
+            u, m = decoders[name](llr)
+            torch.cuda.synchronize()
+            hold_equal(f"whole decode [{name}]", {
+                "u": (u, u0), "metrics": (m, m0),
+                "selected message": (select_best_path(u[..., info_idx], m, crc), sel0)}, context)
+        cases.append({**context, "kernels_equal_plain": True,
+                      "crc_pass_frames": int(crc.check(sel0).sum())})
+
+    # the main path's shapes: one Monte-Carlo chunk of 4096 frames at 3 dB
+    B = SCL_CHUNK
+    llr = cascl_llrs(frozen, B, 3.0, seed=77)
+    worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr,
+                                                       {"B": B, "snr_db": 3.0}))
+    worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
+    llr_rev = llr[:, rev].contiguous()
+    state = SCLState(sched, llr_rev)
+    plain_reps = 1 if quick else 2
+    step_ms, step_plain_ms, body_ms, body_plain_ms, step_bound_ms = [], [], [], [], []
+    step_bytes = step_flops = body_bytes = body_flops_total = 0
+    L, S = sched.L, sched.S
+    for c, spec in enumerate(steps + [last]):
+        plain_ops = state.to_plain()
+        alpha_t = plain_ops[0][sched.t - 1].contiguous()
+        pm_c = state.pm.clone()
+        body_ms.append(time_ms(lambda: scl_chunk_body_cuda(alpha_t, pm_c, spec.program), reps))
+        body_plain_ms.append(time_ms(lambda: spec.program.plain(alpha_t, pm_c), plain_reps, warmup=1))
+        body_bytes += B * (4 * L * S + 4 * L + L * S + 4 * L + 8 * L)
+        body_flops_total += B * body_flops(spec.program)
+        if spec is last:
+            last_plain_ms = time_ms(lambda: last.plain(llr_rev, *plain_ops), plain_reps, warmup=1)
+            last_ms = time_ms(lambda: scl_last_chunk_cuda(state, last), reps)
+            continue
+        step_plain_ms.append(time_ms(lambda: spec.plain(llr_rev, *plain_ops), plain_reps, warmup=1))
+        scratch = state.clone()
+        step_ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), reps))
+        byts, flops = step_cost(sched, c, spec)
+        step_bytes += B * byts
+        step_flops += B * flops
+        step_bound_ms.append(max(B * byts / HBM_BYTES_PER_S, B * flops / F32_FLOP_PER_S) * 1e3)
+        scl_chunk_step_cuda(state, spec)
+    n_steps = len(steps)
+    lb, lf = last_cost(sched, last)
+    shape = {"frames": B, "N": POLAR_N, "S": S, "L": L}
+    results["scl_chunk_step"] = kernel_row(
+        "scl_chunk_step", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:167",
+        sum(step_ms) / n_steps, sum(step_plain_ms) / n_steps, step_bytes / n_steps,
+        step_flops / n_steps, worst["step"], shape=shape,
+        note="ms, plain_ms and bound_ms are means per launch over the 7 chunk positions",
+        ms_per_position=step_ms, plain_ms_per_position=step_plain_ms,
+        bound_ms_per_position=step_bound_ms, ms_per_decode=sum(step_ms),
+        bound_ms_per_decode=sum(step_bound_ms), launches_per_decode=n_steps)
+    results["scl_last_chunk"] = kernel_row(
+        "scl_last_chunk", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:356",
+        last_ms, last_plain_ms, B * lb, B * lf, worst["step"], shape=shape,
+        launches_per_decode=1)
+    results["scl_chunk_body"] = kernel_row(
+        "scl_chunk_body", "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378",
+        sum(body_ms) / sched.C, sum(body_plain_ms) / sched.C, body_bytes / sched.C,
+        body_flops_total / sched.C, worst["body"], shape=shape,
+        note="means per launch over the 8 chunks' frozen patterns",
+        ms_per_position=body_ms, plain_ms_per_position=body_plain_ms,
+        n_ops_per_position=[int(s.program.ops.shape[0]) for s in steps + [last]])
+    decode_ms = {name: time_ms(lambda: dec(llr), reps if "plain" not in name else plain_reps,
+                               warmup=1)
+                 for name, dec in decoders.items() if name != "plain live width" or not quick}
+    emit("scl_kernels", kernels=[results[k] for k in ("scl_chunk_body", "scl_chunk_step",
+                                                      "scl_last_chunk")],
+         unique_patterns=len(unique), whole_decode_ms=decode_ms, cases=cases,
+         other_codes=check_scl_other_codes())
+
+
+
 def phase_kernels(results: dict, reps: int) -> None:
     check_sc_kernel(results, reps)
     check_bp_kernel(results, reps)
@@ -336,6 +649,78 @@ def phase_polar_sc_mc(results: dict, mbps: dict, frames: int) -> None:
     mbps["polar_sc"] = res.throughput_mbps
 
 
+def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: int) -> None:
+    """This slice's path at full width: CA-SCL-8, N=1024, K=512, CRC-8."""
+    frozen, info, mask = polar_code()
+    k_msg = POLAR_K - 8
+    kw = dict(decoder="ca-scl", list_size=SCL_L, crc_polynomial=SCL_CRC, scl_chunk=SCL_S)
+    n_chunks = POLAR_N // SCL_S
+    step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, device=DEV, **kw)
+    sim = MonteCarloSimulator(step, k_msg, chunk_frames=SCL_CHUNK)
+    sim.run(SCL_CHUNK, seed=1)  # warm-up
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0)
+    counts = record_launches(results, ["scl_chunk_step", "scl_last_chunk"])
+    mc_chunks = frames // SCL_CHUNK
+    if (counts["scl_chunk_step"], counts["scl_last_chunk"], counts["scl_chunk_body"]) != (
+            (n_chunks - 1) * mc_chunks, mc_chunks, 0):
+        raise AssertionError(f"CA-SCL: {mc_chunks} Monte-Carlo chunks launched {counts}")
+    if res.frames != frames or not (0.0 <= res.fer < 0.01):
+        raise AssertionError(f"polar CA-SCL at 3 dB: unexpected result {res.to_dict()}")
+
+    # early stop at an SNR where the list decoder still errs
+    step_low = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, device=DEV, **kw)
+    res1 = MonteCarloSimulator(step_low, k_msg, chunk_frames=SCL_CHUNK).run(
+        8 * SCL_CHUNK, max_errors=100, seed=0)
+    if res1.frame_errors != 100 or not (0.01 <= res1.fer <= 0.5):
+        raise AssertionError(f"CA-SCL early stop did not cross at 100 errors: {res1.to_dict()}")
+
+    # a shorter run through the chunk-body kernel inside the plain chunk program
+    step_body = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, device=DEV,
+                                    scl_control_impl="unroll-fused", scl_body_impl="cuda", **kw)
+    sim_body = MonteCarloSimulator(step_body, k_msg, chunk_frames=SCL_CHUNK)
+    sim_body.run(SCL_CHUNK, seed=1)
+    ops.reset_launch_counts()
+    res_body = sim_body.run(body_frames, max_errors=None, seed=0)
+    counts_body = record_launches(results, ["scl_chunk_body"])
+    if (counts_body["scl_chunk_body"], counts_body["scl_chunk_step"]) != (
+            n_chunks * (body_frames // SCL_CHUNK), 0):
+        raise AssertionError(f"CA-SCL body_impl=cuda launched {counts_body}")
+
+    # the kernel paths against the plain pipeline on the same frame ids and seed
+    plain = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, device=DEV,
+                                scl_control_impl="unroll-fused", **kw)
+    body_low = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, device=DEV,
+                                   scl_control_impl="unroll-fused", scl_body_impl="cuda", **kw)
+    key = rng.prng_key(0, DEV)
+    ids = torch.arange(SCL_CHUNK, device=DEV)
+    want = plain(key, ids)
+    for name, other in (("unroll-kernel", step_low), ("body_impl=cuda", body_low)):
+        got = other(key, ids)
+        if not (torch.equal(got["bit_errors"], want["bit_errors"])
+                and torch.equal(got["frame_error"], want["frame_error"])):
+            raise AssertionError(f"CA-SCL: {name} and the plain pipeline disagree on the first chunk")
+
+    # a small input against the CPU pipeline (at most 1 frame in 256 may decode
+    # otherwise: the float noise and the metrics' exp/log1p may differ in their
+    # last bits between the CPU and the card)
+    cpu = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, device="cpu", **kw)
+    ids256 = torch.arange(256)
+    c = cpu(rng.prng_key(0, "cpu"), ids256)
+    g = step_low(key, ids256.to(DEV))
+    differ = int((c["bit_errors"] != g["bit_errors"].cpu()).sum())
+    if differ > 1:
+        raise AssertionError(f"CA-SCL: card and CPU pipelines differ on {differ} of 256 frames")
+    emit("polar_cascl_mc", **result_fields(res), chunk_frames=SCL_CHUNK, list_size=SCL_L,
+         crc=SCL_CRC, scl_chunk=SCL_S, launches=counts,
+         early_stop={"snr_db": SCL_LOW_SNR_DB, "max_errors": 100, **result_fields(res1)},
+         body_impl_cuda={**result_fields(res_body), "launches": counts_body},
+         first_chunk_equals_plain=True, frame_errors_first_chunk=int(want["frame_error"].sum()),
+         cpu_reference_frames_differ=differ)
+    mbps["polar_cascl"] = res.throughput_mbps
+    mbps["polar_cascl_body_impl_cuda"] = res_body.throughput_mbps
+
+
 def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
     enc = ldpc_code()
     summary = {}
@@ -366,12 +751,17 @@ def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
     emit("ldpc_mc", chunk_frames=LDPC_CHUNK, max_iter=LDPC_ITERS, **summary)
 
 
-def phase_invariance() -> None:
+def phase_invariance(frames: int = 8192) -> None:
     frozen, info, mask = polar_code()
     enc = ldpc_code()
+    small = frames // 8
     steps = {
         "polar_sc": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, LOW_SNR_DB, decoder="sc",
                                          device=DEV), POLAR_K),
+        "polar_cascl": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB,
+                                            decoder="ca-scl", list_size=SCL_L,
+                                            crc_polynomial=SCL_CRC, scl_chunk=SCL_S,
+                                            device=DEV), POLAR_K - 8),
         "ldpc_nms": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, decoder="nms", normalization=0.75,
                                         max_iter=LDPC_ITERS, message_idx=enc.info_positions,
                                         device=DEV), LDPC_K),
@@ -381,21 +771,21 @@ def phase_invariance() -> None:
         def counters(res):
             return (res.frames, res.bit_errors, res.frame_errors, res.total_iterations)
 
-        one = MonteCarloSimulator(step, k, chunk_frames=8192).run(8192, seed=3)
-        eight = MonteCarloSimulator(step, k, chunk_frames=1024).run(8192, seed=3)
-        multi = MonteCarloSimulator(step, k, chunk_frames=1024, chunks_per_dispatch=4).run(8192, seed=3)
-        scalar = MonteCarloSimulator(step, k, chunk_frames=1024, reduction="scalar").run(8192, seed=3)
+        one = MonteCarloSimulator(step, k, chunk_frames=frames).run(frames, seed=3)
+        eight = MonteCarloSimulator(step, k, chunk_frames=small).run(frames, seed=3)
+        multi = MonteCarloSimulator(step, k, chunk_frames=small, chunks_per_dispatch=4).run(frames, seed=3)
+        scalar = MonteCarloSimulator(step, k, chunk_frames=small, reduction="scalar").run(frames, seed=3)
         with tempfile.TemporaryDirectory() as tmp:
             ck = Path(tmp) / "mc.json"
-            sim = MonteCarloSimulator(step, k, chunk_frames=1024)
-            sim.run(3072, seed=3, checkpoint_path=ck, checkpoint_every_chunks=1)
-            resumed = sim.run(8192, seed=3, checkpoint_path=ck)
+            sim = MonteCarloSimulator(step, k, chunk_frames=small)
+            sim.run(3 * small, seed=3, checkpoint_path=ck, checkpoint_every_chunks=1)
+            resumed = sim.run(frames, seed=3, checkpoint_path=ck)
         ref = counters(one)
-        for label, res in (("8x1024", eight), ("chunks_per_dispatch=4", multi),
+        for label, res in (("8 chunks", eight), ("chunks_per_dispatch=4", multi),
                            ("scalar", scalar), ("resumed", resumed)):
             if counters(res) != ref:
                 raise AssertionError(
-                    f"{name}: {label} gives {counters(res)}, 1x8192 gives {ref}")
+                    f"{name}: {label} gives {counters(res)}, one chunk gives {ref}")
         if one.frame_errors == 0:
             raise AssertionError(f"{name}: the invariance run saw no error to count")
         out[name] = {"frames": ref[0], "bit_errors": ref[1], "frame_errors": ref[2],
@@ -404,10 +794,55 @@ def phase_invariance() -> None:
                                   "checkpoint+resume"], **out)
 
 
-def phase_stages(reps: int) -> None:
+def cascl_decode_split(llr, info_idx, crc, scl_decode, reps: int) -> dict:
+    """The CA-SCL decode of one Monte-Carlo chunk, launch by launch: the state
+    set-up, each chunk-step launch at its own position, the last chunk, and
+    the path selection with its CRC check."""
+    frozen, info, mask, sched, steps, last, rev = scl_flagship()
+    llr_rev = llr[:, rev].contiguous()
+    state = SCLState(sched, llr_rev)
+    step_ms = []
+    for spec in steps:
+        scratch = state.clone()
+        step_ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), reps))
+        scl_chunk_step_cuda(state, spec)
+    u, metrics = scl_last_chunk_cuda(state, last)
+    return {
+        "decode_permute_and_state_ms": time_ms(
+            lambda: SCLState(sched, llr[:, rev].contiguous()), reps),
+        "decode_chunk_step_ms": step_ms,
+        "decode_last_chunk_ms": time_ms(lambda: scl_last_chunk_cuda(state, last), reps),
+        "select_path_crc_ms": time_ms(
+            lambda: select_best_path(u[..., info_idx], metrics, crc), reps),
+    }
+
+
+def busy_share(step, k: int, chunk: int) -> dict:
+    """Busy share of the card: kernel time from the profiler (CUPTI times each
+    kernel on the device, whatever the tracing costs the host) over the
+    host-clock time of the same run without the profiler."""
+    sim = MonteCarloSimulator(step, k, chunk_frames=chunk)
+    sim.run(2 * chunk, seed=1)
+    wall_ms = min(sim.run(8 * chunk, seed=2).elapsed_seconds for _ in range(3)) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.run(8 * chunk, seed=2)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    seen = device_ms > 0
+    return {"run_wall_ms_8_chunks": wall_ms,
+            "device_kernel_ms_8_chunks": device_ms if seen else "not measured",
+            "device_busy_share": device_ms / wall_ms if seen else "not measured",
+            "device_launches_per_chunk": (sum(e.count for e in kernels) / 8 if seen
+                                          else "not measured")}
+
+
+def phase_stages(reps: int, only=None) -> None:
     """Where a chunk's time goes: each stage of the Monte-Carlo step timed
     alone by CUDA events at the main path's shapes, then the whole step, and
-    the card's busy share over a short run from the profiler."""
+    the card's busy share over a short run from the profiler.  The CA-SCL
+    decode is also split into its 7 chunk-step launches and its last-chunk
+    launch."""
     frozen, info, mask = polar_code()
     enc = ldpc_code()
     key = rng.prng_key(0, DEV)
@@ -415,6 +850,10 @@ def phase_stages(reps: int) -> None:
     configs = {
         "polar_sc": (POLAR_CHUNK, POLAR_K, POLAR_N,
                      make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="sc", device=DEV)),
+        "polar_cascl": (SCL_CHUNK, POLAR_K - 8, POLAR_N,
+                        make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="ca-scl",
+                                            list_size=SCL_L, crc_polynomial=SCL_CRC,
+                                            scl_chunk=SCL_S, device=DEV)),
         "ldpc_bp": (LDPC_CHUNK, LDPC_K, LDPC_N,
                     make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="bp", max_iter=LDPC_ITERS,
                                        message_idx=enc.info_positions, device=DEV)),
@@ -423,15 +862,19 @@ def phase_stages(reps: int) -> None:
     G = torch.as_tensor(enc.G.astype(np.float32), device=DEV)
     sc_program = SCProgram(POLAR_N, mask)
     bp_plan = BPKernelPlan(TannerGraph.from_H(enc.H, DEV), LDPC_ITERS, True, "bp")
+    crc = CRCCodec(POLAR_K - 8, SCL_CRC, DEV)
+    scl_decode = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, device=DEV)
     for name, (chunk, k, n, step) in configs.items():
+        if only is not None and name not in only:
+            continue
         ids = torch.arange(chunk, device=DEV)
         fkeys = rng.frame_keys(key, ids)
         mkeys, nkeys = rng.fold_in(fkeys, 0), rng.fold_in(fkeys, 1)
         msgs = rng.bernoulli_half(mkeys, k)
-        if name == "polar_sc":
+        if name.startswith("polar"):
             def encode():
                 u = torch.zeros((chunk, n), dtype=torch.int8, device=DEV)
-                u[:, info_idx] = msgs
+                u[:, info_idx] = crc.encode(msgs) if name == "polar_cascl" else msgs
                 return polar_transform(u)
         else:
             def encode():
@@ -439,8 +882,9 @@ def phase_stages(reps: int) -> None:
         cw = encode()
         noise = rng.normal(nkeys, n)
         llr = awgn_transmit(None, cw, 3.0, noise=noise).contiguous()
-        decode = ((lambda: sc_decode_cuda(llr, sc_program)) if name == "polar_sc"
-                  else (lambda: bp_decode_cuda(llr, bp_plan)))
+        decode = {"polar_sc": lambda: sc_decode_cuda(llr, sc_program),
+                  "polar_cascl": lambda: scl_decode(llr),
+                  "ldpc_bp": lambda: bp_decode_cuda(llr, bp_plan)}[name]
         stages = {
             "frame_keys_ms": lambda: [rng.fold_in(fk, j) for fk in [rng.frame_keys(key, ids)]
                                       for j in (0, 1)],
@@ -453,23 +897,9 @@ def phase_stages(reps: int) -> None:
         }
         out[name] = {label: time_ms(fn, reps) for label, fn in stages.items()}
         out[name]["chunk_frames"] = chunk
-        # busy share of the card: kernel time from the profiler (CUPTI times
-        # each kernel on the device, whatever the tracing costs the host)
-        # over the host-clock time of the same run without the profiler
-        sim = MonteCarloSimulator(step, k, chunk_frames=chunk)
-        sim.run(2 * chunk, seed=1)
-        wall_ms = min(sim.run(8 * chunk, seed=2).elapsed_seconds for _ in range(3)) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sim.run(8 * chunk, seed=2)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        seen = device_ms > 0
-        out[name]["run_wall_ms_8_chunks"] = wall_ms
-        out[name]["device_kernel_ms_8_chunks"] = device_ms if seen else "not measured"
-        out[name]["device_busy_share"] = device_ms / wall_ms if seen else "not measured"
-        out[name]["device_launches_per_chunk"] = (
-            sum(e.count for e in kernels) / 8 if seen else "not measured")
+        if name == "polar_cascl":
+            out[name].update(cascl_decode_split(llr, info_idx, crc, scl_decode, reps))
+        out[name].update(busy_share(step, k, chunk))
     emit("stages", **out)
 
 
@@ -494,8 +924,12 @@ def main() -> int:
         phase_build(args.verbose_build)
     if "kernels" in phases:
         phase_kernels(results, reps)
+    if "scl_kernels" in phases:
+        phase_scl_kernels(results, reps, args.quick)
     if "polar_sc_mc" in phases:
         phase_polar_sc_mc(results, mbps, 4 * POLAR_CHUNK if args.quick else 16 * POLAR_CHUNK)
+    if "polar_cascl_mc" in phases:
+        phase_polar_cascl_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
     if "ldpc_mc" in phases:
         phase_ldpc_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
     if "invariance" in phases:

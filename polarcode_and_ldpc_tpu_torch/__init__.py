@@ -1,11 +1,13 @@
 """polarcode_and_ldpc_tpu_torch — the PyTorch/CUDA port of the
 ``polarcode_and_ldpc_tpu`` channel-coding framework, for one NVIDIA H100.
 
-Ported so far: the Monte-Carlo main path with SC polar decoding and flooding
-BP / min-sum LDPC decoding —
+Ported so far: the Monte-Carlo main path with SC and CRC-aided list polar
+decoding and flooding BP / min-sum LDPC decoding —
 
-* Polar codes: construction, Kronecker-butterfly encoder, SC decoder (the
-  whole decode in one hand-written CUDA kernel).
+* Polar codes: construction, Kronecker-butterfly encoder with optional CRC,
+  SC decoder (the whole decode in one hand-written CUDA kernel), SCL and
+  CRC-aided SCL decoders (chunked list decode: one hand-written CUDA kernel
+  launch per chunk).
 * LDPC codes: constructions, GF(2) encoder, BP (sum-product) and Min-Sum
   (normalized + offset) decoders (the whole decode in one CUDA kernel).
 * AWGN channel with BPSK modulation and LLR demodulation.
@@ -22,14 +24,17 @@ from .models.ldpc import (BPDecoder, LDPCEncoder, MSDecoder, NMSDecoder,
                           OMSDecoder, check_matrix_rank,
                           create_systematic_generator, generate_ldpc_matrix,
                           gf2_rank, mackay_construction, regular_construction)
-from .models.polar import (PolarEncoder, SCDecoder, bhattacharyya_bounds,
-                           construct_polar_code, gaussian_approximation,
-                           generate_frozen_bits, polar_transform)
+from .models.polar import (CASCLDecoder, CRCCodec, PolarEncoder, SCDecoder,
+                           SCLDecoder, bhattacharyya_bounds,
+                           construct_polar_code, crc_check, crc_encode,
+                           gaussian_approximation, generate_frozen_bits,
+                           polar_transform)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "PolarEncoder", "SCDecoder", "construct_polar_code",
+    "PolarEncoder", "SCDecoder", "SCLDecoder", "CASCLDecoder", "CRCCodec",
+    "crc_encode", "crc_check", "construct_polar_code",
     "bhattacharyya_bounds", "gaussian_approximation", "generate_frozen_bits",
     "polar_transform", "LDPCEncoder", "BPDecoder", "MSDecoder", "NMSDecoder",
     "OMSDecoder", "generate_ldpc_matrix", "mackay_construction",

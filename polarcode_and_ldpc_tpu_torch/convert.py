@@ -17,6 +17,7 @@ from .core.device import resolve_device
 from .models.ldpc.encoder import LDPCEncoder
 from .models.ldpc.graph import TABLE_NAMES, TannerGraph
 from .models.polar.construction import frozen_mask_from_positions
+from .models.polar.crc import CRCCodec
 
 
 def polar_code_from_numpy(N: int, frozen_mask: Optional[np.ndarray] = None,
@@ -36,6 +37,18 @@ def polar_code_from_numpy(N: int, frozen_mask: Optional[np.ndarray] = None,
     info = np.nonzero(~mask)[0].astype(np.int64)
     return {"N": N, "K": int(info.size), "frozen_bits": frozen,
             "info_bits": info, "frozen_mask": mask}
+
+
+def crc_codec_from_numpy(enc_matrix: np.ndarray, chk_matrix: np.ndarray,
+                         polynomial: str = "CRC-8", device="cuda") -> CRCCodec:
+    """A ``CRCCodec`` that carries the given GF(2) matrices (``enc_matrix
+    [data_len, crc_len]``, ``chk_matrix [data_len + crc_len, crc_len]``)
+    instead of deriving its own."""
+    enc = np.asarray(enc_matrix)
+    if enc.ndim != 2:
+        raise ValueError(f"enc_matrix must be 2-D, got shape {enc.shape}")
+    return CRCCodec(enc.shape[0], polynomial, device, enc_matrix=enc,
+                    chk_matrix=np.asarray(chk_matrix))
 
 
 def ldpc_code_from_numpy(H: np.ndarray, G: np.ndarray,

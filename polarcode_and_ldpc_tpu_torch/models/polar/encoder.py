@@ -16,6 +16,7 @@ from torch import nn
 
 from ...core.device import resolve_device
 from .construction import frozen_mask_from_positions, generate_frozen_bits
+from .crc import CRCCodec
 
 
 def polar_transform(u: torch.Tensor) -> torch.Tensor:
@@ -36,10 +37,11 @@ def polar_transform(u: torch.Tensor) -> torch.Tensor:
 
 
 class PolarEncoder(nn.Module):
-    """Batched polar encoder without CRC (the CRC codec is not in this package yet).
+    """Batched polar encoder with optional CRC concatenation.
 
-    ``encode`` accepts ``[K]`` or any batched ``[..., K]`` shape and returns
-    ``[..., N]`` int8 codewords on the encoder's device.
+    ``encode`` accepts ``[K]`` (``[K - crc_len]`` with ``use_crc``) or any
+    batched ``[..., K]`` shape and returns ``[..., N]`` int8 codewords on the
+    encoder's device.
     """
 
     def __init__(self, N: int, K: int, frozen_bits: Optional[np.ndarray] = None,
@@ -48,15 +50,22 @@ class PolarEncoder(nn.Module):
         super().__init__()
         assert N > 0 and (N & (N - 1)) == 0, "N must be a power of 2"
         assert 0 < K < N, "K must be in range (0, N)"
-        if use_crc:
-            raise NotImplementedError(
-                "use_crc needs the CRC codec, which is not in this package yet")
+        dev = resolve_device(device)
         self.N = N
         self.K = K
         self.n = int(np.log2(N))
-        self.use_crc = False
-        self.crc_len = 0
-        self.K_data = K
+        self.use_crc = use_crc
+        self.crc_polynomial = crc_polynomial
+        if use_crc:
+            self._crc = CRCCodec(K - int(crc_polynomial.split("-")[1]),
+                                 crc_polynomial, dev)
+            self.crc_len = self._crc.crc_len
+            assert K > self.crc_len, f"K must exceed CRC length ({self.crc_len})"
+            self.K_data = K - self.crc_len
+        else:
+            self._crc = None
+            self.crc_len = 0
+            self.K_data = K
         if frozen_bits is None:
             self.frozen_bits, self.info_bits = generate_frozen_bits(N, K)
         else:
@@ -64,14 +73,15 @@ class PolarEncoder(nn.Module):
             self.info_bits = np.setdiff1d(np.arange(N), self.frozen_bits)
             assert len(self.info_bits) == K, "number of info bits must equal K"
         self.frozen_mask = frozen_mask_from_positions(N, self.frozen_bits)
-        dev = resolve_device(device)
         self.register_buffer(
             "_info_idx", torch.as_tensor(self.info_bits, dtype=torch.int64, device=dev))
 
     def encode(self, message) -> torch.Tensor:
         message = torch.as_tensor(message, device=self._info_idx.device).to(torch.int8)
-        assert message.shape[-1] == self.K, (
-            f"message length must be {self.K}, got {message.shape[-1]}")
+        assert message.shape[-1] == self.K_data, (
+            f"message length must be {self.K_data}, got {message.shape[-1]}")
+        if self._crc is not None:
+            message = self._crc.encode(message)
         u = torch.zeros((*message.shape[:-1], self.N), dtype=torch.int8,
                         device=message.device)
         u[..., self._info_idx] = message

@@ -8,7 +8,8 @@ nothing; kernels are compiled at first use (``ops/build.py``).
 from __future__ import annotations
 
 # the LDPC kernel counts its two check rules apart: they are two code paths
-_LAUNCHES = {"sc_decode": 0, "bp_decode_bp": 0, "bp_decode_ms": 0}
+_LAUNCHES = {"sc_decode": 0, "bp_decode_bp": 0, "bp_decode_ms": 0,
+             "scl_chunk_body": 0, "scl_chunk_step": 0, "scl_last_chunk": 0}
 
 
 def count_launch(name: str) -> None:

@@ -22,7 +22,9 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sc_decode", "bp_decode")
+SOURCES = ("sc_decode", "bp_decode", "scl_decode")
+# headers a source includes: it is rebuilt when one of them is newer, too
+HEADERS = {"scl_decode": ("scl_device.cuh",)}
 
 # -fmad=false: no multiply-add contraction, so every float operation rounds
 # exactly as the same operation does in the plain PyTorch version
@@ -61,7 +63,9 @@ def build_all(verbose: bool = False) -> float:
     stale = []
     for name in SOURCES:
         src, lib = _CSRC / f"{name}.cu", out_dir / f"lib{name}.so"
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+        newest = max(f.stat().st_mtime for f in
+                     (src, *(_CSRC / h for h in HEADERS.get(name, ()))))
+        if not lib.exists() or lib.stat().st_mtime < newest:
             stale.append((name, src, lib))
     if not stale:
         return 0.0

@@ -21,8 +21,10 @@ from ..models.ldpc.encoder import gf2_matmul
 from ..models.ldpc.graph import TannerGraph
 from ..models.ldpc.minsum import make_ms_decoder
 from ..models.polar.construction import frozen_mask_from_positions
+from ..models.polar.crc import CRCCodec
 from ..models.polar.encoder import polar_transform
 from ..models.polar.sc import make_sc_decoder
+from ..models.polar.scl import make_scl_decoder, select_best_path
 
 
 def make_montecarlo_step(
@@ -134,13 +136,23 @@ def make_polar_pipeline(
     sc_impl: Optional[str] = None,
     device="cuda",
     rng_x64: bool = False,
+    scl_body_impl: Optional[str] = None,
+    scl_chunk: int = 128,
+    scl_leaf_impl: str = "onehot",
+    scl_control_impl: Optional[str] = None,
+    scl_node_mode: str = "exact",
 ):
     """End-to-end polar Monte-Carlo step.
 
-    ``decoder``: ``"sc"``.  ``"scl"`` and ``"ca-scl"`` (and ``use_crc``) are
-    not in this package yet.  ``sc_impl`` is forwarded to
-    ``make_sc_decoder`` (``None``: the CUDA kernel on a CUDA device, the
-    plain recursion on the CPU).
+    ``decoder``: ``"sc"``, ``"scl"`` (metric-argmax selection), or
+    ``"ca-scl"`` (CRC-aided selection; implies ``use_crc``).  With
+    ``use_crc``, ``K − crc_len`` message bits are drawn per frame, the CRC is
+    appended, and errors are counted over the message bits.  ``sc_impl`` is
+    forwarded to ``make_sc_decoder`` (``None``: the CUDA kernel on a CUDA
+    device, the plain recursion on the CPU); the ``scl_*`` keywords to
+    ``make_scl_decoder`` (``scl_control_impl=None``: the kernel control
+    ``"unroll-kernel"`` on a CUDA device, the plain ``"unroll-fused"`` on the
+    CPU).
 
     ``snr_db=None`` (with the default AWGN channel) builds a runtime-SNR
     step: call it as ``step(key, ids, snr_db)``; ``step.runtime_snr`` is True.
@@ -151,25 +163,47 @@ def make_polar_pipeline(
     assert len(info_bits) == K
     frozen_mask = frozen_mask_from_positions(N, frozen_bits)
     info_idx = torch.as_tensor(info_bits, dtype=torch.int64, device=dev)
-    if decoder in ("scl", "ca-scl") or use_crc:
-        raise NotImplementedError(
-            "SCL / CA-SCL decoding and CRC are not in this package yet")
-    if decoder != "sc":
-        raise ValueError(f"unknown polar decoder: {decoder!r}")
+    if decoder == "ca-scl":
+        use_crc = True
+
+    crc = None
+    k_message = K
+    if use_crc:
+        crc = CRCCodec(K - int(crc_polynomial.split("-")[1]), crc_polynomial, dev)
+        k_message = crc.data_len
 
     def encode(msgs):
+        if crc is not None:
+            msgs = crc.encode(msgs)
         u = torch.zeros((*msgs.shape[:-1], N), dtype=torch.int8, device=msgs.device)
         u[..., info_idx] = msgs
         return polar_transform(u)
 
-    sc = make_sc_decoder(N, frozen_mask, dtype, sc_impl, dev)
+    if decoder == "sc":
+        sc = make_sc_decoder(N, frozen_mask, dtype, sc_impl, dev)
 
-    def decode(llr):
-        return sc(llr)[..., info_idx], {}
+        def decode(llr):
+            return sc(llr)[..., info_idx], {}
+
+    elif decoder in ("scl", "ca-scl"):
+        scl = make_scl_decoder(N, frozen_mask, list_size, dtype,
+                               chunk=min(scl_chunk, N),
+                               body_impl=scl_body_impl, leaf_impl=scl_leaf_impl,
+                               control_impl=scl_control_impl,
+                               node_mode=scl_node_mode, device=dev)
+
+        def decode(llr):
+            u_paths, metrics = scl(llr)
+            sel = select_best_path(u_paths[..., info_idx], metrics,
+                                   crc if decoder == "ca-scl" else None)
+            return sel, {}
+
+    else:
+        raise ValueError(f"unknown polar decoder: {decoder!r}")
 
     chan = channel_fn or _awgn_channel_fn(snr_db, dtype)
-    step = make_montecarlo_step(K, encode, chan, decode, compare_len=K,
-                                rng_x64=rng_x64)
+    step = make_montecarlo_step(k_message, encode, chan, decode,
+                                compare_len=k_message, rng_x64=rng_x64)
     step.runtime_snr = getattr(chan, "runtime_snr", False)
     step.device = dev
     return step

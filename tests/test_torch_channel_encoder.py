@@ -139,8 +139,12 @@ def test_polar_encoder_equal(frozen_given):
     assert np.array_equal(np.asarray(je.encode(msgs)), te.encode(msgs).numpy())
     assert np.array_equal(np.asarray(je.encode(msgs[0])), te.encode(msgs[0]).numpy())
     assert te.get_code_rate() == je.get_code_rate()
-    with pytest.raises(NotImplementedError):
-        tfec.PolarEncoder(N, K, use_crc=True, device="cpu")
+    # the CRC codec is in the package now: K − 8 message bits, the JAX codeword
+    jc = jfec.PolarEncoder(N, K, frozen_bits=frozen, use_crc=True)
+    tc = tfec.PolarEncoder(N, K, frozen_bits=frozen, use_crc=True, device="cpu")
+    assert tc.K_data == jc.K_data == K - 8 and tc.crc_len == 8
+    assert np.array_equal(np.asarray(jc.encode(msgs[:, :K - 8])),
+                          tc.encode(msgs[:, :K - 8]).numpy())
 
 
 # -- LDPC matrices and encoder ----------------------------------------------------

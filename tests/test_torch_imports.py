@@ -34,11 +34,17 @@ def test_sources_exist():
     for expected in ("polarcode_and_ldpc_tpu_torch/core/rng.py",
                      "polarcode_and_ldpc_tpu_torch/ops/sc_mega_cuda.py",
                      "polarcode_and_ldpc_tpu_torch/ops/bp_cuda.py",
+                     "polarcode_and_ldpc_tpu_torch/ops/scl_cuda.py",
+                     "polarcode_and_ldpc_tpu_torch/models/polar/scanscl.py",
+                     "polarcode_and_ldpc_tpu_torch/models/polar/scl.py",
+                     "polarcode_and_ldpc_tpu_torch/models/polar/crc.py",
                      "polarcode_and_ldpc_tpu_torch/sim/montecarlo.py",
                      "polarcode_and_ldpc_tpu_torch/convert.py", "chip_smoke.py"):
         assert expected in names
     assert (PKG / "ops" / "csrc" / "sc_decode.cu").exists()
     assert (PKG / "ops" / "csrc" / "bp_decode.cu").exists()
+    assert (PKG / "ops" / "csrc" / "scl_decode.cu").exists()
+    assert (PKG / "ops" / "csrc" / "scl_device.cuh").exists()
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -78,7 +84,8 @@ def test_public_names():
 
     for name in fec.__all__:
         assert hasattr(fec, name), name
-    for name in ("construct_polar_code", "PolarEncoder", "SCDecoder", "AWGNChannel",
+    for name in ("construct_polar_code", "PolarEncoder", "SCDecoder", "SCLDecoder",
+                 "CASCLDecoder", "CRCCodec", "crc_encode", "crc_check", "AWGNChannel",
                  "LDPCEncoder", "BPDecoder", "MSDecoder", "NMSDecoder", "OMSDecoder"):
         assert name in fec.__all__
 
@@ -97,7 +104,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
                   lambda: fec.PolarEncoder(32, 16, frozen_bits=frozen),
                   lambda: fec.AWGNChannel(3.0),
                   lambda: fec.BPDecoder(np.eye(4, 8, dtype=np.int64)),
-                  lambda: make_polar_pipeline(32, 16, frozen, 3.0)):
+                  lambda: make_polar_pipeline(32, 16, frozen, 3.0),
+                  lambda: fec.SCLDecoder(32, 16, frozen_bits=frozen),
+                  lambda: fec.CASCLDecoder(32, 16, frozen_bits=frozen),
+                  lambda: fec.CRCCodec(8),
+                  lambda: fec.crc_encode(np.zeros(8, np.int8)),
+                  lambda: fec.PolarEncoder(32, 16, frozen_bits=frozen, use_crc=True),
+                  lambda: make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 
@@ -109,9 +122,30 @@ def test_unported_options_raise_not_implemented():
     from polarcode_and_ldpc_tpu_torch.sim import make_ldpc_pipeline, make_polar_pipeline
 
     frozen, _ = fec.construct_polar_code(32, 16, "bhattacharyya", 2.0)
+    # the list decoders are in the package now: the steps build and run
+    import torch
+
+    from polarcode_and_ldpc_tpu_torch.core import rng
     for dec in ("scl", "ca-scl"):
-        with pytest.raises(NotImplementedError):
-            make_polar_pipeline(32, 16, frozen, 3.0, decoder=dec, device="cpu")
+        step = make_polar_pipeline(32, 16, frozen, 3.0, decoder=dec, list_size=2, device="cpu")
+        out = step(rng.prng_key(0), torch.arange(8))
+        assert out["bit_errors"].shape == (8,) and out["frame_error"].dtype == torch.bool
+    # what this package still leaves out says so, by name
+    for kw in (dict(scl_control_impl="mega"), dict(scl_control_impl="split"),
+               dict(scl_control_impl="fused"), dict(scl_control_impl="kernel"),
+               dict(scl_node_mode="fast"), dict(scl_leaf_impl="sort")):
+        with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
+            make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", device="cpu", **kw)
+    mask = np.zeros(32, bool)
+    mask[frozen] = True
+    from polarcode_and_ldpc_tpu_torch.models.polar import make_scl_decoder
+    with pytest.raises(NotImplementedError, match="onehot"):
+        make_scl_decoder(32, mask, 2, perm_impl="onehot", device="cpu")
+    for impl in ("unrolled", "scan"):
+        with pytest.raises(NotImplementedError, match=impl):
+            make_scl_decoder(32, mask, 2, impl=impl, device="cpu")
+    with pytest.raises(NotImplementedError):
+        fec.SCDecoder(32, 16, frozen_bits=frozen, impl="scan", device="cpu")
     enc = fec.LDPCEncoder(24, 12, dv=3, dc=6, seed=1, device="cpu")
     with pytest.raises(NotImplementedError):
         make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="nms", schedule="layered", device="cpu")
