@@ -8,22 +8,26 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA device and ``nvcc``.  It builds the package's CUDA kernels
 from the sources in the checkout, holds each kernel against its plain PyTorch
 version on the card at the shapes the Monte-Carlo main path gives it, drives
-the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8
-and the LDPC BP / min-sum pipelines) at full code size through the kernels,
-checks the frame-id invariance of the counters and checkpoint/resume, and
-prints one JSON line per phase.  Any failure raises, and the exit code is then non-zero.
+the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8,
+the LDPC BP / min-sum, the row-layered min-sum and the quasi-cyclic n=8192
+pipelines, and the adaptive SC-first CA-SCL serving decoder on batches of
+8192 frames) at full code size through the kernels, checks the frame-id
+invariance of the counters and checkpoint/resume, and prints one JSON line
+per phase.  Any failure raises, and the exit code is then non-zero.
 
 The second line from the end lists every kernel with its launches on the main
 path, its error against the plain version, its time, the plain version's
 time and its roofline bound; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Phases: ``device``, ``build``, ``kernels`` (SC and LDPC kernels against their
-plain versions), ``scl_kernels`` (the three list-decode kernels: the chunk body
-on every chunk pattern of the code, the chunk step on the level stacks of every
-chunk position, the last chunk, whole decodes, other codes), ``polar_sc_mc``,
-``polar_cascl_mc``, ``ldpc_mc`` (the Monte-Carlo paths, each with the launch
-counts set to 0 just before and read just after), ``invariance``, ``stages``.
+Phases: ``device``, ``build``, ``kernels`` (SC and LDPC kernels, flooding and
+layered, against their plain versions), ``scl_kernels`` (the list-decode
+kernels: the chunk body on every chunk pattern of the code, the chunk step on
+the level stacks of every chunk position, the last chunk, the one-launch
+decode, whole decodes, other codes), ``polar_sc_mc``, ``polar_cascl_mc``,
+``ldpc_mc``, ``ldpc_layered_mc``, ``ldpc_qc_mc``, ``serving`` (the main paths,
+each with the launch counts set to 0 just before and read just after),
+``invariance``, ``stages``.
 
 ``--quick`` cuts the frame counts (for a first run after a kernel change);
 ``--phases a,b`` runs a subset (then no final ``ok`` line is printed).
@@ -47,6 +51,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import polarcode_and_ldpc_tpu_torch as fec
 from polarcode_and_ldpc_tpu_torch import ops
+from polarcode_and_ldpc_tpu_torch.convert import qc_code_from_numpy
 from polarcode_and_ldpc_tpu_torch.channels.awgn import awgn_noise_std, awgn_transmit
 from polarcode_and_ldpc_tpu_torch.core import rng
 from polarcode_and_ldpc_tpu_torch.models.ldpc.encoder import gf2_matmul
@@ -55,15 +60,17 @@ from polarcode_and_ldpc_tpu_torch.models.polar.construction import (bit_reverse_
                                                                     frozen_mask_from_positions)
 from polarcode_and_ldpc_tpu_torch.models.polar.crc import CRCCodec
 from polarcode_and_ldpc_tpu_torch.models.polar.encoder import polar_transform
+from polarcode_and_ldpc_tpu_torch.models.polar.sc import make_sc_decoder
 from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (build_scl_schedule,
                                                                super_touch_sets)
 from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder, select_best_path
 from polarcode_and_ldpc_tpu_torch.ops import build
-from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda
+from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda, smem_bytes
 from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import SCProgram, sc_decode_cuda
-from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, SCLState,
-                                                       make_step_specs, scl_chunk_body_cuda,
-                                                       scl_chunk_step_cuda, scl_last_chunk_cuda)
+from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_REP,
+                                                       SCLState, make_step_specs,
+                                                       scl_chunk_body_cuda, scl_chunk_step_cuda,
+                                                       scl_last_chunk_cuda)
 from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
                                               make_polar_pipeline)
 
@@ -75,7 +82,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # float operations per edge and iteration that the LDPC kernel performs
 # (check update + variable update), transcendental calls counted as one each
-OPS_PER_EDGE_ITER = {"bp": 14, "ms": 12}
+OPS_PER_EDGE_ITER = {"bp": 14, "ms": 12, "layered": 16}
 
 POLAR_N, POLAR_K = 1024, 512
 POLAR_CHUNK = 16384
@@ -89,8 +96,19 @@ LOW_SNR_DB = -1.0
 SCL_L, SCL_S, SCL_CRC, SCL_CHUNK = 8, 128, "CRC-8", 4096
 SCL_LOW_SNR_DB = -2.0
 
+# the serving paths: row-layered min-sum on the (504, 252) code; the
+# quasi-cyclic n=8192 code (a chunk of 1024 frames is about 100 MB of
+# messages); the adaptive SC-first CA-SCL decoder on batches of 8192 frames at
+# three operating points: no fallback, some fallback within the budget of 512,
+# budget overflow
+LDPC_LAYERS = 4
+QC_N, QC_K, QC_Z, QC_CHUNK = 8192, 4096, 512, 1024
+QC_LOW_SNR_DB = -1.5
+SERVE_BATCH = 8192
+SERVE_SNRS_DB = {"no_fallback": 3.0, "some_fallback": -0.25, "budget_overflow": -1.0}
+
 PHASES = ("device", "build", "kernels", "scl_kernels", "polar_sc_mc", "polar_cascl_mc",
-          "ldpc_mc", "invariance", "stages")
+          "ldpc_mc", "ldpc_layered_mc", "ldpc_qc_mc", "serving", "invariance", "stages")
 
 
 def emit(phase: str, **fields) -> None:
@@ -288,6 +306,70 @@ def check_bp_kernel(results: dict, reps: int) -> None:
     results["bp_decode_bp"]["cases"] = cases
 
 
+def check_bp_layered_kernel(results: dict, reps: int, quick: bool) -> None:
+    """The layered mode of the LDPC kernel against its plain version: bits and
+    iteration counts must be equal on every frame (min-sum is exact)."""
+    enc = ldpc_code()
+    graph = TannerGraph.from_H(enc.H, DEV)
+    irregular = TannerGraph.from_H(
+        fec.mackay_construction(LDPC_N, LDPC_K, 3, 6, seed=1), DEV)
+    rules = {"nms": (0.75, 0.0), "oms": (1.0, 0.5), "ms": (1.0, 0.0)}
+    cases = []
+
+    def hold(plan, llr, context):
+        bits, iters = bp_decode_cuda(llr, plan)
+        torch.cuda.synchronize()
+        pbits, piters = plan.plain(llr)
+        differ = int(((bits != pbits).any(dim=1) | (iters != piters)).sum())
+        cases.append({**context, "frames_differ": differ})
+        if differ:
+            raise AssertionError(f"bp_decode[layered] is not bit-identical: {cases[-1]}")
+
+    inputs = [(B, snr, seeded_llrs(enc.encode(np.random.default_rng(B + int(snr)).integers(
+        0, 2, (B, LDPC_K))), snr, seed=5 * B + int(10 * snr) + 100))
+        for B in (4096, 999) for snr in (-1.0, 1.0, 3.0)]
+    padded = seeded_llrs(torch.zeros((777, LDPC_N), dtype=torch.int8, device=DEV), 2.0, seed=98)
+    for name, (alpha, beta) in rules.items():
+        for layers in (1, 4, 6):
+            for early in (True, False):
+                if quick and (layers, early) not in ((4, True), (6, False)):
+                    continue
+                plan = BPKernelPlan(graph, LDPC_ITERS, early, "ms", alpha, beta, "layered", layers)
+                for B, snr, llr in inputs:
+                    hold(plan, llr, {"rule": name, "num_layers": layers, "early_stop": early,
+                                     "B": B, "snr_db": snr})
+            plan = BPKernelPlan(irregular, LDPC_ITERS, True, "ms", alpha, beta, "layered", layers)
+            hold(plan, padded, {"rule": name, "num_layers": layers,
+                                "graph": "mackay (padded slots)", "B": 777})
+
+    # the main path's shape: one Monte-Carlo chunk at 3 dB, NMS 0.75, 4 layers
+    msgs = np.random.default_rng(21).integers(0, 2, (LDPC_CHUNK, LDPC_K))
+    llr = seeded_llrs(enc.encode(msgs), 3.0, seed=22)
+    plan = BPKernelPlan(graph, LDPC_ITERS, True, "ms", 0.75, 0.0, "layered", LDPC_LAYERS)
+    bits, iters = bp_decode_cuda(llr, plan)
+    pbits, piters = plan.plain(llr)
+    max_abs = max(int((bits.to(torch.int16) - pbits.to(torch.int16)).abs().max()),
+                  int((iters - piters).abs().max()))
+    if max_abs:
+        raise AssertionError("bp_decode[layered] is not bit-identical at the main path's shape")
+    ms = time_ms(lambda: bp_decode_cuda(llr, plan), reps)
+    plain_ms = time_ms(lambda: plan.plain(llr), max(1, reps // 5), warmup=1)
+    byts = LDPC_CHUNK * (5 * LDPC_N + 4)
+    flops = graph.num_edges * int(iters.sum()) * OPS_PER_EDGE_ITER["layered"]
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    results["bp_decode_layered"] = {
+        "name": "bp_decode_layered", "route": "cuda",
+        "source": "polarcode_and_ldpc_tpu_torch/ops/csrc/bp_decode.cu",
+        "replaces": "polarcode_and_ldpc_tpu/ops/bp_pallas.py:140",
+        "launches": 0, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": None,
+        "shape": [LDPC_CHUNK, LDPC_N], "num_layers": LDPC_LAYERS,
+        "mean_iterations": float(iters.float().mean()),
+        "tolerance": "bit-identical bits and iteration counts", "cases": cases,
+    }
+
+
 # -- the SCL kernels -------------------------------------------------------------
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -344,9 +426,16 @@ def cascl_llrs(frozen, B: int, snr_db: float, seed: int) -> torch.Tensor:
 
 
 def body_flops(program) -> int:
-    """Float and compare operations of one chunk body per frame (estimate:
-    3 per f or g element, 7 per log-likelihood, 2 per candidate pair)."""
+    """Float and compare operations that one chunk body needs per frame, not
+    what the kernel spends: 3 per f or g element; 7 per log-likelihood, so 14
+    per path at a leaf for its two candidates; a stable top-L of the 2L
+    candidates as a sort's 2L * ceil(log2(2L)) compares (the kernel ranks all
+    pairs, (2L)^2); a rate-0 or repetition node as its zero-decision pass
+    (sz/2 * log2(sz) butterflies of 4 operations per path), sz
+    log-likelihoods and the sz - 1 adds of their sum.  A rate-0 node branches
+    nothing; a repetition node ends in one leaf."""
     L, total = program.L, 0
+    leaf = 14 * L + 2 * L * math.ceil(math.log2(2 * L))
     for op, _, sz, _ in program.ops.tolist():
         kind = op & 0xFF
         if kind in (OP_F, OP_G):
@@ -354,9 +443,10 @@ def body_flops(program) -> int:
         elif kind == OP_COMBINE:
             total += sz * (1 + L)
         elif kind == OP_LEAF:
-            total += 14 * L + 2 * (2 * L) ** 2
-        else:  # rate-0 / REP: zero-decision pass, log-likelihoods, tree sum
-            total += L * sz * (2 * int(math.log2(sz)) + 8) + 14 * L + 2 * (2 * L) ** 2
+            total += leaf
+        else:
+            total += L * (2 * sz * int(math.log2(sz)) + 7 * sz + sz - 1)
+            total += leaf if kind == OP_REP else 0
     return total
 
 
@@ -451,7 +541,9 @@ def check_scl_steps(sched, steps, last, rev, llr: torch.Tensor, context: dict) -
 def check_scl_other_codes() -> list:
     """One compiled build serves every code: other lengths, chunk sizes and
     list sizes (a single-chunk code, L = 1, L = 32 with path 31 in a word's
-    sign bit) through the kernel control against the plain decoder."""
+    sign bit) through the kernel controls (one launch per chunk, the chunk
+    body inside the plain glue, the whole decode in one launch) against the
+    plain decoder."""
     out = []
     for N, K, S, L in ((256, 128, 32, 4), (128, 64, 128, 2), (128, 100, 8, 1),
                        (2048, 1024, 64, 16), (512, 256, 128, 32), (64, 20, 16, 3)):
@@ -464,7 +556,8 @@ def check_scl_other_codes() -> list:
         want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused",
                                 live_width=False, device=DEV)(llr)
         context = {"N": N, "K": K, "S": S, "L": L}
-        for kw in ({}, {"control_impl": "unroll-fused", "body_impl": "cuda"}):
+        for kw in ({}, {"control_impl": "unroll-fused", "body_impl": "cuda"},
+                   {"control_impl": "mega"}):
             got = make_scl_decoder(N, mask, L, chunk=S, device=DEV, **kw)(llr)
             torch.cuda.synchronize()
             hold_equal(f"whole decode {kw or 'unroll-kernel'}",
@@ -494,8 +587,12 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
         "body_impl=cuda": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S,
                                            control_impl="unroll-fused", body_impl="cuda",
                                            device=DEV),
+        "mega": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="mega",
+                                 device=DEV),
     }
     assert decoders["unroll-kernel"].control_impl == "unroll-kernel"
+    assert decoders["mega"].control_impl == "mega"
+    worst["mega"] = 0.0
     assert decoders["plain live width"].live_width
     inputs = [(B, snr, cascl_llrs(frozen, B, snr, seed=B + int(10 * snr) + 50))
               for B in (512, 1000) for snr in (-1.0, 1.0, 3.0)]
@@ -507,12 +604,14 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
         worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr, context))
         u0, m0 = decoders["plain"](llr)
         sel0 = select_best_path(u0[..., info_idx], m0, crc)
-        for name in ("plain live width", "unroll-kernel", "body_impl=cuda"):
+        for name in ("plain live width", "unroll-kernel", "body_impl=cuda", "mega"):
             u, m = decoders[name](llr)
             torch.cuda.synchronize()
-            hold_equal(f"whole decode [{name}]", {
+            err = hold_equal(f"whole decode [{name}]", {
                 "u": (u, u0), "metrics": (m, m0),
                 "selected message": (select_best_path(u[..., info_idx], m, crc), sel0)}, context)
+            if name == "mega":
+                worst["mega"] = max(worst["mega"], err)
         cases.append({**context, "kernels_equal_plain": True,
                       "crc_pass_frames": int(crc.check(sel0).sum())})
 
@@ -522,6 +621,16 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
     worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr,
                                                        {"B": B, "snr_db": 3.0}))
     worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
+    # the one-launch decode at the main path's shape: against the plain decoder
+    # and against the per-chunk kernel control
+    u_k, m_k = decoders["unroll-kernel"](llr)
+    u_p, m_p = decoders["plain"](llr)
+    u_m, m_m = decoders["mega"](llr)
+    torch.cuda.synchronize()
+    worst["mega"] = max(worst["mega"], hold_equal("scl_decode_mega", {
+        "u vs plain": (u_m, u_p), "metrics vs plain": (m_m, m_p),
+        "u vs unroll-kernel": (u_m, u_k), "metrics vs unroll-kernel": (m_m, m_k)},
+        {"B": B, "snr_db": 3.0}))
     llr_rev = llr[:, rev].contiguous()
     state = SCLState(sched, llr_rev)
     plain_reps = 1 if quick else 2
@@ -573,19 +682,35 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
     decode_ms = {name: time_ms(lambda: dec(llr), reps if "plain" not in name else plain_reps,
                                warmup=1)
                  for name, dec in decoders.items() if name != "plain live width" or not quick}
+    # the one-launch decode: LLRs in, u and metrics out; the operations of the
+    # seven chunk steps and the last chunk
+    results["scl_decode_mega"] = kernel_row(
+        "scl_decode_mega", "polarcode_and_ldpc_tpu/ops/scl_mega_pallas.py:73",
+        decode_ms["mega"], decode_ms["plain"], B * (4 * POLAR_N + L * POLAR_N + 4 * L),
+        step_flops + B * lf, worst["mega"], shape=shape, launches_per_decode=1,
+        note="plain_ms is the plain chunk program (control_impl='unroll-fused', full width); "
+             "the level stacks are scratch in device memory",
+        ms_of_the_per_chunk_launches=decode_ms["unroll-kernel"])
     emit("scl_kernels", kernels=[results[k] for k in ("scl_chunk_body", "scl_chunk_step",
-                                                      "scl_last_chunk")],
+                                                      "scl_last_chunk", "scl_decode_mega")],
          unique_patterns=len(unique), whole_decode_ms=decode_ms, cases=cases,
          other_codes=check_scl_other_codes())
 
 
 
-def phase_kernels(results: dict, reps: int) -> None:
+def phase_kernels(results: dict, reps: int, quick: bool) -> None:
     check_sc_kernel(results, reps)
     check_bp_kernel(results, reps)
+    check_bp_layered_kernel(results, reps, quick)
+    layered = results["bp_decode_layered"]["cases"]
     emit("kernels", kernels=[
         {k: v for k, v in r.items() if k != "cases"} for r in results.values()],
-        sc_cases=results["sc_decode"]["cases"], bp_cases=results["bp_decode_bp"]["cases"])
+        sc_cases=results["sc_decode"]["cases"], bp_cases=results["bp_decode_bp"]["cases"],
+        layered_cases={"cases": len(layered), "frames": sum(c["B"] for c in layered),
+                       "frames_differ": sum(c["frames_differ"] for c in layered),
+                       "rules": ["nms 0.75", "oms 0.5", "ms"], "num_layers": [1, 4, 6],
+                       "early_stop": [True, False], "B": [4096, 999, "777 (padded slots)"],
+                       "snr_db": [-1.0, 1.0, 3.0]})
 
 
 def record_launches(results: dict, keys) -> dict:
@@ -687,6 +812,24 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
             n_chunks * (body_frames // SCL_CHUNK), 0):
         raise AssertionError(f"CA-SCL body_impl=cuda launched {counts_body}")
 
+    # the same run through the one-launch list decode: one launch per chunk,
+    # none of the per-chunk kernels, the same counters
+    step_mega = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, device=DEV,
+                                    scl_control_impl="mega", **kw)
+    sim_mega = MonteCarloSimulator(step_mega, k_msg, chunk_frames=SCL_CHUNK)
+    sim_mega.run(SCL_CHUNK, seed=1)
+    ops.reset_launch_counts()
+    res_mega = sim_mega.run(frames, max_errors=None, seed=0)
+    counts_mega = record_launches(results, ["scl_decode_mega"])
+    if (counts_mega["scl_decode_mega"], counts_mega["scl_chunk_step"],
+            counts_mega["scl_last_chunk"]) != (mc_chunks, 0, 0):
+        raise AssertionError(f"CA-SCL mega: {mc_chunks} Monte-Carlo chunks launched {counts_mega}")
+    if (res_mega.frames, res_mega.bit_errors, res_mega.frame_errors) != (
+            res.frames, res.bit_errors, res.frame_errors):
+        raise AssertionError(f"CA-SCL mega counts {res_mega.to_dict()}, unroll-kernel {res.to_dict()}")
+    mega_low = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, device=DEV,
+                                   scl_control_impl="mega", **kw)
+
     # the kernel paths against the plain pipeline on the same frame ids and seed
     plain = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, device=DEV,
                                 scl_control_impl="unroll-fused", **kw)
@@ -695,7 +838,8 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
     key = rng.prng_key(0, DEV)
     ids = torch.arange(SCL_CHUNK, device=DEV)
     want = plain(key, ids)
-    for name, other in (("unroll-kernel", step_low), ("body_impl=cuda", body_low)):
+    for name, other in (("unroll-kernel", step_low), ("body_impl=cuda", body_low),
+                        ("mega", mega_low)):
         got = other(key, ids)
         if not (torch.equal(got["bit_errors"], want["bit_errors"])
                 and torch.equal(got["frame_error"], want["frame_error"])):
@@ -715,10 +859,12 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
          crc=SCL_CRC, scl_chunk=SCL_S, launches=counts,
          early_stop={"snr_db": SCL_LOW_SNR_DB, "max_errors": 100, **result_fields(res1)},
          body_impl_cuda={**result_fields(res_body), "launches": counts_body},
+         mega={**result_fields(res_mega), "launches": counts_mega},
          first_chunk_equals_plain=True, frame_errors_first_chunk=int(want["frame_error"].sum()),
          cpu_reference_frames_differ=differ)
     mbps["polar_cascl"] = res.throughput_mbps
     mbps["polar_cascl_body_impl_cuda"] = res_body.throughput_mbps
+    mbps["polar_cascl_mega"] = res_mega.throughput_mbps
 
 
 def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
@@ -751,23 +897,260 @@ def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
     emit("ldpc_mc", chunk_frames=LDPC_CHUNK, max_iter=LDPC_ITERS, **summary)
 
 
+def phase_ldpc_layered_mc(results: dict, mbps: dict, frames: int) -> None:
+    """The row-layered min-sum path at full width, with flooding NMS beside it."""
+    enc = ldpc_code()
+    kw = dict(decoder="nms", normalization=0.75, max_iter=LDPC_ITERS,
+              message_idx=enc.info_positions, device=DEV)
+    step = make_ldpc_pipeline(enc.H, enc.G, 3.0, schedule="layered", num_layers=LDPC_LAYERS, **kw)
+    sim = MonteCarloSimulator(step, LDPC_K, chunk_frames=LDPC_CHUNK)
+    sim.run(LDPC_CHUNK, seed=1)  # warm-up
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0)
+    counts = record_launches(results, ["bp_decode_layered"])
+    if counts["bp_decode_layered"] != frames // LDPC_CHUNK or counts["bp_decode_ms"]:
+        raise AssertionError(f"layered LDPC: {frames // LDPC_CHUNK} chunks launched {counts}")
+    flood_sim = MonteCarloSimulator(make_ldpc_pipeline(enc.H, enc.G, 3.0, **kw), LDPC_K,
+                                    chunk_frames=LDPC_CHUNK)
+    flood_sim.run(LDPC_CHUNK, seed=1)
+    flood = flood_sim.run(frames, max_errors=None, seed=0)
+    if res.frames != frames or not (res.ber < 1e-3):
+        raise AssertionError(f"layered LDPC at 3 dB: unexpected result {res.to_dict()}")
+    if not (1.0 <= res.avg_iterations < 0.9 * flood.avg_iterations):
+        raise AssertionError(f"layered min-sum ran {res.avg_iterations} iterations on average, "
+                             f"flooding {flood.avg_iterations}: expected clearly fewer")
+    plain = make_ldpc_pipeline(enc.H, enc.G, 3.0, schedule="layered", num_layers=LDPC_LAYERS,
+                               bp_impl="torch", **kw)
+    rk = rng.prng_key(0, DEV)
+    ids = torch.arange(LDPC_CHUNK, device=DEV)
+    a, b = step(rk, ids), plain(rk, ids)
+    differ = int(((a["bit_errors"] != b["bit_errors"]) | (a["iterations"] != b["iterations"])).sum())
+    if differ:
+        raise AssertionError(f"layered LDPC: kernel and plain pipelines differ on {differ} frames")
+    emit("ldpc_layered_mc", chunk_frames=LDPC_CHUNK, max_iter=LDPC_ITERS, num_layers=LDPC_LAYERS,
+         layered={**result_fields(res), "mean_iterations": res.avg_iterations, "launches": counts,
+                  "first_chunk_frames_differ_from_plain": differ},
+         flooding={**result_fields(flood), "mean_iterations": flood.avg_iterations})
+    mbps["ldpc_layered_nms"] = res.throughput_mbps
+
+
+def qc_code():
+    """The quasi-cyclic n=8192 code: shift matrix, expanded H and an encoder."""
+    base = fec.qc_base_matrix(QC_N, QC_K, QC_Z, dv=3, dc=6, seed=42)
+    return qc_code_from_numpy(base, QC_Z, device=DEV)
+
+
+QC_DECODERS = {"bp": dict(decoder="bp"),
+               "layered_nms": dict(decoder="nms", normalization=0.75, schedule="layered")}
+
+
+def qc_pipeline(code: dict, snr_db: float, name: str):
+    enc = code["encoder"]
+    return make_ldpc_pipeline(code["H"], enc.G, snr_db, max_iter=LDPC_ITERS,
+                              message_idx=enc.info_positions, qc_base=code["qc_base"],
+                              z=code["z"], device=DEV, **QC_DECODERS[name])
+
+
+def phase_ldpc_qc_mc(results: dict, mbps: dict, chunks: int) -> None:
+    """The quasi-cyclic path at n=8192: flooding BP and layered NMS through the
+    roll-based decoder (plain PyTorch on the card, as its JAX counterpart is
+    plain XLA), and the roll path against the generic decoders on the
+    expanded H (the layered one through the fused kernel)."""
+    t0 = time.perf_counter()
+    code = qc_code()
+    enc = code["encoder"]
+    build_s = time.perf_counter() - t0
+    summary = {}
+    for name in QC_DECODERS:
+        sim = MonteCarloSimulator(qc_pipeline(code, 3.0, name), QC_K, chunk_frames=QC_CHUNK)
+        sim.run(QC_CHUNK, seed=1)  # warm-up
+        res = sim.run(chunks * QC_CHUNK, max_errors=None, seed=0)
+        if res.frames != chunks * QC_CHUNK or res.frame_errors or not (
+                1.0 <= res.avg_iterations <= LDPC_ITERS):
+            raise AssertionError(f"QC {name} at 3 dB: unexpected result {res.to_dict()}")
+        low = MonteCarloSimulator(qc_pipeline(code, QC_LOW_SNR_DB, name), QC_K,
+                                  chunk_frames=QC_CHUNK).run(QC_CHUNK, max_errors=None, seed=0)
+        if low.frame_errors == 0:
+            raise AssertionError(f"QC {name} at {QC_LOW_SNR_DB} dB saw no error: {low.to_dict()}")
+        summary[name] = {**result_fields(res), "mean_iterations": res.avg_iterations,
+                         "low_snr": {"snr_db": QC_LOW_SNR_DB, **result_fields(low),
+                                     "mean_iterations": low.avg_iterations}}
+        mbps[f"ldpc_qc_{name}"] = res.throughput_mbps
+
+    # the roll path against the generic decoders on the expanded H, 256 frames
+    # (half at 3 dB, half where the code errs): bits and iteration counts equal
+    msgs = np.random.default_rng(31).integers(0, 2, (256, QC_K))
+    cw = enc.encode(msgs)
+    llr = torch.cat([seeded_llrs(cw[:128], 3.0, seed=32),
+                     seeded_llrs(cw[128:], QC_LOW_SNR_DB, seed=33)])
+    ops.reset_launch_counts()
+    generic = {
+        "bp": fec.BPDecoder(code["H"], LDPC_ITERS, impl="torch", device=DEV),
+        "layered_nms": fec.LayeredMSDecoder(code["H"], LDPC_ITERS, normalization=0.75,
+                                            num_layers=code["qc_base"].shape[0], device=DEV),
+    }
+    if generic["layered_nms"].impl != "cuda":
+        raise AssertionError("the generic layered decoder did not take the kernel")
+    layered_plan = generic["layered_nms"]._run_fn.plan
+    against = {}
+    for name, dec in generic.items():
+        qc = fec.QCBPDecoder(code["qc_base"], QC_Z, LDPC_ITERS,
+                             variant="bp" if name == "bp" else "nms", normalization=0.75,
+                             schedule="layered" if name == "layered_nms" else "flooding",
+                             device=DEV)
+        qb, qi = qc.decode(llr, return_iterations=True)
+        gb, gi = dec.decode(llr, return_iterations=True)
+        torch.cuda.synchronize()
+        differ = int(((qb != gb).any(dim=1) | (qi != gi)).sum())
+        # sum-product goes through tanh / log1p in both: the same float program,
+        # so equal as well; min-sum is exact
+        if differ:
+            raise AssertionError(f"QC {name}: roll path and generic decoder differ on {differ} "
+                                 "of 256 frames")
+        against[name] = {"frames": 256, "frames_differ": differ,
+                         "mean_iterations": float(qi.float().mean()),
+                         "message_frames_right": int((qb[:, enc._info_idx] == torch.as_tensor(
+                             msgs, device=DEV)).all(dim=1).sum())}
+    counts = ops.launch_counts()
+    if counts["bp_decode_layered"] != 1:
+        raise AssertionError(f"the generic layered decoder at n=8192 launched {counts}")
+    emit("ldpc_qc_mc", n=QC_N, k=QC_K, z=QC_Z, chunk_frames=QC_CHUNK, max_iter=LDPC_ITERS,
+         code_build_seconds=round(build_s, 2), **summary, roll_path_against_generic=against,
+         generic_layered_kernel_smem_bytes=smem_bytes(layered_plan.graph,
+                                                      layered_plan.layer_checks))
+
+
+def phase_serving(results: dict, mbps: dict, reps: int) -> None:
+    """The serving decoder at full width: ``AdaptiveCASCLDecoder`` on batches of
+    8192 frames at three operating points, once with the default list control
+    and once with the one-launch control.  The output must equal, frame for
+    frame, the SC result where its CRC passes and the CA-SCL result elsewhere,
+    and the stats must equal those counts.  The reference is built from the
+    plain versions, and the kernels are first held against them at the shapes
+    this path gives them: the SC kernel on the whole batch, the list kernels on
+    each slice of failing rows."""
+    frozen, info, mask = polar_code()
+    k_msg = POLAR_K - 8
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, use_crc=True,
+                           crc_polynomial=SCL_CRC, device=DEV)
+    info_idx = torch.as_tensor(info, dtype=torch.int64, device=DEV)
+    sc = {"kernel": make_sc_decoder(POLAR_N, mask, device=DEV),
+          "plain": make_sc_decoder(POLAR_N, mask, impl="unrolled", device=DEV)}
+    lists = {"plain": make_scl_decoder(POLAR_N, mask, SCL_L, control_impl="unroll-fused",
+                                       live_width=False, device=DEV),
+             "unroll-kernel": make_scl_decoder(POLAR_N, mask, SCL_L, device=DEV),
+             "mega": make_scl_decoder(POLAR_N, mask, SCL_L, control_impl="mega", device=DEV)}
+    if (sc["kernel"].impl, lists["unroll-kernel"].control_impl) != ("mega", "unroll-kernel"):
+        raise AssertionError("serving: the default decoders on the card are not the kernels")
+    crc = CRCCodec(k_msg, SCL_CRC, DEV)
+    decoders = {"unroll-kernel": fec.AdaptiveCASCLDecoder(
+                    POLAR_N, POLAR_K, SCL_L, frozen_bits=frozen, crc_polynomial=SCL_CRC, device=DEV),
+                "mega": fec.AdaptiveCASCLDecoder(
+                    POLAR_N, POLAR_K, SCL_L, frozen_bits=frozen, crc_polynomial=SCL_CRC,
+                    scl_control_impl="mega", device=DEV)}
+    for name, dec in decoders.items():
+        if (dec.sc_impl, dec.scl_control_impl) != ("mega", name):
+            raise AssertionError(f"serving decoder took {dec.sc_impl}, {dec.scl_control_impl}")
+    budget = decoders["mega"]._budget(SERVE_BATCH)
+    out = {}
+    for point, snr in SERVE_SNRS_DB.items():
+        msgs = np.random.default_rng(int(10 * snr) + 40).integers(0, 2, (SERVE_BATCH, k_msg))
+        llr = fec.AWGNChannel(snr, seed=int(10 * snr) + 41, device=DEV).transmit(
+            enc.encode(msgs)).contiguous()
+        u_sc = sc["plain"](llr)
+        hold_equal("serving sc_decode", {"u": (sc["kernel"](llr), u_sc)},
+                   {"B": SERVE_BATCH, "snr_db": snr})
+        sc_info = u_sc[:, info_idx]
+        ok = crc.check(sc_info)
+        want = sc_info.clone()
+        fail = torch.nonzero(~ok)[:, 0]
+        # the slices of failing rows as the decoder cuts them: the budget first,
+        # then the residue in fallback_batch pieces
+        fb = decoders["mega"].fallback_batch
+        cuts = [0, min(len(fail), budget)] + list(range(budget + fb, len(fail), fb)) + [len(fail)]
+        slice_frames = []
+        for lo, hi in zip(cuts, cuts[1:]):
+            if hi <= lo:
+                continue
+            rows = fail[lo:hi]
+            u0, m0 = lists["plain"](llr[rows])
+            for name in ("unroll-kernel", "mega"):
+                u, m = lists[name](llr[rows])
+                hold_equal(f"serving list decode [{name}]", {"u": (u, u0), "metrics": (m, m0)},
+                           {"frames": hi - lo, "snr_db": snr})
+            want[rows] = select_best_path(u0[..., info_idx], m0, crc)
+            slice_frames.append(hi - lo)
+        n_fail = int((~ok).sum())
+        right = {"no_fallback": n_fail == 0, "some_fallback": 0 < n_fail <= budget,
+                 "budget_overflow": n_fail > budget}[point]
+        if not right:
+            raise AssertionError(f"serving point {point} at {snr} dB: {n_fail} SC failures in "
+                                 f"{SERVE_BATCH} frames, budget {budget}")
+        row = {"snr_db": snr, "sc_failures": n_fail, "budget": budget,
+               "list_decode_frames": slice_frames, "kernels_equal_plain": True,
+               "sc_decode_ms": time_ms(lambda: sc["kernel"](llr), reps)}
+        for name, dec in decoders.items():
+            ops.reset_launch_counts()
+            got, stats = dec.decode(llr, return_stats=True)
+            torch.cuda.synchronize()
+            keys = ["sc_decode"]
+            if n_fail:
+                keys += ["scl_decode_mega"] if name == "mega" else ["scl_chunk_step", "scl_last_chunk"]
+            counts = record_launches(results, keys)
+            list_decodes = 0 if n_fail == 0 else 1 + -(-max(n_fail - budget, 0) // dec.fallback_batch)
+            launched = counts["scl_decode_mega"] if name == "mega" else counts["scl_last_chunk"]
+            if counts["sc_decode"] != 1 or launched != list_decodes:
+                raise AssertionError(f"serving [{name}] at {snr} dB launched {counts}, expected "
+                                     f"1 SC decode and {list_decodes} list decodes")
+            if not torch.equal(got, want):
+                bad = int((got != want).any(dim=1).sum())
+                raise AssertionError(f"serving [{name}] at {snr} dB: {bad} frames differ from "
+                                     "SC-where-CRC-passes-else-CA-SCL")
+            expect = {"frames": SERVE_BATCH, "sc_passed": SERVE_BATCH - n_fail,
+                      "scl_fallbacks": n_fail, "budget_overflow": max(n_fail - budget, 0),
+                      "sc_pass_rate": 1.0 - n_fail / SERVE_BATCH}
+            if stats != expect:
+                raise AssertionError(f"serving [{name}] stats {stats}, expected {expect}")
+            # CUDA events around decode; the one host read of a batch is inside
+            ms = time_ms(lambda: dec.decode(llr), reps)
+            row[name] = {"ms_per_batch": ms, "info_mbps": SERVE_BATCH * k_msg / ms / 1e3,
+                         "launches": {k: v for k, v in counts.items() if v},
+                         "message_frame_errors": int((got[:, :k_msg] != torch.as_tensor(
+                             msgs, device=DEV)).any(dim=1).sum())}
+            mbps[f"serving_{point}_{name}"] = row[name]["info_mbps"]
+        row.update(sc_pass_rate=1.0 - n_fail / SERVE_BATCH, scl_fallbacks=n_fail,
+                   budget_overflow=max(n_fail - budget, 0), equals_sc_else_cascl=True)
+        out[point] = row
+    emit("serving", batch_frames=SERVE_BATCH, N=POLAR_N, K=POLAR_K, list_size=SCL_L, crc=SCL_CRC,
+         fallback_batch=decoders["mega"].fallback_batch, **out)
+
+
 def phase_invariance(frames: int = 8192) -> None:
     frozen, info, mask = polar_code()
     enc = ldpc_code()
-    small = frames // 8
+    qc = qc_code()
+    cascl = dict(decoder="ca-scl", list_size=SCL_L, crc_polynomial=SCL_CRC, scl_chunk=SCL_S,
+                 device=DEV)
+    nms = dict(decoder="nms", normalization=0.75, max_iter=LDPC_ITERS,
+               message_idx=enc.info_positions, device=DEV)
+    # (step, message bits, frames): the n=8192 steps run a quarter of the frames
     steps = {
         "polar_sc": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, LOW_SNR_DB, decoder="sc",
-                                         device=DEV), POLAR_K),
-        "polar_cascl": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB,
-                                            decoder="ca-scl", list_size=SCL_L,
-                                            crc_polynomial=SCL_CRC, scl_chunk=SCL_S,
-                                            device=DEV), POLAR_K - 8),
-        "ldpc_nms": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, decoder="nms", normalization=0.75,
-                                        max_iter=LDPC_ITERS, message_idx=enc.info_positions,
-                                        device=DEV), LDPC_K),
+                                         device=DEV), POLAR_K, frames),
+        "polar_cascl": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, **cascl),
+                        POLAR_K - 8, frames),
+        "polar_cascl_mega": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB,
+                                                 scl_control_impl="mega", **cascl),
+                             POLAR_K - 8, frames),
+        "ldpc_nms": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, **nms), LDPC_K, frames),
+        "ldpc_layered_nms": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, schedule="layered",
+                                                num_layers=LDPC_LAYERS, **nms), LDPC_K, frames),
+        "ldpc_qc_bp": (qc_pipeline(qc, QC_LOW_SNR_DB, "bp"), QC_K, frames // 4),
+        "ldpc_qc_layered_nms": (qc_pipeline(qc, QC_LOW_SNR_DB, "layered_nms"), QC_K, frames // 4),
     }
     out = {}
-    for name, (step, k) in steps.items():
+    for name, (step, k, frames) in steps.items():
+        small = frames // 8
         def counters(res):
             return (res.frames, res.bit_errors, res.frame_errors, res.total_iterations)
 
@@ -790,7 +1173,10 @@ def phase_invariance(frames: int = 8192) -> None:
             raise AssertionError(f"{name}: the invariance run saw no error to count")
         out[name] = {"frames": ref[0], "bit_errors": ref[1], "frame_errors": ref[2],
                      "total_iterations": ref[3]}
-    emit("invariance", identical=["1x8192", "8x1024", "chunks_per_dispatch=4", "scalar",
+    if (out["polar_cascl_mega"] != out["polar_cascl"]):
+        raise AssertionError(f"the one-launch list decode counts {out['polar_cascl_mega']}, "
+                             f"the per-chunk kernels {out['polar_cascl']}")
+    emit("invariance", identical=["1 chunk", "8 chunks", "chunks_per_dispatch=4", "scalar",
                                   "checkpoint+resume"], **out)
 
 
@@ -842,7 +1228,8 @@ def phase_stages(reps: int, only=None) -> None:
     alone by CUDA events at the main path's shapes, then the whole step, and
     the card's busy share over a short run from the profiler.  The CA-SCL
     decode is also split into its 7 chunk-step launches and its last-chunk
-    launch."""
+    launch; the one-launch list decode and the layered LDPC chunk have a
+    column each."""
     frozen, info, mask = polar_code()
     enc = ldpc_code()
     key = rng.prng_key(0, DEV)
@@ -854,16 +1241,30 @@ def phase_stages(reps: int, only=None) -> None:
                         make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="ca-scl",
                                             list_size=SCL_L, crc_polynomial=SCL_CRC,
                                             scl_chunk=SCL_S, device=DEV)),
+        "polar_cascl_mega": (SCL_CHUNK, POLAR_K - 8, POLAR_N,
+                             make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="ca-scl",
+                                                 list_size=SCL_L, crc_polynomial=SCL_CRC,
+                                                 scl_chunk=SCL_S, scl_control_impl="mega",
+                                                 device=DEV)),
         "ldpc_bp": (LDPC_CHUNK, LDPC_K, LDPC_N,
                     make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="bp", max_iter=LDPC_ITERS,
                                        message_idx=enc.info_positions, device=DEV)),
+        "ldpc_layered_nms": (LDPC_CHUNK, LDPC_K, LDPC_N,
+                             make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="nms",
+                                                normalization=0.75, max_iter=LDPC_ITERS,
+                                                schedule="layered", num_layers=LDPC_LAYERS,
+                                                message_idx=enc.info_positions, device=DEV)),
     }
     info_idx = torch.as_tensor(info, device=DEV)
     G = torch.as_tensor(enc.G.astype(np.float32), device=DEV)
     sc_program = SCProgram(POLAR_N, mask)
-    bp_plan = BPKernelPlan(TannerGraph.from_H(enc.H, DEV), LDPC_ITERS, True, "bp")
+    graph = TannerGraph.from_H(enc.H, DEV)
+    bp_plan = BPKernelPlan(graph, LDPC_ITERS, True, "bp")
+    layered_plan = BPKernelPlan(graph, LDPC_ITERS, True, "ms", 0.75, 0.0, "layered", LDPC_LAYERS)
     crc = CRCCodec(POLAR_K - 8, SCL_CRC, DEV)
     scl_decode = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, device=DEV)
+    mega_decode = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="mega",
+                                   device=DEV)
     for name, (chunk, k, n, step) in configs.items():
         if only is not None and name not in only:
             continue
@@ -874,7 +1275,7 @@ def phase_stages(reps: int, only=None) -> None:
         if name.startswith("polar"):
             def encode():
                 u = torch.zeros((chunk, n), dtype=torch.int8, device=DEV)
-                u[:, info_idx] = crc.encode(msgs) if name == "polar_cascl" else msgs
+                u[:, info_idx] = crc.encode(msgs) if name.startswith("polar_cascl") else msgs
                 return polar_transform(u)
         else:
             def encode():
@@ -884,7 +1285,9 @@ def phase_stages(reps: int, only=None) -> None:
         llr = awgn_transmit(None, cw, 3.0, noise=noise).contiguous()
         decode = {"polar_sc": lambda: sc_decode_cuda(llr, sc_program),
                   "polar_cascl": lambda: scl_decode(llr),
-                  "ldpc_bp": lambda: bp_decode_cuda(llr, bp_plan)}[name]
+                  "polar_cascl_mega": lambda: mega_decode(llr),
+                  "ldpc_bp": lambda: bp_decode_cuda(llr, bp_plan),
+                  "ldpc_layered_nms": lambda: bp_decode_cuda(llr, layered_plan)}[name]
         stages = {
             "frame_keys_ms": lambda: [rng.fold_in(fk, j) for fk in [rng.frame_keys(key, ids)]
                                       for j in (0, 1)],
@@ -923,7 +1326,7 @@ def main() -> int:
     if "build" in phases:
         phase_build(args.verbose_build)
     if "kernels" in phases:
-        phase_kernels(results, reps)
+        phase_kernels(results, reps, args.quick)
     if "scl_kernels" in phases:
         phase_scl_kernels(results, reps, args.quick)
     if "polar_sc_mc" in phases:
@@ -932,6 +1335,12 @@ def main() -> int:
         phase_polar_cascl_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
     if "ldpc_mc" in phases:
         phase_ldpc_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
+    if "ldpc_layered_mc" in phases:
+        phase_ldpc_layered_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
+    if "ldpc_qc_mc" in phases:
+        phase_ldpc_qc_mc(results, mbps, 2 if args.quick else 4)
+    if "serving" in phases:
+        phase_serving(results, mbps, reps)
     if "invariance" in phases:
         phase_invariance()
     if "stages" in phases:

@@ -16,6 +16,7 @@ import torch
 from .core.device import resolve_device
 from .models.ldpc.encoder import LDPCEncoder
 from .models.ldpc.graph import TABLE_NAMES, TannerGraph
+from .models.ldpc.matrix import qc_expand
 from .models.polar.construction import frozen_mask_from_positions
 from .models.polar.crc import CRCCodec
 
@@ -66,6 +67,27 @@ def ldpc_code_from_numpy(H: np.ndarray, G: np.ndarray,
         enc._info_idx = torch.as_tensor(info, dtype=torch.int64, device=enc._G_dev.device)
         enc.use_direct_solving = not bool((info == np.arange(k)).all())
     return enc
+
+
+def qc_code_from_numpy(base: np.ndarray, z: int, G: Optional[np.ndarray] = None,
+                       info_positions: Optional[np.ndarray] = None,
+                       device="cuda") -> dict:
+    """A quasi-cyclic code from its shift matrix ``base [mb, nb]`` (−1 = no
+    edge) and lift size ``z``: ``{"qc_base", "z", "H", "encoder"}``, the inputs
+    of ``QCBPDecoder`` and ``make_ldpc_pipeline(qc_base=, z=)``.  With ``G``
+    (and ``info_positions``) the encoder carries the given generator as
+    ``ldpc_code_from_numpy`` does; otherwise it derives its own from the
+    expanded ``H``."""
+    base = np.asarray(base, dtype=np.int64)
+    if base.ndim != 2:
+        raise ValueError(f"base must be 2-D, got shape {base.shape}")
+    H = qc_expand(base, z)
+    m, n = H.shape
+    if G is None:
+        enc = LDPCEncoder(n, n - m, H=H, device=device)
+    else:
+        enc = ldpc_code_from_numpy(H, G, info_positions, device)
+    return {"qc_base": base, "z": int(z), "H": H, "encoder": enc}
 
 
 def tanner_graph_from_numpy(tables: dict, device="cuda") -> TannerGraph:

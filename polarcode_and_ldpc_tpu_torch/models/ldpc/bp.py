@@ -122,10 +122,13 @@ class BPDecoder(nn.Module):
     default on the CPU).
     """
 
-    # kernel check rule; the min-sum subclasses override it
+    # kernel check rule and schedule; the min-sum and layered subclasses
+    # override them
     _check_rule = "bp"
+    _schedule = "flooding"
     normalization = 1.0
     offset = 0.0
+    num_layers = 4
 
     def __init__(self, H: np.ndarray, max_iter: int = 50, early_stop: bool = True,
                  dtype=torch.float32, impl: Optional[str] = None, device="cuda"):
@@ -141,7 +144,8 @@ class BPDecoder(nn.Module):
 
         self._run_fn, self.impl = resolve_bp_impl(
             self.graph, self._make_plain_decoder(), max_iter, early_stop,
-            dtype, impl, self._check_rule, self.normalization, self.offset)
+            dtype, impl, self._check_rule, self.normalization, self.offset,
+            schedule=self._schedule, num_layers=self.num_layers)
 
     def _make_plain_decoder(self):
         return make_bp_decoder(self.graph, self.max_iter, self.early_stop,

@@ -1,8 +1,8 @@
 """LDPC parity-check matrix construction (host-side NumPy).
 
 Seeded ``np.random`` draws are made in a fixed order, so a seed gives the same
-``H`` as the JAX package's constructors.  PEG, quasi-cyclic and banded
-Gallager constructions and the girth diagnostic are not in this package yet.
+``H`` as the JAX package's constructors.  PEG and banded Gallager
+constructions and the girth diagnostic are not in this package yet.
 """
 
 from __future__ import annotations
@@ -67,13 +67,66 @@ def regular_construction(n: int, k: int, dv: int, dc: int,
     return H
 
 
+def qc_base_matrix(n: int, k: int, z: int, dv: int = 3, dc: int = 6,
+                   seed: Optional[int] = None) -> np.ndarray:
+    """Shift matrix of a quasi-cyclic LDPC code: ``[mb, nb]`` int64 with −1
+    for "no edge" and a circulant shift ``s ∈ [0, z)`` per base edge.
+
+    The base graph is (dv, dc)-regular (``regular_construction``); shifts are
+    random.  The base form is what the roll-based decoder
+    (``models/ldpc/qc.py``) consumes directly: circulant permutations become
+    ``torch.roll`` on z-sized blocks, so message passing at n=8192 needs no
+    gather tables at all.
+    """
+    m = n - k
+    if n % z or m % z:
+        raise ValueError(f"lift size z={z} must divide n={n} and m={m}")
+    nb, mb = n // z, m // z
+    proto = regular_construction(nb, nb - mb, dv, dc, seed)
+    rng = np.random.default_rng(None if seed is None else seed + 1)
+    base = np.full((mb, nb), -1, dtype=np.int64)
+    for bi in range(mb):
+        for bj in range(nb):
+            if proto[bi, bj]:
+                base[bi, bj] = int(rng.integers(z))
+    return base
+
+
+def qc_expand(base: np.ndarray, z: int) -> np.ndarray:
+    """Lift a shift matrix to the dense ``[mb·z, nb·z]`` parity-check H:
+    entry s ≥ 0 becomes the circulant ``roll(I_z, s, axis=1)`` (check r of
+    the block connects to variable ``(r + s) mod z``)."""
+    base = np.asarray(base)
+    mb, nb = base.shape
+    H = np.zeros((mb * z, nb * z), dtype=np.int64)
+    eye = np.eye(z, dtype=np.int64)
+    for bi in range(mb):
+        for bj in range(nb):
+            s = int(base[bi, bj])
+            if s >= 0:
+                H[bi * z:(bi + 1) * z, bj * z:(bj + 1) * z] = np.roll(
+                    eye, s, axis=1)
+    return H
+
+
+def qc_ldpc_construction(n: int, k: int, z: int, dv: int = 3, dc: int = 6,
+                         seed: Optional[int] = None) -> np.ndarray:
+    """Quasi-cyclic LDPC H: a (dv, dc)-regular base graph lifted by z×z
+    circulant permutation blocks with random shifts.  Requires ``z | n`` and
+    ``z | (n−k)``.  See :func:`qc_base_matrix` for the shift-matrix form the
+    roll-based decoder consumes."""
+    return qc_expand(qc_base_matrix(n, k, z, dv, dc, seed), z)
+
+
 def generate_ldpc_matrix(n: int, k: int, method: str = "mackay", dv: int = 3,
                          dc: int = 6, seed: Optional[int] = None,
                          z: Optional[int] = None) -> np.ndarray:
-    """Dispatching constructor: ``mackay``, ``regular`` and ``random``.
-    ``qc``, ``gallager`` and ``peg`` are not in this package yet."""
+    """Dispatching constructor: ``mackay``, ``regular``, ``qc`` and
+    ``random``.  ``gallager`` and ``peg`` are not in this package yet."""
     m = n - k
-    if method in ("qc", "qc_ldpc", "gallager", "peg"):
+    if method in ("qc", "qc_ldpc"):
+        return qc_ldpc_construction(n, k, z or max(2, n // 64), dv, dc, seed)
+    if method in ("gallager", "peg"):
         raise NotImplementedError(
             f"method={method!r} is not in this package yet")
     if method in ("mackay", "regular"):

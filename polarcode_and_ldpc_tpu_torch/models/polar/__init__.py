@@ -1,3 +1,4 @@
+from .adaptive import AdaptiveCASCLDecoder
 from .construction import (bhattacharyya_bounds, bit_reverse_permutation,
                            construct_polar_code, dega_llr_means,
                            frozen_mask_from_positions, gaussian_approximation,
@@ -17,4 +18,5 @@ __all__ = [
     "make_sc_decoder_unrolled", "SCDecoder", "make_sc_decoder", "f_minsum",
     "g_update", "CRCCodec", "crc_check", "crc_encode", "make_scl_decoder_scan",
     "CASCLDecoder", "SCLDecoder", "make_scl_decoder", "select_best_path",
+    "AdaptiveCASCLDecoder",
 ]

@@ -26,9 +26,10 @@ schedule event actually reads the level (lazy list permutations).
 Everything in this module is plain PyTorch on the device of its inputs; it
 is the version the CUDA kernels of ``ops/scl_cuda.py`` are held against bit
 for bit, and the one that runs on the CPU.  ``make_scl_decoder_scan`` builds
-a decoder with either the plain control (``"unroll-fused"``) or the kernel
-control (``"unroll-kernel"``: one ``scl_chunk_step`` launch per chunk and one
-``scl_last_chunk`` launch).
+a decoder with the plain control (``"unroll-fused"``), the kernel control
+(``"unroll-kernel"``: one ``scl_chunk_step`` launch per chunk and one
+``scl_last_chunk`` launch) or the one-launch control (``"mega"``: the whole
+decode in one ``scl_decode_mega`` launch).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ _LEVELPAR_MAX = 64
 torch.exp(torch.zeros(1))
 
 _UNPORTED_CONTROLS = ("split", "fused", "kernel", "kernel-interpret",
-                      "unroll-kernel-interpret", "mega", "mega-interpret")
+                      "unroll-kernel-interpret", "mega-interpret")
 
 
 # ---------------------------------------------------------------------------
@@ -589,7 +590,12 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     * ``"unroll-kernel"``: one ``scl_chunk_step`` kernel launch per chunk
       ``0..C−2`` and one ``scl_last_chunk`` launch (``ops/scl_cuda.py``); a
       single-chunk code (``C == 1``) is one ``scl_chunk_body`` launch followed
-      by the butterfly.  The default on a CUDA device; float32 only.
+      by the butterfly.  The default on a CUDA device; float32 only;
+    * ``"mega"``: the whole decode in ONE ``scl_decode_mega`` launch (bit
+      reversal of the LLRs, state set-up, every chunk, the root butterfly) on
+      a CUDA device, float32 only; on the CPU it runs the plain chunk program,
+      which computes the same function.  Any batch; a code whose working set
+      one thread block cannot hold raises ``ValueError``.
 
     ``body_impl``: ``"torch"`` (the plain chunk bodies) or ``"cuda"`` (the
     ``scl_chunk_body`` kernel inside the plain glue of ``"unroll-fused"``).
@@ -602,9 +608,9 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     meets; not for ±inf LLRs.
 
     Not in this package yet (``NotImplementedError``): ``perm_impl="onehot"``,
-    ``node_mode="fast"``, ``leaf_impl="sort"``, and the scan, per-chunk-kernel
-    and whole-decode controls ``"split"``, ``"fused"``, ``"kernel"``,
-    ``"mega"`` and their interpret twins.
+    ``node_mode="fast"``, ``leaf_impl="sort"``, the scan and per-chunk-kernel
+    controls ``"split"``, ``"fused"``, ``"kernel"``, and the interpret twins of
+    the kernel controls (a CUDA kernel has no interpret mode).
     """
     dev = resolve_device(device)
     if perm_impl == "onehot":
@@ -624,13 +630,19 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
             f"control_impl={control_impl!r} is not in this package yet")
     if control_impl is None:
         control_impl = "unroll-kernel" if dev.type == "cuda" else "unroll-fused"
-    if control_impl not in ("unroll-fused", "unroll-kernel"):
+    if control_impl not in ("unroll-fused", "unroll-kernel", "mega"):
         raise ValueError(f"unknown control_impl {control_impl!r}")
+    mega = control_impl == "mega"
+    if mega and body_impl == "cuda":
+        raise ValueError("control_impl='mega' runs the chunk bodies inside its one "
+                         "kernel; body_impl='cuda' does not apply")
+    if mega and dev.type == "cpu":
+        control_impl = "unroll-fused"  # the plain version of the same function
     if body_impl is None:
         body_impl = "torch"
     if body_impl not in ("torch", "cuda"):
         raise ValueError(f"unknown body_impl {body_impl!r}")
-    kernel_path = control_impl == "unroll-kernel" or body_impl == "cuda"
+    kernel_path = control_impl in ("unroll-kernel", "mega") or body_impl == "cuda"
     if kernel_path and dtype != torch.float32:
         raise TypeError(f"the SCL kernels are float32 only, got {dtype}")
 
@@ -670,6 +682,21 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
         assert llr.dim() == 2 and llr.shape[1] == N, "SCL decode expects [batch, N]"
         return llr[:, rev].contiguous()
 
+    if control_impl == "mega":
+        from ...ops.scl_cuda import SCLMegaPlan, scl_decode_mega_cuda
+
+        plan = SCLMegaPlan(sched)
+
+        def decode_mega(llr):
+            llr = torch.as_tensor(llr, device=dev).to(dtype)
+            assert llr.dim() == 2 and llr.shape[1] == N, "SCL decode expects [batch, N]"
+            return scl_decode_mega_cuda(llr.contiguous(), plan)
+
+        decode_mega.schedule = sched
+        decode_mega.control_impl = "mega"
+        decode_mega.live_width = False
+        return decode_mega
+
     if control_impl == "unroll-kernel":
         from ...ops.scl_cuda import make_scl_kernel_decoder
 
@@ -700,7 +727,7 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
             return _finish(beta, pm)
 
         decode_single.schedule = sched
-        decode_single.control_impl = control_impl
+        decode_single.control_impl = "mega" if mega else control_impl
         decode_single.live_width = live_on
         return decode_single
 
@@ -724,6 +751,6 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
         return _finish(cur, pm)
 
     decode.schedule = sched
-    decode.control_impl = control_impl
+    decode.control_impl = "mega" if mega else control_impl
     decode.live_width = live_on
     return decode

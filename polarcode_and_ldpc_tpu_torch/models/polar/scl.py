@@ -76,7 +76,8 @@ class SCLDecoder(nn.Module):
 
     ``chunk`` / ``body_impl`` / ``control_impl`` tune the chunked decoder: on
     a CUDA device the default is the kernel control (``"unroll-kernel"``), on
-    the CPU the plain one (``"unroll-fused"``).
+    the CPU the plain one (``"unroll-fused"``); ``"mega"`` is the whole decode
+    in one kernel launch.
     """
 
     def __init__(self, N: int, K: int, list_size: int = 8,
@@ -146,6 +147,6 @@ class CASCLDecoder(SCLDecoder):
     def __init__(self, N: int, K: int, list_size: int = 8,
                  frozen_bits: Optional[np.ndarray] = None,
                  crc_polynomial: str = "CRC-8", dtype=torch.float32,
-                 device="cuda"):
+                 control_impl: Optional[str] = None, device="cuda"):
         super().__init__(N, K, list_size, frozen_bits, True, crc_polynomial,
-                         dtype, device=device)
+                         dtype, control_impl=control_impl, device=device)

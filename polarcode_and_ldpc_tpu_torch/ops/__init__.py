@@ -7,9 +7,11 @@ nothing; kernels are compiled at first use (``ops/build.py``).
 
 from __future__ import annotations
 
-# the LDPC kernel counts its two check rules apart: they are two code paths
+# the LDPC kernel counts its two check rules and its layered schedule apart:
+# they are three code paths
 _LAUNCHES = {"sc_decode": 0, "bp_decode_bp": 0, "bp_decode_ms": 0,
-             "scl_chunk_body": 0, "scl_chunk_step": 0, "scl_last_chunk": 0}
+             "bp_decode_layered": 0, "scl_chunk_body": 0, "scl_chunk_step": 0,
+             "scl_last_chunk": 0, "scl_decode_mega": 0}
 
 
 def count_launch(name: str) -> None:

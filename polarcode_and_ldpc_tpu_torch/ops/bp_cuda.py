@@ -1,19 +1,23 @@
-"""Fused LDPC decode kernel (flooding schedule): wrapper, kernel tables,
-implementation policy.
+"""Fused LDPC decode kernels (flooding and row-layered schedules): wrapper,
+kernel tables, implementation policy.
 
 ``csrc/bp_decode.cu`` replaces the TPU kernel
-``polarcode_and_ldpc_tpu/ops/bp_pallas.py::make_bp_decoder_pallas`` in its
-flooding form: sum-product or min-sum (NMS α / OMS β) message passing,
-syndrome, per-frame iteration count and early exit in one launch, one thread
-block per frame, every message in shared memory, the two message layouts
-linked by gather index tables.  Bound: operations (the iterations each frame
-actually runs); see the note at the top of the source.  The layered schedule
-of the same TPU kernel is not ported yet.
+``polarcode_and_ldpc_tpu/ops/bp_pallas.py::make_bp_decoder_pallas``.  Its
+flooding form (``bp_decode_kernel``): sum-product or min-sum (NMS α / OMS β)
+message passing, syndrome, per-frame iteration count and early exit in one
+launch, one thread block per frame, every message in shared memory, the two
+message layouts linked by gather index tables.  Its layered form
+(``bp_layered_decode_kernel``, ``schedule="layered"``, min-sum only): the
+running totals Q and the check messages R in shared memory, each layer two
+passes (checks, then variables) with a block barrier between.  Bound:
+operations (the iterations each frame actually runs); see the notes in the
+source.
 
-The plain PyTorch versions of the same function are
-``models.ldpc.bp.make_bp_decoder`` / ``models.ldpc.minsum.make_ms_decoder``.
-``bp_decode`` uses them only for a tensor that lies on the CPU; on a CUDA
-tensor it launches the kernel or raises.
+The plain PyTorch versions of the same functions are
+``models.ldpc.bp.make_bp_decoder`` / ``models.ldpc.minsum.make_ms_decoder`` /
+``models.ldpc.layered.make_layered_ms_decoder``.  ``bp_decode`` uses them only
+for a tensor that lies on the CPU; on a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from ..models.ldpc.bp import make_bp_decoder
 from ..models.ldpc.graph import TannerGraph
+from ..models.ldpc.layered import layer_bounds, make_layered_ms_decoder
 from ..models.ldpc.minsum import make_ms_decoder
 from . import build, count_launch
 
@@ -54,9 +59,14 @@ def kernel_tables(graph: TannerGraph) -> dict:
             for k, a in (("cv_idx", cv_idx), ("vc_idx", vc_idx), ("chk_var", chk_var))}
 
 
-def smem_bytes(graph: TannerGraph) -> int:
-    """Shared memory the kernel needs for one frame of this graph."""
-    return (graph.dv_max * graph.n + 2 * graph.dc_max * graph.m + graph.n) * 4 + graph.n
+def smem_bytes(graph: TannerGraph, layer_checks: int = 0) -> int:
+    """Shared memory the kernel needs for one frame of this graph: the
+    flooding kernel by default, the layered kernel when ``layer_checks`` (the
+    size of the widest layer) is given."""
+    n, m, dv, dc = graph.n, graph.m, graph.dv_max, graph.dc_max
+    if layer_checks:
+        return (n + dc * m + 2 * dc * layer_checks) * 4 + n
+    return (dv * n + 2 * dc * m + n) * 4 + n
 
 
 class BPKernelPlan:
@@ -64,10 +74,18 @@ class BPKernelPlan:
     plus the plain decoder of the same configuration."""
 
     def __init__(self, graph: TannerGraph, max_iter: int = 20, early_stop: bool = True,
-                 check_rule: str = "bp", normalization: float = 1.0, offset: float = 0.0):
+                 check_rule: str = "bp", normalization: float = 1.0, offset: float = 0.0,
+                 schedule: str = "flooding", num_layers: int = 4):
         if check_rule not in _RULES:
             raise ValueError(f"unknown check_rule {check_rule!r}")
-        need = smem_bytes(graph)
+        if schedule not in ("flooding", "layered"):
+            raise ValueError(f"unknown schedule {schedule!r}")
+        self.layered = schedule == "layered"
+        if self.layered and check_rule != "ms":
+            raise ValueError("the layered schedule is min-sum only")
+        bounds = layer_bounds(graph.m, num_layers) if self.layered else []
+        self.layer_checks = max((c1 - c0 for c0, c1 in bounds), default=0)
+        need = smem_bytes(graph, self.layer_checks)
         if need > SMEM_LIMIT_BYTES:
             raise ValueError(
                 f"this code needs {need} bytes of shared memory per frame "
@@ -81,7 +99,12 @@ class BPKernelPlan:
         self.offset = float(offset)
         self.tables = {k: torch.from_numpy(v).to(graph.device)
                        for k, v in kernel_tables(graph).items()}
-        if check_rule == "bp":
+        if self.layered:
+            starts = np.asarray([c0 for c0, _ in bounds] + [graph.m], np.int32)
+            self.tables["layer_starts"] = torch.from_numpy(starts).to(graph.device)
+            self.plain = make_layered_ms_decoder(graph, max_iter, normalization, offset,
+                                                 early_stop, torch.float32, num_layers)
+        elif check_rule == "bp":
             self.plain = make_bp_decoder(graph, max_iter, early_stop, torch.float32)
         else:
             self.plain = make_ms_decoder(graph, max_iter, normalization, offset,
@@ -108,20 +131,32 @@ def bp_decode_cuda(llr: torch.Tensor, plan: BPKernelPlan):
     B = llr.shape[0]
     bits = torch.empty((B, g.n), dtype=torch.int8, device=llr.device)
     iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
-    fn = lib.bp_decode_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     t = plan.tables
+    tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     with torch.cuda.device(llr.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(llr.data_ptr(), bits.data_ptr(), iters.data_ptr(),
-                  t["cv_idx"].data_ptr(), t["vc_idx"].data_ptr(),
-                  t["chk_var"].data_ptr(), B, g.n, g.m, g.dv_max, g.dc_max,
-                  plan.max_iter, int(plan.early_stop), _RULES[plan.check_rule],
-                  plan.normalization, plan.offset, _THREADS, stream)
-    build.check_launch(lib, code, "bp_decode")
-    count_launch(f"bp_decode_{plan.check_rule}")
+        if plan.layered:
+            fn = lib.bp_layered_decode_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + tail
+            code = fn(llr.data_ptr(), bits.data_ptr(), iters.data_ptr(),
+                      t["vc_idx"].data_ptr(), t["chk_var"].data_ptr(),
+                      t["layer_starts"].data_ptr(), B, g.n, g.m, g.dv_max, g.dc_max,
+                      t["layer_starts"].numel() - 1, plan.layer_checks, plan.max_iter,
+                      int(plan.early_stop), plan.normalization, plan.offset, _THREADS,
+                      stream)
+        else:
+            fn = lib.bp_decode_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + tail
+            code = fn(llr.data_ptr(), bits.data_ptr(), iters.data_ptr(),
+                      t["cv_idx"].data_ptr(), t["vc_idx"].data_ptr(),
+                      t["chk_var"].data_ptr(), B, g.n, g.m, g.dv_max, g.dc_max,
+                      plan.max_iter, int(plan.early_stop), _RULES[plan.check_rule],
+                      plan.normalization, plan.offset, _THREADS, stream)
+    name = "bp_decode_layered" if plan.layered else f"bp_decode_{plan.check_rule}"
+    build.check_launch(lib, code, name)
+    count_launch(name)
     return bits, iters
 
 
@@ -136,16 +171,24 @@ def bp_decode(llr: torch.Tensor, plan: BPKernelPlan):
 def resolve_bp_impl(graph: TannerGraph, plain_decode, max_iter: int,
                     early_stop: bool, dtype, impl: Optional[str] = None,
                     check_rule: str = "bp", normalization: float = 1.0,
-                    offset: float = 0.0):
+                    offset: float = 0.0, schedule: str = "flooding",
+                    num_layers: int = 4):
     """The one place that picks the LDPC decoder implementation (used by
     ``BPDecoder`` and ``sim.pipelines.make_ldpc_pipeline``).
 
     ``impl``: ``"cuda"`` (the fused kernel; float32 only; the default when
     the graph is on a CUDA device) or ``"torch"`` (the given plain decoder;
     the default on the CPU).  Returns ``(decode_fn, impl)`` with
-    ``decode_fn(llr [B, n]) -> (bits, iters)``.  Nothing falls back: a
-    float64 decoder on a CUDA device must ask for ``impl="torch"``.
+    ``decode_fn(llr [B, n]) -> (bits, iters)``.  ``schedule="layered"``
+    (min-sum only, ``num_layers`` contiguous check groups) picks the layered
+    kernel; ``plain_decode`` must then be the layered plain decoder.  Nothing
+    falls back: a float64 decoder on a CUDA device must ask for
+    ``impl="torch"``.
     """
+    if schedule not in ("flooding", "layered"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if schedule == "layered" and check_rule != "ms":
+        raise ValueError("the layered schedule is min-sum only")
     if impl is None:
         impl = "cuda" if graph.device.type == "cuda" else "torch"
     if impl == "torch":
@@ -156,7 +199,8 @@ def resolve_bp_impl(graph: TannerGraph, plain_decode, max_iter: int,
         raise TypeError(
             f"the LDPC kernel is float32 only, got {dtype}; ask for the "
             "plain implementation (impl='torch') for other dtypes")
-    plan = BPKernelPlan(graph, max_iter, early_stop, check_rule, normalization, offset)
+    plan = BPKernelPlan(graph, max_iter, early_stop, check_rule, normalization, offset,
+                        schedule, num_layers)
 
     def decode(llr):
         llr = torch.as_tensor(llr, device=graph.device)

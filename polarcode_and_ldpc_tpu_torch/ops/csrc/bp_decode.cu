@@ -1,7 +1,9 @@
-// Whole-decode LDPC message passing (flooding schedule) for Hopper (sm_90a).
+// Whole-decode LDPC message passing for Hopper (sm_90a): the flooding
+// schedule (bp_decode_kernel) and the row-layered min-sum schedule
+// (bp_layered_decode_kernel, described above that kernel).
 //
 // Replaces the TPU kernel polarcode_and_ldpc_tpu/ops/bp_pallas.py
-// (make_bp_decoder_pallas, flooding schedule): sum-product (tanh clipped to
+// (make_bp_decoder_pallas): sum-product (tanh clipped to
 // +-0.999999, 2*atanh written log1p(p) - log1p(-p)) or min-sum with
 // normalization alpha / offset beta, syndrome check, per-frame iteration
 // count and early exit, in ONE kernel.
@@ -163,6 +165,144 @@ __global__ void bp_decode_kernel(const float* __restrict__ llr,
   if (threadIdx.x == 0) iters_out[frame] = iters;
 }
 
+// Row-layered min-sum (schedule="layered" of make_bp_decoder_pallas,
+// _layered_iteration): the checks are cut into contiguous layers
+// [layer_starts[g], layer_starts[g+1]); within an iteration the layers run one
+// after the other, each reading the totals the earlier layers left.
+//
+// One thread block per frame, as the flooding kernel.  In shared memory for
+// the whole decode: the running totals Q [n], the check messages R [dc*m]
+// (slot-major), the hard decisions, and for the layer at hand the prefix
+// signs T and the prefix minima / deltas D, [dc*layer_checks] each.  The
+// TPU kernel's one-hot permutation tensors are the gather tables here.
+//
+// A layer is TWO PASSES with a block barrier between, because a contiguous
+// layer may hold two edges of one variable and every check of the layer
+// must read Q before any delta lands:
+//   pass 1, threads over the layer's checks: qtemp = Q[v] - R_old per slot,
+//     exclusive prefix then suffix sweeps in slot order (sign product with
+//     sign(0) = 0, minimum magnitude; a padded slot is the identity: sign 1,
+//     magnitude +inf), beta then alpha, a non-finite result -> 0; stores
+//     R_new and delta = R_new - R_old;
+//   pass 2, threads over the variables: Q[v] += delta of slot sp, for
+//     sp = 0..dv-1 in order, where that slot's check lies in the layer.  Each
+//     (v, slot) receives from exactly one edge, so this is the plain version's
+//     order of additions; no atomics.
+// The plain version adds an exact 0.0 for every slot outside the layer; the
+// kernel skips those adds.  That can only change the sign of a zero total,
+// and Q <= 0, |Q - R| and sign(Q - R) are the same for -0.0 and +0.0.
+__global__ void bp_layered_decode_kernel(const float* __restrict__ llr,
+                                         int8_t* __restrict__ bits_out,
+                                         int* __restrict__ iters_out,
+                                         const int* __restrict__ vc_idx,   // [dv*n] index into R, -1 = padded
+                                         const int* __restrict__ chk_var,  // [dc*m] variable of the slot, -1 = padded
+                                         const int* __restrict__ layer_starts,  // [layers + 1]
+                                         int n, int m, int dv, int dc, int layers,
+                                         int layer_checks, int max_iter, int early_stop,
+                                         float normalization, float offset) {
+  extern __shared__ __align__(16) float smem[];
+  float* Q = smem;                           // [n] running totals
+  float* R = Q + n;                          // [dc*m] check-to-variable messages
+  float* T = R + (size_t)dc * m;             // [dc*layer_checks] prefix sign products
+  float* D = T + (size_t)dc * layer_checks;  // [dc*layer_checks] prefix minima, then deltas
+  uint8_t* hard = reinterpret_cast<uint8_t*>(D + (size_t)dc * layer_checks);  // [n]
+
+  const int frame = blockIdx.x;
+  const float* in = llr + (size_t)frame * n;
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    const float l = in[v];
+    Q[v] = l;
+    hard[v] = l <= 0.0f ? 1 : 0;
+  }
+  for (int e = threadIdx.x; e < dc * m; e += blockDim.x) R[e] = 0.0f;
+  __syncthreads();
+
+  int iters = max_iter;
+  for (int it = 0; it < max_iter; ++it) {
+    for (int g = 0; g < layers; ++g) {
+      const int c0 = __ldg(layer_starts + g), c1 = __ldg(layer_starts + g + 1);
+      // ---- pass 1: the layer's checks, all reading Q as the layer found it ----
+      for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+        float run_s = 1.0f, run_m = CUDART_INF_F;
+        for (int s = 0; s < dc; ++s) {
+          const int v = __ldg(chk_var + s * m + c);
+          float sg = 1.0f, mg = CUDART_INF_F;
+          if (v >= 0) {
+            const float x = Q[v] - R[s * m + c];
+            sg = (float)((x > 0.0f) - (x < 0.0f));
+            mg = fabsf(x);
+          }
+          const int k = s * layer_checks + (c - c0);
+          T[k] = run_s;
+          D[k] = run_m;
+          run_s = run_s * sg;
+          run_m = fminf(run_m, mg);
+        }
+        run_s = 1.0f;
+        run_m = CUDART_INF_F;
+        for (int s = dc - 1; s >= 0; --s) {
+          const int e = s * m + c, k = s * layer_checks + (c - c0);
+          const int v = __ldg(chk_var + e);
+          const float r_old = R[e];
+          float sg = 1.0f, mg = CUDART_INF_F;
+          if (v >= 0) {
+            const float x = Q[v] - r_old;
+            sg = (float)((x > 0.0f) - (x < 0.0f));
+            mg = fabsf(x);
+          }
+          float mag = fminf(D[k], run_m);
+          if (offset != 0.0f) mag = fmaxf(mag - offset, 0.0f);
+          float out = (T[k] * run_s) * mag;
+          out = out * normalization;
+          const float r_new = (v >= 0 && isfinite(out)) ? out : 0.0f;
+          D[k] = v >= 0 ? r_new - r_old : 0.0f;
+          R[e] = r_new;
+          run_s = run_s * sg;
+          run_m = fminf(run_m, mg);
+        }
+      }
+      __syncthreads();
+      // ---- pass 2: the totals absorb the deltas in variable-slot order ----
+      for (int v = threadIdx.x; v < n; v += blockDim.x) {
+        float q = Q[v];
+        for (int sp = 0; sp < dv; ++sp) {
+          const int idx = __ldg(vc_idx + sp * n + v);
+          if (idx < 0) continue;
+          const int s = idx / m, c = idx - s * m;
+          if (c >= c0 && c < c1) q = q + D[s * layer_checks + (c - c0)];
+        }
+        Q[v] = q;
+      }
+      __syncthreads();
+    }
+
+    for (int v = threadIdx.x; v < n; v += blockDim.x) hard[v] = Q[v] <= 0.0f ? 1 : 0;
+    __syncthreads();
+
+    // ---- syndrome after the whole iteration; the frame stops at its own
+    // first zero syndrome ----
+    if (early_stop) {
+      int bad = 0;
+      for (int c = threadIdx.x; c < m; c += blockDim.x) {
+        int parity = 0;
+        for (int s = 0; s < dc; ++s) {
+          const int v = __ldg(chk_var + s * m + c);
+          if (v >= 0) parity ^= hard[v];
+        }
+        bad |= parity;
+      }
+      if (!__syncthreads_or(bad)) {
+        iters = it + 1;
+        break;
+      }
+    }
+  }
+
+  int8_t* out = bits_out + (size_t)frame * n;
+  for (int v = threadIdx.x; v < n; v += blockDim.x) out[v] = (int8_t)hard[v];
+  if (threadIdx.x == 0) iters_out[frame] = iters;
+}
+
 }  // namespace
 
 extern "C" const char* pl_error_string(int code) {
@@ -188,5 +328,26 @@ extern "C" int bp_decode_launch(const float* llr, int8_t* bits, int* iters,
   bp_decode_kernel<<<B, threads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       llr, bits, iters, cv_idx, vc_idx, chk_var, n, m, dv, dc, max_iter,
       early_stop, rule, normalization, offset);
+  return (int)cudaGetLastError();
+}
+
+// bytes of shared memory one frame needs in the layered kernel
+extern "C" long long bp_layered_decode_smem_bytes(int n, int m, int dc, int layer_checks) {
+  return ((long long)n + (long long)dc * m + 2LL * dc * layer_checks) * 4 + n;
+}
+
+extern "C" int bp_layered_decode_launch(const float* llr, int8_t* bits, int* iters,
+                                        const int* vc_idx, const int* chk_var,
+                                        const int* layer_starts, int B, int n, int m,
+                                        int dv, int dc, int layers, int layer_checks,
+                                        int max_iter, int early_stop, float normalization,
+                                        float offset, int threads, void* stream) {
+  const long long smem = bp_layered_decode_smem_bytes(n, m, dc, layer_checks);
+  cudaError_t err = cudaFuncSetAttribute(
+      bp_layered_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bp_layered_decode_kernel<<<B, threads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+      llr, bits, iters, vc_idx, chk_var, layer_starts, n, m, dv, dc, layers, layer_checks,
+      max_iter, early_stop, normalization, offset);
   return (int)cudaGetLastError();
 }

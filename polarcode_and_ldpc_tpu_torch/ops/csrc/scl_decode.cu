@@ -8,6 +8,9 @@
 //   scl_last_chunk   replaces ops/scl_superchunk_pallas.py
 //                    (make_last_superchunk_pallas): one g, body, ascend to the
 //                    root composing R into every pending, final butterfly
+//   scl_decode_mega  replaces ops/scl_mega_pallas.py (make_scl_mega_pallas):
+//                    the whole chunked list decode in ONE launch; described
+//                    above that kernel
 //
 // What bounds them: per chunk a frame moves a few tens of KB of level stacks
 // and does ~S*log2(S)*L cheap operations, so the roofline is the memory rate;
@@ -116,19 +119,20 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
   }
 }
 
-__global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
-                                      int* pend_a, int* pend_b, float* pm,
-                                      const int4* __restrict__ prog, int n_ops, int has_R,
-                                      Geometry g, int k, int inv, int j, int mask_a, int mask_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int frame = blockIdx.x * warps + warp;
-  if (frame >= g.B) return;
-  const int N = g.N, S = g.S, L = g.L, t = g.t;
-  const Ctx c = make_ctx(reinterpret_cast<float*>(smem_raw) + (size_t)warp * ctx_words(L, S, g.lgS),
-                         L, S, g.lgS, lane);
-  const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
-  const float* x = llr + (size_t)frame * N;
+// The arguments of one chunk step, as a launch passes them or as the
+// whole-decode kernel reads them from its step table (8 ints per chunk).
+struct StepArgs {
+  int k, inv, j, mask_a, mask_b, prog_off, n_ops, has_R;
+};
+
+// One chunk step of one frame: descend -> body -> pending composes -> ascend.
+// `x` is the frame's LLRs in bit-reversed storage, `pm` its L metrics in
+// device memory (read, then written).
+__device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, const Stacks& st,
+                                           const float* x, float* pm, const int4* prog,
+                                           const StepArgs& a) {
+  const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
+  const int k = a.k, inv = a.inv, j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
 
   // ---- descend: one g at level t-k (all f from the LLRs when k == t), then
   // an f chain down to level t; every written level's pend_a resets
@@ -166,13 +170,13 @@ __global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alph
 
   // ---- chunk body on a shared-memory copy of the level-t alpha
   {
-    const float* a = st.alpha(t);
-    for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = a[i];
-    if (lane < L) c.pm[lane] = pm[(size_t)frame * L + lane];
+    const float* top = st.alpha(t);
+    for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = top[i];
+    if (lane < L) c.pm[lane] = pm[lane];
     __syncwarp();
   }
-  chunk_body(c, prog, n_ops, has_R);
-  if (lane < L) pm[(size_t)frame * L + lane] = c.pm[lane];
+  chunk_body(c, prog, a.n_ops, a.has_R);
+  if (lane < L) pm[lane] = c.pm[lane];
 
   // ---- compose the chunk's R into the live pendings: p[l] = p[R[l]]
   for (int l = 1; l <= t; ++l) {
@@ -208,26 +212,35 @@ __global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alph
   if (lane < L) st.pend_b(t - j)[lane] = lane;
 }
 
-__global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
-                                      int* pend_a, int* pend_b, const float* pm,
-                                      int8_t* __restrict__ u, float* __restrict__ pm_out,
-                                      const int4* __restrict__ prog, int n_ops, int has_R,
-                                      Geometry g, int log2N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int frame = blockIdx.x * warps + warp;
-  if (frame >= g.B) return;
-  const int N = g.N, S = g.S, L = g.L, t = g.t;
-  const int per_warp = ctx_words(L, S, g.lgS) + N;
-  float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
-  const Ctx c = make_ctx(base, L, S, g.lgS, lane);
-  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(L, S, g.lgS));
-  const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
-  const float* x = llr + (size_t)frame * N;
+// Butterfly u = beta * G in storage order on the N packed words of `root`
+// (shared memory), then natural order on the way out: u is [L][N] int8.
+__device__ __forceinline__ void root_out(uint32_t* root, int N, int L, int log2N, int8_t* u,
+                                         int lane) {
+  for (int s = 1; s < N; s <<= 1) {
+    for (int idx = lane; idx < N / 2; idx += kWarp) {
+      const int p = ((idx / s) * 2 * s) + (idx % s);
+      root[p] ^= root[p + s];
+    }
+    __syncwarp();
+  }
+  const int shift = 32 - log2N;
+  for (int i = lane; i < N; i += kWarp) {
+    const uint32_t w = root[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
+    for (int l = 0; l < L; ++l) u[(size_t)l * N + i] = (int8_t)((w >> l) & 1u);
+  }
+}
 
+// The last chunk of one frame: one g at level t, body, ascend to the root
+// (the chunk's R composes into each pend_b on the way), butterfly, outputs.
+// `pm` may be the same memory as `pm_out`: it is read before it is written.
+__device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
+                                           const Stacks& st, const float* x, const float* pm,
+                                           int8_t* u, float* pm_out, const int4* prog,
+                                           int n_ops, int has_R, int log2N) {
+  const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
   // ---- descend: a single g at level t, straight into shared memory
   descend_g(g, st, x, t, false, c.alpha, lane);
-  if (lane < L) c.pm[lane] = pm[(size_t)frame * L + lane];
+  if (lane < L) c.pm[lane] = pm[lane];
   __syncwarp();
   chunk_body(c, prog, n_ops, has_R);
 
@@ -244,22 +257,116 @@ __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alph
     __syncwarp();
   }
 
-  // ---- butterfly u = beta * G in storage order on the packed words, then
-  // natural order on the way out
-  for (int s = 1; s < N; s <<= 1) {
-    for (int idx = lane; idx < N / 2; idx += kWarp) {
-      const int p = ((idx / s) * 2 * s) + (idx % s);
-      root[p] ^= root[p + s];
+  root_out(root, N, L, log2N, u, lane);
+  if (lane < L) pm_out[lane] = c.pm[lane];
+}
+
+__global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
+                                      int* pend_a, int* pend_b, float* pm,
+                                      const int4* __restrict__ prog, Geometry g, StepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int frame = blockIdx.x * warps + warp;
+  if (frame >= g.B) return;
+  const Ctx c = make_ctx(
+      reinterpret_cast<float*>(smem_raw) + (size_t)warp * ctx_words(g.L, g.S, g.lgS), g.L, g.S,
+      g.lgS, lane);
+  chunk_step(c, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
+             llr + (size_t)frame * g.N, pm + (size_t)frame * g.L, prog, a);
+}
+
+__global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
+                                      int* pend_a, int* pend_b, const float* pm,
+                                      int8_t* __restrict__ u, float* __restrict__ pm_out,
+                                      const int4* __restrict__ prog, int n_ops, int has_R,
+                                      Geometry g, int log2N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int frame = blockIdx.x * warps + warp;
+  if (frame >= g.B) return;
+  const int per_warp = ctx_words(g.L, g.S, g.lgS) + g.N;
+  float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
+  const Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(g.L, g.S, g.lgS));
+  last_chunk(c, root, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
+             llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
+             u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog, n_ops, has_R,
+             log2N);
+}
+
+// The whole chunked list decode of a frame in ONE launch (replaces
+// ops/scl_mega_pallas.py, make_scl_mega_pallas): bit-reverse the LLRs, seed the
+// metrics (0 / -inf) and the pendings (identity), walk the C - 1 chunk steps
+// from a step table in device memory (8 ints per chunk: k, inv, j, compose
+// masks, offset and length of the chunk's node program, has_R), then the last
+// chunk, the root butterfly and the outputs.  It runs the very device
+// functions of the per-chunk kernels in the same order, so it equals them bit
+// for bit.  A single-chunk code (t == 0) is body + butterfly.
+//
+// Where the level stacks live: in a SCRATCH buffer in device memory that the
+// wrapper allocates and that never leaves the launch (the bit-reversed LLRs,
+// alpha, packed beta, the pendings), exactly where the chunk-step kernel
+// keeps them between launches; only llr is an input and only u and pm are
+// outputs, so the bytes bound is 4N + LN + 4L per frame.  Keeping them in
+// shared memory instead (46 KB per frame at N=1024, L=8) would leave 4 warps
+// per SM.  Each level is written and re-read by the same warp with a
+// __syncwarp between; the scratch pointers are plain (no const __restrict__).
+// One warp per frame; shared memory per warp is the body context plus the
+// N-word root plane, as in the last-chunk kernel.
+__global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr_rev, float* alpha,
+                                       uint32_t* beta, int* pend_a, int* pend_b,
+                                       int8_t* __restrict__ u, float* pm,
+                                       const int4* __restrict__ prog,
+                                       const int* __restrict__ steps, int C, Geometry g,
+                                       int log2N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int frame = blockIdx.x * warps + warp;
+  if (frame >= g.B) return;
+  const int N = g.N, S = g.S, L = g.L, t = g.t;
+  const int per_warp = ctx_words(L, S, g.lgS) + N;
+  float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
+  const Ctx c = make_ctx(base, L, S, g.lgS, lane);
+  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(L, S, g.lgS));
+  float* x = llr_rev + (size_t)frame * N;
+  float* pm_f = pm + (size_t)frame * L;
+  int8_t* u_f = u + (size_t)frame * L * N;
+
+  // ---- init: LLRs to bit-reversed storage, one live path
+  const float* in = llr + (size_t)frame * N;
+  const int shift = 32 - log2N;
+  for (int i = lane; i < N; i += kWarp)
+    x[i] = in[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
+  if (lane < L) pm_f[lane] = lane == 0 ? 0.0f : -INFINITY;
+  __syncwarp();
+
+  const int* last = steps + 8 * (C - 1);
+  if (t == 0) {  // a single chunk: the body on the LLRs, then the butterfly
+    for (int idx = lane; idx < L * S; idx += kWarp) c.alpha[idx] = x[idx & (S - 1)];
+    if (lane < L) c.pm[lane] = pm_f[lane];
+    __syncwarp();
+    chunk_body(c, prog + last[5], last[6], last[7]);
+    for (int i = lane; i < N; i += kWarp) root[i] = c.beta[i];
+    __syncwarp();
+    root_out(root, N, L, log2N, u_f, lane);
+    if (lane < L) pm_f[lane] = c.pm[lane];
+    return;
+  }
+
+  const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+  for (int l = 1; l <= t; ++l)
+    if (lane < L) {
+      st.pend_a(l)[lane] = lane;
+      st.pend_b(l)[lane] = lane;
     }
+  __syncwarp();
+  for (int ch = 0; ch < C - 1; ++ch) {
+    const int* row = steps + 8 * ch;
+    const StepArgs a{row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7]};
+    chunk_step(c, g, st, x, pm_f, prog + a.prog_off, a);
     __syncwarp();
   }
-  const int shift = 32 - log2N;
-  int8_t* out = u + (size_t)frame * L * N;
-  for (int i = lane; i < N; i += kWarp) {
-    const uint32_t w = root[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
-    for (int l = 0; l < L; ++l) out[(size_t)l * N + i] = (int8_t)((w >> l) & 1u);
-  }
-  if (lane < L) pm_out[(size_t)frame * L + lane] = c.pm[lane];
+  last_chunk(c, root, g, st, x, pm_f, u_f, pm_f, prog + last[5], last[6], last[7], log2N);
 }
 
 template <typename K>
@@ -303,9 +410,10 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
   const int blocks = (B + warps_per_block - 1) / warps_per_block;
+  const StepArgs a{k, inv, j, mask_a, mask_b, 0, n_ops, has_R};
   scl_chunk_step_kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm,
-      reinterpret_cast<const int4*>(prog), n_ops, has_R, g, k, inv, j, mask_a, mask_b);
+      reinterpret_cast<const int4*>(prog), g, a);
   return (int)cudaGetLastError();
 }
 
@@ -322,5 +430,23 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
   scl_last_chunk_kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm, u, pm_out,
       reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N);
+  return (int)cudaGetLastError();
+}
+
+// llr is [B][N] in natural order; llr_rev, alpha, beta, pend_a, pend_b are
+// scratch of the state's shapes (see the top of the file); steps is [C][8].
+extern "C" int scl_decode_mega_launch(const float* llr, float* llr_rev, float* alpha, int* beta,
+                                      int* pend_a, int* pend_b, int8_t* u, float* pm,
+                                      const int* prog, const int* steps, int C, int B, int N,
+                                      int S, int L, int t, int lgS, int log2N,
+                                      int warps_per_block, void* stream) {
+  const size_t smem = (size_t)warps_per_block * (scl_smem_per_frame(L, S, lgS) + 4 * (size_t)N);
+  cudaError_t err = allow_smem(scl_decode_mega_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const Geometry g{B, N, S, L, t, lgS};
+  const int blocks = (B + warps_per_block - 1) / warps_per_block;
+  scl_decode_mega_kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      llr, llr_rev, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, u, pm,
+      reinterpret_cast<const int4*>(prog), steps, C, g, log2N);
   return (int)cudaGetLastError();
 }

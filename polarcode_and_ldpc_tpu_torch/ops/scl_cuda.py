@@ -1,7 +1,7 @@
 """SCL list-decoder kernels: wrappers, host-side node program, device state.
 
 ``csrc/scl_decode.cu`` (device functions in ``csrc/scl_device.cuh``) holds
-three kernels, each one warp per frame with the chunk's working set in shared
+four kernels, each one warp per frame with the chunk's working set in shared
 memory:
 
 * ``scl_chunk_body``: replaces the TPU kernel
@@ -12,7 +12,12 @@ memory:
   ``models.polar.scanscl._make_super_fn``;
 * ``scl_last_chunk``: replaces
   ``ops/scl_superchunk_pallas.py::make_last_superchunk_pallas``; plain version
-  ``models.polar.scanscl._make_last_fn`` with ``transform=True``.
+  ``models.polar.scanscl._make_last_fn`` with ``transform=True``;
+* ``scl_decode_mega``: replaces ``ops/scl_mega_pallas.py::make_scl_mega_pallas``,
+  the whole chunked decode in one launch (the device functions of the chunk
+  step and the last chunk, walked from a step table; the level stacks in a
+  scratch buffer that never leaves the launch); plain version: the
+  ``"unroll-fused"`` chunk program of ``models.polar.scanscl``.
 
 Bound: device-memory bytes (the touched level stacks, read and written once);
 in practice latency, see the note at the top of the source.  Each kernel
@@ -401,6 +406,95 @@ def scl_last_chunk(state: SCLState, spec: SCLStepSpec):
                               dtype=torch.int64)
         return u_rev[..., rev], pm
     return scl_last_chunk_cuda(state, spec)
+
+
+# ---------------------------------------------------------------------------
+# K6: the whole decode in one launch
+# ---------------------------------------------------------------------------
+
+#: columns of one row of the step table of ``scl_decode_mega``
+STEP_TABLE_COLUMNS = ("k", "inv", "j", "mask_a", "mask_b", "prog_off", "n_ops", "has_R")
+
+
+def build_mega_tables(sched: SCLSchedule, programs: Optional[list] = None):
+    """The host-side tables of the one-launch decode: ``(prog int32 [n, 4],
+    steps int32 [C, 8])``.  ``prog`` is the node programs of the code's
+    distinct chunk patterns back to back; row ``c`` of ``steps`` holds chunk
+    ``c``'s launch arguments (``STEP_TABLE_COLUMNS``; the last row is the last
+    chunk, which reads only its program columns)."""
+    if programs is None:
+        programs = [SCLBodyProgram(f, sched.L) for f in sched.unique_flags]
+    offsets = np.concatenate([[0], np.cumsum([len(p.ops) for p in programs])])
+    prog = np.concatenate([p.ops for p in programs]).astype(np.int32)
+    rows = []
+    for c in range(sched.C):
+        pid = int(sched.pattern_ids[c])
+        tail = [int(offsets[pid]), len(programs[pid].ops), int(programs[pid].has_r)]
+        if c == sched.C - 1:
+            rows.append([0, 0, sched.t, 0, 0] + tail)
+            continue
+        k, inv = decode_selector(int(sched.desc_k[c]), sched.t)
+        rows.append([k, int(inv), int(sched.asc_j[c]), _bitmask(sched.comp_a[c]),
+                     _bitmask(sched.comp_b[c])] + tail)
+    return prog, np.asarray(rows, np.int32)
+
+
+class SCLMegaPlan:
+    """One code's tables for ``scl_decode_mega`` (device copies cached per
+    device) and the shared-memory plan of the launch."""
+
+    def __init__(self, sched: SCLSchedule):
+        if not 1 <= sched.L <= MAX_LIST:
+            raise ValueError(f"the SCL kernels take list sizes 1..{MAX_LIST}, got {sched.L}")
+        self.sched = sched
+        per_frame = smem_per_frame(sched.L, sched.S, root_words=sched.N)
+        if per_frame > SMEM_LIMIT_BYTES:
+            raise ValueError(
+                f"the one-launch list decode of N={sched.N}, chunk S={sched.S}, list "
+                f"L={sched.L} needs {per_frame} bytes of shared memory per frame; one "
+                f"thread block has {SMEM_LIMIT_BYTES}")
+        self.warps = _warps_per_block(per_frame, "the one-launch list decode")
+        self.prog, self.steps = build_mega_tables(sched)
+        self._on_device: dict[torch.device, tuple] = {}
+
+    def device_tables(self, device: torch.device):
+        t = self._on_device.get(device)
+        if t is None:
+            t = (torch.from_numpy(self.prog).to(device).contiguous(),
+                 torch.from_numpy(self.steps).to(device).contiguous())
+            self._on_device[device] = t
+        return t
+
+
+def scl_decode_mega_cuda(llr: torch.Tensor, plan: SCLMegaPlan):
+    """Launch the one-launch list decode: ``llr [B, N]`` float32 CUDA
+    contiguous, natural order → ``(u [B, L, N] int8 natural order, pm [B,
+    L])``.  The level stacks are scratch of this call.  Does not synchronise."""
+    s = plan.sched
+    B = llr.shape[0] if llr.dim() == 2 else -1
+    if B < 1:
+        raise ValueError(f"expected llr [B>=1, {s.N}], got {tuple(llr.shape)}")
+    _check_cuda_f32(llr, "llr", (B, s.N))
+    lib, fn = _launcher("scl_decode_mega_launch", [_P] * 10 + [_I] * 9 + [_P])
+    dev = llr.device
+    stack = max(s.N - s.S, 1)
+    llr_rev = torch.empty((B, s.N), dtype=torch.float32, device=dev)
+    alpha = torch.empty((B, s.L * stack), dtype=torch.float32, device=dev)
+    beta = torch.empty((B, stack), dtype=torch.int32, device=dev)
+    pend_a = torch.empty((B, max(s.t, 1), s.L), dtype=torch.int32, device=dev)
+    pend_b = torch.empty_like(pend_a)
+    u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
+    pm = torch.empty((B, s.L), dtype=torch.float32, device=dev)
+    prog, steps = plan.device_tables(dev)
+    with torch.cuda.device(dev):
+        code = fn(llr.data_ptr(), llr_rev.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+                  pend_a.data_ptr(), pend_b.data_ptr(), u.data_ptr(), pm.data_ptr(),
+                  prog.data_ptr(), steps.data_ptr(), s.C, B, s.N, s.S, s.L, s.t,
+                  int(np.log2(s.S)), int(np.log2(s.N)), plan.warps,
+                  torch.cuda.current_stream().cuda_stream)
+    build.check_launch(lib, code, "scl_decode_mega")
+    count_launch("scl_decode_mega")
+    return u, pm
 
 
 def make_scl_kernel_decoder(sched: SCLSchedule):

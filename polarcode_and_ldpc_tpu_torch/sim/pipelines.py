@@ -19,7 +19,9 @@ from ..core.device import resolve_device
 from ..models.ldpc.bp import make_bp_decoder
 from ..models.ldpc.encoder import gf2_matmul
 from ..models.ldpc.graph import TannerGraph
+from ..models.ldpc.layered import make_layered_ms_decoder
 from ..models.ldpc.minsum import make_ms_decoder
+from ..models.ldpc.qc import make_qc_bp_decoder
 from ..models.polar.construction import frozen_mask_from_positions
 from ..models.polar.crc import CRCCodec
 from ..models.polar.encoder import polar_transform
@@ -225,6 +227,7 @@ def make_ldpc_pipeline(
     z: Optional[int] = None,
     bp_impl: Optional[str] = None,
     schedule: str = "flooding",
+    num_layers: int = 4,
     device="cuda",
     rng_x64: bool = False,
 ):
@@ -240,17 +243,17 @@ def make_ldpc_pipeline(
             (defaults to ``0..k-1``, the systematic convention).
         bp_impl: ``None`` (the CUDA kernel on a CUDA device, the plain
             decoder on the CPU), ``"cuda"`` or ``"torch"``.
-        qc_base, z, schedule="layered": the quasi-cyclic and the row-layered
-            decoders are not in this package yet.
+        qc_base, z: shift matrix + lift size of a quasi-cyclic code
+            (``matrix.qc_base_matrix``): message passing then runs through
+            the roll-based QC decoder (``models/ldpc/qc.py``), the path that
+            scales to n=8192.  Equal to the generic decoder on the same H.
+        schedule: ``"flooding"`` (the default) or ``"layered"`` (row-layered
+            serving schedule, min-sum only; on a CUDA device the layered mode
+            of the fused kernel); ``num_layers`` picks the check grouping
+            (ignored on the QC path — base rows are the layers there).
     """
     dev = resolve_device(device)
-    if qc_base is not None:
-        raise NotImplementedError(
-            "the quasi-cyclic decoder (qc_base=) is not in this package yet")
-    if schedule == "layered":
-        raise NotImplementedError(
-            "schedule='layered' is not in this package yet")
-    if schedule != "flooding":
+    if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
     H = np.asarray(H)
     G = torch.as_tensor((np.asarray(G_kn) % 2).astype(np.float32), device=dev)
@@ -260,18 +263,30 @@ def make_ldpc_pipeline(
         dtype=torch.int64, device=dev)
     from ..ops.bp_cuda import resolve_bp_impl
 
-    if decoder == "bp":
+    if qc_base is not None:
+        variant = {"bp": "bp", "ms": "ms", "min-sum": "ms", "nms": "nms",
+                   "oms": "oms"}.get(decoder)
+        if variant is None:
+            raise ValueError(f"unknown LDPC decoder: {decoder!r}")
+        dec = make_qc_bp_decoder(qc_base, z, max_iter, early_stop, dtype, variant,
+                                 normalization, offset, schedule, dev)
+    elif decoder == "bp":
         graph = TannerGraph.from_H(H, dev)
         dec, _ = resolve_bp_impl(
             graph, make_bp_decoder(graph, max_iter, early_stop, dtype),
-            max_iter, early_stop, dtype, bp_impl)
+            max_iter, early_stop, dtype, bp_impl, schedule=schedule)
     elif decoder in ("ms", "min-sum", "nms", "oms"):
         graph = TannerGraph.from_H(H, dev)
-        plain = make_ms_decoder(graph, max_iter, normalization, offset,
-                                early_stop, dtype)
+        if schedule == "layered":
+            plain = make_layered_ms_decoder(graph, max_iter, normalization, offset,
+                                            early_stop, dtype, num_layers)
+        else:
+            plain = make_ms_decoder(graph, max_iter, normalization, offset,
+                                    early_stop, dtype)
         dec, _ = resolve_bp_impl(
             graph, plain, max_iter, early_stop, dtype, bp_impl,
-            check_rule="ms", normalization=normalization, offset=offset)
+            check_rule="ms", normalization=normalization, offset=offset,
+            schedule=schedule, num_layers=num_layers)
     else:
         raise ValueError(f"unknown LDPC decoder: {decoder!r}")
 

@@ -57,6 +57,44 @@ def test_ldpc_code_from_numpy():
     assert np.array_equal(te.info_positions, own.info_positions)
 
 
+def test_qc_code_from_numpy():
+    """The QC code state carried across: base and lift size give the port's
+    encoder (H, G, message positions as the JAX encoder derives them) and the
+    pipeline inputs; decoders built from it equal the JAX decoder on the
+    same base (min-sum: bits and iteration counts)."""
+    from polarcode_and_ldpc_tpu.models.ldpc import matrix as jmat
+
+    N, K, Z = 96, 48, 8
+    base = jmat.qc_base_matrix(N, K, Z, 3, 6, seed=42)
+    jenc = jfec.LDPCEncoder(N, K, H=jmat.qc_expand(base, Z))
+    code = convert.qc_code_from_numpy(base, Z, np.asarray(jenc.G), np.asarray(jenc.info_positions),
+                                      device="cpu")
+    enc = code["encoder"]
+    assert np.array_equal(code["H"], jmat.qc_expand(base, Z))
+    assert np.array_equal(enc.H, np.asarray(jenc.H)) and np.array_equal(enc.G, np.asarray(jenc.G))
+    assert np.array_equal(enc.info_positions, np.asarray(jenc.info_positions))
+    assert np.array_equal(code["qc_base"], base) and code["z"] == Z
+    msgs = np.random.default_rng(2).integers(0, 2, (12, K))
+    cw = enc.encode(msgs)
+    assert np.array_equal(cw.numpy(), np.asarray(jenc.encode(msgs)))
+    own = convert.qc_code_from_numpy(base, Z, device="cpu")  # derives its own generator
+    assert own["encoder"].verify_codeword(own["encoder"].encode(msgs)).all()
+    with pytest.raises(ValueError, match="2-D"):
+        convert.qc_code_from_numpy(base[0], Z, device="cpu")
+    llr = _llr((16, N), 4).to(torch.float32)
+    td = tfec.QCBPDecoder(code["qc_base"], code["z"], 10, variant="nms", normalization=0.75,
+                          device="cpu")
+    jd = jfec.QCBPDecoder(base, Z, 10, variant="nms", normalization=0.75)
+    gb, gi = td.decode(llr, return_iterations=True)
+    wb, wi = jd.decode(llr.numpy(), return_iterations=True)
+    assert np.array_equal(np.asarray(wb), gb.numpy()) and np.array_equal(np.asarray(wi), gi.numpy())
+    step = make_ldpc_pipeline(code["H"], enc.G, -1.0, decoder="nms", normalization=0.75,
+                              max_iter=10, message_idx=enc.info_positions,
+                              qc_base=code["qc_base"], z=code["z"], device="cpu")
+    out = step(rng.prng_key(0), torch.arange(32))
+    assert out["bit_errors"].shape == (32,) and out["iterations"].dtype == torch.int32
+
+
 @pytest.mark.parametrize("method", ["regular", "mackay"])
 def test_tanner_graph_from_numpy(method):
     je = jfec.LDPCEncoder(96, 48, dv=3, dc=6, seed=5, method=method)

@@ -38,6 +38,9 @@ def test_sources_exist():
                      "polarcode_and_ldpc_tpu_torch/models/polar/scanscl.py",
                      "polarcode_and_ldpc_tpu_torch/models/polar/scl.py",
                      "polarcode_and_ldpc_tpu_torch/models/polar/crc.py",
+                     "polarcode_and_ldpc_tpu_torch/models/polar/adaptive.py",
+                     "polarcode_and_ldpc_tpu_torch/models/ldpc/layered.py",
+                     "polarcode_and_ldpc_tpu_torch/models/ldpc/qc.py",
                      "polarcode_and_ldpc_tpu_torch/sim/montecarlo.py",
                      "polarcode_and_ldpc_tpu_torch/convert.py", "chip_smoke.py"):
         assert expected in names
@@ -70,7 +73,9 @@ for name in names:
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 assert not bad, bad
 assert not os.path.exists(os.environ["POLAR_LDPC_TORCH_BUILD_DIR"]), "import built something"
-assert len(names) >= 20, names
+assert len(names) >= 23, names
+for name in ("models.polar.adaptive", "models.ldpc.layered", "models.ldpc.qc"):
+    assert pkg.__name__ + "." + name in names, name
 print("walked", len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -86,7 +91,9 @@ def test_public_names():
         assert hasattr(fec, name), name
     for name in ("construct_polar_code", "PolarEncoder", "SCDecoder", "SCLDecoder",
                  "CASCLDecoder", "CRCCodec", "crc_encode", "crc_check", "AWGNChannel",
-                 "LDPCEncoder", "BPDecoder", "MSDecoder", "NMSDecoder", "OMSDecoder"):
+                 "LDPCEncoder", "BPDecoder", "MSDecoder", "NMSDecoder", "OMSDecoder",
+                 "AdaptiveCASCLDecoder", "LayeredMSDecoder", "QCBPDecoder", "qc_base_matrix",
+                 "qc_expand", "qc_ldpc_construction"):
         assert name in fec.__all__
 
 
@@ -110,7 +117,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
                   lambda: fec.CRCCodec(8),
                   lambda: fec.crc_encode(np.zeros(8, np.int8)),
                   lambda: fec.PolarEncoder(32, 16, frozen_bits=frozen, use_crc=True),
-                  lambda: make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl")):
+                  lambda: make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl"),
+                  lambda: fec.AdaptiveCASCLDecoder(32, 16, frozen_bits=frozen),
+                  lambda: fec.LayeredMSDecoder(np.eye(4, 8, dtype=np.int64)),
+                  lambda: fec.QCBPDecoder(fec.qc_base_matrix(24, 12, 4, 3, 6, seed=0), 4),
+                  lambda: fec.CASCLDecoder(32, 16, frozen_bits=frozen, control_impl="mega")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 
@@ -131,7 +142,7 @@ def test_unported_options_raise_not_implemented():
         out = step(rng.prng_key(0), torch.arange(8))
         assert out["bit_errors"].shape == (8,) and out["frame_error"].dtype == torch.bool
     # what this package still leaves out says so, by name
-    for kw in (dict(scl_control_impl="mega"), dict(scl_control_impl="split"),
+    for kw in (dict(scl_control_impl="mega-interpret"), dict(scl_control_impl="split"),
                dict(scl_control_impl="fused"), dict(scl_control_impl="kernel"),
                dict(scl_node_mode="fast"), dict(scl_leaf_impl="sort")):
         with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
@@ -146,8 +157,19 @@ def test_unported_options_raise_not_implemented():
             make_scl_decoder(32, mask, 2, impl=impl, device="cpu")
     with pytest.raises(NotImplementedError):
         fec.SCDecoder(32, 16, frozen_bits=frozen, impl="scan", device="cpu")
+    # the one-launch list control, the layered schedule and the quasi-cyclic
+    # decoder are in the package now: the steps build and run
+    step = make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", list_size=2,
+                               scl_control_impl="mega", device="cpu")
+    assert step(rng.prng_key(0), torch.arange(8))["bit_errors"].shape == (8,)
     enc = fec.LDPCEncoder(24, 12, dv=3, dc=6, seed=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="nms", schedule="layered", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_ldpc_pipeline(enc.H, enc.G, 3.0, qc_base=np.zeros((1, 2)), z=12, device="cpu")
+    step = make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="nms", schedule="layered", device="cpu")
+    assert step(rng.prng_key(0), torch.arange(8))["iterations"].shape == (8,)
+    base = fec.qc_base_matrix(24, 12, 4, 3, 6, seed=1)
+    qenc = fec.LDPCEncoder(24, 12, H=fec.qc_expand(base, 4), device="cpu")
+    step = make_ldpc_pipeline(qenc.H, qenc.G, 3.0, qc_base=base, z=4,
+                              message_idx=qenc.info_positions, device="cpu")
+    assert step(rng.prng_key(0), torch.arange(8))["iterations"].shape == (8,)
+    for method in ("gallager", "peg"):
+        with pytest.raises(NotImplementedError, match=method):
+            fec.generate_ldpc_matrix(24, 12, method=method)

@@ -451,7 +451,7 @@ def test_unported_options_raise_with_their_name():
                      (dict(impl="unrolled"), "impl='unrolled'"),
                      (dict(impl="scan"), "impl='scan'")] + [
                          (dict(control_impl=c), f"control_impl={c!r}")
-                         for c in ("split", "fused", "kernel", "mega", "kernel-interpret",
+                         for c in ("split", "fused", "kernel", "kernel-interpret",
                                    "mega-interpret", "unroll-kernel-interpret")]:
         with pytest.raises(NotImplementedError, match=word.replace("'", ".")):
             tscl.make_scl_decoder(32, mask, 2, device="cpu", **kw)
@@ -459,9 +459,12 @@ def test_unported_options_raise_with_their_name():
                dict(control_impl="x"), dict(body_impl="pallas")):
         with pytest.raises(ValueError):
             tscl.make_scl_decoder(32, mask, 2, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="mega"):
-        make_polar_pipeline(32, 16, frozen, 3.0, decoder="scl", scl_control_impl="mega",
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="mega-interpret"):
+        make_polar_pipeline(32, 16, frozen, 3.0, decoder="scl",
+                            scl_control_impl="mega-interpret", device="cpu")
+    # the one-launch control is in the package: on the CPU it is the plain chunk program
+    assert tscl.make_scl_decoder(32, mask, 2, control_impl="mega",
+                                 device="cpu").control_impl == "mega"
     with pytest.raises(NotImplementedError, match="fast"):
         tfec.SCLDecoder(32, 16, frozen_bits=frozen, node_mode="fast", device="cpu")
     # the kernels are float32, run at full width, and hold lists up to 32
