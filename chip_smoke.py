@@ -8,12 +8,13 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA device and ``nvcc``.  It builds the package's CUDA kernels
 from the sources in the checkout, holds each kernel against its plain PyTorch
 version on the card at the shapes the Monte-Carlo main path gives it, drives
-the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8,
-the LDPC BP / min-sum, the row-layered min-sum and the quasi-cyclic n=8192
-pipelines, and the adaptive SC-first CA-SCL serving decoder on batches of
-8192 frames) at full code size through the kernels, checks the frame-id
-invariance of the counters and checkpoint/resume, and prints one JSON line
-per phase.  Any failure raises, and the exit code is then non-zero.
+the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8
+exact and with fast list nodes, the LDPC BP / min-sum, the row-layered
+min-sum and the quasi-cyclic n=8192 pipelines, the adaptive SC-first CA-SCL
+serving decoder on batches of 8192 frames, exact and fast, and the SNR-curve
+CLI) at full code size through the kernels, checks the frame-id invariance of
+the counters and checkpoint/resume, and prints one JSON line per phase.  Any
+failure raises, and the exit code is then non-zero.
 
 The second line from the end lists every kernel with its launches on the main
 path, its error against the plain version, its time, the plain version's
@@ -24,10 +25,13 @@ Phases: ``device``, ``build``, ``kernels`` (SC and LDPC kernels, flooding and
 layered, against their plain versions), ``scl_kernels`` (the list-decode
 kernels: the chunk body on every chunk pattern of the code, the chunk step on
 the level stacks of every chunk position, the last chunk, the one-launch
-decode, whole decodes, other codes), ``polar_sc_mc``, ``polar_cascl_mc``,
-``ldpc_mc``, ``ldpc_layered_mc``, ``ldpc_qc_mc``, ``serving`` (the main paths,
-each with the launch counts set to 0 just before and read just after),
-``invariance``, ``stages``.
+decode, whole decodes, other codes), ``fast_kernels`` (the fast-node
+selection kernel, and the fast node programs of the chunk body, chunk step
+and last chunk in the same way; the one-launch decode must refuse them),
+``polar_sc_mc``, ``polar_cascl_mc``, ``polar_fast_mc``, ``ldpc_mc``,
+``ldpc_layered_mc``, ``ldpc_qc_mc``, ``serving``, ``serving_fast``,
+``snr_curves`` (the main paths, each with the launch counts set to 0 just
+before and read just after), ``invariance``, ``stages``.
 
 ``--quick`` cuts the frame counts (for a first run after a kernel change);
 ``--phases a,b`` runs a subset (then no final ``ok`` line is printed).
@@ -67,8 +71,12 @@ from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder, sele
 from polarcode_and_ldpc_tpu_torch.ops import build
 from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda, smem_bytes
 from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import SCProgram, sc_decode_cuda
-from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_REP,
-                                                       SCLState, make_step_specs,
+from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
+                                                            fastnode_select_cuda,
+                                                            fastnode_select_plain)
+from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_RATE1_FAST,
+                                                       OP_REP, OP_REP_FAST, SCLMegaPlan, SCLState,
+                                                       build_mega_tables, make_step_specs,
                                                        scl_chunk_body_cuda, scl_chunk_step_cuda,
                                                        scl_last_chunk_cuda)
 from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
@@ -107,8 +115,16 @@ QC_LOW_SNR_DB = -1.5
 SERVE_BATCH = 8192
 SERVE_SNRS_DB = {"no_fallback": 3.0, "some_fallback": -0.25, "budget_overflow": -1.0}
 
-PHASES = ("device", "build", "kernels", "scl_kernels", "polar_sc_mc", "polar_cascl_mc",
-          "ldpc_mc", "ldpc_layered_mc", "ldpc_qc_mc", "serving", "invariance", "stages")
+# the fast-node slice: CA-SCL-8 with node_mode="fast" on the same code and
+# chunks; the SNR-curve CLI at full width on a few points
+SNR_CURVE_ARGS = ["--polar-n", "1024", "--ldpc-n", "1008", "--rates", "0.5",
+                  "--snr-range=-1:1:1", "--num-frames", "16384", "--max-errors", "200",
+                  "--batch-size", "4096", "--polar-algorithm", "ca_scl",
+                  "--scl-node-mode", "fast", "--skip-plots", "--seed", "42"]
+
+PHASES = ("device", "build", "kernels", "scl_kernels", "fast_kernels", "polar_sc_mc",
+          "polar_cascl_mc", "polar_fast_mc", "ldpc_mc", "ldpc_layered_mc", "ldpc_qc_mc",
+          "serving", "serving_fast", "snr_curves", "invariance", "stages")
 
 
 def emit(phase: str, **fields) -> None:
@@ -433,9 +449,15 @@ def body_flops(program) -> int:
     pairs, (2L)^2); a rate-0 or repetition node as its zero-decision pass
     (sz/2 * log2(sz) butterflies of 4 operations per path), sz
     log-likelihoods and the sz - 1 adds of their sum.  A rate-0 node branches
-    nothing; a repetition node ends in one leaf."""
+    nothing; a repetition node ends in one leaf.  Fast nodes: a rate-1 node
+    as its penalty (4 per softplus, sz - 1 adds), K = min(L - 1, sz) passes
+    of sz compares per path for its least reliable positions, sz hard
+    decisions, and K stages of L subtractions and a top-L; a fast repetition
+    node as 2 * 7 log-likelihoods and 2 (sz - 1) adds per path, 2L adds and
+    one top-L."""
     L, total = program.L, 0
-    leaf = 14 * L + 2 * L * math.ceil(math.log2(2 * L))
+    top = 2 * L * math.ceil(math.log2(2 * L))
+    leaf = 14 * L + top
     for op, _, sz, _ in program.ops.tolist():
         kind = op & 0xFF
         if kind in (OP_F, OP_G):
@@ -444,6 +466,11 @@ def body_flops(program) -> int:
             total += sz * (1 + L)
         elif kind == OP_LEAF:
             total += leaf
+        elif kind == OP_RATE1_FAST:
+            k = min(L - 1, sz)
+            total += L * (4 * sz + sz - 1 + k * sz + sz) + k * (L + top)
+        elif kind == OP_REP_FAST:
+            total += L * (14 * sz + 2 * (sz - 1)) + 2 * L + top
         else:
             total += L * (2 * sz * int(math.log2(sz)) + 7 * sz + sz - 1)
             total += leaf if kind == OP_REP else 0
@@ -478,10 +505,10 @@ def last_cost(sched, spec) -> tuple[int, int]:
     return byts, flops
 
 
-def kernel_row(name, source_line, ms, plain_ms, byts, flops, err, **extra) -> dict:
+def kernel_row(name, source_line, ms, plain_ms, byts, flops, err,
+               source="polarcode_and_ldpc_tpu_torch/ops/csrc/scl_decode.cu", **extra) -> dict:
     t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return {"name": name, "route": "cuda",
-            "source": "polarcode_and_ldpc_tpu_torch/ops/csrc/scl_decode.cu",
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": source_line, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": None,
@@ -566,6 +593,76 @@ def check_scl_other_codes() -> list:
     return out
 
 
+# the TPU kernels the per-chunk kernels replace: exact mode, and the fast mode
+# the same functions trace with node_mode="fast"
+SCL_REPLACES = {
+    "scl_chunk_step": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:167",
+    "scl_last_chunk": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:356",
+    "scl_chunk_body": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378",
+    "scl_chunk_step_fast": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:173",
+    "scl_last_chunk_fast": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:361",
+    "scl_chunk_body_fast": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:382",
+}
+
+
+def time_scl_kernels(results: dict, sched, steps, last, rev, llr, worst: dict, reps: int,
+                     plain_reps: int) -> tuple[int, int]:
+    """Time K3 at every chunk position, K4, and K5 on every chunk's pattern,
+    each beside its plain version, on the level stacks the decode of ``llr``
+    reaches; write their rows (``_fast`` names for a fast node program).
+    Returns the operations of the chunk steps and of the last chunk."""
+    B = llr.shape[0]
+    suffix = "_fast" if last.program.fast else ""
+    llr_rev = llr[:, rev].contiguous()
+    state = SCLState(sched, llr_rev)
+    step_ms, step_plain_ms, body_ms, body_plain_ms, step_bound_ms = [], [], [], [], []
+    step_bytes = step_flops = body_bytes = body_flops_total = 0
+    L, S = sched.L, sched.S
+    for c, spec in enumerate(steps + [last]):
+        plain_ops = state.to_plain()
+        alpha_t = plain_ops[0][sched.t - 1].contiguous()
+        pm_c = state.pm.clone()
+        body_ms.append(time_ms(lambda: scl_chunk_body_cuda(alpha_t, pm_c, spec.program), reps))
+        body_plain_ms.append(time_ms(lambda: spec.program.plain(alpha_t, pm_c), plain_reps, warmup=1))
+        body_bytes += B * (4 * L * S + 4 * L + L * S + 4 * L + 8 * L)
+        body_flops_total += B * body_flops(spec.program)
+        if spec is last:
+            last_plain_ms = time_ms(lambda: last.plain(llr_rev, *plain_ops), plain_reps, warmup=1)
+            last_ms = time_ms(lambda: scl_last_chunk_cuda(state, last), reps)
+            continue
+        step_plain_ms.append(time_ms(lambda: spec.plain(llr_rev, *plain_ops), plain_reps, warmup=1))
+        scratch = state.clone()
+        step_ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), reps))
+        byts, flops = step_cost(sched, c, spec)
+        step_bytes += B * byts
+        step_flops += B * flops
+        step_bound_ms.append(max(B * byts / HBM_BYTES_PER_S, B * flops / F32_FLOP_PER_S) * 1e3)
+        scl_chunk_step_cuda(state, spec)
+    n_steps = len(steps)
+    lb, lf = last_cost(sched, last)
+    shape = {"frames": B, "N": sched.N, "S": S, "L": L}
+    name = "scl_chunk_step" + suffix
+    results[name] = kernel_row(
+        name, SCL_REPLACES[name], sum(step_ms) / n_steps, sum(step_plain_ms) / n_steps,
+        step_bytes / n_steps, step_flops / n_steps, worst["step"], shape=shape,
+        note=f"ms, plain_ms and bound_ms are means per launch over the {n_steps} chunk positions",
+        ms_per_position=step_ms, plain_ms_per_position=step_plain_ms,
+        bound_ms_per_position=step_bound_ms, ms_per_decode=sum(step_ms),
+        bound_ms_per_decode=sum(step_bound_ms), launches_per_decode=n_steps)
+    name = "scl_last_chunk" + suffix
+    results[name] = kernel_row(
+        name, SCL_REPLACES[name], last_ms, last_plain_ms, B * lb, B * lf, worst["step"],
+        shape=shape, launches_per_decode=1)
+    name = "scl_chunk_body" + suffix
+    results[name] = kernel_row(
+        name, SCL_REPLACES[name], sum(body_ms) / sched.C, sum(body_plain_ms) / sched.C,
+        body_bytes / sched.C, body_flops_total / sched.C, worst["body"], shape=shape,
+        note=f"means per launch over the {sched.C} chunks' frozen patterns",
+        ms_per_position=body_ms, plain_ms_per_position=body_plain_ms,
+        n_ops_per_position=[int(s.program.ops.shape[0]) for s in steps + [last]])
+    return step_flops, lf
+
+
 def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
     frozen, info, mask, sched, steps, last, rev = scl_flagship()
     programs = [s.program for s in steps] + [last.program]
@@ -631,54 +728,11 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
         "u vs plain": (u_m, u_p), "metrics vs plain": (m_m, m_p),
         "u vs unroll-kernel": (u_m, u_k), "metrics vs unroll-kernel": (m_m, m_k)},
         {"B": B, "snr_db": 3.0}))
-    llr_rev = llr[:, rev].contiguous()
-    state = SCLState(sched, llr_rev)
     plain_reps = 1 if quick else 2
-    step_ms, step_plain_ms, body_ms, body_plain_ms, step_bound_ms = [], [], [], [], []
-    step_bytes = step_flops = body_bytes = body_flops_total = 0
-    L, S = sched.L, sched.S
-    for c, spec in enumerate(steps + [last]):
-        plain_ops = state.to_plain()
-        alpha_t = plain_ops[0][sched.t - 1].contiguous()
-        pm_c = state.pm.clone()
-        body_ms.append(time_ms(lambda: scl_chunk_body_cuda(alpha_t, pm_c, spec.program), reps))
-        body_plain_ms.append(time_ms(lambda: spec.program.plain(alpha_t, pm_c), plain_reps, warmup=1))
-        body_bytes += B * (4 * L * S + 4 * L + L * S + 4 * L + 8 * L)
-        body_flops_total += B * body_flops(spec.program)
-        if spec is last:
-            last_plain_ms = time_ms(lambda: last.plain(llr_rev, *plain_ops), plain_reps, warmup=1)
-            last_ms = time_ms(lambda: scl_last_chunk_cuda(state, last), reps)
-            continue
-        step_plain_ms.append(time_ms(lambda: spec.plain(llr_rev, *plain_ops), plain_reps, warmup=1))
-        scratch = state.clone()
-        step_ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), reps))
-        byts, flops = step_cost(sched, c, spec)
-        step_bytes += B * byts
-        step_flops += B * flops
-        step_bound_ms.append(max(B * byts / HBM_BYTES_PER_S, B * flops / F32_FLOP_PER_S) * 1e3)
-        scl_chunk_step_cuda(state, spec)
-    n_steps = len(steps)
-    lb, lf = last_cost(sched, last)
-    shape = {"frames": B, "N": POLAR_N, "S": S, "L": L}
-    results["scl_chunk_step"] = kernel_row(
-        "scl_chunk_step", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:167",
-        sum(step_ms) / n_steps, sum(step_plain_ms) / n_steps, step_bytes / n_steps,
-        step_flops / n_steps, worst["step"], shape=shape,
-        note="ms, plain_ms and bound_ms are means per launch over the 7 chunk positions",
-        ms_per_position=step_ms, plain_ms_per_position=step_plain_ms,
-        bound_ms_per_position=step_bound_ms, ms_per_decode=sum(step_ms),
-        bound_ms_per_decode=sum(step_bound_ms), launches_per_decode=n_steps)
-    results["scl_last_chunk"] = kernel_row(
-        "scl_last_chunk", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:356",
-        last_ms, last_plain_ms, B * lb, B * lf, worst["step"], shape=shape,
-        launches_per_decode=1)
-    results["scl_chunk_body"] = kernel_row(
-        "scl_chunk_body", "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378",
-        sum(body_ms) / sched.C, sum(body_plain_ms) / sched.C, body_bytes / sched.C,
-        body_flops_total / sched.C, worst["body"], shape=shape,
-        note="means per launch over the 8 chunks' frozen patterns",
-        ms_per_position=body_ms, plain_ms_per_position=body_plain_ms,
-        n_ops_per_position=[int(s.program.ops.shape[0]) for s in steps + [last]])
+    step_flops, lf = time_scl_kernels(results, sched, steps, last, rev, llr, worst, reps,
+                                      plain_reps)
+    L = sched.L
+    shape = {"frames": B, "N": POLAR_N, "S": sched.S, "L": L}
     decode_ms = {name: time_ms(lambda: dec(llr), reps if "plain" not in name else plain_reps,
                                warmup=1)
                  for name, dec in decoders.items() if name != "plain live width" or not quick}
@@ -695,6 +749,173 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
                                                       "scl_last_chunk", "scl_decode_mega")],
          unique_patterns=len(unique), whole_decode_ms=decode_ms, cases=cases,
          other_codes=check_scl_other_codes())
+
+
+def raises_value_error(fn) -> bool:
+    """Whether ``fn()`` refuses with a ``ValueError`` (a refusal is the
+    expected outcome; anything else propagates)."""
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
+def check_fastnode_kernel(results: dict, reps: int) -> list:
+    """K7 against its plain version at the probe's shape [8, 64, 128] and at
+    [8, 128, 4096], on normal and tie-heavy integer inputs; then the probe's
+    own path (its input, the kernel, its ground truth: a numpy stable argsort
+    and the softplus tree sum), with the launch counts set to 0 just before;
+    then times at [8, 128, 4096]."""
+    cases = []
+    worst = 0.0
+    for L, S, B in ((8, 64, 128), (8, 128, 4096)):
+        for kind in ("normal", "integer ties"):
+            g = np.random.default_rng(L * S + B + len(kind))
+            a = (g.integers(-3, 4, (L, S, B)) if kind == "integer ties"
+                 else 2 * g.standard_normal((L, S, B))).astype(np.float32)
+            a = torch.from_numpy(a).to(DEV)
+            got = fastnode_select_cuda(a, L - 1)
+            torch.cuda.synchronize()
+            want = fastnode_select_plain(a, L - 1)
+            context = {"shape": [L, S, B], "K": L - 1, "input": kind}
+            worst = max(worst, hold_equal("fastnode_select", dict(
+                zip(("mags", "idx", "penalty"), zip(got, want))), context))
+            cases.append({**context, "equal_plain": True})
+    # the probe's path (tools/mosaic_fastnode_probe.py: L, S, B = 8, 64, 128, K = 7)
+    L, S, B, K = 8, 64, 128, 7
+    a_np = (np.random.default_rng(0).standard_normal((L, S, B)) * 2).astype(np.float32)
+    a = torch.from_numpy(a_np).to(DEV)
+    ops.reset_launch_counts()
+    mags, idx, pen = fastnode_select(a, K)
+    torch.cuda.synchronize()
+    counts = record_launches({}, ["fastnode_select"])
+    order = np.argsort(np.abs(a_np), axis=1, kind="stable")[:, :K]
+    probe_ok = (np.array_equal(idx.cpu().numpy(), order)
+                and np.array_equal(mags.cpu().numpy(), np.take_along_axis(np.abs(a_np), order, 1))
+                and torch.equal(pen, fastnode_select_plain(a, K)[2]))
+    if not probe_ok:
+        raise AssertionError("fastnode_select disagrees with the probe's ground truth")
+    L, S, B, K = 8, 128, 4096, 7
+    a = (2 * torch.randn((L, S, B), generator=torch.Generator().manual_seed(5))).to(DEV)
+    ms = time_ms(lambda: fastnode_select_cuda(a, K), reps)
+    plain_ms = time_ms(lambda: fastnode_select_plain(a, K), max(1, reps // 5), warmup=1)
+    byts = B * L * (4 * S + 8 * K + 4)
+    flops = B * L * (4 * S + S - 1 + K * S)
+    results["fastnode_select"] = kernel_row(
+        "fastnode_select", "tools/mosaic_fastnode_probe.py:79", ms, plain_ms, byts, flops, worst,
+        source="polarcode_and_ldpc_tpu_torch/ops/csrc/fastnode.cu", shape=[L, S, B], K=K,
+        note="launches: the probe's path (its input through fastnode_select); the same device "
+             "functions run inside every K3 / K4 / K5 launch of a fast node program, at each "
+             "rate-1 node", cases=cases)
+    results["fastnode_select"]["launches"] = counts["fastnode_select"]
+    return [{"probe_shape_equals_numpy_ground_truth": True, "launches": counts["fastnode_select"]}]
+
+
+FAST_OTHER_CODES = ((64, 20, 16, 1), (128, 64, 32, 2), (256, 130, 64, 4), (256, 128, 256, 8),
+                    (512, 256, 128, 8), (2048, 1024, 64, 16))
+
+
+def check_fast_other_codes() -> list:
+    """One build serves every fast code: other lengths, chunk sizes and list
+    sizes (a single-chunk code, L = 1 without flip stages, L = 16 with 15)
+    through the per-chunk kernels and the chunk body inside the plain glue,
+    against the plain fast decoder."""
+    out = []
+    for N, K, S, L in FAST_OTHER_CODES:
+        frozen, _ = fec.construct_polar_code(N, K, "bhattacharyya", 2.0)
+        mask = frozen_mask_from_positions(N, frozen)
+        g = np.random.default_rng(N + L + 1)
+        llr = torch.from_numpy((1.0 + 1.6 * g.standard_normal((203, N))).astype(np.float32))
+        llr[:3] = torch.from_numpy(g.integers(-2, 3, (3, N)).astype(np.float32))
+        llr = llr.to(DEV)
+        want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused",
+                                node_mode="fast", device=DEV)(llr)
+        context = {"N": N, "K": K, "S": S, "L": L}
+        for kw in ({}, {"control_impl": "unroll-fused", "body_impl": "cuda"}):
+            got = make_scl_decoder(N, mask, L, chunk=S, node_mode="fast", device=DEV, **kw)(llr)
+            torch.cuda.synchronize()
+            hold_equal(f"whole fast decode {kw or 'unroll-kernel'}",
+                       {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, context)
+        out.append({**context, "kernels_equal_plain": True})
+    return out
+
+
+def phase_fast_kernels(results: dict, reps: int, quick: bool) -> None:
+    """K7, and the fast node programs of K5 / K3 / K4 (node_mode="fast"):
+    K5 on every chunk pattern of the flagship code, K3 on the level stacks of
+    every chunk position and K4 after them, the whole fast decode through
+    both kernel routes, other codes; K6 must refuse a fast program."""
+    probe = check_fastnode_kernel(results, reps)
+    frozen, info, mask = polar_code()
+    sched = build_scl_schedule(POLAR_N, mask, SCL_L, SCL_S)
+    steps, last = make_step_specs(sched, node_mode="fast")
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(POLAR_N)), dtype=torch.int64,
+                          device=DEV)
+    unique = list({id(p): p for p in [s.program for s in steps] + [last.program]}.values())
+    counts = {"rate1": 0, "rep": 0}
+    for s in steps + [last]:
+        kinds = [op & 0xFF for op in s.program.ops[:, 0].tolist()]
+        counts["rate1"] += kinds.count(OP_RATE1_FAST)
+        counts["rep"] += kinds.count(OP_REP_FAST)
+    worst = {"body": 0.0, "step": 0.0}
+    for B in ((512,) if quick else (512, 1000)):
+        worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
+    decoders = {
+        "plain": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="unroll-fused",
+                                  node_mode="fast", device=DEV),
+        "unroll-kernel": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, node_mode="fast",
+                                          device=DEV),
+        "body_impl=cuda": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, node_mode="fast",
+                                           control_impl="unroll-fused", body_impl="cuda",
+                                           device=DEV),
+        "exact unroll-kernel": make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, device=DEV),
+    }
+    assert not decoders["plain"].live_width
+    info_idx = torch.as_tensor(info, dtype=torch.int64, device=DEV)
+    crc = CRCCodec(POLAR_K - 8, SCL_CRC, DEV)
+    inputs = [(1000, snr, cascl_llrs(frozen, 1000, snr, seed=int(10 * snr) + 150))
+              for snr in (-2.0, 3.0)]
+    inputs.append((512, "integer ties", torch.from_numpy(np.random.default_rng(8).integers(
+        -3, 4, (512, POLAR_N)).astype(np.float32)).to(DEV)))
+    cases = []
+    for B, snr, llr in inputs:
+        context = {"B": B, "snr_db": snr}
+        worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr, context))
+        u0, m0 = decoders["plain"](llr)
+        sel0 = select_best_path(u0[..., info_idx], m0, crc)
+        for name in ("unroll-kernel", "body_impl=cuda"):
+            u, m = decoders[name](llr)
+            torch.cuda.synchronize()
+            hold_equal(f"whole fast decode [{name}]", {
+                "u": (u, u0), "metrics": (m, m0),
+                "selected message": (select_best_path(u[..., info_idx], m, crc), sel0)}, context)
+        cases.append({**context, "kernels_equal_plain": True,
+                      "crc_pass_frames": int(crc.check(sel0).sum())})
+    # the main path's shapes: one Monte-Carlo chunk of 4096 frames at 3 dB
+    B = SCL_CHUNK
+    llr = cascl_llrs(frozen, B, 3.0, seed=78)
+    worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr,
+                                                       {"B": B, "snr_db": 3.0}))
+    worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
+    time_scl_kernels(results, sched, steps, last, rev, llr, worst, reps, 1)
+    decode_ms = {name: time_ms(lambda: dec(llr), reps if name != "plain" else 1, warmup=1)
+                 for name, dec in decoders.items()}
+    # K6 has no fast nodes: the decoder factory, the plan and the tables refuse
+    refused = [raises_value_error(lambda: make_scl_decoder(
+                   POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="mega", node_mode="fast",
+                   device=DEV)),
+               raises_value_error(lambda: SCLMegaPlan(sched, "fast")),
+               raises_value_error(lambda: build_mega_tables(sched, unique))]
+    if not all(refused):
+        raise AssertionError(f"the one-launch decode took a fast program: {refused}")
+    emit("fast_kernels",
+         kernels=[{k: v for k, v in results[k].items() if k != "cases"}
+                  for k in ("fastnode_select", "scl_chunk_body_fast", "scl_chunk_step_fast",
+                            "scl_last_chunk_fast")],
+         fastnode_cases=results["fastnode_select"]["cases"], probe=probe,
+         fast_nodes_per_decode=counts, unique_patterns=len(unique), whole_decode_ms=decode_ms,
+         cases=cases, other_codes=check_fast_other_codes(), mega_refuses_fast=True)
 
 
 
@@ -867,6 +1088,153 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
     mbps["polar_cascl_mega"] = res_mega.throughput_mbps
 
 
+def phase_polar_fast_mc(results: dict, mbps: dict, frames: int, body_frames: int) -> None:
+    """This slice's path at full width: CA-SCL-8 with the fast list nodes
+    (``scl_node_mode="fast"``) on the flagship code through the per-chunk
+    kernels, beside the exact mode on the same seeds: 3 dB, and -2 dB with
+    early stop and on a fixed frame count, where the fast FER must lie within
+    3 binomial sigma of the exact one."""
+    frozen, info, mask = polar_code()
+    k_msg = POLAR_K - 8
+    kw = dict(decoder="ca-scl", list_size=SCL_L, crc_polynomial=SCL_CRC, scl_chunk=SCL_S,
+              device=DEV)
+    n_chunks = POLAR_N // SCL_S
+    mc_chunks = frames // SCL_CHUNK
+    out = {}
+    for mode in ("exact", "fast"):
+        step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, scl_node_mode=mode, **kw)
+        sim = MonteCarloSimulator(step, k_msg, chunk_frames=SCL_CHUNK)
+        sim.run(SCL_CHUNK, seed=1)  # warm-up
+        ops.reset_launch_counts()
+        res = sim.run(frames, max_errors=None, seed=0)
+        if mode == "fast":
+            counts = record_launches(results, ["scl_chunk_step_fast", "scl_last_chunk_fast"])
+            want = {"scl_chunk_step_fast": (n_chunks - 1) * mc_chunks,
+                    "scl_last_chunk_fast": mc_chunks, "scl_chunk_step": 0, "scl_last_chunk": 0}
+        else:
+            counts = ops.launch_counts()
+            want = {"scl_chunk_step": (n_chunks - 1) * mc_chunks, "scl_last_chunk": mc_chunks,
+                    "scl_chunk_step_fast": 0, "scl_last_chunk_fast": 0}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"CA-SCL {mode}: {mc_chunks} Monte-Carlo chunks launched {counts}")
+        if res.frames != frames or not (0.0 <= res.fer < 0.01):
+            raise AssertionError(f"polar CA-SCL {mode} at 3 dB: unexpected result {res.to_dict()}")
+        low = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, scl_node_mode=mode,
+                                  **kw)
+        early = MonteCarloSimulator(low, k_msg, chunk_frames=SCL_CHUNK).run(
+            8 * SCL_CHUNK, max_errors=100, seed=0)
+        if early.frame_errors != 100 or not (0.01 <= early.fer <= 0.5):
+            raise AssertionError(f"CA-SCL {mode} early stop did not cross at 100 errors: "
+                                 f"{early.to_dict()}")
+        fixed = MonteCarloSimulator(low, k_msg, chunk_frames=SCL_CHUNK).run(
+            2 * SCL_CHUNK, max_errors=None, seed=2)
+        out[mode] = {**result_fields(res), "launches": {k: v for k, v in counts.items() if v},
+                     "early_stop": {"snr_db": SCL_LOW_SNR_DB, "max_errors": 100,
+                                    **result_fields(early)},
+                     "fixed_frames_low_snr": {"snr_db": SCL_LOW_SNR_DB, **result_fields(fixed)}}
+        mbps[f"polar_cascl_{mode}" if mode == "fast" else "polar_cascl_exact_beside_fast"] = \
+            res.throughput_mbps
+    fe, ff = out["exact"]["fixed_frames_low_snr"], out["fast"]["fixed_frames_low_snr"]
+    sigma = math.sqrt(fe["fer"] * (1.0 - fe["fer"]) / ff["frames"])
+    if abs(ff["fer"] - fe["fer"]) > 3 * sigma:
+        raise AssertionError(f"fast FER {ff['fer']} is not within 3 sigma ({sigma}) of exact "
+                             f"FER {fe['fer']} at {SCL_LOW_SNR_DB} dB")
+
+    # a shorter run through the chunk-body kernel inside the plain chunk program
+    step_body = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, scl_node_mode="fast",
+                                    scl_control_impl="unroll-fused", scl_body_impl="cuda", **kw)
+    sim_body = MonteCarloSimulator(step_body, k_msg, chunk_frames=SCL_CHUNK)
+    sim_body.run(SCL_CHUNK, seed=1)
+    ops.reset_launch_counts()
+    res_body = sim_body.run(body_frames, max_errors=None, seed=0)
+    counts_body = record_launches(results, ["scl_chunk_body_fast"])
+    if (counts_body["scl_chunk_body_fast"], counts_body["scl_chunk_step_fast"]) != (
+            n_chunks * (body_frames // SCL_CHUNK), 0):
+        raise AssertionError(f"CA-SCL fast body_impl=cuda launched {counts_body}")
+    if not raises_value_error(lambda: make_polar_pipeline(
+            POLAR_N, POLAR_K, frozen, 3.0, scl_node_mode="fast", scl_control_impl="mega", **kw)):
+        raise AssertionError("the one-launch control took node_mode='fast'")
+
+    # the kernel paths against the plain fast pipeline on the same frame ids and seed
+    key = rng.prng_key(0, DEV)
+    ids = torch.arange(SCL_CHUNK, device=DEV)
+    plain = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, scl_node_mode="fast",
+                                scl_control_impl="unroll-fused", **kw)
+    want = plain(key, ids)
+    for name, ctl in (("unroll-kernel", {}),
+                      ("body_impl=cuda", {"scl_control_impl": "unroll-fused",
+                                          "scl_body_impl": "cuda"})):
+        got = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, scl_node_mode="fast",
+                                  **ctl, **kw)(key, ids)
+        if not (torch.equal(got["bit_errors"], want["bit_errors"])
+                and torch.equal(got["frame_error"], want["frame_error"])):
+            raise AssertionError(f"CA-SCL fast: {name} and the plain pipeline disagree")
+    # a small input against the CPU pipeline (at most 1 frame in 256 may differ)
+    cpu = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, scl_node_mode="fast",
+                              **{**kw, "device": "cpu"})
+    ids256 = torch.arange(256)
+    c = cpu(rng.prng_key(0, "cpu"), ids256)
+    g = make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB, scl_node_mode="fast",
+                            **kw)(key, ids256.to(DEV))
+    differ = int((c["bit_errors"] != g["bit_errors"].cpu()).sum())
+    if differ > 1:
+        raise AssertionError(f"CA-SCL fast: card and CPU pipelines differ on {differ} of 256")
+    emit("polar_fast_mc", chunk_frames=SCL_CHUNK, list_size=SCL_L, crc=SCL_CRC, scl_chunk=SCL_S,
+         **out, fast_fer_within_3_sigma_of_exact={"sigma": sigma, "fast": ff["fer"],
+                                                  "exact": fe["fer"]},
+         body_impl_cuda={**result_fields(res_body), "launches": counts_body},
+         first_chunk_equals_plain=True, frame_errors_first_chunk=int(want["frame_error"].sum()),
+         cpu_reference_frames_differ=differ)
+    mbps["polar_cascl_fast_body_impl_cuda"] = res_body.throughput_mbps
+
+
+def phase_snr_curves(results: dict) -> None:
+    """The SNR-curve CLI of the port at full width on the card: polar N=1024
+    CA-SCL-8 with fast nodes and LDPC n=1008 BP at rate 0.5, three SNR
+    points; outputs under the git-ignored ``chiprun_out/``."""
+    from polarcode_and_ldpc_tpu_torch.cli import snr_curves
+
+    out_dir = Path("chiprun_out") / "snr_curves"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = snr_curves.main(SNR_CURVE_ARGS + ["--output-dir", str(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = record_launches({}, ["scl_chunk_step_fast", "scl_last_chunk_fast", "bp_decode_bp"])
+    files = {name: json.loads((out_dir / name).read_text())
+             for name in ("polar_results.json", "ldpc_results.json", "snr_analysis.json")}
+    curves = {"polar": files["polar_results.json"]["self"]["0.50"],
+              "ldpc": files["ldpc_results.json"]["self"]["0.50"]}
+    for family, curve in curves.items():
+        if curve != json.loads(json.dumps(res[family]["self"]["0.50"])):
+            raise AssertionError(f"snr_curves: {family}_results.json differs from main()'s result")
+        bers = curve["ber"]
+        if (curve["snr_db"] != [-1.0, 0.0, 1.0] or not all(0.0 <= b < 0.5 for b in bers)
+                or any(n != 16384 and e != 200
+                       for n, e in zip(curve["frames_tested"], curve["frame_errors"]))
+                or any(b2 > b1 for b1, b2 in zip(bers, bers[1:]))):
+            raise AssertionError(f"snr_curves: unexpected {family} curve {curve}")
+    # the polar curve's first point against the plain fast pipeline, chunk by chunk
+    frozen, _ = fec.construct_polar_code(POLAR_N, POLAR_K, "dega", 2.0)
+    plain = make_polar_pipeline(POLAR_N, POLAR_K, frozen, None, decoder="ca-scl",
+                                list_size=SCL_L, scl_node_mode="fast",
+                                scl_control_impl="unroll-fused", device=DEV)
+    ref = MonteCarloSimulator(plain, POLAR_K - 8, chunk_frames=4096).run(
+        16384, max_errors=200, seed=42, extra_args=(-1.0,))
+    first = curves["polar"]
+    if (ref.frames, ref.bit_errors, ref.frame_errors) != (
+            first["frames_tested"][0], first["bit_errors"][0], first["frame_errors"][0]):
+        raise AssertionError(f"snr_curves: the -1 dB point {first} differs from the plain "
+                             f"fast pipeline's {ref.to_dict()}")
+    emit("snr_curves", argv=SNR_CURVE_ARGS, seconds=seconds, output_dir=str(out_dir),
+         launches={k: v for k, v in counts.items() if v},
+         polar={k: curves["polar"][k] for k in ("snr_db", "ber", "fer", "frames_tested",
+                                                 "throughput_mbps")},
+         ldpc={k: curves["ldpc"][k] for k in ("snr_db", "ber", "fer", "frames_tested",
+                                               "avg_iterations", "throughput_mbps")},
+         analysis=files["snr_analysis.json"], first_point_equals_plain_pipeline=True)
+
+
 def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
     enc = ldpc_code()
     summary = {}
@@ -1020,15 +1388,18 @@ def phase_ldpc_qc_mc(results: dict, mbps: dict, chunks: int) -> None:
                                                       layered_plan.layer_checks))
 
 
-def phase_serving(results: dict, mbps: dict, reps: int) -> None:
+def phase_serving(results: dict, mbps: dict, reps: int, node_mode: str = "exact") -> None:
     """The serving decoder at full width: ``AdaptiveCASCLDecoder`` on batches of
     8192 frames at three operating points, once with the default list control
-    and once with the one-launch control.  The output must equal, frame for
+    and once with the one-launch control (``node_mode="exact"``; the fast list
+    nodes run on the default control alone).  The output must equal, frame for
     frame, the SC result where its CRC passes and the CA-SCL result elsewhere,
     and the stats must equal those counts.  The reference is built from the
     plain versions, and the kernels are first held against them at the shapes
     this path gives them: the SC kernel on the whole batch, the list kernels on
     each slice of failing rows."""
+    fast = node_mode == "fast"
+    suffix = "_fast" if fast else ""
     frozen, info, mask = polar_code()
     k_msg = POLAR_K - 8
     enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, use_crc=True,
@@ -1037,21 +1408,25 @@ def phase_serving(results: dict, mbps: dict, reps: int) -> None:
     sc = {"kernel": make_sc_decoder(POLAR_N, mask, device=DEV),
           "plain": make_sc_decoder(POLAR_N, mask, impl="unrolled", device=DEV)}
     lists = {"plain": make_scl_decoder(POLAR_N, mask, SCL_L, control_impl="unroll-fused",
-                                       live_width=False, device=DEV),
-             "unroll-kernel": make_scl_decoder(POLAR_N, mask, SCL_L, device=DEV),
-             "mega": make_scl_decoder(POLAR_N, mask, SCL_L, control_impl="mega", device=DEV)}
+                                       live_width=False, node_mode=node_mode, device=DEV),
+             "unroll-kernel": make_scl_decoder(POLAR_N, mask, SCL_L, node_mode=node_mode,
+                                               device=DEV)}
+    if not fast:
+        lists["mega"] = make_scl_decoder(POLAR_N, mask, SCL_L, control_impl="mega", device=DEV)
     if (sc["kernel"].impl, lists["unroll-kernel"].control_impl) != ("mega", "unroll-kernel"):
         raise AssertionError("serving: the default decoders on the card are not the kernels")
     crc = CRCCodec(k_msg, SCL_CRC, DEV)
     decoders = {"unroll-kernel": fec.AdaptiveCASCLDecoder(
-                    POLAR_N, POLAR_K, SCL_L, frozen_bits=frozen, crc_polynomial=SCL_CRC, device=DEV),
-                "mega": fec.AdaptiveCASCLDecoder(
                     POLAR_N, POLAR_K, SCL_L, frozen_bits=frozen, crc_polynomial=SCL_CRC,
-                    scl_control_impl="mega", device=DEV)}
+                    scl_node_mode=node_mode, device=DEV)}
+    if not fast:
+        decoders["mega"] = fec.AdaptiveCASCLDecoder(
+            POLAR_N, POLAR_K, SCL_L, frozen_bits=frozen, crc_polynomial=SCL_CRC,
+            scl_control_impl="mega", device=DEV)
     for name, dec in decoders.items():
         if (dec.sc_impl, dec.scl_control_impl) != ("mega", name):
             raise AssertionError(f"serving decoder took {dec.sc_impl}, {dec.scl_control_impl}")
-    budget = decoders["mega"]._budget(SERVE_BATCH)
+    budget = decoders["unroll-kernel"]._budget(SERVE_BATCH)
     out = {}
     for point, snr in SERVE_SNRS_DB.items():
         msgs = np.random.default_rng(int(10 * snr) + 40).integers(0, 2, (SERVE_BATCH, k_msg))
@@ -1066,7 +1441,7 @@ def phase_serving(results: dict, mbps: dict, reps: int) -> None:
         fail = torch.nonzero(~ok)[:, 0]
         # the slices of failing rows as the decoder cuts them: the budget first,
         # then the residue in fallback_batch pieces
-        fb = decoders["mega"].fallback_batch
+        fb = decoders["unroll-kernel"].fallback_batch
         cuts = [0, min(len(fail), budget)] + list(range(budget + fb, len(fail), fb)) + [len(fail)]
         slice_frames = []
         for lo, hi in zip(cuts, cuts[1:]):
@@ -1074,7 +1449,7 @@ def phase_serving(results: dict, mbps: dict, reps: int) -> None:
                 continue
             rows = fail[lo:hi]
             u0, m0 = lists["plain"](llr[rows])
-            for name in ("unroll-kernel", "mega"):
+            for name in decoders:
                 u, m = lists[name](llr[rows])
                 hold_equal(f"serving list decode [{name}]", {"u": (u, u0), "metrics": (m, m0)},
                            {"frames": hi - lo, "snr_db": snr})
@@ -1095,10 +1470,12 @@ def phase_serving(results: dict, mbps: dict, reps: int) -> None:
             torch.cuda.synchronize()
             keys = ["sc_decode"]
             if n_fail:
-                keys += ["scl_decode_mega"] if name == "mega" else ["scl_chunk_step", "scl_last_chunk"]
+                keys += (["scl_decode_mega"] if name == "mega" else
+                         ["scl_chunk_step" + suffix, "scl_last_chunk" + suffix])
             counts = record_launches(results, keys)
             list_decodes = 0 if n_fail == 0 else 1 + -(-max(n_fail - budget, 0) // dec.fallback_batch)
-            launched = counts["scl_decode_mega"] if name == "mega" else counts["scl_last_chunk"]
+            launched = (counts["scl_decode_mega"] if name == "mega"
+                        else counts["scl_last_chunk" + suffix])
             if counts["sc_decode"] != 1 or launched != list_decodes:
                 raise AssertionError(f"serving [{name}] at {snr} dB launched {counts}, expected "
                                      f"1 SC decode and {list_decodes} list decodes")
@@ -1117,12 +1494,13 @@ def phase_serving(results: dict, mbps: dict, reps: int) -> None:
                          "launches": {k: v for k, v in counts.items() if v},
                          "message_frame_errors": int((got[:, :k_msg] != torch.as_tensor(
                              msgs, device=DEV)).any(dim=1).sum())}
-            mbps[f"serving_{point}_{name}"] = row[name]["info_mbps"]
+            mbps[f"serving{suffix}_{point}_{name}"] = row[name]["info_mbps"]
         row.update(sc_pass_rate=1.0 - n_fail / SERVE_BATCH, scl_fallbacks=n_fail,
                    budget_overflow=max(n_fail - budget, 0), equals_sc_else_cascl=True)
         out[point] = row
-    emit("serving", batch_frames=SERVE_BATCH, N=POLAR_N, K=POLAR_K, list_size=SCL_L, crc=SCL_CRC,
-         fallback_batch=decoders["mega"].fallback_batch, **out)
+    emit("serving" + suffix, batch_frames=SERVE_BATCH, N=POLAR_N, K=POLAR_K, list_size=SCL_L,
+         crc=SCL_CRC, node_mode=node_mode, fallback_batch=decoders["unroll-kernel"].fallback_batch,
+         **out)
 
 
 def phase_invariance(frames: int = 8192) -> None:
@@ -1141,6 +1519,9 @@ def phase_invariance(frames: int = 8192) -> None:
                         POLAR_K - 8, frames),
         "polar_cascl_mega": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB,
                                                  scl_control_impl="mega", **cascl),
+                             POLAR_K - 8, frames),
+        "polar_cascl_fast": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB,
+                                                 scl_node_mode="fast", **cascl),
                              POLAR_K - 8, frames),
         "ldpc_nms": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, **nms), LDPC_K, frames),
         "ldpc_layered_nms": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, schedule="layered",
@@ -1228,8 +1609,8 @@ def phase_stages(reps: int, only=None) -> None:
     alone by CUDA events at the main path's shapes, then the whole step, and
     the card's busy share over a short run from the profiler.  The CA-SCL
     decode is also split into its 7 chunk-step launches and its last-chunk
-    launch; the one-launch list decode and the layered LDPC chunk have a
-    column each."""
+    launch; the one-launch list decode, the fast list nodes and the layered
+    LDPC chunk have a column each."""
     frozen, info, mask = polar_code()
     enc = ldpc_code()
     key = rng.prng_key(0, DEV)
@@ -1245,6 +1626,11 @@ def phase_stages(reps: int, only=None) -> None:
                              make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="ca-scl",
                                                  list_size=SCL_L, crc_polynomial=SCL_CRC,
                                                  scl_chunk=SCL_S, scl_control_impl="mega",
+                                                 device=DEV)),
+        "polar_cascl_fast": (SCL_CHUNK, POLAR_K - 8, POLAR_N,
+                             make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="ca-scl",
+                                                 list_size=SCL_L, crc_polynomial=SCL_CRC,
+                                                 scl_chunk=SCL_S, scl_node_mode="fast",
                                                  device=DEV)),
         "ldpc_bp": (LDPC_CHUNK, LDPC_K, LDPC_N,
                     make_ldpc_pipeline(enc.H, enc.G, 3.0, decoder="bp", max_iter=LDPC_ITERS,
@@ -1264,6 +1650,8 @@ def phase_stages(reps: int, only=None) -> None:
     crc = CRCCodec(POLAR_K - 8, SCL_CRC, DEV)
     scl_decode = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, device=DEV)
     mega_decode = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="mega",
+                                   device=DEV)
+    fast_decode = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, node_mode="fast",
                                    device=DEV)
     for name, (chunk, k, n, step) in configs.items():
         if only is not None and name not in only:
@@ -1286,6 +1674,7 @@ def phase_stages(reps: int, only=None) -> None:
         decode = {"polar_sc": lambda: sc_decode_cuda(llr, sc_program),
                   "polar_cascl": lambda: scl_decode(llr),
                   "polar_cascl_mega": lambda: mega_decode(llr),
+                  "polar_cascl_fast": lambda: fast_decode(llr),
                   "ldpc_bp": lambda: bp_decode_cuda(llr, bp_plan),
                   "ldpc_layered_nms": lambda: bp_decode_cuda(llr, layered_plan)}[name]
         stages = {
@@ -1329,10 +1718,14 @@ def main() -> int:
         phase_kernels(results, reps, args.quick)
     if "scl_kernels" in phases:
         phase_scl_kernels(results, reps, args.quick)
+    if "fast_kernels" in phases:
+        phase_fast_kernels(results, reps, args.quick)
     if "polar_sc_mc" in phases:
         phase_polar_sc_mc(results, mbps, 4 * POLAR_CHUNK if args.quick else 16 * POLAR_CHUNK)
     if "polar_cascl_mc" in phases:
         phase_polar_cascl_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
+    if "polar_fast_mc" in phases:
+        phase_polar_fast_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
     if "ldpc_mc" in phases:
         phase_ldpc_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
     if "ldpc_layered_mc" in phases:
@@ -1341,6 +1734,10 @@ def main() -> int:
         phase_ldpc_qc_mc(results, mbps, 2 if args.quick else 4)
     if "serving" in phases:
         phase_serving(results, mbps, reps)
+    if "serving_fast" in phases:
+        phase_serving(results, mbps, reps, node_mode="fast")
+    if "snr_curves" in phases:
+        phase_snr_curves(results)
     if "invariance" in phases:
         phase_invariance()
     if "stages" in phases:

@@ -2,8 +2,9 @@
 ``polarcode_and_ldpc_tpu`` channel-coding framework, for one NVIDIA H100.
 
 Ported so far: the Monte-Carlo main path with SC and CRC-aided list polar
-decoding and flooding BP / min-sum LDPC decoding, and the serving paths
-(adaptive SC-first CA-SCL, row-layered min-sum, quasi-cyclic LDPC) —
+decoding (exact, or with the SSCL fast list nodes) and flooding BP / min-sum
+LDPC decoding, the serving paths (adaptive SC-first CA-SCL, row-layered
+min-sum, quasi-cyclic LDPC) and the SNR-curve study with its CLI —
 
 * Polar codes: construction, Kronecker-butterfly encoder with optional CRC,
   SC decoder (the whole decode in one hand-written CUDA kernel), SCL and
@@ -15,7 +16,8 @@ decoding and flooding BP / min-sum LDPC decoding, and the serving paths
   row-layered (the whole decode in one CUDA kernel), the roll-based
   quasi-cyclic decoder for large codes.
 * AWGN channel with BPSK modulation and LLR demodulation.
-* Monte-Carlo BER/FER simulation with per-frame keyed randomness.
+* Monte-Carlo BER/FER simulation with per-frame keyed randomness, SNR sweeps,
+  rate studies and ``python -m polarcode_and_ldpc_tpu_torch.cli.snr_curves``.
 
 Sub-packages mirror the JAX package so each counterpart is easy to find.
 Every factory function and class takes ``device=`` and defaults to ``"cuda"``; the CPU

@@ -8,11 +8,13 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .core.config import ChannelConfig, LDPCCodeConfig, PolarCodeConfig, SimulationConfig
 from .core.device import resolve_device
 from .models.ldpc.encoder import LDPCEncoder
 from .models.ldpc.graph import TABLE_NAMES, TannerGraph
@@ -108,3 +110,30 @@ def key_from_numpy(key_data: np.ndarray, device="cuda") -> torch.Tensor:
         raise ValueError(f"expected uint32[2] key data, got shape {words.shape}")
     words = words.astype(np.uint32)
     return torch.from_numpy(words.view(np.int32).copy()).to(resolve_device(device))
+
+
+_CONFIGS = {c.__name__: c for c in (PolarCodeConfig, LDPCCodeConfig, ChannelConfig,
+                                     SimulationConfig)}
+# implementation names each field of this package's configs takes; any other
+# name of the JAX package (a TPU control or body: "split", "fused", "kernel",
+# "xla", "pallas", "auto", ...) becomes None, the device default: every
+# choice computes the same outputs
+_PORT_CHOICES = {"scl_body_impl": ("torch", "cuda"),
+                 "scl_control_impl": ("unroll-fused", "unroll-kernel", "mega"),
+                 "bp_impl": ("torch", "cuda")}
+
+
+def config_from_jax(cfg):
+    """This package's counterpart of a JAX config dataclass instance
+    (``PolarCodeConfig``, ``LDPCCodeConfig``, ``ChannelConfig`` or
+    ``SimulationConfig``), field by field through ``dataclasses.asdict``.
+    Implementation names this package lacks become ``None`` (the device
+    default)."""
+    cls = _CONFIGS.get(type(cfg).__name__)
+    if cls is None or not dataclasses.is_dataclass(cfg):
+        raise TypeError(f"expected a config dataclass instance, got {type(cfg).__name__}")
+    fields = dataclasses.asdict(cfg)
+    for key, choices in _PORT_CHOICES.items():
+        if key in fields and fields[key] not in choices:
+            fields[key] = None
+    return cls(**fields)

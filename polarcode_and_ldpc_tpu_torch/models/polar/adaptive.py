@@ -53,6 +53,8 @@ class AdaptiveCASCLDecoder(nn.Module):
     are practically impossible.  ``sc_impl`` / ``scl_control_impl``: ``None``
     picks the kernels on a CUDA device and the plain versions on the CPU;
     ``scl_control_impl="mega"`` takes the one-launch list decode.
+    ``scl_node_mode="fast"`` puts the SSCL fast list nodes on the fallback
+    path (the CRC re-screens its outputs); the one-launch control has none.
     """
 
     def __init__(self, N: int, K: int, list_size: int = 8,

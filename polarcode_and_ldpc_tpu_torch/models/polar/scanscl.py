@@ -34,6 +34,7 @@ decode in one ``scl_decode_mega`` launch).
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -141,20 +142,15 @@ def _compose_rank(a, b):
     return torch.gather(b, 1, a)
 
 
-def _info_leaf_rank(a, pm, Lsz):
-    """Branch + stable top-L prune at one info leaf.
-
-    ``a [B, lv]`` leaf LLRs, ``pm [B, lv]`` → (bit plane ``[B, lv', 1]``
-    int8, pm ``[B, lv']``, rank vector ``[B, lv']``) with ``lv' = min(2·lv,
-    Lsz)``.  Width-generic: while ``lv < Lsz`` no candidate is discarded,
-    only reordered.  Candidate ``i`` goes before candidate ``j`` iff its
-    metric is larger, or equal with ``i < j`` (all-pairs ranks: exact,
-    stable, no reliance on a sort's tie behaviour)."""
-    lv = pm.shape[1]
-    out = min(2 * lv, Lsz)
-    d0, d1 = _d0_d1(a)
-    cand = torch.cat([pm + d0, pm + d1], dim=1)  # [B, 2·lv]
-    two = 2 * lv
+def _prune_rank(cand, out: int):
+    """Stable top-``out`` of the ordered candidates ``cand [B, 2·lv]`` (first
+    half: keep / bit 0, second half: flip / bit 1) → (second-half flags
+    ``[B, out]`` bool, metrics ``[B, out]``, source slots ``[B, out]``).
+    Candidate ``i`` goes before candidate ``j`` iff its metric is larger, or
+    equal with ``i < j`` (all-pairs ranks: exact, stable, no reliance on a
+    sort's tie behaviour)."""
+    two = cand.shape[1]
+    lv = two // 2
     ci, cj = cand[:, :, None], cand[:, None, :]
     idx = torch.arange(two, device=cand.device)
     jlti = idx[None, :] < idx[:, None]  # [i, j]: j < i
@@ -162,8 +158,71 @@ def _info_leaf_rank(a, pm, Lsz):
     order = torch.empty_like(rank).scatter_(1, rank, idx.expand_as(rank))
     top = order[:, :out]
     second = top >= lv
-    return (second.to(torch.int8)[:, :, None], torch.gather(cand, 1, top),
-            top - lv * second.to(top.dtype))
+    return second, torch.gather(cand, 1, top), top - lv * second.to(top.dtype)
+
+
+def _info_leaf_rank(a, pm, Lsz):
+    """Branch + stable top-L prune at one info leaf.
+
+    ``a [B, lv]`` leaf LLRs, ``pm [B, lv]`` → (bit plane ``[B, lv', 1]``
+    int8, pm ``[B, lv']``, rank vector ``[B, lv']``) with ``lv' = min(2·lv,
+    Lsz)``.  Width-generic: while ``lv < Lsz`` no candidate is discarded,
+    only reordered."""
+    lv = pm.shape[1]
+    d0, d1 = _d0_d1(a)
+    second, pm, r = _prune_rank(torch.cat([pm + d0, pm + d1], dim=1), min(2 * lv, Lsz))
+    return second.to(torch.int8)[:, :, None], pm, r
+
+
+def _tree_sum(x):
+    """Halving-tree sum over the last axis (power-of-two extent): ``x[:h] +
+    x[h:]`` until one element is left — the JAX package's ``_tree_sum`` and
+    the float64 twin's order.  The fast nodes use it; rate-0 and exact REP
+    nodes sum adjacent pairs instead (``_rate0_metric_levelpar``)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _rate1_fast(alpha, pm, Lsz):
+    """Fast rate-1 (all-info) list node, SSCL semantics (Hashemi et al.,
+    "Fast and Flexible Successive-Cancellation List Decoders for Polar
+    Codes").  Every position is hard-decided (``a < 0`` → 1) and the metric
+    pays ``Σ log1p(exp(−|a|))`` (halving tree); then ``K = min(L−1, M)``
+    stages walk the least-reliable positions (stable ascending ``|a|``, ties
+    to the lower position), each offering every path a flip of its s-th
+    least-reliable position at cost ``−|a|_(s)`` through the stable top-L
+    prune.  ``alpha [B, L, M]``, ``pm [B, L]`` → ``(beta [B, L, M] int8, pm,
+    R [B, L] or None)``; full list width only."""
+    mags = alpha.abs()
+    hard = (alpha < 0).to(torch.int8)
+    pm = pm - _tree_sum(torch.log1p(torch.exp(-mags)))
+    K = min(Lsz - 1, alpha.shape[-1])
+    if K == 0:  # L = 1: plain hard decision, no branching
+        return hard, pm, None
+    smags, sidx = torch.sort(mags, dim=-1, stable=True)
+    magsK, idxK = smags[..., :K], sidx[..., :K]
+    fdec = torch.zeros(magsK.shape, dtype=torch.int8, device=alpha.device)
+    R_tot = None
+    for s in range(K):
+        flip, pm, r = _prune_rank(torch.cat([pm, pm - magsK[..., s]], dim=1), Lsz)
+        magsK, idxK, fdec = (_apply_perm_rank(r, x) for x in (magsK, idxK, fdec))
+        fdec[..., s] = flip.to(torch.int8)
+        R_tot = r if R_tot is None else _compose_rank(r, R_tot)
+    # the flipped positions of a path are distinct: a scatter is exact
+    flips = torch.zeros_like(hard).scatter_(2, idxK, fdec)
+    return _apply_perm_rank(R_tot, hard) ^ flips, pm, R_tot
+
+
+def _rep_fast(alpha, pm, Lsz):
+    """Fast repetition node (every position frozen but the last in decode
+    order): the node codeword is one bit repeated, so its two candidates are
+    scored whole, ``pm + Σ log P(b | a_i)`` (halving tree), in ONE stable
+    top-L prune.  ``alpha [B, L, M]`` → ``(beta [B, L, M] int8, pm, R)``."""
+    d0, d1 = _d0_d1(alpha)
+    bit, pm, r = _prune_rank(torch.cat([pm + _tree_sum(d0), pm + _tree_sum(d1)], dim=1), Lsz)
+    return bit.to(torch.int8)[:, :, None].expand(-1, -1, alpha.shape[-1]), pm, r
 
 
 def _identity_r_rank(Lsz, batch, device):
@@ -182,17 +241,20 @@ def _ctz(x: int) -> int:
     return (x & -x).bit_length() - 1
 
 
-def _make_chunk_body(flags: np.ndarray, Lsz: int):
+def _make_chunk_body(flags: np.ndarray, Lsz: int, node_mode: str = "exact"):
     """Size-S subtree list decoder for one *static* frozen pattern.
 
     ``body(alpha [B, L, S], pm [B, L]) → (beta [B, L, S] int8, pm, R [B, L])``;
     ``R`` maps post-chunk list slots to pre-chunk slots (``after[l] =
     before[R[l]]``).  Rate-0 subtrees collapse to a pure metric update and
     permutation re-indexing is skipped wherever no prune can occur.  Width-
-    generic: alpha / pm may carry fewer than ``Lsz`` live rows; any float
-    dtype."""
+    generic in ``node_mode="exact"``: alpha / pm may carry fewer than ``Lsz``
+    live rows; any float dtype.  ``node_mode="fast"`` decodes rate-1 and
+    repetition subtrees whole (``_rate1_fast``, ``_rep_fast``), at full list
+    width."""
     flags = np.asarray(flags, bool)
     S = len(flags)
+    fast = node_mode == "fast"
 
     def node(alpha, pm, off: int, size: int):
         sub = flags[off:off + size]
@@ -201,7 +263,11 @@ def _make_chunk_body(flags: np.ndarray, Lsz: int):
                     pm + _rate0_metric_levelpar(alpha), None)
         if size == 1:
             return _info_leaf_rank(alpha[:, :, 0], pm, Lsz)
-        if sub[:-1].all() and not sub[-1] and size <= _LEVELPAR_MAX:
+        if fast and not sub.any():
+            return _rate1_fast(alpha, pm, Lsz)
+        if fast and sub[:-1].all() and not sub[-1]:
+            return _rep_fast(alpha, pm, Lsz)
+        if not fast and sub[:-1].all() and not sub[-1] and size <= _LEVELPAR_MAX:
             return _rep_exact(alpha, pm, Lsz)
         half = size // 2
         first, second = alpha[..., :half], alpha[..., half:]
@@ -600,27 +666,45 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     ``body_impl``: ``"torch"`` (the plain chunk bodies) or ``"cuda"`` (the
     ``scl_chunk_body`` kernel inside the plain glue of ``"unroll-fused"``).
 
+    ``node_mode``: ``"exact"`` (leaf-by-leaf list decoding) or ``"fast"``:
+    the SSCL fast list nodes, rate-1 and repetition subtrees inside a chunk
+    decoded whole (``min(L−1, M)`` flip stages, or one prune, instead of one
+    prune per leaf).  *Approximate*: its error rates match exact SCL
+    statistically, its outputs are its own; the float64 twin
+    ``parity/polar_np.scl_decode_fast_np`` of the JAX package is its oracle.
+    It runs on the plain control and on the per-chunk kernels; the one-launch
+    control ``"mega"`` has no fast nodes (``ValueError``), and live width
+    stays off.  A list above 16 warns: the rate-1 stages grow as O(L²) per
+    stage times ``L − 1`` stages.
+
     ``live_width``: run the early chunks at the actual LIVE path count (1 →
     2 → … → L, doubling per info leaf) instead of the full list width.  The
-    plain control only (the kernels run at full width with ``-inf`` phantom
-    rows); ``"auto"`` enables it there.  Equal to the full-width program for
-    FINITE channel LLRs, a precondition every channel in this package
-    meets; not for ±inf LLRs.
+    plain control and ``node_mode="exact"`` only (the kernels run at full
+    width with ``-inf`` phantom rows); ``"auto"`` enables it there.  Equal to
+    the full-width program for FINITE channel LLRs, a precondition every
+    channel in this package meets; not for ±inf LLRs.
 
     Not in this package yet (``NotImplementedError``): ``perm_impl="onehot"``,
-    ``node_mode="fast"``, ``leaf_impl="sort"``, the scan and per-chunk-kernel
-    controls ``"split"``, ``"fused"``, ``"kernel"``, and the interpret twins of
-    the kernel controls (a CUDA kernel has no interpret mode).
+    ``leaf_impl="sort"``, the scan and per-chunk-kernel controls ``"split"``,
+    ``"fused"``, ``"kernel"``, and the interpret twins of the kernel controls
+    (a CUDA kernel has no interpret mode).
     """
     dev = resolve_device(device)
     if perm_impl == "onehot":
         raise NotImplementedError("perm_impl='onehot' is not in this package yet")
     if perm_impl != "rank":
         raise ValueError(f"unknown perm_impl {perm_impl!r}")
-    if node_mode == "fast":
-        raise NotImplementedError("node_mode='fast' is not in this package yet")
-    if node_mode != "exact":
+    if node_mode not in ("exact", "fast"):
         raise ValueError(f"unknown node_mode {node_mode!r}")
+    fast = node_mode == "fast"
+    if fast and control_impl == "mega":
+        raise ValueError("node_mode='fast' is not supported by the mega control: the "
+                         "one-launch list decode has no fast nodes")
+    if fast and list_size > 16:
+        warnings.warn(
+            f"node_mode='fast' is a small-list serving mode: its rate-1 flip stages "
+            f"scale O(L^2) per stage x min(L-1, S) stages. With list_size={list_size} "
+            f"> 16, use node_mode='exact'.", stacklevel=2)
     if leaf_impl == "sort":
         raise NotImplementedError("leaf_impl='sort' is not in this package yet")
     if leaf_impl != "onehot":
@@ -648,15 +732,16 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
 
     sched = build_scl_schedule(N, frozen_mask, list_size, chunk)
     C, t, sizes, Lsz = sched.C, sched.t, sched.sizes, list_size
-    live_capable = not kernel_path
+    live_capable = not kernel_path and not fast
     if live_width == "auto":
         live_on = live_capable and any(w < Lsz for w in sched.lv_in)
     else:
         live_on = bool(live_width)
         if live_on and not live_capable:
             raise ValueError(
-                "live_width needs the plain control (control_impl='unroll-fused', "
-                "body_impl='torch'): the kernels run at full list width")
+                "live_width needs node_mode='exact' and the plain control "
+                "(control_impl='unroll-fused', body_impl='torch'): the kernels and "
+                "the fast nodes run at full list width")
     lv_in_c = sched.lv_in if live_on else (Lsz,) * C
     lv_out_c = sched.lv_out if live_on else (Lsz,) * C
     rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64,
@@ -685,7 +770,7 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     if control_impl == "mega":
         from ...ops.scl_cuda import SCLMegaPlan, scl_decode_mega_cuda
 
-        plan = SCLMegaPlan(sched)
+        plan = SCLMegaPlan(sched)  # exact nodes only: fast + mega raised above
 
         def decode_mega(llr):
             llr = torch.as_tensor(llr, device=dev).to(dtype)
@@ -700,7 +785,7 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     if control_impl == "unroll-kernel":
         from ...ops.scl_cuda import make_scl_kernel_decoder
 
-        inner = make_scl_kernel_decoder(sched)
+        inner = make_scl_kernel_decoder(sched, node_mode)
 
         def decode_kernel(llr):
             return inner(_prepare(llr))
@@ -713,9 +798,9 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     if body_impl == "cuda":
         from ...ops.scl_cuda import make_chunk_body_cuda
 
-        bodies = [make_chunk_body_cuda(f, Lsz) for f in sched.unique_flags]
+        bodies = [make_chunk_body_cuda(f, Lsz, node_mode) for f in sched.unique_flags]
     else:
-        bodies = [_make_chunk_body(f, Lsz) for f in sched.unique_flags]
+        bodies = [_make_chunk_body(f, Lsz, node_mode) for f in sched.unique_flags]
 
     if C == 1:
         def decode_single(llr):

@@ -77,7 +77,8 @@ class SCLDecoder(nn.Module):
     ``chunk`` / ``body_impl`` / ``control_impl`` tune the chunked decoder: on
     a CUDA device the default is the kernel control (``"unroll-kernel"``), on
     the CPU the plain one (``"unroll-fused"``); ``"mega"`` is the whole decode
-    in one kernel launch.
+    in one kernel launch.  ``node_mode="fast"`` takes the SSCL fast list nodes
+    (an approximate serving mode, see ``scanscl.make_scl_decoder_scan``).
     """
 
     def __init__(self, N: int, K: int, list_size: int = 8,

@@ -22,9 +22,10 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sc_decode", "bp_decode", "scl_decode")
+SOURCES = ("sc_decode", "bp_decode", "scl_decode", "fastnode")
 # headers a source includes: it is rebuilt when one of them is newer, too
-HEADERS = {"scl_decode": ("scl_device.cuh",)}
+HEADERS = {"scl_decode": ("scl_device.cuh", "fastnode_device.cuh"),
+           "fastnode": ("fastnode_device.cuh",)}
 
 # -fmad=false: no multiply-add contraction, so every float operation rounds
 # exactly as the same operation does in the plain PyTorch version

@@ -29,12 +29,23 @@
 // the metric from the largest block to the smallest, and the 2L candidates
 // (bit-0 paths, then bit-1 paths) rank stable descending with the lower index
 // winning a tie.  Build with -fmad=false and no fast-math.
+//
+// A fast program (node_mode="fast") adds the SSCL fast list nodes of the
+// TPU kernel's _rate1_fast_rank_loop / _rep_fast_rank_loop: OP_RATE1_FAST
+// decodes an all-info subtree in min(L-1, size) prune stages over its least
+// reliable positions (fastnode_device.cuh picks them), OP_REP_FAST scores a
+// repetition subtree's two codewords whole in one prune.  Both sum with the
+// halving tree (x[:h] + x[h:]), not the adjacent-pair tree of rate-0 / REP,
+// and use the levels below their own alpha plane as scratch: nothing reads
+// them before the next F or G writes them.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fastnode_device.cuh"
 
 namespace scl {
 
@@ -47,7 +58,9 @@ enum Op : int {
   OP_COMBINE = 2,  // y = depth, z = half, w = beta offset
   OP_RATE0 = 3,    // y = depth, z = size, w = beta offset
   OP_LEAF = 4,     // y = depth, w = beta offset (one info leaf)
-  OP_REP = 5       // y = depth, z = size, w = beta offset
+  OP_REP = 5,      // y = depth, z = size, w = beta offset
+  OP_RATE1_FAST = 6,  // y = depth, z = size, w = beta offset
+  OP_REP_FAST = 7     // y = depth, z = size, w = beta offset
 };
 // flags in bits 8.. of the op word
 constexpr int kFlagRL = 1 << 8;  // the left child handed back a rank vector
@@ -136,20 +149,13 @@ __device__ __forceinline__ void d0_inplace(float* z, int total, int lane) {
   __syncwarp();
 }
 
-// Branch + stable top-L prune on leaf LLRs c.leaf_a and metrics c.pm.
-// Afterwards c.pm and c.R hold the survivors; returns the packed bit word
-// (bit l = decision of slot l).  Candidate i goes before candidate j iff its
-// metric is larger, or equal with i < j.
-__device__ __forceinline__ uint32_t info_leaf(const Ctx& c) {
+// Stable top-L prune of the 2L candidates in c.cand (first half: bit 0 /
+// keep, second half: bit 1 / flip).  Afterwards c.pm and c.R hold the
+// survivors; returns the packed word of their second-half flags (bit l =
+// decision of slot l).  Candidate i goes before candidate j iff its metric is
+// larger, or equal with i < j.
+__device__ __forceinline__ uint32_t prune(const Ctx& c) {
   const int L = c.L, lane = c.lane;
-  if (lane < L) {
-    float d0, d1;
-    d0_d1(c.leaf_a[lane], d0, d1);
-    const float p = c.pm[lane];
-    c.cand[lane] = p + d0;
-    c.cand[L + lane] = p + d1;
-  }
-  __syncwarp();
   for (int i = lane; i < 2 * L; i += kWarp) {
     const float ci = c.cand[i];
     int rank = 0;
@@ -167,6 +173,94 @@ __device__ __forceinline__ uint32_t info_leaf(const Ctx& c) {
   const uint32_t word = __ballot_sync(kFull, lane < L && c.tmp[lane] != 0);
   __syncwarp();
   return word;
+}
+
+// Branch + stable top-L prune on leaf LLRs c.leaf_a and metrics c.pm.
+__device__ __forceinline__ uint32_t info_leaf(const Ctx& c) {
+  const int L = c.L, lane = c.lane;
+  if (lane < L) {
+    float d0, d1;
+    d0_d1(c.leaf_a[lane], d0, d1);
+    const float p = c.pm[lane];
+    c.cand[lane] = p + d0;
+    c.cand[L + lane] = p + d1;
+  }
+  __syncwarp();
+  return prune(c);
+}
+
+// Fast rate-1 node on the [L][sz] plane a, beta words at c.beta + off, using
+// the L * sz words at `scratch`.  The metric pays the halving-tree sum of
+// log1p(exp(-|a|)); then K = min(L-1, sz) stages each offer every slot a flip
+// of its s-th least reliable position at cost -|a|_(s) through the prune.
+// Slot l's picks are those of its ORIGINAL path rtot[l] (lane l's register:
+// the composition of the stage rank vectors), so no per-path array moves.
+// Stage s's flip word lives in lane s.  Returns whether the node has a rank
+// vector (K > 0), which it leaves in c.R.
+__device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz, int off,
+                                           float* scratch) {
+  const int L = c.L, lane = c.lane;
+  const int H = sz > 1 ? sz / 2 : 1;
+  fastnode::halving_sum(a, L, sz, scratch, fastnode::Softplus(), lane);
+  if (lane < L) c.pm[lane] = c.pm[lane] - scratch[lane * H];
+  __syncwarp();
+  const int K = min(L - 1, sz);
+  int* idx = reinterpret_cast<int*>(scratch);  // [L][K], over the sums just read
+  if (K > 0) fastnode::select_k(a, L, sz, K, idx, lane);
+  int rtot = lane;
+  uint32_t fw = 0;
+  for (int s = 0; s < K; ++s) {
+    if (lane < L) {
+      const float p = c.pm[lane];
+      c.cand[lane] = p;
+      c.cand[L + lane] = p - fabsf(a[rtot * sz + idx[rtot * K + s]]);
+    }
+    __syncwarp();
+    const uint32_t word = prune(c);
+    if (lane < s) fw = perm_word(fw, c.R, L);
+    else if (lane == s) fw = word;
+    rtot = __shfl_sync(kFull, rtot, lane < L ? c.R[lane] : 0);  // rtot[l] = rtot[r[l]]
+  }
+  __syncwarp();
+  if (K > 0) {
+    if (lane < L) c.R[lane] = rtot;
+    if (lane < K) c.tmp[lane] = (int)fw;
+  }
+  __syncwarp();
+  // hard decisions (a < 0, so -0.0 decides 0) of the original paths, moved
+  // through the final rank vector, then every stage's flips XORed in
+  for (int i = lane; i < sz; i += kWarp) {
+    uint32_t w = 0;
+    for (int p = 0; p < L; ++p) w |= (a[p * sz + i] < 0.0f ? 1u : 0u) << p;
+    c.beta[off + i] = K > 0 ? perm_word(w, c.R, L) : w;
+  }
+  __syncwarp();
+  for (int q = lane; q < L * K; q += kWarp) {
+    const int l = q / K, s = q - l * K;
+    if (((uint32_t)c.tmp[s] >> l) & 1u) atomicXor(&c.beta[off + idx[c.R[l] * K + s]], 1u << l);
+  }
+  return K > 0;
+}
+
+// Fast repetition node: the two candidates per slot are pm + the halving-tree
+// sums of log P(0 | a) and log P(1 | a) over the node, one prune, the bit
+// repeated over the node.
+__device__ __forceinline__ void rep_fast(const Ctx& c, const float* a, int sz, int off,
+                                         float* scratch) {
+  const int L = c.L, lane = c.lane;
+  const int H = sz > 1 ? sz / 2 : 1;
+  float* z0 = scratch;
+  float* z1 = scratch + L * H;
+  fastnode::halving_sum(a, L, sz, z0, fastnode::LogP0(), lane);
+  fastnode::halving_sum(a, L, sz, z1, fastnode::LogP1(), lane);
+  if (lane < L) {
+    const float p = c.pm[lane];
+    c.cand[lane] = p + z0[lane * H];
+    c.cand[L + lane] = p + z1[lane * H];
+  }
+  __syncwarp();
+  const uint32_t word = prune(c);
+  for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
 }
 
 // The chunk body: decode the size-S subtree whose alpha lies at depth 0 of
@@ -275,6 +369,12 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
         break;
       }
+      case OP_RATE1_FAST:
+        rate1_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1));
+        break;
+      case OP_REP_FAST:
+        rep_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1));
+        break;
       default:
         break;
     }

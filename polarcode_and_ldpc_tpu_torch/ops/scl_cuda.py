@@ -31,6 +31,12 @@ version only for tensors that lie on the CPU (converting the state to the
 plain version's operands and back); on CUDA tensors it launches the kernel
 or raises.
 
+A fast node program (``node_mode="fast"``, the SSCL fast list nodes) runs
+through the same three per-chunk kernels: its ``OP_RATE1_FAST`` /
+``OP_REP_FAST`` ops are the fast modes of the TPU kernels K3 / K4 / K5, and
+their launches are counted apart (``scl_chunk_step_fast`` …).  The one-launch
+decode refuses a fast program, as the JAX package's mega control does.
+
 Precondition, as for the plain decoder: finite LLRs.
 """
 
@@ -50,7 +56,7 @@ from ..models.polar.scanscl import (_LEVELPAR_MAX, SCLSchedule, _make_chunk_body
                                     init_metrics)
 from . import build, count_launch
 
-OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_LEAF, OP_REP = range(6)
+OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_LEAF, OP_REP, OP_RATE1_FAST, OP_REP_FAST = range(8)
 FLAG_RL, FLAG_RR = 1 << 8, 2 << 8
 
 #: widest repetition subtree the REP op decodes (the plain version's rule)
@@ -63,15 +69,21 @@ _SMEM_TARGET_BYTES = 48 * 1024
 _MAX_WARPS = 8
 
 
-def build_scl_body_program(flags: np.ndarray) -> tuple[np.ndarray, bool]:
+def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
+                           list_size: Optional[int] = None) -> tuple[np.ndarray, bool]:
     """The static node program of one chunk pattern (``flags [S]`` bool in
     storage order, True = frozen): ``int32 [n_ops, 4]`` rows ``(op | flags,
     depth, size or half, beta_offset)``, walked exactly as the plain chunk
     body walks the pattern, and whether the chunk prunes at all (has a rank
-    vector other than the identity)."""
+    vector other than the identity).  ``node_mode="fast"`` emits the fast
+    rate-1 and repetition ops; it needs ``list_size`` (a rate-1 node prunes
+    only when ``L > 1``)."""
     flags = np.asarray(flags, bool)
     S = len(flags)
     assert S >= 1 and S & (S - 1) == 0
+    fast = node_mode == "fast"
+    if fast and list_size is None:
+        raise ValueError("a fast node program needs list_size")
     ops: list[tuple[int, int, int, int]] = []
 
     def node(depth: int, off: int, size: int) -> bool:
@@ -82,7 +94,13 @@ def build_scl_body_program(flags: np.ndarray) -> tuple[np.ndarray, bool]:
         if size == 1:
             ops.append((OP_LEAF, depth, 1, off))
             return True
-        if sub[:-1].all() and not sub[-1] and size <= REP_MAX:
+        if fast and not sub.any():
+            ops.append((OP_RATE1_FAST, depth, size, off))
+            return list_size > 1
+        if fast and sub[:-1].all() and not sub[-1]:
+            ops.append((OP_REP_FAST, depth, size, off))
+            return True
+        if not fast and sub[:-1].all() and not sub[-1] and size <= REP_MAX:
             ops.append((OP_REP, depth, size, off))
             return True
         half = size // 2
@@ -102,15 +120,18 @@ class SCLBodyProgram:
     """A chunk pattern's node program plus its plain body; device copies of
     the program are cached per device."""
 
-    def __init__(self, flags: np.ndarray, list_size: int):
+    def __init__(self, flags: np.ndarray, list_size: int, node_mode: str = "exact"):
         if not 1 <= list_size <= MAX_LIST:
             raise ValueError(f"the SCL kernels take list sizes 1..{MAX_LIST}, got {list_size}")
+        if node_mode not in ("exact", "fast"):
+            raise ValueError(f"unknown node_mode {node_mode!r}")
         self.flags = np.asarray(flags, bool)
         self.S = len(self.flags)
         self.lgS = int(np.log2(self.S))
         self.L = list_size
-        self.ops, self.has_r = build_scl_body_program(self.flags)
-        self.plain = _make_chunk_body(self.flags, list_size)
+        self.fast = node_mode == "fast"
+        self.ops, self.has_r = build_scl_body_program(self.flags, node_mode, list_size)
+        self.plain = _make_chunk_body(self.flags, list_size, node_mode)
         self._on_device: dict[torch.device, torch.Tensor] = {}
 
     def device_ops(self, device: torch.device) -> torch.Tensor:
@@ -185,7 +206,7 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
                   r_out.data_ptr(), ops.data_ptr(), ops.shape[0], int(program.has_r),
                   B, S, L, program.lgS, warps, torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_body")
-    count_launch("scl_chunk_body")
+    count_launch("scl_chunk_body_fast" if program.fast else "scl_chunk_body")
     return beta, pm_out, r_out
 
 
@@ -197,10 +218,10 @@ def scl_chunk_body(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyProgra
     return scl_chunk_body_cuda(alpha.contiguous(), pm.contiguous(), program)
 
 
-def make_chunk_body_cuda(flags: np.ndarray, list_size: int):
+def make_chunk_body_cuda(flags: np.ndarray, list_size: int, node_mode: str = "exact"):
     """``body(alpha, pm) → (beta, pm', R)`` through ``scl_chunk_body``, for
     use inside the plain chunk program (``body_impl="cuda"``)."""
-    program = SCLBodyProgram(flags, list_size)
+    program = SCLBodyProgram(flags, list_size, node_mode)
 
     def body(alpha, pm):
         return scl_chunk_body(alpha, pm, program)
@@ -305,10 +326,11 @@ def _bitmask(levels) -> int:
     return sum(1 << int(i) for i in levels)
 
 
-def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None):
+def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None,
+                    node_mode: str = "exact"):
     """``(step specs of chunks 0..C−2, last-chunk spec)`` of a schedule."""
     if programs is None:
-        programs = [SCLBodyProgram(f, sched.L) for f in sched.unique_flags]
+        programs = [SCLBodyProgram(f, sched.L, node_mode) for f in sched.unique_flags]
     t, sizes, L = sched.t, sched.sizes, sched.L
     steps = []
     for c in range(sched.C - 1):
@@ -361,7 +383,7 @@ def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec) -> None:
                   s.t, spec.program.lgS, spec.k, int(spec.inv), spec.j, spec.mask_a,
                   spec.mask_b, warps, torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_step")
-    count_launch("scl_chunk_step")
+    count_launch("scl_chunk_step_fast" if spec.program.fast else "scl_chunk_step")
 
 
 def scl_chunk_step(state: SCLState, spec: SCLStepSpec) -> None:
@@ -393,7 +415,7 @@ def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
                   int(spec.program.has_r), B, s.N, s.S, s.L, s.t, spec.program.lgS,
                   int(np.log2(s.N)), warps, torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_last_chunk")
-    count_launch("scl_last_chunk")
+    count_launch("scl_last_chunk_fast" if spec.program.fast else "scl_last_chunk")
     return u, pm_out
 
 
@@ -421,9 +443,13 @@ def build_mega_tables(sched: SCLSchedule, programs: Optional[list] = None):
     steps int32 [C, 8])``.  ``prog`` is the node programs of the code's
     distinct chunk patterns back to back; row ``c`` of ``steps`` holds chunk
     ``c``'s launch arguments (``STEP_TABLE_COLUMNS``; the last row is the last
-    chunk, which reads only its program columns)."""
+    chunk, which reads only its program columns).  A fast node program
+    raises ``ValueError``: the one-launch decode has no fast nodes."""
     if programs is None:
         programs = [SCLBodyProgram(f, sched.L) for f in sched.unique_flags]
+    if any(p.fast for p in programs):
+        raise ValueError("the one-launch list decode (scl_decode_mega) has no fast nodes: "
+                         "node_mode='fast' runs on the per-chunk kernels")
     offsets = np.concatenate([[0], np.cumsum([len(p.ops) for p in programs])])
     prog = np.concatenate([p.ops for p in programs]).astype(np.int32)
     rows = []
@@ -443,7 +469,10 @@ class SCLMegaPlan:
     """One code's tables for ``scl_decode_mega`` (device copies cached per
     device) and the shared-memory plan of the launch."""
 
-    def __init__(self, sched: SCLSchedule):
+    def __init__(self, sched: SCLSchedule, node_mode: str = "exact"):
+        if node_mode != "exact":
+            raise ValueError("the one-launch list decode (scl_decode_mega) has no fast nodes: "
+                             f"node_mode={node_mode!r} runs on the per-chunk kernels")
         if not 1 <= sched.L <= MAX_LIST:
             raise ValueError(f"the SCL kernels take list sizes 1..{MAX_LIST}, got {sched.L}")
         self.sched = sched
@@ -497,12 +526,12 @@ def scl_decode_mega_cuda(llr: torch.Tensor, plan: SCLMegaPlan):
     return u, pm
 
 
-def make_scl_kernel_decoder(sched: SCLSchedule):
+def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact"):
     """The kernel control of the chunked decoder: ``decode(llr_rev [B, N]) →
     (u [B, L, N] int8 natural order, metrics [B, L])`` with ``llr_rev`` in
     bit-reversed storage.  ``C − 1`` chunk-step launches and one last-chunk
     launch; a single-chunk code is one chunk-body launch and the butterfly."""
-    programs = [SCLBodyProgram(f, sched.L) for f in sched.unique_flags]
+    programs = [SCLBodyProgram(f, sched.L, node_mode) for f in sched.unique_flags]
     L = sched.L
     if sched.C == 1:
         rev_np = np.asarray(bit_reverse_permutation(sched.N))

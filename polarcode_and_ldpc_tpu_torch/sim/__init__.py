@@ -1,7 +1,12 @@
+from .experiments import (analyze_snr_requirements, run_ber_simulation, simulate_ldpc,
+                          simulate_polar, test_code_lengths, test_multiple_rates)
 from .montecarlo import ChunkStats, MonteCarloResult, MonteCarloSimulator
 from .pipelines import (make_channel_fn, make_ldpc_pipeline,
                         make_montecarlo_step, make_polar_pipeline, reduce_step)
+from .sweep import run_snr_sweep
 
 __all__ = ["ChunkStats", "MonteCarloResult", "MonteCarloSimulator",
            "make_channel_fn", "make_ldpc_pipeline", "make_montecarlo_step",
-           "make_polar_pipeline", "reduce_step"]
+           "make_polar_pipeline", "reduce_step", "run_snr_sweep", "run_ber_simulation",
+           "simulate_polar", "simulate_ldpc", "test_multiple_rates", "test_code_lengths",
+           "analyze_snr_requirements"]

@@ -124,8 +124,11 @@ def test_adaptive_options(code):
     frozen, _ = code
     assert _port(frozen)._budget(8192) == 512 and _port(frozen)._budget(100) == 100
     assert _port(frozen, fallback_budget=4)._budget(100) == 4
-    with pytest.raises(NotImplementedError, match="fast"):
-        _port(frozen, scl_node_mode="fast")
+    # the fast list nodes are in the package (equal to JAX: test_torch_fast_nodes.py);
+    # the one-launch list control has none
+    assert _port(frozen, scl_node_mode="fast").scl_control_impl == "unroll-fused"
+    with pytest.raises(ValueError, match="mega"):
+        _port(frozen, scl_node_mode="fast", scl_control_impl="mega")
     with pytest.raises(NotImplementedError, match="split"):
         _port(frozen, scl_control_impl="split")
     if not torch.cuda.is_available():

@@ -42,12 +42,21 @@ def test_sources_exist():
                      "polarcode_and_ldpc_tpu_torch/models/ldpc/layered.py",
                      "polarcode_and_ldpc_tpu_torch/models/ldpc/qc.py",
                      "polarcode_and_ldpc_tpu_torch/sim/montecarlo.py",
+                     "polarcode_and_ldpc_tpu_torch/ops/fastnode_cuda.py",
+                     "polarcode_and_ldpc_tpu_torch/core/config.py",
+                     "polarcode_and_ldpc_tpu_torch/sim/sweep.py",
+                     "polarcode_and_ldpc_tpu_torch/sim/experiments.py",
+                     "polarcode_and_ldpc_tpu_torch/utils/visualization.py",
+                     "polarcode_and_ldpc_tpu_torch/cli/_common.py",
+                     "polarcode_and_ldpc_tpu_torch/cli/snr_curves.py",
                      "polarcode_and_ldpc_tpu_torch/convert.py", "chip_smoke.py"):
         assert expected in names
     assert (PKG / "ops" / "csrc" / "sc_decode.cu").exists()
     assert (PKG / "ops" / "csrc" / "bp_decode.cu").exists()
     assert (PKG / "ops" / "csrc" / "scl_decode.cu").exists()
     assert (PKG / "ops" / "csrc" / "scl_device.cuh").exists()
+    assert (PKG / "ops" / "csrc" / "fastnode.cu").exists()
+    assert (PKG / "ops" / "csrc" / "fastnode_device.cuh").exists()
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -73,8 +82,10 @@ for name in names:
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 assert not bad, bad
 assert not os.path.exists(os.environ["POLAR_LDPC_TORCH_BUILD_DIR"]), "import built something"
-assert len(names) >= 23, names
-for name in ("models.polar.adaptive", "models.ldpc.layered", "models.ldpc.qc"):
+assert len(names) >= 31, names
+for name in ("models.polar.adaptive", "models.ldpc.layered", "models.ldpc.qc",
+             "ops.fastnode_cuda", "core.config", "sim.sweep", "sim.experiments",
+             "utils.visualization", "cli._common", "cli.snr_curves"):
     assert pkg.__name__ + "." + name in names, name
 print("walked", len(names))
 """
@@ -97,11 +108,12 @@ def test_public_names():
         assert name in fec.__all__
 
 
-def test_entry_points_default_to_cuda_and_raise_without_a_card():
+def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     import numpy as np
     import torch
 
     import polarcode_and_ldpc_tpu_torch as fec
+    from polarcode_and_ldpc_tpu_torch.cli import snr_curves
     from polarcode_and_ldpc_tpu_torch.sim import make_polar_pipeline
 
     if torch.cuda.is_available():
@@ -121,7 +133,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
                   lambda: fec.AdaptiveCASCLDecoder(32, 16, frozen_bits=frozen),
                   lambda: fec.LayeredMSDecoder(np.eye(4, 8, dtype=np.int64)),
                   lambda: fec.QCBPDecoder(fec.qc_base_matrix(24, 12, 4, 3, 6, seed=0), 4),
-                  lambda: fec.CASCLDecoder(32, 16, frozen_bits=frozen, control_impl="mega")):
+                  lambda: fec.CASCLDecoder(32, 16, frozen_bits=frozen, control_impl="mega"),
+                  lambda: fec.SCLDecoder(32, 16, frozen_bits=frozen, node_mode="fast"),
+                  lambda: snr_curves.main(["--polar-n", "32", "--ldpc-n", "24", "--rates", "0.5",
+                                           "--skip-plots", "--output-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 
@@ -144,9 +159,16 @@ def test_unported_options_raise_not_implemented():
     # what this package still leaves out says so, by name
     for kw in (dict(scl_control_impl="mega-interpret"), dict(scl_control_impl="split"),
                dict(scl_control_impl="fused"), dict(scl_control_impl="kernel"),
-               dict(scl_node_mode="fast"), dict(scl_leaf_impl="sort")):
+               dict(scl_leaf_impl="sort")):
         with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
             make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", device="cpu", **kw)
+    # the fast list nodes are in the package now; the one-launch control has none
+    step = make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", list_size=2,
+                               scl_node_mode="fast", device="cpu")
+    assert step(rng.prng_key(0), torch.arange(8))["bit_errors"].shape == (8,)
+    with pytest.raises(ValueError, match="mega"):
+        make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", scl_node_mode="fast",
+                            scl_control_impl="mega", device="cpu")
     mask = np.zeros(32, bool)
     mask[frozen] = True
     from polarcode_and_ldpc_tpu_torch.models.polar import make_scl_decoder

@@ -446,7 +446,6 @@ def test_unported_options_raise_with_their_name():
     mask = mask_of(32, 16)
     frozen = np.nonzero(mask)[0]
     for kw, word in [(dict(perm_impl="onehot"), "perm_impl='onehot'"),
-                     (dict(node_mode="fast"), "node_mode='fast'"),
                      (dict(leaf_impl="sort"), "leaf_impl='sort'"),
                      (dict(impl="unrolled"), "impl='unrolled'"),
                      (dict(impl="scan"), "impl='scan'")] + [
@@ -465,8 +464,17 @@ def test_unported_options_raise_with_their_name():
     # the one-launch control is in the package: on the CPU it is the plain chunk program
     assert tscl.make_scl_decoder(32, mask, 2, control_impl="mega",
                                  device="cpu").control_impl == "mega"
-    with pytest.raises(NotImplementedError, match="fast"):
-        tfec.SCLDecoder(32, 16, frozen_bits=frozen, node_mode="fast", device="cpu")
+    # the fast list nodes are in the package: not on the one-launch control,
+    # not with live width, and with a warning above a list of 16
+    assert tfec.SCLDecoder(32, 16, frozen_bits=frozen, node_mode="fast",
+                           device="cpu").node_mode == "fast"
+    with pytest.raises(ValueError, match="mega"):
+        tscl.make_scl_decoder(32, mask, 2, control_impl="mega", node_mode="fast", device="cpu")
+    with pytest.raises(ValueError, match="live_width"):
+        tscl.make_scl_decoder(32, mask, 2, node_mode="fast", live_width=True, device="cpu")
+    assert not tscl.make_scl_decoder(32, mask, 4, node_mode="fast", device="cpu").live_width
+    with pytest.warns(UserWarning, match="small-list serving mode"):
+        tscl.make_scl_decoder(32, mask, 32, node_mode="fast", device="cpu")
     # the kernels are float32, run at full width, and hold lists up to 32
     with pytest.raises(TypeError, match="float32"):
         tscl.make_scl_decoder(32, mask, 2, torch.float64, control_impl="unroll-kernel",

@@ -9,6 +9,14 @@ passes, same packed path bits, same order of float additions, one op at a
 time — with the frame batch as a leading axis, and holds the result against
 the plain PyTorch versions bit for bit.  The float expressions use the same
 torch operators as the plain version, so equality is exact.
+
+The fast node ops (``node_mode="fast"``) are walked the same way: the grouped
+warp argmin of ``csrc/fastnode_device.cuh`` (each path's lanes pick the least
+``(|a|, position)`` pair strictly above the previous pick), the halving-tree
+sums with their flat indices, the slot → original-path composition the
+kernel keeps in a register per lane, the per-stage flip words and the XOR of
+the flips into the packed partial sums.  The selection kernel ``fastnode.cu``
+is those same two device functions, walked against its plain version too.
 """
 
 import zlib
@@ -24,10 +32,12 @@ from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (_d0_d1, build_scl
                                                                make_scl_decoder_scan)
 from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
 from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
+from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import fastnode_select, fastnode_select_plain
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (FLAG_RL, FLAG_RR, OP_COMBINE, OP_F, OP_G,
-                                                       OP_LEAF, OP_RATE0, OP_REP, SCLBodyProgram,
-                                                       SCLState, build_scl_body_program,
-                                                       make_step_specs, unpack_paths)
+                                                       OP_LEAF, OP_RATE0, OP_RATE1_FAST, OP_REP,
+                                                       OP_REP_FAST, SCLBodyProgram, SCLState,
+                                                       build_scl_body_program, make_step_specs,
+                                                       unpack_paths)
 
 
 class Ctx:
@@ -66,9 +76,12 @@ def zero_dec_inplace(z, total, M):
 
 
 def info_leaf(c, leaf_a):
-    L = c.L
     d0, d1 = _d0_d1(leaf_a)
-    cand = torch.cat([c.pm + d0, c.pm + d1], dim=1)
+    return prune(c, torch.cat([c.pm + d0, c.pm + d1], dim=1))
+
+
+def prune(c, cand):
+    L = c.L
     B = cand.shape[0]
     rank = torch.zeros((B, 2 * L), dtype=torch.int64)
     for i in range(2 * L):
@@ -85,6 +98,98 @@ def info_leaf(c, leaf_a):
         if i >= L:
             word[keep] |= 1 << slot
     return word
+
+
+def softplus(a):
+    return torch.log1p(torch.exp(-a.abs()))
+
+
+def halving_sum(a, L, M, f):
+    """``fastnode::halving_sum`` on flat ``a [B, L·M]``: the kernel's flat
+    indices, level by level; returns the scratch ``z [B, L·H]`` (row l's sum
+    at ``l·H``) and ``H``."""
+    H = M // 2 if M > 1 else 1
+    q = np.arange(L * H)
+    l, i = q // H, q % H
+    z = f(a[:, l * M + i]) + f(a[:, l * M + i + H]) if M > 1 else f(a[:, l])
+    h = H // 2
+    while h >= 1:
+        q = np.arange(L * h)
+        l, i = q // h, q % h
+        z[:, l * H + i] = z[:, l * H + i] + z[:, l * H + i + h]
+        h //= 2
+    return z, H
+
+
+def select_k(a, L, M, K):
+    """``fastnode::select_k`` on flat ``a [B, L·M]``: per round, each lane of
+    a path's group of G takes its least pair above the previous pick, then
+    the xor-shuffle tree of the group; returns ``idx [B, L, K]``."""
+    B = a.shape[0]
+    G = 32
+    while G * L > 32:
+        G //= 2
+    mags = a.reshape(B, L, M).abs()
+    last_m = torch.full((B, L), -np.inf)
+    last_p = torch.full((B, L), -1, dtype=torch.int64)
+    idx = torch.zeros((B, L, K), dtype=torch.int64)
+    for k in range(K):
+        bm = torch.full((B, L, G), np.inf)
+        bp = torch.full((B, L, G), 2 ** 31 - 1, dtype=torch.int64)
+        for i in range(M):  # lane `i % G` of the path's group meets position i
+            m, sub = mags[:, :, i], i % G
+            above = (m > last_m) | ((m == last_m) & (i > last_p))
+            better = above & ((m < bm[:, :, sub]) | ((m == bm[:, :, sub]) & (i < bp[:, :, sub])))
+            bm[:, :, sub] = torch.where(better, m, bm[:, :, sub])
+            bp[:, :, sub] = torch.where(better, i, bp[:, :, sub])
+        off = G // 2
+        while off >= 1:
+            partner = torch.as_tensor(np.arange(G) ^ off)
+            om, op = bm[:, :, partner], bp[:, :, partner]
+            take = (om < bm) | ((om == bm) & (op < bp))
+            bm, bp = torch.where(take, om, bm), torch.where(take, op, bp)
+            off //= 2
+        last_m, last_p = bm[:, :, 0], bp[:, :, 0]
+        idx[:, :, k] = last_p
+    return idx
+
+
+def rate1_fast(c, a, sz, off):
+    """``scl::rate1_fast`` on the node's flat plane ``a [B, L·sz]``."""
+    L, B = c.L, a.shape[0]
+    z, H = halving_sum(a, L, sz, softplus)
+    c.pm = c.pm - z[:, np.arange(L) * H]
+    K = min(L - 1, sz)
+    idx = select_k(a, L, sz, K)
+    rtot = torch.arange(L).expand(B, L).clone()  # lane l's register
+    fw = torch.zeros((B, max(K, 1)), dtype=torch.int64)  # lane s's flip word
+    rows = torch.arange(B)[:, None]
+    for s in range(K):
+        mag = torch.gather(a, 1, rtot * sz + idx[rows, rtot, s]).abs()
+        word = prune(c, torch.cat([c.pm, c.pm - mag], dim=1))
+        if s:
+            fw[:, :s] = perm_word(fw[:, :s], c.R, L)
+        fw[:, s] = word
+        rtot = torch.gather(rtot, 1, c.R)
+    if K:
+        c.R = rtot
+    sign = (a.reshape(B, L, sz) < 0).to(torch.int64)
+    w = (sign << torch.arange(L)[None, :, None]).sum(dim=1)
+    c.beta[:, off:off + sz] = perm_word(w, c.R, L) if K else w
+    for q in range(L * K):
+        l, s = q // K, q % K
+        hit = ((fw[:, s] >> l) & 1).bool()
+        pos = off + idx[torch.arange(B), c.R[:, l], s]
+        c.beta[rows[hit, 0], pos[hit]] ^= 1 << l
+
+
+def rep_fast(c, a, sz, off):
+    L = c.L
+    z0, H = halving_sum(a, L, sz, lambda x: _d0_d1(x)[0])
+    z1, _ = halving_sum(a, L, sz, lambda x: _d0_d1(x)[1])
+    rows = np.arange(L) * H
+    word = prune(c, torch.cat([c.pm + z0[:, rows], c.pm + z1[:, rows]], dim=1))
+    c.beta[:, off:off + sz] = word[:, None]
 
 
 def chunk_body(c, ops, has_r):
@@ -151,6 +256,10 @@ def chunk_body(c, ops, has_r):
             c.pm = pm
             word = info_leaf(c, leaf_a)
             c.beta[:, off:off + sz] = word[:, None]
+        elif kind == OP_RATE1_FAST:
+            rate1_fast(c, c.alpha[:, base:base + L * sz].clone(), sz, off)
+        elif kind == OP_REP_FAST:
+            rep_fast(c, c.alpha[:, base:base + L * sz].clone(), sz, off)
         else:
             raise AssertionError(kind)
     if not has_r:
@@ -322,6 +431,66 @@ def test_body_program_walk_equals_plain_body(kind, S, L, case):
     assert torch.equal(r0, r1)
 
 
+@pytest.mark.parametrize("case", ["random", "phantoms", "ties"])
+@pytest.mark.parametrize("kind,S,L", [
+    ("dense", 16, 8), ("dense", 8, 1), ("dense", 4, 8), ("rep", 128, 4), ("mixed", 64, 8),
+    ("mixed", 32, 3), ("mixed", 32, 16), ("3", 128, 8), ("5", 128, 8), ("6", 128, 4),
+    ("7", 128, 2)])
+def test_fast_body_program_walk_equals_plain_body(kind, S, L, case):
+    """The fast ops as the kernel walks them: rate-1 nodes up to the whole
+    chunk (``dense``), ``K = L − 1`` against ``K = size``, L = 1 (no stage),
+    a list of 3 (lane groups of 8, idle lanes)."""
+    rng = np.random.default_rng(zlib.crc32(repr(("fast", kind, S, L, case)).encode()))
+    program = SCLBodyProgram(_pattern(kind, S, rng), L, "fast")
+    assert program.fast
+    alpha, pm = _body_inputs(rng, 9, L, S, case)
+    b0, p0, r0 = program.plain(alpha, pm)
+    b1, p1, r1 = emulate_body(program, alpha, pm)
+    assert torch.equal(b0, b1)
+    assert torch.equal(p0, p1)
+    assert torch.equal(r0, r1)
+
+
+def test_fast_body_program_shape_and_flags():
+    ops, has_r = build_scl_body_program(np.zeros(64, bool), "fast", 8)
+    assert ops.tolist() == [[OP_RATE1_FAST, 0, 64, 0]] and has_r
+    ops, has_r = build_scl_body_program(np.zeros(4, bool), "fast", 1)  # L = 1: no prune
+    assert ops.tolist() == [[OP_RATE1_FAST, 0, 4, 0]] and not has_r
+    f = np.ones(128, bool)
+    f[-1] = False  # a repetition node of any width is one op
+    ops, has_r = build_scl_body_program(f, "fast", 4)
+    assert ops.tolist() == [[OP_REP_FAST, 0, 128, 0]] and has_r
+    mixed = np.array([True, True, True, False, False, False, False, False])
+    ops, _ = build_scl_body_program(mixed, "fast", 2)
+    assert [o[0] & 0xFF for o in ops.tolist()] == [OP_F, OP_REP_FAST, OP_G, OP_RATE1_FAST,
+                                                   OP_COMBINE]
+    ops, _ = build_scl_body_program(mixed)  # the exact program has no fast op
+    assert not {OP_RATE1_FAST, OP_REP_FAST} & {o[0] & 0xFF for o in ops.tolist()}
+    with pytest.raises(ValueError, match="list_size"):
+        build_scl_body_program(np.zeros(4, bool), "fast")
+
+
+@pytest.mark.parametrize("L,S,B,case", [(8, 64, 128, "normal"), (8, 64, 16, "integer ties"),
+                                        (3, 16, 8, "integer ties"), (32, 8, 4, "normal"),
+                                        (1, 2, 5, "normal")])
+def test_fastnode_select_walk_equals_plain(L, S, B, case):
+    """The selection kernel ``fastnode.cu``: the frame's ``[L, S]`` plane,
+    ``halving_sum`` of the softplus, ``select_k``, mags re-read at the picked
+    positions — against ``fastnode_select`` on a CPU tensor, the plain
+    version (the probe's shape first)."""
+    rng = np.random.default_rng(L * S + B)
+    a = torch.from_numpy((rng.integers(-2, 3, (L, S, B)) if case == "integer ties"
+                          else 2 * rng.standard_normal((L, S, B))).astype(np.float32))
+    K = max(1, min(L - 1, S))
+    mags, idx, pen = fastnode_select(a, K)
+    flat = a.permute(2, 0, 1).reshape(B, L * S)
+    z, H = halving_sum(flat, L, S, softplus)
+    picks = select_k(flat, L, S, K)
+    assert idx.dtype == torch.int32 and torch.equal(picks.permute(1, 2, 0).to(torch.int32), idx)
+    assert torch.equal(torch.gather(flat.reshape(B, L, S).abs(), 2, picks).permute(1, 2, 0), mags)
+    assert torch.equal(z[:, np.arange(L) * H].T[:, None, :], pen)
+
+
 def test_body_program_shape_and_flags():
     ops, has_r = build_scl_body_program(np.ones(64, bool))
     assert ops.tolist() == [[OP_RATE0, 0, 64, 0]] and not has_r
@@ -372,6 +541,38 @@ def test_step_and_last_walk_equal_plain_on_every_chunk(N, K, S, L):
     u2, p2 = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-fused",
                                    live_width=False, device="cpu")(llr)
     assert torch.equal(u0, u2) and torch.equal(p0, p2)
+
+
+@pytest.mark.parametrize("N,K,S,L", [(128, 64, 16, 4), (256, 130, 32, 8), (64, 40, 64, 2)])
+def test_fast_step_and_last_walk_equal_plain_on_every_chunk(N, K, S, L):
+    fm = _code(N, K)
+    sched = build_scl_schedule(N, fm, L, S)
+    rng = np.random.default_rng(N + S + L)
+    llr = torch.from_numpy((1.5 + 2 * rng.standard_normal((7, N))).astype(np.float32))
+    llr[0] = torch.from_numpy(rng.integers(-2, 3, N).astype(np.float32))  # tie-heavy frame
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64)
+    want = make_scl_decoder_scan(N, fm, L, chunk=S, node_mode="fast", device="cpu")(llr)
+    if sched.C == 1:  # a single chunk: the body on the LLRs, then the butterfly
+        program = SCLBodyProgram(sched.unique_flags[0], L, "fast")
+        alpha = llr[:, rev][:, None, :].expand(-1, L, -1).contiguous()
+        pm = torch.full((7, L), -np.inf)
+        pm[:, 0] = 0.0
+        beta, p1, _ = emulate_body(program, alpha, pm)
+        u1 = tfec.polar_transform(beta[..., rev])
+        assert torch.equal(u1, want[0]) and torch.equal(p1, want[1])
+        return
+    steps, last = make_step_specs(sched, node_mode="fast")
+    assert all(s.program.fast for s in steps) and last.program.fast
+    plain = SCLState(sched, llr[:, rev].contiguous())
+    emu = plain.clone()
+    for c, spec in enumerate(steps):
+        scl_cuda.scl_chunk_step(plain, spec)
+        emulate_step(emu, spec)
+        _assert_state_equal(plain, emu, c)
+    u0, p0 = scl_cuda.scl_last_chunk(plain, last)
+    u1, p1 = emulate_last(emu, last)
+    assert torch.equal(u0, u1) and torch.equal(p0, p1)
+    assert torch.equal(u0, want[0]) and torch.equal(p0, want[1])
 
 
 def test_step_arguments_cover_every_variant():
@@ -433,3 +634,23 @@ def test_kernels_equal_plain_on_the_card():
                dict(control_impl="unroll-fused", body_impl="cuda")):
         got = make_scl_decoder_scan(N, fm, L, chunk=S, device="cuda", **kw)(llr)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_fast_kernels_equal_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode); run chip_smoke.py "
+                    "on the card")
+    N, K, S, L = 256, 130, 32, 8
+    fm = _code(N, K)
+    g = np.random.default_rng(1)
+    llr = torch.from_numpy((1.5 + 2 * g.standard_normal((333, N))).astype(np.float32)).cuda()
+    want = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-fused",
+                                 node_mode="fast", device="cuda")(llr)
+    for kw in (dict(control_impl="unroll-kernel"),
+               dict(control_impl="unroll-fused", body_impl="cuda")):
+        got = make_scl_decoder_scan(N, fm, L, chunk=S, node_mode="fast", device="cuda", **kw)(llr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    a = torch.from_numpy(g.integers(-3, 4, (8, 64, 128)).astype(np.float32)).cuda()
+    for x, y in zip(fastnode_select(a, 7), fastnode_select_plain(a.cpu(), 7)):
+        assert torch.equal(x.cpu(), y)
