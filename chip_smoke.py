@@ -10,11 +10,12 @@ from the sources in the checkout, holds each kernel against its plain PyTorch
 version on the card at the shapes the Monte-Carlo main path gives it, drives
 the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8
 exact and with fast list nodes, the LDPC BP / min-sum, the row-layered
-min-sum and the quasi-cyclic n=8192 pipelines, the adaptive SC-first CA-SCL
-serving decoder on batches of 8192 frames, exact and fast, and the SNR-curve
-CLI) at full code size through the kernels, checks the frame-id invariance of
-the counters and checkpoint/resume, and prints one JSON line per phase.  Any
-failure raises, and the exit code is then non-zero.
+min-sum and the quasi-cyclic n=8192 pipelines, the large codes — polar
+N=4096 SCL-32, SC at N=32768, the MacKay LDPC code at n=8192 —, the adaptive
+SC-first CA-SCL serving decoder on batches of 8192 frames, exact and fast,
+and the SNR-curve CLI) at full code size through the kernels, checks the
+frame-id invariance of the counters and checkpoint/resume, and prints one
+JSON line per phase.  Any failure raises, and the exit code is then non-zero.
 
 The second line from the end lists every kernel with its launches on the main
 path, its error against the plain version, its time, the plain version's
@@ -28,10 +29,15 @@ the level stacks of every chunk position, the last chunk, the one-launch
 decode, whole decodes, other codes), ``fast_kernels`` (the fast-node
 selection kernel, and the fast node programs of the chunk body, chunk step
 and last chunk in the same way; the one-launch decode must refuse them),
-``polar_sc_mc``, ``polar_cascl_mc``, ``polar_fast_mc``, ``ldpc_mc``,
-``ldpc_layered_mc``, ``ldpc_qc_mc``, ``serving``, ``serving_fast``,
-``snr_curves`` (the main paths, each with the launch counts set to 0 just
-before and read just after), ``invariance``, ``stages``.
+``large_kernels`` (the large-code modes: the SC kernel's hybrid subtree
+launch at N=32768, the LDPC kernel with its planes in device memory on the
+MacKay n=8192 code, flooding and layered, the list kernels with the chunk
+context in device memory at S=1024, L=32, and the narrow live-width chunk
+step beside the full-width one), ``polar_sc_mc``, ``polar_cascl_mc``,
+``polar_fast_mc``, ``ldpc_mc``, ``ldpc_layered_mc``, ``ldpc_qc_mc``,
+``polar_large_mc``, ``polar_sc_large_mc``, ``ldpc_large_mc``, ``serving``,
+``serving_fast``, ``snr_curves`` (the main paths, each with the launch counts
+set to 0 just before and read just after), ``invariance``, ``stages``.
 
 ``--quick`` cuts the frame counts (for a first run after a kernel change);
 ``--phases a,b`` runs a subset (then no final ``ok`` line is printed).
@@ -64,19 +70,23 @@ from polarcode_and_ldpc_tpu_torch.models.polar.construction import (bit_reverse_
                                                                     frozen_mask_from_positions)
 from polarcode_and_ldpc_tpu_torch.models.polar.crc import CRCCodec
 from polarcode_and_ldpc_tpu_torch.models.polar.encoder import polar_transform
+from polarcode_and_ldpc_tpu_torch.models.polar.fastsc import make_sc_decoder_unrolled
 from polarcode_and_ldpc_tpu_torch.models.polar.sc import make_sc_decoder
 from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (build_scl_schedule,
                                                                super_touch_sets)
 from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder, select_best_path
+from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
 from polarcode_and_ldpc_tpu_torch.ops import build
 from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda, smem_bytes
-from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import SCProgram, sc_decode_cuda
+from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import (SCProgram, hybrid_sub_n,
+                                                          make_sc_decoder_mega, sc_decode_cuda)
 from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
                                                             fastnode_select_cuda,
                                                             fastnode_select_plain)
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_RATE1_FAST,
                                                        OP_REP, OP_REP_FAST, SCLMegaPlan, SCLState,
-                                                       build_mega_tables, make_step_specs,
+                                                       build_mega_tables, context_in_device_memory,
+                                                       make_step_specs,
                                                        scl_chunk_body_cuda, scl_chunk_step_cuda,
                                                        scl_last_chunk_cuda)
 from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
@@ -122,9 +132,10 @@ SNR_CURVE_ARGS = ["--polar-n", "1024", "--ldpc-n", "1008", "--rates", "0.5",
                   "--batch-size", "4096", "--polar-algorithm", "ca_scl",
                   "--scl-node-mode", "fast", "--skip-plots", "--seed", "42"]
 
-PHASES = ("device", "build", "kernels", "scl_kernels", "fast_kernels", "polar_sc_mc",
-          "polar_cascl_mc", "polar_fast_mc", "ldpc_mc", "ldpc_layered_mc", "ldpc_qc_mc",
-          "serving", "serving_fast", "snr_curves", "invariance", "stages")
+PHASES = ("device", "build", "kernels", "scl_kernels", "fast_kernels", "large_kernels",
+          "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc", "ldpc_mc", "ldpc_layered_mc",
+          "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
+          "serving_fast", "snr_curves", "invariance", "stages")
 
 
 def emit(phase: str, **fields) -> None:
@@ -187,9 +198,9 @@ def phase_build(verbose: bool) -> None:
          flags=" ".join(build.NVCC_FLAGS))
 
 
-def polar_code():
-    frozen, info = fec.construct_polar_code(POLAR_N, POLAR_K, "bhattacharyya", 2.0)
-    return frozen, info, frozen_mask_from_positions(POLAR_N, frozen)
+def polar_code(N: int = POLAR_N, K: int = POLAR_K):
+    frozen, info = fec.construct_polar_code(N, K, "bhattacharyya", 2.0)
+    return frozen, info, frozen_mask_from_positions(N, frozen)
 
 
 def ldpc_code():
@@ -434,6 +445,13 @@ def scl_flagship():
     return frozen, info, mask, sched, steps, last, rev
 
 
+def flagship_narrow_steps() -> int:
+    """Chunk steps of a flagship decode that run narrow (live width on the
+    kernel control): the positions entering with fewer live paths than L."""
+    _, _, mask = polar_code()
+    return sum(w < SCL_L for w in build_scl_schedule(POLAR_N, mask, SCL_L, SCL_S).lv_in[:-1])
+
+
 def cascl_llrs(frozen, B: int, snr_db: float, seed: int) -> torch.Tensor:
     enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, use_crc=True,
                            crc_polynomial=SCL_CRC, device=DEV)
@@ -441,7 +459,7 @@ def cascl_llrs(frozen, B: int, snr_db: float, seed: int) -> torch.Tensor:
     return seeded_llrs(enc.encode(msgs), snr_db, seed=seed + 1000)
 
 
-def body_flops(program) -> int:
+def body_flops(program, w=None) -> int:
     """Float and compare operations that one chunk body needs per frame, not
     what the kernel spends: 3 per f or g element; 7 per log-likelihood, so 14
     per path at a leaf for its two candidates; a stable top-L of the 2L
@@ -454,33 +472,42 @@ def body_flops(program) -> int:
     of sz compares per path for its least reliable positions, sz hard
     decisions, and K stages of L subtractions and a top-L; a fast repetition
     node as 2 * 7 log-likelihoods and 2 (sz - 1) adds per path, 2L adds and
-    one top-L."""
+    one top-L.  From ``w`` live paths (live width) the count follows the
+    live paths, doubling at every leaf up to L."""
     L, total = program.L, 0
+    w = L if w is None else w
     top = 2 * L * math.ceil(math.log2(2 * L))
-    leaf = 14 * L + top
+
+    def leaf() -> int:
+        return 14 * w + 2 * w * max(1, math.ceil(math.log2(2 * w)))
+
     for op, _, sz, _ in program.ops.tolist():
         kind = op & 0xFF
         if kind in (OP_F, OP_G):
-            total += 3 * L * sz
+            total += 3 * w * sz
         elif kind == OP_COMBINE:
-            total += sz * (1 + L)
+            total += sz * (1 + w)
         elif kind == OP_LEAF:
-            total += leaf
+            total += leaf()
+            w = min(2 * w, L)
         elif kind == OP_RATE1_FAST:
             k = min(L - 1, sz)
             total += L * (4 * sz + sz - 1 + k * sz + sz) + k * (L + top)
         elif kind == OP_REP_FAST:
             total += L * (14 * sz + 2 * (sz - 1)) + 2 * L + top
         else:
-            total += L * (2 * sz * int(math.log2(sz)) + 7 * sz + sz - 1)
-            total += leaf if kind == OP_REP else 0
+            total += w * (2 * sz * int(math.log2(sz)) + 7 * sz + sz - 1)
+            if kind == OP_REP:
+                total += leaf()
+                w = min(2 * w, L)
     return total
 
 
 def step_cost(sched, c: int, spec) -> tuple[int, int]:
     """(bytes, operations) per frame of chunk step ``c``: every touched level
-    read once and written once (``super_touch_sets``), pendings and metrics."""
-    t, L, sizes = sched.t, sched.L, sched.sizes
+    read once and written once (``super_touch_sets``), pendings and metrics,
+    at the step's live width (``spec.lv_in``: L at full width)."""
+    t, L, sizes = sched.t, spec.lv_in, sched.sizes
     touch = super_touch_sets(int(sched.desc_k[c]), int(sched.asc_j[c]), t,
                              sched.comp_a[c], sched.comp_b[c])
     rows = 1 if spec.inv or spec.k == t else L
@@ -492,7 +519,8 @@ def step_cost(sched, c: int, spec) -> tuple[int, int]:
             + sum(4 * sizes[i + 1] for i in touch["beta_write"])
             + 4 * L * (len(touch["pend_a_out"]) + len(touch["pend_a_eye"])
                        + len(touch["pend_b_out"]) + len(touch["pend_b_eye"]) + 1))
-    flops = (body_flops(spec.program) + sum(3 * L * sizes[i + 1] for i in touch["alpha_write"])
+    flops = (body_flops(spec.program, L)
+             + sum(3 * L * sizes[i + 1] for i in touch["alpha_write"])
              + sum((1 + L) * sizes[i + 1] for i in touch["beta_read"]))
     return byts, flops
 
@@ -918,6 +946,322 @@ def phase_fast_kernels(results: dict, reps: int, quick: bool) -> None:
          cases=cases, other_codes=check_fast_other_codes(), mega_refuses_fast=True)
 
 
+# -- large codes: K1's hybrid mode, the device-memory modes, K3's live width -------
+
+# the reference's large-code configuration (BASELINE.json configs[4],
+# tools/large_code_runs.py): N=4096 SCL-32 with subtree chunk 64; SC beyond one
+# block (N=32768, the hybrid mode's cut at 16384); the default (MacKay)
+# construction at n=8192
+LARGE_SCL_N, LARGE_SCL_K, LARGE_SCL_L, LARGE_SCL_S, LARGE_SCL_CHUNK = 4096, 2048, 32, 64, 1024
+LARGE_SC_N, LARGE_SC_K, LARGE_SC_CHUNK = 32768, 16384, 1024
+LARGE_LDPC_N, LARGE_LDPC_K, LARGE_LDPC_CHUNK = 8192, 4096, 1024
+LARGE_LDPC_LOW_SNR_DB = -1.0
+# a chunk whose context one block cannot hold: S=1024 at L=32; single-chunk
+# codes (N, K, L, node mode) whose one chunk-body launch cannot either
+DEVMEM_SCL_S = 1024
+DEVMEM_SINGLE_CHUNK_CODES = ((1024, 512, 32, "exact"), (2048, 1024, 16, "fast"))
+_LARGE_LDPC: dict = {}
+
+
+def large_ldpc_code():
+    """The default-construction (MacKay) (8192, 4096) code and its encoder;
+    built once per run (the encoder's GF(2) elimination is host set-up)."""
+    if not _LARGE_LDPC:
+        t0 = time.perf_counter()
+        H = fec.mackay_construction(LARGE_LDPC_N, LARGE_LDPC_K, 3, 6, seed=42)
+        enc = fec.LDPCEncoder(LARGE_LDPC_N, LARGE_LDPC_K, H=H, device=DEV)
+        _LARGE_LDPC.update(enc=enc, graph=TannerGraph.from_H(enc.H, DEV),
+                           setup_s=time.perf_counter() - t0)
+    return _LARGE_LDPC
+
+
+def check_sc_hybrid(results: dict, reps: int) -> dict:
+    """K1's subtree mode at N=32768: one launch per size-16384 subtree on its
+    storage slice, against the plain subtree decoder; the whole hybrid decode
+    against the unrolled decoder, bit for bit."""
+    N, K, B = LARGE_SC_N, LARGE_SC_K, LARGE_SC_CHUNK
+    frozen, _, mask = polar_code(N, K)
+    dec = make_sc_decoder_mega(N, mask)
+    sub_n = dec.sub_n
+    if sub_n != hybrid_sub_n(N) or sorted(dec.programs) != [0, N // 2]:
+        raise AssertionError(f"hybrid SC at N={N}: cut {sub_n}, subtrees {sorted(dec.programs)}")
+    plain = make_sc_decoder_unrolled(N, mask)
+    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, device=DEV)
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), device=DEV)
+    cases, sub_ms, sub_plain_ms = [], [], []
+    inputs = [(snr, seeded_llrs(enc.encode(np.random.default_rng(40 + int(snr)).integers(
+        0, 2, (B, K))), snr, seed=41 + int(10 * snr))) for snr in (3.0, -1.0)]
+    inputs.append(("integer ties", torch.from_numpy(np.random.default_rng(42).integers(
+        -3, 4, (256, N)).astype(np.float32)).to(DEV)))
+    for snr, llr in inputs:
+        a = llr[:, rev]
+        first, second = a[:, :sub_n], a[:, sub_n:]
+        alpha_l = f_minsum(first, second).contiguous()
+        got_l = sc_decode_cuda(alpha_l, dec.programs[0])
+        alpha_r = (second + (1.0 - 2.0 * got_l.to(torch.float32)) * first).contiguous()
+        got_r = sc_decode_cuda(alpha_r, dec.programs[sub_n])
+        torch.cuda.synchronize()
+        hold_equal("sc_decode_sub", {
+            "left subtree": (got_l, dec.programs[0].plain(alpha_l)),
+            "right subtree": (got_r, dec.programs[sub_n].plain(alpha_r)),
+            "whole decode vs unrolled": (dec(llr), plain(llr))}, {"snr_db": snr, "N": N})
+        cases.append({"snr_db": snr, "B": llr.shape[0], "subtrees_equal_plain": True,
+                      "whole_decode_equals_unrolled": True})
+        if snr == 3.0:  # the main path's shape
+            for off, alpha in ((0, alpha_l), (sub_n, alpha_r)):
+                prog = dec.programs[off]
+                sub_ms.append(time_ms(lambda: sc_decode_cuda(alpha, prog), reps))
+                sub_plain_ms.append(time_ms(lambda: prog.plain(alpha), 1, warmup=1))
+            whole_ms = time_ms(lambda: dec(llr), reps)
+            whole_plain_ms = time_ms(lambda: plain(llr), 1, warmup=1)
+    byts = B * sub_n * 5
+    flops = B * sub_n * int(math.log2(sub_n))
+    results["sc_decode_sub"] = kernel_row(
+        "sc_decode_sub", "polarcode_and_ldpc_tpu/ops/sc_mega_pallas.py:168",
+        sum(sub_ms) / 2, sum(sub_plain_ms) / 2, byts, flops, 0,
+        source="polarcode_and_ldpc_tpu_torch/ops/csrc/sc_decode.cu",
+        shape=[B, sub_n], code=[N, K], ms_per_subtree=sub_ms,
+        whole_decode_ms=whole_ms, whole_decode_plain_ms=whole_plain_ms,
+        launches_per_decode=len(dec.programs),
+        note="ms, plain_ms, bound_ms per subtree launch; plain_ms is the unrolled recursion "
+             "on the subtree's storage slice", cases=cases)
+    return {"N": N, "sub_n": sub_n, "cases": cases}
+
+
+def check_bp_devmem(results: dict, reps: int) -> dict:
+    """K2 flooding (sum-product, NMS) and layered (NMS) with the planes in
+    device memory, on the default-construction (MacKay) code at n=8192."""
+    code = large_ldpc_code()
+    enc, graph = code["enc"], code["graph"]
+    n, B = LARGE_LDPC_N, LARGE_LDPC_CHUNK
+    configs = {"bp_decode_bp_devmem": ("bp", 1.0, "flooding"),
+               "bp_decode_ms_devmem": ("ms", 0.75, "flooding"),
+               "bp_decode_layered_devmem": ("ms", 0.75, "layered")}
+    codewords = {snr: enc.encode(np.random.default_rng(60 + int(snr)).integers(
+        0, 2, (B, LARGE_LDPC_K))) for snr in (3.0, LARGE_LDPC_LOW_SNR_DB)}
+    inputs = {snr: seeded_llrs(cw, snr, seed=61 + int(10 * snr)) for snr, cw in codewords.items()}
+    out = {"dv_max": graph.dv_max, "dc_max": graph.dc_max, "setup_s": code["setup_s"]}
+    for key, (rule, alpha, schedule) in configs.items():
+        plan = BPKernelPlan(graph, LDPC_ITERS, True, rule, alpha, 0.0, schedule, LDPC_LAYERS)
+        if not plan.device_memory:
+            raise AssertionError(f"{key}: {plan.smem_bytes} bytes per frame fit one block")
+        cases = []
+        for snr, llr in inputs.items():
+            bits, iters = bp_decode_cuda(llr, plan)
+            torch.cuda.synchronize()
+            pbits, piters = plan.plain(llr)
+            differ = int(((bits != pbits).any(dim=1) | (iters != piters)).sum())
+            cases.append({"snr_db": snr, "B": B, "frames_differ": differ,
+                          "mean_iterations": float(iters.float().mean()),
+                          "frame_errors": int((bits != codewords[snr]).any(dim=1).sum())})
+            if differ > (B // 1000 if rule == "bp" else 0):
+                raise AssertionError(f"{key} differs from its plain version: {cases[-1]}")
+        llr = inputs[3.0]
+        bits, iters = bp_decode_cuda(llr, plan)
+        pbits, piters = plan.plain(llr)
+        max_abs = max(int((bits.to(torch.int16) - pbits.to(torch.int16)).abs().max()),
+                      int((iters - piters).abs().max()))
+        ms = time_ms(lambda: bp_decode_cuda(llr, plan), reps)
+        plain_ms = time_ms(lambda: plan.plain(llr), max(1, reps // 5), warmup=1)
+        ops_key = "layered" if schedule == "layered" else rule
+        flops = graph.num_edges * int(iters.sum()) * OPS_PER_EDGE_ITER[ops_key]
+        results[key] = kernel_row(
+            key, "polarcode_and_ldpc_tpu/ops/bp_pallas.py:140", ms, plain_ms,
+            B * (5 * n + 4), flops, max_abs, source="polarcode_and_ldpc_tpu_torch/ops/csrc/bp_decode.cu",
+            shape=[B, n], schedule=schedule, rule=f"{rule} {alpha}",
+            mean_iterations=float(iters.float().mean()),
+            scratch_bytes_per_block=plan.scratch_bytes_per_frame,
+            tolerance=("bit-identical bits and iteration counts" if rule == "ms" else
+                       "identical bits and iteration counts on >= 99.9 % of frames"),
+            cases=cases)
+        out[key] = cases
+    # the smallest default-construction code that needs device memory: MacKay
+    # (4096, 2048), dc_max 19, flooding and layered
+    small = TannerGraph.from_H(fec.mackay_construction(4096, 2048, 3, 6, seed=42), DEV)
+    x = seeded_llrs(torch.zeros((256, 4096), dtype=torch.int8, device=DEV), 0.0, seed=62)
+    for schedule in ("flooding", "layered"):
+        plan = BPKernelPlan(small, LDPC_ITERS, True, "ms", 0.75, 0.0, schedule, LDPC_LAYERS)
+        bits, iters = bp_decode_cuda(x, plan)
+        torch.cuda.synchronize()
+        pbits, piters = plan.plain(x)
+        if not (plan.device_memory and torch.equal(bits, pbits) and torch.equal(iters, piters)):
+            raise AssertionError(f"MacKay n=4096 {schedule}: device memory {plan.device_memory}, "
+                                 "or the kernel differs from its plain version")
+        out[f"mackay4096_{schedule}"] = {"B": 256, "snr_db": 0.0, "frames_differ": 0,
+                                         "mean_iterations": float(iters.float().mean())}
+    return out
+
+
+def check_scl_devmem(results: dict, reps: int) -> dict:
+    """K3 / K4 / K5 with the chunk context in device memory: N=4096, S=1024,
+    L=32 (3 chunk steps and the last chunk), a single-chunk N=1024 code at
+    L=32 (one K5 launch), and a fast single-chunk N=2048 code at L=16, each
+    against its plain version."""
+    N, K, S, L = LARGE_SCL_N, LARGE_SCL_K, DEVMEM_SCL_S, LARGE_SCL_L
+    if not context_in_device_memory(L, S):
+        raise AssertionError(f"S={S} at L={L} fits one block")
+    frozen, _, mask = polar_code(N, K)
+    sched = build_scl_schedule(N, mask, L, S)
+    steps, last = make_step_specs(sched)
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64, device=DEV)
+    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, device=DEV)
+    B = 256
+    llr = seeded_llrs(enc.encode(np.random.default_rng(70).integers(0, 2, (B, K))), 1.0, seed=71)
+    worst = check_scl_steps(sched, steps, last, rev, llr, {"N": N, "S": S, "L": L, "B": B})
+    # time K3 per position, K4, K5 on the last chunk's pattern, beside their plain versions
+    llr_rev = llr[:, rev].contiguous()
+    state = SCLState(sched, llr_rev)
+    step_ms, step_plain_ms, step_bytes, step_flops = [], [], 0, 0
+    for c, spec in enumerate(steps):
+        ops_in = state.to_plain()
+        step_plain_ms.append(time_ms(lambda: spec.plain(llr_rev, *ops_in), 1, warmup=0))
+        scratch = state.clone()
+        step_ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), reps, warmup=1))
+        byts, flops = step_cost(sched, c, spec)
+        step_bytes += B * byts
+        step_flops += B * flops
+        scl_chunk_step_cuda(state, spec)
+    ops_in = state.to_plain()
+    last_plain_ms = time_ms(lambda: last.plain(llr_rev, *ops_in), 1, warmup=0)
+    last_ms = time_ms(lambda: scl_last_chunk_cuda(state, last), reps, warmup=1)
+    alpha_t = ops_in[0][sched.t - 1].contiguous()
+    pm_c = state.pm.clone()
+    body_ms = time_ms(lambda: scl_chunk_body_cuda(alpha_t, pm_c, last.program), reps, warmup=1)
+    body_plain_ms = time_ms(lambda: last.program.plain(alpha_t, pm_c), 1, warmup=0)
+    worst = max(worst, hold_equal("scl_chunk_body [device memory]", dict(zip(
+        ("beta", "pm", "R"), zip(scl_chunk_body_cuda(alpha_t, pm_c, last.program),
+                                 last.program.plain(alpha_t, pm_c)))), {"S": S, "L": L}))
+    # single-chunk codes: the whole decode is one chunk-body launch
+    singles = []
+    for n1, k1, l1, mode in DEVMEM_SINGLE_CHUNK_CODES:
+        fr1, _, m1 = polar_code(n1, k1)
+        if not context_in_device_memory(l1, n1):
+            raise AssertionError(f"a single chunk of {n1} at L={l1} fits one block")
+        g = np.random.default_rng(n1)
+        x = torch.from_numpy((1.0 + 1.6 * g.standard_normal((128, n1))).astype(np.float32))
+        x[:2] = torch.from_numpy(g.integers(-2, 3, (2, n1)).astype(np.float32))
+        x = x.to(DEV)
+        kw = dict(chunk=n1, node_mode=mode, device=DEV)
+        want = make_scl_decoder(n1, m1, l1, control_impl="unroll-fused", live_width=False, **kw)(x)
+        got = make_scl_decoder(n1, m1, l1, **kw)(x)
+        torch.cuda.synchronize()
+        hold_equal(f"single-chunk decode [{mode}, device memory]",
+                   {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, {"N": n1, "L": l1})
+        singles.append({"N": n1, "K": k1, "L": l1, "node_mode": mode, "B": 128,
+                        "kernels_equal_plain": True})
+    # the whole decode through the default kernel control: live width on, so the
+    # first chunk steps are narrow AND keep their context in device memory
+    dec = make_scl_decoder(N, mask, L, chunk=S, device=DEV)
+    want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused", device=DEV)(llr[:64])
+    ops.reset_launch_counts()
+    got = dec(llr[:64])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    hold_equal("whole decode [live width, device memory]",
+               {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, {"N": N, "S": S, "L": L})
+    if not (dec.live_width and counts["scl_chunk_step_narrow_devmem"] >= 1
+            and counts["scl_last_chunk_devmem"] == 1):
+        raise AssertionError(f"N={N}, S={S}, L={L}: launched {counts}")
+    singles.append({"N": N, "S": S, "L": L, "B": 64, "control": "unroll-kernel, live width",
+                    "narrow_devmem_launches": counts["scl_chunk_step_narrow_devmem"],
+                    "devmem_launches": counts["scl_chunk_step_devmem"],
+                    "kernels_equal_plain": True})
+    shape = {"frames": B, "N": N, "S": S, "L": L}
+    n_steps = len(steps)
+    lb, lf = last_cost(sched, last)
+    src = "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py"
+    results["scl_chunk_step_devmem"] = kernel_row(
+        "scl_chunk_step_devmem", f"{src}:167", sum(step_ms) / n_steps,
+        sum(step_plain_ms) / n_steps, step_bytes / n_steps, step_flops / n_steps, worst,
+        shape=shape, ms_per_position=step_ms, note="means per launch over the chunk positions")
+    results["scl_last_chunk_devmem"] = kernel_row(
+        "scl_last_chunk_devmem", f"{src}:356", last_ms, last_plain_ms, B * lb, B * lf, worst,
+        shape=shape)
+    results["scl_chunk_body_devmem"] = kernel_row(
+        "scl_chunk_body_devmem", "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378", body_ms,
+        body_plain_ms, B * (4 * L * S + 4 * L + L * S + 4 * L + 8 * L),
+        B * body_flops(last.program), worst, shape=shape, single_chunk_codes=singles)
+    return {"shape": shape, "single_chunk_codes": singles}
+
+
+def check_scl_narrow(results: dict, reps: int) -> dict:
+    """K3's live width at the large code (N=4096, L=32, S=64): every narrow
+    chunk position against the plain live-width step on the card, bit for
+    bit on the whole state, timed beside the full-width launch at the same
+    position; whole decodes, live against full width and the plain decoder."""
+    N, K, S, L, B = LARGE_SCL_N, LARGE_SCL_K, LARGE_SCL_S, LARGE_SCL_L, LARGE_SCL_CHUNK
+    frozen, _, mask = polar_code(N, K)
+    sched = build_scl_schedule(N, mask, L, S)
+    live_steps, live_last = make_step_specs(sched, live=True)
+    full_steps, _ = make_step_specs(sched, [s.program for s in live_steps] + [live_last.program])
+    narrow = [c for c, spec in enumerate(live_steps) if spec.narrow]
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64, device=DEV)
+    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, device=DEV)
+    llr = seeded_llrs(enc.encode(np.random.default_rng(80).integers(0, 2, (B, K))), 3.0, seed=81)
+    llr_rev = llr[:, rev].contiguous()
+    live, full = SCLState(sched, llr_rev), SCLState(sched, llr_rev)
+    fields = ("alpha", "beta", "pend_a", "pend_b", "pm")
+    rows, ms, full_ms, plain_ms, byts, flops = [], [], [], [], 0, 0
+    for c in range(max(narrow) + 1):
+        spec, fspec = live_steps[c], full_steps[c]
+        scratch, scratch_full = live.clone(), full.clone()
+        kern = live.clone()
+        scl_chunk_step_cuda(kern, spec)
+        torch.cuda.synchronize()
+        ops_in = live.to_plain(spec.widths)
+        plain_ms.append(time_ms(lambda: spec.plain(llr_rev, *ops_in), 2, warmup=1))
+        live.load_plain(*spec.plain(llr_rev, *ops_in))
+        hold_equal("scl_chunk_step [narrow]", {f: (getattr(kern, f), getattr(live, f))
+                                               for f in fields}, {"chunk": c, "B": B})
+        ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), reps))
+        full_ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch_full, fspec), reps))
+        b, f = step_cost(sched, c, spec)
+        byts, flops = byts + B * b, flops + B * f
+        rows.append({"chunk": c, "lv_in": spec.lv_in, "lv_out": spec.lv_out,
+                     "narrow_ms": ms[-1], "full_width_ms": full_ms[-1], "plain_ms": plain_ms[-1]})
+        scl_chunk_step_cuda(full, fspec)
+    # whole decodes on 256 frames: live kernel control = full-width kernel
+    # control = plain live-width control
+    x = llr[:256]
+    kw = dict(chunk=S, device=DEV)
+    dec_live = make_scl_decoder(N, mask, L, **kw)
+    if not dec_live.live_width:
+        raise AssertionError("live width is off on the kernel control")
+    got = dec_live(x)
+    full_dec = make_scl_decoder(N, mask, L, live_width=False, **kw)
+    plain_dec = make_scl_decoder(N, mask, L, control_impl="unroll-fused", **kw)
+    want_full, want_plain = full_dec(x), plain_dec(x)
+    hold_equal("whole decode [live width]", {
+        "u vs full width": (got[0], want_full[0]), "metrics vs full width": (got[1], want_full[1]),
+        "u vs plain live": (got[0], want_plain[0]),
+        "metrics vs plain live": (got[1], want_plain[1])}, {"N": N, "L": L, "B": 256})
+    decode_ms = {"live": time_ms(lambda: dec_live(llr), max(2, reps // 4), warmup=1),
+                 "full width": time_ms(lambda: full_dec(llr), max(2, reps // 4), warmup=1)}
+    n = len(rows)
+    results["scl_chunk_step_narrow"] = kernel_row(
+        "scl_chunk_step_narrow", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:175",
+        sum(ms) / n, sum(plain_ms) / n, byts / n, flops / n, 0.0,
+        shape={"frames": B, "N": N, "S": S, "L": L}, positions=rows,
+        full_width_ms=sum(full_ms) / n, narrow_launches_per_decode=len(narrow),
+        whole_decode_ms=decode_ms,
+        note="means per launch over the narrow chunk positions; full_width_ms is the "
+             "full-width launch at the same positions")
+    return {"narrow_positions": narrow, "lv_in": list(sched.lv_in[:max(narrow) + 2]),
+            "whole_decode_ms": decode_ms}
+
+
+def phase_large_kernels(results: dict, reps: int) -> None:
+    sc = check_sc_hybrid(results, reps)
+    bp = check_bp_devmem(results, reps)
+    scl = check_scl_devmem(results, reps)
+    live = check_scl_narrow(results, reps)
+    keys = ("sc_decode_sub", "bp_decode_bp_devmem", "bp_decode_ms_devmem",
+            "bp_decode_layered_devmem", "scl_chunk_step_devmem", "scl_last_chunk_devmem",
+            "scl_chunk_body_devmem", "scl_chunk_step_narrow")
+    emit("large_kernels", kernels=[{k: v for k, v in results[k].items() if k != "cases"}
+                                   for k in keys],
+         sc_hybrid=sc, ldpc_device_memory=bp, scl_device_memory=scl, live_width=live)
+
 
 def phase_kernels(results: dict, reps: int, quick: bool) -> None:
     check_sc_kernel(results, reps)
@@ -1001,15 +1345,18 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
     k_msg = POLAR_K - 8
     kw = dict(decoder="ca-scl", list_size=SCL_L, crc_polynomial=SCL_CRC, scl_chunk=SCL_S)
     n_chunks = POLAR_N // SCL_S
+    n_narrow = flagship_narrow_steps()
     step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, device=DEV, **kw)
     sim = MonteCarloSimulator(step, k_msg, chunk_frames=SCL_CHUNK)
     sim.run(SCL_CHUNK, seed=1)  # warm-up
     ops.reset_launch_counts()
     res = sim.run(frames, max_errors=None, seed=0)
-    counts = record_launches(results, ["scl_chunk_step", "scl_last_chunk"])
+    counts = record_launches(results, ["scl_chunk_step_narrow", "scl_chunk_step",
+                                       "scl_last_chunk"])
     mc_chunks = frames // SCL_CHUNK
-    if (counts["scl_chunk_step"], counts["scl_last_chunk"], counts["scl_chunk_body"]) != (
-            (n_chunks - 1) * mc_chunks, mc_chunks, 0):
+    if (counts["scl_chunk_step_narrow"], counts["scl_chunk_step"], counts["scl_last_chunk"],
+            counts["scl_chunk_body"]) != (n_narrow * mc_chunks,
+                                          (n_chunks - 1 - n_narrow) * mc_chunks, mc_chunks, 0):
         raise AssertionError(f"CA-SCL: {mc_chunks} Monte-Carlo chunks launched {counts}")
     if res.frames != frames or not (0.0 <= res.fer < 0.01):
         raise AssertionError(f"polar CA-SCL at 3 dB: unexpected result {res.to_dict()}")
@@ -1043,7 +1390,8 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
     res_mega = sim_mega.run(frames, max_errors=None, seed=0)
     counts_mega = record_launches(results, ["scl_decode_mega"])
     if (counts_mega["scl_decode_mega"], counts_mega["scl_chunk_step"],
-            counts_mega["scl_last_chunk"]) != (mc_chunks, 0, 0):
+            counts_mega["scl_chunk_step_narrow"], counts_mega["scl_last_chunk"]) != (
+            mc_chunks, 0, 0, 0):
         raise AssertionError(f"CA-SCL mega: {mc_chunks} Monte-Carlo chunks launched {counts_mega}")
     if (res_mega.frames, res_mega.bit_errors, res_mega.frame_errors) != (
             res.frames, res.bit_errors, res.frame_errors):
@@ -1113,7 +1461,9 @@ def phase_polar_fast_mc(results: dict, mbps: dict, frames: int, body_frames: int
                     "scl_last_chunk_fast": mc_chunks, "scl_chunk_step": 0, "scl_last_chunk": 0}
         else:
             counts = ops.launch_counts()
-            want = {"scl_chunk_step": (n_chunks - 1) * mc_chunks, "scl_last_chunk": mc_chunks,
+            n_narrow = flagship_narrow_steps()
+            want = {"scl_chunk_step": (n_chunks - 1 - n_narrow) * mc_chunks,
+                    "scl_chunk_step_narrow": n_narrow * mc_chunks, "scl_last_chunk": mc_chunks,
                     "scl_chunk_step_fast": 0, "scl_last_chunk_fast": 0}
         if any(counts[k] != v for k, v in want.items()):
             raise AssertionError(f"CA-SCL {mode}: {mc_chunks} Monte-Carlo chunks launched {counts}")
@@ -1300,6 +1650,127 @@ def phase_ldpc_layered_mc(results: dict, mbps: dict, frames: int) -> None:
                   "first_chunk_frames_differ_from_plain": differ},
          flooding={**result_fields(flood), "mean_iterations": flood.avg_iterations})
     mbps["ldpc_layered_nms"] = res.throughput_mbps
+
+
+def pipelines_agree_where_frames_fail(what: str, make, plain_options: dict,
+                                      snr_db: float = -3.0, frames: int = 256) -> dict:
+    """The kernel pipeline ``make(snr)`` against the plain one
+    ``make(snr, **plain_options)`` on the same frame ids and seed, at an SNR
+    where frames fail (Es/N0 -3 dB lies below the rate-1/2 capacity, -2.8
+    dB): each frame's bit errors must agree, and some frame must fail (at 3
+    dB both decode error-free and agree trivially)."""
+    key = rng.prng_key(0, DEV)
+    ids = torch.arange(frames, device=DEV)
+    a = make(snr_db)(key, ids)
+    b = make(snr_db, **plain_options)(key, ids)
+    failed = int(a["frame_error"].sum())
+    if not (torch.equal(a["bit_errors"], b["bit_errors"])
+            and torch.equal(a["frame_error"], b["frame_error"])) or failed == 0:
+        raise AssertionError(f"{what} at {snr_db} dB: kernel and plain pipelines disagree "
+                             f"or no frame failed ({failed} of {frames})")
+    return {"snr_db": snr_db, "frames": frames, "failed_frames": failed,
+            "bit_errors": int(a["bit_errors"].sum())}
+
+
+def phase_polar_large_mc(results: dict, mbps: dict, frames: int) -> None:
+    """The large-code list path at full width: N=4096, K=2048, SCL-32, chunk
+    64 (63 chunk-step launches per decode, the first narrow at the live path
+    count, and one last-chunk launch), 3 dB: it must decode error-free."""
+    N, K, S, L, B = LARGE_SCL_N, LARGE_SCL_K, LARGE_SCL_S, LARGE_SCL_L, LARGE_SCL_CHUNK
+    frozen, _, mask = polar_code(N, K)
+    sched = build_scl_schedule(N, mask, L, S)
+    n_narrow = sum(w < L for w in sched.lv_in[:-1])
+    kw = dict(decoder="scl", list_size=L, scl_chunk=S, device=DEV)
+    step = make_polar_pipeline(N, K, frozen, 3.0, **kw)
+    sim = MonteCarloSimulator(step, K, chunk_frames=B)
+    sim.run(B, seed=1)  # warm-up
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0)
+    counts = record_launches(results, ["scl_chunk_step_narrow", "scl_chunk_step",
+                                       "scl_last_chunk"])
+    mc_chunks = frames // B
+    want = {"scl_chunk_step_narrow": n_narrow * mc_chunks,
+            "scl_chunk_step": (sched.C - 1 - n_narrow) * mc_chunks,
+            "scl_last_chunk": mc_chunks, "scl_chunk_step_devmem": 0, "scl_chunk_body": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"N=4096 SCL-32: {mc_chunks} Monte-Carlo chunks launched {counts}")
+    if res.frames != frames or res.frame_errors != 0:
+        raise AssertionError(f"N=4096 SCL-32 at 3 dB is not error-free: {res.to_dict()}")
+    # the kernel path against the plain pipeline (plain live-width control) on
+    # the same frame ids and seed, where frames fail
+    failing = pipelines_agree_where_frames_fail(
+        f"N={N} SCL-{L}", lambda snr, **o: make_polar_pipeline(N, K, frozen, snr, **kw, **o),
+        dict(scl_control_impl="unroll-fused"))
+    emit("polar_large_mc", **result_fields(res), code=[N, K], list_size=L, scl_chunk=S,
+         chunk_frames=B, launches={k: counts[k] for k in want},
+         narrow_launches_per_decode=n_narrow, equal_plain_at_failing_snr=failing)
+    mbps["polar_scl32_n4096"] = res.throughput_mbps
+
+
+def phase_polar_sc_large_mc(results: dict, mbps: dict, frames: int) -> None:
+    """SC at N=32768, K=16384 through the hybrid mode: two subtree launches
+    per chunk, the top level in plain torch; 3 dB: error-free."""
+    N, K, B = LARGE_SC_N, LARGE_SC_K, LARGE_SC_CHUNK
+    frozen, _, _ = polar_code(N, K)
+    step = make_polar_pipeline(N, K, frozen, 3.0, decoder="sc", device=DEV)
+    sim = MonteCarloSimulator(step, K, chunk_frames=B)
+    sim.run(B, seed=1)  # warm-up
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0)
+    counts = record_launches(results, ["sc_decode_sub"])
+    mc_chunks = frames // B
+    if (counts["sc_decode_sub"], counts["sc_decode"]) != (2 * mc_chunks, 0):
+        raise AssertionError(f"SC N={N}: {mc_chunks} Monte-Carlo chunks launched {counts}")
+    if res.frames != frames or res.frame_errors != 0:
+        raise AssertionError(f"SC N={N} at 3 dB is not error-free: {res.to_dict()}")
+    failing = pipelines_agree_where_frames_fail(
+        f"SC N={N}", lambda snr, **o: make_polar_pipeline(N, K, frozen, snr, decoder="sc",
+                                                          device=DEV, **o),
+        dict(sc_impl="unrolled"))
+    emit("polar_sc_large_mc", **result_fields(res), code=[N, K], chunk_frames=B,
+         launches={k: counts[k] for k in ("sc_decode_sub", "sc_decode")},
+         equal_plain_at_failing_snr=failing)
+    mbps["polar_sc_n32768"] = res.throughput_mbps
+
+
+def phase_ldpc_large_mc(results: dict, mbps: dict, frames: int) -> None:
+    """The default-construction (MacKay) (8192, 4096) code: flooding BP and
+    NMS and layered NMS, every frame's planes in device memory; the encoder's
+    GF(2) set-up is host set-up, outside the rate."""
+    code = large_ldpc_code()
+    enc = code["enc"]
+    B = LARGE_LDPC_CHUNK
+    summary = {"setup_s": code["setup_s"], "dc_max": code["graph"].dc_max}
+    for name, key, kw in (("bp", "bp_decode_bp_devmem", {}),
+                          ("nms", "bp_decode_ms_devmem", {"normalization": 0.75}),
+                          ("layered_nms", "bp_decode_layered_devmem",
+                           {"normalization": 0.75, "schedule": "layered",
+                            "num_layers": LDPC_LAYERS})):
+        kw = dict(decoder="bp" if name == "bp" else "nms", max_iter=LDPC_ITERS,
+                  message_idx=enc.info_positions, device=DEV, **kw)
+        step = make_ldpc_pipeline(enc.H, enc.G, 3.0, **kw)
+        sim = MonteCarloSimulator(step, LARGE_LDPC_K, chunk_frames=B)
+        sim.run(B, seed=1)  # warm-up
+        ops.reset_launch_counts()
+        res = sim.run(frames, max_errors=None, seed=0)
+        counts = record_launches(results, [key])
+        if counts[key] != frames // B:
+            raise AssertionError(f"MacKay n=8192 {name}: launched {counts}")
+        if res.frames != frames or res.frame_errors != 0:
+            raise AssertionError(f"MacKay n=8192 {name} at 3 dB: {res.to_dict()}")
+        plain = make_ldpc_pipeline(enc.H, enc.G, 3.0, bp_impl="torch", **kw)
+        rk = rng.prng_key(0, DEV)
+        ids = torch.arange(B, device=DEV)
+        a, b = step(rk, ids), plain(rk, ids)
+        differ = int(((a["bit_errors"] != b["bit_errors"])
+                      | (a["iterations"] != b["iterations"])).sum())
+        if differ > (B // 1000 if name == "bp" else 0):
+            raise AssertionError(f"MacKay n=8192 {name}: kernel and plain differ on {differ}")
+        summary[name] = {**result_fields(res), "mean_iterations": res.avg_iterations,
+                         "launches": counts[key], "first_chunk_frames_differ_from_plain": differ}
+        mbps[f"ldpc_mackay8192_{name}"] = res.throughput_mbps
+    emit("ldpc_large_mc", code=[LARGE_LDPC_N, LARGE_LDPC_K], construction="mackay seed 42",
+         chunk_frames=B, max_iter=LDPC_ITERS, **summary)
 
 
 def qc_code():
@@ -1720,6 +2191,8 @@ def main() -> int:
         phase_scl_kernels(results, reps, args.quick)
     if "fast_kernels" in phases:
         phase_fast_kernels(results, reps, args.quick)
+    if "large_kernels" in phases:
+        phase_large_kernels(results, reps)
     if "polar_sc_mc" in phases:
         phase_polar_sc_mc(results, mbps, 4 * POLAR_CHUNK if args.quick else 16 * POLAR_CHUNK)
     if "polar_cascl_mc" in phases:
@@ -1732,6 +2205,12 @@ def main() -> int:
         phase_ldpc_layered_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
     if "ldpc_qc_mc" in phases:
         phase_ldpc_qc_mc(results, mbps, 2 if args.quick else 4)
+    if "polar_large_mc" in phases:
+        phase_polar_large_mc(results, mbps, (2 if args.quick else 8) * LARGE_SCL_CHUNK)
+    if "polar_sc_large_mc" in phases:
+        phase_polar_sc_large_mc(results, mbps, (2 if args.quick else 8) * LARGE_SC_CHUNK)
+    if "ldpc_large_mc" in phases:
+        phase_ldpc_large_mc(results, mbps, (2 if args.quick else 8) * LARGE_LDPC_CHUNK)
     if "serving" in phases:
         phase_serving(results, mbps, reps)
     if "serving_fast" in phases:

@@ -482,6 +482,39 @@ def build_scl_schedule(N: int, frozen_mask: np.ndarray, list_size: int,
         lv_out=tuple(lv_at(info_before[c + 1]) for c in range(C)))
 
 
+def live_state_widths(sched: SCLSchedule):
+    """The row widths the plain live-width control keeps its level stacks at,
+    before each chunk: a list of ``C`` tuples ``(wa, wb, wpa, wpb)``, one
+    width per level index ``0..t−1`` for the alphas, the left betas and the
+    two pendings.  A level written by a chunk holds that chunk's live count
+    (its ``lv_in`` for the descend's alphas and resets, ``lv_out`` for
+    composes, the parked beta and its pending); the first chunk's
+    path-invariant planes hold one row.  The same bookkeeping as the JAX
+    package's live-width control (``scanscl.py``, its per-position width
+    simulation); the kernels read the width-1 pendings from it."""
+    t, C = sched.t, sched.C
+    wa, wb, wpa, wpb = ([1] * t for _ in range(4))
+    out = []
+    for c in range(C):
+        out.append((tuple(wa), tuple(wb), tuple(wpa), tuple(wpb)))
+        if c == C - 1:
+            break
+        lvi, lvo = sched.lv_in[c], sched.lv_out[c]
+        touch = super_touch_sets(int(sched.desc_k[c]), int(sched.asc_j[c]), t,
+                                 sched.comp_a[c], sched.comp_b[c])
+        for i in touch["alpha_write"]:
+            wa[i] = lvi
+        for i in touch["pend_a_out"]:
+            wpa[i] = lvo
+        for i in touch["pend_a_eye"]:
+            wpa[i] = lvi
+        for i in touch["beta_write"]:
+            wb[i] = lvo
+        for i in touch["pend_b_out"] + touch["pend_b_eye"]:
+            wpb[i] = lvo
+    return out
+
+
 # ---------------------------------------------------------------------------
 # one chunk step and the last chunk, as pure functions of explicit operands
 # ---------------------------------------------------------------------------
@@ -622,6 +655,18 @@ def init_stacks(sched: SCLSchedule, llr_rev: torch.Tensor, width: int):
         pend_b=tuple(eye for _ in range(t)))
 
 
+def pad_paths(x: torch.Tensor, L: int, value) -> torch.Tensor:
+    """Live-width output pad ``[B, w, ...] → [B, L, ...]``: a code with fewer
+    than log2 L info leaves ends with fewer than L live slots; the missing
+    slots are the phantom rows' exact values (``value``: 0 for the all-zero
+    codeword, −inf for the metric)."""
+    w = x.shape[1]
+    if w == L:
+        return x
+    pad = torch.full((x.shape[0], L - w, *x.shape[2:]), value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
 def init_metrics(batch: int, width: int, Lsz: int, dtype, device):
     """One live path: metric 0 in slot 0; at full width the other slots are
     ``-inf`` phantoms."""
@@ -678,11 +723,15 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     stage times ``L − 1`` stages.
 
     ``live_width``: run the early chunks at the actual LIVE path count (1 →
-    2 → … → L, doubling per info leaf) instead of the full list width.  The
-    plain control and ``node_mode="exact"`` only (the kernels run at full
-    width with ``-inf`` phantom rows); ``"auto"`` enables it there.  Equal to
-    the full-width program for FINITE channel LLRs, a precondition every
-    channel in this package meets; not for ±inf LLRs.
+    2 → … → L, doubling per info leaf) instead of the full list width.
+    ``node_mode="exact"`` only, on the plain control (``body_impl="torch"``)
+    and, for a code of more than one chunk, on the kernel control
+    ``"unroll-kernel"`` (narrow ``scl_chunk_step`` launches; the last chunk
+    at full width); ``"auto"`` enables it there.  ``"mega"`` and the chunk
+    body kernel inside the plain control (``body_impl="cuda"``) run at full
+    width with ``-inf`` phantom rows.  Equal to the full-width program for
+    FINITE channel LLRs, a precondition every channel in this package meets;
+    not for ±inf LLRs.
 
     Not in this package yet (``NotImplementedError``): ``perm_impl="onehot"``,
     ``leaf_impl="sort"``, the scan and per-chunk-kernel controls ``"split"``,
@@ -732,7 +781,9 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
 
     sched = build_scl_schedule(N, frozen_mask, list_size, chunk)
     C, t, sizes, Lsz = sched.C, sched.t, sched.sizes, list_size
-    live_capable = not kernel_path and not fast
+    live_capable = not fast and not mega and (
+        (control_impl == "unroll-fused" and body_impl == "torch")
+        or (control_impl == "unroll-kernel" and C > 1))
     if live_width == "auto":
         live_on = live_capable and any(w < Lsz for w in sched.lv_in)
     else:
@@ -740,27 +791,18 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
         if live_on and not live_capable:
             raise ValueError(
                 "live_width needs node_mode='exact' and the plain control "
-                "(control_impl='unroll-fused', body_impl='torch'): the kernels and "
-                "the fast nodes run at full list width")
+                "(control_impl='unroll-fused', body_impl='torch') or, for a code of "
+                "more than one chunk, the kernel control 'unroll-kernel': the other "
+                "kernels and the fast nodes run at full list width")
     lv_in_c = sched.lv_in if live_on else (Lsz,) * C
     lv_out_c = sched.lv_out if live_on else (Lsz,) * C
     rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64,
                           device=dev)
 
-    def _pad_rows(x, value):
-        """Live-width output pad: a code with fewer than log2 L info leaves
-        ends with fewer than L live slots; the missing slots are the phantom
-        rows' exact values (all-zero codeword, −inf metric)."""
-        w = x.shape[1]
-        if w == Lsz:
-            return x
-        pad = torch.full((x.shape[0], Lsz - w, *x.shape[2:]), value,
-                         dtype=x.dtype, device=x.device)
-        return torch.cat([x, pad], dim=1)
-
     def _finish(root_bits, pm):
         """``[B, L, N]`` bit-reversed β and metrics → the public outputs."""
-        return polar_transform(_pad_rows(root_bits, 0)[..., rev]), _pad_rows(pm, -torch.inf)
+        return (polar_transform(pad_paths(root_bits, Lsz, 0)[..., rev]),
+                pad_paths(pm, Lsz, -torch.inf))
 
     def _prepare(llr):
         llr = torch.as_tensor(llr, device=dev).to(dtype)
@@ -785,14 +827,14 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     if control_impl == "unroll-kernel":
         from ...ops.scl_cuda import make_scl_kernel_decoder
 
-        inner = make_scl_kernel_decoder(sched, node_mode)
+        inner = make_scl_kernel_decoder(sched, node_mode, live=live_on)
 
         def decode_kernel(llr):
             return inner(_prepare(llr))
 
         decode_kernel.schedule = sched
         decode_kernel.control_impl = control_impl
-        decode_kernel.live_width = False
+        decode_kernel.live_width = live_on
         return decode_kernel
 
     if body_impl == "cuda":

@@ -7,13 +7,17 @@ nothing; kernels are compiled at first use (``ops/build.py``).
 
 from __future__ import annotations
 
-# the LDPC kernel counts its two check rules and its layered schedule apart,
-# the list kernels their exact and fast node programs: they are distinct code
-# paths
-_LAUNCHES = {"sc_decode": 0, "bp_decode_bp": 0, "bp_decode_ms": 0,
-             "bp_decode_layered": 0, "scl_chunk_body": 0, "scl_chunk_step": 0,
-             "scl_last_chunk": 0, "scl_decode_mega": 0, "scl_chunk_body_fast": 0,
-             "scl_chunk_step_fast": 0, "scl_last_chunk_fast": 0, "fastnode_select": 0}
+# every mode of a kernel is a distinct code path and counts apart: the SC
+# kernel whole or on a hybrid subtree; the LDPC kernel's two check rules and
+# its layered schedule; the list kernels' exact and fast node programs, the
+# live-width (narrow) chunk step; and, for the LDPC and list kernels, the mode
+# whose working set lives in device memory ("_devmem")
+_BASES = ("sc_decode", "sc_decode_sub", "bp_decode_bp", "bp_decode_ms", "bp_decode_layered",
+          "scl_chunk_body", "scl_chunk_step", "scl_last_chunk", "scl_chunk_body_fast",
+          "scl_chunk_step_fast", "scl_last_chunk_fast", "scl_chunk_step_narrow")
+_LAUNCHES = {name: 0 for base in _BASES
+             for name in ((base,) if base.startswith("sc_decode") else (base, base + "_devmem"))}
+_LAUNCHES.update(scl_decode_mega=0, fastnode_select=0)
 
 
 def count_launch(name: str) -> None:

@@ -13,6 +13,18 @@ passes (checks, then variables) with a block barrier between.  Bound:
 operations (the iterations each frame actually runs); see the notes in the
 source.
 
+Device-memory mode (a port mode: the JAX package runs such codes through
+XLA): when a frame's planes exceed one block's shared memory
+(``smem_bytes``), decided on the host by size, the same kernels keep them
+in a scratch buffer in device memory, ``scratch_bytes_per_frame`` per block
+(``smem_bytes`` rounded up to 16), and a grid of ``_DEVMEM_BLOCKS_PER_SM``
+blocks per SM walks the frames, so the scratch does not grow with the batch.
+Per frame that is ``(dv·n + 2·dc_max·m + n)·4 + n`` bytes for flooding and
+``(n + dc_max·m + 2·dc_max·layer)·4 + n`` for the layered schedule: 761,856
+and 507,904 bytes for the default MacKay (8192, 4096) code (``dc_max`` 19,
+4 layers), at most 0.8 GB of scratch on a 132-SM card.  Arithmetic and order
+are those of the shared-memory mode.
+
 The plain PyTorch versions of the same functions are
 ``models.ldpc.bp.make_bp_decoder`` / ``models.ldpc.minsum.make_ms_decoder`` /
 ``models.ldpc.layered.make_layered_ms_decoder``.  ``bp_decode`` uses them only
@@ -38,6 +50,8 @@ from . import build, count_launch
 SMEM_LIMIT_BYTES = 232448
 _RULES = {"bp": 0, "ms": 1}
 _THREADS = 256
+#: blocks per SM of the device-memory mode (2048 threads / 256 per block)
+_DEVMEM_BLOCKS_PER_SM = 8
 
 
 def kernel_tables(graph: TannerGraph) -> dict:
@@ -71,7 +85,9 @@ def smem_bytes(graph: TannerGraph, layer_checks: int = 0) -> int:
 
 class BPKernelPlan:
     """One decoder configuration for the kernel: tables on the graph's device
-    plus the plain decoder of the same configuration."""
+    plus the plain decoder of the same configuration.  ``device_memory`` says
+    whether a frame's planes live in shared memory (False) or in a scratch
+    buffer in device memory, ``scratch_bytes_per_frame`` per resident block."""
 
     def __init__(self, graph: TannerGraph, max_iter: int = 20, early_stop: bool = True,
                  check_rule: str = "bp", normalization: float = 1.0, offset: float = 0.0,
@@ -85,12 +101,9 @@ class BPKernelPlan:
             raise ValueError("the layered schedule is min-sum only")
         bounds = layer_bounds(graph.m, num_layers) if self.layered else []
         self.layer_checks = max((c1 - c0 for c0, c1 in bounds), default=0)
-        need = smem_bytes(graph, self.layer_checks)
-        if need > SMEM_LIMIT_BYTES:
-            raise ValueError(
-                f"this code needs {need} bytes of shared memory per frame "
-                f"(n={graph.n}, m={graph.m}, dv={graph.dv_max}, dc={graph.dc_max}); "
-                f"one thread block has {SMEM_LIMIT_BYTES}")
+        self.smem_bytes = smem_bytes(graph, self.layer_checks)
+        self.device_memory = self.smem_bytes > SMEM_LIMIT_BYTES
+        self.scratch_bytes_per_frame = (self.smem_bytes + 15) // 16 * 16
         self.graph = graph
         self.max_iter = int(max_iter)
         self.early_stop = bool(early_stop)
@@ -132,7 +145,16 @@ def bp_decode_cuda(llr: torch.Tensor, plan: BPKernelPlan):
     bits = torch.empty((B, g.n), dtype=torch.int8, device=llr.device)
     iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
     t = plan.tables
-    tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    scratch, grid = None, 0
+    if plan.device_memory:
+        sms = torch.cuda.get_device_properties(llr.device).multi_processor_count
+        grid = min(B, sms * _DEVMEM_BLOCKS_PER_SM)
+        scratch = torch.empty((grid * plan.scratch_bytes_per_frame,), dtype=torch.uint8,
+                              device=llr.device)
+    tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p]
+    scratch_args = (scratch.data_ptr() if scratch is not None else None,
+                    plan.scratch_bytes_per_frame, grid)
     with torch.cuda.device(llr.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.layered:
@@ -144,7 +166,7 @@ def bp_decode_cuda(llr: torch.Tensor, plan: BPKernelPlan):
                       t["layer_starts"].data_ptr(), B, g.n, g.m, g.dv_max, g.dc_max,
                       t["layer_starts"].numel() - 1, plan.layer_checks, plan.max_iter,
                       int(plan.early_stop), plan.normalization, plan.offset, _THREADS,
-                      stream)
+                      *scratch_args, stream)
         else:
             fn = lib.bp_decode_launch
             fn.restype = ctypes.c_int
@@ -153,8 +175,9 @@ def bp_decode_cuda(llr: torch.Tensor, plan: BPKernelPlan):
                       t["cv_idx"].data_ptr(), t["vc_idx"].data_ptr(),
                       t["chk_var"].data_ptr(), B, g.n, g.m, g.dv_max, g.dc_max,
                       plan.max_iter, int(plan.early_stop), _RULES[plan.check_rule],
-                      plan.normalization, plan.offset, _THREADS, stream)
+                      plan.normalization, plan.offset, _THREADS, *scratch_args, stream)
     name = "bp_decode_layered" if plan.layered else f"bp_decode_{plan.check_rule}"
+    name += "_devmem" if plan.device_memory else ""
     build.check_launch(lib, code, name)
     count_launch(name)
     return bits, iters

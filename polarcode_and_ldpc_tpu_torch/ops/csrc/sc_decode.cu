@@ -26,6 +26,14 @@
 // min(|a|,|b|), +-1 multiplies, hard decisions, XORs); REP sums by the same
 // halving adds as the plain PyTorch version, and SPC takes the first minimum
 // in natural order, so the output equals the plain version bit for bit.
+//
+// Subtree mode (sc_decode_sub_launch; replaces the TPU kernel's hybrid
+// sub-kernel, sc_mega_pallas.py _make_sub_kernel): for a code whose frame
+// does not fit one block (9*N bytes), the host runs the top f/g levels and
+// launches this kernel once per size-n subtree on its contiguous slice of
+// bit-reversed storage, with the subtree's own node program.  The slice IS
+// the subtree's bit-reversed storage, so the kernel reads alpha and writes
+// beta in storage order: no bit reversal and no butterfly inside.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +67,7 @@ __device__ __forceinline__ int level_base(int N, int d) {
 __global__ void sc_decode_kernel(const float* __restrict__ llr,
                                  int8_t* __restrict__ u,
                                  const int4* __restrict__ prog, int n_ops,
-                                 int B, int N, int log2N) {
+                                 int B, int N, int log2N, int subtree) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warps = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -76,7 +84,7 @@ __global__ void sc_decode_kernel(const float* __restrict__ llr,
   const float* in = llr + (size_t)frame * N;
   const int shift = 32 - log2N;
   for (int i = lane; i < N; i += kWarp) {
-    int r = log2N ? (int)(__brev((unsigned)i) >> shift) : 0;
+    int r = (log2N && !subtree) ? (int)(__brev((unsigned)i) >> shift) : i;
     alpha[r] = in[i];
   }
   __syncwarp();
@@ -179,6 +187,11 @@ __global__ void sc_decode_kernel(const float* __restrict__ llr,
     __syncwarp();
   }
 
+  int8_t* out = u + (size_t)frame * N;
+  if (subtree) {  // beta in storage order: the host combines and transforms
+    for (int i = lane; i < N; i += kWarp) out[i] = beta[i];
+    return;
+  }
   // butterfly u = beta * G in storage order (F^(x)n is invariant under the
   // simultaneous row and column bit reversal), then natural order on the way out
   for (int s = 1; s < N; s <<= 1) {
@@ -188,7 +201,6 @@ __global__ void sc_decode_kernel(const float* __restrict__ llr,
     }
     __syncwarp();
   }
-  int8_t* out = u + (size_t)frame * N;
   for (int i = lane; i < N; i += kWarp) {
     int r = log2N ? (int)(__brev((unsigned)i) >> shift) : 0;
     out[i] = beta[r];
@@ -204,10 +216,10 @@ extern "C" const char* pl_error_string(int code) {
 // bytes of shared memory one frame (one warp) needs
 extern "C" int sc_decode_smem_per_frame(int N) { return 2 * N * 4 + N; }
 
-// Launches on `stream`; returns the cudaGetLastError code (0 = ok).
-extern "C" int sc_decode_launch(const float* llr, int8_t* u, const int* prog,
-                                int n_ops, int B, int N, int log2N,
-                                int warps_per_block, void* stream) {
+namespace {
+
+int launch(const float* in, int8_t* out, const int* prog, int n_ops, int B, int N,
+           int log2N, int warps_per_block, int subtree, void* stream) {
   const size_t smem = (size_t)warps_per_block * sc_decode_smem_per_frame(N);
   cudaError_t err = cudaFuncSetAttribute(
       sc_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -215,6 +227,23 @@ extern "C" int sc_decode_launch(const float* llr, int8_t* u, const int* prog,
   const int blocks = (B + warps_per_block - 1) / warps_per_block;
   sc_decode_kernel<<<blocks, warps_per_block * kWarp, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      llr, u, reinterpret_cast<const int4*>(prog), n_ops, B, N, log2N);
+      in, out, reinterpret_cast<const int4*>(prog), n_ops, B, N, log2N, subtree);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches on `stream`; returns the cudaGetLastError code (0 = ok).
+// llr [B][N] natural order -> u [B][N] natural order.
+extern "C" int sc_decode_launch(const float* llr, int8_t* u, const int* prog,
+                                int n_ops, int B, int N, int log2N,
+                                int warps_per_block, void* stream) {
+  return launch(llr, u, prog, n_ops, B, N, log2N, warps_per_block, 0, stream);
+}
+
+// One hybrid subtree: alpha [B][n] -> beta [B][n], both in storage order.
+extern "C" int sc_decode_sub_launch(const float* alpha, int8_t* beta, const int* prog,
+                                    int n_ops, int B, int n, int log2n,
+                                    int warps_per_block, void* stream) {
+  return launch(alpha, beta, prog, n_ops, B, n, log2n, warps_per_block, 1, stream);
 }

@@ -37,7 +37,27 @@
 // goes through the non-coherent path).  One compiled kernel per entry point
 // serves every chunk of every code: the chunk's node program and (k, inv, j,
 // compose masks) are arguments.  Any batch size; the list runs at full width
-// with -inf phantom rows.
+// with -inf phantom rows, or (chunk step, LIVE WIDTH) at the live path count.
+//
+// Live width (the TPU kernel's widths= mode of make_superchunk_pallas): the
+// list fills 1 -> 2 -> ... -> L, doubling per info leaf, so the early chunks
+// of a decode hold fewer live paths than the list.  A chunk step launched with
+// lv_in / lv_out < L runs its descend, body, prunes, composes and ascend over
+// the live rows and lanes only, in the same full-width frame-major state: it
+// reads and writes exactly the rows and lanes the plain live-width step keeps
+// (models/polar/scanscl.py, _make_super_fn with lv_in / lv_out), and leaves
+// the others untouched (phantom metrics stay -inf).  A pending rank vector
+// that the plain step keeps at width 1 is broadcast there to every live slot;
+// the host passes those levels as bit masks (one_a, one_b) and the kernel
+// reads lane 0 for every slot.  The last chunk runs at full width.
+//
+// Where a warp's chunk context lives: in shared memory when it fits
+// (scl::ctx_words, plus the N-word root plane of the last chunk), else, in
+// the same layout, in the warp's slice of a scratch buffer in device memory
+// that the wrapper allocates (template argument kDev; a port mode: the JAX
+// package runs such chunks in XLA).  Then a grid of a few blocks per SM walks
+// the frames, so the scratch does not grow with the batch; in shared-memory
+// mode the grid covers the batch and the frame loop runs once.
 
 #include "scl_device.cuh"
 
@@ -73,121 +93,161 @@ __device__ __forceinline__ Stacks frame_stacks(const Geometry& g, int frame, flo
   return s;
 }
 
-// g at level lo: dst[l][i] = parent[r][M+i] + (1 - 2*left[l][i]) * parent[r][i]
-// with the parent read through pend_a (row 0 when `inv`, the LLRs at lo = 1)
-// and the left bits through pend_b.  dst is [L][M].
+// g at level lo over w rows: dst[l][i] = parent[r][M+i] + (1 - 2*left[l][i]) *
+// parent[r][i] with the parent read through pend_a (row 0 when `inv`, the
+// LLRs at lo = 1) and the left bits through pend_b; a pending whose level bit
+// is set in one_a / one_b holds one lane, read by every slot.  dst is [w][M].
 __device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, const float* x,
-                                          int lo, bool inv, float* dst, int lane) {
-  const int M = g.N >> lo, lgM = ilog2(M), L = g.L;
+                                          int lo, bool inv, float* dst, int lane, int w,
+                                          int one_a, int one_b) {
+  const int M = g.N >> lo, lgM = ilog2(M);
   const uint32_t* bl = st.beta(lo);
   const int* pb = st.pend_b(lo);
+  const bool pb_one = (one_b >> (lo - 1)) & 1;
   const float* parent = lo == 1 ? x : st.alpha(lo - 1);
   const int* pa = lo == 1 ? nullptr : st.pend_a(lo - 1);
-  for (int idx = lane; idx < L * M; idx += kWarp) {
+  const bool pa_one = lo != 1 && ((one_a >> (lo - 2)) & 1);
+  for (int idx = lane; idx < w * M; idx += kWarp) {
     const int l = idx >> lgM, i = idx & (M - 1);
     const float* src = parent;
-    if (lo != 1 && !inv) src += (size_t)pa[l] * 2 * M;
-    const float sgn = 1.0f - 2.0f * (float)((bl[i] >> pb[l]) & 1u);
+    if (lo != 1 && !inv) src += (size_t)pa[pa_one ? 0 : l] * 2 * M;
+    const float sgn = 1.0f - 2.0f * (float)((bl[i] >> pb[pb_one ? 0 : l]) & 1u);
     dst[idx] = src[M + i] + sgn * src[i];
   }
 }
 
+// The warp's chunk context: its slice of shared memory, or of the scratch
+// buffer in device memory (kDev).
+template <bool kDev>
+__device__ __forceinline__ float* ctx_base(unsigned char* smem_raw, float* ctx_dev,
+                                           int per_warp_words) {
+  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp;
+  return kDev ? ctx_dev + ((size_t)blockIdx.x * warps + warp) * per_warp_words
+              : reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp_words;
+}
+
+// Run `f(frame)` for this warp's frames: its one frame when the grid covers
+// the batch (shared-memory context), or frames warp, warp + all warps, ...
+// (device-memory context: the scratch has one context per resident warp).
+template <bool kDev, typename F>
+__device__ __forceinline__ void for_each_frame(int B, F&& f) {
+  const int warps = blockDim.x / kWarp;
+  const int first = blockIdx.x * warps + threadIdx.x / kWarp;
+  if (!kDev) {
+    if (first < B) f(first);
+    return;
+  }
+  for (int frame = first; frame < B; frame += gridDim.x * warps) {
+    f(frame);
+    __syncwarp();
+  }
+}
+
+template <bool kDev>
 __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
                                       int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
                                       long long* __restrict__ r_out,
                                       const int4* __restrict__ prog, int n_ops, int has_R,
-                                      int B, int S, int L, int lgS) {
+                                      int B, int S, int L, int lgS, float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int frame = blockIdx.x * warps + warp;
-  if (frame >= B) return;
-  const Ctx c = make_ctx(reinterpret_cast<float*>(smem_raw) + (size_t)warp * ctx_words(L, S, lgS),
-                         L, S, lgS, lane);
-  const float* a = alpha + (size_t)frame * L * S;
-  for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = a[i];
-  if (lane < L) c.pm[lane] = pm[(size_t)frame * L + lane];
-  __syncwarp();
-  chunk_body(c, prog, n_ops, has_R);
-  int8_t* bo = beta_out + (size_t)frame * L * S;
-  for (int idx = lane; idx < L * S; idx += kWarp) {
-    const int l = idx >> lgS, i = idx & (S - 1);
-    bo[idx] = (int8_t)((c.beta[i] >> l) & 1u);
-  }
-  if (lane < L) {
-    pm_out[(size_t)frame * L + lane] = c.pm[lane];
-    r_out[(size_t)frame * L + lane] = c.R[lane];
-  }
+  const int lane = threadIdx.x % kWarp;
+  const Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS)), L, S, lgS,
+                         lane);
+  for_each_frame<kDev>(B, [&](int frame) {
+    const float* a = alpha + (size_t)frame * L * S;
+    for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = a[i];
+    if (lane < L) c.pm[lane] = pm[(size_t)frame * L + lane];
+    __syncwarp();
+    chunk_body<false>(c, prog, n_ops, has_R, L);
+    int8_t* bo = beta_out + (size_t)frame * L * S;
+    for (int idx = lane; idx < L * S; idx += kWarp) {
+      const int l = idx >> lgS, i = idx & (S - 1);
+      bo[idx] = (int8_t)((c.beta[i] >> l) & 1u);
+    }
+    if (lane < L) {
+      pm_out[(size_t)frame * L + lane] = c.pm[lane];
+      r_out[(size_t)frame * L + lane] = c.R[lane];
+    }
+  });
 }
 
 // The arguments of one chunk step, as a launch passes them or as the
-// whole-decode kernel reads them from its step table (8 ints per chunk).
+// whole-decode kernel reads them from its step table (8 ints per chunk, at
+// full width); the live widths and one-lane masks are read by a narrow step
+// only.
 struct StepArgs {
   int k, inv, j, mask_a, mask_b, prog_off, n_ops, has_R;
+  int lv_in, lv_out, one_a, one_b;
 };
 
-// One chunk step of one frame: descend -> body -> pending composes -> ascend.
-// `x` is the frame's LLRs in bit-reversed storage, `pm` its L metrics in
-// device memory (read, then written).
+// One chunk step of one frame: descend -> body -> pending composes -> ascend;
+// kNarrow: over lv_in live paths in and lv_out out, else at full width (the
+// live widths and one-lane masks of `a` are not read).  `x` is the frame's
+// LLRs in bit-reversed storage, `pm` its L metrics in device memory (read,
+// then written).
+template <bool kNarrow>
 __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, const Stacks& st,
                                            const float* x, float* pm, const int4* prog,
                                            const StepArgs& a) {
-  const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
+  const int N = g.N, S = g.S, t = g.t, lane = c.lane;
   const int k = a.k, inv = a.inv, j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
+  const int wi = kNarrow ? a.lv_in : g.L, wo = kNarrow ? a.lv_out : g.L;
+  const int one_a = kNarrow ? a.one_a : 0, one_b = kNarrow ? a.one_b : 0;
 
   // ---- descend: one g at level t-k (all f from the LLRs when k == t), then
   // an f chain down to level t; every written level's pend_a resets
   int lo;
   if (k == t) {
-    // chunk 0: the planes are path-invariant, compute once, store L rows
+    // chunk 0: the planes are path-invariant, compute once, store lv_in rows
     for (int l = 1; l <= t; ++l) {
       const int M = N >> l;
       const float* src = l == 1 ? x : st.alpha(l - 1);  // row 0 of the level above
       float* dst = st.alpha(l);
       for (int i = lane; i < M; i += kWarp) {
         const float v = f_minsum(src[i], src[M + i]);
-        for (int r = 0; r < L; ++r) dst[(size_t)r * M + i] = v;
+        for (int r = 0; r < wi; ++r) dst[(size_t)r * M + i] = v;
       }
-      if (lane < L) st.pend_a(l)[lane] = lane;
+      if (lane < wi) st.pend_a(l)[lane] = lane;
       __syncwarp();
     }
   } else {
     lo = t - k;
-    descend_g(g, st, x, lo, inv != 0, st.alpha(lo), lane);
-    if (lane < L) st.pend_a(lo)[lane] = lane;
+    descend_g(g, st, x, lo, inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
+    if (lane < wi) st.pend_a(lo)[lane] = lane;
     __syncwarp();
     for (int l = lo + 1; l <= t; ++l) {
       const int M = N >> l, lgM = ilog2(M);
       const float* src = st.alpha(l - 1);
       float* dst = st.alpha(l);
-      for (int idx = lane; idx < L * M; idx += kWarp) {
+      for (int idx = lane; idx < wi * M; idx += kWarp) {
         const int r = idx >> lgM, i = idx & (M - 1);
         dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
       }
-      if (lane < L) st.pend_a(l)[lane] = lane;
+      if (lane < wi) st.pend_a(l)[lane] = lane;
       __syncwarp();
     }
   }
 
-  // ---- chunk body on a shared-memory copy of the level-t alpha
+  // ---- chunk body on a copy of the level-t alpha in the chunk context
   {
     const float* top = st.alpha(t);
-    for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = top[i];
-    if (lane < L) c.pm[lane] = pm[lane];
+    for (int i = lane; i < wi * S; i += kWarp) c.alpha[i] = top[i];
+    if (lane < wi) c.pm[lane] = pm[lane];
     __syncwarp();
   }
-  chunk_body(c, prog, a.n_ops, a.has_R);
-  if (lane < L) pm[lane] = c.pm[lane];
+  chunk_body<kNarrow>(c, prog, a.n_ops, a.has_R, wi);
+  if (lane < wo) pm[lane] = c.pm[lane];
 
   // ---- compose the chunk's R into the live pendings: p[l] = p[R[l]]
   for (int l = 1; l <= t; ++l) {
     int va = 0, vb = 0;
     const bool ca = (mask_a >> (l - 1)) & 1, cb = (mask_b >> (l - 1)) & 1;
-    if (lane < L) {
+    if (lane < wo) {
       if (ca) va = st.pend_a(l)[c.R[lane]];
       if (cb) vb = st.pend_b(l)[c.R[lane]];
     }
     __syncwarp();
-    if (lane < L) {
+    if (lane < wo) {
       if (ca) st.pend_a(l)[lane] = va;
       if (cb) st.pend_b(l)[lane] = vb;
     }
@@ -195,7 +255,8 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   __syncwarp();
 
   // ---- ascend: j combines with the permuted left betas, built from the end
-  // of the destination level t-j, then the parked level's pend_b resets
+  // of the destination level t-j, then the parked level's pend_b resets; a
+  // one-lane pending that this chunk did not compose is read by every slot
   const int D = S << j;
   uint32_t* dest = st.beta(t - j);
   for (int i = lane; i < S; i += kWarp) dest[D - S + i] = c.beta[i];
@@ -203,13 +264,14 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   for (int s = 0; s < j; ++s) {
     const int lev = t - s, size = S << s;
     const uint32_t* left = st.beta(lev);
-    if (lane < L) c.tmp[lane] = st.pend_b(lev)[lane];
+    const bool one = ((one_b >> (lev - 1)) & 1) && !((mask_b >> (lev - 1)) & 1);
+    if (lane < wo) c.tmp[lane] = st.pend_b(lev)[one ? 0 : lane];
     __syncwarp();
     for (int i = lane; i < size; i += kWarp)
-      dest[D - 2 * size + i] = perm_word(left[i], c.tmp, L) ^ dest[D - size + i];
+      dest[D - 2 * size + i] = perm_word(left[i], c.tmp, wo) ^ dest[D - size + i];
     __syncwarp();
   }
-  if (lane < L) st.pend_b(t - j)[lane] = lane;
+  if (lane < wo) st.pend_b(t - j)[lane] = lane;
 }
 
 // Butterfly u = beta * G in storage order on the N packed words of `root`
@@ -230,19 +292,21 @@ __device__ __forceinline__ void root_out(uint32_t* root, int N, int L, int log2N
   }
 }
 
-// The last chunk of one frame: one g at level t, body, ascend to the root
-// (the chunk's R composes into each pend_b on the way), butterfly, outputs.
-// `pm` may be the same memory as `pm_out`: it is read before it is written.
+// The last chunk of one frame, at full width: one g at level t, body, ascend
+// to the root (the chunk's R composes into each pend_b on the way),
+// butterfly, outputs.  `pm` may be the same memory as `pm_out`: it is read
+// before it is written.  one_a / one_b: the one-lane pendings of the descend.
 __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
                                            const Stacks& st, const float* x, const float* pm,
                                            int8_t* u, float* pm_out, const int4* prog,
-                                           int n_ops, int has_R, int log2N) {
+                                           int n_ops, int has_R, int log2N, int one_a,
+                                           int one_b) {
   const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
-  // ---- descend: a single g at level t, straight into shared memory
-  descend_g(g, st, x, t, false, c.alpha, lane);
+  // ---- descend: a single g at level t, straight into the chunk context
+  descend_g(g, st, x, t, false, c.alpha, lane, L, one_a, one_b);
   if (lane < L) c.pm[lane] = pm[lane];
   __syncwarp();
-  chunk_body(c, prog, n_ops, has_R);
+  chunk_body<false>(c, prog, n_ops, has_R, L);
 
   // ---- ascend to the root; the chunk's R composes into each pend_b on the way
   for (int i = lane; i < S; i += kWarp) root[N - S + i] = c.beta[i];
@@ -261,37 +325,39 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
   if (lane < L) pm_out[lane] = c.pm[lane];
 }
 
+template <bool kDev, bool kNarrow>
 __global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, float* pm,
-                                      const int4* __restrict__ prog, Geometry g, StepArgs a) {
+                                      const int4* __restrict__ prog, Geometry g, StepArgs a,
+                                      float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int frame = blockIdx.x * warps + warp;
-  if (frame >= g.B) return;
-  const Ctx c = make_ctx(
-      reinterpret_cast<float*>(smem_raw) + (size_t)warp * ctx_words(g.L, g.S, g.lgS), g.L, g.S,
-      g.lgS, lane);
-  chunk_step(c, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
-             llr + (size_t)frame * g.N, pm + (size_t)frame * g.L, prog, a);
+  const int lane = threadIdx.x % kWarp;
+  const Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(g.L, g.S, g.lgS)), g.L,
+                         g.S, g.lgS, lane);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    chunk_step<kNarrow>(c, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
+                        llr + (size_t)frame * g.N, pm + (size_t)frame * g.L, prog, a);
+  });
 }
 
+template <bool kDev>
 __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, const float* pm,
                                       int8_t* __restrict__ u, float* __restrict__ pm_out,
                                       const int4* __restrict__ prog, int n_ops, int has_R,
-                                      Geometry g, int log2N) {
+                                      Geometry g, int log2N, int one_a, int one_b,
+                                      float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int frame = blockIdx.x * warps + warp;
-  if (frame >= g.B) return;
-  const int per_warp = ctx_words(g.L, g.S, g.lgS) + g.N;
-  float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
+  const int lane = threadIdx.x % kWarp;
+  float* base = ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(g.L, g.S, g.lgS) + g.N);
   const Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
   uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(g.L, g.S, g.lgS));
-  last_chunk(c, root, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
-             llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
-             u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog, n_ops, has_R,
-             log2N);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    last_chunk(c, root, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
+               llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
+               u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog, n_ops, has_R,
+               log2N, one_a, one_b);
+  });
 }
 
 // The whole chunked list decode of a frame in ONE launch (replaces
@@ -345,7 +411,7 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
     for (int idx = lane; idx < L * S; idx += kWarp) c.alpha[idx] = x[idx & (S - 1)];
     if (lane < L) c.pm[lane] = pm_f[lane];
     __syncwarp();
-    chunk_body(c, prog + last[5], last[6], last[7]);
+    chunk_body<false>(c, prog + last[5], last[6], last[7], L);
     for (int i = lane; i < N; i += kWarp) root[i] = c.beta[i];
     __syncwarp();
     root_out(root, N, L, log2N, u_f, lane);
@@ -362,16 +428,37 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
   __syncwarp();
   for (int ch = 0; ch < C - 1; ++ch) {
     const int* row = steps + 8 * ch;
-    const StepArgs a{row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7]};
-    chunk_step(c, g, st, x, pm_f, prog + a.prog_off, a);
+    const StepArgs a{row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7],
+                     L, L, 0, 0};
+    chunk_step<false>(c, g, st, x, pm_f, prog + a.prog_off, a);
     __syncwarp();
   }
-  last_chunk(c, root, g, st, x, pm_f, u_f, pm_f, prog + last[5], last[6], last[7], log2N);
+  last_chunk(c, root, g, st, x, pm_f, u_f, pm_f, prog + last[5], last[6], last[7], log2N, 0, 0);
 }
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The launch shape of a per-chunk kernel: the context in shared memory
+// (`per_warp_bytes` per warp, one warp per frame, the grid covering the
+// batch), or, with `ctx_dev`, in device memory (no dynamic shared memory,
+// `grid` blocks walking the frames).
+template <typename K>
+cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t per_warp_bytes,
+                      int B, int warps_per_block, int grid, K* kernel, size_t* smem,
+                      int* blocks) {
+  if (ctx_dev) {
+    *kernel = dev_kernel;
+    *smem = 0;
+    *blocks = grid;
+    return cudaSuccess;
+  }
+  *kernel = smem_kernel;
+  *smem = (size_t)warps_per_block * per_warp_bytes;
+  *blocks = (B + warps_per_block - 1) / warps_per_block;
+  return allow_smem(smem_kernel, *smem);
 }
 
 }  // namespace
@@ -385,51 +472,73 @@ extern "C" const char* pl_error_string(int code) {
 extern "C" int scl_smem_per_frame(int L, int S, int lgS) { return 4 * scl::ctx_words(L, S, lgS); }
 
 // Each launcher runs on `stream` and returns the cudaGetLastError code (0 = ok).
+// The per-chunk launchers take `ctx_dev` (null: the context in shared memory;
+// else grid * warps_per_block slices of the context in device memory) and
+// `grid` (the blocks of the device-memory mode).
 
 extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t* beta_out,
                                      float* pm_out, long long* r_out, const int* prog, int n_ops,
                                      int has_R, int B, int S, int L, int lgS,
-                                     int warps_per_block, void* stream) {
-  const size_t smem = (size_t)warps_per_block * scl_smem_per_frame(L, S, lgS);
-  cudaError_t err = allow_smem(scl_chunk_body_kernel, smem);
+                                     int warps_per_block, float* ctx_dev, int grid,
+                                     void* stream) {
+  decltype(&scl_chunk_body_kernel<false>) kernel;
+  size_t smem;
+  int blocks;
+  cudaError_t err = configure(&scl_chunk_body_kernel<false>, &scl_chunk_body_kernel<true>,
+                              ctx_dev, scl_smem_per_frame(L, S, lgS), B, warps_per_block, grid,
+                              &kernel, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + warps_per_block - 1) / warps_per_block;
-  scl_chunk_body_kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       alpha, pm, beta_out, pm_out, r_out, reinterpret_cast<const int4*>(prog), n_ops, has_R,
-      B, S, L, lgS);
+      B, S, L, lgS, ctx_dev);
   return (int)cudaGetLastError();
 }
 
+// lv_in / lv_out: the live paths entering and leaving the chunk (L, L: full
+// width); one_a / one_b: level bit masks of the one-lane pendings.
 extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, int* pend_a,
                                      int* pend_b, float* pm, const int* prog, int n_ops,
                                      int has_R, int B, int N, int S, int L, int t, int lgS,
-                                     int k, int inv, int j, int mask_a, int mask_b,
-                                     int warps_per_block, void* stream) {
-  const size_t smem = (size_t)warps_per_block * scl_smem_per_frame(L, S, lgS);
-  cudaError_t err = allow_smem(scl_chunk_step_kernel, smem);
+                                     int k, int inv, int j, int mask_a, int mask_b, int lv_in,
+                                     int lv_out, int one_a, int one_b, int warps_per_block,
+                                     float* ctx_dev, int grid, void* stream) {
+  decltype(&scl_chunk_step_kernel<false, false>) kernel;
+  size_t smem;
+  int blocks;
+  const bool narrow = lv_in < L || lv_out < L;
+  cudaError_t err = narrow
+      ? configure(&scl_chunk_step_kernel<false, true>, &scl_chunk_step_kernel<true, true>,
+                  ctx_dev, scl_smem_per_frame(L, S, lgS), B, warps_per_block, grid, &kernel,
+                  &smem, &blocks)
+      : configure(&scl_chunk_step_kernel<false, false>, &scl_chunk_step_kernel<true, false>,
+                  ctx_dev, scl_smem_per_frame(L, S, lgS), B, warps_per_block, grid, &kernel,
+                  &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
-  const int blocks = (B + warps_per_block - 1) / warps_per_block;
-  const StepArgs a{k, inv, j, mask_a, mask_b, 0, n_ops, has_R};
-  scl_chunk_step_kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  const StepArgs a{k, inv, j, mask_a, mask_b, 0, n_ops, has_R, lv_in, lv_out, one_a, one_b};
+  kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm,
-      reinterpret_cast<const int4*>(prog), g, a);
+      reinterpret_cast<const int4*>(prog), g, a, ctx_dev);
   return (int)cudaGetLastError();
 }
 
 extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, int* pend_a,
                                      int* pend_b, const float* pm, int8_t* u, float* pm_out,
                                      const int* prog, int n_ops, int has_R, int B, int N, int S,
-                                     int L, int t, int lgS, int log2N, int warps_per_block,
+                                     int L, int t, int lgS, int log2N, int one_a, int one_b,
+                                     int warps_per_block, float* ctx_dev, int grid,
                                      void* stream) {
-  const size_t smem = (size_t)warps_per_block * (scl_smem_per_frame(L, S, lgS) + 4 * (size_t)N);
-  cudaError_t err = allow_smem(scl_last_chunk_kernel, smem);
+  decltype(&scl_last_chunk_kernel<false>) kernel;
+  size_t smem;
+  int blocks;
+  cudaError_t err = configure(&scl_last_chunk_kernel<false>, &scl_last_chunk_kernel<true>,
+                              ctx_dev, scl_smem_per_frame(L, S, lgS) + 4 * (size_t)N, B,
+                              warps_per_block, grid, &kernel, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
-  const int blocks = (B + warps_per_block - 1) / warps_per_block;
-  scl_last_chunk_kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm, u, pm_out,
-      reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N);
+      reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N, one_a, one_b, ctx_dev);
   return (int)cudaGetLastError();
 }
 

@@ -38,6 +38,19 @@
 // halving tree (x[:h] + x[h:]), not the adjacent-pair tree of rate-0 / REP,
 // and use the levels below their own alpha plane as scratch: nothing reads
 // them before the next F or G writes them.
+//
+// LIVE WIDTH (the TPU kernel's widths= mode, make_superchunk_pallas): an
+// exact body can start at fewer live paths w than the list holds (the list
+// fills 1 -> 2 -> ... -> L, doubling per info leaf).  Every op then runs over
+// the first w rows only, an info leaf ranks 2w candidates (bit-0 paths, then
+// bit-1 paths) and keeps min(2w, L), and w doubles; rows and lanes >= w are
+// never read or written.  At w = L this is the full-width body.  The fast ops
+// run at full width only.
+//
+// Where the context lives: Ctx is plain pointers.  The kernels point it at
+// the warp's slice of shared memory, or, when the chunk's working set does
+// not fit there, at the warp's slice of a scratch buffer in device memory;
+// the device functions are the same.
 
 #pragma once
 
@@ -153,40 +166,45 @@ __device__ __forceinline__ void d0_inplace(float* z, int total, int lane) {
 // keep, second half: bit 1 / flip).  Afterwards c.pm and c.R hold the
 // survivors; returns the packed word of their second-half flags (bit l =
 // decision of slot l).  Candidate i goes before candidate j iff its metric is
-// larger, or equal with i < j.
-__device__ __forceinline__ uint32_t prune(const Ctx& c) {
-  const int L = c.L, lane = c.lane;
-  for (int i = lane; i < 2 * L; i += kWarp) {
+// larger, or equal with i < j.  kNarrow: the 2w candidates of w live paths,
+// keeping min(2w, L).
+template <bool kNarrow = false>
+__device__ __forceinline__ uint32_t prune(const Ctx& c, int w) {
+  if (!kNarrow) w = c.L;
+  const int lane = c.lane, two = 2 * w, keep = kNarrow ? min(two, c.L) : c.L;
+  for (int i = lane; i < two; i += kWarp) {
     const float ci = c.cand[i];
     int rank = 0;
-    for (int j = 0; j < 2 * L; ++j) {
+    for (int j = 0; j < two; ++j) {
       const float cj = c.cand[j];
       rank += (cj > ci || (cj == ci && j < i)) ? 1 : 0;
     }
-    if (rank < L) {
+    if (rank < keep) {
       c.pm[rank] = ci;
-      c.R[rank] = i < L ? i : i - L;
-      c.tmp[rank] = i >= L ? 1 : 0;
+      c.R[rank] = i < w ? i : i - w;
+      c.tmp[rank] = i >= w ? 1 : 0;
     }
   }
   __syncwarp();
-  const uint32_t word = __ballot_sync(kFull, lane < L && c.tmp[lane] != 0);
+  const uint32_t word = __ballot_sync(kFull, lane < keep && c.tmp[lane] != 0);
   __syncwarp();
   return word;
 }
 
-// Branch + stable top-L prune on leaf LLRs c.leaf_a and metrics c.pm.
-__device__ __forceinline__ uint32_t info_leaf(const Ctx& c) {
-  const int L = c.L, lane = c.lane;
-  if (lane < L) {
+// Branch + stable top-L prune on leaf LLRs c.leaf_a and metrics c.pm of w
+// live paths (kNarrow; else the full list).
+template <bool kNarrow>
+__device__ __forceinline__ uint32_t info_leaf(const Ctx& c, int w) {
+  const int lane = c.lane;
+  if (lane < w) {
     float d0, d1;
     d0_d1(c.leaf_a[lane], d0, d1);
     const float p = c.pm[lane];
     c.cand[lane] = p + d0;
-    c.cand[L + lane] = p + d1;
+    c.cand[w + lane] = p + d1;
   }
   __syncwarp();
-  return prune(c);
+  return prune<kNarrow>(c, w);
 }
 
 // Fast rate-1 node on the [L][sz] plane a, beta words at c.beta + off, using
@@ -216,7 +234,7 @@ __device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz,
       c.cand[L + lane] = p - fabsf(a[rtot * sz + idx[rtot * K + s]]);
     }
     __syncwarp();
-    const uint32_t word = prune(c);
+    const uint32_t word = prune(c, L);
     if (lane < s) fw = perm_word(fw, c.R, L);
     else if (lane == s) fw = word;
     rtot = __shfl_sync(kFull, rtot, lane < L ? c.R[lane] : 0);  // rtot[l] = rtot[r[l]]
@@ -259,16 +277,20 @@ __device__ __forceinline__ void rep_fast(const Ctx& c, const float* a, int sz, i
     c.cand[L + lane] = p + z1[lane * H];
   }
   __syncwarp();
-  const uint32_t word = prune(c);
+  const uint32_t word = prune(c, L);
   for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
 }
 
 // The chunk body: decode the size-S subtree whose alpha lies at depth 0 of
 // c.alpha, with metrics c.pm.  Leaves the packed partial sums in c.beta, the
-// new metrics in c.pm and the chunk's rank vector in c.R.
+// new metrics in c.pm and the chunk's rank vector in c.R.  kNarrow: start at
+// w_in live paths and double at every info leaf (live width); otherwise the
+// full list, the width a constant the compiler sees.
+template <bool kNarrow>
 __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict__ prog,
-                                           int n_ops, int has_R) {
+                                           int n_ops, int has_R, int w_in) {
   const int L = c.L, lane = c.lane;
+  int w = kNarrow ? w_in : L;
   for (int pc = 0; pc < n_ops; ++pc) {
     const int4 op = __ldg(prog + pc);
     const int d = op.y, sz = op.z, off = op.w;
@@ -277,7 +299,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         const float* src = c.alpha + depth_base(c, d);
         float* dst = c.alpha + depth_base(c, d + 1);
         const int lg = ilog2(sz);
-        for (int idx = lane; idx < L * sz; idx += kWarp) {
+        for (int idx = lane; idx < w * sz; idx += kWarp) {
           const int l = idx >> lg, i = idx & (sz - 1);
           dst[idx] = f_minsum(src[l * 2 * sz + i], src[l * 2 * sz + sz + i]);
         }
@@ -289,11 +311,11 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         int* saved = c.Rstack + d * L;
         const bool rl = op.x & kFlagRL;
         if (rl) {
-          if (lane < L) saved[lane] = c.R[lane];
+          if (lane < w) saved[lane] = c.R[lane];
           __syncwarp();
         }
         const int lg = ilog2(sz);
-        for (int idx = lane; idx < L * sz; idx += kWarp) {
+        for (int idx = lane; idx < w * sz; idx += kWarp) {
           const int l = idx >> lg, i = idx & (sz - 1);
           const int r = rl ? saved[l] : l;  // the parent alpha, read through the rank vector
           const float sgn = 1.0f - 2.0f * (float)((c.beta[off + i] >> l) & 1u);
@@ -304,69 +326,71 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
       case OP_COMBINE: {
         const bool rl = op.x & kFlagRL, rr = op.x & kFlagRR;
         for (int i = lane; i < sz; i += kWarp) {
-          uint32_t w = c.beta[off + i];
-          if (rr) w = perm_word(w, c.R, L);
-          c.beta[off + i] = w ^ c.beta[off + sz + i];
+          uint32_t word = c.beta[off + i];
+          if (rr) word = perm_word(word, c.R, w);
+          c.beta[off + i] = word ^ c.beta[off + sz + i];
         }
         if (rl) {  // R = compose(R_r, R_l): R[l] = R_l[R_r[l]]
           const int* saved = c.Rstack + d * L;
           int v = 0;
-          if (lane < L) v = saved[rr ? c.R[lane] : lane];
+          if (lane < w) v = saved[rr ? c.R[lane] : lane];
           __syncwarp();
-          if (lane < L) c.R[lane] = v;
+          if (lane < w) c.R[lane] = v;
         }
         break;
       }
       case OP_RATE0: {
         float* z = c.alpha + depth_base(c, d);
-        zero_dec_inplace(z, L * sz, sz, lane);
-        d0_inplace(z, L * sz, lane);
+        zero_dec_inplace(z, w * sz, sz, lane);
+        d0_inplace(z, w * sz, lane);
         // adjacent-pair tree sum per path, in place with a growing stride
         for (int s = 1; s < sz; s <<= 1) {
-          for (int q = lane; q < (L * sz) / (2 * s); q += kWarp) {
+          for (int q = lane; q < (w * sz) / (2 * s); q += kWarp) {
             const int p = q * 2 * s;
             z[p] = z[p] + z[p + s];
           }
           __syncwarp();
         }
-        if (lane < L) c.pm[lane] = c.pm[lane] + z[lane * sz];
+        if (lane < w) c.pm[lane] = c.pm[lane] + z[lane * sz];
         for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = 0u;
         break;
       }
       case OP_LEAF: {
         const float* a = c.alpha + depth_base(c, d);
-        if (lane < L) c.leaf_a[lane] = a[lane];
+        if (lane < w) c.leaf_a[lane] = a[lane];
         __syncwarp();
-        const uint32_t word = info_leaf(c);
+        const uint32_t word = info_leaf<kNarrow>(c, w);
         if (lane == 0) c.beta[off] = word;
+        if (kNarrow) w = min(2 * w, L);
         break;
       }
       case OP_REP: {
         float* z = c.alpha + depth_base(c, d);
         const int lgM = ilog2(sz);
-        zero_dec_inplace(z, L * sz, sz, lane);
-        if (lane < L) c.leaf_a[lane] = z[lane * sz + sz - 1];
+        zero_dec_inplace(z, w * sz, sz, lane);
+        if (lane < w) c.leaf_a[lane] = z[lane * sz + sz - 1];
         __syncwarp();
-        d0_inplace(z, L * sz, lane);
+        d0_inplace(z, w * sz, lane);
         // pair sums at every level EXCEPT each path's last pair: the block sums
         // the metric needs (position sz - 2^(k+1) at level k) then stay in place
         for (int k = 0; (sz >> k) > 2; ++k) {
           const int pairs = (sz >> (k + 1)) - 1;  // per path
-          for (int q = lane; q < L * pairs; q += kWarp) {
+          for (int q = lane; q < w * pairs; q += kWarp) {
             const int l = q / pairs, i = q - l * pairs;
             const int p = l * sz + (i << (k + 1));
             z[p] = z[p] + z[p + (1 << k)];
           }
           __syncwarp();
         }
-        if (lane < L) {
+        if (lane < w) {
           float p = c.pm[lane];
           for (int j = 1; j <= lgM; ++j) p = p + z[lane * sz + sz - (sz >> (j - 1))];
           c.pm[lane] = p;
         }
         __syncwarp();
-        const uint32_t word = info_leaf(c);
+        const uint32_t word = info_leaf<kNarrow>(c, w);
         for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
+        if (kNarrow) w = min(2 * w, L);
         break;
       }
       case OP_RATE1_FAST:

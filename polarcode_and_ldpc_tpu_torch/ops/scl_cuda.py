@@ -37,6 +37,19 @@ through the same three per-chunk kernels: its ``OP_RATE1_FAST`` /
 their launches are counted apart (``scl_chunk_step_fast`` …).  The one-launch
 decode refuses a fast program, as the JAX package's mega control does.
 
+Live width (``make_step_specs(..., live=True)``, the TPU kernel's ``widths=``
+mode of ``make_superchunk_pallas``): a chunk step whose live path count
+``lv_in`` / ``lv_out`` is below L runs over the live rows only
+(``scl_chunk_step_narrow``), reading and writing exactly the rows and lanes
+the plain live-width step keeps; the last chunk stays at full width, as in
+the JAX package.  Exact nodes only.
+
+Where the chunk context lives (decided on the host by size): in shared
+memory when ``smem_per_frame`` fits one thread block, else in a scratch
+buffer in device memory, one slice per resident warp (``_devmem`` launch
+counts; a port mode: the JAX package runs such chunks in XLA).  The
+one-launch decode keeps its refusal of a code one block cannot hold.
+
 Precondition, as for the plain decoder: finite LLRs.
 """
 
@@ -53,7 +66,7 @@ from ..models.polar.construction import bit_reverse_permutation
 from ..models.polar.encoder import polar_transform
 from ..models.polar.scanscl import (_LEVELPAR_MAX, SCLSchedule, _make_chunk_body,
                                     _make_last_fn, _make_super_fn, decode_selector,
-                                    init_metrics)
+                                    init_metrics, live_state_widths, pad_paths)
 from . import build, count_launch
 
 OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_LEAF, OP_REP, OP_RATE1_FAST, OP_REP_FAST = range(8)
@@ -67,6 +80,9 @@ MAX_LIST = 32
 SMEM_LIMIT_BYTES = 232448
 _SMEM_TARGET_BYTES = 48 * 1024
 _MAX_WARPS = 8
+#: launch shape of the device-memory context: warps per block, blocks per SM
+_DEVMEM_WARPS = 4
+_DEVMEM_BLOCKS_PER_SM = 8
 
 
 def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
@@ -156,6 +172,35 @@ def _warps_per_block(per_frame: int, what: str) -> int:
     return max(1, min(_MAX_WARPS, _SMEM_TARGET_BYTES // per_frame))
 
 
+def context_in_device_memory(L: int, S: int, root_words: int = 0) -> bool:
+    """Whether a per-chunk kernel keeps its chunk context in device memory:
+    the context (plus ``root_words`` for the last chunk's root plane) does
+    not fit one thread block's shared memory."""
+    return smem_per_frame(L, S, root_words) > SMEM_LIMIT_BYTES
+
+
+def _context_plan(L: int, S: int, root_words: int, B: int, device):
+    """``(warps per block, grid, scratch)`` of a per-chunk launch: the
+    context in shared memory (``scratch`` None, the grid covering the
+    batch), or in a device-memory scratch of ``grid`` blocks of
+    ``_DEVMEM_WARPS`` warps, one context slice per warp, walking the
+    frames."""
+    per_frame = smem_per_frame(L, S, root_words)
+    if not context_in_device_memory(L, S, root_words):
+        return _warps_per_block(per_frame, "a chunk context"), 0, None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid = min(-(-B // _DEVMEM_WARPS), sms * _DEVMEM_BLOCKS_PER_SM)
+    scratch = torch.empty((grid * _DEVMEM_WARPS * per_frame // 4,), dtype=torch.float32,
+                          device=device)
+    return _DEVMEM_WARPS, grid, scratch
+
+
+def _count(base: str, program: "SCLBodyProgram", scratch, narrow: bool = False) -> None:
+    """Count one launch under the name of its kernel mode."""
+    count_launch(base + ("_fast" if program.fast else "") + ("_narrow" if narrow else "")
+                 + ("_devmem" if scratch is not None else ""))
+
+
 def _check_cuda_f32(x: torch.Tensor, what: str, shape: tuple) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
@@ -193,10 +238,9 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
         raise ValueError(f"expected alpha [B>=1, {L}, {S}], got {tuple(alpha.shape)}")
     _check_cuda_f32(alpha, "alpha", (B, L, S))
     _check_cuda_f32(pm, "pm", (B, L))
-    warps = _warps_per_block(smem_per_frame(L, S), f"a chunk of S={S} at L={L}")
-    lib, fn = _launcher("scl_chunk_body_launch",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
     dev = alpha.device
+    warps, grid, ctx = _context_plan(L, S, 0, B, dev)
+    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 7 + [_P, _I, _P])
     beta = torch.empty((B, L, S), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, L), dtype=torch.float32, device=dev)
     r_out = torch.empty((B, L), dtype=torch.int64, device=dev)
@@ -204,9 +248,10 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
     with torch.cuda.device(dev):
         code = fn(alpha.data_ptr(), pm.data_ptr(), beta.data_ptr(), pm_out.data_ptr(),
                   r_out.data_ptr(), ops.data_ptr(), ops.shape[0], int(program.has_r),
-                  B, S, L, program.lgS, warps, torch.cuda.current_stream().cuda_stream)
+                  B, S, L, program.lgS, warps, ctx.data_ptr() if ctx is not None else None,
+                  grid, torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_body")
-    count_launch("scl_chunk_body_fast" if program.fast else "scl_chunk_body")
+    _count("scl_chunk_body", program, ctx)
     return beta, pm_out, r_out
 
 
@@ -278,41 +323,51 @@ class SCLState:
     def _beta_off(self, l: int) -> int:
         return self.sched.N - (self.sched.N >> (l - 1))
 
-    def to_plain(self):
+    def to_plain(self, widths=None):
         """``(alpha, pend_a, beta, pend_b, pm)`` as the plain chunk step
-        takes them (full list width)."""
+        takes them: at full list width, or at the live-width control's
+        ``widths = (wa, wb, wpa, wpb, pm width)`` (a step spec's
+        ``widths``), the first rows and lanes of each level."""
         s, L = self.sched, self.sched.L
         B = self.pm.shape[0]
+        full = (L,) * s.t
+        wa, wb, wpa, wpb, wpm = widths or (full, full, full, full, L)
         alpha, beta = [], []
         for l in range(1, s.t + 1):
             M = s.sizes[l]
             a0, b0 = self._alpha_off(l), self._beta_off(l)
-            alpha.append(self.alpha[:, a0:a0 + L * M].reshape(B, L, M))
-            beta.append(unpack_paths(self.beta[:, b0:b0 + M], L))
-        pend_a = tuple(self.pend_a[:, i].to(torch.int64) for i in range(s.t))
-        pend_b = tuple(self.pend_b[:, i].to(torch.int64) for i in range(s.t))
-        return tuple(alpha), pend_a, tuple(beta), pend_b, self.pm
+            alpha.append(self.alpha[:, a0:a0 + wa[l - 1] * M].reshape(B, wa[l - 1], M))
+            beta.append(unpack_paths(self.beta[:, b0:b0 + M], wb[l - 1]))
+        pend_a = tuple(self.pend_a[:, i, :wpa[i]].to(torch.int64) for i in range(s.t))
+        pend_b = tuple(self.pend_b[:, i, :wpb[i]].to(torch.int64) for i in range(s.t))
+        return tuple(alpha), pend_a, tuple(beta), pend_b, self.pm[:, :wpm]
 
     def load_plain(self, alpha, pend_a, beta, pend_b, pm) -> None:
-        """Overwrite the state with the plain chunk step's (full-width)
-        operands."""
-        s, L = self.sched, self.sched.L
+        """Overwrite the state with the plain chunk step's operands, each
+        level's first rows / lanes at the width the plain step hands back
+        (the others are untouched: phantom metrics stay −inf)."""
+        s = self.sched
         B = pm.shape[0]
         for l in range(1, s.t + 1):
             M = s.sizes[l]
             a0, b0 = self._alpha_off(l), self._beta_off(l)
-            self.alpha[:, a0:a0 + L * M] = alpha[l - 1].expand(B, L, M).reshape(B, L * M)
+            w = alpha[l - 1].shape[1]
+            self.alpha[:, a0:a0 + w * M] = alpha[l - 1].reshape(B, w * M)
             self.beta[:, b0:b0 + M] = pack_paths(beta[l - 1])
-            self.pend_a[:, l - 1] = pend_a[l - 1].to(torch.int32)
-            self.pend_b[:, l - 1] = pend_b[l - 1].to(torch.int32)
-        self.pm = pm.contiguous()
+            self.pend_a[:, l - 1, :pend_a[l - 1].shape[1]] = pend_a[l - 1].to(torch.int32)
+            self.pend_b[:, l - 1, :pend_b[l - 1].shape[1]] = pend_b[l - 1].to(torch.int32)
+        self.pm[:, :pm.shape[1]] = pm
 
 
 @dataclass
 class SCLStepSpec:
     """The arguments of one ``scl_chunk_step`` launch: descend ``(k, inv)``,
     ascend count ``j``, the compose masks as bit masks over level indices,
-    the chunk's node program, and the plain version of the same step."""
+    the chunk's node program, and the plain version of the same step.  Live
+    width: the live paths ``lv_in`` / ``lv_out`` (both L at full width), the
+    level bit masks ``one_a`` / ``one_b`` of the pendings that the plain
+    live-width step keeps at one lane (read by every slot), and ``widths``,
+    the plain step's operand widths (``SCLState.to_plain``; None: full)."""
     k: int
     inv: bool
     j: int
@@ -320,6 +375,15 @@ class SCLStepSpec:
     mask_b: int
     program: SCLBodyProgram
     plain: object
+    lv_in: int
+    lv_out: int
+    one_a: int = 0
+    one_b: int = 0
+    widths: Optional[tuple] = None
+
+    @property
+    def narrow(self) -> bool:
+        return self.lv_in < self.program.L or self.lv_out < self.program.L
 
 
 def _bitmask(levels) -> int:
@@ -327,24 +391,44 @@ def _bitmask(levels) -> int:
 
 
 def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None,
-                    node_mode: str = "exact"):
-    """``(step specs of chunks 0..C−2, last-chunk spec)`` of a schedule."""
+                    node_mode: str = "exact", live: bool = False):
+    """``(step specs of chunks 0..C−2, last-chunk spec)`` of a schedule;
+    ``live=True``: the chunk steps at the schedule's live path counts (exact
+    nodes only), the last chunk at full width on the live-width state."""
     if programs is None:
         programs = [SCLBodyProgram(f, sched.L, node_mode) for f in sched.unique_flags]
+    if live and any(p.fast for p in programs):
+        raise ValueError("live width runs exact node programs only")
     t, sizes, L = sched.t, sched.sizes, sched.L
+    widths = live_state_widths(sched) if live else None
+
+    def width_args(c: int) -> dict:
+        if not live:
+            return {}
+        wa, wb, wpa, wpb = widths[c]
+        return dict(one_a=_bitmask(i for i in range(t) if wpa[i] == 1),
+                    one_b=_bitmask(i for i in range(t) if wpb[i] == 1),
+                    widths=(wa, wb, wpa, wpb, sched.lv_in[c]))
+
     steps = []
     for c in range(sched.C - 1):
         sel, j = int(sched.desc_k[c]), int(sched.asc_j[c])
         k, inv = decode_selector(sel, t)
         prog = programs[sched.pattern_ids[c]]
+        lvi, lvo = (sched.lv_in[c], sched.lv_out[c]) if live else (L, L)
         steps.append(SCLStepSpec(
             k=k, inv=inv, j=j, mask_a=_bitmask(sched.comp_a[c]),
             mask_b=_bitmask(sched.comp_b[c]), program=prog,
             plain=_make_super_fn(sel, j, t, sizes, L, prog.plain,
-                                 compose_a=sched.comp_a[c], compose_b=sched.comp_b[c])))
+                                 compose_a=sched.comp_a[c], compose_b=sched.comp_b[c],
+                                 lv_in=lvi, lv_out=lvo),
+            lv_in=lvi, lv_out=lvo, **width_args(c)))
     prog = programs[sched.pattern_ids[sched.C - 1]]
+    lv_last = sched.lv_in[sched.C - 1] if live else L
     last = SCLStepSpec(k=0, inv=False, j=t, mask_a=0, mask_b=0, program=prog,
-                       plain=_make_last_fn(t, sizes, L, prog.plain, transform=True))
+                       plain=_make_last_fn(t, sizes, L, prog.plain, transform=True,
+                                           lv_in=lv_last),
+                       lv_in=L, lv_out=L, **width_args(sched.C - 1))
     return steps, last
 
 
@@ -367,44 +451,46 @@ def _check_state(state: SCLState) -> None:
 # ---------------------------------------------------------------------------
 
 def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec) -> None:
-    """Launch the chunk-step kernel on the state, IN PLACE.  Does not
-    synchronise."""
+    """Launch the chunk-step kernel on the state, IN PLACE (at the spec's
+    live width).  Does not synchronise."""
     _check_state(state)
     s = state.sched
     B = state.pm.shape[0]
-    warps = _warps_per_block(smem_per_frame(s.L, s.S), f"a chunk of S={s.S} at L={s.L}")
-    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 14 + [_P])
     dev = state.llr.device
+    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev)
+    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 18 + [_P, _I, _P])
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
         code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
                   state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
                   ops.data_ptr(), ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L,
                   s.t, spec.program.lgS, spec.k, int(spec.inv), spec.j, spec.mask_a,
-                  spec.mask_b, warps, torch.cuda.current_stream().cuda_stream)
+                  spec.mask_b, spec.lv_in, spec.lv_out, spec.one_a, spec.one_b, warps,
+                  ctx.data_ptr() if ctx is not None else None, grid,
+                  torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_step")
-    count_launch("scl_chunk_step_fast" if spec.program.fast else "scl_chunk_step")
+    _count("scl_chunk_step", spec.program, ctx, spec.narrow)
 
 
 def scl_chunk_step(state: SCLState, spec: SCLStepSpec) -> None:
     """One chunk step on the state, in place: the plain version for a state
     on the CPU, the kernel for a state on a CUDA device."""
     if state.llr.device.type == "cpu":
-        state.load_plain(*spec.plain(state.llr, *state.to_plain()))
+        state.load_plain(*spec.plain(state.llr, *state.to_plain(spec.widths)))
         return
     scl_chunk_step_cuda(state, spec)
 
 
 def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
-    """Launch the last-chunk kernel: ``(u [B, L, N] int8 natural order, pm
-    [B, L])``.  The state is read only.  Does not synchronise."""
+    """Launch the last-chunk kernel (full width): ``(u [B, L, N] int8
+    natural order, pm [B, L])``.  The state is read only.  Does not
+    synchronise."""
     _check_state(state)
     s = state.sched
     B = state.pm.shape[0]
-    warps = _warps_per_block(smem_per_frame(s.L, s.S, root_words=s.N),
-                             f"the last chunk of N={s.N}, S={s.S} at L={s.L}")
-    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 9 + [_I] * 10 + [_P])
     dev = state.llr.device
+    warps, grid, ctx = _context_plan(s.L, s.S, s.N, B, dev)
+    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 9 + [_I] * 12 + [_P, _I, _P])
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, s.L), dtype=torch.float32, device=dev)
     ops = spec.program.device_ops(dev)
@@ -413,9 +499,11 @@ def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
                   state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
                   u.data_ptr(), pm_out.data_ptr(), ops.data_ptr(), ops.shape[0],
                   int(spec.program.has_r), B, s.N, s.S, s.L, s.t, spec.program.lgS,
-                  int(np.log2(s.N)), warps, torch.cuda.current_stream().cuda_stream)
+                  int(np.log2(s.N)), spec.one_a, spec.one_b, warps,
+                  ctx.data_ptr() if ctx is not None else None, grid,
+                  torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_last_chunk")
-    count_launch("scl_last_chunk_fast" if spec.program.fast else "scl_last_chunk")
+    _count("scl_last_chunk", spec.program, ctx)
     return u, pm_out
 
 
@@ -423,10 +511,11 @@ def scl_last_chunk(state: SCLState, spec: SCLStepSpec):
     """The last chunk, the ascend to the root and the butterfly: ``(u [B, L,
     N] int8 natural order, pm [B, L])``."""
     if state.llr.device.type == "cpu":
-        u_rev, pm = spec.plain(state.llr, *state.to_plain())
+        u_rev, pm = spec.plain(state.llr, *state.to_plain(spec.widths))
+        L = state.sched.L
         rev = torch.as_tensor(np.asarray(bit_reverse_permutation(state.sched.N)),
                               dtype=torch.int64)
-        return u_rev[..., rev], pm
+        return pad_paths(u_rev, L, 0)[..., rev], pad_paths(pm, L, -torch.inf)
     return scl_last_chunk_cuda(state, spec)
 
 
@@ -526,11 +615,12 @@ def scl_decode_mega_cuda(llr: torch.Tensor, plan: SCLMegaPlan):
     return u, pm
 
 
-def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact"):
+def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact", live: bool = False):
     """The kernel control of the chunked decoder: ``decode(llr_rev [B, N]) →
     (u [B, L, N] int8 natural order, metrics [B, L])`` with ``llr_rev`` in
-    bit-reversed storage.  ``C − 1`` chunk-step launches and one last-chunk
-    launch; a single-chunk code is one chunk-body launch and the butterfly."""
+    bit-reversed storage.  ``C − 1`` chunk-step launches (narrow at the live
+    path counts with ``live``) and one last-chunk launch; a single-chunk
+    code is one chunk-body launch and the butterfly."""
     programs = [SCLBodyProgram(f, sched.L, node_mode) for f in sched.unique_flags]
     L = sched.L
     if sched.C == 1:
@@ -546,7 +636,7 @@ def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact"):
 
         return decode_single
 
-    steps, last = make_step_specs(sched, programs)
+    steps, last = make_step_specs(sched, programs, live=live)
 
     def decode(llr_rev):
         state = SCLState(sched, llr_rev)

@@ -150,8 +150,13 @@ def test_layered_kernel_shared_memory_plan():
         n, m, dv_max, dc_max = 8192, 4096, 3, 6
     assert bp_cuda.smem_bytes(Big, 1024) <= bp_cuda.SMEM_LIMIT_BYTES
     assert bp_cuda.smem_bytes(Big, 4096) > bp_cuda.SMEM_LIMIT_BYTES
-    with pytest.raises(ValueError, match=str(bp_cuda.SMEM_LIMIT_BYTES)):
-        bp_cuda.BPKernelPlan(Big, 8, True, "ms", schedule="layered", num_layers=1)
+    # a single layer of that code no longer fits: the plan keeps the planes in
+    # device memory instead of raising
+    big = TannerGraph.from_H(_H("regular", 8192), device="cpu")
+    plan = bp_cuda.BPKernelPlan(big, 8, True, "ms", schedule="layered", num_layers=1)
+    assert plan.device_memory and plan.smem_bytes == bp_cuda.smem_bytes(Big, 4096)
+    assert not bp_cuda.BPKernelPlan(big, 8, True, "ms", schedule="layered",
+                                    num_layers=4).device_memory
 
 
 # -- the kernel's tables and two-pass layer walk, emulated ---------------------------------

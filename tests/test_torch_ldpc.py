@@ -213,15 +213,22 @@ def test_wrapper_uses_plain_only_for_cpu_tensors_and_checks_inputs():
 
 
 def test_kernel_names_its_shared_memory_limit():
-    """A graph whose messages exceed one block's shared memory raises an
-    error that names the limit (graph tables faked at n=8192, dv=dc=8)."""
+    """A graph whose messages exceed one block's shared memory (faked at
+    n=8192, dv=dc=8; a real (4096, 2048) code with dv=5, dc=10) is planned in
+    device memory instead of raising; the (504, 252) code stays in shared
+    memory."""
     class Big:
         n, m, dv_max, dc_max = 8192, 4096, 8, 8
     assert bp_cuda.smem_bytes(Big) > bp_cuda.SMEM_LIMIT_BYTES
-    with pytest.raises(ValueError, match=str(bp_cuda.SMEM_LIMIT_BYTES)):
-        bp_cuda.BPKernelPlan(Big, 8)
+    big = TannerGraph.from_H(regular_construction(4096, 2048, 5, 10, seed=1), device="cpu")
+    plan = bp_cuda.BPKernelPlan(big, 8)
+    assert plan.device_memory and plan.smem_bytes == bp_cuda.smem_bytes(big) == (
+        (5 * 4096 + 2 * 10 * 2048 + 4096) * 4 + 4096)
+    assert plan.smem_bytes > bp_cuda.SMEM_LIMIT_BYTES
+    assert plan.scratch_bytes_per_frame % 16 == 0 and plan.scratch_bytes_per_frame >= plan.smem_bytes
     g = TannerGraph.from_H(_H("regular", 504), device="cpu")
     assert bp_cuda.smem_bytes(g) == (3 * 504 + 2 * 6 * 252 + 504) * 4 + 504
+    assert not bp_cuda.BPKernelPlan(g, 8).device_memory
 
 
 # -- the kernel's tables and algorithm, emulated -------------------------------------------

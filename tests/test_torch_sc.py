@@ -155,16 +155,20 @@ def test_wrapper_uses_plain_only_for_cpu_tensors_and_checks_inputs():
 
 # -- the kernel's node program, emulated ------------------------------------------------
 
-def _emulate_kernel(ops_table, llr, N):
+def _emulate_kernel(ops_table, llr, N, subtree=False):
     """What ``csrc/sc_decode.cu`` does for one frame, in numpy float32:
     bit-reversed storage, the level stack, one program row after another,
-    the storage-order butterfly, natural order on the way out."""
-    n = int(np.log2(N))
+    the storage-order butterfly, natural order on the way out.  In subtree
+    mode (``sc_decode_sub``) the input and the output are storage order: no
+    bit reversal, no butterfly."""
     rev = bit_reverse_permutation(N)
     base = lambda d: 2 * N - ((2 * N) >> d)
     alpha = np.zeros(2 * N, np.float32)
     beta = np.zeros(N, np.int8)
-    alpha[rev] = llr  # alpha[rev(i)] = llr[i]
+    if subtree:
+        alpha[:N] = llr
+    else:
+        alpha[rev] = llr  # alpha[rev(i)] = llr[i]
 
     def f(a, b):
         m = np.minimum(np.abs(a), np.abs(b))
@@ -201,6 +205,8 @@ def _emulate_kernel(ops_table, llr, N):
             beta[off:off + sz] = bits
         else:
             raise AssertionError(op)
+    if subtree:
+        return beta
     s = 1
     while s < N:
         x = beta.reshape(N // (2 * s), 2, s)

@@ -289,7 +289,7 @@ def decode_inputs(seed=0):
 
 @pytest.mark.parametrize("L", [1, 2, 4, 8])
 @pytest.mark.parametrize("control,live", [("unroll-fused", False), ("unroll-fused", True),
-                                          ("unroll-kernel", False)])
+                                          ("unroll-kernel", False), ("unroll-kernel", True)])
 def test_decoder_equals_jax_chunked_decoder(jax_decoders, L, control, live):
     mask, jdecs = jax_decoders
     llr = decode_inputs(L)
@@ -475,13 +475,16 @@ def test_unported_options_raise_with_their_name():
     assert not tscl.make_scl_decoder(32, mask, 4, node_mode="fast", device="cpu").live_width
     with pytest.warns(UserWarning, match="small-list serving mode"):
         tscl.make_scl_decoder(32, mask, 32, node_mode="fast", device="cpu")
-    # the kernels are float32, run at full width, and hold lists up to 32
+    # the kernels are float32 and hold lists up to 32; a single-chunk code is
+    # one chunk-body launch, at full width
     with pytest.raises(TypeError, match="float32"):
         tscl.make_scl_decoder(32, mask, 2, torch.float64, control_impl="unroll-kernel",
                               device="cpu")
     with pytest.raises(ValueError, match="live_width"):
         tscl.make_scl_decoder(32, mask, 2, control_impl="unroll-kernel", live_width=True,
                               device="cpu")
+    assert tscl.make_scl_decoder(32, mask, 2, chunk=8, control_impl="unroll-kernel",
+                                 device="cpu").live_width
     with pytest.raises(ValueError, match="list sizes"):
         tscl.make_scl_decoder(32, mask, 64, control_impl="unroll-kernel", device="cpu")
 

@@ -10,6 +10,10 @@ time — with the frame batch as a leading axis, and holds the result against
 the plain PyTorch versions bit for bit.  The float expressions use the same
 torch operators as the plain version, so equality is exact.
 
+Live-width (narrow) chunk steps are walked the same way, over the first
+``w`` rows and lanes only, with the one-lane pendings read at lane 0, against
+the plain live-width step on the live-width state.
+
 The fast node ops (``node_mode="fast"``) are walked the same way: the grouped
 warp argmin of ``csrc/fastnode_device.cuh`` (each path's lanes pick the least
 ``(|a|, position)`` pair strictly above the previous pick), the halving-tree
@@ -75,28 +79,29 @@ def zero_dec_inplace(z, total, M):
         m = h
 
 
-def info_leaf(c, leaf_a):
+def info_leaf(c, leaf_a, w):
     d0, d1 = _d0_d1(leaf_a)
-    return prune(c, torch.cat([c.pm + d0, c.pm + d1], dim=1))
+    return prune(c, torch.cat([c.pm[:, :w] + d0, c.pm[:, :w] + d1], dim=1), w)
 
 
-def prune(c, cand):
-    L = c.L
+def prune(c, cand, w):
+    """The stable top-min(2w, L) of the 2w candidates of w live paths."""
     B = cand.shape[0]
-    rank = torch.zeros((B, 2 * L), dtype=torch.int64)
-    for i in range(2 * L):
-        for j in range(2 * L):
+    two, keep = 2 * w, min(2 * w, c.L)
+    rank = torch.zeros((B, two), dtype=torch.int64)
+    for i in range(two):
+        for j in range(two):
             cj, ci = cand[:, j], cand[:, i]
             rank[:, i] += ((cj > ci) | ((cj == ci) & (j < i))).to(torch.int64)
     word = torch.zeros((B,), dtype=torch.int64)
     rows = torch.arange(B)
-    for i in range(2 * L):
-        keep = rank[:, i] < L
-        slot = rank[keep, i]
-        c.pm[rows[keep], slot] = cand[keep, i]
-        c.R[rows[keep], slot] = i if i < L else i - L
-        if i >= L:
-            word[keep] |= 1 << slot
+    for i in range(two):
+        kept = rank[:, i] < keep
+        slot = rank[kept, i]
+        c.pm[rows[kept], slot] = cand[kept, i]
+        c.R[rows[kept], slot] = i if i < w else i - w
+        if i >= w:
+            word[kept] |= 1 << slot
     return word
 
 
@@ -166,7 +171,7 @@ def rate1_fast(c, a, sz, off):
     rows = torch.arange(B)[:, None]
     for s in range(K):
         mag = torch.gather(a, 1, rtot * sz + idx[rows, rtot, s]).abs()
-        word = prune(c, torch.cat([c.pm, c.pm - mag], dim=1))
+        word = prune(c, torch.cat([c.pm, c.pm - mag], dim=1), L)
         if s:
             fw[:, :s] = perm_word(fw[:, :s], c.R, L)
         fw[:, s] = word
@@ -188,24 +193,27 @@ def rep_fast(c, a, sz, off):
     z0, H = halving_sum(a, L, sz, lambda x: _d0_d1(x)[0])
     z1, _ = halving_sum(a, L, sz, lambda x: _d0_d1(x)[1])
     rows = np.arange(L) * H
-    word = prune(c, torch.cat([c.pm + z0[:, rows], c.pm + z1[:, rows]], dim=1))
+    word = prune(c, torch.cat([c.pm + z0[:, rows], c.pm + z1[:, rows]], dim=1), L)
     c.beta[:, off:off + sz] = word[:, None]
 
 
-def chunk_body(c, ops, has_r):
+def chunk_body(c, ops, has_r, w=None):
+    """The body over ``w`` live paths (default: the full list), the width
+    doubling at every info leaf up to L."""
     L = c.L
+    w = L if w is None else w
     for op, d, sz, off in ops.tolist():
         kind = op & 0xFF
         base, nxt = c.depth_base(d), c.depth_base(d + 1)
         if kind == OP_F:
-            idx = np.arange(L * sz)
+            idx = np.arange(w * sz)
             l, i = idx // sz, idx % sz
             c.alpha[:, nxt + idx] = f_minsum(c.alpha[:, base + l * 2 * sz + i],
                                              c.alpha[:, base + l * 2 * sz + sz + i])
         elif kind == OP_G:
             if op & FLAG_RL:
-                c.Rstack[:, d] = c.R
-            idx = np.arange(L * sz)
+                c.Rstack[:, d, :w] = c.R[:, :w]
+            idx = np.arange(w * sz)
             l, i = torch.as_tensor(idx // sz), torch.as_tensor(idx % sz)
             r = c.Rstack[:, d][:, l] if op & FLAG_RL else l[None, :].expand(c.pm.shape[0], -1)
             bit = (c.beta[:, off + i] >> l[None, :]) & 1
@@ -215,47 +223,50 @@ def chunk_body(c, ops, has_r):
             first = torch.gather(src, 1, r * 2 * sz + i[None, :])
             c.alpha[:, nxt + idx] = second + sgn * first
         elif kind == OP_COMBINE:
-            w = c.beta[:, off:off + sz]
+            word = c.beta[:, off:off + sz]
             if op & FLAG_RR:
-                w = perm_word(w, c.R, L)
-            c.beta[:, off:off + sz] = w ^ c.beta[:, off + sz:off + 2 * sz]
+                word = perm_word(word, c.R, w)
+            c.beta[:, off:off + sz] = word ^ c.beta[:, off + sz:off + 2 * sz]
             if op & FLAG_RL:
                 saved = c.Rstack[:, d]
-                c.R = torch.gather(saved, 1, c.R) if op & FLAG_RR else saved.clone()
+                c.R[:, :w] = (torch.gather(saved, 1, c.R[:, :w]) if op & FLAG_RR
+                              else saved[:, :w].clone())
         elif kind == OP_RATE0:
-            z = c.alpha[:, base:base + L * sz]  # a view: in place
-            zero_dec_inplace(z, L * sz, sz)
+            z = c.alpha[:, base:base + w * sz]  # a view: in place
+            zero_dec_inplace(z, w * sz, sz)
             z[:] = _d0_d1(z)[0]
             s = 1
             while s < sz:
-                p = np.arange((L * sz) // (2 * s)) * 2 * s
+                p = np.arange((w * sz) // (2 * s)) * 2 * s
                 z[:, p] = z[:, p] + z[:, p + s]
                 s *= 2
-            c.pm = c.pm + z[:, np.arange(L) * sz]
+            c.pm[:, :w] = c.pm[:, :w] + z[:, np.arange(w) * sz]
             c.beta[:, off:off + sz] = 0
         elif kind == OP_LEAF:
-            word = info_leaf(c, c.alpha[:, base:base + L].clone())
+            word = info_leaf(c, c.alpha[:, base:base + w].clone(), w)
             c.beta[:, off] = word
+            w = min(2 * w, L)
         elif kind == OP_REP:
-            z = c.alpha[:, base:base + L * sz]
+            z = c.alpha[:, base:base + w * sz]
             lgM = int(np.log2(sz))
-            zero_dec_inplace(z, L * sz, sz)
-            leaf_a = z[:, np.arange(L) * sz + sz - 1].clone()
+            zero_dec_inplace(z, w * sz, sz)
+            leaf_a = z[:, np.arange(w) * sz + sz - 1].clone()
             z[:] = _d0_d1(z)[0]
             k = 0
             while (sz >> k) > 2:
                 pairs = (sz >> (k + 1)) - 1
-                q = np.arange(L * pairs)
+                q = np.arange(w * pairs)
                 l, i = q // pairs, q % pairs
                 p = l * sz + (i << (k + 1))
                 z[:, p] = z[:, p] + z[:, p + (1 << k)]
                 k += 1
-            pm = c.pm.clone()
+            pm = c.pm[:, :w].clone()
             for j in range(1, lgM + 1):
-                pm = pm + z[:, np.arange(L) * sz + sz - (sz >> (j - 1))]
-            c.pm = pm
-            word = info_leaf(c, leaf_a)
+                pm = pm + z[:, np.arange(w) * sz + sz - (sz >> (j - 1))]
+            c.pm[:, :w] = pm
+            word = info_leaf(c, leaf_a, w)
             c.beta[:, off:off + sz] = word[:, None]
+            w = min(2 * w, L)
         elif kind == OP_RATE1_FAST:
             rate1_fast(c, c.alpha[:, base:base + L * sz].clone(), sz, off)
         elif kind == OP_REP_FAST:
@@ -292,61 +303,70 @@ class Stacks:
         return self.N - (self.N >> (l - 1))
 
 
-def descend_g(st, x, lo, inv):
-    N, L = st.N, st.L
+def descend_g(st, x, lo, inv, w, one_a=0, one_b=0):
+    """g at level ``lo`` over ``w`` rows; a pending whose level bit is set in
+    ``one_a`` / ``one_b`` is read at lane 0 by every slot."""
+    N = st.N
     M = N >> lo
-    idx = np.arange(L * M)
+    idx = np.arange(w * M)
     l, i = torch.as_tensor(idx // M), torch.as_tensor(idx % M)
     B = x.shape[0]
     bl = st.Bt[:, st.b_off(lo):st.b_off(lo) + M]
     pb = st.PB[:, lo - 1].to(torch.int64)
+    pb_lane = torch.zeros_like(l) if (one_b >> (lo - 1)) & 1 else l
     if lo == 1:
         first, second = x[:, i], x[:, M + i]
     else:
         parent = st.A[:, st.a_off(lo - 1):]
-        row = (torch.zeros((B, L * M), dtype=torch.int64) if inv
-               else st.PA[:, lo - 2].to(torch.int64)[:, l])
+        pa_lane = torch.zeros_like(l) if (one_a >> (lo - 2)) & 1 else l
+        row = (torch.zeros((B, w * M), dtype=torch.int64) if inv
+               else st.PA[:, lo - 2].to(torch.int64)[:, pa_lane])
         first = torch.gather(parent, 1, row * 2 * M + i[None, :])
         second = torch.gather(parent, 1, row * 2 * M + M + i[None, :])
-    bit = (bl[:, i] >> pb[:, l]) & 1
+    bit = (bl[:, i] >> pb[:, pb_lane]) & 1
     return second + (1.0 - 2.0 * bit.to(torch.float32)) * first
 
 
 def emulate_step(state: SCLState, spec):
+    """One chunk step at the spec's live widths (``lv_in`` rows in, ``lv_out``
+    out; both L at full width)."""
     st = Stacks(state)
     N, S, L, t = st.N, st.S, st.L, st.t
     B = state.pm.shape[0]
     x = state.llr
-    eye = torch.arange(L, dtype=torch.int32)
+    wi, wo = spec.lv_in, spec.lv_out
+    eye_i, eye_o = torch.arange(wi, dtype=torch.int32), torch.arange(wo, dtype=torch.int32)
     if spec.k == t:
         for l in range(1, t + 1):
             M = N >> l
             src = x if l == 1 else st.A[:, st.a_off(l - 1):]
             v = f_minsum(src[:, :M], src[:, M:2 * M])
-            st.A[:, st.a_off(l):st.a_off(l) + L * M] = v.repeat(1, L)
-            st.PA[:, l - 1] = eye
+            st.A[:, st.a_off(l):st.a_off(l) + wi * M] = v.repeat(1, wi)
+            st.PA[:, l - 1, :wi] = eye_i
     else:
         lo = t - spec.k
         M = N >> lo
-        st.A[:, st.a_off(lo):st.a_off(lo) + L * M] = descend_g(st, x, lo, spec.inv)
-        st.PA[:, lo - 1] = eye
+        st.A[:, st.a_off(lo):st.a_off(lo) + wi * M] = descend_g(st, x, lo, spec.inv, wi,
+                                                                spec.one_a, spec.one_b)
+        st.PA[:, lo - 1, :wi] = eye_i
         for l in range(lo + 1, t + 1):
             M = N >> l
-            idx = np.arange(L * M)
+            idx = np.arange(wi * M)
             r, i = idx // M, idx % M
             src = st.A[:, st.a_off(l - 1):]
             st.A[:, st.a_off(l) + idx] = f_minsum(src[:, r * 2 * M + i], src[:, r * 2 * M + M + i])
-            st.PA[:, l - 1] = eye
+            st.PA[:, l - 1, :wi] = eye_i
     c = Ctx(B, L, S)
-    c.alpha[:, :L * S] = st.A[:, st.a_off(t):st.a_off(t) + L * S]
-    c.pm = state.pm.clone()
-    chunk_body(c, spec.program.ops, spec.program.has_r)
-    state.pm = c.pm
+    c.alpha[:, :wi * S] = st.A[:, st.a_off(t):st.a_off(t) + wi * S]
+    c.pm[:, :wi] = state.pm[:, :wi]
+    chunk_body(c, spec.program.ops, spec.program.has_r, wi)
+    state.pm[:, :wo] = c.pm[:, :wo]
+    R = c.R[:, :wo]
     for l in range(1, t + 1):
         if (spec.mask_a >> (l - 1)) & 1:
-            st.PA[:, l - 1] = torch.gather(st.PA[:, l - 1].to(torch.int64), 1, c.R).to(torch.int32)
+            st.PA[:, l - 1, :wo] = torch.gather(st.PA[:, l - 1].to(torch.int64), 1, R).to(torch.int32)
         if (spec.mask_b >> (l - 1)) & 1:
-            st.PB[:, l - 1] = torch.gather(st.PB[:, l - 1].to(torch.int64), 1, c.R).to(torch.int32)
+            st.PB[:, l - 1, :wo] = torch.gather(st.PB[:, l - 1].to(torch.int64), 1, R).to(torch.int32)
     j = spec.j
     D = S << j
     d0 = st.b_off(t - j)
@@ -354,9 +374,11 @@ def emulate_step(state: SCLState, spec):
     for s in range(j):
         lev, size = t - s, S << s
         left = st.Bt[:, st.b_off(lev):st.b_off(lev) + size]
-        w = perm_word(left, st.PB[:, lev - 1].to(torch.int64), L)
-        st.Bt[:, d0 + D - 2 * size:d0 + D - size] = w ^ st.Bt[:, d0 + D - size:d0 + D]
-    st.PB[:, t - j - 1] = eye
+        pend = st.PB[:, lev - 1].to(torch.int64)
+        one = (spec.one_b >> (lev - 1)) & 1 and not (spec.mask_b >> (lev - 1)) & 1
+        word = perm_word(left, pend[:, :1].expand(-1, wo) if one else pend[:, :wo], wo)
+        st.Bt[:, d0 + D - 2 * size:d0 + D - size] = word ^ st.Bt[:, d0 + D - size:d0 + D]
+    st.PB[:, t - j - 1, :wo] = eye_o
     state.beta = torch.where(st.Bt >= 2 ** 31, st.Bt - 2 ** 32, st.Bt).to(torch.int32)
 
 
@@ -365,7 +387,7 @@ def emulate_last(state: SCLState, spec):
     N, S, L, t = st.N, st.S, st.L, st.t
     B = state.pm.shape[0]
     c = Ctx(B, L, S)
-    c.alpha[:, :L * S] = descend_g(st, state.llr, t, False)
+    c.alpha[:, :L * S] = descend_g(st, state.llr, t, False, L, spec.one_a, spec.one_b)
     c.pm = state.pm.clone()
     chunk_body(c, spec.program.ops, spec.program.has_r)
     root = torch.zeros((B, N), dtype=torch.int64)
@@ -573,6 +595,44 @@ def test_fast_step_and_last_walk_equal_plain_on_every_chunk(N, K, S, L):
     u1, p1 = emulate_last(emu, last)
     assert torch.equal(u0, u1) and torch.equal(p0, p1)
     assert torch.equal(u0, want[0]) and torch.equal(p0, want[1])
+
+
+@pytest.mark.parametrize("N,K,S,L", [(128, 64, 16, 4), (256, 128, 32, 8), (64, 40, 8, 8),
+                                     (128, 100, 8, 2), (64, 3, 8, 8)])
+def test_narrow_step_walk_equals_plain_live_step_on_every_chunk(N, K, S, L):
+    """Live width on the kernel control: every chunk step at its live path
+    counts (the early ones narrow), walked as the kernel walks it on the
+    full-width state, equals the plain live-width step on the whole state
+    after every chunk; the plain step hands back exactly the widths the
+    schedule's bookkeeping gives the next step; the full-width last chunk
+    then equals the plain live-width decoder (K = 3 < log2 L: the list never
+    fills, the missing slots are the phantoms' zero bits and −inf)."""
+    fm = _code(N, K)
+    sched = build_scl_schedule(N, fm, L, S)
+    steps, last = make_step_specs(sched, live=True)
+    assert steps[0].narrow and steps[0].lv_in == 1 and not last.narrow
+    rng = np.random.default_rng(N + S + L + 1)
+    llr = torch.from_numpy((1.5 + 2 * rng.standard_normal((7, N))).astype(np.float32))
+    llr[0] = torch.from_numpy(rng.integers(-2, 3, N).astype(np.float32))  # tie-heavy frame
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64)
+    plain = SCLState(sched, llr[:, rev].contiguous())
+    emu = plain.clone()
+    for c, spec in enumerate(steps):
+        alpha, pend_a, beta, pend_b, pm = spec.plain(plain.llr, *plain.to_plain(spec.widths))
+        wa, wb, wpa, wpb, wpm = (steps + [last])[c + 1].widths
+        assert [a.shape[1] for a in alpha] == list(wa) and [b.shape[1] for b in beta] == list(wb)
+        assert [p.shape[1] for p in pend_a] == list(wpa)
+        assert [p.shape[1] for p in pend_b] == list(wpb) and pm.shape[1] == wpm
+        plain.load_plain(alpha, pend_a, beta, pend_b, pm)
+        emulate_step(emu, spec)
+        _assert_state_equal(plain, emu, c)
+    assert torch.isinf(plain.pm[:, sched.lv_in[-1]:]).all()  # phantoms never written
+    u0, p0 = scl_cuda.scl_last_chunk(plain, last)
+    u1, p1 = emulate_last(emu, last)
+    assert torch.equal(u0, u1) and torch.equal(p0, p1)
+    u2, p2 = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-fused",
+                                   live_width=True, device="cpu")(llr)
+    assert torch.equal(u0, u2) and torch.equal(p0, p2)
 
 
 def test_step_arguments_cover_every_variant():

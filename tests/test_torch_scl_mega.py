@@ -137,7 +137,10 @@ def _walk_table(sched, llr):
 
     def spec_of(row):
         k, inv, j, mask_a, mask_b, off, n, has_r = (int(v) for v in row)
+        # the one-launch decode runs every chunk at full width, as its kernel
+        # fills in the live widths and one-lane masks of a step-table row
         return SimpleNamespace(k=k, inv=bool(inv), j=j, mask_a=mask_a, mask_b=mask_b,
+                               lv_in=sched.L, lv_out=sched.L, one_a=0, one_b=0,
                                program=SimpleNamespace(ops=prog[off:off + n], has_r=bool(has_r)))
 
     if sched.t == 0:  # a single chunk: the body on the LLRs, then the butterfly
