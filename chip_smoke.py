@@ -13,7 +13,8 @@ exact and with fast list nodes, the LDPC BP / min-sum, the row-layered
 min-sum and the quasi-cyclic n=8192 pipelines, the large codes — polar
 N=4096 SCL-32, SC at N=32768, the MacKay LDPC code at n=8192 —, the adaptive
 SC-first CA-SCL serving decoder on batches of 8192 frames, exact and fast,
-and the SNR-curve CLI) at full code size through the kernels, checks the
+the SNR-curve CLI, and JAX's SCL-8 benchmark shape under every list control and
+both permutation algebras) at full code size through the kernels, checks the
 frame-id invariance of the counters and checkpoint/resume, and prints one
 JSON line per phase.  Any failure raises, and the exit code is then non-zero.
 
@@ -33,8 +34,12 @@ and last chunk in the same way; the one-launch decode must refuse them),
 launch at N=32768, the LDPC kernel with its planes in device memory on the
 MacKay n=8192 code, flooding and layered, the list kernels with the chunk
 context in device memory at S=1024, L=32, and the narrow live-width chunk
-step beside the full-width one), ``polar_sc_mc``, ``polar_cascl_mc``,
-``polar_fast_mc``, ``ldpc_mc``, ``ldpc_layered_mc``, ``ldpc_qc_mc``,
+step beside the full-width one), ``onehot_kernels`` (the one-hot permutation
+modes of the chunk body, chunk step and last chunk: every chunk pattern, the
+level stacks after every chunk position held by bit pattern, whole decodes
+under every control, other codes, integer LLRs, the control ``"kernel"`` with
+its context in device memory), ``polar_sc_mc``, ``polar_cascl_mc``,
+``polar_fast_mc``, ``polar_scl8_controls``, ``ldpc_mc``, ``ldpc_layered_mc``, ``ldpc_qc_mc``,
 ``polar_large_mc``, ``polar_sc_large_mc``, ``ldpc_large_mc``, ``serving``,
 ``serving_fast``, ``snr_curves`` (the main paths, each with the launch counts
 set to 0 just before and read just after), ``invariance``, ``stages``.
@@ -76,7 +81,7 @@ from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (build_scl_schedul
                                                                super_touch_sets)
 from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder, select_best_path
 from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
-from polarcode_and_ldpc_tpu_torch.ops import build
+from polarcode_and_ldpc_tpu_torch.ops import build, scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda, smem_bytes
 from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import (SCProgram, hybrid_sub_n,
                                                           make_sc_decoder_mega, sc_decode_cuda)
@@ -84,7 +89,8 @@ from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
                                                             fastnode_select_cuda,
                                                             fastnode_select_plain)
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_RATE1_FAST,
-                                                       OP_REP, OP_REP_FAST, SCLMegaPlan, SCLState,
+                                                       OP_REP, OP_REP_FAST, SCLBodyProgram,
+                                                       SCLMegaPlan, SCLState,
                                                        build_mega_tables, context_in_device_memory,
                                                        make_step_specs,
                                                        scl_chunk_body_cuda, scl_chunk_step_cuda,
@@ -133,7 +139,8 @@ SNR_CURVE_ARGS = ["--polar-n", "1024", "--ldpc-n", "1008", "--rates", "0.5",
                   "--scl-node-mode", "fast", "--skip-plots", "--seed", "42"]
 
 PHASES = ("device", "build", "kernels", "scl_kernels", "fast_kernels", "large_kernels",
-          "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc", "ldpc_mc", "ldpc_layered_mc",
+          "onehot_kernels", "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc",
+          "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
           "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
           "serving_fast", "snr_curves", "invariance", "stages")
 
@@ -505,20 +512,22 @@ def body_flops(program, w=None) -> int:
 
 def step_cost(sched, c: int, spec) -> tuple[int, int]:
     """(bytes, operations) per frame of chunk step ``c``: every touched level
-    read once and written once (``super_touch_sets``), pendings and metrics,
-    at the step's live width (``spec.lv_in``: L at full width)."""
+    read once and written once (``super_touch_sets`` at the spec's compose
+    masks), pendings (``L`` words each, ``L²`` for a one-hot plane) and
+    metrics, at the step's live width (``spec.lv_in``: L at full width)."""
     t, L, sizes = sched.t, spec.lv_in, sched.sizes
-    touch = super_touch_sets(int(sched.desc_k[c]), int(sched.asc_j[c]), t,
-                             sched.comp_a[c], sched.comp_b[c])
+    masks = [frozenset(i for i in range(t) if (m >> i) & 1) for m in (spec.mask_a, spec.mask_b)]
+    touch = super_touch_sets(int(sched.desc_k[c]), int(sched.asc_j[c]), t, *masks)
     rows = 1 if spec.inv or spec.k == t else L
+    pend = 4 * L * (L if spec.program.onehot else 1)
     byts = (4 * sched.N * touch["needs_llr"]
             + sum(4 * rows * sizes[i + 1] for i in touch["alpha_read"])
             + sum(4 * sizes[i + 1] for i in touch["beta_read"])
-            + 4 * L * (len(touch["pend_a_in"]) + len(touch["pend_b_in"]) + 1)
+            + pend * (len(touch["pend_a_in"]) + len(touch["pend_b_in"])) + 4 * L
             + sum(4 * L * sizes[i + 1] for i in touch["alpha_write"])
             + sum(4 * sizes[i + 1] for i in touch["beta_write"])
-            + 4 * L * (len(touch["pend_a_out"]) + len(touch["pend_a_eye"])
-                       + len(touch["pend_b_out"]) + len(touch["pend_b_eye"]) + 1))
+            + pend * (len(touch["pend_a_out"]) + len(touch["pend_a_eye"])
+                      + len(touch["pend_b_out"]) + len(touch["pend_b_eye"])) + 4 * L)
     flops = (body_flops(spec.program, L)
              + sum(3 * L * sizes[i + 1] for i in touch["alpha_write"])
              + sum((1 + L) * sizes[i + 1] for i in touch["beta_read"]))
@@ -526,8 +535,12 @@ def step_cost(sched, c: int, spec) -> tuple[int, int]:
 
 
 def last_cost(sched, spec) -> tuple[int, int]:
+    """(bytes, operations) per frame of the last chunk: the parent alpha, the
+    left betas, the pendings it reads (pend_a above level t, every pend_b;
+    ``L²`` words each when one-hot), the metrics, u and the metrics out."""
     t, L, N, S = sched.t, sched.L, sched.N, sched.S
-    byts = (4 * (N if t == 1 else 2 * S * L) + 4 * (N - S) + 4 * L * (t + 2)
+    pend = 4 * L * (L if spec.program.onehot else 1)
+    byts = (4 * (N if t == 1 else 2 * S * L) + 4 * (N - S) + pend * (t + (t > 1)) + 4 * L
             + L * N + 4 * L)
     flops = body_flops(spec.program) + 3 * L * S + (1 + L) * (N - S) + N * int(math.log2(N)) // 2
     return byts, flops
@@ -574,7 +587,7 @@ def check_scl_steps(sched, steps, last, rev, llr: torch.Tensor, context: dict) -
     version, then K4 on the stacks before the last chunk."""
     worst = 0.0
     llr_rev = llr[:, rev].contiguous()
-    state = SCLState(sched, llr_rev)
+    state = SCLState(sched, llr_rev, "onehot" if last.program.onehot else "rank")
     fields = ("alpha", "beta", "pend_a", "pend_b", "pm")
     for c, spec in enumerate(steps):
         kern = state.clone()
@@ -630,6 +643,9 @@ SCL_REPLACES = {
     "scl_chunk_step_fast": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:173",
     "scl_last_chunk_fast": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:361",
     "scl_chunk_body_fast": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:382",
+    "scl_chunk_step_onehot": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:172",
+    "scl_last_chunk_onehot": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:360",
+    "scl_chunk_body_onehot": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:381",
 }
 
 
@@ -637,12 +653,14 @@ def time_scl_kernels(results: dict, sched, steps, last, rev, llr, worst: dict, r
                      plain_reps: int) -> tuple[int, int]:
     """Time K3 at every chunk position, K4, and K5 on every chunk's pattern,
     each beside its plain version, on the level stacks the decode of ``llr``
-    reaches; write their rows (``_fast`` names for a fast node program).
-    Returns the operations of the chunk steps and of the last chunk."""
+    reaches; write their rows (``_fast`` names for a fast node program,
+    ``_onehot`` for one-hot permutations).  Returns the operations of the
+    chunk steps and of the last chunk."""
     B = llr.shape[0]
-    suffix = "_fast" if last.program.fast else ""
+    onehot = last.program.onehot
+    suffix = "_fast" if last.program.fast else "_onehot" if onehot else ""
     llr_rev = llr[:, rev].contiguous()
-    state = SCLState(sched, llr_rev)
+    state = SCLState(sched, llr_rev, "onehot" if onehot else "rank")
     step_ms, step_plain_ms, body_ms, body_plain_ms, step_bound_ms = [], [], [], [], []
     step_bytes = step_flops = body_bytes = body_flops_total = 0
     L, S = sched.L, sched.S
@@ -652,7 +670,7 @@ def time_scl_kernels(results: dict, sched, steps, last, rev, llr, worst: dict, r
         pm_c = state.pm.clone()
         body_ms.append(time_ms(lambda: scl_chunk_body_cuda(alpha_t, pm_c, spec.program), reps))
         body_plain_ms.append(time_ms(lambda: spec.program.plain(alpha_t, pm_c), plain_reps, warmup=1))
-        body_bytes += B * (4 * L * S + 4 * L + L * S + 4 * L + 8 * L)
+        body_bytes += B * (4 * L * S + 4 * L + L * S + 4 * L + (4 * L * L if onehot else 8 * L))
         body_flops_total += B * body_flops(spec.program)
         if spec is last:
             last_plain_ms = time_ms(lambda: last.plain(llr_rev, *plain_ops), plain_reps, warmup=1)
@@ -1261,6 +1279,268 @@ def phase_large_kernels(results: dict, reps: int) -> None:
     emit("large_kernels", kernels=[{k: v for k, v in results[k].items() if k != "cases"}
                                    for k in keys],
          sc_hybrid=sc, ldpc_device_memory=bp, scl_device_memory=scl, live_width=live)
+
+
+# -- the one-hot permutation modes of K5 / K3 / K4 -----------------------------------
+
+# the list controls that launch kernels, with rank and one-hot permutations:
+# the per-chunk kernels (per-position and united masks), the chunk body inside
+# JAX's scan controls, the one-launch decode (rank inside, equal outputs)
+LIST_CONTROLS = {
+    "unroll-kernel rank": dict(control_impl="unroll-kernel"),
+    "unroll-kernel onehot": dict(control_impl="unroll-kernel", perm_impl="onehot"),
+    "kernel rank": dict(control_impl="kernel"),
+    "kernel onehot": dict(control_impl="kernel", perm_impl="onehot"),
+    "split body_impl=cuda onehot": dict(control_impl="split", body_impl="cuda",
+                                        perm_impl="onehot"),
+    "fused body_impl=cuda rank": dict(control_impl="fused", body_impl="cuda"),
+    "mega onehot": dict(control_impl="mega", perm_impl="onehot"),
+}
+
+
+def onehot_flagship():
+    """The flagship schedule with one-hot programs and step specs: the
+    per-position masks of ``"unroll-kernel"`` and the united masks of
+    ``"kernel"``."""
+    frozen, info, mask = polar_code()
+    sched = build_scl_schedule(POLAR_N, mask, SCL_L, SCL_S)
+    unique = [SCLBodyProgram(f, SCL_L, perm_impl="onehot") for f in sched.unique_flags]
+    steps, last = make_step_specs(sched, unique)
+    union_steps, _ = make_step_specs(sched, unique, union=True)
+    return frozen, info, mask, sched, steps, union_steps, last, unique
+
+
+def zero_sign_differences(sched, steps, rank_steps, rev, llr) -> int:
+    """Elements of the alpha stacks, summed over the chunk positions, whose
+    bit patterns differ between the plain one-hot and the plain rank steps
+    (the one-hot apply's +0.0 where the rank gather keeps a selected -0.0)."""
+    llr_rev = llr[:, rev].contiguous()
+    one, rank = SCLState(sched, llr_rev, "onehot"), SCLState(sched, llr_rev)
+    total = 0
+    for spec, rspec in zip(steps, rank_steps):
+        one.load_plain(*spec.plain(llr_rev, *one.to_plain()))
+        rank.load_plain(*rspec.plain(llr_rev, *rank.to_plain()))
+        if not torch.equal(one.alpha, rank.alpha):
+            raise AssertionError("one-hot and rank alpha stacks differ in a value")
+        total += int((one.alpha.view(torch.int32) != rank.alpha.view(torch.int32)).sum())
+    return total
+
+
+def check_onehot_decodes(N, mask, L, S, llr, context: dict) -> None:
+    """Whole decodes under every list control with rank and one-hot
+    permutations (``LIST_CONTROLS``) and the plain one-hot control equal the
+    plain rank decoder: paths and metrics."""
+    want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused",
+                            live_width=False, device=DEV)(llr)
+    for name, kw in list(LIST_CONTROLS.items()) + [
+            ("unroll-fused onehot", dict(control_impl="unroll-fused", perm_impl="onehot"))]:
+        got = make_scl_decoder(N, mask, L, chunk=S, device=DEV, **kw)(llr)
+        torch.cuda.synchronize()
+        hold_equal(f"whole decode [{name}]", {"u": (got[0], want[0]),
+                                              "metrics": (got[1], want[1])}, context)
+
+
+def check_onehot_other_codes() -> list:
+    """The one-hot modes on the codes of ``check_scl_other_codes``: K5 on
+    every chunk pattern, K3 on the state after every chunk position (per
+    position and united masks), K4, and whole decodes under every control."""
+    out = []
+    # the six codes of check_scl_other_codes, then the flagship at chunk 64
+    # (the SCL-8 main path's second chunk size)
+    for N, K, S, L in ((256, 128, 32, 4), (128, 64, 128, 2), (128, 100, 8, 1),
+                       (2048, 1024, 64, 16), (512, 256, 128, 32), (64, 20, 16, 3),
+                       (POLAR_N, POLAR_K, 64, SCL_L)):
+        frozen, _ = fec.construct_polar_code(N, K, "bhattacharyya", 2.0)
+        mask = frozen_mask_from_positions(N, frozen)
+        g = np.random.default_rng(N + L + 7)
+        llr = torch.from_numpy((1.0 + 1.6 * g.standard_normal((203, N))).astype(np.float32))
+        llr[:3] = torch.from_numpy(g.integers(-2, 3, (3, N)).astype(np.float32))
+        llr = llr.to(DEV)
+        context = {"N": N, "K": K, "S": S, "L": L}
+        sched = build_scl_schedule(N, mask, L, S)
+        programs = [SCLBodyProgram(f, L, perm_impl="onehot") for f in sched.unique_flags]
+        check_scl_bodies(sched, programs, 203)
+        if sched.C > 1:
+            rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64,
+                                  device=DEV)
+            for union in (False, True):
+                steps, last = make_step_specs(sched, programs, union=union)
+                check_scl_steps(sched, steps, last, rev, llr, {**context, "union": union})
+        check_onehot_decodes(N, mask, L, S, llr, context)
+        out.append({**context, "kernels_equal_plain": True})
+    return out
+
+
+def check_onehot_devmem() -> dict:
+    """The control ``"kernel"`` with one-hot permutations on N=4096, L=32,
+    S=64, with the shared-memory limit lowered to the rank context: the
+    one-hot chunk steps, whose staged rank vectors no longer fit, and the
+    last chunk run with their context in device memory; the decode equals
+    the plain one."""
+    N, K, S, L, B = LARGE_SCL_N, LARGE_SCL_K, LARGE_SCL_S, LARGE_SCL_L, 128
+    frozen, _, mask = polar_code(N, K)
+    sched = build_scl_schedule(N, mask, L, S)
+    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, device=DEV)
+    llr = seeded_llrs(enc.encode(np.random.default_rng(90).integers(0, 2, (B, K))), 1.0, seed=91)
+    want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused", device=DEV)(llr)
+    saved = scl_cuda.SMEM_LIMIT_BYTES
+    scl_cuda.SMEM_LIMIT_BYTES = scl_cuda.smem_per_frame(L, S)
+    try:
+        if not (context_in_device_memory(L, S, 0, sched.t)
+                and not context_in_device_memory(L, S)):
+            raise AssertionError("the lowered limit does not split rank and one-hot contexts")
+        dec = make_scl_decoder(N, mask, L, chunk=S, control_impl="kernel", perm_impl="onehot",
+                               device=DEV)
+        ops.reset_launch_counts()
+        got = dec(llr)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ms = time_ms(lambda: dec(llr), 2, warmup=1)
+    finally:
+        scl_cuda.SMEM_LIMIT_BYTES = saved
+    hold_equal("whole decode [kernel onehot, device memory]",
+               {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, {"N": N, "S": S, "L": L})
+    if (counts["scl_chunk_step_onehot_devmem"], counts["scl_last_chunk_onehot_devmem"],
+            counts["scl_chunk_step_onehot"]) != (sched.C - 1, 1, 0):
+        raise AssertionError(f"kernel onehot, device memory: launched {counts}")
+    return {"N": N, "K": K, "S": S, "L": L, "B": B, "smem_limit_bytes": scl_cuda.smem_per_frame(L, S),
+            "onehot_context_bytes": scl_cuda.smem_per_frame(L, S, 0, sched.t),
+            "step_devmem_launches": counts["scl_chunk_step_onehot_devmem"],
+            "last_devmem_launches": counts["scl_last_chunk_onehot_devmem"],
+            "decode_ms": ms, "kernels_equal_plain": True}
+
+
+def phase_onehot_kernels(results: dict, reps: int, quick: bool) -> None:
+    """K5 / K3 / K4 in their one-hot modes against the plain one-hot chunk
+    body, step and last chunk at the flagship (N=1024, K=512, L=8, S=128):
+    every chunk pattern; the whole state after every chunk position, by bit
+    pattern, at the per-position and at the united masks; whole decodes under
+    every control; integer LLRs (exact zeros: the sign rule of the one-hot
+    apply); the main path's 4096 frames, timed; other codes; the control
+    ``"kernel"`` with the context in device memory."""
+    frozen, info, mask, sched, steps, union_steps, last, unique = onehot_flagship()
+    rank_steps, _ = make_step_specs(sched)
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(POLAR_N)), dtype=torch.int64,
+                          device=DEV)
+    worst = {"body": 0.0, "step": 0.0}
+    for B in ((512,) if quick else (512, 1000)):
+        worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
+    inputs = [(1000, snr, cascl_llrs(frozen, 1000, snr, seed=int(10 * snr) + 250))
+              for snr in (-2.0, 3.0)]
+    inputs.append((512, "integer LLRs", torch.from_numpy(np.random.default_rng(9).integers(
+        -3, 4, (512, POLAR_N)).astype(np.float32)).to(DEV)))
+    cases = []
+    for B, snr, llr in inputs:
+        context = {"B": B, "snr_db": snr}
+        for name, specs in (("per-position masks", steps), ("united masks", union_steps)):
+            worst["step"] = max(worst["step"], check_scl_steps(
+                sched, specs, last, rev, llr, {**context, "masks": name}))
+        check_onehot_decodes(POLAR_N, mask, SCL_L, SCL_S, llr, context)
+        cases.append({**context, "kernels_equal_plain": True, "zero_sign_differences":
+                      zero_sign_differences(sched, steps, rank_steps, rev, llr)})
+    # the main path's shapes: 4096 frames at 3 dB
+    B = SCL_CHUNK
+    llr = cascl_llrs(frozen, B, 3.0, seed=79)
+    worst["step"] = max(worst["step"], check_scl_steps(sched, union_steps, last, rev, llr,
+                                                       {"B": B, "snr_db": 3.0}))
+    worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
+    time_scl_kernels(results, sched, union_steps, last, rev, llr, worst, reps, 1)
+    refused = [raises_value_error(lambda: make_scl_decoder(
+                   POLAR_N, mask, SCL_L, chunk=SCL_S, perm_impl="onehot", node_mode="fast",
+                   control_impl=c, device=DEV)) for c in ("unroll-kernel", "kernel")]
+    refused.append(raises_value_error(lambda: make_scl_decoder(
+        POLAR_N, mask, SCL_L, chunk=SCL_S, perm_impl="onehot", node_mode="fast",
+        control_impl="unroll-fused", body_impl="cuda", device=DEV)))
+    refused.append(raises_value_error(lambda: make_scl_decoder(
+        POLAR_N, mask, SCL_L, chunk=SCL_S, perm_impl="onehot", live_width=True, device=DEV)))
+    if not all(refused):
+        raise AssertionError(f"a one-hot kernel took fast nodes or live width: {refused}")
+    emit("onehot_kernels",
+         kernels=[{k: v for k, v in results[k].items() if k != "cases"}
+                  for k in ("scl_chunk_body_onehot", "scl_chunk_step_onehot",
+                            "scl_last_chunk_onehot")],
+         unique_patterns=len(unique), cases=cases,
+         other_codes=check_onehot_other_codes(), device_memory=check_onehot_devmem(),
+         refuses_fast_and_live_width=True)
+
+
+# JAX's SCL-8 benchmark (bench.py, bench_polar_scl8): N=1024, K=512
+# (Bhattacharyya at 2 dB, no CRC), list 8, 8192 frames at 3 dB, chunks 128 and
+# 64, under every control and both permutation algebras (LIST_CONTROLS)
+SCL8_BATCH, SCL8_SNR_DB = 8192, 3.0
+ONEHOT_KEYS = ("scl_chunk_step_onehot", "scl_last_chunk_onehot", "scl_chunk_body_onehot")
+
+
+def phase_polar_scl8_controls(results: dict, mbps: dict, reps: int, quick: bool) -> None:
+    """JAX's SCL-8 benchmark shape through ``make_scl_decoder`` under every
+    control and algebra (``LIST_CONTROLS``) at chunks 128 and 64: one decode
+    each with the launch counts set to 0 just before and read just after (the
+    one-hot kernels must launch), the paths and metrics of each equal to
+    the plain decoder's at its chunk size (and the two plain decodes equal),
+    bit errors of the best-metric path; then ms per decode and info Mbit/s.
+    Then a CA-SCL Monte-Carlo through ``make_polar_pipeline`` with
+    ``scl_control_impl="kernel"``."""
+    frozen, info, mask = polar_code()
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, device=DEV)
+    msgs = np.random.default_rng(0).integers(0, 2, (SCL8_BATCH, POLAR_K))
+    llr = seeded_llrs(enc.encode(msgs), SCL8_SNR_DB, seed=42)
+    msgs_t = torch.from_numpy(msgs).to(DEV)
+    info_idx = torch.as_tensor(info, dtype=torch.int64, device=DEV)
+    decoders = {(S, name): make_scl_decoder(POLAR_N, mask, SCL_L, chunk=S, device=DEV, **kw)
+                for S in (128, 64) for name, kw in LIST_CONTROLS.items()}
+    # the plain decoder at each chunk size (torch ops only, no kernel): every
+    # control is held against it, and the two chunk sizes against each other
+    want = {S: make_scl_decoder(POLAR_N, mask, SCL_L, chunk=S, control_impl="unroll-fused",
+                                live_width=False, device=DEV)(llr) for S in (128, 64)}
+    hold_equal("SCL-8 plain decode [chunk 64 vs chunk 128]",
+               {"u": (want[64][0], want[128][0]), "metrics": (want[64][1], want[128][1])}, {})
+    launches, bit_errors = {}, {}
+    ops.reset_launch_counts()
+    for (S, name), dec in decoders.items():
+        before = ops.launch_counts()
+        u, m = dec(llr)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        launches[f"{name}, chunk {S}"] = {k: after[k] - before[k] for k in after
+                                          if after[k] != before[k]}
+        hold_equal(f"SCL-8 decode [{name}, chunk {S}] vs plain",
+                   {"u": (u, want[S][0]), "metrics": (m, want[S][1])}, {"chunk": S})
+        best = select_best_path(u[..., info_idx], m)
+        bit_errors[f"{name}, chunk {S}"] = int((best != msgs_t).sum())
+    counts = record_launches(results, ONEHOT_KEYS)
+    decode_ms, rates = {}, {}
+    for (S, name), dec in decoders.items():
+        key = f"{name}, chunk {S}"
+        decode_ms[key] = time_ms(lambda: dec(llr), 2 if quick else max(3, reps // 4), warmup=1)
+        rates[key] = SCL8_BATCH * POLAR_K / decode_ms[key] / 1e3
+    mbps.update({f"scl8 {k}": v for k, v in rates.items()})
+
+    # CA-SCL Monte-Carlo through the control "kernel" (rank permutations, the
+    # pipeline's default; united compose masks, full width)
+    kw = dict(decoder="ca-scl", list_size=SCL_L, crc_polynomial=SCL_CRC, scl_chunk=SCL_S)
+    step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, device=DEV,
+                               scl_control_impl="kernel", **kw)
+    sim = MonteCarloSimulator(step, POLAR_K - 8, chunk_frames=SCL_CHUNK)
+    sim.run(SCL_CHUNK, seed=1)
+    ops.reset_launch_counts()
+    frames = (1 if quick else 4) * SCL_CHUNK
+    res = sim.run(frames, max_errors=None, seed=0)
+    mc_counts = record_launches(results, ["scl_chunk_step", "scl_last_chunk"])
+    mc_chunks = frames // SCL_CHUNK
+    if (mc_counts["scl_chunk_step"], mc_counts["scl_chunk_step_narrow"],
+            mc_counts["scl_last_chunk"]) != ((POLAR_N // SCL_S - 1) * mc_chunks, 0, mc_chunks):
+        raise AssertionError(f"CA-SCL kernel control launched {mc_counts}")
+    if res.frames != frames or not (0.0 <= res.fer < 0.01):
+        raise AssertionError(f"CA-SCL kernel control at 3 dB: unexpected result {res.to_dict()}")
+    emit("polar_scl8_controls", frames=SCL8_BATCH, N=POLAR_N, K=POLAR_K, L=SCL_L,
+         snr_db=SCL8_SNR_DB, chunks=[128, 64], paths_equal_across_controls=True,
+         held_against="the plain decode (unroll-fused, torch ops) at each chunk size",
+         onehot_launches={k: counts[k] for k in ONEHOT_KEYS}, launches=launches,
+         bit_errors=bit_errors, decode_ms=decode_ms, info_mbps=rates,
+         cascl_kernel_control={**result_fields(res), "launches": {
+             k: mc_counts[k] for k in ("scl_chunk_step", "scl_last_chunk",
+                                       "scl_chunk_step_narrow")}})
+    mbps["polar_cascl_kernel_control"] = res.throughput_mbps
 
 
 def phase_kernels(results: dict, reps: int, quick: bool) -> None:
@@ -2193,12 +2473,16 @@ def main() -> int:
         phase_fast_kernels(results, reps, args.quick)
     if "large_kernels" in phases:
         phase_large_kernels(results, reps)
+    if "onehot_kernels" in phases:
+        phase_onehot_kernels(results, reps, args.quick)
     if "polar_sc_mc" in phases:
         phase_polar_sc_mc(results, mbps, 4 * POLAR_CHUNK if args.quick else 16 * POLAR_CHUNK)
     if "polar_cascl_mc" in phases:
         phase_polar_cascl_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
     if "polar_fast_mc" in phases:
         phase_polar_fast_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
+    if "polar_scl8_controls" in phases:
+        phase_polar_scl8_controls(results, mbps, reps, args.quick)
     if "ldpc_mc" in phases:
         phase_ldpc_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
     if "ldpc_layered_mc" in phases:

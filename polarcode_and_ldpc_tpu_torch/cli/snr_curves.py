@@ -41,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reuse an existing ldpc_results.json in output-dir")
     p.add_argument("--scl-body", default=None, choices=["torch", "cuda"],
                    help="chunk body of the plain list control (default: the device's)")
-    p.add_argument("--scl-control", default=None, choices=["unroll-fused", "unroll-kernel", "mega"],
+    p.add_argument("--scl-control", default=None,
+                   choices=["split", "fused", "kernel", "unroll-fused", "unroll-kernel", "mega"],
                    help="list-decode control (default: unroll-kernel on a CUDA device, "
                         "unroll-fused on the CPU)")
     p.add_argument("--scl-chunk", type=int, default=128)

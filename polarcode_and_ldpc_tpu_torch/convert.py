@@ -115,11 +115,12 @@ def key_from_numpy(key_data: np.ndarray, device="cuda") -> torch.Tensor:
 _CONFIGS = {c.__name__: c for c in (PolarCodeConfig, LDPCCodeConfig, ChannelConfig,
                                      SimulationConfig)}
 # implementation names each field of this package's configs takes; any other
-# name of the JAX package (a TPU control or body: "split", "fused", "kernel",
-# "xla", "pallas", "auto", ...) becomes None, the device default: every
-# choice computes the same outputs
+# name of the JAX package (a TPU body "xla" / "pallas", an interpret twin of a
+# Pallas control such as "kernel-interpret", the LDPC impl "auto" / "pallas",
+# ...) becomes None, the device default: every choice computes the same outputs
 _PORT_CHOICES = {"scl_body_impl": ("torch", "cuda"),
-                 "scl_control_impl": ("unroll-fused", "unroll-kernel", "mega"),
+                 "scl_control_impl": ("split", "fused", "kernel", "unroll-fused",
+                                      "unroll-kernel", "mega"),
                  "bp_impl": ("torch", "cuda")}
 
 
@@ -127,8 +128,12 @@ def config_from_jax(cfg):
     """This package's counterpart of a JAX config dataclass instance
     (``PolarCodeConfig``, ``LDPCCodeConfig``, ``ChannelConfig`` or
     ``SimulationConfig``), field by field through ``dataclasses.asdict``.
-    Implementation names this package lacks become ``None`` (the device
-    default)."""
+    The list controls ``"split"``, ``"fused"``, ``"kernel"``,
+    ``"unroll-fused"``, ``"unroll-kernel"`` and ``"mega"`` stay as they are;
+    implementation names this package lacks become ``None`` (the device
+    default): the chunk bodies ``"xla"`` / ``"pallas"`` of
+    ``scl_body_impl``, the interpret twins of the Pallas controls, and any
+    ``bp_impl`` but ``"torch"`` / ``"cuda"``."""
     cls = _CONFIGS.get(type(cfg).__name__)
     if cls is None or not dataclasses.is_dataclass(cfg):
         raise TypeError(f"expected a config dataclass instance, got {type(cfg).__name__}")

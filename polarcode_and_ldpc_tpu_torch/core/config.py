@@ -32,8 +32,8 @@ class PolarCodeConfig:
     algorithm: str = "sc"  # sc | scl | ca_scl
     list_size: int = 8
     # implementation choices of the chunked list decoder (identical outputs):
-    # None = the device default; body torch | cuda; control unroll-fused |
-    # unroll-kernel | mega
+    # None = the device default; body torch | cuda; control split | fused |
+    # kernel | unroll-fused | unroll-kernel | mega
     scl_body_impl: Optional[str] = None
     scl_chunk: int = 128
     scl_control_impl: Optional[str] = None

@@ -52,7 +52,9 @@ class AdaptiveCASCLDecoder(nn.Module):
     the batch) — at the design operating point (fallback rate ≤ 2 %) overflows
     are practically impossible.  ``sc_impl`` / ``scl_control_impl``: ``None``
     picks the kernels on a CUDA device and the plain versions on the CPU;
-    ``scl_control_impl="mega"`` takes the one-launch list decode.
+    ``scl_control_impl="mega"`` takes the one-launch list decode, and the JAX
+    package's ``"split"`` (its default), ``"fused"`` and ``"kernel"`` are
+    taken too.
     ``scl_node_mode="fast"`` puts the SSCL fast list nodes on the fallback
     path (the CRC re-screens its outputs); the one-launch control has none.
     """

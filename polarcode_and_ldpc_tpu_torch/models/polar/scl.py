@@ -9,10 +9,11 @@ relative order) are those of a decoder with an explicit active mask.
 CRC-aided selection picks the best-metric path among the CRC-passing ones,
 falling back to the best metric overall when none passes.
 
-Every list decoder of this package is the chunked decoder of ``scanscl.py``
-(``impl="scan-chunked"``), at every N, with ``chunk = min(chunk, N)``; its
-outputs are the same as those of the other formulations, which are not in
-this package yet.
+By default every list decoder of this package is the chunked decoder of
+``scanscl.py`` (``impl="scan-chunked"``), at every N, with ``chunk = min(chunk,
+N)``, so that the card runs the list kernels at every code length; the
+unrolled recursive decoder of ``fastscl.py`` (``impl="unrolled"``, the JAX
+package's default below N=512) computes the same outputs.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch import nn
 from ...core.device import resolve_device
 from .construction import frozen_mask_from_positions, generate_frozen_bits
 from .crc import CRCCodec
+from .fastscl import make_scl_decoder_unrolled
 from .scanscl import make_scl_decoder_scan
 
 
@@ -49,25 +51,31 @@ def make_scl_decoder(N: int, frozen_mask: np.ndarray, list_size: int,
                      leaf_impl: str = "onehot",
                      control_impl: Optional[str] = None,
                      node_mode: str = "exact", perm_impl: str = "rank",
-                     live_width="auto", device="cuda"):
+                     mask_dedup: str = "exact", live_width="auto", device="cuda"):
     """Build an SCL decoder: ``decode(llr [batch, N]) → (u [batch, L, N]
     int8, metrics [batch, L])`` with paths in selection-slot order (slot 0 is
     not necessarily the best path; use the metrics / CRC to select).
 
     ``impl``: ``"scan-chunked"`` (the chunked decoder of ``scanscl.py``;
-    ``chunk`` sets the subtree size).  ``"unrolled"`` and ``"scan"`` are not
-    in this package yet.  The other keywords are those of
+    ``chunk`` sets the subtree size) or ``"unrolled"`` (the recursive decoder
+    of ``fastscl.py``, one-hot selections; it takes none of the chunked
+    decoder's tuning keywords, and exact nodes only).  ``"scan"`` (the
+    trellis twin) is not in this package yet.  The other keywords are those of
     ``scanscl.make_scl_decoder_scan``.
     """
-    if impl in ("unrolled", "scan"):
+    if impl == "scan":
         raise NotImplementedError(f"impl={impl!r} is not in this package yet")
-    if impl != "scan-chunked":
+    if impl not in ("scan-chunked", "unrolled"):
         raise ValueError(f"unknown impl {impl!r}")
+    if node_mode != "exact" and impl != "scan-chunked":
+        raise ValueError("node_mode='fast' requires impl='scan-chunked'")
+    if impl == "unrolled":
+        return make_scl_decoder_unrolled(N, frozen_mask, list_size, dtype, device=device)
     return make_scl_decoder_scan(N, frozen_mask, list_size, min(chunk, N), dtype,
                                  leaf_impl=leaf_impl, body_impl=body_impl,
                                  control_impl=control_impl, node_mode=node_mode,
-                                 perm_impl=perm_impl, live_width=live_width,
-                                 device=device)
+                                 perm_impl=perm_impl, mask_dedup=mask_dedup,
+                                 live_width=live_width, device=device)
 
 
 class SCLDecoder(nn.Module):
@@ -77,8 +85,11 @@ class SCLDecoder(nn.Module):
     ``chunk`` / ``body_impl`` / ``control_impl`` tune the chunked decoder: on
     a CUDA device the default is the kernel control (``"unroll-kernel"``), on
     the CPU the plain one (``"unroll-fused"``); ``"mega"`` is the whole decode
-    in one kernel launch.  ``node_mode="fast"`` takes the SSCL fast list nodes
-    (an approximate serving mode, see ``scanscl.make_scl_decoder_scan``).
+    in one kernel launch; ``"split"``, ``"fused"`` and ``"kernel"`` are the JAX
+    package's other controls.  ``node_mode="fast"`` takes the SSCL fast list
+    nodes (an approximate serving mode, see ``scanscl.make_scl_decoder_scan``).
+    ``impl="unrolled"`` takes the recursive decoder of ``fastscl.py`` (the
+    default stays ``"scan-chunked"`` at every N).
     """
 
     def __init__(self, N: int, K: int, list_size: int = 8,
@@ -88,7 +99,7 @@ class SCLDecoder(nn.Module):
                  chunk: int = 128, body_impl: Optional[str] = None,
                  leaf_impl: str = "onehot", control_impl: Optional[str] = None,
                  node_mode: str = "exact", perm_impl: str = "rank",
-                 device="cuda"):
+                 mask_dedup: str = "exact", device="cuda"):
         super().__init__()
         assert N > 0 and (N & (N - 1)) == 0, "N must be a power of 2"
         assert 0 < K < N, "K must be in (0, N)"
@@ -117,7 +128,7 @@ class SCLDecoder(nn.Module):
             impl="scan-chunked" if impl is None else impl,
             chunk=chunk, body_impl=body_impl, leaf_impl=leaf_impl,
             control_impl=control_impl, node_mode=node_mode,
-            perm_impl=perm_impl, device=dev)
+            perm_impl=perm_impl, mask_dedup=mask_dedup, device=dev)
         self.control_impl = self._decode_paths.control_impl
 
     def _as_llr(self, llr):
@@ -148,6 +159,8 @@ class CASCLDecoder(SCLDecoder):
     def __init__(self, N: int, K: int, list_size: int = 8,
                  frozen_bits: Optional[np.ndarray] = None,
                  crc_polynomial: str = "CRC-8", dtype=torch.float32,
-                 control_impl: Optional[str] = None, device="cuda"):
+                 control_impl: Optional[str] = None, impl: Optional[str] = None,
+                 perm_impl: str = "rank", mask_dedup: str = "exact", device="cuda"):
         super().__init__(N, K, list_size, frozen_bits, True, crc_polynomial,
-                         dtype, control_impl=control_impl, device=device)
+                         dtype, impl=impl, control_impl=control_impl, perm_impl=perm_impl,
+                         mask_dedup=mask_dedup, device=device)

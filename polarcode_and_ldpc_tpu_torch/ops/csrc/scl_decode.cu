@@ -58,6 +58,25 @@
 // package runs such chunks in XLA).  Then a grid of a few blocks per SM walks
 // the frames, so the scratch does not grow with the batch; in shared-memory
 // mode the grid covers the batch and the frame loop runs once.
+//
+// ONE-HOT PENDINGS (perm_impl="onehot", the default mode of the TPU kernels'
+// factories make_superchunk_pallas / make_last_superchunk_pallas /
+// make_chunk_body_pallas): the state holds each level's pendings as one-hot
+// float planes, pend_a / pend_b [B][t][L][L] with P[l][j] = 1 where slot l
+// reads path j, and the chunk body hands its permutation back as such a plane.
+// The one-hot algebra selects exactly what the rank algebra selects, so these
+// modes run the rank device functions: on load, lane q of a warp finds the
+// column of the 1 in row q of the level planes (a rank vector), the step runs
+// on those rank vectors staged in shared memory (2 t L words after the chunk
+// context), and on the way out every level the step wrote (its descend resets,
+// its composes, the parked level) is stored as a plane of exact 1.0 / +0.0
+// again.  The one float that differs: a one-hot apply is the SUM
+// sum_j P[l][j] * x[j], so when the selected value is a zero, the result is
+// -0.0 only if every term is -0.0, i.e. if every row of the column has its
+// sign bit set, and +0.0 otherwise (the rank algebra's select keeps the
+// selected -0.0).  The descend's g reads its parent through pend_a that way
+// (onehot_value), so the level stacks equal the plain one-hot step's bit for
+// bit.  Exact nodes only, full list width only, as in the JAX package.
 
 #include "scl_device.cuh"
 
@@ -93,10 +112,50 @@ __device__ __forceinline__ Stacks frame_stacks(const Geometry& g, int frame, flo
   return s;
 }
 
+// The value of a one-hot apply whose selected element is v, in a column
+// col[0], col[stride], ... of `rows` rows: v itself unless it is a zero; a
+// zero is -0.0 only if every row of the column has its sign bit set.
+__device__ __forceinline__ float onehot_value(float v, const float* col, int stride, int rows) {
+  if (v != 0.0f) return v;
+  for (int q = 0; q < rows; ++q)
+    if (!(__float_as_uint(col[(size_t)q * stride]) >> 31)) return 0.0f;
+  return -0.0f;
+}
+
+// One-hot planes [t][L][L] -> rank vectors [t][L]: entry q = (level, row) is
+// the column of the 1 in that row (every row of a pending holds exactly one).
+__device__ __forceinline__ void onehot_load(const float* planes, int* ranks, int t, int L,
+                                            int lane) {
+  for (int q = lane; q < t * L; q += kWarp) {
+    const float* row = planes + (size_t)q * L;
+    int r = 0;
+    for (int j = 0; j < L; ++j)
+      if (row[j] != 0.0f) r = j;
+    ranks[q] = r;
+  }
+  __syncwarp();
+}
+
+// Rank vectors -> one-hot planes, for the levels whose bit is set in `levels`.
+__device__ __forceinline__ void onehot_store(float* planes, const int* ranks, int levels, int t,
+                                             int L, int lane) {
+  for (int l = 0; l < t; ++l) {
+    if (!((levels >> l) & 1)) continue;
+    for (int idx = lane; idx < L * L; idx += kWarp) {
+      const int row = idx / L;
+      planes[(size_t)l * L * L + idx] = idx - row * L == ranks[l * L + row] ? 1.0f : 0.0f;
+    }
+  }
+  __syncwarp();
+}
+
 // g at level lo over w rows: dst[l][i] = parent[r][M+i] + (1 - 2*left[l][i]) *
 // parent[r][i] with the parent read through pend_a (row 0 when `inv`, the
 // LLRs at lo = 1) and the left bits through pend_b; a pending whose level bit
 // is set in one_a / one_b holds one lane, read by every slot.  dst is [w][M].
+// kOneHot: the parent is read as the one-hot apply's sum (onehot_value over
+// the parent's g.L rows).
+template <bool kOneHot = false>
 __device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, const float* x,
                                           int lo, bool inv, float* dst, int lane, int w,
                                           int one_a, int one_b) {
@@ -107,12 +166,18 @@ __device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, c
   const float* parent = lo == 1 ? x : st.alpha(lo - 1);
   const int* pa = lo == 1 ? nullptr : st.pend_a(lo - 1);
   const bool pa_one = lo != 1 && ((one_a >> (lo - 2)) & 1);
+  const bool through = lo != 1 && !inv;
   for (int idx = lane; idx < w * M; idx += kWarp) {
     const int l = idx >> lgM, i = idx & (M - 1);
     const float* src = parent;
-    if (lo != 1 && !inv) src += (size_t)pa[pa_one ? 0 : l] * 2 * M;
+    if (through) src += (size_t)pa[pa_one ? 0 : l] * 2 * M;
     const float sgn = 1.0f - 2.0f * (float)((bl[i] >> pb[pb_one ? 0 : l]) & 1u);
-    dst[idx] = src[M + i] + sgn * src[i];
+    float first = src[i], second = src[M + i];
+    if (kOneHot && through) {
+      first = onehot_value(first, parent + i, 2 * M, g.L);
+      second = onehot_value(second, parent + M + i, 2 * M, g.L);
+    }
+    dst[idx] = second + sgn * first;
   }
 }
 
@@ -143,10 +208,12 @@ __device__ __forceinline__ void for_each_frame(int B, F&& f) {
   }
 }
 
-template <bool kDev>
+// r_out: the rank vector [B][L] as long long, or (kOneHot) the one-hot plane
+// [B][L][L] as float.
+template <bool kDev, bool kOneHot>
 __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
                                       int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
-                                      long long* __restrict__ r_out,
+                                      void* __restrict__ r_out,
                                       const int4* __restrict__ prog, int n_ops, int has_R,
                                       int B, int S, int L, int lgS, float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -164,9 +231,15 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
       const int l = idx >> lgS, i = idx & (S - 1);
       bo[idx] = (int8_t)((c.beta[i] >> l) & 1u);
     }
-    if (lane < L) {
-      pm_out[(size_t)frame * L + lane] = c.pm[lane];
-      r_out[(size_t)frame * L + lane] = c.R[lane];
+    if (lane < L) pm_out[(size_t)frame * L + lane] = c.pm[lane];
+    if (kOneHot) {
+      float* ro = static_cast<float*>(r_out) + (size_t)frame * L * L;
+      for (int idx = lane; idx < L * L; idx += kWarp) {
+        const int row = idx / L;
+        ro[idx] = idx - row * L == c.R[row] ? 1.0f : 0.0f;
+      }
+    } else if (lane < L) {
+      static_cast<long long*>(r_out)[(size_t)frame * L + lane] = c.R[lane];
     }
   });
 }
@@ -184,8 +257,9 @@ struct StepArgs {
 // kNarrow: over lv_in live paths in and lv_out out, else at full width (the
 // live widths and one-lane masks of `a` are not read).  `x` is the frame's
 // LLRs in bit-reversed storage, `pm` its L metrics in device memory (read,
-// then written).
-template <bool kNarrow>
+// then written).  kOneHot: the parent of the descend's g is read as a one-hot
+// apply (the pendings are rank vectors staged from the one-hot planes).
+template <bool kNarrow, bool kOneHot = false>
 __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, const Stacks& st,
                                            const float* x, float* pm, const int4* prog,
                                            const StepArgs& a) {
@@ -212,7 +286,7 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
     }
   } else {
     lo = t - k;
-    descend_g(g, st, x, lo, inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
+    descend_g<kOneHot>(g, st, x, lo, inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
     if (lane < wi) st.pend_a(lo)[lane] = lane;
     __syncwarp();
     for (int l = lo + 1; l <= t; ++l) {
@@ -296,6 +370,7 @@ __device__ __forceinline__ void root_out(uint32_t* root, int N, int L, int log2N
 // to the root (the chunk's R composes into each pend_b on the way),
 // butterfly, outputs.  `pm` may be the same memory as `pm_out`: it is read
 // before it is written.  one_a / one_b: the one-lane pendings of the descend.
+template <bool kOneHot = false>
 __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
                                            const Stacks& st, const float* x, const float* pm,
                                            int8_t* u, float* pm_out, const int4* prog,
@@ -303,7 +378,7 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
                                            int one_b) {
   const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
   // ---- descend: a single g at level t, straight into the chunk context
-  descend_g(g, st, x, t, false, c.alpha, lane, L, one_a, one_b);
+  descend_g<kOneHot>(g, st, x, t, false, c.alpha, lane, L, one_a, one_b);
   if (lane < L) c.pm[lane] = pm[lane];
   __syncwarp();
   chunk_body<false>(c, prog, n_ops, has_R, L);
@@ -325,22 +400,52 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
   if (lane < L) pm_out[lane] = c.pm[lane];
 }
 
-template <bool kDev, bool kNarrow>
+// The levels a chunk step writes a pending of: pend_a at the descend's
+// resets and the composes, pend_b at the composes and the parked level.
+__device__ __forceinline__ void written_levels(const StepArgs& a, int t, int* la, int* lb) {
+  const int lo = a.k == t ? 1 : t - a.k;
+  *la = (((1 << t) - 1) & ~((1 << (lo - 1)) - 1)) | a.mask_a;
+  *lb = a.mask_b | (1 << (t - a.j - 1));
+}
+
+// kOneHot: pend_a / pend_b are the one-hot planes [B][t][L][L] (float); the
+// warp stages their rank vectors after its chunk context.
+template <bool kDev, bool kNarrow, bool kOneHot>
 __global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, float* pm,
                                       const int4* __restrict__ prog, Geometry g, StepArgs a,
                                       float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  const Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(g.L, g.S, g.lgS)), g.L,
-                         g.S, g.lgS, lane);
+  const int cw = ctx_words(g.L, g.S, g.lgS), tl = g.t * g.L;
+  float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + (kOneHot ? 2 * tl : 0));
+  const Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  int* ranks = reinterpret_cast<int*>(base + cw);
   for_each_frame<kDev>(g.B, [&](int frame) {
-    chunk_step<kNarrow>(c, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
-                        llr + (size_t)frame * g.N, pm + (size_t)frame * g.L, prog, a);
+    Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+    float* pa_planes = reinterpret_cast<float*>(pend_a) + (size_t)frame * tl * g.L;
+    float* pb_planes = reinterpret_cast<float*>(pend_b) + (size_t)frame * tl * g.L;
+    if (kOneHot) {
+      onehot_load(pa_planes, ranks, g.t, g.L, lane);
+      onehot_load(pb_planes, ranks + tl, g.t, g.L, lane);
+      st.PA = ranks;
+      st.PB = ranks + tl;
+    }
+    chunk_step<kNarrow, kOneHot>(c, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
+                                 prog, a);
+    if (kOneHot) {
+      __syncwarp();
+      int la, lb;
+      written_levels(a, g.t, &la, &lb);
+      onehot_store(pa_planes, ranks, la, g.t, g.L, lane);
+      onehot_store(pb_planes, ranks + tl, lb, g.t, g.L, lane);
+    }
   });
 }
 
-template <bool kDev>
+// kOneHot: the pendings are one-hot planes, staged as rank vectors after the
+// root plane; the state is read only.
+template <bool kDev, bool kOneHot>
 __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, const float* pm,
                                       int8_t* __restrict__ u, float* __restrict__ pm_out,
@@ -349,14 +454,24 @@ __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alph
                                       float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  float* base = ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(g.L, g.S, g.lgS) + g.N);
+  const int cw = ctx_words(g.L, g.S, g.lgS), tl = g.t * g.L;
+  float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + g.N + (kOneHot ? 2 * tl : 0));
   const Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
-  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(g.L, g.S, g.lgS));
+  uint32_t* root = reinterpret_cast<uint32_t*>(base + cw);
+  int* ranks = reinterpret_cast<int*>(base + cw + g.N);
   for_each_frame<kDev>(g.B, [&](int frame) {
-    last_chunk(c, root, g, frame_stacks(g, frame, alpha, beta, pend_a, pend_b),
-               llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
-               u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog, n_ops, has_R,
-               log2N, one_a, one_b);
+    Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+    if (kOneHot) {
+      onehot_load(reinterpret_cast<const float*>(pend_a) + (size_t)frame * tl * g.L, ranks,
+                  g.t, g.L, lane);
+      onehot_load(reinterpret_cast<const float*>(pend_b) + (size_t)frame * tl * g.L,
+                  ranks + tl, g.t, g.L, lane);
+      st.PA = ranks;
+      st.PB = ranks + tl;
+    }
+    last_chunk<kOneHot>(c, root, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
+                        u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog,
+                        n_ops, has_R, log2N, one_a, one_b);
   });
 }
 
@@ -476,17 +591,22 @@ extern "C" int scl_smem_per_frame(int L, int S, int lgS) { return 4 * scl::ctx_w
 // else grid * warps_per_block slices of the context in device memory) and
 // `grid` (the blocks of the device-memory mode).
 
+// r_out: long long [B][L] rank vectors, or (onehot) float [B][L][L] planes.
 extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t* beta_out,
-                                     float* pm_out, long long* r_out, const int* prog, int n_ops,
-                                     int has_R, int B, int S, int L, int lgS,
+                                     float* pm_out, void* r_out, const int* prog, int n_ops,
+                                     int has_R, int B, int S, int L, int lgS, int onehot,
                                      int warps_per_block, float* ctx_dev, int grid,
                                      void* stream) {
-  decltype(&scl_chunk_body_kernel<false>) kernel;
+  decltype(&scl_chunk_body_kernel<false, false>) kernel;
   size_t smem;
   int blocks;
-  cudaError_t err = configure(&scl_chunk_body_kernel<false>, &scl_chunk_body_kernel<true>,
-                              ctx_dev, scl_smem_per_frame(L, S, lgS), B, warps_per_block, grid,
-                              &kernel, &smem, &blocks);
+  const size_t per_frame = scl_smem_per_frame(L, S, lgS);
+  cudaError_t err =
+      onehot ? configure(&scl_chunk_body_kernel<false, true>, &scl_chunk_body_kernel<true, true>,
+                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks)
+             : configure(&scl_chunk_body_kernel<false, false>,
+                         &scl_chunk_body_kernel<true, false>, ctx_dev, per_frame, B,
+                         warps_per_block, grid, &kernel, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       alpha, pm, beta_out, pm_out, r_out, reinterpret_cast<const int4*>(prog), n_ops, has_R,
@@ -495,24 +615,31 @@ extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t
 }
 
 // lv_in / lv_out: the live paths entering and leaving the chunk (L, L: full
-// width); one_a / one_b: level bit masks of the one-lane pendings.
+// width); one_a / one_b: level bit masks of the one-lane pendings; onehot:
+// pend_a / pend_b are float one-hot planes [B][t][L][L] (full width only).
 extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, int* pend_a,
                                      int* pend_b, float* pm, const int* prog, int n_ops,
                                      int has_R, int B, int N, int S, int L, int t, int lgS,
                                      int k, int inv, int j, int mask_a, int mask_b, int lv_in,
-                                     int lv_out, int one_a, int one_b, int warps_per_block,
-                                     float* ctx_dev, int grid, void* stream) {
-  decltype(&scl_chunk_step_kernel<false, false>) kernel;
+                                     int lv_out, int one_a, int one_b, int onehot,
+                                     int warps_per_block, float* ctx_dev, int grid,
+                                     void* stream) {
+  decltype(&scl_chunk_step_kernel<false, false, false>) kernel;
   size_t smem;
   int blocks;
   const bool narrow = lv_in < L || lv_out < L;
-  cudaError_t err = narrow
-      ? configure(&scl_chunk_step_kernel<false, true>, &scl_chunk_step_kernel<true, true>,
-                  ctx_dev, scl_smem_per_frame(L, S, lgS), B, warps_per_block, grid, &kernel,
-                  &smem, &blocks)
-      : configure(&scl_chunk_step_kernel<false, false>, &scl_chunk_step_kernel<true, false>,
-                  ctx_dev, scl_smem_per_frame(L, S, lgS), B, warps_per_block, grid, &kernel,
-                  &smem, &blocks);
+  if (narrow && onehot) return (int)cudaErrorInvalidValue;
+  const size_t per_frame = scl_smem_per_frame(L, S, lgS) + (onehot ? 8 * (size_t)t * L : 0);
+  cudaError_t err =
+      narrow ? configure(&scl_chunk_step_kernel<false, true, false>,
+                         &scl_chunk_step_kernel<true, true, false>, ctx_dev, per_frame, B,
+                         warps_per_block, grid, &kernel, &smem, &blocks)
+      : onehot ? configure(&scl_chunk_step_kernel<false, false, true>,
+                           &scl_chunk_step_kernel<true, false, true>, ctx_dev, per_frame, B,
+                           warps_per_block, grid, &kernel, &smem, &blocks)
+               : configure(&scl_chunk_step_kernel<false, false, false>,
+                           &scl_chunk_step_kernel<true, false, false>, ctx_dev, per_frame, B,
+                           warps_per_block, grid, &kernel, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
   const StepArgs a{k, inv, j, mask_a, mask_b, 0, n_ops, has_R, lv_in, lv_out, one_a, one_b};
@@ -526,14 +653,19 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
                                      int* pend_b, const float* pm, int8_t* u, float* pm_out,
                                      const int* prog, int n_ops, int has_R, int B, int N, int S,
                                      int L, int t, int lgS, int log2N, int one_a, int one_b,
-                                     int warps_per_block, float* ctx_dev, int grid,
+                                     int onehot, int warps_per_block, float* ctx_dev, int grid,
                                      void* stream) {
-  decltype(&scl_last_chunk_kernel<false>) kernel;
+  decltype(&scl_last_chunk_kernel<false, false>) kernel;
   size_t smem;
   int blocks;
-  cudaError_t err = configure(&scl_last_chunk_kernel<false>, &scl_last_chunk_kernel<true>,
-                              ctx_dev, scl_smem_per_frame(L, S, lgS) + 4 * (size_t)N, B,
-                              warps_per_block, grid, &kernel, &smem, &blocks);
+  const size_t per_frame =
+      scl_smem_per_frame(L, S, lgS) + 4 * (size_t)N + (onehot ? 8 * (size_t)t * L : 0);
+  cudaError_t err =
+      onehot ? configure(&scl_last_chunk_kernel<false, true>, &scl_last_chunk_kernel<true, true>,
+                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks)
+             : configure(&scl_last_chunk_kernel<false, false>,
+                         &scl_last_chunk_kernel<true, false>, ctx_dev, per_frame, B,
+                         warps_per_block, grid, &kernel, &smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
   kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -37,6 +37,19 @@ through the same three per-chunk kernels: its ``OP_RATE1_FAST`` /
 their launches are counted apart (``scl_chunk_step_fast`` …).  The one-launch
 decode refuses a fast program, as the JAX package's mega control does.
 
+One-hot permutations (``perm_impl="onehot"``, the default mode of the TPU
+kernels' factories): the state holds each level's pendings as one-hot
+``[L, L]`` float planes and the chunk body hands back its permutation as one;
+the three per-chunk kernels read a plane as the column of each row's 1 into a
+rank vector in shared memory, run the rank device functions, and write the
+planes they change back as exact 0.0 / 1.0 planes.  The one place where the
+one-hot algebra computes other floats than the rank algebra is the parent
+alpha the descend's g reads through a pending: a one-hot apply is a sum, so a
+selected −0.0 stays −0.0 only if the whole column is negative; the kernels
+apply that rule, so their level stacks equal the plain one-hot step's bit for
+bit.  Launches count apart (``scl_chunk_step_onehot`` …).  Exact nodes only,
+as in the JAX package; the one-launch decode keeps rank vectors.
+
 Live width (``make_step_specs(..., live=True)``, the TPU kernel's ``widths=``
 mode of ``make_superchunk_pallas``): a chunk step whose live path count
 ``lv_in`` / ``lv_out`` is below L runs over the live rows only
@@ -66,7 +79,8 @@ from ..models.polar.construction import bit_reverse_permutation
 from ..models.polar.encoder import polar_transform
 from ..models.polar.scanscl import (_LEVELPAR_MAX, SCLSchedule, _make_chunk_body,
                                     _make_last_fn, _make_super_fn, decode_selector,
-                                    init_metrics, live_state_widths, pad_paths)
+                                    init_metrics, live_state_widths, pad_paths, union_masks,
+                                    variant_table)
 from . import build, count_launch
 
 OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_LEAF, OP_REP, OP_RATE1_FAST, OP_REP_FAST = range(8)
@@ -133,21 +147,30 @@ def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
 
 
 class SCLBodyProgram:
-    """A chunk pattern's node program plus its plain body; device copies of
-    the program are cached per device."""
+    """A chunk pattern's node program plus its plain body (at the program's
+    permutation algebra: the body hands back a rank vector, or a one-hot plane
+    with ``perm_impl="onehot"``); device copies of the program are cached per
+    device."""
 
-    def __init__(self, flags: np.ndarray, list_size: int, node_mode: str = "exact"):
+    def __init__(self, flags: np.ndarray, list_size: int, node_mode: str = "exact",
+                 perm_impl: str = "rank"):
         if not 1 <= list_size <= MAX_LIST:
             raise ValueError(f"the SCL kernels take list sizes 1..{MAX_LIST}, got {list_size}")
         if node_mode not in ("exact", "fast"):
             raise ValueError(f"unknown node_mode {node_mode!r}")
+        if perm_impl not in ("rank", "onehot"):
+            raise ValueError(f"unknown perm_impl {perm_impl!r}")
+        if node_mode == "fast" and perm_impl == "onehot":
+            raise ValueError("the one-hot kernel modes have no fast nodes: node_mode='fast' "
+                             "runs with perm_impl='rank'")
         self.flags = np.asarray(flags, bool)
         self.S = len(self.flags)
         self.lgS = int(np.log2(self.S))
         self.L = list_size
         self.fast = node_mode == "fast"
+        self.onehot = perm_impl == "onehot"
         self.ops, self.has_r = build_scl_body_program(self.flags, node_mode, list_size)
-        self.plain = _make_chunk_body(self.flags, list_size, node_mode)
+        self.plain = _make_chunk_body(self.flags, list_size, node_mode, perm_impl)
         self._on_device: dict[torch.device, torch.Tensor] = {}
 
     def device_ops(self, device: torch.device) -> torch.Tensor:
@@ -158,10 +181,13 @@ class SCLBodyProgram:
         return t
 
 
-def smem_per_frame(L: int, S: int, root_words: int = 0) -> int:
-    """Bytes of shared memory one frame needs (mirrors ``scl::ctx_words``)."""
+def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0) -> int:
+    """Bytes of shared memory one frame needs (mirrors ``scl::ctx_words``),
+    plus ``root_words`` for the last chunk's root plane and, for a one-hot
+    state of ``onehot_levels`` levels, the two pendings' rank vectors that
+    the one-hot kernels stage (``2 · levels · L`` words)."""
     lgS = int(np.log2(S))
-    return 4 * (2 * S * L + S + L * (6 + lgS + 1) + root_words)
+    return 4 * (2 * S * L + S + L * (6 + lgS + 1) + root_words + 2 * onehot_levels * L)
 
 
 def _warps_per_block(per_frame: int, what: str) -> int:
@@ -172,21 +198,23 @@ def _warps_per_block(per_frame: int, what: str) -> int:
     return max(1, min(_MAX_WARPS, _SMEM_TARGET_BYTES // per_frame))
 
 
-def context_in_device_memory(L: int, S: int, root_words: int = 0) -> bool:
+def context_in_device_memory(L: int, S: int, root_words: int = 0,
+                             onehot_levels: int = 0) -> bool:
     """Whether a per-chunk kernel keeps its chunk context in device memory:
-    the context (plus ``root_words`` for the last chunk's root plane) does
-    not fit one thread block's shared memory."""
-    return smem_per_frame(L, S, root_words) > SMEM_LIMIT_BYTES
+    the context (plus ``root_words`` for the last chunk's root plane, plus
+    the staged rank vectors of ``onehot_levels`` one-hot levels) does not fit
+    one thread block's shared memory."""
+    return smem_per_frame(L, S, root_words, onehot_levels) > SMEM_LIMIT_BYTES
 
 
-def _context_plan(L: int, S: int, root_words: int, B: int, device):
+def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels: int = 0):
     """``(warps per block, grid, scratch)`` of a per-chunk launch: the
     context in shared memory (``scratch`` None, the grid covering the
     batch), or in a device-memory scratch of ``grid`` blocks of
     ``_DEVMEM_WARPS`` warps, one context slice per warp, walking the
     frames."""
-    per_frame = smem_per_frame(L, S, root_words)
-    if not context_in_device_memory(L, S, root_words):
+    per_frame = smem_per_frame(L, S, root_words, onehot_levels)
+    if not context_in_device_memory(L, S, root_words, onehot_levels):
         return _warps_per_block(per_frame, "a chunk context"), 0, None
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid = min(-(-B // _DEVMEM_WARPS), sms * _DEVMEM_BLOCKS_PER_SM)
@@ -198,6 +226,7 @@ def _context_plan(L: int, S: int, root_words: int, B: int, device):
 def _count(base: str, program: "SCLBodyProgram", scratch, narrow: bool = False) -> None:
     """Count one launch under the name of its kernel mode."""
     count_launch(base + ("_fast" if program.fast else "") + ("_narrow" if narrow else "")
+                 + ("_onehot" if program.onehot else "")
                  + ("_devmem" if scratch is not None else ""))
 
 
@@ -230,8 +259,9 @@ def _launcher(name: str, argtypes: list):
 
 def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyProgram):
     """Launch the chunk-body kernel: ``alpha [B, L, S]`` float32, ``pm [B,
-    L]`` → ``(beta [B, L, S] int8, pm' [B, L], R [B, L] int64)``.  Does not
-    synchronise."""
+    L]`` → ``(beta [B, L, S] int8, pm' [B, L], R)`` with ``R`` a rank vector
+    ``[B, L]`` int64, or a one-hot plane ``[B, L, L]`` float32 for a one-hot
+    program.  Does not synchronise."""
     B = alpha.shape[0] if alpha.dim() == 3 else -1
     L, S = program.L, program.S
     if B < 1:
@@ -240,16 +270,18 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
     _check_cuda_f32(pm, "pm", (B, L))
     dev = alpha.device
     warps, grid, ctx = _context_plan(L, S, 0, B, dev)
-    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 7 + [_P, _I, _P])
+    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 8 + [_P, _I, _P])
     beta = torch.empty((B, L, S), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, L), dtype=torch.float32, device=dev)
-    r_out = torch.empty((B, L), dtype=torch.int64, device=dev)
+    r_out = (torch.empty((B, L, L), dtype=torch.float32, device=dev) if program.onehot
+             else torch.empty((B, L), dtype=torch.int64, device=dev))
     ops = program.device_ops(dev)
     with torch.cuda.device(dev):
         code = fn(alpha.data_ptr(), pm.data_ptr(), beta.data_ptr(), pm_out.data_ptr(),
                   r_out.data_ptr(), ops.data_ptr(), ops.shape[0], int(program.has_r),
-                  B, S, L, program.lgS, warps, ctx.data_ptr() if ctx is not None else None,
-                  grid, torch.cuda.current_stream().cuda_stream)
+                  B, S, L, program.lgS, int(program.onehot), warps,
+                  ctx.data_ptr() if ctx is not None else None, grid,
+                  torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_body")
     _count("scl_chunk_body", program, ctx)
     return beta, pm_out, r_out
@@ -263,10 +295,11 @@ def scl_chunk_body(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyProgra
     return scl_chunk_body_cuda(alpha.contiguous(), pm.contiguous(), program)
 
 
-def make_chunk_body_cuda(flags: np.ndarray, list_size: int, node_mode: str = "exact"):
+def make_chunk_body_cuda(flags: np.ndarray, list_size: int, node_mode: str = "exact",
+                         perm_impl: str = "rank"):
     """``body(alpha, pm) → (beta, pm', R)`` through ``scl_chunk_body``, for
     use inside the plain chunk program (``body_impl="cuda"``)."""
-    program = SCLBodyProgram(flags, list_size, node_mode)
+    program = SCLBodyProgram(flags, list_size, node_mode, perm_impl)
 
     def body(alpha, pm):
         return scl_chunk_body(alpha, pm, program)
@@ -295,24 +328,30 @@ class SCLState:
     """The level stacks of a batch of frames between chunk launches, in the
     layout the kernels read (see ``csrc/scl_decode.cu``): ``llr [B, N]``
     (bit-reversed storage), ``alpha [B, L·(N−S)]``, ``beta [B, N−S]`` int32
-    packed words, ``pend_a`` / ``pend_b [B, t, L]`` int32, ``pm [B, L]``."""
+    packed words, ``pend_a`` / ``pend_b [B, t, L]`` int32 rank vectors (with
+    ``perm_impl="onehot"``: ``[B, t, L, L]`` one-hot planes in the LLRs'
+    dtype), ``pm [B, L]``."""
 
-    def __init__(self, sched: SCLSchedule, llr_rev: torch.Tensor):
+    def __init__(self, sched: SCLSchedule, llr_rev: torch.Tensor, perm_impl: str = "rank"):
         assert sched.C > 1, "a single-chunk code keeps no level stacks"
         self.sched = sched
+        self.onehot = perm_impl == "onehot"
         N, S, L, t = sched.N, sched.S, sched.L, sched.t
         B, dev = llr_rev.shape[0], llr_rev.device
         self.llr = llr_rev
         self.alpha = torch.zeros((B, L * (N - S)), dtype=llr_rev.dtype, device=dev)
         self.beta = torch.zeros((B, N - S), dtype=torch.int32, device=dev)
-        eye = torch.arange(L, dtype=torch.int32, device=dev).expand(B, t, L)
+        if self.onehot:
+            eye = torch.eye(L, dtype=llr_rev.dtype, device=dev).expand(B, t, L, L)
+        else:
+            eye = torch.arange(L, dtype=torch.int32, device=dev).expand(B, t, L)
         self.pend_a = eye.contiguous()
         self.pend_b = eye.contiguous()
         self.pm = init_metrics(B, L, L, llr_rev.dtype, dev)
 
     def clone(self) -> "SCLState":
         other = object.__new__(SCLState)
-        other.sched, other.llr = self.sched, self.llr
+        other.sched, other.llr, other.onehot = self.sched, self.llr, self.onehot
         for name in ("alpha", "beta", "pend_a", "pend_b", "pm"):
             setattr(other, name, getattr(self, name).clone())
         return other
@@ -338,8 +377,12 @@ class SCLState:
             a0, b0 = self._alpha_off(l), self._beta_off(l)
             alpha.append(self.alpha[:, a0:a0 + wa[l - 1] * M].reshape(B, wa[l - 1], M))
             beta.append(unpack_paths(self.beta[:, b0:b0 + M], wb[l - 1]))
-        pend_a = tuple(self.pend_a[:, i, :wpa[i]].to(torch.int64) for i in range(s.t))
-        pend_b = tuple(self.pend_b[:, i, :wpb[i]].to(torch.int64) for i in range(s.t))
+        if self.onehot:  # full width only: the planes as they are
+            pend_a = tuple(self.pend_a[:, i] for i in range(s.t))
+            pend_b = tuple(self.pend_b[:, i] for i in range(s.t))
+        else:
+            pend_a = tuple(self.pend_a[:, i, :wpa[i]].to(torch.int64) for i in range(s.t))
+            pend_b = tuple(self.pend_b[:, i, :wpb[i]].to(torch.int64) for i in range(s.t))
         return tuple(alpha), pend_a, tuple(beta), pend_b, self.pm[:, :wpm]
 
     def load_plain(self, alpha, pend_a, beta, pend_b, pm) -> None:
@@ -354,8 +397,8 @@ class SCLState:
             w = alpha[l - 1].shape[1]
             self.alpha[:, a0:a0 + w * M] = alpha[l - 1].reshape(B, w * M)
             self.beta[:, b0:b0 + M] = pack_paths(beta[l - 1])
-            self.pend_a[:, l - 1, :pend_a[l - 1].shape[1]] = pend_a[l - 1].to(torch.int32)
-            self.pend_b[:, l - 1, :pend_b[l - 1].shape[1]] = pend_b[l - 1].to(torch.int32)
+            self.pend_a[:, l - 1, :pend_a[l - 1].shape[1]] = pend_a[l - 1].to(self.pend_a.dtype)
+            self.pend_b[:, l - 1, :pend_b[l - 1].shape[1]] = pend_b[l - 1].to(self.pend_b.dtype)
         self.pm[:, :pm.shape[1]] = pm
 
 
@@ -391,16 +434,26 @@ def _bitmask(levels) -> int:
 
 
 def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None,
-                    node_mode: str = "exact", live: bool = False):
+                    node_mode: str = "exact", live: bool = False, union: bool = False):
     """``(step specs of chunks 0..C−2, last-chunk spec)`` of a schedule;
     ``live=True``: the chunk steps at the schedule's live path counts (exact
-    nodes only), the last chunk at full width on the live-width state."""
+    nodes, rank vectors only), the last chunk at full width on the
+    live-width state; ``union=True``: the compose masks united per variant
+    (``scanscl.union_masks``: the control ``"kernel"`` and
+    ``mask_dedup="union"``).  Positions of one variant share one spec (the
+    variant table of ``scanscl.variant_table``).  The programs' permutation
+    algebra is that of the state the specs run on; the default programs are
+    rank programs (``SCLBodyProgram(..., perm_impl="onehot")`` builds one-hot
+    ones)."""
     if programs is None:
         programs = [SCLBodyProgram(f, sched.L, node_mode) for f in sched.unique_flags]
-    if live and any(p.fast for p in programs):
-        raise ValueError("live width runs exact node programs only")
-    t, sizes, L = sched.t, sched.sizes, sched.L
-    widths = live_state_widths(sched) if live else None
+    if live and (union or any(p.fast or p.onehot for p in programs)):
+        raise ValueError("live width runs exact node programs on rank vectors at the "
+                         "per-position compose masks only")
+    perm = "onehot" if programs[0].onehot else "rank"
+    t, sizes, L, C = sched.t, sched.sizes, sched.L, sched.C
+    masks = union_masks(sched) if union else (sched.comp_a, sched.comp_b)
+    widths = live_state_widths(sched, masks) if live else None
 
     def width_args(c: int) -> dict:
         if not live:
@@ -410,40 +463,47 @@ def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None,
                     one_b=_bitmask(i for i in range(t) if wpb[i] == 1),
                     widths=(wa, wb, wpa, wpb, sched.lv_in[c]))
 
-    steps = []
-    for c in range(sched.C - 1):
-        sel, j = int(sched.desc_k[c]), int(sched.asc_j[c])
+    lv_in = sched.lv_in if live else (L,) * C
+    lv_out = sched.lv_out if live else (L,) * C
+    variants, tid = variant_table(sched, masks, lv_in, lv_out,
+                                  extra=widths[:C - 1] if live else None)
+    first = {v: tid.index(v) for v in range(len(variants))}
+    specs = []
+    for v, key in enumerate(variants):
+        sel, pid, j, ca, cb, lvi, lvo = key[:7]
         k, inv = decode_selector(sel, t)
-        prog = programs[sched.pattern_ids[c]]
-        lvi, lvo = (sched.lv_in[c], sched.lv_out[c]) if live else (L, L)
-        steps.append(SCLStepSpec(
-            k=k, inv=inv, j=j, mask_a=_bitmask(sched.comp_a[c]),
-            mask_b=_bitmask(sched.comp_b[c]), program=prog,
-            plain=_make_super_fn(sel, j, t, sizes, L, prog.plain,
-                                 compose_a=sched.comp_a[c], compose_b=sched.comp_b[c],
-                                 lv_in=lvi, lv_out=lvo),
-            lv_in=lvi, lv_out=lvo, **width_args(c)))
-    prog = programs[sched.pattern_ids[sched.C - 1]]
-    lv_last = sched.lv_in[sched.C - 1] if live else L
+        prog = programs[pid]
+        specs.append(SCLStepSpec(
+            k=k, inv=inv, j=j, mask_a=_bitmask(ca), mask_b=_bitmask(cb), program=prog,
+            plain=_make_super_fn(sel, j, t, sizes, L, prog.plain, compose_a=ca, compose_b=cb,
+                                 lv_in=lvi, lv_out=lvo, perm_impl=perm),
+            lv_in=lvi, lv_out=lvo, **width_args(first[v])))
+    steps = [specs[tid[c]] for c in range(C - 1)]
+    prog = programs[sched.pattern_ids[C - 1]]
+    lv_last = sched.lv_in[C - 1] if live else L
     last = SCLStepSpec(k=0, inv=False, j=t, mask_a=0, mask_b=0, program=prog,
                        plain=_make_last_fn(t, sizes, L, prog.plain, transform=True,
-                                           lv_in=lv_last),
-                       lv_in=L, lv_out=L, **width_args(sched.C - 1))
+                                           lv_in=lv_last, perm_impl=perm),
+                       lv_in=L, lv_out=L, **width_args(C - 1))
     return steps, last
 
 
-def _check_state(state: SCLState) -> None:
+def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
     s = state.sched
     B = state.pm.shape[0]
     _check_cuda_f32(state.llr, "llr", (B, s.N))
     _check_cuda_f32(state.alpha, "alpha", (B, s.L * (s.N - s.S)))
     _check_cuda_f32(state.pm, "pm", (B, s.L))
-    for name, shape in (("beta", (B, s.N - s.S)), ("pend_a", (B, s.t, s.L)),
-                        ("pend_b", (B, s.t, s.L))):
+    if state.onehot != program.onehot:
+        raise ValueError("the state's permutation algebra is not the program's")
+    pend = ((B, s.t, s.L, s.L), torch.float32) if state.onehot else ((B, s.t, s.L), torch.int32)
+    for name, (shape, dtype) in (("beta", ((B, s.N - s.S), torch.int32)),
+                                 ("pend_a", pend), ("pend_b", pend)):
         x = getattr(state, name)
-        if x.dtype != torch.int32 or tuple(x.shape) != shape or not x.is_contiguous() \
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() \
                 or x.device != state.llr.device:
-            raise ValueError(f"state.{name} must be contiguous int32 {shape} on {state.llr.device}")
+            raise ValueError(f"state.{name} must be contiguous {dtype} {shape} on "
+                             f"{state.llr.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -453,20 +513,20 @@ def _check_state(state: SCLState) -> None:
 def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec) -> None:
     """Launch the chunk-step kernel on the state, IN PLACE (at the spec's
     live width).  Does not synchronise."""
-    _check_state(state)
+    _check_state(state, spec.program)
     s = state.sched
     B = state.pm.shape[0]
     dev = state.llr.device
-    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev)
-    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 18 + [_P, _I, _P])
+    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0)
+    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 19 + [_P, _I, _P])
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
         code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
                   state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
                   ops.data_ptr(), ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L,
                   s.t, spec.program.lgS, spec.k, int(spec.inv), spec.j, spec.mask_a,
-                  spec.mask_b, spec.lv_in, spec.lv_out, spec.one_a, spec.one_b, warps,
-                  ctx.data_ptr() if ctx is not None else None, grid,
+                  spec.mask_b, spec.lv_in, spec.lv_out, spec.one_a, spec.one_b,
+                  int(state.onehot), warps, ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_step")
     _count("scl_chunk_step", spec.program, ctx, spec.narrow)
@@ -485,12 +545,12 @@ def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
     """Launch the last-chunk kernel (full width): ``(u [B, L, N] int8
     natural order, pm [B, L])``.  The state is read only.  Does not
     synchronise."""
-    _check_state(state)
+    _check_state(state, spec.program)
     s = state.sched
     B = state.pm.shape[0]
     dev = state.llr.device
-    warps, grid, ctx = _context_plan(s.L, s.S, s.N, B, dev)
-    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 9 + [_I] * 12 + [_P, _I, _P])
+    warps, grid, ctx = _context_plan(s.L, s.S, s.N, B, dev, s.t if state.onehot else 0)
+    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 9 + [_I] * 13 + [_P, _I, _P])
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, s.L), dtype=torch.float32, device=dev)
     ops = spec.program.device_ops(dev)
@@ -499,7 +559,7 @@ def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
                   state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
                   u.data_ptr(), pm_out.data_ptr(), ops.data_ptr(), ops.shape[0],
                   int(spec.program.has_r), B, s.N, s.S, s.L, s.t, spec.program.lgS,
-                  int(np.log2(s.N)), spec.one_a, spec.one_b, warps,
+                  int(np.log2(s.N)), spec.one_a, spec.one_b, int(state.onehot), warps,
                   ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_last_chunk")
@@ -615,13 +675,15 @@ def scl_decode_mega_cuda(llr: torch.Tensor, plan: SCLMegaPlan):
     return u, pm
 
 
-def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact", live: bool = False):
-    """The kernel control of the chunked decoder: ``decode(llr_rev [B, N]) →
+def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact", live: bool = False,
+                            union: bool = False, perm_impl: str = "rank"):
+    """The kernel controls of the chunked decoder: ``decode(llr_rev [B, N]) →
     (u [B, L, N] int8 natural order, metrics [B, L])`` with ``llr_rev`` in
     bit-reversed storage.  ``C − 1`` chunk-step launches (narrow at the live
-    path counts with ``live``) and one last-chunk launch; a single-chunk
-    code is one chunk-body launch and the butterfly."""
-    programs = [SCLBodyProgram(f, sched.L, node_mode) for f in sched.unique_flags]
+    path counts with ``live``; at the united compose masks with ``union``)
+    and one last-chunk launch, on a rank or one-hot state (``perm_impl``); a
+    single-chunk code is one chunk-body launch and the butterfly."""
+    programs = [SCLBodyProgram(f, sched.L, node_mode, perm_impl) for f in sched.unique_flags]
     L = sched.L
     if sched.C == 1:
         rev_np = np.asarray(bit_reverse_permutation(sched.N))
@@ -636,10 +698,10 @@ def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact", live: 
 
         return decode_single
 
-    steps, last = make_step_specs(sched, programs, live=live)
+    steps, last = make_step_specs(sched, programs, live=live, union=union)
 
     def decode(llr_rev):
-        state = SCLState(sched, llr_rev)
+        state = SCLState(sched, llr_rev, perm_impl)
         for spec in steps:
             scl_chunk_step(state, spec)
         return scl_last_chunk(state, last)

@@ -154,7 +154,9 @@ def make_polar_pipeline(
     device, the plain recursion on the CPU); the ``scl_*`` keywords to
     ``make_scl_decoder`` (``scl_control_impl=None``: the kernel control
     ``"unroll-kernel"`` on a CUDA device, the plain ``"unroll-fused"`` on the
-    CPU; ``scl_node_mode="fast"``: the SSCL fast list nodes).
+    CPU; the JAX package's ``"split"``, ``"fused"`` and ``"kernel"`` too;
+    ``scl_leaf_impl="onehot"`` or ``"sort"``; ``scl_node_mode="fast"``: the
+    SSCL fast list nodes).
 
     ``snr_db=None`` (with the default AWGN channel) builds a runtime-SNR
     step: call it as ``step(key, ids, snr_db)``; ``step.runtime_snr`` is True.

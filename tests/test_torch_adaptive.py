@@ -121,7 +121,7 @@ def test_adaptive_budget_overflow_residue_equals_jax(code, overflow_case, contro
 
 
 def test_adaptive_options(code):
-    frozen, _ = code
+    frozen, enc = code
     assert _port(frozen)._budget(8192) == 512 and _port(frozen)._budget(100) == 100
     assert _port(frozen, fallback_budget=4)._budget(100) == 4
     # the fast list nodes are in the package (equal to JAX: test_torch_fast_nodes.py);
@@ -129,8 +129,15 @@ def test_adaptive_options(code):
     assert _port(frozen, scl_node_mode="fast").scl_control_impl == "unroll-fused"
     with pytest.raises(ValueError, match="mega"):
         _port(frozen, scl_node_mode="fast", scl_control_impl="mega")
-    with pytest.raises(NotImplementedError, match="split"):
-        _port(frozen, scl_control_impl="split")
+    # JAX's default list control "split" is in the package: the same outputs
+    split = _port(frozen, scl_control_impl="split")
+    assert split.scl_control_impl == "split"
+    _, llr = _llrs(enc, 48, -2.0, seed=5)
+    out_s, st_s = split.decode(llr, return_stats=True)
+    out_d, st_d = _port(frozen).decode(llr, return_stats=True)
+    assert st_s == st_d and st_s["scl_fallbacks"] > 0 and torch.equal(out_s, out_d)
+    with pytest.raises(NotImplementedError, match="kernel-interpret"):
+        _port(frozen, scl_control_impl="kernel-interpret")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tfec.AdaptiveCASCLDecoder(N, K, list_size=L, frozen_bits=frozen)

@@ -156,12 +156,18 @@ def test_unported_options_raise_not_implemented():
         step = make_polar_pipeline(32, 16, frozen, 3.0, decoder=dec, list_size=2, device="cpu")
         out = step(rng.prng_key(0), torch.arange(8))
         assert out["bit_errors"].shape == (8,) and out["frame_error"].dtype == torch.bool
-    # what this package still leaves out says so, by name
-    for kw in (dict(scl_control_impl="mega-interpret"), dict(scl_control_impl="split"),
-               dict(scl_control_impl="fused"), dict(scl_control_impl="kernel"),
-               dict(scl_leaf_impl="sort")):
+    # what this package still leaves out says so, by name; JAX's scan controls
+    # and the sort prune are in it now: the steps count what the default counts
+    for kw in (dict(scl_control_impl="mega-interpret"), dict(scl_control_impl="kernel-interpret")):
         with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
             make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", device="cpu", **kw)
+    want = make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", list_size=2,
+                               device="cpu")(rng.prng_key(0), torch.arange(8))
+    for kw in (dict(scl_control_impl="split"), dict(scl_control_impl="fused"),
+               dict(scl_control_impl="kernel"), dict(scl_leaf_impl="sort")):
+        got = make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", list_size=2,
+                                  device="cpu", **kw)(rng.prng_key(0), torch.arange(8))
+        assert torch.equal(got["bit_errors"], want["bit_errors"]), kw
     # the fast list nodes are in the package now; the one-launch control has none
     step = make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", list_size=2,
                                scl_node_mode="fast", device="cpu")
@@ -172,11 +178,13 @@ def test_unported_options_raise_not_implemented():
     mask = np.zeros(32, bool)
     mask[frozen] = True
     from polarcode_and_ldpc_tpu_torch.models.polar import make_scl_decoder
-    with pytest.raises(NotImplementedError, match="onehot"):
-        make_scl_decoder(32, mask, 2, perm_impl="onehot", device="cpu")
-    for impl in ("unrolled", "scan"):
-        with pytest.raises(NotImplementedError, match=impl):
-            make_scl_decoder(32, mask, 2, impl=impl, device="cpu")
+    llr = torch.linspace(-3.0, 4.0, 8 * 32).reshape(8, 32)
+    want = make_scl_decoder(32, mask, 2, device="cpu")(llr)
+    for kw in (dict(perm_impl="onehot"), dict(impl="unrolled")):
+        got = make_scl_decoder(32, mask, 2, device="cpu", **kw)(llr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kw
+    with pytest.raises(NotImplementedError, match="scan"):
+        make_scl_decoder(32, mask, 2, impl="scan", device="cpu")
     with pytest.raises(NotImplementedError):
         fec.SCDecoder(32, 16, frozen_bits=frozen, impl="scan", device="cpu")
     # the one-launch list control, the layered schedule and the quasi-cyclic

@@ -445,17 +445,25 @@ def test_select_best_path_ties_and_no_crc_pass():
 def test_unported_options_raise_with_their_name():
     mask = mask_of(32, 16)
     frozen = np.nonzero(mask)[0]
-    for kw, word in [(dict(perm_impl="onehot"), "perm_impl='onehot'"),
-                     (dict(leaf_impl="sort"), "leaf_impl='sort'"),
-                     (dict(impl="unrolled"), "impl='unrolled'"),
-                     (dict(impl="scan"), "impl='scan'")] + [
+    # ported now: the one-hot algebra, the sort prune, the unrolled decoder, the
+    # united masks and JAX's scan controls give the default decoder's outputs
+    llr = torch.from_numpy(np.random.default_rng(11).normal(1.0, 1.5, (16, 32)).astype(
+        np.float32))
+    want = tscl.make_scl_decoder(32, mask, 2, chunk=8, device="cpu")(llr)
+    for kw in [dict(perm_impl="onehot"), dict(leaf_impl="sort"), dict(impl="unrolled"),
+               dict(mask_dedup="union")] + [dict(control_impl=c)
+                                            for c in ("split", "fused", "kernel")]:
+        got = tscl.make_scl_decoder(32, mask, 2, chunk=8, device="cpu", **kw)(llr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kw
+    # what this package leaves out says so, by name
+    for kw, word in [(dict(impl="scan"), "impl='scan'")] + [
                          (dict(control_impl=c), f"control_impl={c!r}")
-                         for c in ("split", "fused", "kernel", "kernel-interpret",
-                                   "mega-interpret", "unroll-kernel-interpret")]:
+                         for c in ("kernel-interpret", "mega-interpret",
+                                   "unroll-kernel-interpret")]:
         with pytest.raises(NotImplementedError, match=word.replace("'", ".")):
             tscl.make_scl_decoder(32, mask, 2, device="cpu", **kw)
     for kw in (dict(perm_impl="x"), dict(node_mode="x"), dict(leaf_impl="x"), dict(impl="x"),
-               dict(control_impl="x"), dict(body_impl="pallas")):
+               dict(control_impl="x"), dict(body_impl="pallas"), dict(mask_dedup="x")):
         with pytest.raises(ValueError):
             tscl.make_scl_decoder(32, mask, 2, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="mega-interpret"):

@@ -303,9 +303,11 @@ class Stacks:
         return self.N - (self.N >> (l - 1))
 
 
-def descend_g(st, x, lo, inv, w, one_a=0, one_b=0):
+def descend_g(st, x, lo, inv, w, one_a=0, one_b=0, onehot=False):
     """g at level ``lo`` over ``w`` rows; a pending whose level bit is set in
-    ``one_a`` / ``one_b`` is read at lane 0 by every slot."""
+    ``one_a`` / ``one_b`` is read at lane 0 by every slot.  ``onehot``: the
+    parent read through the pending is the one-hot apply's sum (a selected
+    zero is −0.0 only if the whole column of the parent's L rows is negative)."""
     N = st.N
     M = N >> lo
     idx = np.arange(w * M)
@@ -323,13 +325,17 @@ def descend_g(st, x, lo, inv, w, one_a=0, one_b=0):
                else st.PA[:, lo - 2].to(torch.int64)[:, pa_lane])
         first = torch.gather(parent, 1, row * 2 * M + i[None, :])
         second = torch.gather(parent, 1, row * 2 * M + M + i[None, :])
+        if onehot and not inv:
+            neg = (parent[:, :st.L * 2 * M].reshape(B, st.L, 2 * M).view(torch.int32) < 0).all(1)
+            for pos, v in ((i, first), (M + i, second)):
+                v[:] = torch.where(v == 0, torch.where(neg[:, pos], -0.0, 0.0), v)
     bit = (bl[:, i] >> pb[:, pb_lane]) & 1
     return second + (1.0 - 2.0 * bit.to(torch.float32)) * first
 
 
-def emulate_step(state: SCLState, spec):
+def emulate_step(state: SCLState, spec, onehot=False):
     """One chunk step at the spec's live widths (``lv_in`` rows in, ``lv_out``
-    out; both L at full width)."""
+    out; both L at full width); ``onehot``: the g's one-hot zero rule."""
     st = Stacks(state)
     N, S, L, t = st.N, st.S, st.L, st.t
     B = state.pm.shape[0]
@@ -347,7 +353,7 @@ def emulate_step(state: SCLState, spec):
         lo = t - spec.k
         M = N >> lo
         st.A[:, st.a_off(lo):st.a_off(lo) + wi * M] = descend_g(st, x, lo, spec.inv, wi,
-                                                                spec.one_a, spec.one_b)
+                                                                spec.one_a, spec.one_b, onehot)
         st.PA[:, lo - 1, :wi] = eye_i
         for l in range(lo + 1, t + 1):
             M = N >> l
@@ -382,12 +388,12 @@ def emulate_step(state: SCLState, spec):
     state.beta = torch.where(st.Bt >= 2 ** 31, st.Bt - 2 ** 32, st.Bt).to(torch.int32)
 
 
-def emulate_last(state: SCLState, spec):
+def emulate_last(state: SCLState, spec, onehot=False):
     st = Stacks(state)
     N, S, L, t = st.N, st.S, st.L, st.t
     B = state.pm.shape[0]
     c = Ctx(B, L, S)
-    c.alpha[:, :L * S] = descend_g(st, state.llr, t, False, L, spec.one_a, spec.one_b)
+    c.alpha[:, :L * S] = descend_g(st, state.llr, t, False, L, spec.one_a, spec.one_b, onehot)
     c.pm = state.pm.clone()
     chunk_body(c, spec.program.ops, spec.program.has_r)
     root = torch.zeros((B, N), dtype=torch.int64)
@@ -714,3 +720,131 @@ def test_fast_kernels_equal_plain_on_the_card():
     a = torch.from_numpy(g.integers(-3, 4, (8, 64, 128)).astype(np.float32)).cuda()
     for x, y in zip(fastnode_select(a, 7), fastnode_select_plain(a.cpu(), 7)):
         assert torch.equal(x.cpu(), y)
+
+
+# ---------------------------------------------------------------------------
+# one-hot permutations (perm_impl="onehot"): the kernels stage each plane's
+# rank vector, run the rank walk with the one-hot apply's zero rule in the
+# descend's g, and store the planes of the levels they wrote
+
+def onehot_ranks(planes):
+    """Each row's column of its 1, as the kernel scans a row (the last
+    nonzero entry)."""
+    idx = torch.arange(planes.shape[-1])
+    return torch.where(planes != 0, idx, 0).amax(dim=-1).to(torch.int32)
+
+
+def onehot_planes(ranks, L, dtype):
+    return (ranks[..., None].to(torch.int64) == torch.arange(L)).to(dtype)
+
+
+def as_rank_state(state: SCLState) -> SCLState:
+    out = state.clone()
+    out.onehot = False
+    out.pend_a, out.pend_b = onehot_ranks(state.pend_a), onehot_ranks(state.pend_b)
+    return out
+
+
+def emulate_step_onehot(state: SCLState, spec):
+    """The one-hot chunk step as the kernel walks it, on a one-hot state."""
+    t, L = state.sched.t, state.sched.L
+    work = as_rank_state(state)
+    emulate_step(work, spec, onehot=True)
+    state.alpha, state.beta, state.pm = work.alpha, work.beta, work.pm
+    lo = 1 if spec.k == t else t - spec.k
+    la = set(range(lo - 1, t)) | {i for i in range(t) if (spec.mask_a >> i) & 1}
+    lb = {i for i in range(t) if (spec.mask_b >> i) & 1} | {t - spec.j - 1}
+    for i in la:
+        state.pend_a[:, i] = onehot_planes(work.pend_a[:, i], L, state.pend_a.dtype)
+    for i in lb:
+        state.pend_b[:, i] = onehot_planes(work.pend_b[:, i], L, state.pend_b.dtype)
+
+
+def _assert_bits_equal(a: SCLState, b: SCLState, c):
+    for name in ("alpha", "beta", "pend_a", "pend_b", "pm"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), (name, c)
+
+
+@pytest.mark.parametrize("N,K,S,L,union", [(128, 64, 16, 4, False), (256, 128, 32, 8, True),
+                                           (64, 40, 8, 8, False), (128, 100, 8, 2, True)])
+def test_onehot_step_and_last_walk_equal_plain_by_bit_pattern(N, K, S, L, union):
+    """The one-hot modes of K3 / K4 walked on a one-hot state against the plain
+    one-hot step after EVERY chunk, by bit pattern (the sign of a zero counts:
+    integer LLRs make exact zeros, and the one-hot apply's +0.0 then differs
+    from the rank gather's −0.0 in the stacks); K5's one-hot plane; the whole
+    decode equals the rank decoder."""
+    fm = _code(N, K)
+    sched = build_scl_schedule(N, fm, L, S)
+    steps, last = make_step_specs(
+        sched, [SCLBodyProgram(f, L, perm_impl="onehot") for f in sched.unique_flags], union=union)
+    rank_steps, _ = make_step_specs(sched, union=union)
+    assert last.program.onehot and all(s.program.onehot for s in steps)
+    rng = np.random.default_rng(N + S + L + 2)
+    llr = torch.from_numpy(rng.integers(-3, 4, (9, N)).astype(np.float32))
+    llr[:4] = torch.from_numpy((1.5 + 2 * rng.standard_normal((4, N))).astype(np.float32))
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64)
+    plain = SCLState(sched, llr[:, rev].contiguous(), "onehot")
+    rank = SCLState(sched, llr[:, rev].contiguous())
+    emu = plain.clone()
+    zero_signs = 0
+    for c, spec in enumerate(steps):
+        program = spec.program
+        body_in = plain.to_plain()[0][sched.t - 1].contiguous()
+        beta, pm, R = emulate_body(program, body_in, plain.pm.clone())
+        want = program.plain(body_in, plain.pm.clone())
+        assert torch.equal(onehot_planes(R, L, torch.float32).view(torch.int32),
+                           want[2].view(torch.int32)), c
+        assert torch.equal(beta, want[0]) and torch.equal(pm, want[1])
+        scl_cuda.scl_chunk_step(plain, spec)  # on the CPU: the plain one-hot step
+        scl_cuda.scl_chunk_step(rank, rank_steps[c])
+        emulate_step_onehot(emu, spec)
+        _assert_bits_equal(plain, emu, c)
+        assert torch.equal(plain.alpha, rank.alpha)
+        zero_signs += int((plain.alpha.view(torch.int32) != rank.alpha.view(torch.int32)).sum())
+    if N == 256:  # the zero rule is exercised, not vacuous
+        assert zero_signs > 0
+    u0, p0 = scl_cuda.scl_last_chunk(plain, last)
+    u1, p1 = emulate_last(as_rank_state(emu), last, onehot=True)
+    assert torch.equal(u0, u1) and torch.equal(p0, p1)
+    u2, p2 = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-fused",
+                                   live_width=False, device="cpu")(llr)
+    assert torch.equal(u0, u2) and torch.equal(p0, p2)
+
+
+def test_onehot_state_roundtrip_and_union_specs():
+    """A one-hot ``SCLState`` through ``to_plain`` / ``load_plain``; the
+    united step specs: one spec per (descend, pattern, ascend) variant, its
+    masks the union over the variant's positions."""
+    sched = build_scl_schedule(256, _code(256, 128), 4, 8)  # C = 32, t = 5: 25 variants
+    rng = np.random.default_rng(4)
+    st = SCLState(sched, torch.from_numpy(rng.standard_normal((5, 256)).astype(np.float32)),
+                  "onehot")
+    assert st.pend_a.shape == (5, 5, 4, 4) and st.pend_a.dtype == torch.float32
+    st.alpha.copy_(torch.from_numpy(rng.standard_normal(tuple(st.alpha.shape)).astype(np.float32)))
+    st.pend_a.copy_(onehot_planes(torch.from_numpy(rng.integers(0, 4, (5, 5, 4))), 4,
+                                  torch.float32))
+    ops = st.to_plain()
+    assert all(p.shape == (5, 4, 4) for p in ops[1] + ops[3])
+    other = SCLState(sched, st.llr, "onehot")
+    other.load_plain(*ops)
+    _assert_bits_equal(st, other, "roundtrip")
+    exact, _ = make_step_specs(sched)
+    united, _ = make_step_specs(sched, union=True)
+    by_key = {}
+    for c, (e, u) in enumerate(zip(exact, united)):
+        key = (int(sched.desc_k[c]), int(sched.pattern_ids[c]), int(sched.asc_j[c]))
+        assert by_key.setdefault(key, u) is u  # one spec per variant
+        assert e.mask_a & ~u.mask_a == 0 and e.mask_b & ~u.mask_b == 0
+    for key, u in by_key.items():
+        pos = [c for c in range(sched.C - 1) if (int(sched.desc_k[c]), int(sched.pattern_ids[c]),
+                                                 int(sched.asc_j[c])) == key]
+        assert u.mask_a == np.bitwise_or.reduce([exact[c].mask_a for c in pos])
+        assert u.mask_b == np.bitwise_or.reduce([exact[c].mask_b for c in pos])
+    assert len(by_key) < sched.C - 1  # some variants repeat at this code
+    with pytest.raises(ValueError, match="live width"):
+        make_step_specs(sched, live=True, union=True)
+    with pytest.raises(ValueError, match="fast"):
+        SCLBodyProgram(np.zeros(8, bool), 4, "fast", "onehot")

@@ -90,11 +90,13 @@ def test_config_from_jax():
                              scl_node_mode="fast", scl_control_impl="split")
     t = config_from_jax(j)
     assert isinstance(t, tcfg.PolarCodeConfig)
-    assert dataclasses.asdict(t) == {**dataclasses.asdict(j), "scl_body_impl": None,
-                                     "scl_control_impl": None}
+    # JAX's list controls stay as they are; its chunk bodies become the device's choice
+    assert dataclasses.asdict(t) == {**dataclasses.asdict(j), "scl_body_impl": None}
     j = jcfg.PolarCodeConfig(scl_control_impl="unroll-kernel", scl_body_impl="pallas")
     assert (config_from_jax(j).scl_control_impl, config_from_jax(j).scl_body_impl) == (
         "unroll-kernel", None)
+    j = jcfg.PolarCodeConfig(scl_control_impl="kernel-interpret")
+    assert config_from_jax(j).scl_control_impl is None
     j = jcfg.LDPCCodeConfig(n=96, k=48, bp_impl="pallas", algorithm="nms")
     assert dataclasses.asdict(config_from_jax(j)) == {**dataclasses.asdict(j), "bp_impl": None}
     for j in (jcfg.ChannelConfig(snr_db=-1.0), jcfg.SimulationConfig(num_frames=9, seed=3)):
@@ -223,8 +225,10 @@ def test_unported_parts_raise(tmp_path):
     for flag in (["--mesh"], ["--distributed"], ["--host-devices", "4"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             tcli.main(flag + ["--device", "cpu", "--output-dir", str(tmp_path)])
-    with pytest.raises(SystemExit):  # the JAX package's TPU control names are not the port's
-        tcli.build_parser().parse_args(["--scl-control", "split"])
+    # JAX's list controls are the port's too; an interpret twin of a Pallas control is not
+    assert tcli.build_parser().parse_args(["--scl-control", "split"]).scl_control == "split"
+    with pytest.raises(SystemExit):
+        tcli.build_parser().parse_args(["--scl-control", "kernel-interpret"])
 
 
 def test_save_results_and_plots(tmp_path, monkeypatch):
