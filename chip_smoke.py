@@ -51,6 +51,7 @@ set to 0 just before and read just after), ``invariance``, ``stages``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import subprocess
@@ -85,6 +86,8 @@ from polarcode_and_ldpc_tpu_torch.ops import build, scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda, smem_bytes
 from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import (SCProgram, hybrid_sub_n,
                                                           make_sc_decoder_mega, sc_decode_cuda)
+from polarcode_and_ldpc_tpu_torch.ops.roll_cuda import (PROBE_SHAPE, PROBE_SHIFT, sublane_roll,
+                                                        sublane_roll_cuda, sublane_roll_plain)
 from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
                                                             fastnode_select_cuda,
                                                             fastnode_select_plain)
@@ -138,7 +141,8 @@ SNR_CURVE_ARGS = ["--polar-n", "1024", "--ldpc-n", "1008", "--rates", "0.5",
                   "--batch-size", "4096", "--polar-algorithm", "ca_scl",
                   "--scl-node-mode", "fast", "--skip-plots", "--seed", "42"]
 
-PHASES = ("device", "build", "kernels", "scl_kernels", "fast_kernels", "large_kernels",
+PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "fast_kernels",
+          "large_kernels",
           "onehot_kernels", "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc",
           "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
           "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
@@ -198,8 +202,8 @@ def phase_device() -> dict:
 
 
 def phase_build(verbose: bool) -> None:
-    seconds = build.build_all(verbose=verbose)
-    for name in build.SOURCES:
+    seconds = build.build_all(verbose=verbose, variants=tuple(build.VARIANTS))
+    for name in (*build.SOURCES, *build.VARIANTS):
         build.load(name)
     emit("build", seconds=round(seconds, 3), sources=[f"{s}.cu" for s in build.SOURCES],
          flags=" ".join(build.NVCC_FLAGS))
@@ -795,6 +799,57 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
                                                       "scl_last_chunk", "scl_decode_mega")],
          unique_patterns=len(unique), whole_decode_ms=decode_ms, cases=cases,
          other_codes=check_scl_other_codes())
+
+
+# the parts of a chunk step in the stage profile (ProfSlot of
+# csrc/scl_device.cuh, in its order)
+PROFILE_SLOTS = ("descend", "copy_in", "F w*size<32", "F w*size>=32", "G w*size<32",
+                 "G w*size>=32", "COMBINE size<32", "COMBINE size>=32", "leaf + prune", "REP",
+                 "rate-0", "rate-1 fast", "REP fast", "subtree", "body", "compose", "ascend",
+                 "step")
+
+
+def profile_step(state, spec) -> dict:
+    """K3 of the profiled build (-DSCL_PROFILE) on a copy of ``state``: held
+    against the normal build on the same copy, then each part's clock64()
+    cycles per frame, ops per frame, and share of the step's cycles."""
+    lib = build.load("scl_decode_profile")
+    lib.scl_profile_read.argtypes = [ctypes.c_void_p]
+    n = len(PROFILE_SLOTS)
+    buf = (ctypes.c_ulonglong * (2 * n))()
+    scl_chunk_step_cuda(state.clone(), spec, library="scl_decode_profile")  # warm-up
+    prof, plain = state.clone(), state.clone()
+    torch.cuda.synchronize()
+    build.check_launch(lib, lib.scl_profile_reset(), "scl_profile_reset")
+    scl_chunk_step_cuda(prof, spec, library="scl_decode_profile")
+    scl_chunk_step_cuda(plain, spec)
+    torch.cuda.synchronize()
+    build.check_launch(lib, lib.scl_profile_read(ctypes.addressof(buf)), "scl_profile_read")
+    hold_equal("profiled scl_chunk_step", {
+        f: (getattr(prof, f), getattr(plain, f)) for f in ("alpha", "beta", "pend_a", "pend_b", "pm")},
+        {"k": spec.k, "j": spec.j})
+    B = state.pm.shape[0]
+    step = buf[n - 1]
+    return {name: {"cycles_per_frame": buf[q] / B, "ops_per_frame": buf[n + q] / B,
+                   "share_of_step": buf[q] / step if step else None}
+            for q, name in enumerate(PROFILE_SLOTS) if buf[n + q]}
+
+
+def phase_scl_profile() -> None:
+    """Where K3's time goes (stage profile of the profiled build) at flagship
+    positions 3 and 4 (4096 frames, 3 dB, the state the kernel decode
+    reaches), and the registers, spills and resident warps per SM of every
+    compiled variant of K3 / K4 / K5 / K6 at the flagship's launch shapes."""
+    frozen, info, mask, sched, steps, last, rev = scl_flagship()
+    llr = cascl_llrs(frozen, SCL_CHUNK, 3.0, seed=77)
+    state = SCLState(sched, llr[:, rev].contiguous())
+    split = {}
+    for c, spec in enumerate(steps):
+        if c in (3, 4):
+            split[f"position {c}"] = profile_step(state, spec)
+        scl_chunk_step_cuda(state, spec)
+    emit("scl_profile", frames=SCL_CHUNK, split=split,
+         resources=scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t))
 
 
 def raises_value_error(fn) -> bool:
@@ -1543,13 +1598,55 @@ def phase_polar_scl8_controls(results: dict, mbps: dict, reps: int, quick: bool)
     mbps["polar_cascl_kernel_control"] = res.throughput_mbps
 
 
+def check_roll_kernel(results: dict, reps: int) -> dict:
+    """K8 against its plain version and np.roll at the probe's tile and on
+    other shapes (rows not a power of two, rows of 40 bytes: the byte path,
+    shifts past the row count and negative); then the probe's own path (its
+    seeded 0/1 tile through ``sublane_roll``, held against np.roll), with the
+    launch counts set to 0 just before; then times beside ``torch.roll``."""
+    cases = []
+    for (rows, cols), shift in ((PROBE_SHAPE, PROBE_SHIFT), ((32, 128), -7), ((24, 64), 53),
+                                ((7, 40), 3), ((4096, 128), PROBE_SHIFT)):
+        x_np = np.random.default_rng(rows + cols).integers(-128, 128, (rows, cols)).astype(np.int8)
+        x = torch.from_numpy(x_np).to(DEV)
+        got = sublane_roll_cuda(x, shift)
+        torch.cuda.synchronize()
+        context = {"shape": [rows, cols], "shift": shift}
+        hold_equal("sublane_roll", {"plain": (got, sublane_roll_plain(x, shift)),
+                                    "np.roll": (got.cpu(), torch.from_numpy(np.roll(x_np, shift, 0)))},
+                   context)
+        cases.append({**context, "equal_plain_and_np_roll": True})
+    # the probe's path (tools/r4_tpu_queue7.sh:6-19)
+    x_np = np.random.default_rng(0).integers(0, 2, PROBE_SHAPE).astype(np.int8)
+    x = torch.from_numpy(x_np).to(DEV)
+    ops.reset_launch_counts()
+    out = sublane_roll(x, PROBE_SHIFT)
+    torch.cuda.synchronize()
+    counts = record_launches({}, ["sublane_roll"])
+    if not np.array_equal(out.cpu().numpy(), np.roll(x_np, PROBE_SHIFT, 0)):
+        raise AssertionError("sublane_roll disagrees with the probe's np.roll")
+    ms = time_ms(lambda: sublane_roll_cuda(x, PROBE_SHIFT), reps)
+    plain_ms = time_ms(lambda: sublane_roll_plain(x, PROBE_SHIFT), reps)
+    library_ms = time_ms(lambda: torch.roll(x, PROBE_SHIFT, 0), reps)
+    row = kernel_row("sublane_roll", "tools/r4_tpu_queue7.sh:14", ms, plain_ms,
+                     2 * x.numel(), 0, 0.0, source="polarcode_and_ldpc_tpu_torch/ops/csrc/sublane_roll.cu",
+                     shape=list(PROBE_SHAPE), shift=PROBE_SHIFT,
+                     note="on no path: a probe; launches: the probe's path", cases=cases)
+    row["library_ms"] = library_ms
+    row["launches"] = counts["sublane_roll"]
+    results["sublane_roll"] = row
+    return {k: v for k, v in row.items() if k != "cases"}
+
+
 def phase_kernels(results: dict, reps: int, quick: bool) -> None:
+    check_roll_kernel(results, reps)
     check_sc_kernel(results, reps)
     check_bp_kernel(results, reps)
     check_bp_layered_kernel(results, reps, quick)
     layered = results["bp_decode_layered"]["cases"]
     emit("kernels", kernels=[
         {k: v for k, v in r.items() if k != "cases"} for r in results.values()],
+        roll_cases=results["sublane_roll"]["cases"],
         sc_cases=results["sc_decode"]["cases"], bp_cases=results["bp_decode_bp"]["cases"],
         layered_cases={"cases": len(layered), "frames": sum(c["B"] for c in layered),
                        "frames_differ": sum(c["frames_differ"] for c in layered),
@@ -2469,6 +2566,8 @@ def main() -> int:
         phase_kernels(results, reps, args.quick)
     if "scl_kernels" in phases:
         phase_scl_kernels(results, reps, args.quick)
+    if "scl_profile" in phases:
+        phase_scl_profile()
     if "fast_kernels" in phases:
         phase_fast_kernels(results, reps, args.quick)
     if "large_kernels" in phases:

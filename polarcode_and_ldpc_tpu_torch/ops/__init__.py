@@ -19,7 +19,7 @@ _BASES = ("sc_decode", "sc_decode_sub", "bp_decode_bp", "bp_decode_ms", "bp_deco
           "scl_chunk_body_onehot", "scl_chunk_step_onehot", "scl_last_chunk_onehot")
 _LAUNCHES = {name: 0 for base in _BASES
              for name in ((base,) if base.startswith("sc_decode") else (base, base + "_devmem"))}
-_LAUNCHES.update(scl_decode_mega=0, fastnode_select=0)
+_LAUNCHES.update(scl_decode_mega=0, fastnode_select=0, sublane_roll=0)
 
 
 def count_launch(name: str) -> None:

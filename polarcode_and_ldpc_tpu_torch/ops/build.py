@@ -9,6 +9,13 @@ build failure raises: no caller falls back to a plain implementation.
 The libraries go to ``<checkout>/build/polarcode_and_ldpc_tpu_torch/``
 (override with the ``POLAR_LDPC_TORCH_BUILD_DIR`` environment variable).
 They are rebuilt when a source is newer than its library.
+
+A variant is one source built with extra flags into a library of its own
+name (``VARIANTS``): ``scl_decode_profile`` is ``scl_decode.cu`` with the
+stage profile of the list kernels (``-DSCL_PROFILE``, see
+``csrc/scl_device.cuh``).  Variants are built only when asked for, by
+``build_all(variants=...)`` or ``load(<variant>)``; the normal libraries are
+the same with or without them.
 """
 
 from __future__ import annotations
@@ -22,10 +29,12 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sc_decode", "bp_decode", "scl_decode", "fastnode")
+SOURCES = ("sc_decode", "bp_decode", "scl_decode", "fastnode", "sublane_roll")
 # headers a source includes: it is rebuilt when one of them is newer, too
 HEADERS = {"scl_decode": ("scl_device.cuh", "fastnode_device.cuh"),
            "fastnode": ("fastnode_device.cuh",)}
+# variant library -> (source, extra nvcc flags)
+VARIANTS = {"scl_decode_profile": ("scl_decode", ("-DSCL_PROFILE",))}
 
 # -fmad=false: no multiply-add contraction, so every float operation rounds
 # exactly as the same operation does in the plain PyTorch version
@@ -57,25 +66,27 @@ def find_nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_all(verbose: bool = False) -> float:
-    """Compile every stale source, all in parallel; returns build seconds."""
+def build_all(verbose: bool = False, variants: tuple = ()) -> float:
+    """Compile every stale source and the named ``variants``, all in
+    parallel; returns build seconds."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     stale = []
-    for name in SOURCES:
-        src, lib = _CSRC / f"{name}.cu", out_dir / f"lib{name}.so"
+    for name in (*SOURCES, *variants):
+        source, flags = VARIANTS.get(name, (name, ()))
+        src, lib = _CSRC / f"{source}.cu", out_dir / f"lib{name}.so"
         newest = max(f.stat().st_mtime for f in
-                     (src, *(_CSRC / h for h in HEADERS.get(name, ()))))
+                     (src, *(_CSRC / h for h in HEADERS.get(source, ()))))
         if not lib.exists() or lib.stat().st_mtime < newest:
-            stale.append((name, src, lib))
+            stale.append((name, src, lib, flags))
     if not stale:
         return 0.0
     nvcc = find_nvcc()
     t0 = time.perf_counter()
     procs = []
-    for name, src, lib in stale:
+    for name, src, lib, flags in stale:
         tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [nvcc, *NVCC_FLAGS, *flags, *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(src)]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -94,11 +105,12 @@ def build_all(verbose: bool = False) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or of the variant
+    ``name``), built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all()
+            build_all(variants=(name,) if name in VARIANTS else ())
             lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
             _libs[name] = lib
         return lib

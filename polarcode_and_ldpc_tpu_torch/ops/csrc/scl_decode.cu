@@ -218,8 +218,9 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
                                       int B, int S, int L, int lgS, float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  const Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS)), L, S, lgS,
-                         lane);
+  Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS)), L, S, lgS, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
   for_each_frame<kDev>(B, [&](int frame) {
     const float* a = alpha + (size_t)frame * L * S;
     for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = a[i];
@@ -242,6 +243,7 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
       static_cast<long long*>(r_out)[(size_t)frame * L + lane] = c.R[lane];
     }
   });
+  SCL_PROF_FLUSH(c);
 }
 
 // The arguments of one chunk step, as a launch passes them or as the
@@ -267,6 +269,7 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   const int k = a.k, inv = a.inv, j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
   const int wi = kNarrow ? a.lv_in : g.L, wo = kNarrow ? a.lv_out : g.L;
   const int one_a = kNarrow ? a.one_a : 0, one_b = kNarrow ? a.one_b : 0;
+  SCL_PROF_T(t_step);
 
   // ---- descend: one g at level t-k (all f from the LLRs when k == t), then
   // an f chain down to level t; every written level's pend_a resets
@@ -302,14 +305,21 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
     }
   }
 
+  SCL_PROF_ADD(c, PROF_DESCEND, t_step);
+
   // ---- chunk body on a copy of the level-t alpha in the chunk context
+  SCL_PROF_T(t_copy);
   {
     const float* top = st.alpha(t);
     for (int i = lane; i < wi * S; i += kWarp) c.alpha[i] = top[i];
     if (lane < wi) c.pm[lane] = pm[lane];
     __syncwarp();
   }
+  SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
+  SCL_PROF_T(t_body);
   chunk_body<kNarrow>(c, prog, a.n_ops, a.has_R, wi);
+  SCL_PROF_ADD(c, PROF_BODY, t_body);
+  SCL_PROF_T(t_compose);
   if (lane < wo) pm[lane] = c.pm[lane];
 
   // ---- compose the chunk's R into the live pendings: p[l] = p[R[l]]
@@ -328,9 +338,12 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   }
   __syncwarp();
 
+  SCL_PROF_ADD(c, PROF_COMPOSE, t_compose);
+
   // ---- ascend: j combines with the permuted left betas, built from the end
   // of the destination level t-j, then the parked level's pend_b resets; a
   // one-lane pending that this chunk did not compose is read by every slot
+  SCL_PROF_T(t_ascend);
   const int D = S << j;
   uint32_t* dest = st.beta(t - j);
   for (int i = lane; i < S; i += kWarp) dest[D - S + i] = c.beta[i];
@@ -346,6 +359,8 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
     __syncwarp();
   }
   if (lane < wo) st.pend_b(t - j)[lane] = lane;
+  SCL_PROF_ADD(c, PROF_ASCEND, t_ascend);
+  SCL_PROF_ADD(c, PROF_STEP, t_step);
 }
 
 // Butterfly u = beta * G in storage order on the N packed words of `root`
@@ -419,7 +434,9 @@ __global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alph
   const int lane = threadIdx.x % kWarp;
   const int cw = ctx_words(g.L, g.S, g.lgS), tl = g.t * g.L;
   float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + (kOneHot ? 2 * tl : 0));
-  const Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
   int* ranks = reinterpret_cast<int*>(base + cw);
   for_each_frame<kDev>(g.B, [&](int frame) {
     Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
@@ -441,6 +458,7 @@ __global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alph
       onehot_store(pb_planes, ranks + tl, lb, g.t, g.L, lane);
     }
   });
+  SCL_PROF_FLUSH(c);
 }
 
 // kOneHot: the pendings are one-hot planes, staged as rank vectors after the
@@ -456,7 +474,9 @@ __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alph
   const int lane = threadIdx.x % kWarp;
   const int cw = ctx_words(g.L, g.S, g.lgS), tl = g.t * g.L;
   float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + g.N + (kOneHot ? 2 * tl : 0));
-  const Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
   uint32_t* root = reinterpret_cast<uint32_t*>(base + cw);
   int* ranks = reinterpret_cast<int*>(base + cw + g.N);
   for_each_frame<kDev>(g.B, [&](int frame) {
@@ -473,6 +493,7 @@ __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alph
                         u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog,
                         n_ops, has_R, log2N, one_a, one_b);
   });
+  SCL_PROF_FLUSH(c);
 }
 
 // The whole chunked list decode of a frame in ONE launch (replaces
@@ -507,7 +528,9 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
   const int N = g.N, S = g.S, L = g.L, t = g.t;
   const int per_warp = ctx_words(L, S, g.lgS) + N;
   float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
-  const Ctx c = make_ctx(base, L, S, g.lgS, lane);
+  Ctx c = make_ctx(base, L, S, g.lgS, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
   uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(L, S, g.lgS));
   float* x = llr_rev + (size_t)frame * N;
   float* pm_f = pm + (size_t)frame * L;
@@ -531,6 +554,7 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
     __syncwarp();
     root_out(root, N, L, log2N, u_f, lane);
     if (lane < L) pm_f[lane] = c.pm[lane];
+    SCL_PROF_FLUSH(c);
     return;
   }
 
@@ -549,6 +573,7 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
     __syncwarp();
   }
   last_chunk(c, root, g, st, x, pm_f, u_f, pm_f, prog + last[5], last[6], last[7], log2N, 0, 0);
+  SCL_PROF_FLUSH(c);
 }
 
 template <typename K>
@@ -581,6 +606,18 @@ cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t 
 extern "C" const char* pl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef SCL_PROFILE
+// The stage profile's counters: zero them, or copy the 2 * kProfSlots
+// unsigned 64-bit values (cycles, then counts) to host memory.
+extern "C" int scl_profile_reset() {
+  static const unsigned long long zeros[2 * scl::kProfSlots] = {};
+  return (int)cudaMemcpyToSymbol(scl::g_prof, zeros, sizeof(zeros));
+}
+extern "C" int scl_profile_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, scl::g_prof, sizeof(scl::g_prof));
+}
+#endif
 
 // bytes of shared memory one frame (one warp) needs in the body and step
 // kernels; the last-chunk kernel adds N words for the root plane
@@ -672,6 +709,58 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
       llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm, u, pm_out,
       reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N, one_a, one_b, ctx_dev);
   return (int)cudaGetLastError();
+}
+
+// The compiled variants of the four list kernels, for a resource report:
+// name, then (registers per thread, local-memory bytes per thread — spills
+// and local arrays —, resident warps per SM at `warps` warps per block with
+// `smem_bytes` of dynamic shared memory per block, largest block) in out[4].
+namespace {
+struct KernelEntry {
+  const char* name;
+  const void* fn;
+};
+const KernelEntry kKernels[] = {
+    {"scl_chunk_body", (const void*)&scl_chunk_body_kernel<false, false>},
+    {"scl_chunk_body_onehot", (const void*)&scl_chunk_body_kernel<false, true>},
+    {"scl_chunk_body_devmem", (const void*)&scl_chunk_body_kernel<true, false>},
+    {"scl_chunk_body_onehot_devmem", (const void*)&scl_chunk_body_kernel<true, true>},
+    {"scl_chunk_step", (const void*)&scl_chunk_step_kernel<false, false, false>},
+    {"scl_chunk_step_narrow", (const void*)&scl_chunk_step_kernel<false, true, false>},
+    {"scl_chunk_step_onehot", (const void*)&scl_chunk_step_kernel<false, false, true>},
+    {"scl_chunk_step_devmem", (const void*)&scl_chunk_step_kernel<true, false, false>},
+    {"scl_chunk_step_narrow_devmem", (const void*)&scl_chunk_step_kernel<true, true, false>},
+    {"scl_chunk_step_onehot_devmem", (const void*)&scl_chunk_step_kernel<true, false, true>},
+    {"scl_last_chunk", (const void*)&scl_last_chunk_kernel<false, false>},
+    {"scl_last_chunk_onehot", (const void*)&scl_last_chunk_kernel<false, true>},
+    {"scl_last_chunk_devmem", (const void*)&scl_last_chunk_kernel<true, false>},
+    {"scl_last_chunk_onehot_devmem", (const void*)&scl_last_chunk_kernel<true, true>},
+    {"scl_decode_mega", (const void*)&scl_decode_mega_kernel},
+};
+}  // namespace
+
+extern "C" int scl_kernel_count() { return (int)(sizeof(kKernels) / sizeof(kKernels[0])); }
+
+extern "C" const char* scl_kernel_name(int which) { return kKernels[which].name; }
+
+extern "C" int scl_kernel_report(int which, int warps, int smem_bytes, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kKernels[which].fn);
+  if (err != cudaSuccess) return (int)err;
+  if (smem_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kKernels[which].fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kKernels[which].fn, warps * kWarp,
+                                                      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks * warps;
+  out[3] = attr.maxThreadsPerBlock;
+  return 0;
 }
 
 // llr is [B][N] in natural order; llr_rev, alpha, beta, pend_a, pend_b are

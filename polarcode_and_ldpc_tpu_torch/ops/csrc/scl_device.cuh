@@ -62,6 +62,44 @@
 
 namespace scl {
 
+// Stage profile (compile with -DSCL_PROFILE; the normal build has none of
+// it): lane 0 of each warp adds the clock64() cycles of each part of a chunk
+// step and of each body op kind (F / G / COMBINE split at w * size < 32, the
+// sub-warp ops) to a per-thread table, which the kernel adds to device-global
+// counters at the end of its frame.  The counters' cost lands outside the
+// timed intervals, but it and the clock reads stretch the kernel: read the
+// split as shares, not as times.
+enum ProfSlot : int {
+  PROF_DESCEND = 0, PROF_COPY_IN, PROF_F_SMALL, PROF_F_WIDE, PROF_G_SMALL, PROF_G_WIDE,
+  PROF_COMBINE_SMALL, PROF_COMBINE_WIDE, PROF_LEAF, PROF_REP, PROF_RATE0, PROF_RATE1_FAST,
+  PROF_REP_FAST, PROF_SUBTREE, PROF_BODY, PROF_COMPOSE, PROF_ASCEND, PROF_STEP, kProfSlots
+};
+#ifdef SCL_PROFILE
+__device__ unsigned long long g_prof[2 * kProfSlots];  // cycles, then counts
+#define SCL_PROF_DECL unsigned long long prof_acc[2 * scl::kProfSlots] = {}
+#define SCL_PROF_BIND(c) (c).prof = prof_acc
+#define SCL_PROF_T(name) const long long name = clock64()
+#define SCL_PROF_ADD(c, slot, t0)                                  \
+  do {                                                             \
+    if ((c).lane == 0) {                                           \
+      (c).prof[(slot)] += (unsigned long long)(clock64() - (t0));  \
+      (c).prof[scl::kProfSlots + (slot)] += 1ull;                  \
+    }                                                              \
+  } while (0)
+#define SCL_PROF_FLUSH(c)                                                 \
+  do {                                                                    \
+    if ((c).lane == 0)                                                    \
+      for (int q = 0; q < 2 * scl::kProfSlots; ++q)                       \
+        if ((c).prof[q]) atomicAdd(&scl::g_prof[q], (c).prof[q]);         \
+  } while (0)
+#else
+#define SCL_PROF_DECL
+#define SCL_PROF_BIND(c)
+#define SCL_PROF_T(name)
+#define SCL_PROF_ADD(c, slot, t0)
+#define SCL_PROF_FLUSH(c)
+#endif
+
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -89,6 +127,9 @@ struct Ctx {
   int* tmp;       // L: slot bits of a prune, or an effective pending
   int* Rstack;    // (log2 S + 1) x L
   int L, S, lane;
+#ifdef SCL_PROFILE
+  unsigned long long* prof;  // the warp's cycle and count table (lane 0)
+#endif
 };
 
 // 32-bit words of shared memory one frame needs
@@ -292,6 +333,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
   const int L = c.L, lane = c.lane;
   int w = kNarrow ? w_in : L;
   for (int pc = 0; pc < n_ops; ++pc) {
+    SCL_PROF_T(t_op);
     const int4 op = __ldg(prog + pc);
     const int d = op.y, sz = op.z, off = op.w;
     switch (op.x & 0xff) {
@@ -403,6 +445,21 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         break;
     }
     __syncwarp();
+#ifdef SCL_PROFILE
+    {
+      const int kind = op.x & 0xff, small = kind == OP_COMBINE ? sz < kWarp : w * sz < kWarp;
+      const int slot = kind == OP_F          ? (small ? PROF_F_SMALL : PROF_F_WIDE)
+                       : kind == OP_G        ? (small ? PROF_G_SMALL : PROF_G_WIDE)
+                       : kind == OP_COMBINE  ? (small ? PROF_COMBINE_SMALL : PROF_COMBINE_WIDE)
+                       : kind == OP_LEAF     ? PROF_LEAF
+                       : kind == OP_REP      ? PROF_REP
+                       : kind == OP_RATE0    ? PROF_RATE0
+                       : kind == OP_RATE1_FAST ? PROF_RATE1_FAST
+                       : kind == OP_REP_FAST ? PROF_REP_FAST
+                                             : PROF_SUBTREE;
+      SCL_PROF_ADD(c, slot, t_op);
+    }
+#endif
   }
   if (!has_R) {
     if (lane < L) c.R[lane] = lane;

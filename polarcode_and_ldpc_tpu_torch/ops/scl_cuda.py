@@ -245,12 +245,44 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _launcher(name: str, argtypes: list):
-    lib = build.load("scl_decode")
+def _launcher(name: str, argtypes: list, library: str = "scl_decode"):
+    lib = build.load(library)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
     return lib, fn
+
+
+def kernel_resources(L: int, S: int, N: int, t: int) -> list:
+    """Registers, local memory (spills) and resident warps per SM of every
+    compiled variant of the four list kernels, each at the launch shape its
+    wrapper gives a code of length ``N``, chunk ``S``, list ``L`` with ``t``
+    levels (the device-memory variants at theirs).  Needs a CUDA device."""
+    lib = build.load("scl_decode")
+    lib.scl_kernel_name.restype = ctypes.c_char_p
+    lib.scl_kernel_name.argtypes = [_I]
+    lib.scl_kernel_report.restype = ctypes.c_int
+    lib.scl_kernel_report.argtypes = [_I, _I, _I, _P]
+    out = []
+    for which in range(lib.scl_kernel_count()):
+        name = lib.scl_kernel_name(which).decode()
+        if name == "scl_decode_mega":
+            per_frame = smem_per_frame(L, S, root_words=N)
+        else:
+            per_frame = smem_per_frame(L, S, N if "last" in name else 0,
+                                       t if "onehot" in name and "body" not in name else 0)
+        if name.endswith("_devmem"):
+            warps, smem = _DEVMEM_WARPS, 0
+        else:
+            warps = _warps_per_block(per_frame, name)
+            smem = warps * per_frame
+        vals = (ctypes.c_int * 4)()
+        code = lib.scl_kernel_report(which, warps, smem, ctypes.addressof(vals))
+        build.check_launch(lib, code, f"scl_kernel_report({name})")
+        out.append({"kernel": name, "registers": vals[0], "local_bytes": vals[1],
+                    "warps_per_block": warps, "smem_per_block": smem,
+                    "resident_warps_per_sm": vals[2], "max_threads_per_block": vals[3]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -510,15 +542,16 @@ def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
 # K3: one chunk step;  K4: the last chunk
 # ---------------------------------------------------------------------------
 
-def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec) -> None:
+def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec, library: str = "scl_decode") -> None:
     """Launch the chunk-step kernel on the state, IN PLACE (at the spec's
-    live width).  Does not synchronise."""
+    live width).  Does not synchronise.  ``library``: the build to launch
+    (``"scl_decode_profile"``: the same kernel with the stage profile)."""
     _check_state(state, spec.program)
     s = state.sched
     B = state.pm.shape[0]
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0)
-    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 19 + [_P, _I, _P])
+    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 19 + [_P, _I, _P], library)
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
         code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),

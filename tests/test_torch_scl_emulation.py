@@ -848,3 +848,26 @@ def test_onehot_state_roundtrip_and_union_specs():
         make_step_specs(sched, live=True, union=True)
     with pytest.raises(ValueError, match="fast"):
         SCLBodyProgram(np.zeros(8, bool), 4, "fast", "onehot")
+
+
+# ---------------------------------------------------------------------------
+# K8: the row roll of an int8 tile (tools/r4_tpu_queue7.sh:14)
+
+def test_sublane_roll_plain_equals_np_roll_on_the_probe_tile():
+    """The plain version of the roll kernel on the probe's seeded [32, 128]
+    0/1 int8 tile and shift 30, as the probe checks its kernel, and on other
+    shapes and shifts; a CPU tensor never reaches the kernel."""
+    from polarcode_and_ldpc_tpu_torch import ops
+    from polarcode_and_ldpc_tpu_torch.ops.roll_cuda import (PROBE_SHAPE, PROBE_SHIFT,
+                                                            sublane_roll, sublane_roll_cuda)
+    x = np.random.default_rng(0).integers(0, 2, PROBE_SHAPE).astype(np.int8)
+    before = ops.launch_counts()["sublane_roll"]
+    assert np.array_equal(sublane_roll(torch.from_numpy(x), PROBE_SHIFT).numpy(),
+                          np.roll(x, PROBE_SHIFT, 0))
+    for shape, shift in (((7, 40), 3), ((24, 64), -53), ((32, 128), 64)):
+        y = np.random.default_rng(shape[0]).integers(-128, 128, shape).astype(np.int8)
+        assert np.array_equal(sublane_roll(torch.from_numpy(y), shift).numpy(),
+                              np.roll(y, shift, 0))
+    assert ops.launch_counts()["sublane_roll"] == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sublane_roll_cuda(torch.from_numpy(x), PROBE_SHIFT)
