@@ -224,15 +224,18 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
   for_each_frame<kDev>(B, [&](int frame) {
     const float* a = alpha + (size_t)frame * L * S;
     for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = a[i];
-    if (lane < L) c.pm[lane] = pm[(size_t)frame * L + lane];
+    float pmr = lane < L ? pm[(size_t)frame * L + lane] : 0.0f;
+    int R = lane;
     __syncwarp();
-    chunk_body<false>(c, prog, n_ops, has_R, L);
+    chunk_body<false>(c, prog, n_ops, has_R, L, pmr, R);
+    if (kOneHot && lane < L) c.R[lane] = R;
+    __syncwarp();
     int8_t* bo = beta_out + (size_t)frame * L * S;
     for (int idx = lane; idx < L * S; idx += kWarp) {
       const int l = idx >> lgS, i = idx & (S - 1);
       bo[idx] = (int8_t)((c.beta[i] >> l) & 1u);
     }
-    if (lane < L) pm_out[(size_t)frame * L + lane] = c.pm[lane];
+    if (lane < L) pm_out[(size_t)frame * L + lane] = pmr;
     if (kOneHot) {
       float* ro = static_cast<float*>(r_out) + (size_t)frame * L * L;
       for (int idx = lane; idx < L * L; idx += kWarp) {
@@ -240,7 +243,7 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
         ro[idx] = idx - row * L == c.R[row] ? 1.0f : 0.0f;
       }
     } else if (lane < L) {
-      static_cast<long long*>(r_out)[(size_t)frame * L + lane] = c.R[lane];
+      static_cast<long long*>(r_out)[(size_t)frame * L + lane] = R;
     }
   });
   SCL_PROF_FLUSH(c);
@@ -312,23 +315,24 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   {
     const float* top = st.alpha(t);
     for (int i = lane; i < wi * S; i += kWarp) c.alpha[i] = top[i];
-    if (lane < wi) c.pm[lane] = pm[lane];
     __syncwarp();
   }
+  float pmr = lane < wi ? pm[lane] : -INFINITY;
+  int R = lane;
   SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
   SCL_PROF_T(t_body);
-  chunk_body<kNarrow>(c, prog, a.n_ops, a.has_R, wi);
+  chunk_body<kNarrow>(c, prog, a.n_ops, a.has_R, wi, pmr, R);
   SCL_PROF_ADD(c, PROF_BODY, t_body);
   SCL_PROF_T(t_compose);
-  if (lane < wo) pm[lane] = c.pm[lane];
+  if (lane < wo) pm[lane] = pmr;
 
   // ---- compose the chunk's R into the live pendings: p[l] = p[R[l]]
   for (int l = 1; l <= t; ++l) {
     int va = 0, vb = 0;
     const bool ca = (mask_a >> (l - 1)) & 1, cb = (mask_b >> (l - 1)) & 1;
     if (lane < wo) {
-      if (ca) va = st.pend_a(l)[c.R[lane]];
-      if (cb) vb = st.pend_b(l)[c.R[lane]];
+      if (ca) va = st.pend_a(l)[R];
+      if (cb) vb = st.pend_b(l)[R];
     }
     __syncwarp();
     if (lane < wo) {
@@ -394,9 +398,10 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
   const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
   // ---- descend: a single g at level t, straight into the chunk context
   descend_g<kOneHot>(g, st, x, t, false, c.alpha, lane, L, one_a, one_b);
-  if (lane < L) c.pm[lane] = pm[lane];
+  float pmr = lane < L ? pm[lane] : 0.0f;
+  int R = lane;
   __syncwarp();
-  chunk_body<false>(c, prog, n_ops, has_R, L);
+  chunk_body<false>(c, prog, n_ops, has_R, L, pmr, R);
 
   // ---- ascend to the root; the chunk's R composes into each pend_b on the way
   for (int i = lane; i < S; i += kWarp) root[N - S + i] = c.beta[i];
@@ -404,7 +409,7 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
   for (int lev = t; lev >= 1; --lev) {
     const int size = N >> lev;
     const uint32_t* left = st.beta(lev);
-    if (lane < L) c.tmp[lane] = st.pend_b(lev)[c.R[lane]];
+    if (lane < L) c.tmp[lane] = st.pend_b(lev)[R];
     __syncwarp();
     for (int i = lane; i < size; i += kWarp)
       root[N - 2 * size + i] = perm_word(left[i], c.tmp, L) ^ root[N - size + i];
@@ -412,7 +417,7 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
   }
 
   root_out(root, N, L, log2N, u, lane);
-  if (lane < L) pm_out[lane] = c.pm[lane];
+  if (lane < L) pm_out[lane] = pmr;
 }
 
 // The levels a chunk step writes a pending of: pend_a at the descend's
@@ -547,13 +552,14 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
   const int* last = steps + 8 * (C - 1);
   if (t == 0) {  // a single chunk: the body on the LLRs, then the butterfly
     for (int idx = lane; idx < L * S; idx += kWarp) c.alpha[idx] = x[idx & (S - 1)];
-    if (lane < L) c.pm[lane] = pm_f[lane];
+    float pmr = lane < L ? pm_f[lane] : 0.0f;
+    int R = lane;
     __syncwarp();
-    chunk_body<false>(c, prog + last[5], last[6], last[7], L);
+    chunk_body<false>(c, prog + last[5], last[6], last[7], L, pmr, R);
     for (int i = lane; i < N; i += kWarp) root[i] = c.beta[i];
     __syncwarp();
     root_out(root, N, L, log2N, u_f, lane);
-    if (lane < L) pm_f[lane] = c.pm[lane];
+    if (lane < L) pm_f[lane] = pmr;
     SCL_PROF_FLUSH(c);
     return;
   }

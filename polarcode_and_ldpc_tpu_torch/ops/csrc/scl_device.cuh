@@ -120,11 +120,8 @@ constexpr int kFlagRR = 2 << 8;  // the right child did
 struct Ctx {
   float* alpha;
   uint32_t* beta;
-  float* pm;
-  float* cand;    // 2L candidate metrics
-  float* leaf_a;  // L leaf LLRs
-  int* R;         // L: rank vector handed back by the last node
-  int* tmp;       // L: slot bits of a prune, or an effective pending
+  int* R;         // L: a rank vector that lanes read by index (fast rate-1 tail, outputs)
+  int* tmp;       // L: stage flip words of a fast rate-1 node, or an effective pending
   int* Rstack;    // (log2 S + 1) x L
   int L, S, lane;
 #ifdef SCL_PROFILE
@@ -134,17 +131,14 @@ struct Ctx {
 
 // 32-bit words of shared memory one frame needs
 __host__ __device__ inline int ctx_words(int L, int S, int lgS) {
-  return 2 * S * L + S + L * (6 + lgS + 1);
+  return 2 * S * L + S + L * (2 + lgS + 1);
 }
 
 __device__ __forceinline__ Ctx make_ctx(float* base, int L, int S, int lgS, int lane) {
   Ctx c;
   c.alpha = base;
   c.beta = reinterpret_cast<uint32_t*>(base + 2 * S * L);
-  c.pm = base + 2 * S * L + S;
-  c.cand = c.pm + L;
-  c.leaf_a = c.cand + 2 * L;
-  c.R = reinterpret_cast<int*>(c.leaf_a + L);
+  c.R = reinterpret_cast<int*>(base + 2 * S * L + S);
   c.tmp = c.R + L;
   c.Rstack = c.tmp + L;
   c.L = L;
@@ -168,10 +162,25 @@ __device__ __forceinline__ void d0_d1(float a, float& d0, float& d1) {
 
 __device__ __forceinline__ int ilog2(int x) { return 31 - __clz(x); }
 
+// w rounded up to a power of two (w >= 1)
+__device__ __forceinline__ int pow2_ceil(int w) { return w <= 1 ? 1 : 1 << (32 - __clz(w - 1)); }
+
+// The path whose candidates a lane holds in a prune of w live paths: lanes
+// form groups of pow2_ceil(w), and lane g * P + p holds path p.
+__device__ __forceinline__ int cand_path(int lane, int w) { return lane & (pow2_ceil(w) - 1); }
+
 // rank apply on packed path bits: bit l of the result is bit r[l] of w
 __device__ __forceinline__ uint32_t perm_word(uint32_t w, const int* r, int L) {
   uint32_t out = 0;
   for (int l = 0; l < L; ++l) out |= ((w >> r[l]) & 1u) << l;
+  return out;
+}
+
+// The same with the rank vector in registers (lane l holds r[l]); every lane
+// of the warp must call it, each with its own word.
+__device__ __forceinline__ uint32_t perm_word_reg(uint32_t w, int r, int n) {
+  uint32_t out = 0;
+  for (int l = 0; l < n; ++l) out |= ((w >> __shfl_sync(kFull, r, l)) & 1u) << l;
   return out;
 }
 
@@ -203,49 +212,73 @@ __device__ __forceinline__ void d0_inplace(float* z, int total, int lane) {
   __syncwarp();
 }
 
-// Stable top-L prune of the 2L candidates in c.cand (first half: bit 0 /
-// keep, second half: bit 1 / flip).  Afterwards c.pm and c.R hold the
-// survivors; returns the packed word of their second-half flags (bit l =
-// decision of slot l).  Candidate i goes before candidate j iff its metric is
-// larger, or equal with i < j.  kNarrow: the 2w candidates of w live paths,
-// keeping min(2w, L).
-template <bool kNarrow = false>
-__device__ __forceinline__ uint32_t prune(const Ctx& c, int w) {
-  if (!kNarrow) w = c.L;
-  const int lane = c.lane, two = 2 * w, keep = kNarrow ? min(two, c.L) : c.L;
-  for (int i = lane; i < two; i += kWarp) {
-    const float ci = c.cand[i];
-    int rank = 0;
-    for (int j = 0; j < two; ++j) {
-      const float cj = c.cand[j];
-      rank += (cj > ci || (cj == ci && j < i)) ? 1 : 0;
-    }
-    if (rank < keep) {
-      c.pm[rank] = ci;
-      c.R[rank] = i < w ? i : i - w;
-      c.tmp[rank] = i >= w ? 1 : 0;
+// Stable top-`keep` prune of the 2w candidates of w live paths, in
+// registers: candidate p (p < w) is path p's bit-0 candidate c0, candidate
+// w + p its bit-1 candidate c1, both held by every lane of path p =
+// cand_path(lane, w).  Candidate i goes before candidate j iff its metric is
+// larger, or equal with i < j (-inf phantoms rank by index like any tie).
+// Each group of P = pow2_ceil(w) lanes counts the candidates above its two
+// over its share of the w paths (two shuffles per path), one xor-shuffle
+// tree sums the groups; then each lane finds the candidates of rank p and
+// p + P the same way.  Afterwards slot lane s < keep holds the s-th
+// candidate's metric in pm and its path in R (lanes >= keep keep theirs);
+// returns the word of the slots' bit-1 flags.  No shared memory, no
+// __syncwarp.
+__device__ __forceinline__ uint32_t prune(float c0, float c1, int w, int keep, int lane,
+                                          float& pm, int& R) {
+  const int P = pow2_ceil(w), G = kWarp / P, g = lane / P, p = lane & (P - 1);
+  const int per = (w + G - 1) / G;
+  int r0 = 0, r1 = 0;
+  for (int k = 0; k < per; ++k) {
+    const int j = g * per + k;
+    const float a = __shfl_sync(kFull, c0, j & (kWarp - 1));
+    const float b = __shfl_sync(kFull, c1, j & (kWarp - 1));
+    if (j < w) {
+      r0 += (a > c0 || (a == c0 && j < p) ? 1 : 0) + (b > c0 ? 1 : 0);
+      r1 += (a >= c1 ? 1 : 0) + (b > c1 || (b == c1 && j < p) ? 1 : 0);
     }
   }
-  __syncwarp();
-  const uint32_t word = __ballot_sync(kFull, lane < keep && c.tmp[lane] != 0);
-  __syncwarp();
-  return word;
+  for (int off = P; off < kWarp; off <<= 1) {
+    r0 += __shfl_xor_sync(kFull, r0, off);
+    r1 += __shfl_xor_sync(kFull, r1, off);
+  }
+  int s0 = -1, s1 = -1;  // the candidates of rank p and p + P
+  for (int k = 0; k < per; ++k) {
+    const int j = g * per + k;
+    const int a = __shfl_sync(kFull, r0, j & (kWarp - 1));
+    const int b = __shfl_sync(kFull, r1, j & (kWarp - 1));
+    if (j < w) {
+      if (a == p) s0 = j;
+      if (b == p) s0 = w + j;
+      if (a == p + P) s1 = j;
+      if (b == p + P) s1 = w + j;
+    }
+  }
+  for (int off = P; off < kWarp; off <<= 1) {
+    s0 = max(s0, __shfl_xor_sync(kFull, s0, off));
+    s1 = max(s1, __shfl_xor_sync(kFull, s1, off));
+  }
+  const int src = lane < P ? s0 : s1;
+  const int q = src < w ? src : src - w;
+  const float v0 = __shfl_sync(kFull, c0, q & (kWarp - 1));
+  const float v1 = __shfl_sync(kFull, c1, q & (kWarp - 1));
+  if (lane < keep) {
+    pm = src < w ? v0 : v1;
+    R = q;
+  }
+  return __ballot_sync(kFull, lane < keep && src >= w);
 }
 
-// Branch + stable top-L prune on leaf LLRs c.leaf_a and metrics c.pm of w
-// live paths (kNarrow; else the full list).
+// Branch + stable top-L prune of w live paths (kNarrow: keeping min(2w, L);
+// else the full list, w = L): a_p is the leaf LLR of this lane's path
+// cand_path(lane, w), pm the metrics on the slot lanes.
 template <bool kNarrow>
-__device__ __forceinline__ uint32_t info_leaf(const Ctx& c, int w) {
-  const int lane = c.lane;
-  if (lane < w) {
-    float d0, d1;
-    d0_d1(c.leaf_a[lane], d0, d1);
-    const float p = c.pm[lane];
-    c.cand[lane] = p + d0;
-    c.cand[w + lane] = p + d1;
-  }
-  __syncwarp();
-  return prune<kNarrow>(c, w);
+__device__ __forceinline__ uint32_t info_leaf(float a_p, int w, int L, int lane, float& pm,
+                                              int& R) {
+  const float pp = __shfl_sync(kFull, pm, cand_path(lane, w));
+  float d0, d1;
+  d0_d1(a_p, d0, d1);
+  return prune(pp + d0, pp + d1, w, kNarrow ? min(2 * w, L) : L, lane, pm, R);
 }
 
 // Fast rate-1 node on the [L][sz] plane a, beta words at c.beta + off, using
@@ -255,34 +288,35 @@ __device__ __forceinline__ uint32_t info_leaf(const Ctx& c, int w) {
 // Slot l's picks are those of its ORIGINAL path rtot[l] (lane l's register:
 // the composition of the stage rank vectors), so no per-path array moves.
 // Stage s's flip word lives in lane s.  Returns whether the node has a rank
-// vector (K > 0), which it leaves in c.R.
+// vector (K > 0), which it leaves in R (and in c.R for its own tail).
 __device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz, int off,
-                                           float* scratch) {
+                                           float* scratch, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
   const int H = sz > 1 ? sz / 2 : 1;
   fastnode::halving_sum(a, L, sz, scratch, fastnode::Softplus(), lane);
-  if (lane < L) c.pm[lane] = c.pm[lane] - scratch[lane * H];
+  if (lane < L) pm = pm - scratch[lane * H];
   __syncwarp();
   const int K = min(L - 1, sz);
   int* idx = reinterpret_cast<int*>(scratch);  // [L][K], over the sums just read
   if (K > 0) fastnode::select_k(a, L, sz, K, idx, lane);
+  const int p = cand_path(lane, L);
   int rtot = lane;
   uint32_t fw = 0;
   for (int s = 0; s < K; ++s) {
-    if (lane < L) {
-      const float p = c.pm[lane];
-      c.cand[lane] = p;
-      c.cand[L + lane] = p - fabsf(a[rtot * sz + idx[rtot * K + s]]);
-    }
-    __syncwarp();
-    const uint32_t word = prune(c, L);
-    if (lane < s) fw = perm_word(fw, c.R, L);
+    const float pp = __shfl_sync(kFull, pm, p);
+    const int rp = __shfl_sync(kFull, rtot, p);
+    const float c1 = p < L ? pp - fabsf(a[rp * sz + idx[rp * K + s]]) : pp;
+    const uint32_t word = prune(pp, c1, L, L, lane, pm, R);
+    const uint32_t moved = perm_word_reg(fw, R, L);
+    if (lane < s) fw = moved;
     else if (lane == s) fw = word;
-    rtot = __shfl_sync(kFull, rtot, lane < L ? c.R[lane] : 0);  // rtot[l] = rtot[r[l]]
+    rtot = __shfl_sync(kFull, rtot, lane < L ? R : 0);  // rtot[l] = rtot[r[l]]
   }
-  __syncwarp();
   if (K > 0) {
-    if (lane < L) c.R[lane] = rtot;
+    if (lane < L) {
+      R = rtot;
+      c.R[lane] = rtot;
+    }
     if (lane < K) c.tmp[lane] = (int)fw;
   }
   __syncwarp();
@@ -290,7 +324,7 @@ __device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz,
   // through the final rank vector, then every stage's flips XORed in
   for (int i = lane; i < sz; i += kWarp) {
     uint32_t w = 0;
-    for (int p = 0; p < L; ++p) w |= (a[p * sz + i] < 0.0f ? 1u : 0u) << p;
+    for (int q = 0; q < L; ++q) w |= (a[q * sz + i] < 0.0f ? 1u : 0u) << q;
     c.beta[off + i] = K > 0 ? perm_word(w, c.R, L) : w;
   }
   __syncwarp();
@@ -305,31 +339,29 @@ __device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz,
 // sums of log P(0 | a) and log P(1 | a) over the node, one prune, the bit
 // repeated over the node.
 __device__ __forceinline__ void rep_fast(const Ctx& c, const float* a, int sz, int off,
-                                         float* scratch) {
+                                         float* scratch, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
   const int H = sz > 1 ? sz / 2 : 1;
   float* z0 = scratch;
   float* z1 = scratch + L * H;
   fastnode::halving_sum(a, L, sz, z0, fastnode::LogP0(), lane);
   fastnode::halving_sum(a, L, sz, z1, fastnode::LogP1(), lane);
-  if (lane < L) {
-    const float p = c.pm[lane];
-    c.cand[lane] = p + z0[lane * H];
-    c.cand[L + lane] = p + z1[lane * H];
-  }
-  __syncwarp();
-  const uint32_t word = prune(c, L);
+  const int p = cand_path(lane, L);
+  const float pp = __shfl_sync(kFull, pm, p);
+  const float c0 = pp + (p < L ? z0[p * H] : 0.0f), c1 = pp + (p < L ? z1[p * H] : 0.0f);
+  const uint32_t word = prune(c0, c1, L, L, lane, pm, R);
   for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
 }
 
 // The chunk body: decode the size-S subtree whose alpha lies at depth 0 of
-// c.alpha, with metrics c.pm.  Leaves the packed partial sums in c.beta, the
-// new metrics in c.pm and the chunk's rank vector in c.R.  kNarrow: start at
-// w_in live paths and double at every info leaf (live width); otherwise the
-// full list, the width a constant the compiler sees.
+// c.alpha, with metrics pm (lane l holds path l's).  Leaves the packed
+// partial sums in c.beta, the new metrics in pm and the chunk's rank vector
+// in R (lane l holds R[l]).  kNarrow: start at w_in live paths and double at
+// every info leaf (live width); otherwise the full list, the width a
+// constant the compiler sees.
 template <bool kNarrow>
 __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict__ prog,
-                                           int n_ops, int has_R, int w_in) {
+                                           int n_ops, int has_R, int w_in, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
   int w = kNarrow ? w_in : L;
   for (int pc = 0; pc < n_ops; ++pc) {
@@ -353,7 +385,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         int* saved = c.Rstack + d * L;
         const bool rl = op.x & kFlagRL;
         if (rl) {
-          if (lane < w) saved[lane] = c.R[lane];
+          if (lane < w) saved[lane] = R;
           __syncwarp();
         }
         const int lg = ilog2(sz);
@@ -367,18 +399,13 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
       }
       case OP_COMBINE: {
         const bool rl = op.x & kFlagRL, rr = op.x & kFlagRR;
-        for (int i = lane; i < sz; i += kWarp) {
-          uint32_t word = c.beta[off + i];
-          if (rr) word = perm_word(word, c.R, w);
-          c.beta[off + i] = word ^ c.beta[off + sz + i];
+        for (int base = 0; base < sz; base += kWarp) {  // every lane runs the shuffles
+          const int i = base + lane;
+          uint32_t word = i < sz ? c.beta[off + i] : 0u;
+          if (rr) word = perm_word_reg(word, R, w);
+          if (i < sz) c.beta[off + i] = word ^ c.beta[off + sz + i];
         }
-        if (rl) {  // R = compose(R_r, R_l): R[l] = R_l[R_r[l]]
-          const int* saved = c.Rstack + d * L;
-          int v = 0;
-          if (lane < w) v = saved[rr ? c.R[lane] : lane];
-          __syncwarp();
-          if (lane < w) c.R[lane] = v;
-        }
+        if (rl && lane < w) R = c.Rstack[d * L + (rr ? R : lane)];  // R_l[R_r[l]]
         break;
       }
       case OP_RATE0: {
@@ -393,15 +420,14 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
           }
           __syncwarp();
         }
-        if (lane < w) c.pm[lane] = c.pm[lane] + z[lane * sz];
+        if (lane < w) pm = pm + z[lane * sz];
         for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = 0u;
         break;
       }
       case OP_LEAF: {
         const float* a = c.alpha + depth_base(c, d);
-        if (lane < w) c.leaf_a[lane] = a[lane];
-        __syncwarp();
-        const uint32_t word = info_leaf<kNarrow>(c, w);
+        const int p = cand_path(lane, w);
+        const uint32_t word = info_leaf<kNarrow>(p < w ? a[p] : 0.0f, w, L, lane, pm, R);
         if (lane == 0) c.beta[off] = word;
         if (kNarrow) w = min(2 * w, L);
         break;
@@ -410,7 +436,8 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         float* z = c.alpha + depth_base(c, d);
         const int lgM = ilog2(sz);
         zero_dec_inplace(z, w * sz, sz, lane);
-        if (lane < w) c.leaf_a[lane] = z[lane * sz + sz - 1];
+        const int pp = cand_path(lane, w);
+        const float leaf = pp < w ? z[pp * sz + sz - 1] : 0.0f;
         __syncwarp();
         d0_inplace(z, w * sz, lane);
         // pair sums at every level EXCEPT each path's last pair: the block sums
@@ -425,21 +452,20 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
           __syncwarp();
         }
         if (lane < w) {
-          float p = c.pm[lane];
+          float p = pm;
           for (int j = 1; j <= lgM; ++j) p = p + z[lane * sz + sz - (sz >> (j - 1))];
-          c.pm[lane] = p;
+          pm = p;
         }
-        __syncwarp();
-        const uint32_t word = info_leaf<kNarrow>(c, w);
+        const uint32_t word = info_leaf<kNarrow>(leaf, w, L, lane, pm, R);
         for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
         if (kNarrow) w = min(2 * w, L);
         break;
       }
       case OP_RATE1_FAST:
-        rate1_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1));
+        rate1_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1), pm, R);
         break;
       case OP_REP_FAST:
-        rep_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1));
+        rep_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1), pm, R);
         break;
       default:
         break;
@@ -461,10 +487,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
     }
 #endif
   }
-  if (!has_R) {
-    if (lane < L) c.R[lane] = lane;
-    __syncwarp();
-  }
+  if (!has_R) R = lane;
 }
 
 }  // namespace scl

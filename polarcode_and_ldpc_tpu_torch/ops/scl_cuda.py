@@ -187,7 +187,7 @@ def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0) 
     state of ``onehot_levels`` levels, the two pendings' rank vectors that
     the one-hot kernels stage (``2 · levels · L`` words)."""
     lgS = int(np.log2(S))
-    return 4 * (2 * S * L + S + L * (6 + lgS + 1) + root_words + 2 * onehot_levels * L)
+    return 4 * (2 * S * L + S + L * (2 + lgS + 1) + root_words + 2 * onehot_levels * L)
 
 
 def _warps_per_block(per_frame: int, what: str) -> int:

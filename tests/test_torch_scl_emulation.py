@@ -34,6 +34,7 @@ from polarcode_and_ldpc_tpu_torch.models.polar.construction import (
     bit_reverse_permutation, frozen_mask_from_positions)
 from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (_d0_d1, build_scl_schedule,
                                                                make_scl_decoder_scan)
+from polarcode_and_ldpc_tpu_torch.models.polar import scanscl as tscan
 from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
 from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import fastnode_select, fastnode_select_plain
@@ -84,24 +85,64 @@ def info_leaf(c, leaf_a, w):
     return prune(c, torch.cat([c.pm[:, :w] + d0, c.pm[:, :w] + d1], dim=1), w)
 
 
-def prune(c, cand, w):
-    """The stable top-min(2w, L) of the 2w candidates of w live paths."""
+def _pow2_ceil(w):
+    return 1 if w <= 1 else 1 << (w - 1).bit_length()
+
+
+def prune_lanes(cand, w, keep):
+    """``scl::prune`` as the warp runs it, lane by lane: ``cand [B, 2w]``
+    (bit-0 candidates, then bit-1) → ``(src [B, keep], word [B])``, the
+    candidate index each slot lane takes and the ballot of the bit-1 flags.
+    Lane ``g·P + p`` (P = w rounded up to a power of two) holds path p's two
+    candidates; group g counts the candidates above them over its share of
+    the paths (one shuffle pair per path), an xor-shuffle tree sums the
+    groups; the inverse the same way, each lane looking for the ranks p and
+    p + P."""
     B = cand.shape[0]
-    two, keep = 2 * w, min(2 * w, c.L)
-    rank = torch.zeros((B, two), dtype=torch.int64)
-    for i in range(two):
-        for j in range(two):
-            cj, ci = cand[:, j], cand[:, i]
-            rank[:, i] += ((cj > ci) | ((cj == ci) & (j < i))).to(torch.int64)
-    word = torch.zeros((B,), dtype=torch.int64)
-    rows = torch.arange(B)
-    for i in range(two):
-        kept = rank[:, i] < keep
-        slot = rank[kept, i]
-        c.pm[rows[kept], slot] = cand[kept, i]
-        c.R[rows[kept], slot] = i if i < w else i - w
-        if i >= w:
-            word[kept] |= 1 << slot
+    P = _pow2_ceil(w)
+    G, per = 32 // P, -(-w // (32 // P))
+    lane = np.arange(32)
+    g, p = lane // P, lane % P
+    hold = np.minimum(p, w - 1)  # a lane of a path >= w holds what it holds: never read
+    c0, c1 = cand[:, :w][:, hold], cand[:, w:][:, hold]
+    pt = torch.as_tensor(p)
+    r0 = torch.zeros((B, 32), dtype=torch.int64)
+    r1 = torch.zeros((B, 32), dtype=torch.int64)
+    for k in range(per):
+        j = torch.as_tensor(g * per + k)
+        a, b = c0[:, j % 32], c1[:, j % 32]
+        valid = j < w
+        r0 += (valid & ((a > c0) | ((a == c0) & (j < pt)))).long() + (valid & (b > c0)).long()
+        r1 += (valid & (a >= c1)).long() + (valid & ((b > c1) | ((b == c1) & (j < pt)))).long()
+    off = P
+    while off < 32:
+        r0, r1 = r0 + r0[:, lane ^ off], r1 + r1[:, lane ^ off]
+        off *= 2
+    s0 = torch.full((B, 32), -1, dtype=torch.int64)
+    s1 = torch.full((B, 32), -1, dtype=torch.int64)
+    for k in range(per):
+        j = torch.as_tensor(g * per + k)
+        a, b = r0[:, j % 32], r1[:, j % 32]
+        valid = j < w
+        for tgt, sv in ((pt, s0), (pt + P, s1)):
+            sv[:] = torch.where(valid & (a == tgt), j, sv)
+            sv[:] = torch.where(valid & (b == tgt), w + j, sv)
+    off = P
+    while off < 32:
+        s0, s1 = torch.maximum(s0, s0[:, lane ^ off]), torch.maximum(s1, s1[:, lane ^ off])
+        off *= 2
+    src = torch.where(torch.as_tensor(lane < P), s0, s1)[:, :keep]
+    word = ((src >= w).long() << torch.arange(keep)).sum(dim=1)
+    return src, word
+
+
+def prune(c, cand, w):
+    """The stable top-min(2w, L) of the 2w candidates of w live paths, as the
+    kernel's register prune ranks them (``prune_lanes``)."""
+    keep = min(2 * w, c.L)
+    src, word = prune_lanes(cand, w, keep)
+    c.pm[:, :keep] = torch.gather(cand, 1, src)
+    c.R[:, :keep] = torch.where(src < w, src, src - w)
     return word
 
 
@@ -848,6 +889,33 @@ def test_onehot_state_roundtrip_and_union_specs():
         make_step_specs(sched, live=True, union=True)
     with pytest.raises(ValueError, match="fast"):
         SCLBodyProgram(np.zeros(8, bool), 4, "fast", "onehot")
+
+
+@pytest.mark.parametrize("L", range(1, 33))
+def test_register_prune_rank_rule_equals_plain_prune(L):
+    """The register prune's walk (``prune_lanes``) against the plain prune
+    (``scanscl._prune_rank``) at list L and every live width w <= L (keeping
+    min(2w, L)): ties (small integers), equal metrics across a row, +0.0
+    against -0.0 (equal under the rule: the lower index wins), -inf phantom
+    rows, and Gaussian metrics."""
+    rng = np.random.default_rng(L)
+    for w in range(1, L + 1):
+        keep = min(2 * w, L)
+        rows = [rng.integers(-2, 3, (6, 2 * w)).astype(np.float32),
+                np.full((2, 2 * w), 1.5, np.float32),
+                rng.choice(np.array([0.0, -0.0, 1.0], np.float32), (4, 2 * w)),
+                (rng.standard_normal((4, 2 * w))).astype(np.float32)]
+        phantom = rng.standard_normal((4, 2 * w)).astype(np.float32)
+        live = max(1, w // 2)  # paths >= live are -inf phantoms in both halves
+        phantom[:, live:w] = -np.inf
+        phantom[:, w + live:] = -np.inf
+        cand = torch.from_numpy(np.concatenate(rows + [phantom]))
+        second, pm, r = tscan._prune_rank(cand, keep)
+        src, word = prune_lanes(cand, w, keep)
+        assert torch.equal(src >= w, second), (L, w)
+        assert torch.equal(torch.where(src < w, src, src - w), r), (L, w)
+        assert torch.equal(torch.gather(cand, 1, src).view(torch.int32), pm.view(torch.int32))
+        assert torch.equal(word, (second.long() << torch.arange(keep)).sum(dim=1))
 
 
 # ---------------------------------------------------------------------------
