@@ -51,6 +51,17 @@
 // the host passes those levels as bit masks (one_a, one_b) and the kernel
 // reads lane 0 for every slot.  The last chunk runs at full width.
 //
+// The chunk step reads the chunk's top plane (level t, [L][S]) where its own
+// descend wrote it, in device memory (L2-resident, written by the same warp),
+// instead of copying it into the context: only the chunk's first F and G
+// read it.  A chunk that is one rate-0 or REP node works on it in place, so
+// that one copy stays.  The last chunk descends into its context, and the
+// body kernel copies its input there (scl::ctx_words, depth0).
+//
+// Launch shape: the warps per block are planned from the SM's limits (the
+// occupancy of the compiled kernel at its registers and the context's shared
+// memory), the most resident warps per SM, the smaller block on a tie.
+//
 // Where a warp's chunk context lives: in shared memory when it fits
 // (scl::ctx_words, plus the N-word root plane of the last chunk), else, in
 // the same layout, in the warp's slice of a scratch buffer in device memory
@@ -77,6 +88,9 @@
 // selected -0.0).  The descend's g reads its parent through pend_a that way
 // (onehot_value), so the level stacks equal the plain one-hot step's bit for
 // bit.  Exact nodes only, full list width only, as in the JAX package.
+
+#include <mutex>
+#include <vector>
 
 #include "scl_device.cuh"
 
@@ -218,16 +232,17 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
                                       int B, int S, int L, int lgS, float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS)), L, S, lgS, lane);
+  Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS, true)), L, S, lgS, lane,
+                   true);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
   for_each_frame<kDev>(B, [&](int frame) {
     const float* a = alpha + (size_t)frame * L * S;
-    for (int i = lane; i < L * S; i += kWarp) c.alpha[i] = a[i];
+    for (int i = lane; i < L * S; i += kWarp) c.a0[i] = a[i];
     float pmr = lane < L ? pm[(size_t)frame * L + lane] : 0.0f;
     int R = lane;
     __syncwarp();
-    chunk_body<false>(c, prog, n_ops, has_R, L, pmr, R);
+    chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
     if (kOneHot && lane < L) c.R[lane] = R;
     __syncwarp();
     int8_t* bo = beta_out + (size_t)frame * L * S;
@@ -310,18 +325,23 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
 
   SCL_PROF_ADD(c, PROF_DESCEND, t_step);
 
-  // ---- chunk body on a copy of the level-t alpha in the chunk context
+  // ---- chunk body on the level-t alpha where the descend left it; a chunk
+  // that is one rate-0 or REP node works on a copy in the context
   SCL_PROF_T(t_copy);
+  float* top = st.alpha(t);
   {
-    const float* top = st.alpha(t);
-    for (int i = lane; i < wi * S; i += kWarp) c.alpha[i] = top[i];
-    __syncwarp();
+    const int kind = __ldg(&prog->x) & 0xff;
+    if (a.n_ops == 1 && (kind == OP_RATE0 || kind == OP_REP)) {
+      for (int i = lane; i < wi * S; i += kWarp) c.a0[i] = top[i];
+      top = c.a0;
+      __syncwarp();
+    }
   }
   float pmr = lane < wi ? pm[lane] : -INFINITY;
   int R = lane;
   SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
   SCL_PROF_T(t_body);
-  chunk_body<kNarrow>(c, prog, a.n_ops, a.has_R, wi, pmr, R);
+  chunk_body<kNarrow>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
   SCL_PROF_ADD(c, PROF_BODY, t_body);
   SCL_PROF_T(t_compose);
   if (lane < wo) pm[lane] = pmr;
@@ -397,11 +417,11 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
                                            int one_b) {
   const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
   // ---- descend: a single g at level t, straight into the chunk context
-  descend_g<kOneHot>(g, st, x, t, false, c.alpha, lane, L, one_a, one_b);
+  descend_g<kOneHot>(g, st, x, t, false, c.a0, lane, L, one_a, one_b);
   float pmr = lane < L ? pm[lane] : 0.0f;
   int R = lane;
   __syncwarp();
-  chunk_body<false>(c, prog, n_ops, has_R, L, pmr, R);
+  chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
 
   // ---- ascend to the root; the chunk's R composes into each pend_b on the way
   for (int i = lane; i < S; i += kWarp) root[N - S + i] = c.beta[i];
@@ -437,9 +457,9 @@ __global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alph
                                       float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  const int cw = ctx_words(g.L, g.S, g.lgS), tl = g.t * g.L;
+  const int cw = ctx_words(g.L, g.S, g.lgS, false), tl = g.t * g.L;
   float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + (kOneHot ? 2 * tl : 0));
-  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, false);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
   int* ranks = reinterpret_cast<int*>(base + cw);
@@ -477,9 +497,9 @@ __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alph
                                       float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  const int cw = ctx_words(g.L, g.S, g.lgS), tl = g.t * g.L;
+  const int cw = ctx_words(g.L, g.S, g.lgS, true), tl = g.t * g.L;
   float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + g.N + (kOneHot ? 2 * tl : 0));
-  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane);
+  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, true);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
   uint32_t* root = reinterpret_cast<uint32_t*>(base + cw);
@@ -531,12 +551,12 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
   const int frame = blockIdx.x * warps + warp;
   if (frame >= g.B) return;
   const int N = g.N, S = g.S, L = g.L, t = g.t;
-  const int per_warp = ctx_words(L, S, g.lgS) + N;
+  const int per_warp = ctx_words(L, S, g.lgS, true) + N;
   float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
-  Ctx c = make_ctx(base, L, S, g.lgS, lane);
+  Ctx c = make_ctx(base, L, S, g.lgS, lane, true);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
-  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(L, S, g.lgS));
+  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(L, S, g.lgS, true));
   float* x = llr_rev + (size_t)frame * N;
   float* pm_f = pm + (size_t)frame * L;
   int8_t* u_f = u + (size_t)frame * L * N;
@@ -551,11 +571,11 @@ __global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr
 
   const int* last = steps + 8 * (C - 1);
   if (t == 0) {  // a single chunk: the body on the LLRs, then the butterfly
-    for (int idx = lane; idx < L * S; idx += kWarp) c.alpha[idx] = x[idx & (S - 1)];
+    for (int idx = lane; idx < L * S; idx += kWarp) c.a0[idx] = x[idx & (S - 1)];
     float pmr = lane < L ? pm_f[lane] : 0.0f;
     int R = lane;
     __syncwarp();
-    chunk_body<false>(c, prog + last[5], last[6], last[7], L, pmr, R);
+    chunk_body<false>(c, c.a0, prog + last[5], last[6], last[7], L, pmr, R);
     for (int i = lane; i < N; i += kWarp) root[i] = c.beta[i];
     __syncwarp();
     root_out(root, N, L, log2N, u_f, lane);
@@ -587,23 +607,62 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+constexpr size_t kBlockSmem = 232448;  // shared memory one block may use on Hopper
+
+// The warps per block (1 .. max_warps, one frame context of per_warp_bytes
+// each) that keep the most warps resident on an SM: the occupancy calculator
+// at the compiled kernel's registers and that shared memory.  Planned once
+// per (kernel, context size, bound) and kept.
+int plan_warps(const void* kernel, size_t per_warp_bytes, int max_warps) {
+  struct Plan {
+    const void* kernel;
+    size_t bytes;
+    int max_warps, warps;
+  };
+  static std::mutex mu;
+  static std::vector<Plan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Plan& p : plans)
+    if (p.kernel == kernel && p.bytes == per_warp_bytes && p.max_warps == max_warps)
+      return p.warps;
+  int best = 1, most = -1;
+  for (int w = 1; w <= max_warps && w * per_warp_bytes <= kBlockSmem; ++w) {
+    int blocks = 0;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(w * per_warp_bytes)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, w * kWarp,
+                                                      w * per_warp_bytes) != cudaSuccess)
+      break;
+    if (blocks * w > most) {
+      most = blocks * w;
+      best = w;
+    }
+  }
+  cudaGetLastError();  // a refused probe is not the launch's error
+  plans.push_back({kernel, per_warp_bytes, max_warps, best});
+  return best;
+}
+
 // The launch shape of a per-chunk kernel: the context in shared memory
-// (`per_warp_bytes` per warp, one warp per frame, the grid covering the
-// batch), or, with `ctx_dev`, in device memory (no dynamic shared memory,
-// `grid` blocks walking the frames).
+// (`per_warp_bytes` per warp, one warp per frame, the warps per block
+// planned up to `max_warps`, the grid covering the batch), or, with
+// `ctx_dev`, in device memory (no dynamic shared memory, `grid` blocks of
+// `max_warps` warps walking the frames).
 template <typename K>
 cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t per_warp_bytes,
-                      int B, int warps_per_block, int grid, K* kernel, size_t* smem,
-                      int* blocks) {
+                      int B, int max_warps, int grid, K* kernel, size_t* smem, int* blocks,
+                      int* warps) {
   if (ctx_dev) {
     *kernel = dev_kernel;
     *smem = 0;
     *blocks = grid;
+    *warps = max_warps;
     return cudaSuccess;
   }
   *kernel = smem_kernel;
-  *smem = (size_t)warps_per_block * per_warp_bytes;
-  *blocks = (B + warps_per_block - 1) / warps_per_block;
+  *warps = plan_warps((const void*)smem_kernel, per_warp_bytes, max_warps);
+  *smem = (size_t)*warps * per_warp_bytes;
+  *blocks = (B + *warps - 1) / *warps;
   return allow_smem(smem_kernel, *smem);
 }
 
@@ -625,9 +684,12 @@ extern "C" int scl_profile_read(unsigned long long* out) {
 }
 #endif
 
-// bytes of shared memory one frame (one warp) needs in the body and step
-// kernels; the last-chunk kernel adds N words for the root plane
-extern "C" int scl_smem_per_frame(int L, int S, int lgS) { return 4 * scl::ctx_words(L, S, lgS); }
+// bytes of shared memory one frame (one warp) needs: the chunk step keeps no
+// top plane (depth0 = 0); the body and last-chunk kernels do, the last chunk
+// adds N words for the root plane
+extern "C" int scl_smem_per_frame(int L, int S, int lgS, int depth0) {
+  return 4 * scl::ctx_words(L, S, lgS, depth0 != 0);
+}
 
 // Each launcher runs on `stream` and returns the cudaGetLastError code (0 = ok).
 // The per-chunk launchers take `ctx_dev` (null: the context in shared memory;
@@ -642,16 +704,17 @@ extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t
                                      void* stream) {
   decltype(&scl_chunk_body_kernel<false, false>) kernel;
   size_t smem;
-  int blocks;
-  const size_t per_frame = scl_smem_per_frame(L, S, lgS);
+  int blocks, warps;
+  const size_t per_frame = scl_smem_per_frame(L, S, lgS, 1);
   cudaError_t err =
       onehot ? configure(&scl_chunk_body_kernel<false, true>, &scl_chunk_body_kernel<true, true>,
-                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks)
+                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
+                         &warps)
              : configure(&scl_chunk_body_kernel<false, false>,
                          &scl_chunk_body_kernel<true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks);
+                         warps_per_block, grid, &kernel, &smem, &blocks, &warps);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       alpha, pm, beta_out, pm_out, r_out, reinterpret_cast<const int4*>(prog), n_ops, has_R,
       B, S, L, lgS, ctx_dev);
   return (int)cudaGetLastError();
@@ -669,24 +732,24 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
                                      void* stream) {
   decltype(&scl_chunk_step_kernel<false, false, false>) kernel;
   size_t smem;
-  int blocks;
+  int blocks, warps;
   const bool narrow = lv_in < L || lv_out < L;
   if (narrow && onehot) return (int)cudaErrorInvalidValue;
-  const size_t per_frame = scl_smem_per_frame(L, S, lgS) + (onehot ? 8 * (size_t)t * L : 0);
+  const size_t per_frame = scl_smem_per_frame(L, S, lgS, 0) + (onehot ? 8 * (size_t)t * L : 0);
   cudaError_t err =
       narrow ? configure(&scl_chunk_step_kernel<false, true, false>,
                          &scl_chunk_step_kernel<true, true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks)
+                         warps_per_block, grid, &kernel, &smem, &blocks, &warps)
       : onehot ? configure(&scl_chunk_step_kernel<false, false, true>,
                            &scl_chunk_step_kernel<true, false, true>, ctx_dev, per_frame, B,
-                           warps_per_block, grid, &kernel, &smem, &blocks)
+                           warps_per_block, grid, &kernel, &smem, &blocks, &warps)
                : configure(&scl_chunk_step_kernel<false, false, false>,
                            &scl_chunk_step_kernel<true, false, false>, ctx_dev, per_frame, B,
-                           warps_per_block, grid, &kernel, &smem, &blocks);
+                           warps_per_block, grid, &kernel, &smem, &blocks, &warps);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
   const StepArgs a{k, inv, j, mask_a, mask_b, 0, n_ops, has_R, lv_in, lv_out, one_a, one_b};
-  kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm,
       reinterpret_cast<const int4*>(prog), g, a, ctx_dev);
   return (int)cudaGetLastError();
@@ -700,18 +763,19 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
                                      void* stream) {
   decltype(&scl_last_chunk_kernel<false, false>) kernel;
   size_t smem;
-  int blocks;
+  int blocks, warps;
   const size_t per_frame =
-      scl_smem_per_frame(L, S, lgS) + 4 * (size_t)N + (onehot ? 8 * (size_t)t * L : 0);
+      scl_smem_per_frame(L, S, lgS, 1) + 4 * (size_t)N + (onehot ? 8 * (size_t)t * L : 0);
   cudaError_t err =
       onehot ? configure(&scl_last_chunk_kernel<false, true>, &scl_last_chunk_kernel<true, true>,
-                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks)
+                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
+                         &warps)
              : configure(&scl_last_chunk_kernel<false, false>,
                          &scl_last_chunk_kernel<true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks);
+                         warps_per_block, grid, &kernel, &smem, &blocks, &warps);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
-  kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm, u, pm_out,
       reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N, one_a, one_b, ctx_dev);
   return (int)cudaGetLastError();
@@ -749,23 +813,25 @@ extern "C" int scl_kernel_count() { return (int)(sizeof(kKernels) / sizeof(kKern
 
 extern "C" const char* scl_kernel_name(int which) { return kKernels[which].name; }
 
-extern "C" int scl_kernel_report(int which, int warps, int smem_bytes, int* out) {
+// per_warp_bytes: the context per warp in shared memory (0: a device-memory
+// variant, launched at max_warps warps per block); out[3] is the planned
+// warps per block.
+extern "C" int scl_kernel_report(int which, int per_warp_bytes, int max_warps, int* out) {
+  const void* fn = kKernels[which].fn;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kKernels[which].fn);
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
-  if (smem_bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(kKernels[which].fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int warps = per_warp_bytes ? plan_warps(fn, per_warp_bytes, max_warps) : max_warps;
+  const size_t smem = (size_t)warps * per_warp_bytes;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kKernels[which].fn, warps * kWarp,
-                                                      smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, warps * kWarp, smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = blocks * warps;
-  out[3] = attr.maxThreadsPerBlock;
+  out[3] = warps;
   return 0;
 }
 
@@ -776,12 +842,14 @@ extern "C" int scl_decode_mega_launch(const float* llr, float* llr_rev, float* a
                                       const int* prog, const int* steps, int C, int B, int N,
                                       int S, int L, int t, int lgS, int log2N,
                                       int warps_per_block, void* stream) {
-  const size_t smem = (size_t)warps_per_block * (scl_smem_per_frame(L, S, lgS) + 4 * (size_t)N);
+  const size_t per_frame = scl_smem_per_frame(L, S, lgS, 1) + 4 * (size_t)N;
+  const int warps = plan_warps((const void*)&scl_decode_mega_kernel, per_frame, warps_per_block);
+  const size_t smem = (size_t)warps * per_frame;
   cudaError_t err = allow_smem(scl_decode_mega_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
-  const int blocks = (B + warps_per_block - 1) / warps_per_block;
-  scl_decode_mega_kernel<<<blocks, warps_per_block * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (B + warps - 1) / warps;
+  scl_decode_mega_kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       llr, llr_rev, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, u, pm,
       reinterpret_cast<const int4*>(prog), steps, C, g, log2N);
   return (int)cudaGetLastError();

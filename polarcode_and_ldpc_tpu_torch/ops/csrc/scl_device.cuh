@@ -118,7 +118,8 @@ constexpr int kFlagRL = 1 << 8;  // the left child handed back a rank vector
 constexpr int kFlagRR = 2 << 8;  // the right child did
 
 struct Ctx {
-  float* alpha;
+  float* alpha;   // the alpha stack below the chunk's top: depth d >= 1 is [L][S >> d]
+  float* a0;      // L * S floats for a depth-0 plane kept in the context
   uint32_t* beta;
   int* R;         // L: a rank vector that lanes read by index (fast rate-1 tail, outputs)
   int* tmp;       // L: stage flip words of a fast rate-1 node, or an effective pending
@@ -129,16 +130,24 @@ struct Ctx {
 #endif
 };
 
-// 32-bit words of shared memory one frame needs
-__host__ __device__ inline int ctx_words(int L, int S, int lgS) {
-  return 2 * S * L + S + L * (2 + lgS + 1);
+// 32-bit words of shared memory one frame needs.  depth0: the chunk's top
+// plane has a region of its own (the last-chunk, body and whole-decode
+// kernels write or copy it there); without, the chunk step reads it where
+// its descend left it, in device memory, and the L * S words of the stack
+// region (depths 1.. take L * (S - 1)) hold it only for a chunk that is one
+// rate-0 or REP node, which works on it in place.
+__host__ __device__ inline int ctx_words(int L, int S, int lgS, bool depth0) {
+  return (depth0 ? 2 : 1) * S * L + S + L * (2 + lgS + 1);
 }
 
-__device__ __forceinline__ Ctx make_ctx(float* base, int L, int S, int lgS, int lane) {
+__device__ __forceinline__ Ctx make_ctx(float* base, int L, int S, int lgS, int lane,
+                                        bool depth0) {
   Ctx c;
-  c.alpha = base;
-  c.beta = reinterpret_cast<uint32_t*>(base + 2 * S * L);
-  c.R = reinterpret_cast<int*>(base + 2 * S * L + S);
+  const int top = depth0 ? S * L : 0;
+  c.a0 = base;
+  c.alpha = base + top;
+  c.beta = reinterpret_cast<uint32_t*>(base + top + S * L);
+  c.R = reinterpret_cast<int*>(base + top + S * L + S);
   c.tmp = c.R + L;
   c.Rstack = c.tmp + L;
   c.L = L;
@@ -184,9 +193,10 @@ __device__ __forceinline__ uint32_t perm_word_reg(uint32_t w, int r, int n) {
   return out;
 }
 
-// offset of depth d in the chunk's alpha stack ([L][S >> d] floats)
-__device__ __forceinline__ int depth_base(const Ctx& c, int d) {
-  return c.L * (2 * c.S - ((2 * c.S) >> d));
+// the alpha plane at depth d ([L][S >> d] floats): the top plane a0 at depth
+// 0, else the stack
+__device__ __forceinline__ float* depth_ptr(const Ctx& c, float* a0, int d) {
+  return d == 0 ? a0 : c.alpha + c.L * (c.S - ((2 * c.S) >> d));
 }
 
 // leaf LLRs of a subtree under all-zero decisions, in place: z is [L][M]
@@ -353,14 +363,15 @@ __device__ __forceinline__ void rep_fast(const Ctx& c, const float* a, int sz, i
   for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
 }
 
-// The chunk body: decode the size-S subtree whose alpha lies at depth 0 of
-// c.alpha, with metrics pm (lane l holds path l's).  Leaves the packed
+// The chunk body: decode the size-S subtree whose alpha lies at a0 ([L][S],
+// shared or device memory; written only by a chunk that is one rate-0 or REP
+// node), with metrics pm (lane l holds path l's).  Leaves the packed
 // partial sums in c.beta, the new metrics in pm and the chunk's rank vector
 // in R (lane l holds R[l]).  kNarrow: start at w_in live paths and double at
 // every info leaf (live width); otherwise the full list, the width a
 // constant the compiler sees.
 template <bool kNarrow>
-__device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict__ prog,
+__device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* __restrict__ prog,
                                            int n_ops, int has_R, int w_in, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
   int w = kNarrow ? w_in : L;
@@ -370,8 +381,8 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
     const int d = op.y, sz = op.z, off = op.w;
     switch (op.x & 0xff) {
       case OP_F: {
-        const float* src = c.alpha + depth_base(c, d);
-        float* dst = c.alpha + depth_base(c, d + 1);
+        const float* src = depth_ptr(c, a0, d);
+        float* dst = depth_ptr(c, a0, d + 1);
         const int lg = ilog2(sz);
         for (int idx = lane; idx < w * sz; idx += kWarp) {
           const int l = idx >> lg, i = idx & (sz - 1);
@@ -380,8 +391,8 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         break;
       }
       case OP_G: {
-        const float* src = c.alpha + depth_base(c, d);
-        float* dst = c.alpha + depth_base(c, d + 1);
+        const float* src = depth_ptr(c, a0, d);
+        float* dst = depth_ptr(c, a0, d + 1);
         int* saved = c.Rstack + d * L;
         const bool rl = op.x & kFlagRL;
         if (rl) {
@@ -409,7 +420,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         break;
       }
       case OP_RATE0: {
-        float* z = c.alpha + depth_base(c, d);
+        float* z = depth_ptr(c, a0, d);
         zero_dec_inplace(z, w * sz, sz, lane);
         d0_inplace(z, w * sz, lane);
         // adjacent-pair tree sum per path, in place with a growing stride
@@ -425,7 +436,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         break;
       }
       case OP_LEAF: {
-        const float* a = c.alpha + depth_base(c, d);
+        const float* a = depth_ptr(c, a0, d);
         const int p = cand_path(lane, w);
         const uint32_t word = info_leaf<kNarrow>(p < w ? a[p] : 0.0f, w, L, lane, pm, R);
         if (lane == 0) c.beta[off] = word;
@@ -433,7 +444,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         break;
       }
       case OP_REP: {
-        float* z = c.alpha + depth_base(c, d);
+        float* z = depth_ptr(c, a0, d);
         const int lgM = ilog2(sz);
         zero_dec_inplace(z, w * sz, sz, lane);
         const int pp = cand_path(lane, w);
@@ -462,10 +473,10 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, const int4* __restrict_
         break;
       }
       case OP_RATE1_FAST:
-        rate1_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1), pm, R);
+        rate1_fast(c, depth_ptr(c, a0, d), sz, off, depth_ptr(c, a0, d + 1), pm, R);
         break;
       case OP_REP_FAST:
-        rep_fast(c, c.alpha + depth_base(c, d), sz, off, c.alpha + depth_base(c, d + 1), pm, R);
+        rep_fast(c, depth_ptr(c, a0, d), sz, off, depth_ptr(c, a0, d + 1), pm, R);
         break;
       default:
         break;

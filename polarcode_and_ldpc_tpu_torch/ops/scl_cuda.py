@@ -92,8 +92,9 @@ REP_MAX = _LEVELPAR_MAX
 MAX_LIST = 32
 #: shared memory one thread block may use on Hopper (bytes)
 SMEM_LIMIT_BYTES = 232448
-_SMEM_TARGET_BYTES = 48 * 1024
-_MAX_WARPS = 8
+#: the most warps of a block (1024 threads); the kernels plan the warps per
+#: block up to this from the SM's limits (``plan_warps`` in ``csrc/scl_decode.cu``)
+_MAX_WARPS = 32
 #: launch shape of the device-memory context: warps per block, blocks per SM
 _DEVMEM_WARPS = 4
 _DEVMEM_BLOCKS_PER_SM = 8
@@ -181,40 +182,48 @@ class SCLBodyProgram:
         return t
 
 
-def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0) -> int:
+def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0,
+                   depth0: bool = True) -> int:
     """Bytes of shared memory one frame needs (mirrors ``scl::ctx_words``),
     plus ``root_words`` for the last chunk's root plane and, for a one-hot
     state of ``onehot_levels`` levels, the two pendings' rank vectors that
-    the one-hot kernels stage (``2 · levels · L`` words)."""
+    the one-hot kernels stage (``2 · levels · L`` words).  ``depth0=False``:
+    the chunk step's context, which reads the chunk's top plane from device
+    memory (``L · S`` words fewer)."""
     lgS = int(np.log2(S))
-    return 4 * (2 * S * L + S + L * (2 + lgS + 1) + root_words + 2 * onehot_levels * L)
+    return 4 * ((2 if depth0 else 1) * S * L + S + L * (2 + lgS + 1) + root_words
+                + 2 * onehot_levels * L)
 
 
 def _warps_per_block(per_frame: int, what: str) -> int:
+    """The most warps one block may hold at ``per_frame`` bytes each (the
+    kernels plan within it); raises if one frame does not fit a block."""
     if per_frame > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"{what} needs {per_frame} bytes of shared memory per frame; "
             f"one thread block has {SMEM_LIMIT_BYTES}")
-    return max(1, min(_MAX_WARPS, _SMEM_TARGET_BYTES // per_frame))
+    return max(1, min(_MAX_WARPS, SMEM_LIMIT_BYTES // per_frame))
 
 
 def context_in_device_memory(L: int, S: int, root_words: int = 0,
-                             onehot_levels: int = 0) -> bool:
+                             onehot_levels: int = 0, depth0: bool = True) -> bool:
     """Whether a per-chunk kernel keeps its chunk context in device memory:
     the context (plus ``root_words`` for the last chunk's root plane, plus
-    the staged rank vectors of ``onehot_levels`` one-hot levels) does not fit
-    one thread block's shared memory."""
-    return smem_per_frame(L, S, root_words, onehot_levels) > SMEM_LIMIT_BYTES
+    the staged rank vectors of ``onehot_levels`` one-hot levels; without the
+    top plane for the chunk step, ``depth0=False``) does not fit one thread
+    block's shared memory."""
+    return smem_per_frame(L, S, root_words, onehot_levels, depth0) > SMEM_LIMIT_BYTES
 
 
-def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels: int = 0):
+def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels: int = 0,
+                  depth0: bool = True):
     """``(warps per block, grid, scratch)`` of a per-chunk launch: the
     context in shared memory (``scratch`` None, the grid covering the
-    batch), or in a device-memory scratch of ``grid`` blocks of
-    ``_DEVMEM_WARPS`` warps, one context slice per warp, walking the
-    frames."""
-    per_frame = smem_per_frame(L, S, root_words, onehot_levels)
-    if not context_in_device_memory(L, S, root_words, onehot_levels):
+    batch, the warps per block the bound the kernel plans within), or in a
+    device-memory scratch of ``grid`` blocks of ``_DEVMEM_WARPS`` warps, one
+    context slice per warp, walking the frames."""
+    per_frame = smem_per_frame(L, S, root_words, onehot_levels, depth0)
+    if not context_in_device_memory(L, S, root_words, onehot_levels, depth0):
         return _warps_per_block(per_frame, "a chunk context"), 0, None
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid = min(-(-B // _DEVMEM_WARPS), sms * _DEVMEM_BLOCKS_PER_SM)
@@ -270,18 +279,18 @@ def kernel_resources(L: int, S: int, N: int, t: int) -> list:
             per_frame = smem_per_frame(L, S, root_words=N)
         else:
             per_frame = smem_per_frame(L, S, N if "last" in name else 0,
-                                       t if "onehot" in name and "body" not in name else 0)
-        if name.endswith("_devmem"):
-            warps, smem = _DEVMEM_WARPS, 0
-        else:
-            warps = _warps_per_block(per_frame, name)
-            smem = warps * per_frame
+                                       t if "onehot" in name and "body" not in name else 0,
+                                       depth0="step" not in name)
+        devmem = name.endswith("_devmem")
         vals = (ctypes.c_int * 4)()
-        code = lib.scl_kernel_report(which, warps, smem, ctypes.addressof(vals))
+        code = lib.scl_kernel_report(which, 0 if devmem else per_frame,
+                                     _DEVMEM_WARPS if devmem else
+                                     _warps_per_block(per_frame, name), ctypes.addressof(vals))
         build.check_launch(lib, code, f"scl_kernel_report({name})")
         out.append({"kernel": name, "registers": vals[0], "local_bytes": vals[1],
-                    "warps_per_block": warps, "smem_per_block": smem,
-                    "resident_warps_per_sm": vals[2], "max_threads_per_block": vals[3]})
+                    "warps_per_block": vals[3],
+                    "smem_per_block": 0 if devmem else vals[3] * per_frame,
+                    "resident_warps_per_sm": vals[2]})
     return out
 
 
@@ -550,7 +559,8 @@ def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec, library: str = "scl_
     s = state.sched
     B = state.pm.shape[0]
     dev = state.llr.device
-    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0)
+    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0,
+                                     depth0=False)
     lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 19 + [_P, _I, _P], library)
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
