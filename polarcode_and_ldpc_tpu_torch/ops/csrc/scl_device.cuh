@@ -111,7 +111,8 @@ enum Op : int {
   OP_LEAF = 4,     // y = depth, w = beta offset (one info leaf)
   OP_REP = 5,      // y = depth, z = size, w = beta offset
   OP_RATE1_FAST = 6,  // y = depth, z = size, w = beta offset
-  OP_REP_FAST = 7     // y = depth, z = size, w = beta offset
+  OP_REP_FAST = 7,    // y = depth, z = size, w = beta offset
+  OP_SUBTREE = 8      // y = depth, z = size (2 or 4), w = beta offset; frozen bits in x >> 16
 };
 // flags in bits 8.. of the op word
 constexpr int kFlagRL = 1 << 8;  // the left child handed back a rank vector
@@ -363,6 +364,137 @@ __device__ __forceinline__ void rep_fast(const Ctx& c, const float* a, int sz, i
   for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
 }
 
+// ---- a subtree in registers (OP_SUBTREE) -------------------------------
+//
+// A node of size sz with L * sz <= 32 (sz = 2 or 4: the bottom of the tree,
+// where an F or G over w * sz < 32 elements leaves most of the warp idle)
+// decodes whole in registers, one element per lane: lane = l * sz + i holds
+// path l's element i.  F and G are shuffles within a row (G reads its parent
+// through the left child's rank vector), rate-0 and REP sum their pairs by
+// xor-shuffles in the plain body's order, a leaf or REP prunes with the
+// register prune, and a node's partial sums are one bit per lane; the node
+// program needs one op for the subtree, whose frozen pattern it carries.
+// Every lane runs every shuffle (the pattern is the warp's), lanes of paths
+// >= w compute what they compute and no live lane reads them.
+struct SubLanes {
+  int lane, l, i, lgsz;  // l = lane >> lgsz, i = lane & (sz - 1)
+};
+
+__device__ __forceinline__ float shfl_f(float v, int src) {
+  return __shfl_sync(kFull, v, src & (kWarp - 1));
+}
+__device__ __forceinline__ int shfl_i(int v, int src) {
+  return __shfl_sync(kFull, v, src & (kWarp - 1));
+}
+
+// the all-zero-decision pass of a node of size 2^K on its lanes (in place
+// in the smem body: zero_dec_inplace)
+template <int K>
+__device__ __forceinline__ float sub_zero_dec(const SubLanes& s, float z) {
+#pragma unroll
+  for (int h = (1 << K) / 2; h >= 1; h >>= 1) {
+    const float o = __shfl_xor_sync(kFull, z, h);
+    z = (s.i & h) ? z + o : f_minsum(z, o);
+  }
+  return z;
+}
+
+// Decode a node of size 2^K (frozen bits fz, bit q = position q) whose alpha
+// is `a` on lanes (l, i < 2^K); returns this lane's partial-sum bit (lanes
+// (l, i < 2^K)), updates the metrics, the rank vector and the live width as
+// the smem body's ops do, and says whether the node pruned (has_r).
+template <int K, bool kNarrow>
+__device__ __forceinline__ uint32_t sub_node(const SubLanes& s, float a, uint32_t fz, int L,
+                                             int& w, float& pm, int& R, bool& has_r) {
+  constexpr int M = 1 << K;
+  constexpr uint32_t all = (1u << M) - 1u;
+  const int lane = s.lane;
+  if ((fz & all) == all) {  // rate-0: zero decisions, d0, adjacent-pair tree
+    float z = sub_zero_dec<K>(s, a);
+    float d0, d1;
+    d0_d1(z, d0, d1);
+    z = d0;
+#pragma unroll
+    for (int st = 1; st < M; st <<= 1) {
+      const float o = __shfl_xor_sync(kFull, z, st);
+      if ((s.i & (2 * st - 1)) == 0) z = z + o;
+    }
+    const float v = shfl_f(z, lane << s.lgsz);
+    if (lane < w) pm = pm + v;
+    has_r = false;
+    return 0u;
+  }
+  if constexpr (K == 0) {  // an info leaf
+    const int p = cand_path(lane, w);
+    const uint32_t word = info_leaf<kNarrow>(shfl_f(a, p << s.lgsz), w, L, lane, pm, R);
+    if (kNarrow) w = min(2 * w, L);
+    has_r = true;
+    return (word >> s.l) & 1u;
+  } else {
+    if ((fz & all) == (all >> 1)) {  // REP: every position but the last frozen
+      float z = sub_zero_dec<K>(s, a);
+      const float leaf = shfl_f(z, (cand_path(lane, w) << s.lgsz) + M - 1);
+      float d0, d1;
+      d0_d1(z, d0, d1);
+      z = d0;
+#pragma unroll
+      for (int k = 0; (M >> k) > 2; ++k) {  // pair sums but each path's last pair
+        const int st = 1 << k;
+        const float o = __shfl_xor_sync(kFull, z, st);
+        if ((s.i & (2 * st - 1)) == 0 && s.i < M - 2 * st) z = z + o;
+      }
+      float acc = pm;
+#pragma unroll
+      for (int j = 1; j <= K; ++j) acc = acc + shfl_f(z, (lane << s.lgsz) + M - (M >> (j - 1)));
+      if (lane < w) pm = acc;
+      const uint32_t word = info_leaf<kNarrow>(leaf, w, L, lane, pm, R);
+      if (kNarrow) w = min(2 * w, L);
+      has_r = true;
+      return (word >> s.l) & 1u;
+    }
+    constexpr int h = M / 2;
+    bool rl, rr;
+    // F, the left child, G through its rank vector, the right child
+    const uint32_t bl =
+        sub_node<K - 1, kNarrow>(s, f_minsum(a, __shfl_down_sync(kFull, a, h)), fz, L, w, pm,
+                                 R, rl);
+    const int Rl = R;
+    const int r = rl ? shfl_i(Rl, s.l) : s.l;
+    const float first = shfl_f(a, (r << s.lgsz) + s.i);
+    const float second = shfl_f(a, (r << s.lgsz) + s.i + h);
+    const float sgn = 1.0f - 2.0f * (float)bl;
+    const uint32_t br = sub_node<K - 1, kNarrow>(s, second + sgn * first, fz >> h, L, w, pm, R,
+                                                 rr);
+    // COMBINE: left bits through the right child's rank vector, XOR the right
+    const int lsrc = rr ? shfl_i(R, s.l) : s.l;
+    const uint32_t left = __shfl_sync(kFull, bl, ((lsrc << s.lgsz) + s.i) & (kWarp - 1));
+    const uint32_t up = __shfl_up_sync(kFull, br, h);
+    const int composed = shfl_i(Rl, rr ? R : lane);  // R_l[R_r[l]]
+    if (rl) R = composed;
+    has_r = rl || rr;
+    return s.i < h ? (left ^ br) : up;
+  }
+}
+
+// OP_SUBTREE: the node's plane [L][sz] at `plane`; the packed partial sums of
+// its sz positions go to beta (bits of the live paths only).
+template <bool kNarrow>
+__device__ __forceinline__ void subtree(const Ctx& c, const float* plane, int sz, uint32_t fz,
+                                        uint32_t* beta, int& w, float& pm, int& R) {
+  const int L = c.L, lane = c.lane, lgsz = ilog2(sz);
+  const SubLanes s{lane, lane >> lgsz, lane & (sz - 1), lgsz};
+  const float a = lane < L * sz ? plane[lane] : 0.0f;
+  bool has_r;
+  const uint32_t bit = sz == 2 ? sub_node<1, kNarrow>(s, a, fz, L, w, pm, R, has_r)
+                               : sub_node<2, kNarrow>(s, a, fz, L, w, pm, R, has_r);
+  const uint32_t ball = __ballot_sync(kFull, bit != 0u && s.l < w);
+  if (lane < sz) {
+    uint32_t word = 0;
+    for (int l = 0; l < L; ++l) word |= ((ball >> ((l << lgsz) + lane)) & 1u) << l;
+    beta[lane] = word;
+  }
+}
+
 // The chunk body: decode the size-S subtree whose alpha lies at a0 ([L][S],
 // shared or device memory; written only by a chunk that is one rate-0 or REP
 // node), with metrics pm (lane l holds path l's).  Leaves the packed
@@ -477,6 +609,10 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
         break;
       case OP_REP_FAST:
         rep_fast(c, depth_ptr(c, a0, d), sz, off, depth_ptr(c, a0, d + 1), pm, R);
+        break;
+      case OP_SUBTREE:
+        subtree<kNarrow>(c, depth_ptr(c, a0, d), sz, (uint32_t)op.x >> 16, c.beta + off, w, pm,
+                         R);
         break;
       default:
         break;

@@ -83,8 +83,14 @@ from ..models.polar.scanscl import (_LEVELPAR_MAX, SCLSchedule, _make_chunk_body
                                     variant_table)
 from . import build, count_launch
 
-OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_LEAF, OP_REP, OP_RATE1_FAST, OP_REP_FAST = range(8)
+OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_LEAF, OP_REP, OP_RATE1_FAST, OP_REP_FAST, OP_SUBTREE = \
+    range(9)
 FLAG_RL, FLAG_RR = 1 << 8, 2 << 8
+#: the frozen bits of an ``OP_SUBTREE`` start at this bit of its op word
+SUBTREE_SHIFT = 16
+#: widest node an exact program decodes in registers (``OP_SUBTREE``), when
+#: its list x size fits a warp
+SUBTREE_MAX = 4
 
 #: widest repetition subtree the REP op decodes (the plain version's rule)
 REP_MAX = _LEVELPAR_MAX
@@ -108,7 +114,10 @@ def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
     body walks the pattern, and whether the chunk prunes at all (has a rank
     vector other than the identity).  ``node_mode="fast"`` emits the fast
     rate-1 and repetition ops; it needs ``list_size`` (a rate-1 node prunes
-    only when ``L > 1``)."""
+    only when ``L > 1``).  An exact program given ``list_size`` decodes every
+    node of size 2 … ``SUBTREE_MAX`` with ``list_size · size <= 32`` as one
+    ``OP_SUBTREE`` (its frozen bits from bit ``SUBTREE_SHIFT`` of the op
+    word), in registers, in the same order of operations."""
     flags = np.asarray(flags, bool)
     S = len(flags)
     assert S >= 1 and S & (S - 1) == 0
@@ -119,6 +128,11 @@ def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
 
     def node(depth: int, off: int, size: int) -> bool:
         sub = flags[off:off + size]
+        if (not fast and list_size is not None and 2 <= size <= SUBTREE_MAX
+                and list_size * size <= 32):
+            bits = sum(1 << i for i in range(size) if sub[i])
+            ops.append((OP_SUBTREE | (bits << SUBTREE_SHIFT), depth, size, off))
+            return not sub.all()
         if sub.all():
             ops.append((OP_RATE0, depth, size, off))
             return False

@@ -40,7 +40,8 @@ from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import fastnode_select, fastnode_select_plain
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (FLAG_RL, FLAG_RR, OP_COMBINE, OP_F, OP_G,
                                                        OP_LEAF, OP_RATE0, OP_RATE1_FAST, OP_REP,
-                                                       OP_REP_FAST, SCLBodyProgram, SCLState,
+                                                       OP_REP_FAST, OP_SUBTREE, SUBTREE_SHIFT,
+                                                       SCLBodyProgram, SCLState,
                                                        build_scl_body_program, make_step_specs,
                                                        unpack_paths)
 
@@ -238,6 +239,110 @@ def rep_fast(c, a, sz, off):
     c.beta[:, off:off + sz] = word[:, None]
 
 
+_LANE = np.arange(32)
+
+
+def _shfl(v, src):
+    """``__shfl_sync(v, src & 31)`` over the frames: ``v [B, 32]``, ``src``
+    one lane per lane (``[32]``) or per frame and lane (``[B, 32]``)."""
+    src = torch.as_tensor(src) & 31
+    return v[:, src] if src.dim() == 1 else torch.gather(v, 1, src)
+
+
+def _slots(x, fill=0):
+    """A slot register (``[B, L]``: lane l holds x[l]) as all 32 lanes."""
+    out = torch.full((x.shape[0], 32), fill, dtype=x.dtype)
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def sub_zero_dec(K, i, z):
+    h = (1 << K) // 2
+    while h >= 1:
+        o = z[:, _LANE ^ h]
+        z = torch.where(torch.as_tensor(i & h != 0), z + o, f_minsum(z, o))
+        h //= 2
+    return z
+
+
+def sub_node(K, s, a, fz, c, st):
+    """``scl::sub_node<K>`` lane by lane: ``a [B, 32]`` the node's alpha on
+    lanes ``(l, i < 2^K)`` (lane = l·sz + i), ``fz`` its frozen bits, slot
+    registers ``c.pm`` / ``c.R``, the live width in ``st["w"]``; returns the
+    bit on each lane and whether the node pruned."""
+    M = 1 << K
+    full = (1 << M) - 1
+    lane, l, i, lg = _LANE, s["l"], s["i"], s["lg"]
+    w, L = st["w"], c.L
+    if fz & full == full:  # rate-0
+        z = sub_zero_dec(K, i, a)
+        z = _d0_d1(z)[0]
+        step = 1
+        while step < M:
+            o = z[:, lane ^ step]
+            z = torch.where(torch.as_tensor(i & (2 * step - 1) == 0), z + o, z)
+            step *= 2
+        v = _shfl(z, lane << lg)
+        c.pm[:, :w] = c.pm[:, :w] + v[:, :w]
+        return torch.zeros_like(a, dtype=torch.int64), False
+    if K == 0 or fz & full == full >> 1:  # an info leaf, or REP
+        p = np.arange(w)
+        if K == 0:
+            leaf = a[:, (p << lg) & 31]
+        else:
+            z = sub_zero_dec(K, i, a)
+            leaf = z[:, ((p << lg) + M - 1) & 31]
+            z = _d0_d1(z)[0]
+            k = 0
+            while (M >> k) > 2:
+                step = 1 << k
+                o = z[:, lane ^ step]
+                z = torch.where(torch.as_tensor((i & (2 * step - 1) == 0) & (i < M - 2 * step)),
+                                z + o, z)
+                k += 1
+            acc = _slots(c.pm)
+            for j in range(1, K + 1):
+                acc = acc + _shfl(z, (lane << lg) + M - (M >> (j - 1)))
+            c.pm[:, :w] = acc[:, :w]
+        word = info_leaf(c, leaf, w)
+        st["w"] = min(2 * w, L)
+        return (word[:, None] >> torch.as_tensor(l)) & 1, True
+    h = M // 2
+    down = np.where(lane + h < 32, lane + h, lane)
+    bl, rl = sub_node(K - 1, s, f_minsum(a, a[:, down]), fz, c, st)
+    Rl = _slots(c.R)
+    r = _shfl(Rl, l) if rl else torch.as_tensor(l).expand_as(Rl)
+    first = _shfl(a, (r << lg) + torch.as_tensor(i))
+    second = _shfl(a, (r << lg) + torch.as_tensor(i) + h)
+    sgn = 1.0 - 2.0 * bl.to(torch.float32)
+    br, rr = sub_node(K - 1, s, second + sgn * first, fz >> h, c, st)
+    Rr = _slots(c.R)
+    lsrc = _shfl(Rr, l) if rr else torch.as_tensor(l).expand_as(Rr)
+    left = _shfl(bl, (lsrc << lg) + torch.as_tensor(i))
+    up = br[:, np.where(lane >= h, lane - h, lane)]
+    composed = _shfl(Rl, Rr if rr else torch.as_tensor(lane).expand_as(Rr))
+    if rl:
+        c.R = composed[:, :L].clone()
+    return torch.where(torch.as_tensor(i < h), left ^ br, up), rl or rr
+
+
+def subtree(c, plane, sz, fz, st):
+    """``scl::subtree``: the node's plane ``[B, L·sz]`` onto the lanes, the
+    node decoded, the bits of the live paths packed per position."""
+    B, L = plane.shape[0], c.L
+    lg = int(np.log2(sz))
+    s = {"l": _LANE >> lg, "i": _LANE & (sz - 1), "lg": lg}
+    a = torch.zeros((B, 32), dtype=torch.float32)
+    a[:, :L * sz] = plane
+    bits, _ = sub_node(lg, s, a, fz, c, st)
+    live = torch.as_tensor(s["l"] < st["w"])
+    words = torch.zeros((B, sz), dtype=torch.int64)
+    for i in range(sz):
+        for l in range(L):
+            words[:, i] |= ((bits[:, (l << lg) + i] != 0) & live[(l << lg) + i]).long() << l
+    return words
+
+
 def chunk_body(c, ops, has_r, w=None):
     """The body over ``w`` live paths (default: the full list), the width
     doubling at every info leaf up to L."""
@@ -312,6 +417,11 @@ def chunk_body(c, ops, has_r, w=None):
             rate1_fast(c, c.alpha[:, base:base + L * sz].clone(), sz, off)
         elif kind == OP_REP_FAST:
             rep_fast(c, c.alpha[:, base:base + L * sz].clone(), sz, off)
+        elif kind == OP_SUBTREE:
+            st = {"w": w}
+            c.beta[:, off:off + sz] = subtree(c, c.alpha[:, base:base + L * sz].clone(), sz,
+                                              op >> SUBTREE_SHIFT, st)
+            w = st["w"]
         else:
             raise AssertionError(kind)
     if not has_r:
@@ -574,6 +684,27 @@ def test_body_program_shape_and_flags():
     ops, _ = build_scl_body_program(np.array([False, False]))
     assert ops.tolist() == [[OP_F, 0, 1, 0], [OP_LEAF, 1, 1, 0], [OP_G | FLAG_RL, 0, 1, 0],
                             [OP_LEAF, 1, 1, 1], [OP_COMBINE | FLAG_RL | FLAG_RR, 0, 1, 0]]
+    # given the list size, a node of size 2 .. SUBTREE_MAX whose list x size fits a
+    # warp is one op in registers, its frozen bits in the op word; wider lists keep
+    # the per-node ops
+    generic = [[OP_F, 0, 1, 0], [OP_LEAF, 1, 1, 0], [OP_G | FLAG_RL, 0, 1, 0],
+               [OP_LEAF, 1, 1, 1], [OP_COMBINE | FLAG_RL | FLAG_RR, 0, 1, 0]]
+    assert build_scl_body_program(np.array([False, False]), "exact", 32)[0].tolist() == generic
+    ops, has_r = build_scl_body_program(np.array([False, False]), "exact", 16)
+    assert ops.tolist() == [[OP_SUBTREE, 0, 2, 0]] and has_r
+    rep4 = np.array([True, True, True, False])
+    ops, has_r = build_scl_body_program(rep4, "exact", 8)
+    assert ops.tolist() == [[OP_SUBTREE | (0b0111 << SUBTREE_SHIFT), 0, 4, 0]] and has_r
+    assert build_scl_body_program(rep4, "exact", 16)[0].tolist() == [[OP_REP, 0, 4, 0]]
+    ops, has_r = build_scl_body_program(np.ones(4, bool), "exact", 8)  # rate-0: no rank vector
+    assert ops.tolist() == [[OP_SUBTREE | (0b1111 << SUBTREE_SHIFT), 0, 4, 0]] and not has_r
+    f8 = np.array([True, True, False, True, False, False, True, False])
+    ops, _ = build_scl_body_program(f8, "exact", 8)
+    assert ops.tolist() == [[OP_F, 0, 4, 0], [OP_SUBTREE | (0b1011 << SUBTREE_SHIFT), 1, 4, 0],
+                            [OP_G | FLAG_RL, 0, 4, 0],
+                            [OP_SUBTREE | (0b0100 << SUBTREE_SHIFT), 1, 4, 4],
+                            [OP_COMBINE | FLAG_RL | FLAG_RR, 0, 4, 0]]
+    assert SCLBodyProgram(f8, 8).ops.tolist() == ops.tolist()
 
 
 def _code(N, K):
