@@ -488,11 +488,14 @@ def body_flops(program, w=None) -> int:
     L, total = program.L, 0
     w = L if w is None else w
     top = 2 * L * math.ceil(math.log2(2 * L))
+    # the work of the nodes, not of the kernel's program: an in-register
+    # subtree op counts as the per-node ops it stands for
+    node_ops = program.ops if program.fast else scl_cuda.build_scl_body_program(program.flags)[0]
 
     def leaf() -> int:
         return 14 * w + 2 * w * max(1, math.ceil(math.log2(2 * w)))
 
-    for op, _, sz, _ in program.ops.tolist():
+    for op, _, sz, _ in node_ops.tolist():
         kind = op & 0xFF
         if kind in (OP_F, OP_G):
             total += 3 * w * sz
@@ -1169,22 +1172,9 @@ def check_scl_devmem(results: dict, reps: int) -> dict:
     """K3 / K4 / K5 with the chunk context in device memory: N=4096, S=1024,
     L=32 (3 chunk steps and the last chunk), a single-chunk N=1024 code at
     L=32 (one K5 launch), and a fast single-chunk N=2048 code at L=16, each
-    against its plain version.  The chunk step's context (no top plane,
-    136,832 bytes at S=1024, L=32) fits one block, so the shared-memory limit
-    is lowered below it here, and K3 keeps its device-memory mode at the
-    same shape as K4 and K5."""
-    saved = scl_cuda.SMEM_LIMIT_BYTES
-    scl_cuda.SMEM_LIMIT_BYTES = scl_cuda.smem_per_frame(LARGE_SCL_L, DEVMEM_SCL_S,
-                                                        depth0=False) - 4
-    try:
-        return _check_scl_devmem(results, reps)
-    finally:
-        scl_cuda.SMEM_LIMIT_BYTES = saved
-
-
-def _check_scl_devmem(results: dict, reps: int) -> dict:
+    against its plain version."""
     N, K, S, L = LARGE_SCL_N, LARGE_SCL_K, DEVMEM_SCL_S, LARGE_SCL_L
-    if not context_in_device_memory(L, S, depth0=False):
+    if not context_in_device_memory(L, S):
         raise AssertionError(f"S={S} at L={L} fits one block")
     frozen, _, mask = polar_code(N, K)
     sched = build_scl_schedule(N, mask, L, S)
@@ -1441,8 +1431,7 @@ def check_onehot_other_codes() -> list:
 
 def check_onehot_devmem() -> dict:
     """The control ``"kernel"`` with one-hot permutations on N=4096, L=32,
-    S=64, with the shared-memory limit lowered to the rank chunk step's
-    context: the
+    S=64, with the shared-memory limit lowered to the rank context: the
     one-hot chunk steps, whose staged rank vectors no longer fit, and the
     last chunk run with their context in device memory; the decode equals
     the plain one."""
@@ -1453,10 +1442,10 @@ def check_onehot_devmem() -> dict:
     llr = seeded_llrs(enc.encode(np.random.default_rng(90).integers(0, 2, (B, K))), 1.0, seed=91)
     want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused", device=DEV)(llr)
     saved = scl_cuda.SMEM_LIMIT_BYTES
-    scl_cuda.SMEM_LIMIT_BYTES = scl_cuda.smem_per_frame(L, S, depth0=False)
+    scl_cuda.SMEM_LIMIT_BYTES = scl_cuda.smem_per_frame(L, S)
     try:
-        if not (context_in_device_memory(L, S, 0, sched.t, depth0=False)
-                and not context_in_device_memory(L, S, depth0=False)):
+        if not (context_in_device_memory(L, S, 0, sched.t)
+                and not context_in_device_memory(L, S)):
             raise AssertionError("the lowered limit does not split rank and one-hot contexts")
         dec = make_scl_decoder(N, mask, L, chunk=S, control_impl="kernel", perm_impl="onehot",
                                device=DEV)
@@ -1472,9 +1461,8 @@ def check_onehot_devmem() -> dict:
     if (counts["scl_chunk_step_onehot_devmem"], counts["scl_last_chunk_onehot_devmem"],
             counts["scl_chunk_step_onehot"]) != (sched.C - 1, 1, 0):
         raise AssertionError(f"kernel onehot, device memory: launched {counts}")
-    return {"N": N, "K": K, "S": S, "L": L, "B": B,
-            "smem_limit_bytes": scl_cuda.smem_per_frame(L, S, depth0=False),
-            "onehot_context_bytes": scl_cuda.smem_per_frame(L, S, 0, sched.t, depth0=False),
+    return {"N": N, "K": K, "S": S, "L": L, "B": B, "smem_limit_bytes": scl_cuda.smem_per_frame(L, S),
+            "onehot_context_bytes": scl_cuda.smem_per_frame(L, S, 0, sched.t),
             "step_devmem_launches": counts["scl_chunk_step_onehot_devmem"],
             "last_devmem_launches": counts["scl_last_chunk_onehot_devmem"],
             "decode_ms": ms, "kernels_equal_plain": True}

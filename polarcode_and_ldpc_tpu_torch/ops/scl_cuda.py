@@ -235,9 +235,14 @@ def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels
     context in shared memory (``scratch`` None, the grid covering the
     batch, the warps per block the bound the kernel plans within), or in a
     device-memory scratch of ``grid`` blocks of ``_DEVMEM_WARPS`` warps, one
-    context slice per warp, walking the frames."""
+    context slice per warp, walking the frames.  The mode's threshold is the
+    context with its top plane (``context_in_device_memory`` at its
+    defaults) for every kernel: the chunk step's smaller context
+    (``depth0=False``, its size here) would fit one block at S=1024, L=32,
+    but at one warp per SM, which runs slower than the device-memory mode's
+    12 warps per SM (NVIDIA H100 80GB HBM3, 700 W, ``tools/scl_kernel_ab.py``)."""
     per_frame = smem_per_frame(L, S, root_words, onehot_levels, depth0)
-    if not context_in_device_memory(L, S, root_words, onehot_levels, depth0):
+    if not context_in_device_memory(L, S, root_words, onehot_levels):
         return _warps_per_block(per_frame, "a chunk context"), 0, None
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid = min(-(-B // _DEVMEM_WARPS), sms * _DEVMEM_BLOCKS_PER_SM)
