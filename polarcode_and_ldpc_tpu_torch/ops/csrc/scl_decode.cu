@@ -163,20 +163,12 @@ __device__ __forceinline__ void onehot_store(float* planes, const int* ranks, in
   __syncwarp();
 }
 
-// 16-byte alignment of every pointer given: the level stacks' float4 path
-__device__ __forceinline__ bool aligned16(const void* a, const void* b, const void* c) {
-  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15u) == 0;
-}
-
 // g at level lo over w rows: dst[l][i] = parent[r][M+i] + (1 - 2*left[l][i]) *
 // parent[r][i] with the parent read through pend_a (row 0 when `inv`, the
 // LLRs at lo = 1) and the left bits through pend_b; a pending whose level bit
 // is set in one_a / one_b holds one lane, read by every slot.  dst is [w][M].
 // kOneHot: the parent is read as the one-hot apply's sum (onehot_value over
-// the parent's g.L rows).  The rows' pendings are read once (lane l holds row
-// l's) and handed round by shuffles, so the plane's loads do not wait on
-// them; a rank apply is then four elements per lane as float4 / uint4 when
-// the level is at least four wide and aligned.
+// the parent's g.L rows).
 template <bool kOneHot = false>
 __device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, const float* x,
                                           int lo, bool inv, float* dst, int lane, int w,
@@ -189,67 +181,17 @@ __device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, c
   const int* pa = lo == 1 ? nullptr : st.pend_a(lo - 1);
   const bool pa_one = lo != 1 && ((one_a >> (lo - 2)) & 1);
   const bool through = lo != 1 && !inv;
-  const int ra = through && lane < w ? pa[pa_one ? 0 : lane] : 0;
-  const int rb = lane < w ? pb[pb_one ? 0 : lane] : 0;
-  if (!kOneHot && M >= 4 && aligned16(parent, bl, dst)) {
-    const int total = (w * M) >> 2, lgq = lgM - 2;
-    for (int base = 0; base < total; base += kWarp) {
-      const int q = base + lane, l = min(q >> lgq, w - 1), i = (q & ((M >> 2) - 1)) << 2;
-      const int r = __shfl_sync(kFull, ra, l), sh = __shfl_sync(kFull, rb, l);
-      if (q < total) {
-        const float* src = parent + (size_t)r * 2 * M;
-        const float4 f = *reinterpret_cast<const float4*>(src + i);
-        const float4 e = *reinterpret_cast<const float4*>(src + M + i);
-        const uint4 b = *reinterpret_cast<const uint4*>(bl + i);
-        float4 o;
-        o.x = e.x + (1.0f - 2.0f * (float)((b.x >> sh) & 1u)) * f.x;
-        o.y = e.y + (1.0f - 2.0f * (float)((b.y >> sh) & 1u)) * f.y;
-        o.z = e.z + (1.0f - 2.0f * (float)((b.z >> sh) & 1u)) * f.z;
-        o.w = e.w + (1.0f - 2.0f * (float)((b.w >> sh) & 1u)) * f.w;
-        *reinterpret_cast<float4*>(dst + (size_t)l * M + i) = o;
-      }
-    }
-    return;
-  }
-  const int total = w * M;
-  for (int base = 0; base < total; base += kWarp) {
-    const int idx = base + lane, l = min(idx >> lgM, w - 1), i = idx & (M - 1);
-    const int r = __shfl_sync(kFull, ra, l), sh = __shfl_sync(kFull, rb, l);
-    if (idx < total) {
-      const float* src = parent + (size_t)r * 2 * M;
-      const float sgn = 1.0f - 2.0f * (float)((bl[i] >> sh) & 1u);
-      float first = src[i], second = src[M + i];
-      if (kOneHot && through) {
-        first = onehot_value(first, parent + i, 2 * M, g.L);
-        second = onehot_value(second, parent + M + i, 2 * M, g.L);
-      }
-      dst[idx] = second + sgn * first;
-    }
-  }
-}
-
-// f from level l-1 to level l over w rows: dst[r][i] = f(src[r][i],
-// src[r][M+i]), four elements per lane when M >= 4 and aligned
-__device__ __forceinline__ void descend_f(const float* src, float* dst, int M, int w, int lane) {
-  const int lgM = ilog2(M);
-  if (M >= 4 && aligned16(src, dst, dst)) {
-    const int total = (w * M) >> 2, lgq = lgM - 2;
-    for (int q = lane; q < total; q += kWarp) {
-      const int r = q >> lgq, i = (q & ((M >> 2) - 1)) << 2;
-      const float4 a = *reinterpret_cast<const float4*>(src + (size_t)r * 2 * M + i);
-      const float4 b = *reinterpret_cast<const float4*>(src + (size_t)r * 2 * M + M + i);
-      float4 o;
-      o.x = f_minsum(a.x, b.x);
-      o.y = f_minsum(a.y, b.y);
-      o.z = f_minsum(a.z, b.z);
-      o.w = f_minsum(a.w, b.w);
-      *reinterpret_cast<float4*>(dst + (size_t)r * M + i) = o;
-    }
-    return;
-  }
   for (int idx = lane; idx < w * M; idx += kWarp) {
-    const int r = idx >> lgM, i = idx & (M - 1);
-    dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
+    const int l = idx >> lgM, i = idx & (M - 1);
+    const float* src = parent;
+    if (through) src += (size_t)pa[pa_one ? 0 : l] * 2 * M;
+    const float sgn = 1.0f - 2.0f * (float)((bl[i] >> pb[pb_one ? 0 : l]) & 1u);
+    float first = src[i], second = src[M + i];
+    if (kOneHot && through) {
+      first = onehot_value(first, parent + i, 2 * M, g.L);
+      second = onehot_value(second, parent + M + i, 2 * M, g.L);
+    }
+    dst[idx] = second + sgn * first;
   }
 }
 
@@ -369,7 +311,13 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
     if (lane < wi) st.pend_a(lo)[lane] = lane;
     __syncwarp();
     for (int l = lo + 1; l <= t; ++l) {
-      descend_f(st.alpha(l - 1), st.alpha(l), N >> l, wi, lane);
+      const int M = N >> l, lgM = ilog2(M);
+      const float* src = st.alpha(l - 1);
+      float* dst = st.alpha(l);
+      for (int idx = lane; idx < wi * M; idx += kWarp) {
+        const int r = idx >> lgM, i = idx & (M - 1);
+        dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
+      }
       if (lane < wi) st.pend_a(l)[lane] = lane;
       __syncwarp();
     }
