@@ -450,8 +450,11 @@ __device__ __forceinline__ void written_levels(const StepArgs& a, int t, int* la
 
 // kOneHot: pend_a / pend_b are the one-hot planes [B][t][L][L] (float); the
 // warp stages their rank vectors after its chunk context.
+// The shared-memory variants keep to 64 registers: 32 warps per SM, so that
+// 4096 flagship frames are one wave (132 SMs).
 template <bool kDev, bool kNarrow, bool kOneHot>
-__global__ void scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
+    scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, float* pm,
                                       const int4* __restrict__ prog, Geometry g, StepArgs a,
                                       float* ctx_dev) {
@@ -625,8 +628,12 @@ int plan_warps(const void* kernel, size_t per_warp_bytes, int max_warps) {
   for (const Plan& p : plans)
     if (p.kernel == kernel && p.bytes == per_warp_bytes && p.max_warps == max_warps)
       return p.warps;
+  cudaFuncAttributes attr;
+  const int bound = cudaFuncGetAttributes(&attr, kernel) == cudaSuccess
+                        ? min(max_warps, attr.maxThreadsPerBlock / kWarp)
+                        : max_warps;
   int best = 1, most = -1;
-  for (int w = 1; w <= max_warps && w * per_warp_bytes <= kBlockSmem; ++w) {
+  for (int w = 1; w <= bound && w * per_warp_bytes <= kBlockSmem; ++w) {
     int blocks = 0;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)(w * per_warp_bytes)) != cudaSuccess ||

@@ -507,6 +507,9 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
                                            int n_ops, int has_R, int w_in, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
   int w = kNarrow ? w_in : L;
+  // F and G on planes of rows >= 8 wide move four elements per lane (float4,
+  // uint4) when the context and the top plane are 16-byte aligned
+  const bool vec = (((uintptr_t)a0 | (uintptr_t)c.alpha | (uintptr_t)c.beta) & 15u) == 0;
   for (int pc = 0; pc < n_ops; ++pc) {
     SCL_PROF_T(t_op);
     const int4 op = __ldg(prog + pc);
@@ -516,6 +519,16 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
         const float* src = depth_ptr(c, a0, d);
         float* dst = depth_ptr(c, a0, d + 1);
         const int lg = ilog2(sz);
+        if (vec && sz >= 4) {
+          for (int q = lane; q < (w * sz) >> 2; q += kWarp) {
+            const int idx = q << 2, l = idx >> lg, i = idx & (sz - 1);
+            const float4 x = *reinterpret_cast<const float4*>(src + l * 2 * sz + i);
+            const float4 y = *reinterpret_cast<const float4*>(src + l * 2 * sz + sz + i);
+            *reinterpret_cast<float4*>(dst + idx) = make_float4(
+                f_minsum(x.x, y.x), f_minsum(x.y, y.y), f_minsum(x.z, y.z), f_minsum(x.w, y.w));
+          }
+          break;
+        }
         for (int idx = lane; idx < w * sz; idx += kWarp) {
           const int l = idx >> lg, i = idx & (sz - 1);
           dst[idx] = f_minsum(src[l * 2 * sz + i], src[l * 2 * sz + sz + i]);
@@ -532,6 +545,21 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
           __syncwarp();
         }
         const int lg = ilog2(sz);
+        if (vec && sz >= 4) {
+          for (int q = lane; q < (w * sz) >> 2; q += kWarp) {
+            const int idx = q << 2, l = idx >> lg, i = idx & (sz - 1);
+            const int r = rl ? saved[l] : l;
+            const float4 x = *reinterpret_cast<const float4*>(src + r * 2 * sz + i);
+            const float4 y = *reinterpret_cast<const float4*>(src + r * 2 * sz + sz + i);
+            const uint4 b = *reinterpret_cast<const uint4*>(c.beta + off + i);
+            *reinterpret_cast<float4*>(dst + idx) =
+                make_float4(y.x + (1.0f - 2.0f * (float)((b.x >> l) & 1u)) * x.x,
+                            y.y + (1.0f - 2.0f * (float)((b.y >> l) & 1u)) * x.y,
+                            y.z + (1.0f - 2.0f * (float)((b.z >> l) & 1u)) * x.z,
+                            y.w + (1.0f - 2.0f * (float)((b.w >> l) & 1u)) * x.w);
+          }
+          break;
+        }
         for (int idx = lane; idx < w * sz; idx += kWarp) {
           const int l = idx >> lg, i = idx & (sz - 1);
           const int r = rl ? saved[l] : l;  // the parent alpha, read through the rank vector
