@@ -641,6 +641,11 @@ def check_scl_other_codes() -> list:
     return out
 
 
+# the source that launches each list kernel (the kernels themselves are in
+# csrc/scl_kernels.cuh and csrc/scl_device.cuh)
+SCL_SOURCE = {k: f"polarcode_and_ldpc_tpu_torch/ops/csrc/{f}.cu" for k, f in
+              (("last", "scl_last"), ("body", "scl_body"), ("mega", "scl_mega"))}
+
 # the TPU kernels the per-chunk kernels replace: exact mode, and the fast mode
 # the same functions trace with node_mode="fast"
 SCL_REPLACES = {
@@ -705,11 +710,12 @@ def time_scl_kernels(results: dict, sched, steps, last, rev, llr, worst: dict, r
     name = "scl_last_chunk" + suffix
     results[name] = kernel_row(
         name, SCL_REPLACES[name], last_ms, last_plain_ms, B * lb, B * lf, worst["step"],
-        shape=shape, launches_per_decode=1)
+        source=SCL_SOURCE["last"], shape=shape, launches_per_decode=1)
     name = "scl_chunk_body" + suffix
     results[name] = kernel_row(
         name, SCL_REPLACES[name], sum(body_ms) / sched.C, sum(body_plain_ms) / sched.C,
-        body_bytes / sched.C, body_flops_total / sched.C, worst["body"], shape=shape,
+        body_bytes / sched.C, body_flops_total / sched.C, worst["body"],
+        source=SCL_SOURCE["body"], shape=shape,
         note=f"means per launch over the {sched.C} chunks' frozen patterns",
         ms_per_position=body_ms, plain_ms_per_position=body_plain_ms,
         n_ops_per_position=[int(s.program.ops.shape[0]) for s in steps + [last]])
@@ -794,7 +800,8 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
     results["scl_decode_mega"] = kernel_row(
         "scl_decode_mega", "polarcode_and_ldpc_tpu/ops/scl_mega_pallas.py:73",
         decode_ms["mega"], decode_ms["plain"], B * (4 * POLAR_N + L * POLAR_N + 4 * L),
-        step_flops + B * lf, worst["mega"], shape=shape, launches_per_decode=1,
+        step_flops + B * lf, worst["mega"], source=SCL_SOURCE["mega"], shape=shape,
+        launches_per_decode=1,
         note="plain_ms is the plain chunk program (control_impl='unroll-fused', full width); "
              "the level stacks are scratch in device memory",
         ms_of_the_per_chunk_launches=decode_ms["unroll-kernel"])
@@ -1252,11 +1259,12 @@ def check_scl_devmem(results: dict, reps: int) -> dict:
         shape=shape, ms_per_position=step_ms, note="means per launch over the chunk positions")
     results["scl_last_chunk_devmem"] = kernel_row(
         "scl_last_chunk_devmem", f"{src}:356", last_ms, last_plain_ms, B * lb, B * lf, worst,
-        shape=shape)
+        source=SCL_SOURCE["last"], shape=shape)
     results["scl_chunk_body_devmem"] = kernel_row(
         "scl_chunk_body_devmem", "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378", body_ms,
         body_plain_ms, B * (4 * L * S + 4 * L + L * S + 4 * L + 8 * L),
-        B * body_flops(last.program), worst, shape=shape, single_chunk_codes=singles)
+        B * body_flops(last.program), worst, source=SCL_SOURCE["body"], shape=shape,
+        single_chunk_codes=singles)
     return {"shape": shape, "single_chunk_codes": singles}
 
 

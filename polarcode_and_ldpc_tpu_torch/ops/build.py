@@ -11,8 +11,8 @@ The libraries go to ``<checkout>/build/polarcode_and_ldpc_tpu_torch/``
 They are rebuilt when a source is newer than its library.
 
 A variant is one source built with extra flags into a library of its own
-name (``VARIANTS``): ``scl_decode_profile`` is ``scl_decode.cu`` with the
-stage profile of the list kernels (``-DSCL_PROFILE``, see
+name (``VARIANTS``): ``scl_decode_profile`` is ``scl_decode.cu`` (the chunk
+step, K3) with the stage profile of the list kernels (``-DSCL_PROFILE``, see
 ``csrc/scl_device.cuh``).  Variants are built only when asked for, by
 ``build_all(variants=...)`` or ``load(<variant>)``; the normal libraries are
 the same with or without them.
@@ -29,10 +29,14 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sc_decode", "bp_decode", "scl_decode", "fastnode", "sublane_roll")
+# the list kernels are four sources over one header (scl_kernels.cuh), so that
+# their builds run side by side
+SOURCES = ("sc_decode", "bp_decode", "scl_decode", "scl_body", "scl_last", "scl_mega",
+           "fastnode", "sublane_roll")
+_SCL_HEADERS = ("scl_kernels.cuh", "scl_device.cuh", "fastnode_device.cuh")
 # headers a source includes: it is rebuilt when one of them is newer, too
-HEADERS = {"scl_decode": ("scl_device.cuh", "fastnode_device.cuh"),
-           "fastnode": ("fastnode_device.cuh",)}
+HEADERS = {"scl_decode": _SCL_HEADERS, "scl_body": _SCL_HEADERS, "scl_last": _SCL_HEADERS,
+           "scl_mega": _SCL_HEADERS, "fastnode": ("fastnode_device.cuh",)}
 # variant library -> (source, extra nvcc flags)
 VARIANTS = {"scl_decode_profile": ("scl_decode", ("-DSCL_PROFILE",))}
 

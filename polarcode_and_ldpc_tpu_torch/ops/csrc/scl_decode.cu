@@ -1,683 +1,12 @@
-// Chunked successive-cancellation LIST decoder kernels for Hopper (sm_90a).
-//
-//   scl_chunk_body   replaces polarcode_and_ldpc_tpu/ops/scl_body_pallas.py
-//                    (make_chunk_body_pallas): one size-S subtree list decode
-//   scl_chunk_step   replaces ops/scl_superchunk_pallas.py
-//                    (make_superchunk_pallas): descend -> body -> pending
-//                    composes -> ascend on the level stacks, one chunk
-//   scl_last_chunk   replaces ops/scl_superchunk_pallas.py
-//                    (make_last_superchunk_pallas): one g, body, ascend to the
-//                    root composing R into every pending, final butterfly
-//   scl_decode_mega  replaces ops/scl_mega_pallas.py (make_scl_mega_pallas):
-//                    the whole chunked list decode in ONE launch; described
-//                    above that kernel
-//
-// What bounds them: per chunk a frame moves a few tens of KB of level stacks
-// and does ~S*log2(S)*L cheap operations, so the roofline is the memory rate;
-// in practice the list decode is LATENCY bound: a chain of thousands of
-// dependent steps per chunk, most of them narrower than a warp (the prune at
-// an info leaf ranks 2L = 16 candidates).  Design, as for the SC kernel: ONE
-// WARP PER FRAME.  Frames are independent, every step is followed by a
-// __syncwarp (no block-wide barrier anywhere), and many independent warps per
-// SM hide each other's latency.  The chunk's working set (alpha levels,
-// packed partial sums, metrics, rank vectors) lives in shared memory; the
-// level stacks between launches live in device memory, frame-major:
-//
-//   llr     [B][N]               channel LLRs, bit-reversed storage
-//   alpha   [B][L*(N-S)]         levels 1..t back to back, level l is
-//                                [L][N>>l] at offset L*(N - (N>>(l-1)))
-//   beta    [B][N-S] words       level l at offset N - (N>>(l-1)); bit p of
-//                                a word is path p's left partial sum
-//   pend_a, pend_b [B][t][L]     pending rank vectors of the levels
-//   pm      [B][L]               path metrics
-//
-// The kernels update this state IN PLACE.  The descend works directly on the
-// global stacks (each level is written, then read by the same warp after a
-// __syncwarp; state pointers are therefore NOT const __restrict__, so no load
-// goes through the non-coherent path).  One compiled kernel per entry point
-// serves every chunk of every code: the chunk's node program and (k, inv, j,
-// compose masks) are arguments.  Any batch size; the list runs at full width
-// with -inf phantom rows, or (chunk step, LIVE WIDTH) at the live path count.
-//
-// Live width (the TPU kernel's widths= mode of make_superchunk_pallas): the
-// list fills 1 -> 2 -> ... -> L, doubling per info leaf, so the early chunks
-// of a decode hold fewer live paths than the list.  A chunk step launched with
-// lv_in / lv_out < L runs its descend, body, prunes, composes and ascend over
-// the live rows and lanes only, in the same full-width frame-major state: it
-// reads and writes exactly the rows and lanes the plain live-width step keeps
-// (models/polar/scanscl.py, _make_super_fn with lv_in / lv_out), and leaves
-// the others untouched (phantom metrics stay -inf).  A pending rank vector
-// that the plain step keeps at width 1 is broadcast there to every live slot;
-// the host passes those levels as bit masks (one_a, one_b) and the kernel
-// reads lane 0 for every slot.  The last chunk runs at full width.
-//
-// The chunk step reads the chunk's top plane (level t, [L][S]) where its own
-// descend wrote it, in device memory (L2-resident, written by the same warp),
-// instead of copying it into the context: only the chunk's first F and G
-// read it.  A chunk that is one rate-0 or REP node works on it in place, so
-// that one copy stays.  The last chunk descends into its context, and the
-// body kernel copies its input there (scl::ctx_words, depth0).
-//
-// Launch shape: the warps per block are planned from the SM's limits (the
-// occupancy of the compiled kernel at its registers and the context's shared
-// memory), the most resident warps per SM, the smaller block on a tie.
-//
-// Where a warp's chunk context lives: in shared memory when it fits
-// (scl::ctx_words, plus the N-word root plane of the last chunk), else, in
-// the same layout, in the warp's slice of a scratch buffer in device memory
-// that the wrapper allocates (template argument kDev; a port mode: the JAX
-// package runs such chunks in XLA).  Then a grid of a few blocks per SM walks
-// the frames, so the scratch does not grow with the batch; in shared-memory
-// mode the grid covers the batch and the frame loop runs once.
-//
-// ONE-HOT PENDINGS (perm_impl="onehot", the default mode of the TPU kernels'
-// factories make_superchunk_pallas / make_last_superchunk_pallas /
-// make_chunk_body_pallas): the state holds each level's pendings as one-hot
-// float planes, pend_a / pend_b [B][t][L][L] with P[l][j] = 1 where slot l
-// reads path j, and the chunk body hands its permutation back as such a plane.
-// The one-hot algebra selects exactly what the rank algebra selects, so these
-// modes run the rank device functions: on load, lane q of a warp finds the
-// column of the 1 in row q of the level planes (a rank vector), the step runs
-// on those rank vectors staged in shared memory (2 t L words after the chunk
-// context), and on the way out every level the step wrote (its descend resets,
-// its composes, the parked level) is stored as a plane of exact 1.0 / +0.0
-// again.  The one float that differs: a one-hot apply is the SUM
-// sum_j P[l][j] * x[j], so when the selected value is a zero, the result is
-// -0.0 only if every term is -0.0, i.e. if every row of the column has its
-// sign bit set, and +0.0 otherwise (the rank algebra's select keeps the
-// selected -0.0).  The descend's g reads its parent through pend_a that way
-// (onehot_value), so the level stacks equal the plain one-hot step's bit for
-// bit.  Exact nodes only, full list width only, as in the JAX package.
+// K3, scl_chunk_step (replaces polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py,
+// make_superchunk_pallas): one chunk of the list decode on the level stacks of
+// a batch, every mode (full and live width, rank and one-hot pendings, context
+// in shared or device memory).  The kernel, its device functions and the
+// design are in scl_kernels.cuh and scl_device.cuh.  Built with -DSCL_PROFILE
+// (the build's scl_decode_profile variant) it also exports the stage
+// profile's counters.
 
-#include <mutex>
-#include <vector>
-
-#include "scl_device.cuh"
-
-namespace {
-
-using namespace scl;
-
-struct Geometry {
-  int B, N, S, L, t, lgS;
-};
-
-struct Stacks {
-  float* A;      // this frame's alpha levels
-  uint32_t* Bt;  // this frame's packed beta levels
-  int* PA;
-  int* PB;
-  int N, L;
-  __device__ __forceinline__ float* alpha(int l) const { return A + (size_t)L * (N - (N >> (l - 1))); }
-  __device__ __forceinline__ uint32_t* beta(int l) const { return Bt + (N - (N >> (l - 1))); }
-  __device__ __forceinline__ int* pend_a(int l) const { return PA + (l - 1) * L; }
-  __device__ __forceinline__ int* pend_b(int l) const { return PB + (l - 1) * L; }
-};
-
-__device__ __forceinline__ Stacks frame_stacks(const Geometry& g, int frame, float* alpha,
-                                               uint32_t* beta, int* pend_a, int* pend_b) {
-  Stacks s;
-  s.A = alpha + (size_t)frame * g.L * (g.N - g.S);
-  s.Bt = beta + (size_t)frame * (g.N - g.S);
-  s.PA = pend_a + (size_t)frame * g.t * g.L;
-  s.PB = pend_b + (size_t)frame * g.t * g.L;
-  s.N = g.N;
-  s.L = g.L;
-  return s;
-}
-
-// The value of a one-hot apply whose selected element is v, in a column
-// col[0], col[stride], ... of `rows` rows: v itself unless it is a zero; a
-// zero is -0.0 only if every row of the column has its sign bit set.
-__device__ __forceinline__ float onehot_value(float v, const float* col, int stride, int rows) {
-  if (v != 0.0f) return v;
-  for (int q = 0; q < rows; ++q)
-    if (!(__float_as_uint(col[(size_t)q * stride]) >> 31)) return 0.0f;
-  return -0.0f;
-}
-
-// One-hot planes [t][L][L] -> rank vectors [t][L]: entry q = (level, row) is
-// the column of the 1 in that row (every row of a pending holds exactly one).
-__device__ __forceinline__ void onehot_load(const float* planes, int* ranks, int t, int L,
-                                            int lane) {
-  for (int q = lane; q < t * L; q += kWarp) {
-    const float* row = planes + (size_t)q * L;
-    int r = 0;
-    for (int j = 0; j < L; ++j)
-      if (row[j] != 0.0f) r = j;
-    ranks[q] = r;
-  }
-  __syncwarp();
-}
-
-// Rank vectors -> one-hot planes, for the levels whose bit is set in `levels`.
-__device__ __forceinline__ void onehot_store(float* planes, const int* ranks, int levels, int t,
-                                             int L, int lane) {
-  for (int l = 0; l < t; ++l) {
-    if (!((levels >> l) & 1)) continue;
-    for (int idx = lane; idx < L * L; idx += kWarp) {
-      const int row = idx / L;
-      planes[(size_t)l * L * L + idx] = idx - row * L == ranks[l * L + row] ? 1.0f : 0.0f;
-    }
-  }
-  __syncwarp();
-}
-
-// g at level lo over w rows: dst[l][i] = parent[r][M+i] + (1 - 2*left[l][i]) *
-// parent[r][i] with the parent read through pend_a (row 0 when `inv`, the
-// LLRs at lo = 1) and the left bits through pend_b; a pending whose level bit
-// is set in one_a / one_b holds one lane, read by every slot.  dst is [w][M].
-// kOneHot: the parent is read as the one-hot apply's sum (onehot_value over
-// the parent's g.L rows).
-template <bool kOneHot = false>
-__device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, const float* x,
-                                          int lo, bool inv, float* dst, int lane, int w,
-                                          int one_a, int one_b) {
-  const int M = g.N >> lo, lgM = ilog2(M);
-  const uint32_t* bl = st.beta(lo);
-  const int* pb = st.pend_b(lo);
-  const bool pb_one = (one_b >> (lo - 1)) & 1;
-  const float* parent = lo == 1 ? x : st.alpha(lo - 1);
-  const int* pa = lo == 1 ? nullptr : st.pend_a(lo - 1);
-  const bool pa_one = lo != 1 && ((one_a >> (lo - 2)) & 1);
-  const bool through = lo != 1 && !inv;
-  for (int idx = lane; idx < w * M; idx += kWarp) {
-    const int l = idx >> lgM, i = idx & (M - 1);
-    const float* src = parent;
-    if (through) src += (size_t)pa[pa_one ? 0 : l] * 2 * M;
-    const float sgn = 1.0f - 2.0f * (float)((bl[i] >> pb[pb_one ? 0 : l]) & 1u);
-    float first = src[i], second = src[M + i];
-    if (kOneHot && through) {
-      first = onehot_value(first, parent + i, 2 * M, g.L);
-      second = onehot_value(second, parent + M + i, 2 * M, g.L);
-    }
-    dst[idx] = second + sgn * first;
-  }
-}
-
-// The warp's chunk context: its slice of shared memory, or of the scratch
-// buffer in device memory (kDev).
-template <bool kDev>
-__device__ __forceinline__ float* ctx_base(unsigned char* smem_raw, float* ctx_dev,
-                                           int per_warp_words) {
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp;
-  return kDev ? ctx_dev + ((size_t)blockIdx.x * warps + warp) * per_warp_words
-              : reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp_words;
-}
-
-// Run `f(frame)` for this warp's frames: its one frame when the grid covers
-// the batch (shared-memory context), or frames warp, warp + all warps, ...
-// (device-memory context: the scratch has one context per resident warp).
-template <bool kDev, typename F>
-__device__ __forceinline__ void for_each_frame(int B, F&& f) {
-  const int warps = blockDim.x / kWarp;
-  const int first = blockIdx.x * warps + threadIdx.x / kWarp;
-  if (!kDev) {
-    if (first < B) f(first);
-    return;
-  }
-  for (int frame = first; frame < B; frame += gridDim.x * warps) {
-    f(frame);
-    __syncwarp();
-  }
-}
-
-// r_out: the rank vector [B][L] as long long, or (kOneHot) the one-hot plane
-// [B][L][L] as float.
-template <bool kDev, bool kOneHot>
-__global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
-                                      int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
-                                      void* __restrict__ r_out,
-                                      const int4* __restrict__ prog, int n_ops, int has_R,
-                                      int B, int S, int L, int lgS, float* ctx_dev) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x % kWarp;
-  Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS, true)), L, S, lgS, lane,
-                   true);
-  SCL_PROF_DECL;
-  SCL_PROF_BIND(c);
-  for_each_frame<kDev>(B, [&](int frame) {
-    const float* a = alpha + (size_t)frame * L * S;
-    for (int i = lane; i < L * S; i += kWarp) c.a0[i] = a[i];
-    float pmr = lane < L ? pm[(size_t)frame * L + lane] : 0.0f;
-    int R = lane;
-    __syncwarp();
-    chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
-    if (kOneHot && lane < L) c.R[lane] = R;
-    __syncwarp();
-    int8_t* bo = beta_out + (size_t)frame * L * S;
-    for (int idx = lane; idx < L * S; idx += kWarp) {
-      const int l = idx >> lgS, i = idx & (S - 1);
-      bo[idx] = (int8_t)((c.beta[i] >> l) & 1u);
-    }
-    if (lane < L) pm_out[(size_t)frame * L + lane] = pmr;
-    if (kOneHot) {
-      float* ro = static_cast<float*>(r_out) + (size_t)frame * L * L;
-      for (int idx = lane; idx < L * L; idx += kWarp) {
-        const int row = idx / L;
-        ro[idx] = idx - row * L == c.R[row] ? 1.0f : 0.0f;
-      }
-    } else if (lane < L) {
-      static_cast<long long*>(r_out)[(size_t)frame * L + lane] = R;
-    }
-  });
-  SCL_PROF_FLUSH(c);
-}
-
-// The arguments of one chunk step, as a launch passes them or as the
-// whole-decode kernel reads them from its step table (8 ints per chunk, at
-// full width); the live widths and one-lane masks are read by a narrow step
-// only.
-struct StepArgs {
-  int k, inv, j, mask_a, mask_b, prog_off, n_ops, has_R;
-  int lv_in, lv_out, one_a, one_b;
-};
-
-// One chunk step of one frame: descend -> body -> pending composes -> ascend;
-// kNarrow: over lv_in live paths in and lv_out out, else at full width (the
-// live widths and one-lane masks of `a` are not read).  `x` is the frame's
-// LLRs in bit-reversed storage, `pm` its L metrics in device memory (read,
-// then written).  kOneHot: the parent of the descend's g is read as a one-hot
-// apply (the pendings are rank vectors staged from the one-hot planes).
-template <bool kNarrow, bool kOneHot = false>
-__device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, const Stacks& st,
-                                           const float* x, float* pm, const int4* prog,
-                                           const StepArgs& a) {
-  const int N = g.N, S = g.S, t = g.t, lane = c.lane;
-  const int k = a.k, inv = a.inv, j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
-  const int wi = kNarrow ? a.lv_in : g.L, wo = kNarrow ? a.lv_out : g.L;
-  const int one_a = kNarrow ? a.one_a : 0, one_b = kNarrow ? a.one_b : 0;
-  SCL_PROF_T(t_step);
-
-  // ---- descend: one g at level t-k (all f from the LLRs when k == t), then
-  // an f chain down to level t; every written level's pend_a resets
-  int lo;
-  if (k == t) {
-    // chunk 0: the planes are path-invariant, compute once, store lv_in rows
-    for (int l = 1; l <= t; ++l) {
-      const int M = N >> l;
-      const float* src = l == 1 ? x : st.alpha(l - 1);  // row 0 of the level above
-      float* dst = st.alpha(l);
-      for (int i = lane; i < M; i += kWarp) {
-        const float v = f_minsum(src[i], src[M + i]);
-        for (int r = 0; r < wi; ++r) dst[(size_t)r * M + i] = v;
-      }
-      if (lane < wi) st.pend_a(l)[lane] = lane;
-      __syncwarp();
-    }
-  } else {
-    lo = t - k;
-    descend_g<kOneHot>(g, st, x, lo, inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
-    if (lane < wi) st.pend_a(lo)[lane] = lane;
-    __syncwarp();
-    for (int l = lo + 1; l <= t; ++l) {
-      const int M = N >> l, lgM = ilog2(M);
-      const float* src = st.alpha(l - 1);
-      float* dst = st.alpha(l);
-      for (int idx = lane; idx < wi * M; idx += kWarp) {
-        const int r = idx >> lgM, i = idx & (M - 1);
-        dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
-      }
-      if (lane < wi) st.pend_a(l)[lane] = lane;
-      __syncwarp();
-    }
-  }
-
-  SCL_PROF_ADD(c, PROF_DESCEND, t_step);
-
-  // ---- chunk body on the level-t alpha where the descend left it; a chunk
-  // that is one rate-0 or REP node works on a copy in the context
-  SCL_PROF_T(t_copy);
-  float* top = st.alpha(t);
-  {
-    const int kind = __ldg(&prog->x) & 0xff;
-    if (a.n_ops == 1 && (kind == OP_RATE0 || kind == OP_REP)) {
-      for (int i = lane; i < wi * S; i += kWarp) c.a0[i] = top[i];
-      top = c.a0;
-      __syncwarp();
-    }
-  }
-  float pmr = lane < wi ? pm[lane] : -INFINITY;
-  int R = lane;
-  SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
-  SCL_PROF_T(t_body);
-  chunk_body<kNarrow>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
-  SCL_PROF_ADD(c, PROF_BODY, t_body);
-  SCL_PROF_T(t_compose);
-  if (lane < wo) pm[lane] = pmr;
-
-  // ---- compose the chunk's R into the live pendings: p[l] = p[R[l]]
-  for (int l = 1; l <= t; ++l) {
-    int va = 0, vb = 0;
-    const bool ca = (mask_a >> (l - 1)) & 1, cb = (mask_b >> (l - 1)) & 1;
-    if (lane < wo) {
-      if (ca) va = st.pend_a(l)[R];
-      if (cb) vb = st.pend_b(l)[R];
-    }
-    __syncwarp();
-    if (lane < wo) {
-      if (ca) st.pend_a(l)[lane] = va;
-      if (cb) st.pend_b(l)[lane] = vb;
-    }
-  }
-  __syncwarp();
-
-  SCL_PROF_ADD(c, PROF_COMPOSE, t_compose);
-
-  // ---- ascend: j combines with the permuted left betas, built from the end
-  // of the destination level t-j, then the parked level's pend_b resets; a
-  // one-lane pending that this chunk did not compose is read by every slot
-  SCL_PROF_T(t_ascend);
-  const int D = S << j;
-  uint32_t* dest = st.beta(t - j);
-  for (int i = lane; i < S; i += kWarp) dest[D - S + i] = c.beta[i];
-  __syncwarp();
-  for (int s = 0; s < j; ++s) {
-    const int lev = t - s, size = S << s;
-    const uint32_t* left = st.beta(lev);
-    const bool one = ((one_b >> (lev - 1)) & 1) && !((mask_b >> (lev - 1)) & 1);
-    if (lane < wo) c.tmp[lane] = st.pend_b(lev)[one ? 0 : lane];
-    __syncwarp();
-    for (int i = lane; i < size; i += kWarp)
-      dest[D - 2 * size + i] = perm_word(left[i], c.tmp, wo) ^ dest[D - size + i];
-    __syncwarp();
-  }
-  if (lane < wo) st.pend_b(t - j)[lane] = lane;
-  SCL_PROF_ADD(c, PROF_ASCEND, t_ascend);
-  SCL_PROF_ADD(c, PROF_STEP, t_step);
-}
-
-// Butterfly u = beta * G in storage order on the N packed words of `root`
-// (shared memory), then natural order on the way out: u is [L][N] int8.
-__device__ __forceinline__ void root_out(uint32_t* root, int N, int L, int log2N, int8_t* u,
-                                         int lane) {
-  for (int s = 1; s < N; s <<= 1) {
-    for (int idx = lane; idx < N / 2; idx += kWarp) {
-      const int p = ((idx / s) * 2 * s) + (idx % s);
-      root[p] ^= root[p + s];
-    }
-    __syncwarp();
-  }
-  const int shift = 32 - log2N;
-  for (int i = lane; i < N; i += kWarp) {
-    const uint32_t w = root[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
-    for (int l = 0; l < L; ++l) u[(size_t)l * N + i] = (int8_t)((w >> l) & 1u);
-  }
-}
-
-// The last chunk of one frame, at full width: one g at level t, body, ascend
-// to the root (the chunk's R composes into each pend_b on the way),
-// butterfly, outputs.  `pm` may be the same memory as `pm_out`: it is read
-// before it is written.  one_a / one_b: the one-lane pendings of the descend.
-template <bool kOneHot = false>
-__device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
-                                           const Stacks& st, const float* x, const float* pm,
-                                           int8_t* u, float* pm_out, const int4* prog,
-                                           int n_ops, int has_R, int log2N, int one_a,
-                                           int one_b) {
-  const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
-  // ---- descend: a single g at level t, straight into the chunk context
-  descend_g<kOneHot>(g, st, x, t, false, c.a0, lane, L, one_a, one_b);
-  float pmr = lane < L ? pm[lane] : 0.0f;
-  int R = lane;
-  __syncwarp();
-  chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
-
-  // ---- ascend to the root; the chunk's R composes into each pend_b on the way
-  for (int i = lane; i < S; i += kWarp) root[N - S + i] = c.beta[i];
-  __syncwarp();
-  for (int lev = t; lev >= 1; --lev) {
-    const int size = N >> lev;
-    const uint32_t* left = st.beta(lev);
-    if (lane < L) c.tmp[lane] = st.pend_b(lev)[R];
-    __syncwarp();
-    for (int i = lane; i < size; i += kWarp)
-      root[N - 2 * size + i] = perm_word(left[i], c.tmp, L) ^ root[N - size + i];
-    __syncwarp();
-  }
-
-  root_out(root, N, L, log2N, u, lane);
-  if (lane < L) pm_out[lane] = pmr;
-}
-
-// The levels a chunk step writes a pending of: pend_a at the descend's
-// resets and the composes, pend_b at the composes and the parked level.
-__device__ __forceinline__ void written_levels(const StepArgs& a, int t, int* la, int* lb) {
-  const int lo = a.k == t ? 1 : t - a.k;
-  *la = (((1 << t) - 1) & ~((1 << (lo - 1)) - 1)) | a.mask_a;
-  *lb = a.mask_b | (1 << (t - a.j - 1));
-}
-
-// kOneHot: pend_a / pend_b are the one-hot planes [B][t][L][L] (float); the
-// warp stages their rank vectors after its chunk context.
-// The shared-memory variants keep to 64 registers: 32 warps per SM, so that
-// 4096 flagship frames are one wave (132 SMs).
-template <bool kDev, bool kNarrow, bool kOneHot>
-__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
-    scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
-                                      int* pend_a, int* pend_b, float* pm,
-                                      const int4* __restrict__ prog, Geometry g, StepArgs a,
-                                      float* ctx_dev) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x % kWarp;
-  const int cw = ctx_words(g.L, g.S, g.lgS, false), tl = g.t * g.L;
-  float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + (kOneHot ? 2 * tl : 0));
-  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, false);
-  SCL_PROF_DECL;
-  SCL_PROF_BIND(c);
-  int* ranks = reinterpret_cast<int*>(base + cw);
-  for_each_frame<kDev>(g.B, [&](int frame) {
-    Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
-    float* pa_planes = reinterpret_cast<float*>(pend_a) + (size_t)frame * tl * g.L;
-    float* pb_planes = reinterpret_cast<float*>(pend_b) + (size_t)frame * tl * g.L;
-    if (kOneHot) {
-      onehot_load(pa_planes, ranks, g.t, g.L, lane);
-      onehot_load(pb_planes, ranks + tl, g.t, g.L, lane);
-      st.PA = ranks;
-      st.PB = ranks + tl;
-    }
-    chunk_step<kNarrow, kOneHot>(c, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
-                                 prog, a);
-    if (kOneHot) {
-      __syncwarp();
-      int la, lb;
-      written_levels(a, g.t, &la, &lb);
-      onehot_store(pa_planes, ranks, la, g.t, g.L, lane);
-      onehot_store(pb_planes, ranks + tl, lb, g.t, g.L, lane);
-    }
-  });
-  SCL_PROF_FLUSH(c);
-}
-
-// kOneHot: the pendings are one-hot planes, staged as rank vectors after the
-// root plane; the state is read only.
-template <bool kDev, bool kOneHot>
-__global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
-                                      int* pend_a, int* pend_b, const float* pm,
-                                      int8_t* __restrict__ u, float* __restrict__ pm_out,
-                                      const int4* __restrict__ prog, int n_ops, int has_R,
-                                      Geometry g, int log2N, int one_a, int one_b,
-                                      float* ctx_dev) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x % kWarp;
-  const int cw = ctx_words(g.L, g.S, g.lgS, true), tl = g.t * g.L;
-  float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + g.N + (kOneHot ? 2 * tl : 0));
-  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, true);
-  SCL_PROF_DECL;
-  SCL_PROF_BIND(c);
-  uint32_t* root = reinterpret_cast<uint32_t*>(base + cw);
-  int* ranks = reinterpret_cast<int*>(base + cw + g.N);
-  for_each_frame<kDev>(g.B, [&](int frame) {
-    Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
-    if (kOneHot) {
-      onehot_load(reinterpret_cast<const float*>(pend_a) + (size_t)frame * tl * g.L, ranks,
-                  g.t, g.L, lane);
-      onehot_load(reinterpret_cast<const float*>(pend_b) + (size_t)frame * tl * g.L,
-                  ranks + tl, g.t, g.L, lane);
-      st.PA = ranks;
-      st.PB = ranks + tl;
-    }
-    last_chunk<kOneHot>(c, root, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
-                        u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog,
-                        n_ops, has_R, log2N, one_a, one_b);
-  });
-  SCL_PROF_FLUSH(c);
-}
-
-// The whole chunked list decode of a frame in ONE launch (replaces
-// ops/scl_mega_pallas.py, make_scl_mega_pallas): bit-reverse the LLRs, seed the
-// metrics (0 / -inf) and the pendings (identity), walk the C - 1 chunk steps
-// from a step table in device memory (8 ints per chunk: k, inv, j, compose
-// masks, offset and length of the chunk's node program, has_R), then the last
-// chunk, the root butterfly and the outputs.  It runs the very device
-// functions of the per-chunk kernels in the same order, so it equals them bit
-// for bit.  A single-chunk code (t == 0) is body + butterfly.
-//
-// Where the level stacks live: in a SCRATCH buffer in device memory that the
-// wrapper allocates and that never leaves the launch (the bit-reversed LLRs,
-// alpha, packed beta, the pendings), exactly where the chunk-step kernel
-// keeps them between launches; only llr is an input and only u and pm are
-// outputs, so the bytes bound is 4N + LN + 4L per frame.  Keeping them in
-// shared memory instead (46 KB per frame at N=1024, L=8) would leave 4 warps
-// per SM.  Each level is written and re-read by the same warp with a
-// __syncwarp between; the scratch pointers are plain (no const __restrict__).
-// One warp per frame; shared memory per warp is the body context plus the
-// N-word root plane, as in the last-chunk kernel.
-__global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr_rev, float* alpha,
-                                       uint32_t* beta, int* pend_a, int* pend_b,
-                                       int8_t* __restrict__ u, float* pm,
-                                       const int4* __restrict__ prog,
-                                       const int* __restrict__ steps, int C, Geometry g,
-                                       int log2N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int frame = blockIdx.x * warps + warp;
-  if (frame >= g.B) return;
-  const int N = g.N, S = g.S, L = g.L, t = g.t;
-  const int per_warp = ctx_words(L, S, g.lgS, true) + N;
-  float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
-  Ctx c = make_ctx(base, L, S, g.lgS, lane, true);
-  SCL_PROF_DECL;
-  SCL_PROF_BIND(c);
-  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(L, S, g.lgS, true));
-  float* x = llr_rev + (size_t)frame * N;
-  float* pm_f = pm + (size_t)frame * L;
-  int8_t* u_f = u + (size_t)frame * L * N;
-
-  // ---- init: LLRs to bit-reversed storage, one live path
-  const float* in = llr + (size_t)frame * N;
-  const int shift = 32 - log2N;
-  for (int i = lane; i < N; i += kWarp)
-    x[i] = in[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
-  if (lane < L) pm_f[lane] = lane == 0 ? 0.0f : -INFINITY;
-  __syncwarp();
-
-  const int* last = steps + 8 * (C - 1);
-  if (t == 0) {  // a single chunk: the body on the LLRs, then the butterfly
-    for (int idx = lane; idx < L * S; idx += kWarp) c.a0[idx] = x[idx & (S - 1)];
-    float pmr = lane < L ? pm_f[lane] : 0.0f;
-    int R = lane;
-    __syncwarp();
-    chunk_body<false>(c, c.a0, prog + last[5], last[6], last[7], L, pmr, R);
-    for (int i = lane; i < N; i += kWarp) root[i] = c.beta[i];
-    __syncwarp();
-    root_out(root, N, L, log2N, u_f, lane);
-    if (lane < L) pm_f[lane] = pmr;
-    SCL_PROF_FLUSH(c);
-    return;
-  }
-
-  const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
-  for (int l = 1; l <= t; ++l)
-    if (lane < L) {
-      st.pend_a(l)[lane] = lane;
-      st.pend_b(l)[lane] = lane;
-    }
-  __syncwarp();
-  for (int ch = 0; ch < C - 1; ++ch) {
-    const int* row = steps + 8 * ch;
-    const StepArgs a{row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7],
-                     L, L, 0, 0};
-    chunk_step<false>(c, g, st, x, pm_f, prog + a.prog_off, a);
-    __syncwarp();
-  }
-  last_chunk(c, root, g, st, x, pm_f, u_f, pm_f, prog + last[5], last[6], last[7], log2N, 0, 0);
-  SCL_PROF_FLUSH(c);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-constexpr size_t kBlockSmem = 232448;  // shared memory one block may use on Hopper
-
-// The warps per block (1 .. max_warps, one frame context of per_warp_bytes
-// each) that keep the most warps resident on an SM: the occupancy calculator
-// at the compiled kernel's registers and that shared memory.  Planned once
-// per (kernel, context size, bound) and kept.
-int plan_warps(const void* kernel, size_t per_warp_bytes, int max_warps) {
-  struct Plan {
-    const void* kernel;
-    size_t bytes;
-    int max_warps, warps;
-  };
-  static std::mutex mu;
-  static std::vector<Plan> plans;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Plan& p : plans)
-    if (p.kernel == kernel && p.bytes == per_warp_bytes && p.max_warps == max_warps)
-      return p.warps;
-  cudaFuncAttributes attr;
-  const int bound = cudaFuncGetAttributes(&attr, kernel) == cudaSuccess
-                        ? min(max_warps, attr.maxThreadsPerBlock / kWarp)
-                        : max_warps;
-  int best = 1, most = -1;
-  for (int w = 1; w <= bound && w * per_warp_bytes <= kBlockSmem; ++w) {
-    int blocks = 0;
-    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)(w * per_warp_bytes)) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, w * kWarp,
-                                                      w * per_warp_bytes) != cudaSuccess)
-      break;
-    if (blocks * w > most) {
-      most = blocks * w;
-      best = w;
-    }
-  }
-  cudaGetLastError();  // a refused probe is not the launch's error
-  plans.push_back({kernel, per_warp_bytes, max_warps, best});
-  return best;
-}
-
-// The launch shape of a per-chunk kernel: the context in shared memory
-// (`per_warp_bytes` per warp, one warp per frame, the warps per block
-// planned up to `max_warps`, the grid covering the batch), or, with
-// `ctx_dev`, in device memory (no dynamic shared memory, `grid` blocks of
-// `max_warps` warps walking the frames).
-template <typename K>
-cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t per_warp_bytes,
-                      int B, int max_warps, int grid, K* kernel, size_t* smem, int* blocks,
-                      int* warps) {
-  if (ctx_dev) {
-    *kernel = dev_kernel;
-    *smem = 0;
-    *blocks = grid;
-    *warps = max_warps;
-    return cudaSuccess;
-  }
-  *kernel = smem_kernel;
-  *warps = plan_warps((const void*)smem_kernel, per_warp_bytes, max_warps);
-  *smem = (size_t)*warps * per_warp_bytes;
-  *blocks = (B + *warps - 1) / *warps;
-  return allow_smem(smem_kernel, *smem);
-}
-
-}  // namespace
-
-extern "C" const char* pl_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+#include "scl_kernels.cuh"
 
 #ifdef SCL_PROFILE
 // The stage profile's counters: zero them, or copy the 2 * kProfSlots
@@ -691,42 +20,11 @@ extern "C" int scl_profile_read(unsigned long long* out) {
 }
 #endif
 
-// bytes of shared memory one frame (one warp) needs: the chunk step keeps no
-// top plane (depth0 = 0); the body and last-chunk kernels do, the last chunk
-// adds N words for the root plane
-extern "C" int scl_smem_per_frame(int L, int S, int lgS, int depth0) {
-  return 4 * scl::ctx_words(L, S, lgS, depth0 != 0);
-}
-
-// Each launcher runs on `stream` and returns the cudaGetLastError code (0 = ok).
-// The per-chunk launchers take `ctx_dev` (null: the context in shared memory;
-// else grid * warps_per_block slices of the context in device memory) and
-// `grid` (the blocks of the device-memory mode).
-
-// r_out: long long [B][L] rank vectors, or (onehot) float [B][L][L] planes.
-extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t* beta_out,
-                                     float* pm_out, void* r_out, const int* prog, int n_ops,
-                                     int has_R, int B, int S, int L, int lgS, int onehot,
-                                     int warps_per_block, float* ctx_dev, int grid,
-                                     void* stream) {
-  decltype(&scl_chunk_body_kernel<false, false>) kernel;
-  size_t smem;
-  int blocks, warps;
-  const size_t per_frame = scl_smem_per_frame(L, S, lgS, 1);
-  cudaError_t err =
-      onehot ? configure(&scl_chunk_body_kernel<false, true>, &scl_chunk_body_kernel<true, true>,
-                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
-                         &warps)
-             : configure(&scl_chunk_body_kernel<false, false>,
-                         &scl_chunk_body_kernel<true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks, &warps);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      alpha, pm, beta_out, pm_out, r_out, reinterpret_cast<const int4*>(prog), n_ops, has_R,
-      B, S, L, lgS, ctx_dev);
-  return (int)cudaGetLastError();
-}
-
+// The launcher runs on `stream` and returns the cudaGetLastError code (0 =
+// ok).
+// It takes `ctx_dev` (null: the context in shared memory; else grid *
+// warps_per_block slices of the context in device memory) and `grid` (the
+// blocks of the device-memory mode).
 // lv_in / lv_out: the live paths entering and leaving the chunk (L, L: full
 // width); one_a / one_b: level bit masks of the one-lane pendings; onehot:
 // pend_a / pend_b are float one-hot planes [B][t][L][L] (full width only).
@@ -742,7 +40,8 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
   int blocks, warps;
   const bool narrow = lv_in < L || lv_out < L;
   if (narrow && onehot) return (int)cudaErrorInvalidValue;
-  const size_t per_frame = scl_smem_per_frame(L, S, lgS, 0) + (onehot ? 8 * (size_t)t * L : 0);
+  const size_t per_frame =
+      smem_per_frame_bytes(L, S, lgS, false) + (onehot ? 8 * (size_t)t * L : 0);
   cudaError_t err =
       narrow ? configure(&scl_chunk_step_kernel<false, true, false>,
                          &scl_chunk_step_kernel<true, true, false>, ctx_dev, per_frame, B,
@@ -762,102 +61,15 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, int* pend_a,
-                                     int* pend_b, const float* pm, int8_t* u, float* pm_out,
-                                     const int* prog, int n_ops, int has_R, int B, int N, int S,
-                                     int L, int t, int lgS, int log2N, int one_a, int one_b,
-                                     int onehot, int warps_per_block, float* ctx_dev, int grid,
-                                     void* stream) {
-  decltype(&scl_last_chunk_kernel<false, false>) kernel;
-  size_t smem;
-  int blocks, warps;
-  const size_t per_frame =
-      scl_smem_per_frame(L, S, lgS, 1) + 4 * (size_t)N + (onehot ? 8 * (size_t)t * L : 0);
-  cudaError_t err =
-      onehot ? configure(&scl_last_chunk_kernel<false, true>, &scl_last_chunk_kernel<true, true>,
-                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
-                         &warps)
-             : configure(&scl_last_chunk_kernel<false, false>,
-                         &scl_last_chunk_kernel<true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks, &warps);
-  if (err != cudaSuccess) return (int)err;
-  const Geometry g{B, N, S, L, t, lgS};
-  kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm, u, pm_out,
-      reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N, one_a, one_b, ctx_dev);
-  return (int)cudaGetLastError();
-}
-
-// The compiled variants of the four list kernels, for a resource report:
-// name, then (registers per thread, local-memory bytes per thread — spills
-// and local arrays —, resident warps per SM at `warps` warps per block with
-// `smem_bytes` of dynamic shared memory per block, largest block) in out[4].
 namespace {
-struct KernelEntry {
-  const char* name;
-  const void* fn;
-};
 const KernelEntry kKernels[] = {
-    {"scl_chunk_body", (const void*)&scl_chunk_body_kernel<false, false>},
-    {"scl_chunk_body_onehot", (const void*)&scl_chunk_body_kernel<false, true>},
-    {"scl_chunk_body_devmem", (const void*)&scl_chunk_body_kernel<true, false>},
-    {"scl_chunk_body_onehot_devmem", (const void*)&scl_chunk_body_kernel<true, true>},
     {"scl_chunk_step", (const void*)&scl_chunk_step_kernel<false, false, false>},
     {"scl_chunk_step_narrow", (const void*)&scl_chunk_step_kernel<false, true, false>},
     {"scl_chunk_step_onehot", (const void*)&scl_chunk_step_kernel<false, false, true>},
     {"scl_chunk_step_devmem", (const void*)&scl_chunk_step_kernel<true, false, false>},
     {"scl_chunk_step_narrow_devmem", (const void*)&scl_chunk_step_kernel<true, true, false>},
     {"scl_chunk_step_onehot_devmem", (const void*)&scl_chunk_step_kernel<true, false, true>},
-    {"scl_last_chunk", (const void*)&scl_last_chunk_kernel<false, false>},
-    {"scl_last_chunk_onehot", (const void*)&scl_last_chunk_kernel<false, true>},
-    {"scl_last_chunk_devmem", (const void*)&scl_last_chunk_kernel<true, false>},
-    {"scl_last_chunk_onehot_devmem", (const void*)&scl_last_chunk_kernel<true, true>},
-    {"scl_decode_mega", (const void*)&scl_decode_mega_kernel},
 };
 }  // namespace
 
-extern "C" int scl_kernel_count() { return (int)(sizeof(kKernels) / sizeof(kKernels[0])); }
-
-extern "C" const char* scl_kernel_name(int which) { return kKernels[which].name; }
-
-// per_warp_bytes: the context per warp in shared memory (0: a device-memory
-// variant, launched at max_warps warps per block); out[3] is the planned
-// warps per block.
-extern "C" int scl_kernel_report(int which, int per_warp_bytes, int max_warps, int* out) {
-  const void* fn = kKernels[which].fn;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  const int warps = per_warp_bytes ? plan_warps(fn, per_warp_bytes, max_warps) : max_warps;
-  const size_t smem = (size_t)warps * per_warp_bytes;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, warps * kWarp, smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = blocks * warps;
-  out[3] = warps;
-  return 0;
-}
-
-// llr is [B][N] in natural order; llr_rev, alpha, beta, pend_a, pend_b are
-// scratch of the state's shapes (see the top of the file); steps is [C][8].
-extern "C" int scl_decode_mega_launch(const float* llr, float* llr_rev, float* alpha, int* beta,
-                                      int* pend_a, int* pend_b, int8_t* u, float* pm,
-                                      const int* prog, const int* steps, int C, int B, int N,
-                                      int S, int L, int t, int lgS, int log2N,
-                                      int warps_per_block, void* stream) {
-  const size_t per_frame = scl_smem_per_frame(L, S, lgS, 1) + 4 * (size_t)N;
-  const int warps = plan_warps((const void*)&scl_decode_mega_kernel, per_frame, warps_per_block);
-  const size_t smem = (size_t)warps * per_frame;
-  cudaError_t err = allow_smem(scl_decode_mega_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const Geometry g{B, N, S, L, t, lgS};
-  const int blocks = (B + warps - 1) / warps;
-  scl_decode_mega_kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      llr, llr_rev, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, u, pm,
-      reinterpret_cast<const int4*>(prog), steps, C, g, log2N);
-  return (int)cudaGetLastError();
-}
+SCL_KERNEL_REPORT_EXPORTS

@@ -1,7 +1,7 @@
 // Device functions of the SCL list decoder for Hopper (sm_90a): the size-S
 // subtree list decode ("chunk body") that every SCL kernel runs, written once
 // so that the chunk-body, chunk-step, last-chunk and whole-decode kernels of
-// scl_decode.cu are the same functions in different launches.
+// scl_kernels.cuh are the same functions in different launches.
 //
 // They compute what polarcode_and_ldpc_tpu/ops/scl_body_pallas.py computes
 // (the f/g recursion over one static frozen pattern, rate-0 metric collapse,

@@ -1,8 +1,9 @@
 """SCL list-decoder kernels: wrappers, host-side node program, device state.
 
-``csrc/scl_decode.cu`` (device functions in ``csrc/scl_device.cuh``) holds
+``csrc/scl_kernels.cuh`` (device functions in ``csrc/scl_device.cuh``) holds
 four kernels, each one warp per frame with the chunk's working set in shared
-memory:
+memory, launched from one library each (``scl_body``, ``scl_decode``,
+``scl_last``, ``scl_mega``: four ``nvcc`` builds side by side):
 
 * ``scl_chunk_body``: replaces the TPU kernel
   ``polarcode_and_ldpc_tpu/ops/scl_body_pallas.py::make_chunk_body_pallas``;
@@ -99,7 +100,7 @@ MAX_LIST = 32
 #: shared memory one thread block may use on Hopper (bytes)
 SMEM_LIMIT_BYTES = 232448
 #: the most warps of a block (1024 threads); the kernels plan the warps per
-#: block up to this from the SM's limits (``plan_warps`` in ``csrc/scl_decode.cu``)
+#: block up to this from the SM's limits (``plan_warps`` in ``csrc/scl_kernels.cuh``)
 _MAX_WARPS = 32
 #: launch shape of the device-memory context: warps per block, blocks per SM
 _DEVMEM_WARPS = 4
@@ -273,8 +274,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _launcher(name: str, argtypes: list, library: str = "scl_decode"):
-    lib = build.load(library)
+#: the library that launches each kernel
+_LIBRARY = {"scl_chunk_body_launch": "scl_body", "scl_chunk_step_launch": "scl_decode",
+            "scl_last_chunk_launch": "scl_last", "scl_decode_mega_launch": "scl_mega"}
+
+
+def _launcher(name: str, argtypes: list, library: Optional[str] = None):
+    lib = build.load(library or _LIBRARY[name])
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
@@ -286,7 +292,13 @@ def kernel_resources(L: int, S: int, N: int, t: int) -> list:
     compiled variant of the four list kernels, each at the launch shape its
     wrapper gives a code of length ``N``, chunk ``S``, list ``L`` with ``t``
     levels (the device-memory variants at theirs).  Needs a CUDA device."""
-    lib = build.load("scl_decode")
+    out = []
+    for library in ("scl_body", "scl_decode", "scl_last", "scl_mega"):
+        out += _library_resources(build.load(library), L, S, N, t)
+    return out
+
+
+def _library_resources(lib, L: int, S: int, N: int, t: int) -> list:
     lib.scl_kernel_name.restype = ctypes.c_char_p
     lib.scl_kernel_name.argtypes = [_I]
     lib.scl_kernel_report.restype = ctypes.c_int
@@ -386,7 +398,7 @@ def unpack_paths(words: torch.Tensor, L: int) -> torch.Tensor:
 
 class SCLState:
     """The level stacks of a batch of frames between chunk launches, in the
-    layout the kernels read (see ``csrc/scl_decode.cu``): ``llr [B, N]``
+    layout the kernels read (see ``csrc/scl_kernels.cuh``): ``llr [B, N]``
     (bit-reversed storage), ``alpha [B, L·(N−S)]``, ``beta [B, N−S]`` int32
     packed words, ``pend_a`` / ``pend_b [B, t, L]`` int32 rank vectors (with
     ``perm_impl="onehot"``: ``[B, t, L, L]`` one-hot planes in the LLRs'
@@ -570,7 +582,8 @@ def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
 # K3: one chunk step;  K4: the last chunk
 # ---------------------------------------------------------------------------
 
-def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec, library: str = "scl_decode") -> None:
+def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec,
+                        library: Optional[str] = None) -> None:
     """Launch the chunk-step kernel on the state, IN PLACE (at the spec's
     live width).  Does not synchronise.  ``library``: the build to launch
     (``"scl_decode_profile"``: the same kernel with the stage profile)."""

@@ -179,7 +179,7 @@ def _child(reps: int) -> dict:
     note(st32.alpha, st32.beta, st32.pm)
     out["K3-devmem positions 0-2"] = dm
     out["digest"] = digest.hexdigest()
-    if "scl_decode_profile" in getattr(build, "VARIANTS", {}):
+    if any("profile" in v for v in getattr(build, "VARIANTS", {})):
         sys.path.insert(0, os.getcwd())
         import chip_smoke
         state = SCLState(sched, llr_rev)
