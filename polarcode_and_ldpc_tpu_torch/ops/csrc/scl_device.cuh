@@ -6,12 +6,22 @@
 // They compute what polarcode_and_ldpc_tpu/ops/scl_body_pallas.py computes
 // (the f/g recursion over one static frozen pattern, rate-0 metric collapse,
 // exact REP node, per-info-leaf stable top-L of 2L candidates, lazy rank
-// re-indexing), for ONE FRAME PER WARP, all state in shared memory:
+// re-indexing), for ONE FRAME PER WARP:
 //
-//   alpha   level stack of the chunk, depth d holds [L][S >> d] floats
+//   alpha   level stack of the chunk, depth d holds [L][S >> d] floats; the
+//           top plane (depth 0) where the kernel keeps it (see chunk_body)
 //   beta    S words: bit l of word m is path l's partial sum at position m
-//   pm      L path metrics;  R: the rank vector a node hands back
 //   Rstack  one saved left-child rank vector per depth
+//   pm, R   in registers: lane l holds path l's metric and R[l], the rank
+//           vector the last node handed back
+//
+// What bounds the body on Hopper (the stage profile, -DSCL_PROFILE, on an
+// NVIDIA H100 80GB HBM3 at 700 W): issue and latency per op, not bytes; a
+// warp's op takes 600-2000 cycles with 20-32 warps per SM.  So the design
+// cuts instructions and round trips: the prune ranks its candidates by
+// shuffles and ballots in registers (no shared memory, no __syncwarp inside
+// it), and the bottom of the tree, where F and G leave most lanes idle, runs
+// as one in-register op per subtree (OP_SUBTREE, one element per lane).
 //
 // Path bits are PACKED across the list axis (L <= 32): a rank apply on a bit
 // plane is then local to one word (no cross-lane hazard), a combine is one

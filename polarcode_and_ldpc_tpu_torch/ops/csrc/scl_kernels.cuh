@@ -18,13 +18,14 @@
 //
 // What bounds them: per chunk a frame moves a few tens of KB of level stacks
 // and does ~S*log2(S)*L cheap operations, so the roofline is the memory rate;
-// in practice the list decode is LATENCY bound: a chain of thousands of
-// dependent steps per chunk, most of them narrower than a warp (the prune at
-// an info leaf ranks 2L = 16 candidates).  Design, as for the SC kernel: ONE
-// WARP PER FRAME.  Frames are independent, every step is followed by a
-// __syncwarp (no block-wide barrier anywhere), and many independent warps per
-// SM hide each other's latency.  The chunk's working set (alpha levels,
-// packed partial sums, metrics, rank vectors) lives in shared memory; the
+// in practice the list decode is bound by issue and latency: a chain of
+// thousands of dependent steps per chunk, most of them narrower than a warp
+// (the prune at an info leaf ranks 2L = 16 candidates).  Design, as for the
+// SC kernel: ONE WARP PER FRAME.  Frames are independent, every step is
+// followed by a __syncwarp (no block-wide barrier anywhere), and many
+// independent warps per SM hide each other's latency.  The chunk's working
+// set (alpha levels below the top, packed partial sums, saved rank vectors)
+// lives in shared memory, the metrics and rank vector in registers; the
 // level stacks between launches live in device memory, frame-major:
 //
 //   llr     [B][N]               channel LLRs, bit-reversed storage

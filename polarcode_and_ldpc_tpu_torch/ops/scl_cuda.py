@@ -221,13 +221,13 @@ def _warps_per_block(per_frame: int, what: str) -> int:
 
 
 def context_in_device_memory(L: int, S: int, root_words: int = 0,
-                             onehot_levels: int = 0, depth0: bool = True) -> bool:
+                             onehot_levels: int = 0) -> bool:
     """Whether a per-chunk kernel keeps its chunk context in device memory:
-    the context (plus ``root_words`` for the last chunk's root plane, plus
-    the staged rank vectors of ``onehot_levels`` one-hot levels; without the
-    top plane for the chunk step, ``depth0=False``) does not fit one thread
-    block's shared memory."""
-    return smem_per_frame(L, S, root_words, onehot_levels, depth0) > SMEM_LIMIT_BYTES
+    the context with its top plane (plus ``root_words`` for the last chunk's
+    root plane, plus the staged rank vectors of ``onehot_levels`` one-hot
+    levels) does not fit one thread block's shared memory; the chunk step,
+    whose context has no top plane, takes the same threshold."""
+    return smem_per_frame(L, S, root_words, onehot_levels) > SMEM_LIMIT_BYTES
 
 
 def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels: int = 0,
@@ -237,8 +237,8 @@ def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels
     batch, the warps per block the bound the kernel plans within), or in a
     device-memory scratch of ``grid`` blocks of ``_DEVMEM_WARPS`` warps, one
     context slice per warp, walking the frames.  The mode's threshold is the
-    context with its top plane (``context_in_device_memory`` at its
-    defaults) for every kernel: the chunk step's smaller context
+    context with its top plane (``context_in_device_memory``) for every
+    kernel: the chunk step's smaller context
     (``depth0=False``, its size here) would fit one block at S=1024, L=32,
     but at one warp per SM, which runs slower than the device-memory mode's
     12 warps per SM (NVIDIA H100 80GB HBM3, 700 W, ``tools/scl_kernel_ab.py``)."""
