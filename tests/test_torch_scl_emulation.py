@@ -97,8 +97,8 @@ def prune_lanes(cand, w, keep):
     Lane ``g·P + p`` (P = w rounded up to a power of two) holds path p's two
     candidates; group g counts the candidates above them over its share of
     the paths (one shuffle pair per path), an xor-shuffle tree sums the
-    groups; the inverse the same way, each lane looking for the ranks p and
-    p + P."""
+    groups; slot lane s then intersects, bit by bit of s, the ballots of the
+    live lanes whose rank has that bit."""
     B = cand.shape[0]
     P = _pow2_ceil(w)
     G, per = 32 // P, -(-w // (32 // P))
@@ -119,20 +119,20 @@ def prune_lanes(cand, w, keep):
     while off < 32:
         r0, r1 = r0 + r0[:, lane ^ off], r1 + r1[:, lane ^ off]
         off *= 2
-    s0 = torch.full((B, 32), -1, dtype=torch.int64)
-    s1 = torch.full((B, 32), -1, dtype=torch.int64)
-    for k in range(per):
-        j = torch.as_tensor(g * per + k)
-        a, b = r0[:, j % 32], r1[:, j % 32]
-        valid = j < w
-        for tgt, sv in ((pt, s0), (pt + P, s1)):
-            sv[:] = torch.where(valid & (a == tgt), j, sv)
-            sv[:] = torch.where(valid & (b == tgt), w + j, sv)
-    off = P
-    while off < 32:
-        s0, s1 = torch.maximum(s0, s0[:, lane ^ off]), torch.maximum(s1, s1[:, lane ^ off])
-        off *= 2
-    src = torch.where(torch.as_tensor(lane < P), s0, s1)[:, :keep]
+    own = torch.as_tensor(lane < w)
+    m0 = own[None, None, :].expand(B, 32, 32).clone()  # [frame, slot lane, lane j]
+    m1 = m0.clone()
+    for bit in range((2 * w - 1).bit_length()):
+        b0 = own & ((r0 >> bit) & 1).bool()  # each ballot: [frame, lane j]
+        b1 = own & ((r1 >> bit) & 1).bool()
+        want = torch.as_tensor((lane >> bit) & 1).bool()[None, :, None]
+        m0 &= torch.where(want, b0[:, None, :], ~b0[:, None, :])
+        m1 &= torch.where(want, b1[:, None, :], ~b1[:, None, :])
+
+    def first(m):  # __ffs(m) - 1
+        return torch.where(m.any(-1), m.int().argmax(-1), -1)
+
+    src = torch.where(m0.any(-1), first(m0), w + first(m1))[:, :keep]
     word = ((src >= w).long() << torch.arange(keep)).sum(dim=1)
     return src, word
 

@@ -23,7 +23,8 @@ prints one JSON line:
   decoder of ``make_scl_decoder``) and of JAX's SCL-8 benchmark shape (8192
   frames, chunk 128, rank and one-hot);
 * K3 with the chunk context in device memory (256 frames, N=4096, S=1024,
-  L=32, positions 0–2);
+  L=32, positions 0–2), K5 so on the last chunk's pattern, and the large-code
+  decode (1024 frames, N=4096, L=32, chunk 64);
 * a digest of every decode's paths and metrics, so that the trees' outputs
   can be compared bit for bit;
 * the stage profile of K3 at positions 3 and 4 where the tree has the
@@ -178,6 +179,19 @@ def _child(reps: int) -> dict:
         scl_chunk_step_cuda(st32, spec)
     note(st32.alpha, st32.beta, st32.pm)
     out["K3-devmem positions 0-2"] = dm
+    # K5 with its context in device memory on the last chunk's pattern (L=32, S=1024),
+    # and the large-code decode (N=4096, SCL-32, chunk 64), where every prune is 64 wide
+    body32 = SCLBodyProgram(sched32.unique_flags[int(sched32.pattern_ids[-1])], 32)
+    g32 = np.random.default_rng(6)
+    a32 = torch.from_numpy((2 * g32.standard_normal((256, 32, 1024))).astype(np.float32)).to(dev)
+    p32 = -torch.from_numpy(np.abs(g32.standard_normal((256, 32))).astype(np.float32)).to(dev)
+    out["K5-devmem L=32 S=1024"] = time_ms(lambda: scl_chunk_body_cuda(a32, p32, body32),
+                                           max(2, reps // 4))
+    note(*scl_chunk_body_cuda(a32, p32, body32))
+    llr64, mask64 = llrs(4096, 2048, 1024, SNR, 92, False)
+    dec64 = make_scl_decoder(4096, mask64, 32, chunk=64, device=dev)
+    out["SCL-32 N=4096 chunk 64, 1024 frames"] = time_ms(lambda: dec64(llr64), max(2, reps // 4))
+    note(*dec64(llr64))
     out["digest"] = digest.hexdigest()
     if any("profile" in v for v in getattr(build, "VARIANTS", {})):
         sys.path.insert(0, os.getcwd())
