@@ -240,10 +240,13 @@ __device__ __forceinline__ void d0_inplace(float* z, int total, int lane) {
 // larger, or equal with i < j (-inf phantoms rank by index like any tie).
 // Each group of P = pow2_ceil(w) lanes counts the candidates above its two
 // over its share of the w paths (two shuffles per path), one xor-shuffle
-// tree sums the groups; then slot lane s finds the candidate of rank s from
-// the ranks' bits, one ballot per bit and half (the lanes of the live paths
-// whose rank has bit b set), so the inverse costs log2(2w) ballot pairs and
-// no search.  Afterwards slot lane s < keep holds the s-th
+// tree sums the groups; then each lane finds the candidates of rank p and
+// p + P the same way (w <= 16), or, for a list wider than half a warp, slot
+// lane s finds the candidate of rank s from the ranks' bits, one ballot per
+// bit and half (the lanes of the live paths whose rank has bit b set): the
+// search costs w / G shuffle pairs, the ballots log2(2w) ballot pairs, and
+// the ballots are faster from w = 32 on and slower at w = 8 (NVIDIA H100
+// 80GB HBM3, 700 W, tools/scl_kernel_ab.py).  Afterwards slot lane s < keep holds the s-th
 // candidate's metric in pm and its path in R (lanes >= keep keep theirs);
 // returns the word of the slots' bit-1 flags.  No shared memory, no
 // __syncwarp.
@@ -265,16 +268,37 @@ __device__ __forceinline__ uint32_t prune(float c0, float c1, int w, int keep, i
     r0 += __shfl_xor_sync(kFull, r0, off);
     r1 += __shfl_xor_sync(kFull, r1, off);
   }
-  // lane l < w holds path l's ranks: the lanes of rank `lane` in each half
-  const bool own = lane < w;
-  uint32_t m0 = __ballot_sync(kFull, own), m1 = m0;
-  for (int b = 0, nb = 32 - __clz(2 * w - 1); b < nb; ++b) {
-    const uint32_t b0 = __ballot_sync(kFull, own && ((r0 >> b) & 1));
-    const uint32_t b1 = __ballot_sync(kFull, own && ((r1 >> b) & 1));
-    m0 &= (lane >> b) & 1 ? b0 : ~b0;
-    m1 &= (lane >> b) & 1 ? b1 : ~b1;
+  int src;
+  if (P < kWarp) {
+    int s0 = -1, s1 = -1;  // the candidates of rank p and p + P
+    for (int k = 0; k < per; ++k) {
+      const int j = g * per + k;
+      const int a = __shfl_sync(kFull, r0, j & (kWarp - 1));
+      const int b = __shfl_sync(kFull, r1, j & (kWarp - 1));
+      if (j < w) {
+        if (a == p) s0 = j;
+        if (b == p) s0 = w + j;
+        if (a == p + P) s1 = j;
+        if (b == p + P) s1 = w + j;
+      }
+    }
+    for (int off = P; off < kWarp; off <<= 1) {
+      s0 = max(s0, __shfl_xor_sync(kFull, s0, off));
+      s1 = max(s1, __shfl_xor_sync(kFull, s1, off));
+    }
+    src = lane < P ? s0 : s1;
+  } else {
+    // lane l < w holds path l's ranks: the lanes of rank `lane` in each half
+    const bool own = lane < w;
+    uint32_t m0 = __ballot_sync(kFull, own), m1 = m0;
+    for (int b = 0, nb = 32 - __clz(2 * w - 1); b < nb; ++b) {
+      const uint32_t b0 = __ballot_sync(kFull, own && ((r0 >> b) & 1));
+      const uint32_t b1 = __ballot_sync(kFull, own && ((r1 >> b) & 1));
+      m0 &= (lane >> b) & 1 ? b0 : ~b0;
+      m1 &= (lane >> b) & 1 ? b1 : ~b1;
+    }
+    src = m0 ? __ffs(m0) - 1 : w + __ffs(m1) - 1;  // for lane < keep, one of them
   }
-  const int src = m0 ? __ffs(m0) - 1 : w + __ffs(m1) - 1;  // for lane < keep, one of them
   const int q = src < w ? src : src - w;
   const float v0 = __shfl_sync(kFull, c0, q & (kWarp - 1));
   const float v1 = __shfl_sync(kFull, c1, q & (kWarp - 1));

@@ -97,8 +97,9 @@ def prune_lanes(cand, w, keep):
     Lane ``g·P + p`` (P = w rounded up to a power of two) holds path p's two
     candidates; group g counts the candidates above them over its share of
     the paths (one shuffle pair per path), an xor-shuffle tree sums the
-    groups; slot lane s then intersects, bit by bit of s, the ballots of the
-    live lanes whose rank has that bit."""
+    groups; then each lane looks for the ranks p and p + P the same way (P <
+    32), or slot lane s intersects, bit by bit of s, the ballots of the live
+    lanes whose rank has that bit (P = 32)."""
     B = cand.shape[0]
     P = _pow2_ceil(w)
     G, per = 32 // P, -(-w // (32 // P))
@@ -119,6 +120,21 @@ def prune_lanes(cand, w, keep):
     while off < 32:
         r0, r1 = r0 + r0[:, lane ^ off], r1 + r1[:, lane ^ off]
         off *= 2
+    if P < 32:
+        s0 = torch.full((B, 32), -1, dtype=torch.int64)
+        s1 = torch.full((B, 32), -1, dtype=torch.int64)
+        for k in range(per):
+            j = torch.as_tensor(g * per + k)
+            a, b = r0[:, j % 32], r1[:, j % 32]
+            valid = j < w
+            for tgt, sv in ((pt, s0), (pt + P, s1)):
+                sv[:] = torch.where(valid & (a == tgt), j, sv)
+                sv[:] = torch.where(valid & (b == tgt), w + j, sv)
+        off = P
+        while off < 32:
+            s0, s1 = torch.maximum(s0, s0[:, lane ^ off]), torch.maximum(s1, s1[:, lane ^ off])
+            off *= 2
+        return _src_word(torch.where(torch.as_tensor(lane < P), s0, s1)[:, :keep], w, keep)
     own = torch.as_tensor(lane < w)
     m0 = own[None, None, :].expand(B, 32, 32).clone()  # [frame, slot lane, lane j]
     m1 = m0.clone()
@@ -132,9 +148,12 @@ def prune_lanes(cand, w, keep):
     def first(m):  # __ffs(m) - 1
         return torch.where(m.any(-1), m.int().argmax(-1), -1)
 
-    src = torch.where(m0.any(-1), first(m0), w + first(m1))[:, :keep]
-    word = ((src >= w).long() << torch.arange(keep)).sum(dim=1)
-    return src, word
+    return _src_word(torch.where(m0.any(-1), first(m0), w + first(m1))[:, :keep], w, keep)
+
+
+def _src_word(src, w, keep):
+    """Each slot's candidate and the ballot of the slots' bit-1 flags."""
+    return src, ((src >= w).long() << torch.arange(keep)).sum(dim=1)
 
 
 def prune(c, cand, w):
