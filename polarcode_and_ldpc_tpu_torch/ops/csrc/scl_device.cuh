@@ -249,7 +249,9 @@ __device__ __forceinline__ void d0_inplace(float* z, int total, int lane) {
 // 80GB HBM3, 700 W, tools/scl_kernel_ab.py).  Afterwards slot lane s < keep holds the s-th
 // candidate's metric in pm and its path in R (lanes >= keep keep theirs);
 // returns the word of the slots' bit-1 flags.  No shared memory, no
-// __syncwarp.
+// __syncwarp.  kWide = false: the caller knows w <= 16 (an OP_SUBTREE leaf),
+// and the ballot path is not compiled in.
+template <bool kWide = true>
 __device__ __forceinline__ uint32_t prune(float c0, float c1, int w, int keep, int lane,
                                           float& pm, int& R) {
   const int P = pow2_ceil(w), G = kWarp / P, g = lane / P, p = lane & (P - 1);
@@ -269,7 +271,7 @@ __device__ __forceinline__ uint32_t prune(float c0, float c1, int w, int keep, i
     r1 += __shfl_xor_sync(kFull, r1, off);
   }
   int src;
-  if (P < kWarp) {
+  if (!kWide || P < kWarp) {
     int s0 = -1, s1 = -1;  // the candidates of rank p and p + P
     for (int k = 0; k < per; ++k) {
       const int j = g * per + k;
@@ -312,13 +314,13 @@ __device__ __forceinline__ uint32_t prune(float c0, float c1, int w, int keep, i
 // Branch + stable top-L prune of w live paths (kNarrow: keeping min(2w, L);
 // else the full list, w = L): a_p is the leaf LLR of this lane's path
 // cand_path(lane, w), pm the metrics on the slot lanes.
-template <bool kNarrow>
+template <bool kNarrow, bool kWide = true>
 __device__ __forceinline__ uint32_t info_leaf(float a_p, int w, int L, int lane, float& pm,
                                               int& R) {
   const float pp = __shfl_sync(kFull, pm, cand_path(lane, w));
   float d0, d1;
   d0_d1(a_p, d0, d1);
-  return prune(pp + d0, pp + d1, w, kNarrow ? min(2 * w, L) : L, lane, pm, R);
+  return prune<kWide>(pp + d0, pp + d1, w, kNarrow ? min(2 * w, L) : L, lane, pm, R);
 }
 
 // Fast rate-1 node on the [L][sz] plane a, beta words at c.beta + off, using
@@ -455,7 +457,7 @@ __device__ __forceinline__ uint32_t sub_node(const SubLanes& s, float a, uint32_
   }
   if constexpr (K == 0) {  // an info leaf
     const int p = cand_path(lane, w);
-    const uint32_t word = info_leaf<kNarrow>(shfl_f(a, p << s.lgsz), w, L, lane, pm, R);
+    const uint32_t word = info_leaf<kNarrow, false>(shfl_f(a, p << s.lgsz), w, L, lane, pm, R);
     if (kNarrow) w = min(2 * w, L);
     has_r = true;
     return (word >> s.l) & 1u;
@@ -476,7 +478,7 @@ __device__ __forceinline__ uint32_t sub_node(const SubLanes& s, float a, uint32_
 #pragma unroll
       for (int j = 1; j <= K; ++j) acc = acc + shfl_f(z, (lane << s.lgsz) + M - (M >> (j - 1)));
       if (lane < w) pm = acc;
-      const uint32_t word = info_leaf<kNarrow>(leaf, w, L, lane, pm, R);
+      const uint32_t word = info_leaf<kNarrow, false>(leaf, w, L, lane, pm, R);
       if (kNarrow) w = min(2 * w, L);
       has_r = true;
       return (word >> s.l) & 1u;
