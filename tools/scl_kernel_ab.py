@@ -18,7 +18,7 @@ prints one JSON line:
   the kernel decode reaches, full width, and its mean; K3 with fast node
   programs, with one-hot pendings, the two narrow (live-width) launches of
   the live decode; K4 in the same three modes; K5 on the eight chunk
-  patterns; K6 (the one-launch decode);
+  patterns, with fast and with one-hot programs too; K6 (the one-launch decode);
 * whole decodes of the flagship (``unroll-kernel``, live width, CRC-free
   decoder of ``make_scl_decoder``) and of JAX's SCL-8 benchmark shape (8192
   frames, chunk 128, rank and one-hot);
@@ -152,6 +152,16 @@ def _child(reps: int) -> dict:
         body.append(time_ms(lambda: scl_chunk_body_cuda(alpha, pm0, prog)))
         note(*scl_chunk_body_cuda(alpha, pm0, prog))
     out["K5 mean over patterns"] = sum(body) / len(body)
+    for tag, progs in (("-fast", [SCLBodyProgram(f, L, "fast") for f in sched.unique_flags]),
+                       ("-onehot", oprog)):
+        times = []
+        g = np.random.default_rng(7)
+        for prog in progs:
+            alpha = torch.from_numpy((2 * g.standard_normal((B, L, S))).astype(np.float32)).to(dev)
+            pm0 = -torch.from_numpy(np.abs(g.standard_normal((B, L))).astype(np.float32)).to(dev)
+            times.append(time_ms(lambda: scl_chunk_body_cuda(alpha, pm0, prog)))
+            note(*scl_chunk_body_cuda(alpha, pm0, prog))
+        out[f"K5{tag} mean over patterns"] = sum(times) / len(times)
     # whole decodes
     decs = {"flagship unroll-kernel": make_scl_decoder(N, mask, L, chunk=S, device=dev),
             "flagship fast": make_scl_decoder(N, mask, L, chunk=S, node_mode="fast", device=dev),
