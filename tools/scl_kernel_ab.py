@@ -34,8 +34,8 @@ prints one JSON line:
 
 The parent prints a table of every timing per run and the change's ratio
 to the parent (mean of the parent runs over mean of the change runs), and
-fails if two trees' digests differ.  Output also goes to
-``chiprun_out/scl_kernel_ab.json``.
+fails if two trees' digests differ.  Every run's line and the table also go
+to the JSON file ``--out`` (default ``build/scl_kernel_ab.json``).
 """
 
 from __future__ import annotations
@@ -224,6 +224,7 @@ def main() -> int:
     ap.add_argument("--order", default="")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--child", action="store_true")
+    ap.add_argument("--out", default="build/scl_kernel_ab.json")
     args = ap.parse_args()
     if args.child:
         print("AB_RESULT " + json.dumps(_child(args.reps)), flush=True)
@@ -258,9 +259,9 @@ def main() -> int:
             mean = {n: sum(v) / len(v) for n, v in by.items()}
             for n in names[1:]:
                 by[f"{base}/{n}"] = mean[base] / mean[n]
-    Path("chiprun_out").mkdir(exist_ok=True)
-    Path("chiprun_out/scl_kernel_ab.json").write_text(json.dumps(
-        {"runs": runs, "summary": summary}, indent=1))
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"runs": runs, "summary": summary}, indent=1))
     print(json.dumps({"summary": summary, "digests_equal": len(digests) == 1}), flush=True)
     if len(digests) != 1:
         raise SystemExit(f"the trees' outputs differ: {digests}")
