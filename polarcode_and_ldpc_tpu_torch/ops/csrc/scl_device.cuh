@@ -133,7 +133,7 @@ struct Ctx {
   float* a0;      // L * S floats for a depth-0 plane kept in the context
   uint32_t* beta;
   int* R;         // L: a rank vector that lanes read by index (fast rate-1 tail, outputs)
-  int* tmp;       // L: stage flip words of a fast rate-1 node, or an effective pending
+  int* tmp;       // L: a fast rate-1 node's flips per slot, or an effective pending
   int* Rstack;    // (log2 S + 1) x L
   int L, S, lane;
 #ifdef SCL_PROFILE
@@ -329,7 +329,9 @@ __device__ __forceinline__ uint32_t info_leaf(float a_p, int w, int L, int lane,
 // of its s-th least reliable position at cost -|a|_(s) through the prune.
 // Slot l's picks are those of its ORIGINAL path rtot[l] (lane l's register:
 // the composition of the stage rank vectors), so no per-path array moves.
-// Stage s's flip word lives in lane s.  Returns whether the node has a rank
+// Lane l's `flips` holds, bit s, whether slot l's lineage took stage s's flip,
+// composed through each stage's rank vector as rtot is (one shuffle a
+// stage).  Returns whether the node has a rank
 // vector (K > 0), which it leaves in R (and in c.R for its own tail).
 __device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz, int off,
                                            float* scratch, float& pm, int& R) {
@@ -343,23 +345,20 @@ __device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz,
   if (K > 0) fastnode::select_k(a, L, sz, K, idx, lane);
   const int p = cand_path(lane, L);
   int rtot = lane;
-  uint32_t fw = 0;
+  uint32_t flips = 0;
   for (int s = 0; s < K; ++s) {
     const float pp = __shfl_sync(kFull, pm, p);
     const int rp = __shfl_sync(kFull, rtot, p);
     const float c1 = p < L ? pp - fabsf(a[rp * sz + idx[rp * K + s]]) : pp;
     const uint32_t word = prune(pp, c1, L, L, lane, pm, R);
-    const uint32_t moved = perm_word_reg(fw, R, L);
-    if (lane < s) fw = moved;
-    else if (lane == s) fw = word;
-    rtot = __shfl_sync(kFull, rtot, lane < L ? R : 0);  // rtot[l] = rtot[r[l]]
+    const int from = lane < L ? R : 0;  // x[l] = x[r[l]]
+    flips = __shfl_sync(kFull, flips, from) | (((word >> lane) & 1u) << s);
+    rtot = __shfl_sync(kFull, rtot, from);
   }
-  if (K > 0) {
-    if (lane < L) {
-      R = rtot;
-      c.R[lane] = rtot;
-    }
-    if (lane < K) c.tmp[lane] = (int)fw;
+  if (K > 0 && lane < L) {
+    R = rtot;
+    c.R[lane] = rtot;
+    c.tmp[lane] = (int)flips;
   }
   __syncwarp();
   // hard decisions (a < 0, so -0.0 decides 0) of the original paths, moved
@@ -372,7 +371,7 @@ __device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz,
   __syncwarp();
   for (int q = lane; q < L * K; q += kWarp) {
     const int l = q / K, s = q - l * K;
-    if (((uint32_t)c.tmp[s] >> l) & 1u) atomicXor(&c.beta[off + idx[c.R[l] * K + s]], 1u << l);
+    if (((uint32_t)c.tmp[l] >> s) & 1u) atomicXor(&c.beta[off + idx[c.R[l] * K + s]], 1u << l);
   }
   return K > 0;
 }

@@ -18,8 +18,8 @@ The fast node ops (``node_mode="fast"``) are walked the same way: the grouped
 warp argmin of ``csrc/fastnode_device.cuh`` (each path's lanes pick the least
 ``(|a|, position)`` pair strictly above the previous pick), the halving-tree
 sums with their flat indices, the slot → original-path composition the
-kernel keeps in a register per lane, the per-stage flip words and the XOR of
-the flips into the packed partial sums.  The selection kernel ``fastnode.cu``
+kernel keeps in a register per lane, the per-slot flip bits composed the
+same way, and the XOR of the flips into the packed partial sums.  The selection kernel ``fastnode.cu``
 is those same two device functions, walked against its plain version too.
 """
 
@@ -228,14 +228,12 @@ def rate1_fast(c, a, sz, off):
     K = min(L - 1, sz)
     idx = select_k(a, L, sz, K)
     rtot = torch.arange(L).expand(B, L).clone()  # lane l's register
-    fw = torch.zeros((B, max(K, 1)), dtype=torch.int64)  # lane s's flip word
+    flips = torch.zeros((B, L), dtype=torch.int64)  # lane l's: bit s = stage s's flip
     rows = torch.arange(B)[:, None]
     for s in range(K):
         mag = torch.gather(a, 1, rtot * sz + idx[rows, rtot, s]).abs()
         word = prune(c, torch.cat([c.pm, c.pm - mag], dim=1), L)
-        if s:
-            fw[:, :s] = perm_word(fw[:, :s], c.R, L)
-        fw[:, s] = word
+        flips = torch.gather(flips, 1, c.R) | (((word[:, None] >> torch.arange(L)) & 1) << s)
         rtot = torch.gather(rtot, 1, c.R)
     if K:
         c.R = rtot
@@ -244,7 +242,7 @@ def rate1_fast(c, a, sz, off):
     c.beta[:, off:off + sz] = perm_word(w, c.R, L) if K else w
     for q in range(L * K):
         l, s = q // K, q % K
-        hit = ((fw[:, s] >> l) & 1).bool()
+        hit = ((flips[:, l] >> s) & 1).bool()
         pos = off + idx[torch.arange(B), c.R[:, l], s]
         c.beta[rows[hit, 0], pos[hit]] ^= 1 << l
 
