@@ -24,10 +24,13 @@ time and its roofline bound; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Phases: ``device``, ``build``, ``kernels`` (SC and LDPC kernels, flooding and
-layered, against their plain versions), ``scl_kernels`` (the list-decode
+layered, and the int8 row roll of the sublane-roll probe, against their plain
+versions), ``scl_kernels`` (the list-decode
 kernels: the chunk body on every chunk pattern of the code, the chunk step on
 the level stacks of every chunk position, the last chunk, the one-launch
-decode, whole decodes, other codes), ``fast_kernels`` (the fast-node
+decode, whole decodes, other codes), ``scl_profile`` (the chunk step's time
+by part from the profiled build, and every list-kernel variant's registers,
+spills and resident warps per SM), ``fast_kernels`` (the fast-node
 selection kernel, and the fast node programs of the chunk body, chunk step
 and last chunk in the same way; the one-launch decode must refuse them),
 ``large_kernels`` (the large-code modes: the SC kernel's hybrid subtree
