@@ -29,8 +29,9 @@ versions), ``scl_kernels`` (the list-decode
 kernels: the chunk body on every chunk pattern of the code, the chunk step on
 the level stacks of every chunk position, the last chunk, the one-launch
 decode, whole decodes, other codes), ``scl_profile`` (the chunk step's time
-by part from the profiled build, and every list-kernel variant's registers,
-spills and resident warps per SM), ``fast_kernels`` (the fast-node
+by part from the profiled build, which ``build`` compiles beside the others
+only when this phase runs, and every list-kernel variant's registers, spills
+and resident warps per SM), ``fast_kernels`` (the fast-node
 selection kernel, and the fast node programs of the chunk body, chunk step
 and last chunk in the same way; the one-launch decode must refuse them),
 ``large_kernels`` (the large-code modes: the SC kernel's hybrid subtree
@@ -45,7 +46,9 @@ its context in device memory), ``polar_sc_mc``, ``polar_cascl_mc``,
 ``polar_fast_mc``, ``polar_scl8_controls``, ``ldpc_mc``, ``ldpc_layered_mc``, ``ldpc_qc_mc``,
 ``polar_large_mc``, ``polar_sc_large_mc``, ``ldpc_large_mc``, ``serving``,
 ``serving_fast``, ``snr_curves`` (the main paths, each with the launch counts
-set to 0 just before and read just after), ``invariance``, ``stages``.
+set to 0 just before and read just after), ``invariance``, ``stages``.  The
+``summary`` line (``partial`` when phases were chosen) gives each phase's
+seconds.
 
 ``--quick`` cuts the frame counts (for a first run after a kernel change);
 ``--phases a,b`` runs a subset (then no final ``ok`` line is printed).
@@ -55,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import subprocess
@@ -98,7 +102,7 @@ from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, O
                                                        OP_REP, OP_REP_FAST, SCLBodyProgram,
                                                        SCLMegaPlan, SCLState,
                                                        build_mega_tables, context_in_device_memory,
-                                                       make_step_specs,
+                                                       launch_chunk_step, make_step_specs,
                                                        scl_chunk_body_cuda, scl_chunk_step_cuda,
                                                        scl_last_chunk_cuda)
 from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
@@ -204,9 +208,9 @@ def phase_device() -> dict:
     return {"nvidia_smi": line}
 
 
-def phase_build(verbose: bool) -> None:
-    seconds = build.build_all(verbose=verbose, variants=tuple(build.VARIANTS))
-    for name in (*build.SOURCES, *build.VARIANTS):
+def phase_build(verbose: bool, variants: tuple = ()) -> None:
+    seconds = build.build_all(verbose=verbose, variants=variants)
+    for name in (*build.SOURCES, *variants):
         build.load(name)
     emit("build", seconds=round(seconds, 3), sources=[f"{s}.cu" for s in build.SOURCES],
          flags=" ".join(build.NVCC_FLAGS))
@@ -830,11 +834,11 @@ def profile_step(state, spec) -> dict:
     lib.scl_profile_read.argtypes = [ctypes.c_void_p]
     n = len(PROFILE_SLOTS)
     buf = (ctypes.c_ulonglong * (2 * n))()
-    scl_chunk_step_cuda(state.clone(), spec, library="scl_decode_profile")  # warm-up
+    launch_chunk_step(state.clone(), spec, "scl_decode_profile")  # warm-up
     prof, plain = state.clone(), state.clone()
     torch.cuda.synchronize()
     build.check_launch(lib, lib.scl_profile_reset(), "scl_profile_reset")
-    scl_chunk_step_cuda(prof, spec, library="scl_decode_profile")
+    launch_chunk_step(prof, spec, "scl_decode_profile")
     scl_chunk_step_cuda(plain, spec)
     torch.cuda.synchronize()
     build.check_launch(lib, lib.scl_profile_read(ctypes.addressof(buf)), "scl_profile_read")
@@ -1615,7 +1619,8 @@ def phase_polar_scl8_controls(results: dict, mbps: dict, reps: int, quick: bool)
 def check_roll_kernel(results: dict, reps: int) -> dict:
     """K8 against its plain version and np.roll at the probe's tile and on
     other shapes (rows not a power of two, rows of 40 bytes: the byte path,
-    shifts past the row count and negative); then the probe's own path (its
+    shifts past the row count and negative, a tile at an odd byte offset of
+    its storage: the byte path); then the probe's own path (its
     seeded 0/1 tile through ``sublane_roll``, held against np.roll), with the
     launch counts set to 0 just before; then times beside ``torch.roll``."""
     cases = []
@@ -1630,6 +1635,18 @@ def check_roll_kernel(results: dict, reps: int) -> dict:
                                     "np.roll": (got.cpu(), torch.from_numpy(np.roll(x_np, shift, 0)))},
                    context)
         cases.append({**context, "equal_plain_and_np_roll": True})
+    # a contiguous view that starts one byte into its storage
+    x_np = np.random.default_rng(1).integers(-128, 128, (32, 128)).astype(np.int8)
+    flat = torch.zeros(32 * 128 + 1, dtype=torch.int8, device=DEV)
+    flat[1:].copy_(torch.from_numpy(x_np.reshape(-1)))
+    x = flat[1:].view(32, 128)
+    got = sublane_roll_cuda(x, PROBE_SHIFT)
+    torch.cuda.synchronize()
+    context = {"shape": [32, 128], "shift": PROBE_SHIFT, "storage_offset": 1}
+    hold_equal("sublane_roll", {"plain": (got, sublane_roll_plain(x, PROBE_SHIFT)),
+                                "np.roll": (got.cpu(), torch.from_numpy(np.roll(x_np, PROBE_SHIFT, 0)))},
+               context)
+    cases.append({**context, "equal_plain_and_np_roll": True})
     # the probe's path (tools/r4_tpu_queue7.sh:6-19)
     x_np = np.random.default_rng(0).integers(0, 2, PROBE_SHAPE).astype(np.int8)
     x = torch.from_numpy(x_np).to(DEV)
@@ -2164,8 +2181,10 @@ def phase_ldpc_large_mc(results: dict, mbps: dict, frames: int) -> None:
          chunk_frames=B, max_iter=LDPC_ITERS, **summary)
 
 
+@functools.cache
 def qc_code():
-    """The quasi-cyclic n=8192 code: shift matrix, expanded H and an encoder."""
+    """The quasi-cyclic n=8192 code: shift matrix, expanded H and an encoder;
+    built once per run (host set-up)."""
     base = fec.qc_base_matrix(QC_N, QC_K, QC_Z, dv=3, dc=6, seed=42)
     return qc_code_from_numpy(base, QC_Z, device=DEV)
 
@@ -2453,7 +2472,9 @@ def busy_share(step, k: int, chunk: int) -> dict:
     sim = MonteCarloSimulator(step, k, chunk_frames=chunk)
     sim.run(2 * chunk, seed=1)
     wall_ms = min(sim.run(8 * chunk, seed=2).elapsed_seconds for _ in range(3)) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host ops' events would cost key_averages()
+    # seconds per run and are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sim.run(8 * chunk, seed=2)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -2573,60 +2594,61 @@ def main() -> int:
     results: dict = {}  # kernel name → its line of the final kernel table
     mbps: dict = {}
     reps = 3 if args.quick else 20
-    dev_info = phase_device() if "device" in phases else {"nvidia_smi": nvidia_smi_line()}
-    if "build" in phases:
-        phase_build(args.verbose_build)
-    if "kernels" in phases:
-        phase_kernels(results, reps, args.quick)
-    if "scl_kernels" in phases:
-        phase_scl_kernels(results, reps, args.quick)
-    if "scl_profile" in phases:
-        phase_scl_profile()
-    if "fast_kernels" in phases:
-        phase_fast_kernels(results, reps, args.quick)
-    if "large_kernels" in phases:
-        phase_large_kernels(results, reps)
-    if "onehot_kernels" in phases:
-        phase_onehot_kernels(results, reps, args.quick)
-    if "polar_sc_mc" in phases:
-        phase_polar_sc_mc(results, mbps, 4 * POLAR_CHUNK if args.quick else 16 * POLAR_CHUNK)
-    if "polar_cascl_mc" in phases:
-        phase_polar_cascl_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
-    if "polar_fast_mc" in phases:
-        phase_polar_fast_mc(results, mbps, (2 if args.quick else 16) * SCL_CHUNK, 2 * SCL_CHUNK)
-    if "polar_scl8_controls" in phases:
-        phase_polar_scl8_controls(results, mbps, reps, args.quick)
-    if "ldpc_mc" in phases:
-        phase_ldpc_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
-    if "ldpc_layered_mc" in phases:
-        phase_ldpc_layered_mc(results, mbps, 4 * LDPC_CHUNK if args.quick else 32 * LDPC_CHUNK)
-    if "ldpc_qc_mc" in phases:
-        phase_ldpc_qc_mc(results, mbps, 2 if args.quick else 4)
-    if "polar_large_mc" in phases:
-        phase_polar_large_mc(results, mbps, (2 if args.quick else 8) * LARGE_SCL_CHUNK)
-    if "polar_sc_large_mc" in phases:
-        phase_polar_sc_large_mc(results, mbps, (2 if args.quick else 8) * LARGE_SC_CHUNK)
-    if "ldpc_large_mc" in phases:
-        phase_ldpc_large_mc(results, mbps, (2 if args.quick else 8) * LARGE_LDPC_CHUNK)
-    if "serving" in phases:
-        phase_serving(results, mbps, reps)
-    if "serving_fast" in phases:
-        phase_serving(results, mbps, reps, node_mode="fast")
-    if "snr_curves" in phases:
-        phase_snr_curves(results)
-    if "invariance" in phases:
-        phase_invariance()
-    if "stages" in phases:
-        phase_stages(reps)
+    dev_info: dict = {}
+    q = args.quick
+    # the profiled K3 is built beside the other sources only when its phase runs
+    variants = ("scl_decode_profile",) if "scl_profile" in phases else ()
+    run = {
+        "device": lambda: dev_info.update(phase_device()),
+        "build": lambda: phase_build(args.verbose_build, variants),
+        "kernels": lambda: phase_kernels(results, reps, q),
+        "scl_kernels": lambda: phase_scl_kernels(results, reps, q),
+        "scl_profile": phase_scl_profile,
+        "fast_kernels": lambda: phase_fast_kernels(results, reps, q),
+        "large_kernels": lambda: phase_large_kernels(results, reps),
+        "onehot_kernels": lambda: phase_onehot_kernels(results, reps, q),
+        "polar_sc_mc": lambda: phase_polar_sc_mc(
+            results, mbps, 4 * POLAR_CHUNK if q else 16 * POLAR_CHUNK),
+        "polar_cascl_mc": lambda: phase_polar_cascl_mc(
+            results, mbps, (2 if q else 16) * SCL_CHUNK, 2 * SCL_CHUNK),
+        "polar_fast_mc": lambda: phase_polar_fast_mc(
+            results, mbps, (2 if q else 16) * SCL_CHUNK, 2 * SCL_CHUNK),
+        "polar_scl8_controls": lambda: phase_polar_scl8_controls(results, mbps, reps, q),
+        "ldpc_mc": lambda: phase_ldpc_mc(results, mbps, 4 * LDPC_CHUNK if q else 32 * LDPC_CHUNK),
+        "ldpc_layered_mc": lambda: phase_ldpc_layered_mc(
+            results, mbps, 4 * LDPC_CHUNK if q else 32 * LDPC_CHUNK),
+        "ldpc_qc_mc": lambda: phase_ldpc_qc_mc(results, mbps, 2 if q else 4),
+        "polar_large_mc": lambda: phase_polar_large_mc(
+            results, mbps, (2 if q else 8) * LARGE_SCL_CHUNK),
+        "polar_sc_large_mc": lambda: phase_polar_sc_large_mc(
+            results, mbps, (2 if q else 8) * LARGE_SC_CHUNK),
+        "ldpc_large_mc": lambda: phase_ldpc_large_mc(
+            results, mbps, (2 if q else 8) * LARGE_LDPC_CHUNK),
+        "serving": lambda: phase_serving(results, mbps, reps),
+        "serving_fast": lambda: phase_serving(results, mbps, reps, node_mode="fast"),
+        "snr_curves": lambda: phase_snr_curves(results),
+        "invariance": phase_invariance,
+        "stages": lambda: phase_stages(reps),
+    }
+    assert tuple(run) == PHASES
+    phase_s = {}  # host seconds of each phase, its build included
+    for name in PHASES:
+        if name in phases:
+            t = time.perf_counter()
+            run[name]()
+            torch.cuda.synchronize()
+            phase_s[name] = round(time.perf_counter() - t, 1)
     torch.cuda.synchronize()
     if set(phases) != set(PHASES):
-        emit("partial", phases=phases, seconds=round(time.perf_counter() - t0, 1))
+        emit("partial", phases=phases, seconds=round(time.perf_counter() - t0, 1),
+             phase_seconds=phase_s)
         return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit("summary", seconds=round(time.perf_counter() - t0, 1), info_mbps=mbps)
+    emit("summary", seconds=round(time.perf_counter() - t0, 1), phase_seconds=phase_s,
+         info_mbps=mbps)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}), flush=True)
-    print(dev_info["nvidia_smi"], flush=True)
+    print(dev_info.get("nvidia_smi") or nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,7 @@ extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t
   decltype(&scl_chunk_body_kernel<false, false>) kernel;
   size_t smem;
   int blocks, warps;
-  const size_t per_frame = smem_per_frame_bytes(L, S, lgS, true);
+  const size_t per_frame = body_frame_bytes(L, S, lgS, 0, 0);
   cudaError_t err =
       onehot ? configure(&scl_chunk_body_kernel<false, true>, &scl_chunk_body_kernel<true, true>,
                          ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
@@ -36,10 +36,10 @@ extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t
 
 namespace {
 const KernelEntry kKernels[] = {
-    {"scl_chunk_body", (const void*)&scl_chunk_body_kernel<false, false>},
-    {"scl_chunk_body_onehot", (const void*)&scl_chunk_body_kernel<false, true>},
-    {"scl_chunk_body_devmem", (const void*)&scl_chunk_body_kernel<true, false>},
-    {"scl_chunk_body_onehot_devmem", (const void*)&scl_chunk_body_kernel<true, true>},
+    {"scl_chunk_body", (const void*)&scl_chunk_body_kernel<false, false>, &body_frame_bytes},
+    {"scl_chunk_body_onehot", (const void*)&scl_chunk_body_kernel<false, true>, &body_frame_bytes},
+    {"scl_chunk_body_devmem", (const void*)&scl_chunk_body_kernel<true, false>, nullptr},
+    {"scl_chunk_body_onehot_devmem", (const void*)&scl_chunk_body_kernel<true, true>, nullptr},
 };
 }  // namespace
 

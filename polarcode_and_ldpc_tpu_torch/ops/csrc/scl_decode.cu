@@ -41,7 +41,7 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
   const bool narrow = lv_in < L || lv_out < L;
   if (narrow && onehot) return (int)cudaErrorInvalidValue;
   const size_t per_frame =
-      smem_per_frame_bytes(L, S, lgS, false) + (onehot ? 8 * (size_t)t * L : 0);
+      onehot ? step_frame_bytes<true>(L, S, lgS, N, t) : step_frame_bytes<false>(L, S, lgS, N, t);
   cudaError_t err =
       narrow ? configure(&scl_chunk_step_kernel<false, true, false>,
                          &scl_chunk_step_kernel<true, true, false>, ctx_dev, per_frame, B,
@@ -63,12 +63,17 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
 
 namespace {
 const KernelEntry kKernels[] = {
-    {"scl_chunk_step", (const void*)&scl_chunk_step_kernel<false, false, false>},
-    {"scl_chunk_step_narrow", (const void*)&scl_chunk_step_kernel<false, true, false>},
-    {"scl_chunk_step_onehot", (const void*)&scl_chunk_step_kernel<false, false, true>},
-    {"scl_chunk_step_devmem", (const void*)&scl_chunk_step_kernel<true, false, false>},
-    {"scl_chunk_step_narrow_devmem", (const void*)&scl_chunk_step_kernel<true, true, false>},
-    {"scl_chunk_step_onehot_devmem", (const void*)&scl_chunk_step_kernel<true, false, true>},
+    {"scl_chunk_step", (const void*)&scl_chunk_step_kernel<false, false, false>,
+     &step_frame_bytes<false>},
+    {"scl_chunk_step_narrow", (const void*)&scl_chunk_step_kernel<false, true, false>,
+     &step_frame_bytes<false>},
+    {"scl_chunk_step_onehot", (const void*)&scl_chunk_step_kernel<false, false, true>,
+     &step_frame_bytes<true>},
+    {"scl_chunk_step_devmem", (const void*)&scl_chunk_step_kernel<true, false, false>, nullptr},
+    {"scl_chunk_step_narrow_devmem", (const void*)&scl_chunk_step_kernel<true, true, false>,
+     nullptr},
+    {"scl_chunk_step_onehot_devmem", (const void*)&scl_chunk_step_kernel<true, false, true>,
+     nullptr},
 };
 }  // namespace
 

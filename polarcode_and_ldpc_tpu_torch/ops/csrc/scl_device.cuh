@@ -197,10 +197,24 @@ __device__ __forceinline__ uint32_t perm_word(uint32_t w, const int* r, int L) {
 }
 
 // The same with the rank vector in registers (lane l holds r[l]); every lane
-// of the warp must call it, each with its own word.
+// of the warp must call it, each with its own word: n shuffles.
 __device__ __forceinline__ uint32_t perm_word_reg(uint32_t w, int r, int n) {
   uint32_t out = 0;
   for (int l = 0; l < n; ++l) out |= ((w >> __shfl_sync(kFull, r, l)) & 1u) << l;
+  return out;
+}
+
+// perm_word_reg for the words of m <= 32 positions, position i's on lane i:
+// bit l of position i's result is lane l's bit of that word, one shuffle and
+// one ballot a position (2m warp operations against n shuffles).
+__device__ __forceinline__ uint32_t perm_words_ballot(uint32_t w, int r, int n, int m,
+                                                      int lane) {
+  uint32_t out = 0;
+  for (int i = 0; i < m; ++i) {
+    const uint32_t wi = __shfl_sync(kFull, w, i);
+    const uint32_t b = __ballot_sync(kFull, lane < n && ((wi >> r) & 1u));
+    if (lane == i) out = b;
+  }
   return out;
 }
 
@@ -244,13 +258,15 @@ __device__ __forceinline__ void d0_inplace(float* z, int total, int lane) {
 // p + P the same way (w <= 16), or, for a list wider than half a warp, slot
 // lane s finds the candidate of rank s from the ranks' bits, one ballot per
 // bit and half (the lanes of the live paths whose rank has bit b set): the
-// search costs w / G shuffle pairs, the ballots log2(2w) ballot pairs, and
-// the ballots are faster from w = 32 on and slower at w = 8 (NVIDIA H100
-// 80GB HBM3, 700 W, tools/scl_kernel_ab.py).  Afterwards slot lane s < keep holds the s-th
-// candidate's metric in pm and its path in R (lanes >= keep keep theirs);
-// returns the word of the slots' bit-1 flags.  No shared memory, no
-// __syncwarp.  kWide = false: the caller knows w <= 16 (an OP_SUBTREE leaf),
-// and the ballot path is not compiled in.
+// search costs w / G shuffle pairs, the ballots log2(2w) ballot pairs: with
+// the shuffle search at w = 32 too, K5 at L=32, S=1024 took 1.22x and the
+// N=4096 SCL-32 decode 1.14x as long, the kernels at L=8 the same within 2 %
+// (NVIDIA H100 80GB HBM3, 700 W, tools/scl_kernel_ab.py).  Afterwards slot
+// lane s < keep holds the s-th candidate's metric in pm and its path in R
+// (lanes >= keep keep theirs); returns the word of the slots' bit-1 flags.
+// No shared memory, no __syncwarp.  kWide = false: the caller knows w <= 16
+// (an OP_SUBTREE leaf), and the ballot path is not compiled in (compiled into
+// those prunes it cost K3 at L=8 3 % and K3-fast 7 %, same card and script).
 template <bool kWide = true>
 __device__ __forceinline__ uint32_t prune(float c0, float c1, int w, int keep, int lane,
                                           float& pm, int& R) {
@@ -600,11 +616,20 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
       }
       case OP_COMBINE: {
         const bool rl = op.x & kFlagRL, rr = op.x & kFlagRR;
-        for (int base = 0; base < sz; base += kWarp) {  // every lane runs the shuffles
-          const int i = base + lane;
-          uint32_t word = i < sz ? c.beta[off + i] : 0u;
-          if (rr) word = perm_word_reg(word, R, w);
-          if (i < sz) c.beta[off + i] = word ^ c.beta[off + sz + i];
+        // few positions and a wide list: the rank apply by ballots (the N=4096
+        // SCL-32 decode 4.5 % faster, K5 at L=32 7 %; NVIDIA H100 80GB HBM3,
+        // 700 W, tools/scl_kernel_ab.py)
+        if (rr && 2 * sz < w) {
+          const uint32_t word = perm_words_ballot(lane < sz ? c.beta[off + lane] : 0u, R, w, sz,
+                                                  lane);
+          if (lane < sz) c.beta[off + lane] = word ^ c.beta[off + sz + lane];
+        } else {
+          for (int base = 0; base < sz; base += kWarp) {  // every lane runs the shuffles
+            const int i = base + lane;
+            uint32_t word = i < sz ? c.beta[off + i] : 0u;
+            if (rr) word = perm_word_reg(word, R, w);
+            if (i < sz) c.beta[off + i] = word ^ c.beta[off + sz + i];
+          }
         }
         if (rl && lane < w) R = c.Rstack[d * L + (rr ? R : lane)];  // R_l[R_r[l]]
         break;

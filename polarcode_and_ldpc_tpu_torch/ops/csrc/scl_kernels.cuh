@@ -685,41 +685,66 @@ cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t 
   return allow_smem(smem_kernel, *smem);
 }
 
-// bytes of shared memory one frame (one warp) needs: the chunk step keeps no
-// top plane (depth0 = false); the body and last-chunk kernels do, the last
-// chunk adds N words for the root plane
+// Bytes of shared memory one frame (one warp) of each kernel needs: the chunk
+// step keeps no top plane (depth0 = false); the body and last-chunk kernels
+// do, the last chunk and the one-launch decode add N words for the root
+// plane, and the one-hot variants of the chunk step and the last chunk the
+// 2 * t * L staged rank vectors.  The launchers and the resource report both
+// size the context from these.
 inline size_t smem_per_frame_bytes(int L, int S, int lgS, bool depth0) {
   return 4 * (size_t)scl::ctx_words(L, S, lgS, depth0);
 }
+template <bool kOneHot>
+size_t step_frame_bytes(int L, int S, int lgS, int, int t) {
+  return smem_per_frame_bytes(L, S, lgS, false) + (kOneHot ? 8 * (size_t)t * L : 0);
+}
+template <bool kOneHot>
+size_t last_frame_bytes(int L, int S, int lgS, int N, int t) {
+  return smem_per_frame_bytes(L, S, lgS, true) + 4 * (size_t)N +
+         (kOneHot ? 8 * (size_t)t * L : 0);
+}
+inline size_t body_frame_bytes(int L, int S, int lgS, int, int) {
+  return smem_per_frame_bytes(L, S, lgS, true);
+}
+inline size_t mega_frame_bytes(int L, int S, int lgS, int N, int) {
+  return smem_per_frame_bytes(L, S, lgS, true) + 4 * (size_t)N;
+}
 
-// A compiled kernel variant, for a resource report: registers per thread,
-// local-memory bytes per thread (spills and local arrays), resident warps per
-// SM at the warps per block the launcher plans (`per_warp_bytes` of context
-// each; 0: a device-memory variant at `max_warps` warps per block), and those
-// warps per block, in out[4].
+// A compiled kernel variant, for a resource report: its name, its function
+// and the bytes of shared memory one frame of it needs (null: a
+// device-memory variant, which has none).
 struct KernelEntry {
   const char* name;
   const void* fn;
+  size_t (*frame_bytes)(int L, int S, int lgS, int N, int t);
 };
 
+// The report of one variant at list L, chunk S, code length N, t levels, in
+// out[5]: registers per thread, local-memory bytes per thread (spills and
+// local arrays), resident warps per SM, warps per block and shared memory per
+// block, at the plan its launcher makes (up to `max_warps` warps per block
+// with the context in shared memory, `devmem_warps` with it in device memory).
 template <size_t n>
-int kernel_report(const KernelEntry (&table)[n], int which, int per_warp_bytes, int max_warps,
-                  int* out) {
-  const void* fn = table[which].fn;
+int kernel_report(const KernelEntry (&table)[n], int which, int L, int S, int N, int t,
+                  int max_warps, int devmem_warps, int* out) {
+  const KernelEntry& e = table[which];
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  cudaError_t err = cudaFuncGetAttributes(&attr, e.fn);
   if (err != cudaSuccess) return (int)err;
-  const int warps = per_warp_bytes ? plan_warps(fn, per_warp_bytes, max_warps) : max_warps;
-  const size_t smem = (size_t)warps * per_warp_bytes;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int lgS = 31 - __builtin_clz((unsigned)S);
+  const size_t per_warp = e.frame_bytes ? e.frame_bytes(L, S, lgS, N, t) : 0;
+  const int warps = per_warp ? plan_warps(e.fn, per_warp, max_warps) : devmem_warps;
+  const size_t smem = (size_t)warps * per_warp;
+  err = cudaFuncSetAttribute(e.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, warps * kWarp, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, e.fn, warps * kWarp, smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = blocks * warps;
   out[3] = warps;
+  out[4] = (int)smem;
   return 0;
 }
 
@@ -729,8 +754,9 @@ int kernel_report(const KernelEntry (&table)[n], int which, int per_warp_bytes, 
 #define SCL_KERNEL_REPORT_EXPORTS                                                          \
   extern "C" int scl_kernel_count() { return (int)(sizeof(kKernels) / sizeof(kKernels[0])); } \
   extern "C" const char* scl_kernel_name(int which) { return kKernels[which].name; }         \
-  extern "C" int scl_kernel_report(int which, int per_warp_bytes, int max_warps, int* out) { \
-    return kernel_report(kKernels, which, per_warp_bytes, max_warps, out);                   \
+  extern "C" int scl_kernel_report(int which, int L, int S, int N, int t, int max_warps,     \
+                                   int devmem_warps, int* out) {                             \
+    return kernel_report(kKernels, which, L, S, N, t, max_warps, devmem_warps, out);         \
   }                                                                                          \
   extern "C" const char* pl_error_string(int code) {                                         \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                               \

@@ -20,7 +20,7 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
   size_t smem;
   int blocks, warps;
   const size_t per_frame =
-      smem_per_frame_bytes(L, S, lgS, true) + 4 * (size_t)N + (onehot ? 8 * (size_t)t * L : 0);
+      onehot ? last_frame_bytes<true>(L, S, lgS, N, t) : last_frame_bytes<false>(L, S, lgS, N, t);
   cudaError_t err =
       onehot ? configure(&scl_last_chunk_kernel<false, true>, &scl_last_chunk_kernel<true, true>,
                          ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
@@ -39,10 +39,11 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
 
 namespace {
 const KernelEntry kKernels[] = {
-    {"scl_last_chunk", (const void*)&scl_last_chunk_kernel<false, false>},
-    {"scl_last_chunk_onehot", (const void*)&scl_last_chunk_kernel<false, true>},
-    {"scl_last_chunk_devmem", (const void*)&scl_last_chunk_kernel<true, false>},
-    {"scl_last_chunk_onehot_devmem", (const void*)&scl_last_chunk_kernel<true, true>},
+    {"scl_last_chunk", (const void*)&scl_last_chunk_kernel<false, false>, &last_frame_bytes<false>},
+    {"scl_last_chunk_onehot", (const void*)&scl_last_chunk_kernel<false, true>,
+     &last_frame_bytes<true>},
+    {"scl_last_chunk_devmem", (const void*)&scl_last_chunk_kernel<true, false>, nullptr},
+    {"scl_last_chunk_onehot_devmem", (const void*)&scl_last_chunk_kernel<true, true>, nullptr},
 };
 }  // namespace
 

@@ -14,7 +14,7 @@ extern "C" int scl_decode_mega_launch(const float* llr, float* llr_rev, float* a
                                       const int* prog, const int* steps, int C, int B, int N,
                                       int S, int L, int t, int lgS, int log2N,
                                       int warps_per_block, void* stream) {
-  const size_t per_frame = smem_per_frame_bytes(L, S, lgS, true) + 4 * (size_t)N;
+  const size_t per_frame = mega_frame_bytes(L, S, lgS, N, t);
   const int warps = plan_warps((const void*)&scl_decode_mega_kernel, per_frame, warps_per_block);
   const size_t smem = (size_t)warps * per_frame;
   cudaError_t err = allow_smem(scl_decode_mega_kernel, smem);
@@ -29,7 +29,7 @@ extern "C" int scl_decode_mega_launch(const float* llr, float* llr_rev, float* a
 
 namespace {
 const KernelEntry kKernels[] = {
-    {"scl_decode_mega", (const void*)&scl_decode_mega_kernel},
+    {"scl_decode_mega", (const void*)&scl_decode_mega_kernel, &mega_frame_bytes},
 };
 }  // namespace
 

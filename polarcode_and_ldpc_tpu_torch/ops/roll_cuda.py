@@ -11,6 +11,7 @@ kernel for a CUDA tensor and runs the plain version for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,18 +28,25 @@ def sublane_roll_plain(x: torch.Tensor, shift: int) -> torch.Tensor:
     return x[src]
 
 
-def sublane_roll_cuda(x: torch.Tensor, shift: int) -> torch.Tensor:
-    """Launch the roll kernel on ``x [rows, cols]`` int8, contiguous, on a
-    CUDA device.  Does not synchronise."""
-    if x.device.type != "cuda":
-        raise ValueError(f"sublane_roll_cuda needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.int8 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"expected a contiguous 2-D int8 tile, got {x.dtype} {tuple(x.shape)}")
+@functools.cache
+def _launcher():
     lib = build.load("sublane_roll")
     fn = lib.sublane_roll_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
+    return lib, fn
+
+
+def sublane_roll_cuda(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """Launch the roll kernel on ``x [rows, cols]`` int8, contiguous, on a
+    CUDA device (a tile that does not start on a 16-byte boundary moves byte
+    by byte).  Does not synchronise."""
+    if x.device.type != "cuda":
+        raise ValueError(f"sublane_roll_cuda needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.int8 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"expected a contiguous 2-D int8 tile, got {x.dtype} {tuple(x.shape)}")
+    lib, fn = _launcher()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], int(shift),

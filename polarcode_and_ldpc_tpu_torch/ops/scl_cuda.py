@@ -289,39 +289,26 @@ def _launcher(name: str, argtypes: list, library: Optional[str] = None):
 
 def kernel_resources(L: int, S: int, N: int, t: int) -> list:
     """Registers, local memory (spills) and resident warps per SM of every
-    compiled variant of the four list kernels, each at the launch shape its
-    wrapper gives a code of length ``N``, chunk ``S``, list ``L`` with ``t``
-    levels (the device-memory variants at theirs).  Needs a CUDA device."""
+    compiled variant of the four list kernels, each at the launch plan its
+    launcher makes for a code of length ``N``, chunk ``S``, list ``L`` with
+    ``t`` levels (the device-memory variants at theirs).  Needs a CUDA
+    device."""
     out = []
     for library in ("scl_body", "scl_decode", "scl_last", "scl_mega"):
-        out += _library_resources(build.load(library), L, S, N, t)
-    return out
-
-
-def _library_resources(lib, L: int, S: int, N: int, t: int) -> list:
-    lib.scl_kernel_name.restype = ctypes.c_char_p
-    lib.scl_kernel_name.argtypes = [_I]
-    lib.scl_kernel_report.restype = ctypes.c_int
-    lib.scl_kernel_report.argtypes = [_I, _I, _I, _P]
-    out = []
-    for which in range(lib.scl_kernel_count()):
-        name = lib.scl_kernel_name(which).decode()
-        if name == "scl_decode_mega":
-            per_frame = smem_per_frame(L, S, root_words=N)
-        else:
-            per_frame = smem_per_frame(L, S, N if "last" in name else 0,
-                                       t if "onehot" in name and "body" not in name else 0,
-                                       depth0="step" not in name)
-        devmem = name.endswith("_devmem")
-        vals = (ctypes.c_int * 4)()
-        code = lib.scl_kernel_report(which, 0 if devmem else per_frame,
-                                     _DEVMEM_WARPS if devmem else
-                                     _warps_per_block(per_frame, name), ctypes.addressof(vals))
-        build.check_launch(lib, code, f"scl_kernel_report({name})")
-        out.append({"kernel": name, "registers": vals[0], "local_bytes": vals[1],
-                    "warps_per_block": vals[3],
-                    "smem_per_block": 0 if devmem else vals[3] * per_frame,
-                    "resident_warps_per_sm": vals[2]})
+        lib = build.load(library)
+        lib.scl_kernel_name.restype = ctypes.c_char_p
+        lib.scl_kernel_name.argtypes = [_I]
+        lib.scl_kernel_report.restype = ctypes.c_int
+        lib.scl_kernel_report.argtypes = [_I] * 7 + [_P]
+        for which in range(lib.scl_kernel_count()):
+            name = lib.scl_kernel_name(which).decode()
+            vals = (ctypes.c_int * 5)()
+            code = lib.scl_kernel_report(which, L, S, N, t, _MAX_WARPS, _DEVMEM_WARPS,
+                                         ctypes.addressof(vals))
+            build.check_launch(lib, code, f"scl_kernel_report({name})")
+            out.append({"kernel": name, "registers": vals[0], "local_bytes": vals[1],
+                        "warps_per_block": vals[3], "smem_per_block": vals[4],
+                        "resident_warps_per_sm": vals[2]})
     return out
 
 
@@ -582,11 +569,18 @@ def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
 # K3: one chunk step;  K4: the last chunk
 # ---------------------------------------------------------------------------
 
-def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec,
-                        library: Optional[str] = None) -> None:
+def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec) -> None:
     """Launch the chunk-step kernel on the state, IN PLACE (at the spec's
-    live width).  Does not synchronise.  ``library``: the build to launch
-    (``"scl_decode_profile"``: the same kernel with the stage profile)."""
+    live width).  Does not synchronise."""
+    ctx = launch_chunk_step(state, spec, "scl_decode")
+    _count("scl_chunk_step", spec.program, ctx, spec.narrow)
+
+
+def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
+    """The chunk step's launch through the launcher of ``library``
+    (``"scl_decode"``, or a variant of it such as the profiled
+    ``"scl_decode_profile"``), uncounted; returns the device-memory context
+    (None: in shared memory)."""
     _check_state(state, spec.program)
     s = state.sched
     B = state.pm.shape[0]
@@ -604,7 +598,7 @@ def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec,
                   int(state.onehot), warps, ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_step")
-    _count("scl_chunk_step", spec.program, ctx, spec.narrow)
+    return ctx
 
 
 def scl_chunk_step(state: SCLState, spec: SCLStepSpec) -> None:

@@ -69,6 +69,20 @@ def perm_word(w, r, L):
     return out
 
 
+def perm_words_ballot(w, r, n):
+    """``scl::perm_words_ballot`` lane by lane: position i's word ``w [B, m]``
+    is shuffled from lane i to the warp, lane l < n votes its bit r[l], and
+    the ballot is position i's result."""
+    lane = torch.arange(32)
+    rl = torch.zeros((w.shape[0], 32), dtype=torch.int64)
+    rl[:, :n] = r[:, :n]  # lanes >= n hold what they hold: their vote is masked
+    out = torch.zeros_like(w)
+    for i in range(w.shape[1]):
+        vote = (lane < n) & (((w[:, i:i + 1] >> rl) & 1) == 1)
+        out[:, i] = (vote.long() << lane).sum(dim=1)
+    return out
+
+
 def zero_dec_inplace(z, total, M):
     m = M
     while m > 1:
@@ -387,8 +401,8 @@ def chunk_body(c, ops, has_r, w=None):
             c.alpha[:, nxt + idx] = second + sgn * first
         elif kind == OP_COMBINE:
             word = c.beta[:, off:off + sz]
-            if op & FLAG_RR:
-                word = perm_word(word, c.R, w)
+            if op & FLAG_RR:  # few positions and a wide list: by ballots, as the kernel
+                word = perm_words_ballot(word, c.R, w) if 2 * sz < w else perm_word(word, c.R, w)
             c.beta[:, off:off + sz] = word ^ c.beta[:, off + sz:off + 2 * sz]
             if op & FLAG_RL:
                 saved = c.Rstack[:, d]

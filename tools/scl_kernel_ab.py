@@ -27,7 +27,10 @@ prints one JSON line:
   decode (1024 frames, N=4096, L=32, chunk 64);
 * a digest of every decode's paths and metrics, so that the trees' outputs
   can be compared bit for bit;
-* the stage profile of K3 at positions 3 and 4 where the tree has the
+* K3 of the large-code decode at each of its 63 chunk positions (N=4096,
+  S=64, L=32: every prune 64 candidates wide, no ``OP_SUBTREE``), and its mean;
+* the stage profile of K3 at flagship positions 3 and 4 and at the large-code
+  decode's positions 16 and 40 where the tree has the
   profiled build (``ops/build.py`` ``VARIANTS``), and the kernels'
   registers, spills and resident warps per SM where it has
   ``scl_cuda.kernel_resources``.
@@ -202,6 +205,20 @@ def _child(reps: int) -> dict:
     dec64 = make_scl_decoder(4096, mask64, 32, chunk=64, device=dev)
     out["SCL-32 N=4096 chunk 64, 1024 frames"] = time_ms(lambda: dec64(llr64), max(2, reps // 4))
     note(*dec64(llr64))
+    sched64 = build_scl_schedule(4096, mask64, 32, 64)
+    s64, _ = make_step_specs(sched64)
+
+    def state64():
+        return SCLState(sched64, llr64[:, rev32].contiguous())
+
+    st64, per64 = state64(), []
+    for spec in s64:
+        scratch = st64.clone()
+        per64.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), max(2, reps // 4)))
+        scl_chunk_step_cuda(st64, spec)
+    note(st64.alpha, st64.beta, st64.pm)
+    out["K3 SCL-32 S=64 per position"] = per64
+    out["K3 SCL-32 S=64 mean"] = sum(per64) / len(per64)
     out["digest"] = digest.hexdigest()
     if any("profile" in v for v in getattr(build, "VARIANTS", {})):
         sys.path.insert(0, os.getcwd())
@@ -213,6 +230,12 @@ def _child(reps: int) -> dict:
                 split[c] = chip_smoke.profile_step(state, spec)
             scl_chunk_step_cuda(state, spec)
         out["profile"] = split
+        st64, split64 = state64(), {}
+        for c, spec in enumerate(s64):
+            if c in (16, 40):
+                split64[c] = chip_smoke.profile_step(st64, spec)
+            scl_chunk_step_cuda(st64, spec)
+        out["profile SCL-32 S=64"] = split64
     if hasattr(scl_cuda, "kernel_resources"):
         out["resources"] = scl_cuda.kernel_resources(L, S, N, sched.t)
     return out
