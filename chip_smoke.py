@@ -31,7 +31,10 @@ the level stacks of every chunk position, the last chunk, the one-launch
 decode, whole decodes, other codes), ``scl_profile`` (the chunk step's time
 by part from the profiled build, which ``build`` compiles beside the others
 only when this phase runs, and every list-kernel variant's registers, spills
-and resident warps per SM), ``fast_kernels`` (the fast-node
+and resident warps per SM), ``sc_profile`` (the SC kernel's time by part
+from its profiled build, built likewise only when this phase runs, for the
+whole decode at N=1024 and both subtree launches at N=32768),
+``fast_kernels`` (the fast-node
 selection kernel, and the fast node programs of the chunk body, chunk step
 and last chunk in the same way; the one-launch decode must refuse them),
 ``large_kernels`` (the large-code modes: the SC kernel's hybrid subtree
@@ -92,7 +95,8 @@ from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
 from polarcode_and_ldpc_tpu_torch.ops import build, scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda, smem_bytes
 from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import (SCProgram, hybrid_sub_n,
-                                                          make_sc_decoder_mega, sc_decode_cuda)
+                                                          launch_plan, make_sc_decoder_mega,
+                                                          sc_decode_cuda)
 from polarcode_and_ldpc_tpu_torch.ops.roll_cuda import (PROBE_SHAPE, PROBE_SHIFT, sublane_roll,
                                                         sublane_roll_cuda, sublane_roll_plain)
 from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
@@ -148,7 +152,8 @@ SNR_CURVE_ARGS = ["--polar-n", "1024", "--ldpc-n", "1008", "--rates", "0.5",
                   "--batch-size", "4096", "--polar-algorithm", "ca_scl",
                   "--scl-node-mode", "fast", "--skip-plots", "--seed", "42"]
 
-PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "fast_kernels",
+PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "sc_profile",
+          "fast_kernels",
           "large_kernels",
           "onehot_kernels", "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc",
           "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
@@ -180,6 +185,24 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> dict:
+    """Device time of ``fn()`` by ``torch.profiler`` (CUPTI times each kernel
+    on the card, whatever the host costs): the mean per call of the summed
+    kernel durations over ``reps`` calls after a warm-up, and the kernels per
+    call; "not measured" when the profiler saw no kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total_ms <= 0:
+        return {"ms": "not measured", "kernels_per_call": "not measured"}
+    return {"ms": total_ms / reps, "kernels_per_call": sum(e.count for e in kernels) / reps}
 
 
 def seeded_llrs(codewords: torch.Tensor, snr_db: float, seed: int) -> torch.Tensor:
@@ -269,6 +292,8 @@ def check_sc_kernel(results: dict, reps: int) -> None:
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
         "shape": [POLAR_CHUNK, POLAR_N], "n_ops": int(program.ops.shape[0]),
+        "n_ops_exact_nodes": int(SCProgram(POLAR_N, mask, fast_nodes=False).ops.shape[0]),
+        "launch_plan": launch_plan(program, POLAR_CHUNK, 0)._asdict(),
         "tolerance": "bit-identical", "cases": cases,
     }
     if worst:
@@ -869,6 +894,74 @@ def phase_scl_profile() -> None:
          resources=scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t))
 
 
+# the parts of an SC decode in the stage profile (ProfSlot of csrc/sc_decode.cu,
+# in its order)
+SC_PROFILE_SLOTS = ("fetch", "F size>=32", "F size<32", "G size>=32", "G size<32",
+                    "COMBINE size>=32", "COMBINE size<32", "rate-0", "HARD", "REP", "SPC",
+                    "register node", "copy in", "copy out", "frame")
+
+
+def profile_sc(llr: torch.Tensor, program) -> dict:
+    """K1 of the profiled build (-DSC_PROFILE) on ``llr``: held against the
+    normal build, then each part's clock64() cycles per frame (a warp's own
+    clock), ops per frame, and share of the frame's cycles."""
+    lib = build.load("sc_decode_profile")
+    lib.sc_profile_read.argtypes = [ctypes.c_void_p]
+    n = len(SC_PROFILE_SLOTS)
+    buf = (ctypes.c_ulonglong * (2 * n))()
+    sc_decode_cuda(llr, program, library="sc_decode_profile")  # warm-up
+    torch.cuda.synchronize()
+    build.check_launch(lib, lib.sc_profile_reset(), "sc_profile_reset")
+    got = sc_decode_cuda(llr, program, library="sc_decode_profile")
+    torch.cuda.synchronize()
+    build.check_launch(lib, lib.sc_profile_read(ctypes.addressof(buf)), "sc_profile_read")
+    hold_equal("profiled sc_decode", {"u": (got, sc_decode_cuda(llr, program))},
+               {"N": program.N, "subtree": program.subtree})
+    B = llr.shape[0]
+    frame = buf[n - 1]
+    return {name: {"cycles_per_frame": buf[q] / B, "ops_per_frame": buf[n + q] / B,
+                   "share_of_frame": buf[q] / frame if frame else None}
+            for q, name in enumerate(SC_PROFILE_SLOTS) if buf[n + q]}
+
+
+def sc_hybrid_subtree_inputs(N: int, K: int, B: int, snr: float, seed: int):
+    """The decoder of SC at N with its hybrid cut and the two subtree
+    launches' inputs (left: f of the halves; right: g with the left
+    subtree's kernel output) of one Monte-Carlo chunk."""
+    frozen, _, mask = polar_code(N, K)
+    dec = make_sc_decoder_mega(N, mask)
+    sub_n = dec.sub_n
+    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, device=DEV)
+    llr = seeded_llrs(enc.encode(np.random.default_rng(seed).integers(0, 2, (B, K))), snr,
+                      seed=seed + 1)
+    a = llr[:, torch.as_tensor(np.asarray(bit_reverse_permutation(N)), device=DEV)]
+    first, second = a[:, :sub_n], a[:, sub_n:]
+    alpha_l = f_minsum(first, second).contiguous()
+    beta_l = sc_decode_cuda(alpha_l, dec.programs[0])
+    alpha_r = (second + (1.0 - 2.0 * beta_l.to(torch.float32)) * first).contiguous()
+    return dec, alpha_l, alpha_r
+
+
+def phase_sc_profile() -> None:
+    """Where K1's time goes (stage profile of the profiled build): the whole
+    decode at N=1024 (one Monte-Carlo chunk, 3 dB, fast nodes) and the two
+    subtree launches of the hybrid decode at N=32768 (1024 frames, 3 dB)."""
+    frozen, info, mask = polar_code()
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, device=DEV)
+    msgs = np.random.default_rng(11).integers(0, 2, (POLAR_CHUNK, POLAR_K))
+    llr = seeded_llrs(enc.encode(msgs), 3.0, seed=12)
+    program = SCProgram(POLAR_N, mask)
+    split = {f"K1 N={POLAR_N}": profile_sc(llr, program)}
+    dec, alpha_l, alpha_r = sc_hybrid_subtree_inputs(LARGE_SC_N, LARGE_SC_K, LARGE_SC_CHUNK,
+                                                     3.0, 40)
+    split[f"N={LARGE_SC_N} left subtree"] = profile_sc(alpha_l, dec.programs[0])
+    split[f"N={LARGE_SC_N} right subtree"] = profile_sc(alpha_r, dec.programs[dec.sub_n])
+    emit("sc_profile", split=split,
+         ops_per_program={k: int(p.ops.shape[0]) for k, p in (
+             (f"K1 N={POLAR_N}", program), ("left subtree", dec.programs[0]),
+             ("right subtree", dec.programs[dec.sub_n]))})
+
+
 def raises_value_error(fn) -> bool:
     """Whether ``fn()`` refuses with a ``ValueError`` (a refusal is the
     expected outcome; anything else propagates)."""
@@ -1106,6 +1199,7 @@ def check_sc_hybrid(results: dict, reps: int) -> dict:
             whole_plain_ms = time_ms(lambda: plain(llr), 1, warmup=1)
     byts = B * sub_n * 5
     flops = B * sub_n * int(math.log2(sub_n))
+    plan = launch_plan(dec.programs[0], B, 0)
     results["sc_decode_sub"] = kernel_row(
         "sc_decode_sub", "polarcode_and_ldpc_tpu/ops/sc_mega_pallas.py:168",
         sum(sub_ms) / 2, sum(sub_plain_ms) / 2, byts, flops, 0,
@@ -1113,6 +1207,10 @@ def check_sc_hybrid(results: dict, reps: int) -> dict:
         shape=[B, sub_n], code=[N, K], ms_per_subtree=sub_ms,
         whole_decode_ms=whole_ms, whole_decode_plain_ms=whole_plain_ms,
         launches_per_decode=len(dec.programs),
+        smem_per_frame=plan.smem_per_frame, levels_in_device_memory=plan.dev_levels,
+        frames_per_sm=plan.frames_per_sm, waves=plan.waves,
+        frames_per_block=plan.frames_per_block, warps_per_frame=plan.warps_per_frame,
+        ops_per_subtree_program=[int(dec.programs[off].ops.shape[0]) for off in sorted(dec.programs)],
         note="ms, plain_ms, bound_ms per subtree launch; plain_ms is the unrolled recursion "
              "on the subtree's storage slice", cases=cases)
     return {"N": N, "sub_n": sub_n, "cases": cases}
@@ -1656,13 +1754,23 @@ def check_roll_kernel(results: dict, reps: int) -> dict:
     counts = record_launches({}, ["sublane_roll"])
     if not np.array_equal(out.cpu().numpy(), np.roll(x_np, PROBE_SHIFT, 0)):
         raise AssertionError("sublane_roll disagrees with the probe's np.roll")
-    ms = time_ms(lambda: sublane_roll_cuda(x, PROBE_SHIFT), reps)
+    # CUDA events around back-to-back calls (the host's issue included) and the
+    # profiler's device time of the kernel alone, K8 and torch.roll alike
+    # (in turns, three times each: the host's pace drifts)
+    ms, library_ms = [], []
+    for _ in range(3):
+        ms.append(time_ms(lambda: sublane_roll_cuda(x, PROBE_SHIFT), 10 * reps))
+        library_ms.append(time_ms(lambda: torch.roll(x, PROBE_SHIFT, 0), 10 * reps))
+    ms, library_ms = sum(ms) / 3, sum(library_ms) / 3
     plain_ms = time_ms(lambda: sublane_roll_plain(x, PROBE_SHIFT), reps)
-    library_ms = time_ms(lambda: torch.roll(x, PROBE_SHIFT, 0), reps)
     row = kernel_row("sublane_roll", "tools/r4_tpu_queue7.sh:14", ms, plain_ms,
                      2 * x.numel(), 0, 0.0, source="polarcode_and_ldpc_tpu_torch/ops/csrc/sublane_roll.cu",
                      shape=list(PROBE_SHAPE), shift=PROBE_SHIFT,
-                     note="on no path: a probe; launches: the probe's path", cases=cases)
+                     device_ms=device_ms(lambda: sublane_roll_cuda(x, PROBE_SHIFT), 10 * reps),
+                     library_device_ms=device_ms(lambda: torch.roll(x, PROBE_SHIFT, 0), 10 * reps),
+                     note="on no path: a probe; launches: the probe's path; ms and library_ms "
+                          "by CUDA events around back-to-back calls, device_ms and "
+                          "library_device_ms by torch.profiler", cases=cases)
     row["library_ms"] = library_ms
     row["launches"] = counts["sublane_roll"]
     results["sublane_roll"] = row
@@ -2596,14 +2704,17 @@ def main() -> int:
     reps = 3 if args.quick else 20
     dev_info: dict = {}
     q = args.quick
-    # the profiled K3 is built beside the other sources only when its phase runs
-    variants = ("scl_decode_profile",) if "scl_profile" in phases else ()
+    # the profiled K3 and K1 are built beside the other sources only when their
+    # phases run
+    variants = tuple(v for p, v in (("scl_profile", "scl_decode_profile"),
+                                    ("sc_profile", "sc_decode_profile")) if p in phases)
     run = {
         "device": lambda: dev_info.update(phase_device()),
         "build": lambda: phase_build(args.verbose_build, variants),
         "kernels": lambda: phase_kernels(results, reps, q),
         "scl_kernels": lambda: phase_scl_kernels(results, reps, q),
         "scl_profile": phase_scl_profile,
+        "sc_profile": phase_sc_profile,
         "fast_kernels": lambda: phase_fast_kernels(results, reps, q),
         "large_kernels": lambda: phase_large_kernels(results, reps),
         "onehot_kernels": lambda: phase_onehot_kernels(results, reps, q),

@@ -13,7 +13,8 @@ They are rebuilt when a source is newer than its library.
 A variant is one source built with extra flags into a library of its own
 name (``VARIANTS``): ``scl_decode_profile`` is ``scl_decode.cu`` (the chunk
 step, K3) with the stage profile of the list kernels (``-DSCL_PROFILE``, see
-``csrc/scl_device.cuh``).  Variants are built only when asked for, by
+``csrc/scl_device.cuh``); ``sc_decode_profile`` is ``sc_decode.cu`` (K1)
+with its stage profile (``-DSC_PROFILE``).  Variants are built only when asked for, by
 ``build_all(variants=...)`` or ``load(<variant>)``; the normal libraries are
 the same with or without them.
 """
@@ -28,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # the list kernels are four sources over one header (scl_kernels.cuh), so that
 # their builds run side by side
@@ -38,7 +41,8 @@ _SCL_HEADERS = ("scl_kernels.cuh", "scl_device.cuh", "fastnode_device.cuh")
 HEADERS = {"scl_decode": _SCL_HEADERS, "scl_body": _SCL_HEADERS, "scl_last": _SCL_HEADERS,
            "scl_mega": _SCL_HEADERS, "fastnode": ("fastnode_device.cuh",)}
 # variant library -> (source, extra nvcc flags)
-VARIANTS = {"scl_decode_profile": ("scl_decode", ("-DSCL_PROFILE",))}
+VARIANTS = {"scl_decode_profile": ("scl_decode", ("-DSCL_PROFILE",)),
+            "sc_decode_profile": ("sc_decode", ("-DSC_PROFILE",))}
 
 # -fmad=false: no multiply-add contraction, so every float operation rounds
 # exactly as the same operation does in the plain PyTorch version
@@ -127,3 +131,13 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
         lib.pl_error_string.argtypes = [ctypes.c_int]
         msg = lib.pl_error_string(code).decode()
         raise RuntimeError(f"{what}: kernel launch failed: {msg} (code {code})")
+
+
+def launch_on(index: int, fn, *args) -> int:
+    """``fn(*args, stream)``: a C launcher called on PyTorch's current stream
+    of CUDA device ``index``, with that device current (no device switch
+    when it already is)."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -41,17 +41,28 @@ def _launcher():
 def sublane_roll_cuda(x: torch.Tensor, shift: int) -> torch.Tensor:
     """Launch the roll kernel on ``x [rows, cols]`` int8, contiguous, on a
     CUDA device (a tile that does not start on a 16-byte boundary moves byte
-    by byte).  Does not synchronise."""
-    if x.device.type != "cuda":
+    by byte).  Does not synchronise.  Between the checks and the launch
+    there is only the output's allocation: the launcher is cached, the
+    stream handle is PyTorch's raw current stream, and the device is
+    switched only when it is not the current one."""
+    if not x.is_cuda:
         raise ValueError(f"sublane_roll_cuda needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.int8 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"expected a contiguous 2-D int8 tile, got {x.dtype} {tuple(x.shape)}")
+    rows, cols = x.shape
+    if rows * cols >= 2 ** 31:
+        raise ValueError(f"the roll kernel indexes in 32 bits; got {rows} x {cols} bytes")
+    shift = int(shift) % rows if rows else 0
     lib, fn = _launcher()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], int(shift),
-                  torch.cuda.current_stream().cuda_stream)
-    build.check_launch(lib, code, "sublane_roll")
+    index = x.get_device()
+    if index == torch._C._cuda_getDevice():
+        code = fn(x.data_ptr(), out.data_ptr(), rows, cols, shift,
+                  torch._C._cuda_getCurrentRawStream(index))
+    else:
+        code = build.launch_on(index, fn, x.data_ptr(), out.data_ptr(), rows, cols, shift)
+    if code:
+        build.check_launch(lib, code, "sublane_roll")
     count_launch("sublane_roll")
     return out
 

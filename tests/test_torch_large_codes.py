@@ -1,7 +1,9 @@
 """Large codes on the port (the JAX package's large-code configuration: polar
 SC beyond one block, N=4096 SCL-32, the default MacKay LDPC code at n=4096 and
 up), on the CPU: the plain hybrid SC decoder (the SC kernel's subtree mode)
-against the JAX SC decoder; the LDPC kernel plans on a MacKay code, which keep
+against the JAX SC decoder, and the SC kernel's launch plan (levels of a
+frame's stack in device memory, frames per SM, waves); the LDPC kernel plans
+on a MacKay code, which keep
 their planes in device memory, and the plain decoders of that code against
 JAX; the list kernels' device-memory context plans; and the live width of the
 kernel control at list 32."""
@@ -112,6 +114,50 @@ def test_hybrid_mode_is_chosen_by_size():
     mega = scm.make_sc_decoder_mega(32768, mask)
     assert mega.sub_n == 16384 and sorted(mega.programs) == [0, 16384]
     assert scm.make_sc_decoder_mega(1024, _mask(1024, 512)).sub_n == 1024
+
+
+@pytest.mark.parametrize("n", [1024, 16384])
+def test_sc_launch_plan(n):
+    """The SC kernel's launch plan is a pure function of the frame size, the
+    batch and the SM's shared memory: the fewest waves, then the fewest
+    levels in device memory.  A subtree of 16384 (the hybrid cut at
+    N=32768) keeps its top four levels in device memory: 24,576 bytes of
+    shared memory per frame, nine frames per SM, 1024 frames in one wave on
+    132 SMs, where the whole stack (147,456 bytes) took 7.8 waves."""
+    plans = {(B, sub, smem): scm.plan_sc_launch(n, B, sub, 132, smem)
+             for B in (1, 1024, 16384) for sub in (True, False)
+             for smem in (scm.SMEM_PER_SM_BYTES, 100 * 1024)
+             if sub or scm.smem_per_frame(n) + 1024 <= smem}
+    for (B, sub, smem), p in plans.items():
+        assert p.smem_per_frame == scm.smem_per_frame(n, p.dev_levels)
+        f = p.frames_per_block
+        assert f * p.smem_per_frame <= scm.SMEM_LIMIT_BYTES and p.warps_per_frame == 1
+        assert p.frames_per_sm % f == 0
+        assert (p.frames_per_sm // f) * (f * p.smem_per_frame + 1024) <= smem
+        assert p.waves == -(-B // (p.frames_per_sm * 132))
+        assert sub or p.dev_levels == 0  # a whole decode reads its LLRs into shared memory
+        # no plan of fewer levels takes as few waves
+        for c in range(p.dev_levels):
+            per = scm.smem_per_frame(n, c)
+            fps = max([min(32, 32 // w, smem // (w * per + 1024)) * w for w in range(1, 9)
+                       if w * per <= scm.SMEM_LIMIT_BYTES] or [0])
+            assert fps == 0 or -(-B // (fps * 132)) > p.waves
+    big = scm.SMEM_PER_SM_BYTES
+    if n == 16384:
+        assert tuple(plans[1024, True, big]) == (4, 1, 24576, 9, 1, 1)
+        assert tuple(plans[1024, False, big]) == (0, 1, 147456, 1, 8, 1)
+        # two warps a frame: nine frames are 18 warps, within the 32 planned for
+        assert tuple(scm.plan_sc_launch(n, 1024, True, warps_per_frame=2)) == (4, 1, 24576, 9, 1, 2)
+        # four: eight frames per SM, 1056 on the card, still one wave
+        assert tuple(scm.plan_sc_launch(n, 1024, True, warps_per_frame=4)) == (4, 1, 24576, 8, 1, 4)
+        assert plans[1, True, big].dev_levels == 0  # one frame: one wave already
+        assert tuple(plans[1024, True, 100 * 1024]) == (4, 1, 24576, 4, 2, 1)
+        with pytest.raises(ValueError, match="fits"):  # a whole frame needs 147,456 bytes
+            scm.plan_sc_launch(n, 1024, False, 132, 100 * 1024)
+    else:
+        assert tuple(plans[16384, False, big]) == (0, 2, 9216, 24, 6, 1)
+        assert tuple(plans[16384, True, big]) == (1, 1, 5120, 32, 4, 1)
+    assert scm.smem_per_frame(n) == scm.smem_per_frame(n, 0) == 9 * n
 
 
 @pytest.mark.parametrize("fast", [True, False])

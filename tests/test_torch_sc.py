@@ -1,6 +1,9 @@
 """Port SC decoder against the JAX package (unrolled XLA path and the Pallas
 whole-decode kernel in interpret mode), and the CUDA kernel's host-side node
-program against the plain version through a numpy emulation of the kernel."""
+program against the plain version and JAX through a numpy emulation of the
+kernel (its register nodes lane by lane)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +33,13 @@ NDT = {"f32": np.float32, "f64": np.float64}
 def _mask(N, K, snr=2.0):
     frozen, _ = construct_polar_code(N, K, "bhattacharyya", snr)
     return frozen_mask_from_positions(N, frozen)
+
+
+@functools.cache
+def _jax_unrolled(N, K, dt, fast):
+    """The jitted JAX unrolled decoder of the test code (N, K), compiled once
+    per process for every test that compares against it."""
+    return jax.jit(jax_unrolled(N, _mask(N, K), JDT[dt], fast_nodes=fast))
 
 
 def _llrs(B, N, seed, dt, snr_db=1.0):
@@ -69,7 +79,7 @@ def test_f_g_bit_patterns(dt):
 def test_plain_sc_equals_jax_unrolled(N, K, dt, fast):
     mask = _mask(N, K)
     llr = _llrs(48, N, N + K, dt)
-    want = np.asarray(jax.jit(jax_unrolled(N, mask, JDT[dt], fast_nodes=fast))(llr))
+    want = np.asarray(_jax_unrolled(N, K, dt, fast)(llr))
     got = make_sc_decoder_unrolled(N, mask, TDT[dt], fast_nodes=fast)(torch.from_numpy(llr))
     assert got.dtype == torch.int8 and np.array_equal(want, got.numpy())
     assert not got.numpy()[:, mask].any()  # frozen positions decode to 0
@@ -155,12 +165,84 @@ def test_wrapper_uses_plain_only_for_cpu_tensors_and_checks_inputs():
 
 # -- the kernel's node program, emulated ------------------------------------------------
 
+_LANES = np.arange(32)
+
+
+def _shfl_down(v, s):
+    """``__shfl_down_sync``: lane i reads lane i + s (its own value past 31)."""
+    src = _LANES + s
+    return np.where(src < 32, v[np.minimum(src, 31)], v)
+
+
+def _shfl_up(v, s):
+    """``__shfl_up_sync``: lane i reads lane i − s (its own value below 0)."""
+    src = _LANES - s
+    return np.where(src >= 0, v[np.maximum(src, 0)], v)
+
+
+@functools.cache
+def _natural_positions(K):
+    """Per lane, ``__brev(lane) >> (32 − log2 K)``: a lane's natural-order
+    position inside a node of K positions."""
+    lg = K.bit_length() - 1
+    return np.array([int(f"{lane:032b}"[::-1], 2) >> (32 - lg) for lane in _LANES], np.uint64)
+
+
+def _f(a, b):
+    m = np.minimum(np.abs(a), np.abs(b))
+    s = (a.view(np.int32) ^ b.view(np.int32)) & np.int32(-2 ** 31)
+    return (m.view(np.int32) | s).view(np.float32)
+
+
+def _reg_node(a, fz, K, fast):
+    """``reg_node<K>`` of ``csrc/sc_decode.cu``, lane by lane: ``a`` is the
+    warp's 32 float32 lanes (lane i < K: the node's alpha_i), ``fz`` the
+    node's frozen pattern; returns the 32 lanes' beta (lanes < K are the
+    node's).  The same shuffle partners, REP's halving adds in their order,
+    SPC's first minimum by the (|a| bits, natural position) key."""
+    frozen = bin(fz).count("1")
+    if frozen == K:
+        return np.zeros(32, np.int64)
+    bit = (a < 0).astype(np.int64)
+    if K == 1:
+        return bit
+    if frozen == K - 1 and not (fz >> (K - 1)) & 1:  # REP
+        v = a.copy()
+        s = K // 2
+        while s >= 1:
+            v = _shfl_down(v, s) + v
+            s //= 2
+        return np.full(32, int(v[0] < 0), np.int64)
+    if fast and frozen == 0:
+        return bit
+    if fast and frozen == 1 and fz & 1:  # SPC
+        if not bit[:K].sum() & 1:
+            return bit
+        nat = _natural_positions(K)
+        mag = np.abs(a).view(np.uint32).astype(np.uint64)
+        cand = (_LANES < K) & ~np.isnan(a)
+        key = np.where(cand, (mag << np.uint64(32)) | nat, np.uint64(0x7f800000 << 32 | K))
+        s = K // 2
+        while s >= 1:
+            key = np.minimum(key, key[_LANES ^ s])
+            s //= 2
+        return bit ^ ((_LANES < K) & ((key & np.uint64(0xffffffff)) == nat))
+    H = K // 2
+    hi = _shfl_down(a, H)
+    bl = _reg_node(_f(a, hi), fz & ((1 << H) - 1), H, fast)
+    sgn = (1.0 - 2.0 * bl).astype(np.float32)
+    br = _reg_node(hi + sgn * a, fz >> H, H, fast)
+    return np.where(_LANES < H, bl ^ br, _shfl_up(br, H))
+
+
 def _emulate_kernel(ops_table, llr, N, subtree=False):
     """What ``csrc/sc_decode.cu`` does for one frame, in numpy float32:
-    bit-reversed storage, the level stack, one program row after another,
-    the storage-order butterfly, natural order on the way out.  In subtree
-    mode (``sc_decode_sub``) the input and the output are storage order: no
-    bit reversal, no butterfly."""
+    bit-reversed storage, the level stack, one program row after another
+    (a size-32 node row by ``_reg_node``), the storage-order butterfly,
+    natural order on the way out.  In subtree mode (``sc_decode_sub``) the
+    input and the output are storage order: no bit reversal, no butterfly.
+    Where the level stack lives (shared or device memory) does not change
+    what is computed."""
     rev = bit_reverse_permutation(N)
     base = lambda d: 2 * N - ((2 * N) >> d)
     alpha = np.zeros(2 * N, np.float32)
@@ -169,16 +251,17 @@ def _emulate_kernel(ops_table, llr, N, subtree=False):
         alpha[:N] = llr
     else:
         alpha[rev] = llr  # alpha[rev(i)] = llr[i]
-
-    def f(a, b):
-        m = np.minimum(np.abs(a), np.abs(b))
-        s = (a.view(np.int32) ^ b.view(np.int32)) & np.int32(-2 ** 31)
-        return (m.view(np.int32) | s).view(np.float32)
-
     for op, d, sz, off in ops_table:
+        if op in (scm.OP_NODE, scm.OP_NODE_FAST):
+            dn = int(np.log2(N)) - 5
+            with np.errstate(all="ignore"):  # lanes past a child's size hold junk
+                node = _reg_node(alpha[base(dn):base(dn) + 32].copy(), int(d) & 0xffffffff,
+                                 32, op == scm.OP_NODE_FAST)
+            beta[off:off + 32] = node
+            continue
         src = alpha[base(d):base(d) + (N >> d)]
         if op == scm.OP_F:
-            alpha[base(d + 1):base(d + 1) + sz] = f(src[:sz].copy(), src[sz:2 * sz].copy())
+            alpha[base(d + 1):base(d + 1) + sz] = _f(src[:sz].copy(), src[sz:2 * sz].copy())
         elif op == scm.OP_G:
             sgn = (1.0 - 2.0 * beta[off:off + sz]).astype(np.float32)
             alpha[base(d + 1):base(d + 1) + sz] = src[sz:2 * sz] + sgn * src[:sz]
@@ -218,34 +301,54 @@ def _emulate_kernel(ops_table, llr, N, subtree=False):
 @pytest.mark.parametrize("fast", [True, False])
 @pytest.mark.parametrize("N,K", [(16, 8), (64, 32), (128, 90), (256, 128)])
 def test_kernel_program_emulation_equals_plain(N, K, fast):
+    """The node program, size-32 nodes in registers included, walked as the
+    kernel walks it, equals the plain decoder and the JAX unrolled decoder
+    bit for bit: Gaussian LLRs, integer ties with zeros, ±0.0 and
+    all-negative rows."""
     mask = _mask(N, K)
     program = scm.SCProgram(N, mask, fast_nodes=fast)
     ops_table = program.ops
     assert ops_table.dtype == np.int32 and ops_table.shape[1] == 4
     kinds = set(ops_table[:, 0].tolist())
     assert scm.OP_F in kinds and scm.OP_G in kinds and scm.OP_COMBINE in kinds
+    node_op, other = ((scm.OP_NODE_FAST, scm.OP_NODE) if fast
+                      else (scm.OP_NODE, scm.OP_NODE_FAST))
+    assert (node_op in kinds) == (N > scm.NODE_SIZE) and other not in kinds
     if not fast:
         assert scm.OP_SPC not in kinds
         assert all(sz == 1 for op, _, sz, _ in ops_table if op == scm.OP_HARD)
     llr = _llrs(12, N, 7 * N + K, "f32", snr_db=0.0)
     # plus tie-heavy integer LLRs with zeros: the SPC first-minimum rule and
-    # the hard decision of ±0 must agree too
-    ties = np.random.default_rng(N).integers(-2, 3, (12, N)).astype(np.float32)
-    for batch in (llr, ties):
+    # the hard decision of ±0 must agree too; signed zeros, all-negative rows
+    r = np.random.default_rng(N)
+    ties = r.integers(-2, 3, (12, N)).astype(np.float32)
+    zeros = np.where(r.integers(0, 2, (4, N)) == 1, np.float32(0.0), np.float32(-0.0))
+    negative = -np.abs(np.concatenate([llr[:2], ties[:2] + np.float32(0.5)]))
+    jax_dec = _jax_unrolled(N, K, "f32", fast)
+    for batch in (llr, ties, zeros, negative):
         want = program.plain(torch.from_numpy(batch)).numpy()
         got = np.stack([_emulate_kernel(ops_table, row, N) for row in batch])
         assert np.array_equal(want, got)
+        assert np.array_equal(np.asarray(jax_dec(batch)), got)
 
 
 def test_kernel_program_covers_every_position_once():
-    """Leaves tile the storage range exactly, and every F/G pair is followed
-    by its COMBINE: the structure the kernel relies on."""
+    """Leaves and register nodes tile the storage range exactly, and every
+    F/G pair is followed by its COMBINE: the structure the kernel relies
+    on."""
     N = 256
     ops_table = scm.build_sc_program(N, _mask(N, 100), fast_nodes=True)
     leaf = np.isin(ops_table[:, 0], [scm.OP_RATE0, scm.OP_HARD, scm.OP_REP, scm.OP_SPC])
+    node = ops_table[:, 0] == scm.OP_NODE_FAST
+    assert node.any() and not (ops_table[:, 0] == scm.OP_NODE).any()
     covered = np.zeros(N, int)
     for _, d, sz, off in ops_table[leaf]:
         assert sz == N >> d
+        covered[off:off + sz] += 1
+    frozen_rev = _mask(N, 100)[bit_reverse_permutation(N)]
+    for _, word, sz, off in ops_table[node]:
+        assert sz == scm.NODE_SIZE and off % sz == 0
+        assert word == scm.frozen_word(frozen_rev[off:off + sz])
         covered[off:off + sz] += 1
     assert (covered == 1).all()
     count = lambda op: int((ops_table[:, 0] == op).sum())

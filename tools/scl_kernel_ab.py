@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Parent against change for the port's list-decode kernels, in one run on one
-NVIDIA GPU.
+"""Parent against change for the port's decode kernels, in one run on one
+NVIDIA GPU: the list-decode kernels (part ``scl``), the SC kernel (part ``sc``)
+and the int8 row roll (part ``roll``).
 
     python3 tools/scl_kernel_ab.py --tree parent=<dir> --tree change=. \\
-        --order parent,change,change,parent
+        --order parent,change,change,parent [--parts scl,sc,roll]
 
 Each ``--tree name=dir`` is a checkout of the repo (``git archive`` of a
 commit unpacked into a directory that ``.gitignore`` lists, or the working
 tree).  For each name in ``--order`` the script runs itself with
 ``--child`` in a fresh process that imports ``polarcode_and_ldpc_tpu_torch``
 from that tree and builds its kernels into ``<dir>/build/ab`` (the trees do
-not share a build).  A child times, by CUDA events after a warm-up, at the
-flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB) and
-prints one JSON line:
+not share a build; a child builds only the sources of its parts).  A child
+prints one JSON line.  Part ``scl`` times, by CUDA events after a warm-up, at
+the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
 
 * K3 (``scl_chunk_step``) at each of the seven chunk positions on the state
   the kernel decode reaches, full width, and its mean; K3 with fast node
@@ -35,6 +36,19 @@ prints one JSON line:
   registers, spills and resident warps per SM where it has
   ``scl_cuda.kernel_resources``.
 
+Part ``sc`` times K1 on one Monte-Carlo chunk of the polar SC path (16384
+frames, N=1024, K=512, 3 dB, with and without fast nodes), the two subtree
+launches of the hybrid decode at N=32768, K=16384 (1024 frames, 3 dB) and the
+whole hybrid decode; where the tree has ``sc_mega_cuda.launch_plan``, the
+plans and the subtree launches at 1, 2 and 4 warps a frame; and the stage
+profile of the three launches where it has the profiled build
+``sc_decode_profile``.  Part ``roll`` times K8
+on the probe's tile ([32, 128] int8, shift 30) beside ``torch.roll``, each by
+CUDA events around back-to-back calls and by ``torch.profiler``'s device time
+of the kernel alone, and the host's microseconds a call (the wrapper,
+``torch.roll``, the output's allocation, the C launcher alone).  Every part
+adds its outputs to the digest.
+
 The parent prints a table of every timing per run and the change's ratio
 to the parent (mean of the parent runs over mean of the change runs), and
 fails if two trees' digests differ.  Every run's line and the table also go
@@ -55,24 +69,39 @@ from pathlib import Path
 N, K, L, S, B, SNR = 1024, 512, 8, 128, 4096, 3.0
 
 
-def _child(reps: int) -> dict:
+def _device_ms(fn, reps: int) -> float:
+    """Mean device time per call of the kernels ``fn()`` launches, by
+    ``torch.profiler`` (0.0 when the profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def _child(reps: int, parts: tuple) -> dict:
     import numpy as np
     import torch
 
     import polarcode_and_ldpc_tpu_torch as fec
-    from polarcode_and_ldpc_tpu_torch.models.polar.construction import (
-        bit_reverse_permutation, frozen_mask_from_positions)
-    from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import build_scl_schedule
-    from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder
-    from polarcode_and_ldpc_tpu_torch.ops import build, scl_cuda
-    from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (SCLBodyProgram, SCLState,
-                                                           make_step_specs, scl_chunk_body_cuda,
-                                                           scl_chunk_step_cuda,
-                                                           scl_last_chunk_cuda)
+    from polarcode_and_ldpc_tpu_torch.models.polar.construction import frozen_mask_from_positions
+    from polarcode_and_ldpc_tpu_torch.ops import build
 
     dev = "cuda"
+    if "scl" not in parts:  # only the sources this child times
+        build.SOURCES = tuple(s for s in build.SOURCES if s in ("sc_decode", "sublane_roll"))
+    variants = tuple(v for v in getattr(build, "VARIANTS", ())
+                     if (v.startswith("scl_") and "scl" in parts)
+                     or (v.startswith("sc_decode") and "sc" in parts))
     t0 = time.perf_counter()
-    build.build_all(variants=tuple(getattr(build, "VARIANTS", ())))
+    build.build_all(variants=variants)
     build_s = time.perf_counter() - t0
 
     def time_ms(fn, n=reps, warmup=2):
@@ -107,6 +136,55 @@ def _child(reps: int) -> dict:
         return (2.0 * y / (std * std)).contiguous(), mask
 
     out: dict = {"build_s": build_s, "device": torch.cuda.get_device_name(0)}
+    if "sc" in parts:
+        _child_sc(out, llrs, time_ms, note, variants)
+    if "roll" in parts:
+        from polarcode_and_ldpc_tpu_torch.ops.roll_cuda import sublane_roll_cuda
+        x = torch.from_numpy(np.random.default_rng(0).integers(0, 2, (32, 128)).astype(
+            np.int8)).to(dev)
+        calls = {"K8": lambda: sublane_roll_cuda(x, 30), "torch.roll": lambda: torch.roll(x, 30, 0)}
+        for name, fn in list(calls.items()) * 2:  # in turns, each twice
+            out.setdefault(f"{name} events", []).append(time_ms(fn, 10 * reps))
+            out.setdefault(f"{name} device", []).append(_device_ms(fn, 10 * reps))
+        for key in [k for k in out if k.startswith(tuple(calls))]:
+            out[key] = sum(out[key]) / len(out[key])
+        note(sublane_roll_cuda(x, 30))
+        # host microseconds a call, no synchronise inside: the wrapper, torch.roll,
+        # and the wrapper's two parts (the output's allocation; the C launcher)
+        from polarcode_and_ldpc_tpu_torch.ops import roll_cuda
+        _, fn = roll_cuda._launcher()
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream().cuda_stream
+        host = {**calls, "torch.empty_like": lambda: torch.empty_like(x),
+                "K8 launcher alone": lambda: fn(x.data_ptr(), y.data_ptr(), 32, 128, 30, stream)}
+        for name, fn_ in host.items():
+            fn_()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(2000):
+                fn_()
+            out[f"{name} host us"] = (time.perf_counter() - t) / 2000 * 1e6
+            torch.cuda.synchronize()
+    if "scl" in parts:
+        _child_scl(out, llrs, time_ms, note, reps)
+    out["digest"] = digest.hexdigest()
+    return out
+
+
+def _child_scl(out, llrs, time_ms, note, reps) -> None:
+    import numpy as np
+    import torch
+
+    from polarcode_and_ldpc_tpu_torch.models.polar.construction import bit_reverse_permutation
+    from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import build_scl_schedule
+    from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder
+    from polarcode_and_ldpc_tpu_torch.ops import build, scl_cuda
+    from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (SCLBodyProgram, SCLState,
+                                                           make_step_specs, scl_chunk_body_cuda,
+                                                           scl_chunk_step_cuda,
+                                                           scl_last_chunk_cuda)
+
+    dev = "cuda"
     llr, mask = llrs(N, K, B, SNR, 77, True)
     sched = build_scl_schedule(N, mask, L, S)
     rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64, device=dev)
@@ -219,7 +297,6 @@ def _child(reps: int) -> dict:
     note(st64.alpha, st64.beta, st64.pm)
     out["K3 SCL-32 S=64 per position"] = per64
     out["K3 SCL-32 S=64 mean"] = sum(per64) / len(per64)
-    out["digest"] = digest.hexdigest()
     if any("profile" in v for v in getattr(build, "VARIANTS", {})):
         sys.path.insert(0, os.getcwd())
         import chip_smoke
@@ -238,7 +315,62 @@ def _child(reps: int) -> dict:
         out["profile SCL-32 S=64"] = split64
     if hasattr(scl_cuda, "kernel_resources"):
         out["resources"] = scl_cuda.kernel_resources(L, S, N, sched.t)
-    return out
+
+
+def _child_sc(out, llrs, time_ms, note, variants) -> None:
+    import numpy as np
+    import torch
+
+    from polarcode_and_ldpc_tpu_torch.models.polar.construction import bit_reverse_permutation
+    from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
+    from polarcode_and_ldpc_tpu_torch.ops import sc_mega_cuda as scm
+
+    llr, mask = llrs(N, K, 16384, SNR, 11, False)
+    programs = {"K1 N=1024 16384 frames": scm.SCProgram(N, mask),
+                "K1 N=1024 16384 frames, no fast nodes": scm.SCProgram(N, mask, fast_nodes=False)}
+    for name, prog in programs.items():
+        out[name] = time_ms(lambda: scm.sc_decode_cuda(llr, prog))
+        out[f"{name}: ops"] = int(prog.ops.shape[0])
+        note(scm.sc_decode_cuda(llr, prog))
+    n32, k32, b32 = 32768, 16384, 1024
+    llr32, mask32 = llrs(n32, k32, b32, SNR, 40, False)
+    dec = scm.make_sc_decoder_mega(n32, mask32)
+    sub_n = dec.sub_n
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(n32)), device=llr32.device)
+    a = llr32[:, rev]
+    alpha_l = f_minsum(a[:, :sub_n], a[:, sub_n:]).contiguous()
+    beta_l = scm.sc_decode_cuda(alpha_l, dec.programs[0])
+    alpha_r = (a[:, sub_n:] + (1.0 - 2.0 * beta_l.to(torch.float32)) * a[:, :sub_n]).contiguous()
+    subtrees = {"left": (alpha_l, dec.programs[0]), "right": (alpha_r, dec.programs[sub_n])}
+    beta = {}
+    for side, (alpha, prog) in subtrees.items():
+        out[f"K1-hybrid {side} subtree"] = time_ms(lambda: scm.sc_decode_cuda(alpha, prog))
+        out[f"K1-hybrid {side} subtree: ops"] = int(prog.ops.shape[0])
+        beta[side] = scm.sc_decode_cuda(alpha, prog)
+        note(beta[side])
+    out["K1-hybrid subtree mean"] = (out["K1-hybrid left subtree"]
+                                     + out["K1-hybrid right subtree"]) / 2
+    out["K1-hybrid whole decode N=32768"] = time_ms(lambda: dec(llr32))
+    note(dec(llr32))
+    if hasattr(scm, "launch_plan"):
+        out["K1-hybrid plan"] = scm.launch_plan(dec.programs[0], b32, 0)._asdict()
+        out["K1 plan"] = scm.launch_plan(programs["K1 N=1024 16384 frames"], 16384, 0)._asdict()
+        # a subtree frame on one, two or four warps
+        for w in (1, 2, 4):
+            scm.SUBTREE_WARPS_PER_FRAME, keep = w, scm.SUBTREE_WARPS_PER_FRAME
+            for side, (alpha, prog) in subtrees.items():
+                out[f"K1-hybrid {side} subtree, {w} warps per frame"] = time_ms(
+                    lambda: scm.sc_decode_cuda(alpha, prog))
+                if not torch.equal(scm.sc_decode_cuda(alpha, prog), beta[side]):
+                    raise AssertionError(f"{side} subtree on {w} warps per frame differs")
+            scm.SUBTREE_WARPS_PER_FRAME = keep
+    if "sc_decode_profile" in variants:
+        sys.path.insert(0, os.getcwd())
+        import chip_smoke
+        out["sc profile"] = {
+            "K1 N=1024": chip_smoke.profile_sc(llr, programs["K1 N=1024 16384 frames"]),
+            **{f"N=32768 {side} subtree": chip_smoke.profile_sc(alpha, prog)
+               for side, (alpha, prog) in subtrees.items()}}
 
 
 def main() -> int:
@@ -246,11 +378,13 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], help="name=dir")
     ap.add_argument("--order", default="")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parts", default="scl,sc,roll", help="of scl, sc, roll")
     ap.add_argument("--child", action="store_true")
     ap.add_argument("--out", default="build/scl_kernel_ab.json")
     args = ap.parse_args()
     if args.child:
-        print("AB_RESULT " + json.dumps(_child(args.reps)), flush=True)
+        print("AB_RESULT " + json.dumps(_child(args.reps, tuple(args.parts.split(",")))),
+              flush=True)
         return 0
     trees = dict(t.split("=", 1) for t in args.tree)
     runs = []
@@ -259,7 +393,7 @@ def main() -> int:
         env = {**os.environ, "PYTHONPATH": str(root),
                "POLAR_LDPC_TORCH_BUILD_DIR": str(root / "build" / "ab")}
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                               "--reps", str(args.reps)], cwd=root, env=env,
+                               "--reps", str(args.reps), "--parts", args.parts], cwd=root, env=env,
                               capture_output=True, text=True, timeout=1500)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
@@ -269,19 +403,20 @@ def main() -> int:
         print(json.dumps({"run": name, **runs[-1][1]}), flush=True)
     digests = {r["digest"] for _, r in runs}
     summary = {}
-    for key, val in runs[0][1].items():
-        if isinstance(val, float):
-            by = {}
-            for name, r in runs:
+    for key in dict.fromkeys(k for _, r in runs for k, v in r.items() if isinstance(v, float)):
+        by = {}
+        for name, r in runs:
+            if isinstance(r.get(key), float):
                 by.setdefault(name, []).append(r[key])
-            summary[key] = {n: v for n, v in by.items()}
+        summary[key] = by
     names = list(dict.fromkeys(n for n, _ in runs))
     if len(names) > 1:
         base = names[0]
         for key, by in summary.items():
             mean = {n: sum(v) / len(v) for n, v in by.items()}
             for n in names[1:]:
-                by[f"{base}/{n}"] = mean[base] / mean[n]
+                if base in mean and mean.get(n):
+                    by[f"{base}/{n}"] = mean[base] / mean[n]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"runs": runs, "summary": summary}, indent=1))
