@@ -38,8 +38,9 @@ whole decode at N=1024 and both subtree launches at N=32768),
 selection kernel, and the fast node programs of the chunk body, chunk step
 and last chunk in the same way; the one-launch decode must refuse them),
 ``large_kernels`` (the large-code modes: the SC kernel's hybrid subtree
-launch at N=32768, the LDPC kernel with its planes in device memory on the
-MacKay n=8192 code, flooding and layered, the list kernels with the chunk
+launch at N=32768, the LDPC kernel flooding and layered on the MacKay n=8192
+and n=4096 codes in shared memory and, in device memory, on a MacKay code of
+column weight 16 whose frame exceeds a block, the list kernels with the chunk
 context in device memory at S=1024, L=32, and the narrow live-width chunk
 step beside the full-width one), ``onehot_kernels`` (the one-hot permutation
 modes of the chunk body, chunk step and last chunk: every chunk pattern, the
@@ -93,7 +94,8 @@ from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (build_scl_schedul
 from polarcode_and_ldpc_tpu_torch.models.polar.scl import make_scl_decoder, select_best_path
 from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
 from polarcode_and_ldpc_tpu_torch.ops import build, scl_cuda
-from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import BPKernelPlan, bp_decode_cuda, smem_bytes
+from polarcode_and_ldpc_tpu_torch.ops.bp_cuda import (BPKernelPlan, bp_decode_cuda,
+                                                      resident_blocks_per_sm)
 from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import (SCProgram, hybrid_sub_n,
                                                           launch_plan, make_sc_decoder_mega,
                                                           sc_decode_cuda)
@@ -370,6 +372,7 @@ def check_bp_kernel(results: dict, reps: int) -> None:
                           "identical bits and iteration counts on >= 99.9 % of frames"),
             "sum_product_frames_differ": sp_differ if rule == "bp" else None,
             "sum_product_frames": sp_frames if rule == "bp" else None,
+            "bytes_per_frame": plan.smem_bytes, "threads": plan.threads, **bp_blocks(plan),
         }
         if rule == "ms" and max_abs:
             raise AssertionError("bp_decode[nms] is not bit-identical at the main path's shape")
@@ -435,7 +438,8 @@ def check_bp_layered_kernel(results: dict, reps: int, quick: bool) -> None:
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
         "shape": [LDPC_CHUNK, LDPC_N], "num_layers": LDPC_LAYERS,
-        "mean_iterations": float(iters.float().mean()),
+        "mean_iterations": float(iters.float().mean()), "bytes_per_frame": plan.smem_bytes,
+        "threads": plan.threads, **bp_blocks(plan),
         "tolerance": "bit-identical bits and iteration counts", "cases": cases,
     }
 
@@ -1216,67 +1220,129 @@ def check_sc_hybrid(results: dict, reps: int) -> dict:
     return {"N": N, "sub_n": sub_n, "cases": cases}
 
 
-def check_bp_devmem(results: dict, reps: int) -> dict:
-    """K2 flooding (sum-product, NMS) and layered (NMS) with the planes in
-    device memory, on the default-construction (MacKay) code at n=8192."""
+# K2's shared-memory rows of the large codes and its device-memory rows: key ->
+# (check rule, alpha, schedule); the device-memory mode on a MacKay (4096, 2048)
+# code of column weight 16 (E = 65,536, dc_max 55), whose compact planes still
+# exceed one block
+LARGE_BP_ROWS = {"bp_decode_bp_large": ("bp", 1.0, "flooding"),
+                 "bp_decode_ms_large": ("ms", 0.75, "flooding"),
+                 "bp_decode_layered_large": ("ms", 0.75, "layered")}
+DEVMEM_BP_ROWS = {"bp_decode_bp_devmem": ("bp", 1.0, "flooding"),
+                  "bp_decode_ms_devmem": ("ms", 0.75, "flooding"),
+                  "bp_decode_layered_devmem": ("ms", 0.75, "layered")}
+DEVMEM_LDPC_CODE, DEVMEM_LDPC_FRAMES = (4096, 2048, 16, 32), 256
+
+
+def bp_blocks(plan) -> dict:
+    """Blocks per SM of a plan: the plan's count (shared memory and threads;
+    None in device memory, whose grid the occupancy calculator sets) and the
+    occupancy calculator's, which must agree in shared-memory mode."""
+    resident = resident_blocks_per_sm(plan)
+    if not plan.device_memory and plan.blocks_per_sm != resident:
+        raise AssertionError(f"the plan counts {plan.blocks_per_sm} blocks per SM, "
+                             f"the occupancy calculator {resident}")
+    return {"blocks_per_sm": plan.blocks_per_sm, "resident_blocks_per_sm": resident}
+
+
+def bp_counter(plan) -> str:
+    """The launch counter of a plan's kernel mode."""
+    name = "bp_decode_layered" if plan.layered else f"bp_decode_{plan.check_rule}"
+    return name + ("_devmem" if plan.device_memory else "")
+
+
+def hold_bp(key: str, plan, inputs: dict, codewords: dict) -> list:
+    """The kernel against its plain version on each input: min-sum bit-identical
+    in bits and iteration counts on every frame, sum-product on >= 99.9 %."""
+    cases = []
+    for snr, llr in inputs.items():
+        bits, iters = bp_decode_cuda(llr, plan)
+        torch.cuda.synchronize()
+        pbits, piters = plan.plain(llr)
+        differ = int(((bits != pbits).any(dim=1) | (iters != piters)).sum())
+        cases.append({"snr_db": snr, "B": llr.shape[0], "frames_differ": differ,
+                      "mean_iterations": float(iters.float().mean()),
+                      "frame_errors": int((bits != codewords[snr]).any(dim=1).sum())})
+        if differ > (llr.shape[0] // 1000 if plan.check_rule == "bp" else 0):
+            raise AssertionError(f"{key} differs from its plain version: {cases[-1]}")
+    return cases
+
+
+def bp_kernel_row(key: str, plan, llr: torch.Tensor, reps: int, cases: list) -> dict:
+    """Time a plan at one input beside its plain version; the row of the
+    kernel line, with the plan's mode."""
+    rule, schedule, (B, n) = plan.check_rule, "layered" if plan.layered else "flooding", llr.shape
+    bits, iters = bp_decode_cuda(llr, plan)
+    pbits, piters = plan.plain(llr)
+    max_abs = max(int((bits.to(torch.int16) - pbits.to(torch.int16)).abs().max()),
+                  int((iters - piters).abs().max()))
+    ms = time_ms(lambda: bp_decode_cuda(llr, plan), reps)
+    plain_ms = time_ms(lambda: plan.plain(llr), max(1, reps // 5), warmup=1)
+    flops = plan.graph.num_edges * int(iters.sum()) * OPS_PER_EDGE_ITER[
+        "layered" if plan.layered else rule]
+    return kernel_row(
+        key, "polarcode_and_ldpc_tpu/ops/bp_pallas.py:140", ms, plain_ms, B * (5 * n + 4),
+        flops, max_abs, source="polarcode_and_ldpc_tpu_torch/ops/csrc/bp_decode.cu",
+        shape=[B, n], schedule=schedule, rule=f"{rule} {plan.normalization}",
+        edges=plan.graph.num_edges, dc_max=plan.graph.dc_max,
+        mean_iterations=float(iters.float().mean()), device_memory=plan.device_memory,
+        bytes_per_frame=plan.smem_bytes, threads=plan.threads, **bp_blocks(plan),
+        tolerance=("bit-identical bits and iteration counts" if rule == "ms" else
+                   "identical bits and iteration counts on >= 99.9 % of frames"),
+        cases=cases)
+
+
+def check_bp_large(results: dict, reps: int) -> dict:
+    """K2 flooding (sum-product, NMS) and layered (NMS) on the
+    default-construction (MacKay) codes at n=8192 and n=4096, every frame in
+    one block's shared memory; the device-memory mode of both kernels on a
+    code whose frame still exceeds a block.  The launch counts of this check
+    by mode."""
     code = large_ldpc_code()
     enc, graph = code["enc"], code["graph"]
-    n, B = LARGE_LDPC_N, LARGE_LDPC_CHUNK
-    configs = {"bp_decode_bp_devmem": ("bp", 1.0, "flooding"),
-               "bp_decode_ms_devmem": ("ms", 0.75, "flooding"),
-               "bp_decode_layered_devmem": ("ms", 0.75, "layered")}
+    B = LARGE_LDPC_CHUNK
     codewords = {snr: enc.encode(np.random.default_rng(60 + int(snr)).integers(
         0, 2, (B, LARGE_LDPC_K))) for snr in (3.0, LARGE_LDPC_LOW_SNR_DB)}
     inputs = {snr: seeded_llrs(cw, snr, seed=61 + int(10 * snr)) for snr, cw in codewords.items()}
-    out = {"dv_max": graph.dv_max, "dc_max": graph.dc_max, "setup_s": code["setup_s"]}
-    for key, (rule, alpha, schedule) in configs.items():
+    out = {"dv_max": graph.dv_max, "dc_max": graph.dc_max, "edges": graph.num_edges,
+           "setup_s": code["setup_s"]}
+    ops.reset_launch_counts()
+    counters = []  # the launch counter of every row's mode
+    for key, (rule, alpha, schedule) in LARGE_BP_ROWS.items():
         plan = BPKernelPlan(graph, LDPC_ITERS, True, rule, alpha, 0.0, schedule, LDPC_LAYERS)
-        if not plan.device_memory:
-            raise AssertionError(f"{key}: {plan.smem_bytes} bytes per frame fit one block")
-        cases = []
-        for snr, llr in inputs.items():
-            bits, iters = bp_decode_cuda(llr, plan)
-            torch.cuda.synchronize()
-            pbits, piters = plan.plain(llr)
-            differ = int(((bits != pbits).any(dim=1) | (iters != piters)).sum())
-            cases.append({"snr_db": snr, "B": B, "frames_differ": differ,
-                          "mean_iterations": float(iters.float().mean()),
-                          "frame_errors": int((bits != codewords[snr]).any(dim=1).sum())})
-            if differ > (B // 1000 if rule == "bp" else 0):
-                raise AssertionError(f"{key} differs from its plain version: {cases[-1]}")
-        llr = inputs[3.0]
-        bits, iters = bp_decode_cuda(llr, plan)
-        pbits, piters = plan.plain(llr)
-        max_abs = max(int((bits.to(torch.int16) - pbits.to(torch.int16)).abs().max()),
-                      int((iters - piters).abs().max()))
-        ms = time_ms(lambda: bp_decode_cuda(llr, plan), reps)
-        plain_ms = time_ms(lambda: plan.plain(llr), max(1, reps // 5), warmup=1)
-        ops_key = "layered" if schedule == "layered" else rule
-        flops = graph.num_edges * int(iters.sum()) * OPS_PER_EDGE_ITER[ops_key]
-        results[key] = kernel_row(
-            key, "polarcode_and_ldpc_tpu/ops/bp_pallas.py:140", ms, plain_ms,
-            B * (5 * n + 4), flops, max_abs, source="polarcode_and_ldpc_tpu_torch/ops/csrc/bp_decode.cu",
-            shape=[B, n], schedule=schedule, rule=f"{rule} {alpha}",
-            mean_iterations=float(iters.float().mean()),
-            scratch_bytes_per_block=plan.scratch_bytes_per_frame,
-            tolerance=("bit-identical bits and iteration counts" if rule == "ms" else
-                       "identical bits and iteration counts on >= 99.9 % of frames"),
-            cases=cases)
+        counters.append(bp_counter(plan))
+        if plan.device_memory:
+            raise AssertionError(f"{key}: {plan.smem_bytes} bytes per frame do not fit a block")
+        cases = hold_bp(key, plan, inputs, codewords)
+        results[key] = bp_kernel_row(key, plan, inputs[3.0], reps, cases)
         out[key] = cases
-    # the smallest default-construction code that needs device memory: MacKay
-    # (4096, 2048), dc_max 19, flooding and layered
+    # the default construction at n=4096, flooding NMS and layered NMS
     small = TannerGraph.from_H(fec.mackay_construction(4096, 2048, 3, 6, seed=42), DEV)
-    x = seeded_llrs(torch.zeros((256, 4096), dtype=torch.int8, device=DEV), 0.0, seed=62)
+    zeros = torch.zeros((256, 4096), dtype=torch.int8, device=DEV)
+    x = {0.0: seeded_llrs(zeros, 0.0, seed=62)}
     for schedule in ("flooding", "layered"):
         plan = BPKernelPlan(small, LDPC_ITERS, True, "ms", 0.75, 0.0, schedule, LDPC_LAYERS)
-        bits, iters = bp_decode_cuda(x, plan)
-        torch.cuda.synchronize()
-        pbits, piters = plan.plain(x)
-        if not (plan.device_memory and torch.equal(bits, pbits) and torch.equal(iters, piters)):
-            raise AssertionError(f"MacKay n=4096 {schedule}: device memory {plan.device_memory}, "
-                                 "or the kernel differs from its plain version")
-        out[f"mackay4096_{schedule}"] = {"B": 256, "snr_db": 0.0, "frames_differ": 0,
-                                         "mean_iterations": float(iters.float().mean())}
+        if plan.device_memory:
+            raise AssertionError(f"MacKay n=4096 {schedule}: planned in device memory")
+        out[f"mackay4096_{schedule}"] = {
+            "cases": hold_bp(f"MacKay n=4096 {schedule}", plan, x, {0.0: zeros}),
+            "bytes_per_frame": plan.smem_bytes, "threads": plan.threads, **bp_blocks(plan)}
+    # the device-memory mode: a frame of the column-weight-16 code exceeds a block
+    n, k, dv, dc = DEVMEM_LDPC_CODE
+    dense = TannerGraph.from_H(fec.mackay_construction(n, k, dv, dc, seed=42), DEV)
+    zeros = torch.zeros((DEVMEM_LDPC_FRAMES, n), dtype=torch.int8, device=DEV)
+    x = {snr: seeded_llrs(zeros, snr, seed=63 + int(snr)) for snr in (0.0, 3.0)}
+    for key, (rule, alpha, schedule) in DEVMEM_BP_ROWS.items():
+        plan = BPKernelPlan(dense, LDPC_ITERS, True, rule, alpha, 0.0, schedule, LDPC_LAYERS)
+        counters.append(bp_counter(plan))
+        if not plan.device_memory:
+            raise AssertionError(f"{key}: {plan.smem_bytes} bytes per frame fit one block")
+        cases = hold_bp(key, plan, x, {0.0: zeros, 3.0: zeros})
+        results[key] = bp_kernel_row(key, plan, x[3.0], reps, cases)
+        out[key] = cases
+    counts = ops.launch_counts()
+    out["launches"] = {k: v for k, v in counts.items() if k.startswith("bp_decode") and v}
+    if not all(counts[c] for c in counters):
+        raise AssertionError(f"a K2 mode was launched no time: {out['launches']}")
     return out
 
 
@@ -1441,15 +1507,14 @@ def check_scl_narrow(results: dict, reps: int) -> dict:
 
 def phase_large_kernels(results: dict, reps: int) -> None:
     sc = check_sc_hybrid(results, reps)
-    bp = check_bp_devmem(results, reps)
+    bp = check_bp_large(results, reps)
     scl = check_scl_devmem(results, reps)
     live = check_scl_narrow(results, reps)
-    keys = ("sc_decode_sub", "bp_decode_bp_devmem", "bp_decode_ms_devmem",
-            "bp_decode_layered_devmem", "scl_chunk_step_devmem", "scl_last_chunk_devmem",
-            "scl_chunk_body_devmem", "scl_chunk_step_narrow")
+    keys = ("sc_decode_sub", *LARGE_BP_ROWS, *DEVMEM_BP_ROWS, "scl_chunk_step_devmem",
+            "scl_last_chunk_devmem", "scl_chunk_body_devmem", "scl_chunk_step_narrow")
     emit("large_kernels", kernels=[{k: v for k, v in results[k].items() if k != "cases"}
                                    for k in keys],
-         sc_hybrid=sc, ldpc_device_memory=bp, scl_device_memory=scl, live_width=live)
+         sc_hybrid=sc, ldpc=bp, scl_device_memory=scl, live_width=live)
 
 
 # -- the one-hot permutation modes of K5 / K3 / K4 -----------------------------------
@@ -2251,15 +2316,15 @@ def phase_polar_sc_large_mc(results: dict, mbps: dict, frames: int) -> None:
 
 def phase_ldpc_large_mc(results: dict, mbps: dict, frames: int) -> None:
     """The default-construction (MacKay) (8192, 4096) code: flooding BP and
-    NMS and layered NMS, every frame's planes in device memory; the encoder's
-    GF(2) set-up is host set-up, outside the rate."""
+    NMS and layered NMS, every frame in one block's shared memory; the
+    encoder's GF(2) set-up is host set-up, outside the rate."""
     code = large_ldpc_code()
     enc = code["enc"]
     B = LARGE_LDPC_CHUNK
     summary = {"setup_s": code["setup_s"], "dc_max": code["graph"].dc_max}
-    for name, key, kw in (("bp", "bp_decode_bp_devmem", {}),
-                          ("nms", "bp_decode_ms_devmem", {"normalization": 0.75}),
-                          ("layered_nms", "bp_decode_layered_devmem",
+    for name, key, kw in (("bp", "bp_decode_bp_large", {}),
+                          ("nms", "bp_decode_ms_large", {"normalization": 0.75}),
+                          ("layered_nms", "bp_decode_layered_large",
                            {"normalization": 0.75, "schedule": "layered",
                             "num_layers": LDPC_LAYERS})):
         kw = dict(decoder="bp" if name == "bp" else "nms", max_iter=LDPC_ITERS,
@@ -2267,11 +2332,18 @@ def phase_ldpc_large_mc(results: dict, mbps: dict, frames: int) -> None:
         step = make_ldpc_pipeline(enc.H, enc.G, 3.0, **kw)
         sim = MonteCarloSimulator(step, LARGE_LDPC_K, chunk_frames=B)
         sim.run(B, seed=1)  # warm-up
+        rule, alpha, schedule = LARGE_BP_ROWS[key]
+        plan = BPKernelPlan(code["graph"], LDPC_ITERS, True, rule, alpha, 0.0, schedule,
+                            LDPC_LAYERS)
+        counter = bp_counter(plan)
         ops.reset_launch_counts()
         res = sim.run(frames, max_errors=None, seed=0)
-        counts = record_launches(results, [key])
-        if counts[key] != frames // B:
+        counts = ops.launch_counts()
+        if counts[counter] != frames // B or plan.device_memory or any(
+                v for k, v in counts.items() if k.startswith("bp_") and k != counter):
             raise AssertionError(f"MacKay n=8192 {name}: launched {counts}")
+        if key in results:
+            results[key]["launches"] += counts[counter]
         if res.frames != frames or res.frame_errors != 0:
             raise AssertionError(f"MacKay n=8192 {name} at 3 dB: {res.to_dict()}")
         plain = make_ldpc_pipeline(enc.H, enc.G, 3.0, bp_impl="torch", **kw)
@@ -2283,7 +2355,8 @@ def phase_ldpc_large_mc(results: dict, mbps: dict, frames: int) -> None:
         if differ > (B // 1000 if name == "bp" else 0):
             raise AssertionError(f"MacKay n=8192 {name}: kernel and plain differ on {differ}")
         summary[name] = {**result_fields(res), "mean_iterations": res.avg_iterations,
-                         "launches": counts[key], "first_chunk_frames_differ_from_plain": differ}
+                         "launches": {counter: counts[counter]},
+                         "first_chunk_frames_differ_from_plain": differ}
         mbps[f"ldpc_mackay8192_{name}"] = res.throughput_mbps
     emit("ldpc_large_mc", code=[LARGE_LDPC_N, LARGE_LDPC_K], construction="mackay seed 42",
          chunk_frames=B, max_iter=LDPC_ITERS, **summary)
@@ -2373,8 +2446,7 @@ def phase_ldpc_qc_mc(results: dict, mbps: dict, chunks: int) -> None:
         raise AssertionError(f"the generic layered decoder at n=8192 launched {counts}")
     emit("ldpc_qc_mc", n=QC_N, k=QC_K, z=QC_Z, chunk_frames=QC_CHUNK, max_iter=LDPC_ITERS,
          code_build_seconds=round(build_s, 2), **summary, roll_path_against_generic=against,
-         generic_layered_kernel_smem_bytes=smem_bytes(layered_plan.graph,
-                                                      layered_plan.layer_checks))
+         generic_layered_kernel_smem_bytes=layered_plan.smem_bytes)
 
 
 def phase_serving(results: dict, mbps: dict, reps: int, node_mode: str = "exact") -> None:
@@ -2600,10 +2672,11 @@ def phase_stages(reps: int, only=None) -> None:
     alone by CUDA events at the main path's shapes, then the whole step, and
     the card's busy share over a short run from the profiler.  The CA-SCL
     decode is also split into its 7 chunk-step launches and its last-chunk
-    launch; the one-launch list decode, the fast list nodes and the layered
-    LDPC chunk have a column each."""
+    launch; the one-launch list decode, the fast list nodes, the layered
+    LDPC chunk and the MacKay n=8192 BP chunk have a column each."""
     frozen, info, mask = polar_code()
     enc = ldpc_code()
+    large = large_ldpc_code()
     key = rng.prng_key(0, DEV)
     out = {}
     configs = {
@@ -2631,12 +2704,19 @@ def phase_stages(reps: int, only=None) -> None:
                                                 normalization=0.75, max_iter=LDPC_ITERS,
                                                 schedule="layered", num_layers=LDPC_LAYERS,
                                                 message_idx=enc.info_positions, device=DEV)),
+        "ldpc_mackay8192_bp": (LARGE_LDPC_CHUNK, LARGE_LDPC_K, LARGE_LDPC_N,
+                               make_ldpc_pipeline(large["enc"].H, large["enc"].G, 3.0,
+                                                  decoder="bp", max_iter=LDPC_ITERS,
+                                                  message_idx=large["enc"].info_positions,
+                                                  device=DEV)),
     }
     info_idx = torch.as_tensor(info, device=DEV)
-    G = torch.as_tensor(enc.G.astype(np.float32), device=DEV)
+    G = {name: torch.as_tensor(e.G.astype(np.float32), device=DEV)
+         for name, e in (("ldpc", enc), ("ldpc_mackay8192", large["enc"]))}
     sc_program = SCProgram(POLAR_N, mask)
     graph = TannerGraph.from_H(enc.H, DEV)
     bp_plan = BPKernelPlan(graph, LDPC_ITERS, True, "bp")
+    large_plan = BPKernelPlan(large["graph"], LDPC_ITERS, True, "bp")
     layered_plan = BPKernelPlan(graph, LDPC_ITERS, True, "ms", 0.75, 0.0, "layered", LDPC_LAYERS)
     crc = CRCCodec(POLAR_K - 8, SCL_CRC, DEV)
     scl_decode = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, device=DEV)
@@ -2658,7 +2738,7 @@ def phase_stages(reps: int, only=None) -> None:
                 return polar_transform(u)
         else:
             def encode():
-                return gf2_matmul(msgs, G)
+                return gf2_matmul(msgs, G["ldpc_mackay8192" if "mackay" in name else "ldpc"])
         cw = encode()
         noise = rng.normal(nkeys, n)
         llr = awgn_transmit(None, cw, 3.0, noise=noise).contiguous()
@@ -2667,7 +2747,8 @@ def phase_stages(reps: int, only=None) -> None:
                   "polar_cascl_mega": lambda: mega_decode(llr),
                   "polar_cascl_fast": lambda: fast_decode(llr),
                   "ldpc_bp": lambda: bp_decode_cuda(llr, bp_plan),
-                  "ldpc_layered_nms": lambda: bp_decode_cuda(llr, layered_plan)}[name]
+                  "ldpc_layered_nms": lambda: bp_decode_cuda(llr, layered_plan),
+                  "ldpc_mackay8192_bp": lambda: bp_decode_cuda(llr, large_plan)}[name]
         stages = {
             "frame_keys_ms": lambda: [rng.fold_in(fk, j) for fk in [rng.frame_keys(key, ids)]
                                       for j in (0, 1)],

@@ -3,9 +3,8 @@ SC beyond one block, N=4096 SCL-32, the default MacKay LDPC code at n=4096 and
 up), on the CPU: the plain hybrid SC decoder (the SC kernel's subtree mode)
 against the JAX SC decoder, and the SC kernel's launch plan (levels of a
 frame's stack in device memory, frames per SM, waves); the LDPC kernel plans
-on a MacKay code, which keep
-their planes in device memory, and the plain decoders of that code against
-JAX; the list kernels' device-memory context plans; and the live width of the
+on MacKay codes (shared memory for the default construction, device memory
+at column weight 16), and the plain decoders of that code against JAX; the list kernels' device-memory context plans; and the live width of the
 kernel control at list 32."""
 
 import jax
@@ -187,7 +186,7 @@ def test_subtree_program_emulation_equals_plain_subtree(monkeypatch, N, K, sub_n
             assert np.array_equal(want, got)
 
 
-# -- K2: device-memory plans on the default (MacKay) construction ------------------------
+# -- K2: shared- and device-memory plans on the default (MacKay) construction -------------
 
 @pytest.fixture(scope="module")
 def mackay4096():
@@ -195,20 +194,34 @@ def mackay4096():
     return H, TannerGraph.from_H(H, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def mackay4096_cw16():
+    return TannerGraph.from_H(mackay_construction(4096, 2048, 16, 32, seed=42), device="cpu")
+
+
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_mackay_plans_use_device_memory(mackay4096, schedule):
-    """MacKay (4096, 2048) pads every check to dc_max 19: 380,928 bytes per
-    frame flooding, 253,952 layered (4 layers), both above one block; the
-    plan picks device memory (decided from the sizes, before any launch) and
-    says how much scratch a block needs."""
+def test_mackay_plans_use_device_memory(mackay4096, mackay4096_cw16, schedule):
+    """Only where the compact planes exceed a block.  MacKay (4096, 2048)
+    pads its checks to dc_max 19, but the kernel stores every edge once:
+    114,688 bytes per frame flooding (sum-product), 78,184 layered (4 layers,
+    3,162 edges in the widest), so the plan keeps a frame in shared memory,
+    two blocks of 512 threads per SM.  With column weight 16 (E = 65,536)
+    the planes take 540,672 and 344,332 bytes: device memory, decided from
+    the sizes before any launch, with the scratch a block needs."""
     _, g = mackay4096
-    assert (g.dv_max, g.dc_max) == (3, 19)
+    assert (g.dv_max, g.dc_max, g.num_edges) == (3, 19, 12288)
     rule = "bp" if schedule == "flooding" else "ms"
-    plan = bp_cuda.BPKernelPlan(g, 20, True, rule, 0.75 if rule == "ms" else 1.0, 0.0,
-                                schedule, 4)
-    need = {"flooding": 380928, "layered": 253952}[schedule]
-    assert plan.smem_bytes == need == bp_cuda.smem_bytes(g, plan.layer_checks)
-    assert plan.device_memory and plan.scratch_bytes_per_frame == need
+    alpha = 0.75 if rule == "ms" else 1.0
+    plan = bp_cuda.BPKernelPlan(g, 20, True, rule, alpha, 0.0, schedule, 4)
+    need = {"flooding": 114688, "layered": 78184}[schedule]
+    assert plan.smem_bytes == need == bp_cuda.smem_bytes(g, rule, plan.layer_edges)
+    assert not plan.device_memory and plan.threads == 512 and plan.blocks_per_sm == 2
+    g16 = mackay4096_cw16
+    assert (g16.dv_max, g16.dc_max, g16.num_edges) == (16, 55, 65536)
+    plan = bp_cuda.BPKernelPlan(g16, 20, True, rule, alpha, 0.0, schedule, 4)
+    need = {"flooding": 540672, "layered": 344332}[schedule]
+    assert plan.smem_bytes == need and plan.device_memory
+    assert plan.scratch_bytes_per_frame == -(-need // 16) * 16
 
 
 @pytest.mark.parametrize("rule", ["bp", "nms"])

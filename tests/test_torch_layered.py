@@ -1,7 +1,8 @@
 """Port row-layered min-sum against the JAX package: the XLA decoder, the fused
 Pallas kernel's layered mode in interpret mode and the float64 NumPy twin;
-the layered CUDA kernel's tables and two-pass layer walk through a numpy
-emulation; and a Monte-Carlo step of the layered pipeline in both packages.
+the layered CUDA kernel's compact tables and its two-pass layer walk, frames
+vectorised in torch, against the plain version and the XLA decoder; and a
+Monte-Carlo step of the layered pipeline in both packages.
 
 Min-sum is exact arithmetic (compares, sign products, one multiply by α, one
 subtract of β, adds in a fixed order), so every comparison here is on equal
@@ -12,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import test_torch_ldpc as ldpc_tests
 import torch
 
 import polarcode_and_ldpc_tpu as jfec
@@ -117,7 +119,7 @@ def test_layered_impl_selection_and_errors():
     assert tfec.LayeredMSDecoder(H, device="cpu", impl="cuda").impl == "cuda"
     g = TannerGraph.from_H(H, device="cpu")
     plan = bp_cuda.BPKernelPlan(g, 8, True, "ms", 0.75, 0.0, "layered", 4)
-    assert plan.layered and plan.layer_checks == 6
+    assert plan.layered and plan.layer_edges == 6 * 6
     assert plan.tables["layer_starts"].tolist() == [0, 6, 12, 18, 24]
     llr = torch.from_numpy(_llrs(6, 48, 1, 0.0, np.float32))
     before = ops.launch_counts()["bp_decode_layered"]
@@ -140,94 +142,127 @@ def test_layered_impl_selection_and_errors():
 
 
 def test_layered_kernel_shared_memory_plan():
-    """The layered kernel keeps Q, R and two layer-sized scratch planes: the
-    (504, 252) code fits with room to spare, the expanded n=8192 code fits
-    with 4 layers and more, and a single layer of it names the limit."""
+    """The layered kernel keeps Q [n], R [E] and D over the widest layer's
+    edges: the (504, 252) code fits with room to spare, the padded MacKay
+    (8192, 4096) code fits with 4 layers, and a (4096, 2048) code with dv=7,
+    dc=14 fits with 4 layers, not with one."""
     g = TannerGraph.from_H(_H("regular", 504), device="cpu")
-    assert bp_cuda.smem_bytes(g, 63) == (504 + 6 * 252 + 2 * 6 * 63) * 4 + 504
+    plan = bp_cuda.BPKernelPlan(g, 8, True, "ms", schedule="layered", num_layers=4)
+    assert plan.layer_edges == 63 * 6 and plan.smem_bytes == (504 + 1512 + 378) * 4
+    assert bp_cuda.smem_bytes(g, "ms", 378) == plan.smem_bytes and plan.threads == 256
 
     class Big:
-        n, m, dv_max, dc_max = 8192, 4096, 3, 6
-    assert bp_cuda.smem_bytes(Big, 1024) <= bp_cuda.SMEM_LIMIT_BYTES
-    assert bp_cuda.smem_bytes(Big, 4096) > bp_cuda.SMEM_LIMIT_BYTES
-    # a single layer of that code no longer fits: the plan keeps the planes in
-    # device memory instead of raising
-    big = TannerGraph.from_H(_H("regular", 8192), device="cpu")
+        n, num_edges = 8192, 24576
+    assert bp_cuda.smem_bytes(Big, "ms", 6249) == 156068 <= bp_cuda.SMEM_LIMIT_BYTES
+    assert bp_cuda.smem_bytes(Big, "ms", 24576) <= bp_cuda.SMEM_LIMIT_BYTES
+    # a single layer of a code with 28,672 edges no longer fits: the plan keeps
+    # the planes in device memory instead of raising
+    big = TannerGraph.from_H(regular_construction(4096, 2048, 7, 14, seed=1), device="cpu")
     plan = bp_cuda.BPKernelPlan(big, 8, True, "ms", schedule="layered", num_layers=1)
-    assert plan.device_memory and plan.smem_bytes == bp_cuda.smem_bytes(Big, 4096)
+    assert plan.device_memory and plan.smem_bytes == bp_cuda.smem_bytes(big, "ms", 28672)
     assert not bp_cuda.BPKernelPlan(big, 8, True, "ms", schedule="layered",
                                     num_layers=4).device_memory
 
 
-# -- the kernel's tables and two-pass layer walk, emulated ---------------------------------
+def test_layered_tables_sort_checks_only_inside_layers():
+    """The degree order may not move a check across a layer boundary: the
+    check positions of layer g are its own checks, by falling degree."""
+    g = TannerGraph.from_H(mackay_construction(256, 128, 3, 6, seed=42), device="cpu")
+    deg = g.numpy_tables()["check_mask"].sum(axis=1)
+    for nl in (1, 3, 4):
+        plan = bp_cuda.BPKernelPlan(g, 8, True, "ms", schedule="layered", num_layers=nl)
+        order = plan.tables["check_order"].numpy()
+        starts = plan.tables["layer_starts"].numpy()
+        first = plan.tables["row_first"].numpy()
+        for (c0, c1), p0, p1 in zip(tlay.layer_bounds(g.m, nl), starts[:-1], starts[1:]):
+            assert (p0, p1) == (c0, c1)
+            assert sorted(order[p0:p1].tolist()) == list(range(c0, c1))
+            assert (np.diff(deg[order[p0:p1]]) <= 0).all()
+        # a layer's edges are one contiguous range
+        deg_p = plan.tables["row_degree"].numpy()
+        assert all(first[p1] - first[p0] == deg_p[p0:p1].sum()
+                   for p0, p1 in zip(starts[:-1], starts[1:]))
+        assert plan.layer_edges == int(np.diff(first[starts]).max())
+    flood = bp_cuda.BPKernelPlan(g, 8, True, "ms").tables["check_order"].numpy()
+    assert (np.diff(deg[flood]) <= 0).all()
 
-def _emulate_layered_kernel(tables, starts, n, m, dv, dc, layer_checks, llr, max_iter, early,
-                            alpha, beta):
-    """What ``bp_layered_decode_kernel`` does for one frame, in numpy float32
-    over the slot-major tables: R[s*m+c], the layer's T / D planes indexed
-    [s*layer_checks + (c - c0)], −1 = padded slot."""
-    f32 = np.float32
-    vc, cvar = tables["vc_idx"].reshape(-1), tables["chk_var"].reshape(-1)
-    Q = llr.astype(f32).copy()
-    R = np.zeros(dc * m, f32)
-    T = np.zeros(dc * layer_checks, f32)
-    D = np.zeros(dc * layer_checks, f32)
-    hard = (Q <= 0).astype(np.int8)
-    iters = max_iter
 
-    def sg_mg(e):
-        if cvar[e] < 0:
-            return f32(1), f32(np.inf)
-        x = f32(Q[cvar[e]] - R[e])
-        return f32(np.sign(x)), f32(abs(x))
+# -- the kernel's tables and two-pass layer walk ------------------------------------------
 
-    with np.errstate(invalid="ignore", over="ignore"):
-        for it in range(max_iter):
-            for g in range(len(starts) - 1):
-                c0, c1 = int(starts[g]), int(starts[g + 1])
-                for c in range(c0, c1):  # pass 1: every check reads the Q the layer found
-                    run_s, run_m = f32(1), f32(np.inf)
-                    for s in range(dc):
-                        sg, mg = sg_mg(s * m + c)
-                        k = s * layer_checks + (c - c0)
-                        T[k], D[k] = run_s, run_m
-                        run_s, run_m = f32(run_s * sg), min(run_m, mg)
-                    run_s, run_m = f32(1), f32(np.inf)
-                    for s in range(dc - 1, -1, -1):
-                        e, k = s * m + c, s * layer_checks + (c - c0)
-                        r_old = R[e]
-                        sg, mg = sg_mg(e)
-                        mag = min(D[k], run_m)
-                        if beta != 0.0:
-                            mag = max(f32(mag - f32(beta)), f32(0))
-                        out = f32(f32(f32(T[k] * run_s) * mag) * f32(alpha))
-                        r_new = out if (cvar[e] >= 0 and np.isfinite(out)) else f32(0)
-                        D[k] = f32(r_new - r_old) if cvar[e] >= 0 else f32(0)
-                        R[e] = r_new
-                        run_s, run_m = f32(run_s * sg), min(run_m, mg)
-                for v in range(n):  # pass 2: deltas land in variable-slot order
-                    q = Q[v]
-                    for sp in range(dv):
-                        idx = vc[sp * n + v]
-                        if idx < 0:
-                            continue
-                        s, c = divmod(int(idx), m)
-                        if c0 <= c < c1:
-                            q = f32(q + D[s * layer_checks + (c - c0)])
-                    Q[v] = q
-            hard = (Q <= 0).astype(np.int8)
-            if early:
-                bad = 0
-                for c in range(m):
-                    par = 0
-                    for s in range(dc):
-                        if cvar[s * m + c] >= 0:
-                            par ^= int(hard[cvar[s * m + c]])
-                    bad |= par
-                if not bad:
-                    iters = it + 1
-                    break
-    return hard, iters
+def _walk_layered_kernel(tables, n, dv, llr, max_iter, early, alpha, beta, record=None):
+    """What ``bp_layered_decode_kernel`` computes, in its order, frames
+    vectorised in torch float32: per layer, pass 1 reads ``x = Q[v] − R[e]``
+    for the layer's edges (kept in D), forms the min-sum messages of
+    ``MinSumRow`` and leaves ``R_new − R_old`` in D; pass 2 adds, for slot
+    sp = 0..dv−1 in order, the delta of that slot's edge where the edge lies
+    in the layer's edge range.  ``record`` gets the layer's R after each
+    layer."""
+    ev = torch.from_numpy(tables["edge_var"]).long()
+    vc = torch.from_numpy(tables["vc_edge"]).long().reshape(dv, n)
+    first, starts = tables["row_first"], tables["layer_starts"]
+    Q = torch.as_tensor(llr, dtype=torch.float32).clone()
+    B = Q.shape[0]
+    R = torch.zeros(B, len(ev))
+    bits = (Q <= 0).to(torch.int8)
+    done = torch.zeros(B, dtype=torch.bool)
+    latched, iters = bits, torch.full((B,), max_iter, dtype=torch.int32)
+    for it in range(max_iter):
+        if early and bool(done.all()):
+            break
+        for p0, p1 in zip(starts[:-1], starts[1:]):
+            eb, ee = int(first[p0]), int(first[p1])
+            D = Q[:, ev[eb:ee]] - R[:, eb:ee]  # pass 1
+            slots = [(act, e - eb)
+                     for act, e in ldpc_tests._row_slots(tables, p0, p1)]
+            r_new = ldpc_tests._minsum_messages(D, slots, int(p1 - p0), alpha, beta)
+            D = r_new - R[:, eb:ee]
+            R[:, eb:ee] = r_new
+            if record is not None:
+                record.append(r_new.clone())
+            for sp in range(dv):  # pass 2
+                inside = (vc[sp] >= eb) & (vc[sp] < ee)
+                Q = torch.where(inside, Q + D[:, (vc[sp] - eb).clamp(0, ee - eb - 1)], Q)
+        bits = (Q <= 0).to(torch.int8)
+        if early:
+            ok = ldpc_tests._syndrome_ok(bits, tables)
+            newly = ok & ~done
+            latched = torch.where(newly[:, None], bits, latched)
+            iters = torch.where(newly, it + 1, iters).to(torch.int32)
+            done = done | ok
+    if early:
+        bits = torch.where(done[:, None], latched, bits)
+    return bits, iters
+
+
+def _layered_walk_equals_plain(monkeypatch, g, nl, rule, llr, max_iter):
+    """The kernel's walk against the plain layered decoder: bits, iteration
+    counts and every layer's new messages R, bit for bit (the sign of a zero
+    included)."""
+    alpha, beta = RULES[rule]
+    plan = bp_cuda.BPKernelPlan(g, max_iter, True, "ms", alpha, beta, "layered", nl)
+    plain_r = []
+    update = tlay.ms_check_update
+
+    def recording(msgs, mask, *args):
+        out = update(msgs, mask, *args)
+        plain_r.append(out)
+        return out
+    monkeypatch.setattr(tlay, "ms_check_update", recording)
+    pb, pi = plan.plain(torch.from_numpy(llr))
+    starts = plan.tables["layer_starts"].numpy()
+    bounds = list(zip(starts[:-1].tolist(), starts[1:].tolist()))
+    tables = {**bp_cuda.kernel_tables(g, bounds), "layer_starts": starts}
+    walk_r = []
+    wb, wi = _walk_layered_kernel(tables, g.n, g.dv_max, llr, max_iter, True, alpha, beta,
+                                  walk_r)
+    assert torch.equal(wb, pb) and torch.equal(wi, pi)
+    assert len(walk_r) == len(plain_r)
+    for k, (w, p) in enumerate(zip(walk_r, plain_r)):
+        p0, p1 = bounds[k % len(bounds)]
+        idx = ldpc_tests._check_major(tables, g.dc_max, p0, p1, p0)
+        got = p.reshape(p.shape[0], -1)[:, idx].contiguous()
+        assert torch.equal(w.view(torch.int32), got.view(torch.int32))
+    return wb, wi
 
 
 def _has_layer_with_two_edges_of_one_variable(H, nl):
@@ -239,26 +274,34 @@ def _has_layer_with_two_edges_of_one_variable(H, nl):
 
 @pytest.mark.parametrize("rule", ["ms", "nms", "oms"])
 @pytest.mark.parametrize("kind,nl", [("regular", 4), ("mackay", 3), ("regular", 1), ("mackay", 6)])
-def test_layered_kernel_emulation_equals_plain(kind, nl, rule):
-    """The walk the kernel makes over ``kernel_tables`` and ``layer_starts``
-    gives the plain version's bits and iteration counts, on graphs where a
-    layer holds two edges of one variable (contiguous layers are not the
-    bands of the construction) and on a graph with padded slots."""
-    alpha, beta = RULES[rule]
+def test_layered_kernel_emulation_equals_plain(monkeypatch, kind, nl, rule):
+    """The walk the kernel makes over its compact tables and ``layer_starts``
+    gives the plain version's bits, iteration counts and messages, on graphs
+    where a layer holds two edges of one variable (contiguous layers are not
+    the bands of the construction) and on a graph with padded slots."""
     H = _H(kind, 48)
     assert _has_layer_with_two_edges_of_one_variable(H, nl)
     g = TannerGraph.from_H(H, device="cpu")
-    plan = bp_cuda.BPKernelPlan(g, 6, True, "ms", alpha, beta, "layered", nl)
-    tables = bp_cuda.kernel_tables(g)
-    starts = plan.tables["layer_starts"].numpy()
-    assert starts[0] == 0 and starts[-1] == g.m and (np.diff(starts) <= plan.layer_checks).all()
-    llr = np.concatenate([_llrs(3, 48, 11, -1.0, np.float32), _llrs(3, 48, 12, 2.0, np.float32)])
-    pb, pi = plan.plain(torch.from_numpy(llr))
-    for f in range(llr.shape[0]):
-        bits, iters = _emulate_layered_kernel(
-            tables, starts, g.n, g.m, g.dv_max, g.dc_max, plan.layer_checks, llr[f], 6, True,
-            alpha, beta)
-        assert np.array_equal(bits, pb[f].numpy()) and iters == int(pi[f])
+    llr = np.concatenate([_llrs(3, 48, 11, -1.0, np.float32), _llrs(3, 48, 12, 2.0, np.float32),
+                          ldpc_tests._ties(4, 48, 13)])
+    _layered_walk_equals_plain(monkeypatch, g, nl, rule, llr, 6)
+
+
+@pytest.mark.parametrize("rule,nl", [("nms", 4), ("oms", 3)])
+def test_layered_compact_walk_equals_plain_and_jax_on_padded_mackay(monkeypatch, rule, nl):
+    """MacKay (256, 128) (rows of degree 1 to 13): Gaussian LLRs near the
+    threshold and integer ties with +-0.0; the walk equals the plain decoder
+    (messages bit for bit after every layer) and the JAX XLA decoder."""
+    alpha, beta = RULES[rule]
+    H = mackay_construction(256, 128, 3, 6, seed=42)
+    g = TannerGraph.from_H(H, device="cpu")
+    # 16 frames, as in test_torch_ldpc.py: under torch's grain for intra-op threads
+    llr = np.concatenate([_llrs(8, 256, 15, 0.0, np.float32), ldpc_tests._ties(8, 256, 16)])
+    wb, wi = _layered_walk_equals_plain(monkeypatch, g, nl, rule, llr, 10)
+    jb, ji = jax.jit(jlay.make_layered_ms_decoder(JaxTannerGraph.from_H(H), 10, alpha, beta,
+                                                  True, jnp.float32, nl))(llr)
+    assert np.array_equal(np.asarray(jb), wb.numpy()) and np.array_equal(np.asarray(ji), wi.numpy())
+    assert len(set(wi.tolist())) > 2
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Port LDPC decoders (flooding BP / min-sum) against the JAX package: the
 XLA decoders in float64 and float32 and the fused Pallas kernel in interpret
-mode; and the CUDA kernel's index tables against the plain version through a
-numpy emulation of the kernel."""
+mode; and the CUDA kernel's compact edge tables against the graph's tables,
+and its order of work against the plain version and the XLA decoders through
+a walk of the kernel, frames vectorised in torch."""
 
 import jax
 import jax.numpy as jnp
@@ -213,129 +214,252 @@ def test_wrapper_uses_plain_only_for_cpu_tensors_and_checks_inputs():
 
 
 def test_kernel_names_its_shared_memory_limit():
-    """A graph whose messages exceed one block's shared memory (faked at
-    n=8192, dv=dc=8; a real (4096, 2048) code with dv=5, dc=10) is planned in
-    device memory instead of raising; the (504, 252) code stays in shared
-    memory."""
+    """A frame's planes, every edge once: sum-product total [n], C [E] and
+    T [E], min-sum total and C.  A graph whose planes exceed one block's
+    shared memory (a (4096, 2048) code with dv=7, dc=14) is planned in device
+    memory instead of raising; the (504, 252) code and the padded MacKay
+    (8192, 4096) sizes stay in shared memory."""
     class Big:
-        n, m, dv_max, dc_max = 8192, 4096, 8, 8
-    assert bp_cuda.smem_bytes(Big) > bp_cuda.SMEM_LIMIT_BYTES
-    big = TannerGraph.from_H(regular_construction(4096, 2048, 5, 10, seed=1), device="cpu")
+        n, num_edges = 8192, 24576
+    assert bp_cuda.smem_bytes(Big) == 229376 <= bp_cuda.SMEM_LIMIT_BYTES
+    assert bp_cuda.smem_bytes(Big, "ms") == 131072
+    big = TannerGraph.from_H(regular_construction(4096, 2048, 7, 14, seed=1), device="cpu")
     plan = bp_cuda.BPKernelPlan(big, 8)
     assert plan.device_memory and plan.smem_bytes == bp_cuda.smem_bytes(big) == (
-        (5 * 4096 + 2 * 10 * 2048 + 4096) * 4 + 4096)
+        (4096 + 2 * 28672) * 4)
     assert plan.smem_bytes > bp_cuda.SMEM_LIMIT_BYTES
     assert plan.scratch_bytes_per_frame % 16 == 0 and plan.scratch_bytes_per_frame >= plan.smem_bytes
     g = TannerGraph.from_H(_H("regular", 504), device="cpu")
-    assert bp_cuda.smem_bytes(g) == (3 * 504 + 2 * 6 * 252 + 504) * 4 + 504
-    assert not bp_cuda.BPKernelPlan(g, 8).device_memory
+    assert bp_cuda.smem_bytes(g) == (504 + 2 * 1512) * 4 == 14112
+    plan = bp_cuda.BPKernelPlan(g, 8)
+    assert not plan.device_memory and plan.threads == 256 and plan.blocks_per_sm == 8
 
 
-# -- the kernel's tables and algorithm, emulated -------------------------------------------
+# -- the kernel's tables and order of work, walked -----------------------------------------
 
-def _emulate_kernel(tables, n, m, dv, dc, llr, max_iter, early, rule, alpha, beta):
-    """What ``csrc/bp_decode.cu`` does for one frame, in numpy float32 over
-    the slot-major tables: V[sp*n+v], C[s*m+c], −1 = padded slot."""
-    f32 = np.float32
-    clip = f32(0.999999)
-    cv, vc, cvar = (tables[k].reshape(-1) for k in ("cv_idx", "vc_idx", "chk_var"))
-    L = llr.astype(f32)
-    V = np.tile(L, dv)
-    C = np.zeros(dc * m, f32)
-    T = np.zeros(dc * m, f32)
-    hard = (L <= 0).astype(np.int8)
-    iters = max_iter
-    with np.errstate(invalid="ignore", over="ignore"):
-        for it in range(max_iter):
-            for c in range(m):
-                if rule == "bp":
-                    run = f32(1)
-                    for s in range(dc):
-                        e = s * m + c
-                        t = np.clip(np.tanh(V[cv[e]] * f32(0.5)), -clip, clip) if cv[e] >= 0 else f32(1)
-                        T[e], C[e] = t, run
-                        run = f32(run * t)
-                    run = f32(1)
-                    for s in range(dc - 1, -1, -1):
-                        e = s * m + c
-                        prod = np.clip(f32(C[e] * run), -clip, clip)
-                        C[e] = f32(np.log1p(prod) - np.log1p(-prod))
-                        run = f32(run * T[e])
-                else:
-                    def sg_mg(e):
-                        if cv[e] < 0:
-                            return f32(1), f32(np.inf)
-                        x = V[cv[e]]
-                        return f32(np.sign(x)), f32(abs(x))
-                    run_s, run_m = f32(1), f32(np.inf)
-                    for s in range(dc):
-                        e = s * m + c
-                        sg, mg = sg_mg(e)
-                        T[e], C[e] = run_s, run_m
-                        run_s, run_m = f32(run_s * sg), min(run_m, mg)
-                    run_s, run_m = f32(1), f32(np.inf)
-                    for s in range(dc - 1, -1, -1):
-                        e = s * m + c
-                        sg, mg = sg_mg(e)
-                        mag = min(C[e], run_m)
-                        if beta != 0.0:
-                            mag = max(f32(mag - f32(beta)), f32(0))
-                        out = f32(f32(f32(T[e] * run_s) * mag) * f32(alpha))
-                        C[e] = out if np.isfinite(out) else f32(0)
-                        run_s, run_m = f32(run_s * sg), min(run_m, mg)
-            for v in range(n):
-                c2v = [C[vc[sp * n + v]] if vc[sp * n + v] >= 0 else f32(0) for sp in range(dv)]
-                acc = c2v[0]
-                for x in c2v[1:]:
-                    acc = f32(acc + x)
-                total = f32(L[v] + acc)
-                for sp in range(dv):
-                    V[sp * n + v] = f32(total - c2v[sp])
-                hard[v] = total <= 0
-            if early:
-                bad = 0
-                for c in range(m):
-                    par = 0
-                    for s in range(dc):
-                        if cvar[s * m + c] >= 0:
-                            par ^= int(hard[cvar[s * m + c]])
-                    bad |= par
-                if not bad:
-                    iters = it + 1
-                    break
-    return hard.copy(), iters
+def _row_slots(tables, p0=0, p1=None):
+    """The kernel's walk of check positions [p0, p1): per slot j, the
+    positions that have one and their j-th edges.  A position's edges are
+    consecutive from ``row_first`` (CSR rows)."""
+    first = torch.from_numpy(tables["row_first"].astype(np.int64))
+    deg = torch.from_numpy(tables["row_degree"].astype(np.int64))
+    p1 = len(deg) if p1 is None else p1
+    deg, e = deg[p0:p1], first[p0:p1]
+    return [(deg > j, e[deg > j] + j) for j in range(int(deg.max()) if len(deg) else 0)]
+
+
+@pytest.mark.parametrize("columns", ["regular", "irregular"])
+def test_kernel_tables_follow_the_graph_tables(columns):
+    """Every edge once, in its check's slot order and its variable's slot;
+    the checks by falling degree; each row's edges consecutive (CSR); a
+    padded slot of an irregular column is -1 in ``vc_edge``."""
+    H = mackay_construction(256, 128, 3, 6, seed=42)
+    if columns == "irregular":  # every fifth column loses its last one
+        H = H.copy()
+        for v in range(0, 256, 5):
+            H[np.nonzero(H[:, v])[0][-1], v] = 0
+    g = TannerGraph.from_H(H, device="cpu")
+    t, gt = bp_cuda.kernel_tables(g), g.numpy_tables()
+    assert all(a.dtype == np.int32 for a in t.values())
+    order, deg = t["check_order"], gt["check_mask"].sum(axis=1)
+    assert sorted(order.tolist()) == list(range(g.m)) and (np.diff(deg[order]) <= 0).all()
+    assert np.array_equal(t["row_degree"], deg[order]) and len(set(deg)) > 5
+    assert t["row_first"][-1] == g.num_edges and t["row_first"][0] == 0
+    assert np.array_equal(np.diff(t["row_first"]), t["row_degree"])
+    edges = np.full((g.m, g.dc_max), -1)
+    for j, (act, e) in enumerate(_row_slots(t)):
+        edges[np.nonzero(act.numpy())[0], j] = e.numpy()
+    assert sorted(edges[edges >= 0].tolist()) == list(range(g.num_edges))
+    for p, c in enumerate(order):
+        e = edges[p, :deg[c]]
+        assert np.array_equal(t["edge_var"][e], gt["check_vars"][c, :deg[c]])
+        assert np.array_equal(t["edge_var"][e] * g.dv_max + t["edge_slot"][e],
+                              gt["cv_gather"][c, :deg[c]])
+    vc = t["vc_edge"].reshape(g.dv_max, g.n)
+    assert np.array_equal(vc >= 0, gt["var_mask"].T) and (vc < 0).any() == (columns == "irregular")
+    for sp in range(g.dv_max):
+        v = np.nonzero(vc[sp] >= 0)[0]
+        assert (t["edge_var"][vc[sp, v]] == v).all() and (t["edge_slot"][vc[sp, v]] == sp).all()
+    assert sorted(vc[vc >= 0].tolist()) == list(range(g.num_edges))
+
+
+def _minsum_messages(x, slots, rows, alpha, beta):
+    """``MinSumRow`` of the kernel on inputs ``x [B, edges]`` of ``rows``
+    checks, slot j of every row at a time: the smallest magnitude with its
+    first edge, the second smallest and the parity of the negative inputs
+    (another zero input makes the exclusive minimum 0, so sign(0) = 0 needs
+    no count); then offset, sign, α and non-finite → 0 per edge."""
+    B = x.shape[0]
+    min1, min2 = torch.full((B, rows), float("inf")), torch.full((B, rows), float("inf"))
+    amin = torch.full((B, rows), -1)
+    neg = torch.zeros(B, rows, dtype=torch.bool)
+    for act, e in slots:
+        a, m1 = x[:, e].abs(), min1[:, act]
+        lt = a < m1
+        min2[:, act] = torch.where(lt, m1, torch.minimum(min2[:, act], a))
+        min1[:, act] = torch.where(lt, a, m1)
+        amin[:, act] = torch.where(lt, e, amin[:, act])
+        neg[:, act] ^= x[:, e] < 0
+    out = torch.empty_like(x)
+    for act, e in slots:
+        mag = torch.where(amin[:, act] == e, min2[:, act], min1[:, act])
+        if beta:
+            mag = torch.clamp_min(mag - beta, 0.0)
+        o = (torch.where(neg[:, act] ^ (x[:, e] < 0), -1.0, 1.0) * mag) * alpha
+        out[:, e] = torch.where(torch.isfinite(o), o, torch.zeros_like(o))
+    return out
+
+
+def _syndrome_ok(bits, tables):
+    """Zero syndrome of each frame, summed over the walk's rows."""
+    par = torch.zeros(bits.shape[0], len(tables["row_degree"]), dtype=torch.int64)
+    ev = torch.from_numpy(tables["edge_var"]).long()
+    for act, e in _row_slots(tables):
+        par[:, act] += bits[:, ev[e]].long()
+    return (par % 2 == 0).all(dim=1)
+
+
+def _walk_kernel(tables, n, m, dv, llr, max_iter, early, rule, alpha, beta, record=None):
+    """What ``csrc/bp_decode.cu``'s flooding kernel computes, in its order,
+    frames vectorised in torch float32: the messages by edge (C [E]), the
+    input of edge e into its check ``total[v] - C[e]``, a check's edges in
+    slot order (slot j of every check position at a time); sum-product by
+    exclusive prefix / suffix products, min-sum by ``_minsum_messages``; the
+    variable's slot sum in slot order.  Returns ``(bits, iters)`` with the
+    plain version's latching; ``record`` gets C after each check update."""
+    clip = 0.999999
+    ev = torch.from_numpy(tables["edge_var"]).long()
+    vc = torch.from_numpy(tables["vc_edge"]).long().reshape(dv, n)
+    slots = _row_slots(tables)
+    L = torch.as_tensor(llr, dtype=torch.float32)
+    B = L.shape[0]
+    total, C = L.clone(), torch.zeros(B, len(ev))
+    bits = (L <= 0).to(torch.int8)
+    done = torch.zeros(B, dtype=torch.bool)
+    latched, iters = bits, torch.full((B,), max_iter, dtype=torch.int32)
+    for it in range(max_iter):
+        if early and bool(done.all()):
+            break
+        x = total[:, ev] - C
+        if rule == "bp":
+            T = torch.clamp(torch.tanh(x * 0.5), -clip, clip)
+            run = torch.ones(B, m)
+            for act, e in slots:
+                C[:, e] = run[:, act]
+                run[:, act] = run[:, act] * T[:, e]
+            run = torch.ones(B, m)
+            for act, e in reversed(slots):
+                prod = torch.clamp(C[:, e] * run[:, act], -clip, clip)
+                C[:, e] = torch.log1p(prod) - torch.log1p(-prod)
+                run[:, act] = run[:, act] * T[:, e]
+        else:
+            C = _minsum_messages(x, slots, m, alpha, beta)
+        if record is not None:
+            record.append(C.clone())
+        acc = None
+        for sp in range(dv):
+            c2v = torch.where(vc[sp] >= 0, C[:, vc[sp].clamp(min=0)], 0.0)
+            acc = c2v if sp == 0 else acc + c2v
+        total = L + acc
+        bits = (total <= 0).to(torch.int8)
+        if early:
+            ok = _syndrome_ok(bits, tables)
+            newly = ok & ~done
+            latched = torch.where(newly[:, None], bits, latched)
+            iters = torch.where(newly, it + 1, iters).to(torch.int32)
+            done = done | ok
+    if early:
+        bits = torch.where(done[:, None], latched, bits)
+    return bits, iters
+
+
+def _recording_plain(g, rule, max_iter, early, record):
+    """The plain flooding decoder, its check update's output [B, m, dc]
+    appended to ``record`` each iteration."""
+    alpha, beta = RULES[rule]
+
+    def check(msgs, mask):
+        out = (tbp.bp_check_update(msgs, mask, torch.float32) if rule == "bp" else
+               tms.ms_check_update(msgs, mask, alpha, beta, torch.float32))
+        record.append(out)
+        return out
+    return tbp.make_bp_decoder(g, max_iter, early, torch.float32, check_update=check)
+
+
+def _check_major(tables, dc, p0=0, p1=None, c0=0):
+    """Index of each edge of positions [p0, p1) (edges counted from the
+    first) in the plain version's flat check-major layout of checks c0.."""
+    order = torch.from_numpy(tables["check_order"].astype(np.int64))
+    p1 = len(order) if p1 is None else p1
+    idx = torch.empty(int(tables["row_first"][p1] - tables["row_first"][p0]), dtype=torch.int64)
+    for j, (act, e) in enumerate(_row_slots(tables, p0, p1)):
+        idx[e - int(tables["row_first"][p0])] = (order[p0:p1][act] - c0) * dc + j
+    return idx
+
+
+def _ties(B, n, seed):
+    """Integer-valued LLRs in [-3, 3] (ties of magnitudes, zeros), a quarter
+    of the zeros negative."""
+    x = np.random.default_rng(seed).integers(-3, 4, (B, n)).astype(np.float32)
+    x[:, ::4] = np.where(x[:, ::4] == 0, np.float32(-0.0), x[:, ::4])
+    return x
+
+
+def _walk_equals_plain(g, rule, llr, max_iter, early, messages):
+    """The kernel's walk against the plain decoder: bits and iteration
+    counts, and with ``messages`` the check messages after every iteration
+    bit for bit, the sign of a zero included."""
+    alpha, beta = RULES[rule]
+    plain_c, walk_c = [], []
+    pb, pi = _recording_plain(g, rule, max_iter, early, plain_c)(torch.from_numpy(llr))
+    tables = bp_cuda.kernel_tables(g)
+    wb, wi = _walk_kernel(tables, g.n, g.m, g.dv_max, llr, max_iter, early,
+                          "bp" if rule == "bp" else "ms", alpha, beta, walk_c)
+    assert torch.equal(wb, pb) and torch.equal(wi, pi)
+    if messages:
+        idx = _check_major(tables, g.dc_max)
+        assert len(walk_c) == len(plain_c) and (len(walk_c) == max_iter or early)
+        for w, p in zip(walk_c, plain_c):
+            assert torch.equal(w.view(torch.int32),
+                               p.reshape(p.shape[0], -1)[:, idx].contiguous().view(torch.int32))
+    return wb, wi
 
 
 @pytest.mark.parametrize("kind", ["regular", "mackay"])
 @pytest.mark.parametrize("rule", ["ms", "nms", "oms"])
 def test_kernel_tables_emulation_equals_plain_minsum(kind, rule):
-    alpha, beta = RULES[rule]
+    """The kernel's walk over its compact tables gives the plain version's
+    bits, iteration counts and messages after every iteration, bit for bit."""
     g = TannerGraph.from_H(_H(kind, 48), device="cpu")
-    plan = bp_cuda.BPKernelPlan(g, 6, True, "ms", alpha, beta)
-    tables = bp_cuda.kernel_tables(g)
-    assert all(t.dtype == np.int32 for t in tables.values())
-    assert int((tables["cv_idx"] >= 0).sum()) == int((tables["vc_idx"] >= 0).sum()) == g.num_edges
-    llr = np.concatenate([_llrs(3, 48, 11, -1.0, np.float32), _llrs(3, 48, 12, 2.0, np.float32)])
-    pb, pi = plan.plain(torch.from_numpy(llr))
-    for f in range(llr.shape[0]):
-        bits, iters = _emulate_kernel(tables, g.n, g.m, g.dv_max, g.dc_max, llr[f], 6, True,
-                                      "ms", alpha, beta)
-        assert np.array_equal(bits, pb[f].numpy()) and iters == int(pi[f])
+    llr = np.concatenate([_llrs(3, 48, 11, -1.0, np.float32), _llrs(3, 48, 12, 2.0, np.float32),
+                          _ties(4, 48, 13)])
+    _walk_equals_plain(g, rule, llr, 6, True, messages=True)
 
 
 @pytest.mark.parametrize("early", [True, False])
 def test_kernel_tables_emulation_equals_plain_sum_product(early):
-    """numpy's tanh/log1p may differ from torch's in the last bit, so the
-    hard outputs are compared (they agree on these seeded inputs)."""
     g = TannerGraph.from_H(_H("mackay", 48), device="cpu")
-    plan = bp_cuda.BPKernelPlan(g, 6, early, "bp")
-    tables = bp_cuda.kernel_tables(g)
     llr = np.concatenate([_llrs(3, 48, 13, -1.0, np.float32), _llrs(3, 48, 14, 2.0, np.float32)])
-    pb, pi = plan.plain(torch.from_numpy(llr))
-    for f in range(llr.shape[0]):
-        bits, iters = _emulate_kernel(tables, g.n, g.m, g.dv_max, g.dc_max, llr[f], 6, early,
-                                      "bp", 1.0, 0.0)
-        assert np.array_equal(bits, pb[f].numpy()) and iters == int(pi[f])
+    _walk_equals_plain(g, "bp", llr, 6, early, messages=False)
+
+
+@pytest.mark.parametrize("rule", ["bp", "ms", "nms", "oms"])
+def test_compact_walk_equals_plain_and_jax_on_padded_mackay(rule):
+    """MacKay (256, 128): rows of degree 1 to 13 (mean 6), so the padded
+    layout had 54 % padding.  Gaussian LLRs near the threshold and integer
+    ties with +-0.0: the walk equals the plain decoder (min-sum: messages
+    bit for bit after every iteration) and the JAX XLA decoder."""
+    H = mackay_construction(256, 128, 3, 6, seed=42)
+    g = TannerGraph.from_H(H, device="cpu")
+    assert g.dc_max > 2 * g.num_edges / g.m
+    # 16 frames: the plain decoder's [B, m, dc] planes stay under torch's
+    # grain for intra-op threads, which would contend with the other workers
+    llr = np.concatenate([_llrs(8, 256, 15, 0.0, np.float32), _ties(8, 256, 16)])
+    llr[0, :8] = np.float32(-0.0)
+    wb, wi = _walk_equals_plain(g, rule, llr, 10, True, messages=rule != "bp")
+    jb, ji = _jax_decoder(JaxTannerGraph.from_H(H), rule, 10, True, "f32")(llr)
+    assert np.array_equal(np.asarray(jb), wb.numpy()) and np.array_equal(np.asarray(ji), wi.numpy())
+    assert len(set(wi.tolist())) > 2
 
 
 @pytest.mark.cuda

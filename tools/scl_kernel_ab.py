@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Parent against change for the port's decode kernels, in one run on one
-NVIDIA GPU: the list-decode kernels (part ``scl``), the SC kernel (part ``sc``)
-and the int8 row roll (part ``roll``).
+NVIDIA GPU: the list-decode kernels (part ``scl``), the SC kernel (part ``sc``),
+the int8 row roll (part ``roll``) and the LDPC kernels (part ``bp``).
 
     python3 tools/scl_kernel_ab.py --tree parent=<dir> --tree change=. \\
-        --order parent,change,change,parent [--parts scl,sc,roll]
+        --order parent,change,change,parent [--parts scl,sc,roll,bp]
 
 Each ``--tree name=dir`` is a checkout of the repo (``git archive`` of a
 commit unpacked into a directory that ``.gitignore`` lists, or the working
@@ -46,8 +46,17 @@ profile of the three launches where it has the profiled build
 on the probe's tile ([32, 128] int8, shift 30) beside ``torch.roll``, each by
 CUDA events around back-to-back calls and by ``torch.profiler``'s device time
 of the kernel alone, and the host's microseconds a call (the wrapper,
-``torch.roll``, the output's allocation, the C launcher alone).  Every part
-adds its outputs to the digest.
+``torch.roll``, the output's allocation, the C launcher alone).  Part ``bp``
+times K2 flooding (sum-product, NMS 0.75) and layered (NMS 0.75, 4 layers),
+20 iterations at most, on all-zero codewords over AWGN: the MacKay (8192,
+4096) code (1024 frames, 3 dB), the MacKay (4096, 2048) code (256 frames,
+0 dB; NMS and layered NMS), the (504, 252) code (4096 frames, 3 dB; and
+NMS on one frame, where the launch's host work sets the time), a MacKay
+(4096, 2048) code of column weight 16 whose frame exceeds a block (256
+frames, 3 dB), and the n=8192 rows again with the planes forced into device
+memory (``SMEM_LIMIT_BYTES`` 0); with each row the plan's mode and, where
+the tree has it, the blocks resident per SM.  Every part adds its outputs to
+the digest.
 
 The parent prints a table of every timing per run and the change's ratio
 to the parent (mean of the parent runs over mean of the change runs), and
@@ -96,7 +105,9 @@ def _child(reps: int, parts: tuple) -> dict:
 
     dev = "cuda"
     if "scl" not in parts:  # only the sources this child times
-        build.SOURCES = tuple(s for s in build.SOURCES if s in ("sc_decode", "sublane_roll"))
+        wanted = {"sc": "sc_decode", "roll": "sublane_roll", "bp": "bp_decode"}
+        build.SOURCES = tuple(s for s in build.SOURCES
+                              if s in {wanted[p] for p in parts if p in wanted})
     variants = tuple(v for v in getattr(build, "VARIANTS", ())
                      if (v.startswith("scl_") and "scl" in parts)
                      or (v.startswith("sc_decode") and "sc" in parts))
@@ -167,6 +178,8 @@ def _child(reps: int, parts: tuple) -> dict:
             torch.cuda.synchronize()
     if "scl" in parts:
         _child_scl(out, llrs, time_ms, note, reps)
+    if "bp" in parts:
+        _child_bp(out, time_ms, note)
     out["digest"] = digest.hexdigest()
     return out
 
@@ -317,6 +330,53 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
         out["resources"] = scl_cuda.kernel_resources(L, S, N, sched.t)
 
 
+def _child_bp(out, time_ms, note) -> None:
+    import numpy as np
+    import torch
+
+    import polarcode_and_ldpc_tpu_torch as fec
+    from polarcode_and_ldpc_tpu_torch.models.ldpc.graph import TannerGraph
+    from polarcode_and_ldpc_tpu_torch.ops import bp_cuda
+
+    dev = "cuda"
+    rows = {"bp": ("bp", 1.0, "flooding"), "nms": ("ms", 0.75, "flooding"),
+            "layered nms": ("ms", 0.75, "layered")}
+
+    def llrs(n, frames, snr, seed):
+        std = float(np.sqrt(1.0 / (2.0 * 10 ** (snr / 10.0))))
+        z = np.random.default_rng(seed).standard_normal((frames, n), dtype=np.float32)
+        return (2.0 * (1.0 + std * torch.from_numpy(z).to(dev)) / (std * std)).contiguous()
+
+    def run(label, graph, x, which, reps=20):
+        for name in which:
+            rule, alpha, schedule = rows[name]
+            plan = bp_cuda.BPKernelPlan(graph, 20, True, rule, alpha, 0.0, schedule, 4)
+            key = f"K2 {name} {label}"
+            out[key] = time_ms(lambda: bp_cuda.bp_decode_cuda(x, plan), reps)
+            bits, iters = bp_cuda.bp_decode_cuda(x, plan)
+            note(bits, iters)
+            out[f"{key}: plan"] = {
+                "device_memory": plan.device_memory, "mean_iterations": float(
+                    iters.float().mean()), "threads": getattr(plan, "threads", 256),
+                "resident_blocks_per_sm": (bp_cuda.resident_blocks_per_sm(plan) if hasattr(
+                    bp_cuda, "resident_blocks_per_sm") else None)}
+
+    mackay = {n: TannerGraph.from_H(fec.mackay_construction(n, n // 2, 3, 6, seed=42), dev)
+              for n in (8192, 4096)}
+    x8192 = llrs(8192, 1024, 3.0, 70)
+    run("n=8192", mackay[8192], x8192, rows)
+    run("n=4096", mackay[4096], llrs(4096, 256, 0.0, 71), ("nms", "layered nms"))
+    g504 = TannerGraph.from_H(fec.LDPCEncoder(504, 252, dv=3, dc=6, seed=42, device=dev).H, dev)
+    run("n=504", g504, llrs(504, 4096, 3.0, 72), rows, reps=100)
+    # one frame: the launch's host work, not the decode, sets the time
+    run("n=504 B=1", g504, llrs(504, 1, 3.0, 74), ("nms",), reps=500)
+    dense = TannerGraph.from_H(fec.mackay_construction(4096, 2048, 16, 32, seed=42), dev)
+    run("cw16 (device memory)", dense, llrs(4096, 256, 3.0, 73), rows)
+    limit, bp_cuda.SMEM_LIMIT_BYTES = bp_cuda.SMEM_LIMIT_BYTES, 0
+    run("n=8192 (device memory forced)", mackay[8192], x8192, rows)
+    bp_cuda.SMEM_LIMIT_BYTES = limit
+
+
 def _child_sc(out, llrs, time_ms, note, variants) -> None:
     import numpy as np
     import torch
@@ -378,7 +438,7 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], help="name=dir")
     ap.add_argument("--order", default="")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--parts", default="scl,sc,roll", help="of scl, sc, roll")
+    ap.add_argument("--parts", default="scl,sc,roll", help="of scl, sc, roll, bp")
     ap.add_argument("--child", action="store_true")
     ap.add_argument("--out", default="build/scl_kernel_ab.json")
     args = ap.parse_args()
