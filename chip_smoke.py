@@ -28,8 +28,10 @@ layered, and the int8 row roll of the sublane-roll probe, against their plain
 versions), ``scl_kernels`` (the list-decode
 kernels: the chunk body on every chunk pattern of the code, the chunk step on
 the level stacks of every chunk position, the last chunk, the one-launch
-decode, whole decodes, other codes), ``scl_profile`` (the chunk step's time
-by part from the profiled build, which ``build`` compiles beside the others
+decode at the serving batch sizes and past one wave too, whole decodes,
+other codes; the one-launch decode's registers, spills and resident warps
+per SM), ``scl_profile`` (the chunk step's and the one-launch decode's time
+by part from the profiled builds, which ``build`` compiles beside the others
 only when this phase runs, and every list-kernel variant's registers, spills
 and resident warps per SM), ``sc_profile`` (the SC kernel's time by part
 from its profiled build, built likewise only when this phase runs, for the
@@ -106,10 +108,11 @@ from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
                                                             fastnode_select_plain)
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_RATE1_FAST,
                                                        OP_REP, OP_REP_FAST, SCLBodyProgram,
-                                                       SCLMegaPlan, SCLState,
-                                                       build_mega_tables, context_in_device_memory,
-                                                       launch_chunk_step, make_step_specs,
-                                                       scl_chunk_body_cuda, scl_chunk_step_cuda,
+                                                       SCLMegaPlan, SCLState, build_mega_tables,
+                                                       context_in_device_memory,
+                                                       launch_chunk_step, launch_mega,
+                                                       make_step_specs, scl_chunk_body_cuda,
+                                                       scl_chunk_step_cuda, scl_decode_mega_cuda,
                                                        scl_last_chunk_cuda)
 from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
                                               make_polar_pipeline)
@@ -649,12 +652,37 @@ def check_scl_steps(sched, steps, last, rev, llr: torch.Tensor, context: dict) -
     return worst
 
 
+def mega_plans(sched) -> dict:
+    """The one-launch decode's plans of a code: its default (the step table
+    in the launch's parameters up to 80 chunks, else in device memory) and,
+    for a code of more than one chunk whose table the parameters hold, the
+    table forced into device memory (``scl_decode_mega_long``)."""
+    plans = {"default": SCLMegaPlan(sched)}
+    if plans["default"].table_in_params and sched.t > 0:
+        plans["table in device memory"] = SCLMegaPlan(sched)
+        plans["table in device memory"].table_in_params = False
+    return plans
+
+
+def hold_mega_plans(sched, llr, want, context: dict) -> dict:
+    """Every plan of ``mega_plans`` on ``llr`` against ``want`` (u, metrics),
+    bit for bit; returns the default plan's layout."""
+    plans = mega_plans(sched)
+    for name, plan in plans.items():
+        u, m = scl_decode_mega_cuda(llr, plan)
+        torch.cuda.synchronize()
+        hold_equal(f"scl_decode_mega [{name}]", {"u": (u, want[0]), "metrics": (m, want[1])},
+                   context)
+    return {"mega_plans": list(plans),
+            "mega_table": "parameters" if plans["default"].table_in_params else "device memory"}
+
+
 def check_scl_other_codes() -> list:
     """One compiled build serves every code: other lengths, chunk sizes and
     list sizes (a single-chunk code, L = 1, L = 32 with path 31 in a word's
     sign bit) through the kernel controls (one launch per chunk, the chunk
-    body inside the plain glue, the whole decode in one launch) against the
-    plain decoder."""
+    body inside the plain glue, the whole decode in one launch, under each of
+    its plans) against the plain decoder."""
     out = []
     for N, K, S, L in ((256, 128, 32, 4), (128, 64, 128, 2), (128, 100, 8, 1),
                        (2048, 1024, 64, 16), (512, 256, 128, 32), (64, 20, 16, 3)):
@@ -673,7 +701,8 @@ def check_scl_other_codes() -> list:
             torch.cuda.synchronize()
             hold_equal(f"whole decode {kw or 'unroll-kernel'}",
                        {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, context)
-        out.append({**context, "kernels_equal_plain": True})
+        layout = hold_mega_plans(build_scl_schedule(N, mask, L, S), llr, want, context)
+        out.append({**context, **layout, "kernels_equal_plain": True})
     return out
 
 
@@ -823,6 +852,22 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
         "u vs plain": (u_m, u_p), "metrics vs plain": (m_m, m_p),
         "u vs unroll-kernel": (u_m, u_k), "metrics vs unroll-kernel": (m_m, m_k)},
         {"B": B, "snr_db": 3.0}))
+    mega_layout = hold_mega_plans(sched, llr, (u_p, m_p), {"B": B, "snr_db": 3.0})
+    # the serving list pass's batch (67 frames at -0.25 dB) and a batch one
+    # frame past a wave of 32 warps on each of 132 SMs
+    mega_batches = []
+    for B_x, snr in ((67, -0.25), (132 * 32 + 1, 1.0)):
+        x = cascl_llrs(frozen, B_x, snr, seed=B_x + 3)
+        want = decoders["plain"](x)
+        got, per_chunk = decoders["mega"](x), decoders["unroll-kernel"](x)
+        torch.cuda.synchronize()
+        context = {"B": B_x, "snr_db": snr}
+        worst["mega"] = max(worst["mega"], hold_equal("scl_decode_mega", {
+            "u vs plain": (got[0], want[0]), "metrics vs plain": (got[1], want[1]),
+            "u vs unroll-kernel": (got[0], per_chunk[0]),
+            "metrics vs unroll-kernel": (got[1], per_chunk[1])}, context))
+        hold_mega_plans(sched, x, want, context)
+        mega_batches.append({**context, "kernels_equal_plain": True})
     plain_reps = 1 if quick else 2
     step_flops, lf = time_scl_kernels(results, sched, steps, last, rev, llr, worst, reps,
                                       plain_reps)
@@ -840,11 +885,16 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
         launches_per_decode=1,
         note="plain_ms is the plain chunk program (control_impl='unroll-fused', full width); "
              "the level stacks are scratch in device memory",
-        ms_of_the_per_chunk_launches=decode_ms["unroll-kernel"])
+        ms_of_the_per_chunk_launches=decode_ms["unroll-kernel"], **mega_layout,
+        other_batches=mega_batches)
+    results["scl_decode_mega"]["resources"] = [
+        r for r in scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t)
+        if r["kernel"].startswith("scl_decode_mega")]
     emit("scl_kernels", kernels=[results[k] for k in ("scl_chunk_body", "scl_chunk_step",
                                                       "scl_last_chunk", "scl_decode_mega")],
          unique_patterns=len(unique), whole_decode_ms=decode_ms, cases=cases,
          other_codes=check_scl_other_codes())
+    mega_resources(sched)
 
 
 # the parts of a chunk step in the stage profile (ProfSlot of
@@ -852,7 +902,20 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
 PROFILE_SLOTS = ("descend", "copy_in", "F w*size<32", "F w*size>=32", "G w*size<32",
                  "G w*size>=32", "COMBINE size<32", "COMBINE size>=32", "leaf + prune", "REP",
                  "rate-0", "rate-1 fast", "REP fast", "subtree", "body", "compose", "ascend",
-                 "step")
+                 "step", "last chunk", "butterfly", "decode")
+
+
+def read_profile(lib, B: int, total: str) -> dict:
+    """The profiled build's counters: each part's clock64() cycles per frame,
+    ops per frame, and share of the cycles of part ``total``."""
+    lib.scl_profile_read.argtypes = [ctypes.c_void_p]
+    n = len(PROFILE_SLOTS)
+    buf = (ctypes.c_ulonglong * (2 * n))()
+    build.check_launch(lib, lib.scl_profile_read(ctypes.addressof(buf)), "scl_profile_read")
+    whole = buf[PROFILE_SLOTS.index(total)]
+    return {name: {"cycles_per_frame": buf[q] / B, "ops_per_frame": buf[n + q] / B,
+                   f"share_of_{total}": buf[q] / whole if whole else None}
+            for q, name in enumerate(PROFILE_SLOTS) if buf[n + q]}
 
 
 def profile_step(state, spec) -> dict:
@@ -860,9 +923,6 @@ def profile_step(state, spec) -> dict:
     against the normal build on the same copy, then each part's clock64()
     cycles per frame, ops per frame, and share of the step's cycles."""
     lib = build.load("scl_decode_profile")
-    lib.scl_profile_read.argtypes = [ctypes.c_void_p]
-    n = len(PROFILE_SLOTS)
-    buf = (ctypes.c_ulonglong * (2 * n))()
     launch_chunk_step(state.clone(), spec, "scl_decode_profile")  # warm-up
     prof, plain = state.clone(), state.clone()
     torch.cuda.synchronize()
@@ -870,22 +930,48 @@ def profile_step(state, spec) -> dict:
     launch_chunk_step(prof, spec, "scl_decode_profile")
     scl_chunk_step_cuda(plain, spec)
     torch.cuda.synchronize()
-    build.check_launch(lib, lib.scl_profile_read(ctypes.addressof(buf)), "scl_profile_read")
     hold_equal("profiled scl_chunk_step", {
         f: (getattr(prof, f), getattr(plain, f)) for f in ("alpha", "beta", "pend_a", "pend_b", "pm")},
         {"k": spec.k, "j": spec.j})
-    B = state.pm.shape[0]
-    step = buf[n - 1]
-    return {name: {"cycles_per_frame": buf[q] / B, "ops_per_frame": buf[n + q] / B,
-                   "share_of_step": buf[q] / step if step else None}
-            for q, name in enumerate(PROFILE_SLOTS) if buf[n + q]}
+    return read_profile(lib, state.pm.shape[0], "step")
+
+
+def profile_mega(llr: torch.Tensor, plan) -> dict:
+    """K6 of the profiled build (-DSCL_PROFILE) on ``llr``: held against the
+    normal build, then each part's cycles per frame over the whole decode
+    (descend and body summed over the chunks, composes and ascend over the
+    chunk steps, the last chunk's ascend to the root, the butterfly with the
+    outputs), ops per frame and share of the decode's cycles."""
+    lib = build.load("scl_mega_profile")
+    launch_mega(llr, plan, "scl_mega_profile")  # warm-up
+    torch.cuda.synchronize()
+    build.check_launch(lib, lib.scl_profile_reset(), "scl_profile_reset")
+    got = launch_mega(llr, plan, "scl_mega_profile")
+    want = launch_mega(llr, plan, "scl_mega")
+    torch.cuda.synchronize()
+    hold_equal("profiled scl_decode_mega", {"u": (got[0], want[0]), "pm": (got[1], want[1])},
+               {"B": llr.shape[0]})
+    return read_profile(lib, llr.shape[0], "decode")
+
+
+def mega_resources(sched) -> dict:
+    """K6's resource report at the flagship's launch plan, which must read
+    at most 64 registers, no local memory and 32 resident warps per SM, the
+    occupancy of K3 (one wave of 4096 frames on 132 SMs)."""
+    rows = {r["kernel"]: r for r in scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t)}
+    mega, step = rows["scl_decode_mega"], rows["scl_chunk_step"]
+    if not (mega["registers"] <= 64 and mega["local_bytes"] == 0
+            and mega["resident_warps_per_sm"] == 32 == step["resident_warps_per_sm"]):
+        raise AssertionError(f"scl_decode_mega's resources {mega}, scl_chunk_step's {step}")
+    return mega
 
 
 def phase_scl_profile() -> None:
     """Where K3's time goes (stage profile of the profiled build) at flagship
     positions 3 and 4 (4096 frames, 3 dB, the state the kernel decode
-    reaches), and the registers, spills and resident warps per SM of every
-    compiled variant of K3 / K4 / K5 / K6 at the flagship's launch shapes."""
+    reaches), and K6's over the whole flagship decode of the same frames;
+    the registers, spills and resident warps per SM of every compiled
+    variant of K3 / K4 / K5 / K6 at the flagship's launch shapes."""
     frozen, info, mask, sched, steps, last, rev = scl_flagship()
     llr = cascl_llrs(frozen, SCL_CHUNK, 3.0, seed=77)
     state = SCLState(sched, llr[:, rev].contiguous())
@@ -894,7 +980,8 @@ def phase_scl_profile() -> None:
         if c in (3, 4):
             split[f"position {c}"] = profile_step(state, spec)
         scl_chunk_step_cuda(state, spec)
-    emit("scl_profile", frames=SCL_CHUNK, split=split,
+    split["scl_decode_mega, whole decode"] = profile_mega(llr, SCLMegaPlan(sched))
+    emit("scl_profile", frames=SCL_CHUNK, split=split, mega_resources=mega_resources(sched),
          resources=scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t))
 
 
@@ -2785,9 +2872,10 @@ def main() -> int:
     reps = 3 if args.quick else 20
     dev_info: dict = {}
     q = args.quick
-    # the profiled K3 and K1 are built beside the other sources only when their
-    # phases run
+    # the profiled K3, K6 and K1 are built beside the other sources only when
+    # their phases run
     variants = tuple(v for p, v in (("scl_profile", "scl_decode_profile"),
+                                    ("scl_profile", "scl_mega_profile"),
                                     ("sc_profile", "sc_decode_profile")) if p in phases)
     run = {
         "device": lambda: dev_info.update(phase_device()),

@@ -12,14 +12,16 @@ from __future__ import annotations
 # its layered schedule; the list kernels' exact and fast node programs, the
 # live-width (narrow) chunk step, and their one-hot permutation modes; and,
 # for the LDPC and list kernels, the mode whose working set lives in device
-# memory ("_devmem")
+# memory ("_devmem"); the one-launch list decode with its step table in
+# device memory ("scl_decode_mega_long")
 _BASES = ("sc_decode", "sc_decode_sub", "bp_decode_bp", "bp_decode_ms", "bp_decode_layered",
           "scl_chunk_body", "scl_chunk_step", "scl_last_chunk", "scl_chunk_body_fast",
           "scl_chunk_step_fast", "scl_last_chunk_fast", "scl_chunk_step_narrow",
           "scl_chunk_body_onehot", "scl_chunk_step_onehot", "scl_last_chunk_onehot")
 _LAUNCHES = {name: 0 for base in _BASES
              for name in ((base,) if base.startswith("sc_decode") else (base, base + "_devmem"))}
-_LAUNCHES.update(scl_decode_mega=0, fastnode_select=0, sublane_roll=0)
+_LAUNCHES.update(scl_decode_mega=0, scl_decode_mega_long=0, fastnode_select=0,
+                 sublane_roll=0)
 
 
 def count_launch(name: str) -> None:

@@ -76,13 +76,16 @@ namespace scl {
 // it): lane 0 of each warp adds the clock64() cycles of each part of a chunk
 // step and of each body op kind (F / G / COMBINE split at w * size < 32, the
 // sub-warp ops) to a per-thread table, which the kernel adds to device-global
-// counters at the end of its frame.  The counters' cost lands outside the
-// timed intervals, but it and the clock reads stretch the kernel: read the
-// split as shares, not as times.
+// counters at the end of its frame; the whole-decode kernel also counts its
+// last chunk (descend, body, ascend), the butterfly with the outputs, and the
+// frame's whole decode.  The counters' cost lands outside the timed
+// intervals, but it and the clock reads stretch the kernel: read the split as
+// shares, not as times.
 enum ProfSlot : int {
   PROF_DESCEND = 0, PROF_COPY_IN, PROF_F_SMALL, PROF_F_WIDE, PROF_G_SMALL, PROF_G_WIDE,
   PROF_COMBINE_SMALL, PROF_COMBINE_WIDE, PROF_LEAF, PROF_REP, PROF_RATE0, PROF_RATE1_FAST,
-  PROF_REP_FAST, PROF_SUBTREE, PROF_BODY, PROF_COMPOSE, PROF_ASCEND, PROF_STEP, kProfSlots
+  PROF_REP_FAST, PROF_SUBTREE, PROF_BODY, PROF_COMPOSE, PROF_ASCEND, PROF_STEP, PROF_LAST,
+  PROF_BUTTERFLY, PROF_DECODE, kProfSlots
 };
 #ifdef SCL_PROFILE
 __device__ unsigned long long g_prof[2 * kProfSlots];  // cycles, then counts
@@ -142,9 +145,9 @@ struct Ctx {
 };
 
 // 32-bit words of shared memory one frame needs.  depth0: the chunk's top
-// plane has a region of its own (the last-chunk, body and whole-decode
-// kernels write or copy it there); without, the chunk step reads it where
-// its descend left it, in device memory, and the L * S words of the stack
+// plane has a region of its own (the body kernel copies its input there);
+// without, the chunk step, the last chunk and the whole decode read it where
+// their descend left it, in device memory, and the L * S words of the stack
 // region (depths 1.. take L * (S - 1)) hold it only for a chunk that is one
 // rate-0 or REP node, which works on it in place.
 __host__ __device__ inline int ctx_words(int L, int S, int lgS, bool depth0) {

@@ -56,12 +56,13 @@
 // the host passes those levels as bit masks (one_a, one_b) and the kernel
 // reads lane 0 for every slot.  The last chunk runs at full width.
 //
-// The chunk step reads the chunk's top plane (level t, [L][S]) where its own
-// descend wrote it, in device memory (L2-resident, written by the same warp),
-// instead of copying it into the context: only the chunk's first F and G
-// read it.  A chunk that is one rate-0 or REP node works on it in place, so
-// that one copy stays.  The last chunk descends into its context, and the
-// body kernel copies its input there (scl::ctx_words, depth0).
+// The chunk step and the whole decode read the chunk's top plane (level t,
+// [L][S]) where their own descend wrote it, in device memory (L2-resident,
+// written by the same warp), instead of copying it into the context: only
+// the chunk's first F and G read it.  A chunk that is one rate-0 or REP node
+// works on it in place, so that one copy stays (chunk_top).  The last chunk
+// descends into its context, and the body kernel copies its input there
+// (scl::ctx_words, depth0).
 //
 // Launch shape: the warps per block are planned from the SM's limits (the
 // occupancy of the compiled kernel at its registers and the context's shared
@@ -275,34 +276,42 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
 }
 
 // The arguments of one chunk step, as a launch passes them or as the
-// whole-decode kernel reads them from its step table (8 ints per chunk, at
-// full width); the live widths and one-lane masks are read by a narrow step
-// only.
+// whole-decode kernel builds them from a row of its step table (at full
+// width); the live widths and one-lane masks are read by a narrow step only.
 struct StepArgs {
   int k, inv, j, mask_a, mask_b, prog_off, n_ops, has_R;
   int lv_in, lv_out, one_a, one_b;
 };
 
-// One chunk step of one frame: descend -> body -> pending composes -> ascend;
-// kNarrow: over lv_in live paths in and lv_out out, else at full width (the
-// live widths and one-lane masks of `a` are not read).  `x` is the frame's
-// LLRs in bit-reversed storage, `pm` its L metrics in device memory (read,
-// then written).  kOneHot: the parent of the descend's g is read as a one-hot
-// apply (the pendings are rank vectors staged from the one-hot planes).
-template <bool kNarrow, bool kOneHot = false>
-__device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, const Stacks& st,
-                                           const float* x, float* pm, const int4* prog,
-                                           const StepArgs& a) {
-  const int N = g.N, S = g.S, t = g.t, lane = c.lane;
-  const int k = a.k, inv = a.inv, j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
-  const int wi = kNarrow ? a.lv_in : g.L, wo = kNarrow ? a.lv_out : g.L;
-  const int one_a = kNarrow ? a.one_a : 0, one_b = kNarrow ? a.one_b : 0;
-  SCL_PROF_T(t_step);
+// The plane a chunk body runs on: the level-t plane `top` where the descend
+// left it, or, for a chunk that is one rate-0 or REP node (which works on its
+// plane in place), a copy of its w rows in the context.
+__device__ __forceinline__ float* chunk_top(const Ctx& c, float* top, const int4* prog,
+                                            int n_ops, int w) {
+  const int kind = __ldg(&prog->x) & 0xff;
+  if (n_ops != 1 || (kind != OP_RATE0 && kind != OP_REP)) return top;
+  for (int i = c.lane; i < w * c.S; i += kWarp) c.a0[i] = top[i];
+  __syncwarp();
+  return c.a0;
+}
 
-  // ---- descend: one g at level t-k (all f from the LLRs when k == t), then
-  // an f chain down to level t; every written level's pend_a resets
-  int lo;
-  if (k == t) {
+// The parts of one chunk step of one frame: descend -> body -> pending
+// composes -> ascend; kNarrow: over lv_in live paths in and lv_out out, else
+// at full width (the live widths and one-lane masks of `a` are not read).
+// `x` is the frame's LLRs in bit-reversed storage, `pm` its L metrics in
+// device memory (read, then written).  kOneHot: the parent of the descend's
+// g is read as a one-hot apply (the pendings are rank vectors staged from the
+// one-hot planes).  The whole-decode kernel runs the same parts.
+
+// The descend: one g at level t-k (all f from the LLRs when k == t), then an
+// f chain down to level t; every written level's pend_a resets.
+template <bool kNarrow, bool kOneHot = false>
+__device__ __forceinline__ void step_descend(const Ctx& c, const Geometry& g, const Stacks& st,
+                                             const float* x, const StepArgs& a) {
+  const int N = g.N, t = g.t, lane = c.lane;
+  const int wi = kNarrow ? a.lv_in : g.L;
+  const int one_a = kNarrow ? a.one_a : 0, one_b = kNarrow ? a.one_b : 0;
+  if (a.k == t) {
     // chunk 0: the planes are path-invariant, compute once, store lv_in rows
     for (int l = 1; l <= t; ++l) {
       const int M = N >> l;
@@ -315,44 +324,33 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
       if (lane < wi) st.pend_a(l)[lane] = lane;
       __syncwarp();
     }
-  } else {
-    lo = t - k;
-    descend_g<kOneHot>(g, st, x, lo, inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
-    if (lane < wi) st.pend_a(lo)[lane] = lane;
+    return;
+  }
+  const int lo = t - a.k;
+  descend_g<kOneHot>(g, st, x, lo, a.inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
+  if (lane < wi) st.pend_a(lo)[lane] = lane;
+  __syncwarp();
+  for (int l = lo + 1; l <= t; ++l) {
+    const int M = N >> l, lgM = ilog2(M);
+    const float* src = st.alpha(l - 1);
+    float* dst = st.alpha(l);
+    for (int idx = lane; idx < wi * M; idx += kWarp) {
+      const int r = idx >> lgM, i = idx & (M - 1);
+      dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
+    }
+    if (lane < wi) st.pend_a(l)[lane] = lane;
     __syncwarp();
-    for (int l = lo + 1; l <= t; ++l) {
-      const int M = N >> l, lgM = ilog2(M);
-      const float* src = st.alpha(l - 1);
-      float* dst = st.alpha(l);
-      for (int idx = lane; idx < wi * M; idx += kWarp) {
-        const int r = idx >> lgM, i = idx & (M - 1);
-        dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
-      }
-      if (lane < wi) st.pend_a(l)[lane] = lane;
-      __syncwarp();
-    }
   }
+}
 
-  SCL_PROF_ADD(c, PROF_DESCEND, t_step);
-
-  // ---- chunk body on the level-t alpha where the descend left it; a chunk
-  // that is one rate-0 or REP node works on a copy in the context
-  SCL_PROF_T(t_copy);
-  float* top = st.alpha(t);
-  {
-    const int kind = __ldg(&prog->x) & 0xff;
-    if (a.n_ops == 1 && (kind == OP_RATE0 || kind == OP_REP)) {
-      for (int i = lane; i < wi * S; i += kWarp) c.a0[i] = top[i];
-      top = c.a0;
-      __syncwarp();
-    }
-  }
-  float pmr = lane < wi ? pm[lane] : -INFINITY;
-  int R = lane;
-  SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
-  SCL_PROF_T(t_body);
-  chunk_body<kNarrow>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
-  SCL_PROF_ADD(c, PROF_BODY, t_body);
+// After the body (metrics pmr and rank vector R in the lanes): the metrics
+// out, the chunk's R composed into the live pendings, the ascend.
+template <bool kNarrow>
+__device__ __forceinline__ void step_ascend(const Ctx& c, const Geometry& g, const Stacks& st,
+                                            float* pm, const StepArgs& a, float pmr, int R) {
+  const int S = g.S, t = g.t, lane = c.lane;
+  const int j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
+  const int wo = kNarrow ? a.lv_out : g.L, one_b = kNarrow ? a.one_b : 0;
   SCL_PROF_T(t_compose);
   if (lane < wo) pm[lane] = pmr;
 
@@ -394,11 +392,34 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   }
   if (lane < wo) st.pend_b(t - j)[lane] = lane;
   SCL_PROF_ADD(c, PROF_ASCEND, t_ascend);
+}
+
+// One chunk step of one frame (see the parts above).
+template <bool kNarrow, bool kOneHot = false>
+__device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, const Stacks& st,
+                                           const float* x, float* pm, const int4* prog,
+                                           const StepArgs& a) {
+  const int lane = c.lane, wi = kNarrow ? a.lv_in : g.L;
+  SCL_PROF_T(t_step);
+  step_descend<kNarrow, kOneHot>(c, g, st, x, a);
+  SCL_PROF_ADD(c, PROF_DESCEND, t_step);
+
+  // ---- chunk body on the level-t alpha where the descend left it; a chunk
+  // that is one rate-0 or REP node works on a copy in the context
+  SCL_PROF_T(t_copy);
+  float* top = chunk_top(c, st.alpha(g.t), prog, a.n_ops, wi);
+  float pmr = lane < wi ? pm[lane] : -INFINITY;
+  int R = lane;
+  SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
+  SCL_PROF_T(t_body);
+  chunk_body<kNarrow>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
+  SCL_PROF_ADD(c, PROF_BODY, t_body);
+  step_ascend<kNarrow>(c, g, st, pm, a, pmr, R);
   SCL_PROF_ADD(c, PROF_STEP, t_step);
 }
 
-// Butterfly u = beta * G in storage order on the N packed words of `root`
-// (shared memory), then natural order on the way out: u is [L][N] int8.
+// Butterfly u = beta * G in storage order on the N packed words of `root`,
+// then natural order on the way out: u is [L][N] int8.
 __device__ __forceinline__ void root_out(uint32_t* root, int N, int L, int log2N, int8_t* u,
                                          int lane) {
   for (int s = 1; s < N; s <<= 1) {
@@ -415,25 +436,16 @@ __device__ __forceinline__ void root_out(uint32_t* root, int N, int L, int log2N
   }
 }
 
-// The last chunk of one frame, at full width: one g at level t, body, ascend
-// to the root (the chunk's R composes into each pend_b on the way),
-// butterfly, outputs.  `pm` may be the same memory as `pm_out`: it is read
-// before it is written.  one_a / one_b: the one-lane pendings of the descend.
-template <bool kOneHot = false>
-__device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
-                                           const Stacks& st, const float* x, const float* pm,
-                                           int8_t* u, float* pm_out, const int4* prog,
-                                           int n_ops, int has_R, int log2N, int one_a,
-                                           int one_b) {
+// The last chunk after its body (metrics pmr and rank vector R in the lanes,
+// at full width): ascend to the root (the chunk's R composes into each pend_b
+// on the way), butterfly, outputs.  `root` is N words: the last-chunk
+// kernel's own plane, or (whole decode) the context's alpha region or the
+// frame's LLRs, which are dead once the body has returned.
+__device__ __forceinline__ void last_ascend(const Ctx& c, uint32_t* root, const Geometry& g,
+                                            const Stacks& st, float pmr, int R, int8_t* u,
+                                            float* pm_out, int log2N) {
   const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
-  // ---- descend: a single g at level t, straight into the chunk context
-  descend_g<kOneHot>(g, st, x, t, false, c.a0, lane, L, one_a, one_b);
-  float pmr = lane < L ? pm[lane] : 0.0f;
-  int R = lane;
-  __syncwarp();
-  chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
-
-  // ---- ascend to the root; the chunk's R composes into each pend_b on the way
+  SCL_PROF_T(t_last);
   for (int i = lane; i < S; i += kWarp) root[N - S + i] = c.beta[i];
   __syncwarp();
   for (int lev = t; lev >= 1; --lev) {
@@ -445,9 +457,31 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
       root[N - 2 * size + i] = perm_word(left[i], c.tmp, L) ^ root[N - size + i];
     __syncwarp();
   }
+  SCL_PROF_ADD(c, PROF_LAST, t_last);
 
+  SCL_PROF_T(t_out);
   root_out(root, N, L, log2N, u, lane);
   if (lane < L) pm_out[lane] = pmr;
+  SCL_PROF_ADD(c, PROF_BUTTERFLY, t_out);
+}
+
+// The last chunk of one frame, at full width: one g at level t, body,
+// last_ascend.  `pm` may be the same memory as `pm_out`: it is read before it
+// is written.  one_a / one_b: the one-lane pendings of the descend.
+template <bool kOneHot = false>
+__device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
+                                           const Stacks& st, const float* x, const float* pm,
+                                           int8_t* u, float* pm_out, const int4* prog,
+                                           int n_ops, int has_R, int log2N, int one_a,
+                                           int one_b) {
+  const int L = g.L, t = g.t, lane = c.lane;
+  // ---- descend: a single g at level t, straight into the chunk context
+  descend_g<kOneHot>(g, st, x, t, false, c.a0, lane, L, one_a, one_b);
+  float pmr = lane < L ? pm[lane] : 0.0f;
+  int R = lane;
+  __syncwarp();
+  chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
+  last_ascend(c, root, g, st, pmr, R, u, pm_out, log2N);
 }
 
 // The levels a chunk step writes a pending of: pend_a at the descend's
@@ -537,82 +571,162 @@ __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alph
 #ifdef SCL_DECODE_MEGA  // defined by scl_mega.cu, the one source that launches it
 // The whole chunked list decode of a frame in ONE launch (replaces
 // ops/scl_mega_pallas.py, make_scl_mega_pallas): bit-reverse the LLRs, seed the
-// metrics (0 / -inf) and the pendings (identity), walk the C - 1 chunk steps
-// from a step table in device memory (8 ints per chunk: k, inv, j, compose
-// masks, offset and length of the chunk's node program, has_R), then the last
-// chunk, the root butterfly and the outputs.  It runs the very device
-// functions of the per-chunk kernels in the same order, so it equals them bit
-// for bit.  A single-chunk code (t == 0) is body + butterfly.
+// metrics (0 / -inf) and the pendings (identity), then walk the C chunks from
+// a step table (one MegaRow per chunk: k, inv, j, compose masks, offset and
+// length of the chunk's node program, has_R): the chunk step's descend, body,
+// composes and ascend, and for the last chunk the same descend (one g at
+// level t) and body, then the ascend to the root, the butterfly and the
+// outputs.  These are the device functions of the per-chunk kernels in the
+// same order, at full width, so it equals them bit for bit.  A single-chunk
+// code (t == 0) is one body on its L x S plane of the LLRs, then the
+// butterfly.
 //
-// Where the level stacks live: in a SCRATCH buffer in device memory that the
-// wrapper allocates and that never leaves the launch (the bit-reversed LLRs,
-// alpha, packed beta, the pendings), exactly where the chunk-step kernel
-// keeps them between launches; only llr is an input and only u and pm are
-// outputs, so the bytes bound is 4N + LN + 4L per frame.  Keeping them in
-// shared memory instead (46 KB per frame at N=1024, L=8) would leave 4 warps
-// per SM.  Each level is written and re-read by the same warp with a
-// __syncwarp between; the scratch pointers are plain (no const __restrict__).
-// One warp per frame; shared memory per warp is the body context plus the
-// N-word root plane, as in the last-chunk kernel.
-__global__ void scl_decode_mega_kernel(const float* __restrict__ llr, float* llr_rev, float* alpha,
-                                       uint32_t* beta, int* pend_a, int* pend_b,
-                                       int8_t* __restrict__ u, float* pm,
-                                       const int4* __restrict__ prog,
-                                       const int* __restrict__ steps, int C, Geometry g,
-                                       int log2N) {
+// What bounds it: the chunk step's instruction issue (a chain of dependent
+// sub-warp steps per frame; the SM's issue slots are full from 16 warps on),
+// so a whole decode costs about the chunk steps it runs, and the one launch
+// saves their gaps only.  The level stacks live in a SCRATCH buffer in device
+// memory that the wrapper allocates and that never leaves the launch (the
+// bit-reversed LLRs, alpha, packed beta, the pendings), exactly where the
+// chunk-step kernel keeps them between launches; only llr is an input and
+// only u and pm are outputs, so the bytes bound is 4N + LN + 4L per frame.
+// The warp's shared memory is the chunk step's context (no top plane: every
+// body reads level t where its descend wrote it), 4,928 B at N=1024, L=8,
+// S=128, and the launch bounds hold the kernel to 64 registers: 32 warps per
+// SM, so that 4096 flagship frames are one wave on 132 SMs (the same code at
+// 20 warps per SM, in two waves, took 18 % longer).  To keep to 64 registers
+// without a spill, the kernel inlines ONE chunk body for all its chunks,
+// takes its step table in the launch's parameters and reads each argument
+// where it is used (the constant bank, not a register, holds it through a
+// body), recomputes its frame's pointers (warp_frame) instead of holding
+// them, and leaves the single-chunk code to an instance of its own (kSingle).
+// The last chunk's N-word root plane takes no shared memory of its own: it
+// aliases the context's alpha region when N <= L * S, else the frame's
+// bit-reversed LLRs; both are dead once the last body has returned.  Each
+// level is written and re-read by the same warp with a __syncwarp between;
+// the scratch pointers are plain (no const __restrict__).  One warp per frame.
+//
+// The early chunks of a decode hold fewer live paths than L, but they run at
+// full width here: the narrow body (chunk_body<true>), whose width is a
+// variable, ran every full-width chunk 13 % slower inside this kernel, more
+// than the two narrow chunks save (NVIDIA H100 80GB HBM3, 700 W).
+
+// One row of the step table in device memory: a chunk step's arguments at
+// full width (STEP_TABLE_COLUMNS of ops/scl_cuda.py).
+struct MegaRow {
+  int k, inv, j, mask_a, mask_b, prog_off, n_ops, has_R;
+};
+
+// The step table: in the launch's parameters (the constant bank) up to
+// kMegaParamRows chunks, as the full-width StepArgs of each chunk, which the
+// kernel reads where it uses them; else in device memory (a long table: each
+// row's values are loaded into registers, and the kernel spills a few).
+constexpr int kMegaParamRows = 80;
+struct ParamSteps {
+  StepArgs rows[kMegaParamRows];
+  __device__ __forceinline__ const StepArgs& args(int i, int) const { return rows[i]; }
+};
+struct DeviceSteps {
+  const MegaRow* rows;
+  __device__ __forceinline__ StepArgs args(int i, int L) const {
+    const MegaRow& r = rows[i];
+    return StepArgs{r.k, r.inv, r.j, r.mask_a, r.mask_b, r.prog_off, r.n_ops, r.has_R,
+                    L, L, 0, 0};
+  }
+};
+
+// This warp's frame, from the special registers at every call (asm volatile:
+// the compiler cannot keep one call's value for the next), so that the
+// whole-decode kernel recomputes its frame's pointers where it uses them
+// instead of holding them through a chunk body.
+__device__ __forceinline__ int warp_frame() {
+  unsigned cta, ntid, tid;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(cta));
+  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(ntid));
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  return (int)(cta * (ntid / kWarp) + tid / kWarp);
+}
+
+// kSingle: a single-chunk code (t == 0), whose one body runs on an L x S
+// plane of the LLRs in the scratch.
+template <typename Steps, bool kSingle>
+__global__ void __launch_bounds__(8 * kWarp, 4)
+    scl_decode_mega_kernel(const float* __restrict__ llr, float* llr_rev, float* alpha,
+                           uint32_t* beta, int* pend_a, int* pend_b, int8_t* __restrict__ u,
+                           float* pm, const int4* __restrict__ prog, const Steps steps, int C,
+                           Geometry g, int log2N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int frame = blockIdx.x * warps + warp;
-  if (frame >= g.B) return;
+  const int lane = threadIdx.x % kWarp;
+  if (warp_frame() >= g.B) return;
   const int N = g.N, S = g.S, L = g.L, t = g.t;
-  const int per_warp = ctx_words(L, S, g.lgS, true) + N;
-  float* base = reinterpret_cast<float*>(smem_raw) + (size_t)warp * per_warp;
-  Ctx c = make_ctx(base, L, S, g.lgS, lane, true);
+  float* base = reinterpret_cast<float*>(smem_raw) +
+                (size_t)(threadIdx.x / kWarp) * ctx_words(L, S, g.lgS, false);
+  Ctx c = make_ctx(base, L, S, g.lgS, lane, false);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
-  uint32_t* root = reinterpret_cast<uint32_t*>(base + ctx_words(L, S, g.lgS, true));
-  float* x = llr_rev + (size_t)frame * N;
-  float* pm_f = pm + (size_t)frame * L;
-  int8_t* u_f = u + (size_t)frame * L * N;
+  SCL_PROF_T(t_decode);
 
-  // ---- init: LLRs to bit-reversed storage, one live path
-  const float* in = llr + (size_t)frame * N;
-  const int shift = 32 - log2N;
-  for (int i = lane; i < N; i += kWarp)
-    x[i] = in[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
-  if (lane < L) pm_f[lane] = lane == 0 ? 0.0f : -INFINITY;
-  __syncwarp();
-
-  const int* last = steps + 8 * (C - 1);
-  if (t == 0) {  // a single chunk: the body on the LLRs, then the butterfly
-    for (int idx = lane; idx < L * S; idx += kWarp) c.a0[idx] = x[idx & (S - 1)];
-    float pmr = lane < L ? pm_f[lane] : 0.0f;
-    int R = lane;
+  // ---- init: LLRs to bit-reversed storage, one live path, identity pendings
+  {
+    const int frame = warp_frame();
+    float* x = llr_rev + (size_t)frame * N;
+    const float* in = llr + (size_t)frame * N;
+    const int shift = 32 - log2N;
+    for (int i = lane; i < N; i += kWarp)
+      x[i] = in[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
+    if (lane < L) pm[(size_t)frame * L + lane] = lane == 0 ? 0.0f : -INFINITY;
+    const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+    for (int l = 1; l <= t; ++l)
+      if (lane < L) {
+        st.pend_a(l)[lane] = lane;
+        st.pend_b(l)[lane] = lane;
+      }
     __syncwarp();
-    chunk_body<false>(c, c.a0, prog + last[5], last[6], last[7], L, pmr, R);
-    for (int i = lane; i < N; i += kWarp) root[i] = c.beta[i];
-    __syncwarp();
-    root_out(root, N, L, log2N, u_f, lane);
-    if (lane < L) pm_f[lane] = pmr;
-    SCL_PROF_FLUSH(c);
-    return;
   }
 
-  const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
-  for (int l = 1; l <= t; ++l)
-    if (lane < L) {
-      st.pend_a(l)[lane] = lane;
-      st.pend_b(l)[lane] = lane;
+  // ---- the chunks: descend, body, then compose and ascend (the last chunk:
+  // ascend to the root, butterfly, outputs); one body for every chunk
+  for (int ch = 0; ch < C; ++ch) {
+    const StepArgs& a = steps.args(ch, L);
+    // the body's op count and program in registers: the compiler would
+    // otherwise read them from the table again, by a register index, at every
+    // op (1 % of the flagship decode, NVIDIA H100 80GB HBM3, 700 W)
+    int n_ops, prog_off;
+    asm volatile("mov.b32 %0, %1;" : "=r"(n_ops) : "r"(a.n_ops));
+    asm volatile("mov.b32 %0, %1;" : "=r"(prog_off) : "r"(a.prog_off));
+    const int4* p = prog + prog_off;
+    float* top;
+    {
+      SCL_PROF_T(t_descend);
+      const int frame = warp_frame();
+      const float* x = llr_rev + (size_t)frame * N;
+      if (kSingle) {  // a single chunk: its L x S plane of the LLRs in the scratch
+        top = alpha + (size_t)frame * L * S;
+        for (int idx = lane; idx < L * S; idx += kWarp) top[idx] = x[idx & (S - 1)];
+        __syncwarp();
+      } else {
+        const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+        step_descend<false>(c, g, st, x, a);
+        top = chunk_top(c, st.alpha(t), p, n_ops, L);
+      }
+      SCL_PROF_ADD(c, PROF_DESCEND, t_descend);
     }
-  __syncwarp();
-  for (int ch = 0; ch < C - 1; ++ch) {
-    const int* row = steps + 8 * ch;
-    const StepArgs a{row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7],
-                     L, L, 0, 0};
-    chunk_step<false>(c, g, st, x, pm_f, prog + a.prog_off, a);
+    float pmr = lane < L ? pm[(size_t)warp_frame() * L + lane] : -INFINITY;
+    int R = lane;
+    SCL_PROF_T(t_body);
+    chunk_body<false>(c, top, p, n_ops, a.has_R, L, pmr, R);
+    SCL_PROF_ADD(c, PROF_BODY, t_body);
+    const int frame = warp_frame();
+    const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+    if (ch < C - 1) {
+      step_ascend<false>(c, g, st, pm + (size_t)frame * L, a, pmr, R);
+    } else {
+      float* root = N <= L * S ? base : llr_rev + (size_t)frame * N;
+      last_ascend(c, reinterpret_cast<uint32_t*>(root), g, st, pmr, R,
+                  u + (size_t)frame * L * N, pm + (size_t)frame * L, log2N);
+    }
     __syncwarp();
   }
-  last_chunk(c, root, g, st, x, pm_f, u_f, pm_f, prog + last[5], last[6], last[7], log2N, 0, 0);
+  SCL_PROF_ADD(c, PROF_DECODE, t_decode);
   SCL_PROF_FLUSH(c);
 }
 #endif
@@ -686,11 +800,12 @@ cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t 
 }
 
 // Bytes of shared memory one frame (one warp) of each kernel needs: the chunk
-// step keeps no top plane (depth0 = false); the body and last-chunk kernels
-// do, the last chunk and the one-launch decode add N words for the root
-// plane, and the one-hot variants of the chunk step and the last chunk the
-// 2 * t * L staged rank vectors.  The launchers and the resource report both
-// size the context from these.
+// step and the one-launch decode keep no top plane (depth0 = false), the body
+// and last-chunk kernels do; the last chunk adds N words for the root plane
+// (the one-launch decode puts it on dead words, see its kernel), and the
+// one-hot variants of the chunk step and the last chunk the 2 * t * L staged
+// rank vectors.  The launchers and the resource report both size the context
+// from these.
 inline size_t smem_per_frame_bytes(int L, int S, int lgS, bool depth0) {
   return 4 * (size_t)scl::ctx_words(L, S, lgS, depth0);
 }
@@ -706,8 +821,8 @@ size_t last_frame_bytes(int L, int S, int lgS, int N, int t) {
 inline size_t body_frame_bytes(int L, int S, int lgS, int, int) {
   return smem_per_frame_bytes(L, S, lgS, true);
 }
-inline size_t mega_frame_bytes(int L, int S, int lgS, int N, int) {
-  return smem_per_frame_bytes(L, S, lgS, true) + 4 * (size_t)N;
+inline size_t mega_frame_bytes(int L, int S, int lgS, int, int) {
+  return smem_per_frame_bytes(L, S, lgS, false);
 }
 
 // A compiled kernel variant, for a resource report: its name, its function

@@ -16,9 +16,10 @@ memory, launched from one library each (``scl_body``, ``scl_decode``,
   ``models.polar.scanscl._make_last_fn`` with ``transform=True``;
 * ``scl_decode_mega``: replaces ``ops/scl_mega_pallas.py::make_scl_mega_pallas``,
   the whole chunked decode in one launch (the device functions of the chunk
-  step and the last chunk, walked from a step table; the level stacks in a
-  scratch buffer that never leaves the launch); plain version: the
-  ``"unroll-fused"`` chunk program of ``models.polar.scanscl``.
+  step and the last chunk, walked from a step table, on the chunk step's
+  context; the level stacks in a scratch buffer that never leaves the
+  launch); plain version: the ``"unroll-fused"`` chunk program of
+  ``models.polar.scanscl``.
 
 Bound: device-memory bytes (the touched level stacks, read and written once);
 in practice latency, see the note at the top of the source.  Each kernel
@@ -62,7 +63,8 @@ Where the chunk context lives (decided on the host by size): in shared
 memory when ``smem_per_frame`` fits one thread block, else in a scratch
 buffer in device memory, one slice per resident warp (``_devmem`` launch
 counts; a port mode: the JAX package runs such chunks in XLA).  The
-one-launch decode keeps its refusal of a code one block cannot hold.
+one-launch decode keeps its refusal of a code whose chunk-step context one
+block cannot hold.
 
 Precondition, as for the plain decoder: finite LLRs.
 """
@@ -652,8 +654,13 @@ def scl_last_chunk(state: SCLState, spec: SCLStepSpec):
 # K6: the whole decode in one launch
 # ---------------------------------------------------------------------------
 
-#: columns of one row of the step table of ``scl_decode_mega``
+#: columns of one row of the step table of ``scl_decode_mega`` (``MegaRow`` of
+#: ``csrc/scl_kernels.cuh``)
 STEP_TABLE_COLUMNS = ("k", "inv", "j", "mask_a", "mask_b", "prog_off", "n_ops", "has_R")
+#: the most chunks whose step table the one-launch decode takes in its launch
+#: parameters (``kMegaParamRows`` of ``csrc/scl_kernels.cuh``); a longer table
+#: is read from device memory (``scl_decode_mega_long``)
+MEGA_PARAM_ROWS = 80
 
 
 def build_mega_tables(sched: SCLSchedule, programs: Optional[list] = None):
@@ -685,7 +692,11 @@ def build_mega_tables(sched: SCLSchedule, programs: Optional[list] = None):
 
 class SCLMegaPlan:
     """One code's tables for ``scl_decode_mega`` (device copies cached per
-    device) and the shared-memory plan of the launch."""
+    device) and the launch plan: the chunk step's context in shared memory
+    (``smem_per_frame(..., depth0=False)``); the step table in the launch's
+    parameters up to ``MEGA_PARAM_ROWS`` chunks (``table_in_params``), else
+    in device memory.  Every chunk runs at full width, as JAX's whole-decode
+    kernel does."""
 
     def __init__(self, sched: SCLSchedule, node_mode: str = "exact"):
         if node_mode != "exact":
@@ -694,13 +705,14 @@ class SCLMegaPlan:
         if not 1 <= sched.L <= MAX_LIST:
             raise ValueError(f"the SCL kernels take list sizes 1..{MAX_LIST}, got {sched.L}")
         self.sched = sched
-        per_frame = smem_per_frame(sched.L, sched.S, root_words=sched.N)
-        if per_frame > SMEM_LIMIT_BYTES:
+        self.smem_per_frame = smem_per_frame(sched.L, sched.S, depth0=False)
+        if self.smem_per_frame > SMEM_LIMIT_BYTES:
             raise ValueError(
                 f"the one-launch list decode of N={sched.N}, chunk S={sched.S}, list "
-                f"L={sched.L} needs {per_frame} bytes of shared memory per frame; one "
+                f"L={sched.L} needs {self.smem_per_frame} bytes of shared memory per frame; one "
                 f"thread block has {SMEM_LIMIT_BYTES}")
-        self.warps = _warps_per_block(per_frame, "the one-launch list decode")
+        self.warps = _warps_per_block(self.smem_per_frame, "the one-launch list decode")
+        self.table_in_params = sched.C <= MEGA_PARAM_ROWS
         self.prog, self.steps = build_mega_tables(sched)
         self._on_device: dict[torch.device, tuple] = {}
 
@@ -717,17 +729,27 @@ def scl_decode_mega_cuda(llr: torch.Tensor, plan: SCLMegaPlan):
     """Launch the one-launch list decode: ``llr [B, N]`` float32 CUDA
     contiguous, natural order → ``(u [B, L, N] int8 natural order, pm [B,
     L])``.  The level stacks are scratch of this call.  Does not synchronise."""
+    out = launch_mega(llr, plan, "scl_mega")
+    count_launch("scl_decode_mega" if plan.table_in_params else "scl_decode_mega_long")
+    return out
+
+
+def launch_mega(llr: torch.Tensor, plan: SCLMegaPlan, library: str):
+    """The one-launch decode through the launcher of ``library``
+    (``"scl_mega"``, or its profiled variant ``"scl_mega_profile"``),
+    uncounted."""
     s = plan.sched
     B = llr.shape[0] if llr.dim() == 2 else -1
     if B < 1:
         raise ValueError(f"expected llr [B>=1, {s.N}], got {tuple(llr.shape)}")
     _check_cuda_f32(llr, "llr", (B, s.N))
-    lib, fn = _launcher("scl_decode_mega_launch", [_P] * 10 + [_I] * 9 + [_P])
+    lib, fn = _launcher("scl_decode_mega_launch", [_P] * 11 + [_I] * 10 + [_P], library)
     dev = llr.device
-    stack = max(s.N - s.S, 1)
+    stack = s.N - s.S
     llr_rev = torch.empty((B, s.N), dtype=torch.float32, device=dev)
-    alpha = torch.empty((B, s.L * stack), dtype=torch.float32, device=dev)
-    beta = torch.empty((B, stack), dtype=torch.int32, device=dev)
+    # a single-chunk code keeps no stacks; its L x N plane takes their place
+    alpha = torch.empty((B, s.L * (stack if s.t else s.S)), dtype=torch.float32, device=dev)
+    beta = torch.empty((B, max(stack, 1)), dtype=torch.int32, device=dev)
     pend_a = torch.empty((B, max(s.t, 1), s.L), dtype=torch.int32, device=dev)
     pend_b = torch.empty_like(pend_a)
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
@@ -736,11 +758,10 @@ def scl_decode_mega_cuda(llr: torch.Tensor, plan: SCLMegaPlan):
     with torch.cuda.device(dev):
         code = fn(llr.data_ptr(), llr_rev.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
                   pend_a.data_ptr(), pend_b.data_ptr(), u.data_ptr(), pm.data_ptr(),
-                  prog.data_ptr(), steps.data_ptr(), s.C, B, s.N, s.S, s.L, s.t,
-                  int(np.log2(s.S)), int(np.log2(s.N)), plan.warps,
-                  torch.cuda.current_stream().cuda_stream)
+                  prog.data_ptr(), plan.steps.ctypes.data, steps.data_ptr(), s.C, B, s.N, s.S,
+                  s.L, s.t, int(np.log2(s.S)), int(np.log2(s.N)), int(plan.table_in_params),
+                  plan.warps, torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_decode_mega")
-    count_launch("scl_decode_mega")
     return u, pm
 
 

@@ -7,8 +7,9 @@ same LLRs: decoded paths equal, metrics within ``rtol=1e-6`` (the two runtimes'
 ``exp`` / ``log1p`` differ in the last bit).  The CUDA kernel itself cannot run
 here; what it READS, the concatenated node programs and the per-chunk step
 table, is walked by the emulation of ``test_torch_scl_emulation.py``, driven
-from that one table instead of one call per chunk, and must give the plain
-decoder's outputs bit for bit.
+from that one table instead of one call per chunk, on level stacks that
+start as garbage (the kernel's scratch is uninitialised), and must give the
+plain decoder's outputs bit for bit.
 """
 
 from types import SimpleNamespace
@@ -28,9 +29,10 @@ from polarcode_and_ldpc_tpu_torch.models.polar.construction import (
 from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (build_scl_schedule,
                                                                make_scl_decoder_scan)
 from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
-from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (STEP_TABLE_COLUMNS, SCLBodyProgram,
+from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (MEGA_PARAM_ROWS, SMEM_LIMIT_BYTES,
+                                                       STEP_TABLE_COLUMNS, SCLBodyProgram,
                                                        SCLMegaPlan, SCLState, build_mega_tables,
-                                                       make_step_specs)
+                                                       make_step_specs, smem_per_frame)
 from polarcode_and_ldpc_tpu_torch.sim import make_polar_pipeline
 
 
@@ -130,15 +132,17 @@ def test_mega_tables_hold_the_launch_arguments_of_every_chunk():
 def _walk_table(sched, llr):
     """What ``scl_decode_mega_kernel`` does, frame batch leading: bit-reverse
     the LLRs, seed metrics and pendings, walk the step table row by row
-    through the emulated chunk step, then the emulated last chunk."""
+    through the emulated chunk step, then the emulated last chunk.  The level
+    stacks start as garbage (NaN alpha, words of alternating bits), as the
+    kernel's scratch is uninitialised: no row may read what no earlier row
+    wrote."""
     prog, table = build_mega_tables(sched)
     rev = torch.as_tensor(np.asarray(bit_reverse_permutation(sched.N)), dtype=torch.int64)
     x = llr[:, rev].contiguous()
 
     def spec_of(row):
         k, inv, j, mask_a, mask_b, off, n, has_r = (int(v) for v in row)
-        # the one-launch decode runs every chunk at full width, as its kernel
-        # fills in the live widths and one-lane masks of a step-table row
+        # every chunk at full width, as the kernel builds its step arguments
         return SimpleNamespace(k=k, inv=bool(inv), j=j, mask_a=mask_a, mask_b=mask_b,
                                lv_in=sched.L, lv_out=sched.L, one_a=0, one_b=0,
                                program=SimpleNamespace(ops=prog[off:off + n], has_r=bool(has_r)))
@@ -151,14 +155,19 @@ def _walk_table(sched, llr):
         beta, pm, _ = emu.emulate_body(last.program, x[:, None, :].expand(B, L, N).contiguous(), pm)
         return tfec.polar_transform(beta[..., rev]), pm
     state = SCLState(sched, x)  # metrics 0 / -inf, pendings the identity
+    state.alpha.fill_(float("nan"))
+    state.beta.fill_(0x55555555)
     for row in table[:-1]:
         emu.emulate_step(state, spec_of(row))
     return emu.emulate_last(state, spec_of(table[-1]))
 
 
 @pytest.mark.parametrize("N,K,S,L", [(128, 64, 16, 4), (256, 128, 32, 8), (128, 100, 8, 2),
-                                     (64, 40, 64, 2)])
+                                     (64, 40, 64, 2), (64, 20, 16, 3), (64, 3, 8, 8)])
 def test_mega_step_table_walk_equals_plain_decoder(N, K, S, L):
+    """The table walk against the full-width plain decoder, on codes whose
+    list fills in the first chunks and on one whose list fills only in the
+    last chunk (K = 3 = log2 L)."""
     _, fm = _code(N, K)
     sched = build_scl_schedule(N, fm, L, S)
     g = np.random.default_rng(N + S + L)
@@ -168,6 +177,32 @@ def test_mega_step_table_walk_equals_plain_decoder(N, K, S, L):
     u1, m1 = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="mega", live_width=False,
                                    device="cpu")(llr)
     assert torch.equal(u0, u1) and torch.equal(m0, m1)
+
+
+@pytest.mark.parametrize("N,K,S,L,per_frame", [(1024, 512, 128, 8, 4928), (1024, 512, 8, 2, 144),
+                                               (4096, 2048, 2048, 32, None)])
+def test_mega_plan_takes_the_chunk_step_context(N, K, S, L, per_frame):
+    """The one-launch decode's shared memory per frame is the chunk step's
+    context (no top plane, no root plane of its own): 4,928 B at the flagship,
+    the size of K3's; its step table goes into the launch's parameters up to
+    ``MEGA_PARAM_ROWS`` chunks (128 chunks of 8 do not); a code whose
+    chunk-step context one block cannot hold raises with its sizes."""
+    _, fm = _code(N, K)
+    sched = build_scl_schedule(N, fm, L, S)
+    step_context = smem_per_frame(L, S, depth0=False)
+    if per_frame is None:
+        assert step_context > SMEM_LIMIT_BYTES
+        with pytest.raises(ValueError, match=f"N={N}, chunk S={S}, list L={L} needs "
+                                             f"{step_context} bytes.*{SMEM_LIMIT_BYTES}"):
+            SCLMegaPlan(sched)
+        return
+    plan = SCLMegaPlan(sched)
+    assert plan.smem_per_frame == step_context == per_frame
+    assert smem_per_frame(L, S, root_words=N) == per_frame + 4 * L * S + 4 * N  # before
+    assert plan.table_in_params == (sched.C <= MEGA_PARAM_ROWS) == (S == 128)
+    assert plan.warps == 32  # the kernel plans its warps per block within this bound
+    assert plan.steps.shape == (sched.C, len(STEP_TABLE_COLUMNS))
+    assert plan.steps.dtype == np.int32 and plan.steps.flags["C_CONTIGUOUS"]
 
 
 @pytest.mark.cuda

@@ -23,6 +23,10 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
 * whole decodes of the flagship (``unroll-kernel``, live width, CRC-free
   decoder of ``make_scl_decoder``) and of JAX's SCL-8 benchmark shape (8192
   frames, chunk 128, rank and one-hot);
+* K6 beside the same tree's per-chunk decode (``unroll-kernel``) at the
+  serving list pass's sizes (67, 128 and 512 frames at -1 dB) and on the
+  large code (N=4096, SCL-32, chunk 64, 1024 frames); where the tree has
+  that mode, K6 at the flagship with its step table in device memory;
 * K3 with the chunk context in device memory (256 frames, N=4096, S=1024,
   L=32, positions 0–2), K5 so on the last chunk's pattern, and the large-code
   decode (1024 frames, N=4096, L=32, chunk 64);
@@ -32,7 +36,8 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
   S=64, L=32: every prune 64 candidates wide, no ``OP_SUBTREE``), and its mean;
 * the stage profile of K3 at flagship positions 3 and 4 and at the large-code
   decode's positions 16 and 40 where the tree has the
-  profiled build (``ops/build.py`` ``VARIANTS``), and the kernels'
+  profiled build (``ops/build.py`` ``VARIANTS``), of K6 over the whole
+  flagship decode where it has ``scl_mega_profile``, and the kernels'
   registers, spills and resident warps per SM where it has
   ``scl_cuda.kernel_resources``.
 
@@ -264,6 +269,25 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
     for name, dec in decs.items():
         out[name] = time_ms(lambda: dec(llr))
         note(*dec(llr))
+    # K6 at the serving list pass's sizes, beside the per-chunk decode
+    for frames in (67, 128, 512):
+        x, _ = llrs(N, K, frames, -1.0, 80 + frames, True)
+        for name, dec in (("K6", decs["flagship mega (K6)"]),
+                          ("per-chunk", decs["flagship unroll-kernel"])):
+            out[f"{name} {frames} frames -1 dB"] = time_ms(lambda: dec(x))
+            note(*dec(x))
+    # K6 with its step table in device memory, where the tree has that mode
+    # (equal to the default's outputs; not in the digest: the parent has no
+    # such row)
+    if hasattr(scl_cuda, "MEGA_PARAM_ROWS"):
+        plan = scl_cuda.SCLMegaPlan(sched)
+        plan.table_in_params = False
+        want = decs["flagship mega (K6)"](llr)
+        out["flagship mega (K6) table in device memory"] = time_ms(
+            lambda: scl_cuda.scl_decode_mega_cuda(llr, plan))
+        got = scl_cuda.scl_decode_mega_cuda(llr, plan)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("K6 with its table in device memory differs")
     llr8, mask8 = llrs(N, K, 8192, SNR, 90, False)
     for perm in ("rank", "onehot"):
         dec = make_scl_decoder(N, mask8, L, chunk=S, perm_impl=perm, device=dev)
@@ -296,6 +320,10 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
     dec64 = make_scl_decoder(4096, mask64, 32, chunk=64, device=dev)
     out["SCL-32 N=4096 chunk 64, 1024 frames"] = time_ms(lambda: dec64(llr64), max(2, reps // 4))
     note(*dec64(llr64))
+    mega64 = make_scl_decoder(4096, mask64, 32, chunk=64, control_impl="mega", device=dev)
+    out["K6 SCL-32 N=4096 chunk 64, 1024 frames"] = time_ms(lambda: mega64(llr64),
+                                                            max(2, reps // 4))
+    note(*mega64(llr64))
     sched64 = build_scl_schedule(4096, mask64, 32, 64)
     s64, _ = make_step_specs(sched64)
 
@@ -326,6 +354,8 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
                 split64[c] = chip_smoke.profile_step(st64, spec)
             scl_chunk_step_cuda(st64, spec)
         out["profile SCL-32 S=64"] = split64
+        if "scl_mega_profile" in build.VARIANTS:
+            out["profile K6"] = chip_smoke.profile_mega(llr, scl_cuda.SCLMegaPlan(sched))
     if hasattr(scl_cuda, "kernel_resources"):
         out["resources"] = scl_cuda.kernel_resources(L, S, N, sched.t)
 
