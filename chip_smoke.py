@@ -107,7 +107,8 @@ from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
                                                             fastnode_select_cuda,
                                                             fastnode_select_plain)
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_RATE1_FAST,
-                                                       OP_REP, OP_REP_FAST, SCLBodyProgram,
+                                                       OP_REP, OP_REP_FAST, OP_SUBTREE,
+                                                       SCLBodyProgram,
                                                        SCLMegaPlan, SCLState, build_mega_tables,
                                                        context_in_device_memory,
                                                        launch_chunk_step, launch_mega,
@@ -529,7 +530,8 @@ def body_flops(program, w=None) -> int:
     top = 2 * L * math.ceil(math.log2(2 * L))
     # the work of the nodes, not of the kernel's program: an in-register
     # subtree op counts as the per-node ops it stands for
-    node_ops = program.ops if program.fast else scl_cuda.build_scl_body_program(program.flags)[0]
+    node_ops = scl_cuda.build_scl_body_program(program.flags, "fast" if program.fast else "exact",
+                                               program.L, subtrees=False)[0]
 
     def leaf() -> int:
         return 14 * w + 2 * w * max(1, math.ceil(math.log2(2 * w)))
@@ -902,7 +904,9 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
 PROFILE_SLOTS = ("descend", "copy_in", "F w*size<32", "F w*size>=32", "G w*size<32",
                  "G w*size>=32", "COMBINE size<32", "COMBINE size>=32", "leaf + prune", "REP",
                  "rate-0", "rate-1 fast", "REP fast", "subtree", "body", "compose", "ascend",
-                 "step", "last chunk", "butterfly", "decode")
+                 "step", "last chunk", "butterfly", "decode", "rate-1 fast L*size<=32",
+                 "REP fast L*size<=32", "fast node: sums", "fast node: selection and prunes",
+                 "fast node: bits")
 
 
 def read_profile(lib, B: int, total: str) -> dict:
@@ -966,22 +970,57 @@ def mega_resources(sched) -> dict:
     return mega
 
 
+# the exact list-kernel instances' registers and local bytes at the flagship's
+# launch plan before the fast node programs had instances of their own (chip
+# run of that tree, NVIDIA H100 80GB HBM3, 700.00 W): the exact instances no
+# longer compile fast code, so none of them may grow
+EXACT_RESOURCE_CEILINGS = {
+    "scl_chunk_body": (48, 0), "scl_chunk_body_onehot": (48, 0),
+    "scl_chunk_body_devmem": (72, 0), "scl_chunk_body_onehot_devmem": (72, 0),
+    "scl_chunk_step": (64, 0), "scl_chunk_step_narrow": (64, 0),
+    "scl_chunk_step_onehot": (64, 0), "scl_chunk_step_devmem": (104, 0),
+    "scl_chunk_step_narrow_devmem": (110, 0), "scl_chunk_step_onehot_devmem": (108, 0),
+    "scl_last_chunk": (56, 0), "scl_last_chunk_onehot": (56, 0),
+    "scl_last_chunk_devmem": (80, 0), "scl_last_chunk_onehot_devmem": (80, 0),
+    "scl_decode_mega": (64, 0), "scl_decode_mega_single": (64, 0),
+    "scl_decode_mega_long": (64, 24)}
+
+
+def fast_resources(sched) -> dict:
+    """The fast chunk step's own instance at the flagship's launch plan must
+    read no local memory and K3's resident warps per SM (32: one wave of 4096
+    frames), and no exact instance may hold more registers or local bytes
+    than ``EXACT_RESOURCE_CEILINGS``; returns the fast instances' rows."""
+    rows = {r["kernel"]: r for r in scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t)}
+    fast, step = rows["scl_chunk_step_fast"], rows["scl_chunk_step"]
+    grown = {k: rows[k] for k, (regs, local) in EXACT_RESOURCE_CEILINGS.items()
+             if rows[k]["registers"] > regs or rows[k]["local_bytes"] > local}
+    if fast["local_bytes"] or fast["resident_warps_per_sm"] != step["resident_warps_per_sm"] \
+            or step["resident_warps_per_sm"] != 32 or grown:
+        raise AssertionError(f"scl_chunk_step_fast {fast}, scl_chunk_step {step}, grown {grown}")
+    return {k: v for k, v in rows.items() if "_fast" in k}
+
+
 def phase_scl_profile() -> None:
     """Where K3's time goes (stage profile of the profiled build) at flagship
     positions 3 and 4 (4096 frames, 3 dB, the state the kernel decode
-    reaches), and K6's over the whole flagship decode of the same frames;
-    the registers, spills and resident warps per SM of every compiled
-    variant of K3 / K4 / K5 / K6 at the flagship's launch shapes."""
+    reaches), on the exact and on the fast node program, and K6's over the
+    whole flagship decode of the same frames; the registers, spills and
+    resident warps per SM of every compiled variant of K3 / K4 / K5 / K6 at
+    the flagship's launch shapes."""
     frozen, info, mask, sched, steps, last, rev = scl_flagship()
     llr = cascl_llrs(frozen, SCL_CHUNK, 3.0, seed=77)
-    state = SCLState(sched, llr[:, rev].contiguous())
     split = {}
-    for c, spec in enumerate(steps):
-        if c in (3, 4):
-            split[f"position {c}"] = profile_step(state, spec)
-        scl_chunk_step_cuda(state, spec)
+    fast_steps, _ = make_step_specs(sched, node_mode="fast")
+    for prefix, specs in (("", steps), ("fast, ", fast_steps)):
+        state = SCLState(sched, llr[:, rev].contiguous())
+        for c, spec in enumerate(specs):
+            if c in (3, 4):
+                split[f"{prefix}position {c}"] = profile_step(state, spec)
+            scl_chunk_step_cuda(state, spec)
     split["scl_decode_mega, whole decode"] = profile_mega(llr, SCLMegaPlan(sched))
     emit("scl_profile", frames=SCL_CHUNK, split=split, mega_resources=mega_resources(sched),
+         fast_resources=fast_resources(sched),
          resources=scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t))
 
 
@@ -1155,11 +1194,15 @@ def phase_fast_kernels(results: dict, reps: int, quick: bool) -> None:
     rev = torch.as_tensor(np.asarray(bit_reverse_permutation(POLAR_N)), dtype=torch.int64,
                           device=DEV)
     unique = list({id(p): p for p in [s.program for s in steps] + [last.program]}.values())
-    counts = {"rate1": 0, "rep": 0}
+    # the fast nodes of a decode (per node, as the plain body walks them) and
+    # the register subtrees that hold the small ones
+    counts = {"rate1": 0, "rep": 0, "subtree": 0}
     for s in steps + [last]:
-        kinds = [op & 0xFF for op in s.program.ops[:, 0].tolist()]
+        kinds = [op & 0xFF for op in scl_cuda.build_scl_body_program(
+            s.program.flags, "fast", SCL_L, subtrees=False)[0][:, 0].tolist()]
         counts["rate1"] += kinds.count(OP_RATE1_FAST)
         counts["rep"] += kinds.count(OP_REP_FAST)
+        counts["subtree"] += [op & 0xFF for op in s.program.ops[:, 0].tolist()].count(OP_SUBTREE)
     worst = {"body": 0.0, "step": 0.0}
     for B in ((512,) if quick else (512, 1000)):
         worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
@@ -1180,6 +1223,11 @@ def phase_fast_kernels(results: dict, reps: int, quick: bool) -> None:
               for snr in (-2.0, 3.0)]
     inputs.append((512, "integer ties", torch.from_numpy(np.random.default_rng(8).integers(
         -3, 4, (512, POLAR_N)).astype(np.float32)).to(DEV)))
+    # LLRs of magnitude 1 or 2: the fast nodes' |a| tie everywhere (selection
+    # by position, equal flip costs and candidates in the prunes)
+    inputs.append((512, "integer ties, |llr| 1 or 2", torch.from_numpy(
+        np.random.default_rng(9).choice(np.array([-2, -1, 1, 2], np.float32),
+                                        (512, POLAR_N))).to(DEV)))
     cases = []
     for B, snr, llr in inputs:
         context = {"B": B, "snr_db": snr}
@@ -1217,7 +1265,8 @@ def phase_fast_kernels(results: dict, reps: int, quick: bool) -> None:
                             "scl_last_chunk_fast")],
          fastnode_cases=results["fastnode_select"]["cases"], probe=probe,
          fast_nodes_per_decode=counts, unique_patterns=len(unique), whole_decode_ms=decode_ms,
-         cases=cases, other_codes=check_fast_other_codes(), mega_refuses_fast=True)
+         cases=cases, other_codes=check_fast_other_codes(), mega_refuses_fast=True,
+         resources=fast_resources(sched))
 
 
 # -- large codes: K1's hybrid mode, the device-memory modes, K3's live width -------

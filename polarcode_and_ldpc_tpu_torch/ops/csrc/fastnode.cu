@@ -7,10 +7,10 @@
 //                    halving-tree sum of log1p(exp(-|a|)) over S)
 //
 // Its body is fastnode::halving_sum + fastnode::select_k of
-// fastnode_device.cuh, the very device functions the list decoder's
-// OP_RATE1_FAST op runs (scl_device.cuh): this launch is the rate-1 node's
-// preamble on its own.  The probe's layout (frames last) is kept so the
-// kernel and its plain version compare like with like.
+// fastnode_device.cuh: the rate-1 node's preamble on its own, whose
+// selection rounds the list decoder's OP_RATE1_FAST runs over registers
+// (scl_device.cuh).  The probe's layout (frames last) is kept so the kernel
+// and its plain version compare like with like.
 //
 // What bounds it: each input read once and each output written once is
 // 4*L*(S + 2K + 1) bytes per frame, a few hundred operations per path; the

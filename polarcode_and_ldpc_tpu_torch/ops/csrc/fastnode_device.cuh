@@ -1,7 +1,8 @@
 // Device functions of the SSCL fast rate-1 node's preamble for Hopper
-// (sm_90a), shared by the standalone selection kernel (fastnode.cu,
-// fastnode_select) and the OP_RATE1_FAST op of the list decoder's chunk body
-// (scl_device.cuh), so the two are one computation in two launches.
+// (sm_90a): the standalone selection kernel (fastnode.cu, fastnode_select)
+// runs them; the list decoder's larger fast nodes (scl_device.cuh) run the
+// same selection rounds over registers in lockstep with their prune stages,
+// and halving_sum where a lane would hold more than 8 of a node's elements.
 //
 // They compute what tools/mosaic_fastnode_probe.py (the kernel at :53-75)
 // and the rate-1 node of

@@ -10,22 +10,27 @@
 // warps_per_block slices of the context in device memory) and `grid` (the
 // blocks of the device-memory mode).
 // r_out: long long [B][L] rank vectors, or (onehot) float [B][L][L] planes.
+// fast: the node program is a fast one, run by the fast instance.
 extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t* beta_out,
                                      float* pm_out, void* r_out, const int* prog, int n_ops,
                                      int has_R, int B, int S, int L, int lgS, int onehot,
-                                     int warps_per_block, float* ctx_dev, int grid,
+                                     int fast, int warps_per_block, float* ctx_dev, int grid,
                                      void* stream) {
-  decltype(&scl_chunk_body_kernel<false, false>) kernel;
+  decltype(&scl_chunk_body_kernel<false, false, false>) kernel;
   size_t smem;
   int blocks, warps;
+  if (fast && onehot) return (int)cudaErrorInvalidValue;
   const size_t per_frame = body_frame_bytes(L, S, lgS, 0, 0);
   cudaError_t err =
-      onehot ? configure(&scl_chunk_body_kernel<false, true>, &scl_chunk_body_kernel<true, true>,
-                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
-                         &warps)
-             : configure(&scl_chunk_body_kernel<false, false>,
-                         &scl_chunk_body_kernel<true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks, &warps);
+      fast ? configure(&scl_chunk_body_kernel<false, false, true>,
+                       &scl_chunk_body_kernel<true, false, true>, ctx_dev, per_frame, B,
+                       warps_per_block, grid, &kernel, &smem, &blocks, &warps)
+      : onehot ? configure(&scl_chunk_body_kernel<false, true, false>,
+                           &scl_chunk_body_kernel<true, true, false>, ctx_dev, per_frame, B,
+                           warps_per_block, grid, &kernel, &smem, &blocks, &warps)
+               : configure(&scl_chunk_body_kernel<false, false, false>,
+                           &scl_chunk_body_kernel<true, false, false>, ctx_dev, per_frame, B,
+                           warps_per_block, grid, &kernel, &smem, &blocks, &warps);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       alpha, pm, beta_out, pm_out, r_out, reinterpret_cast<const int4*>(prog), n_ops, has_R,
@@ -36,10 +41,17 @@ extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t
 
 namespace {
 const KernelEntry kKernels[] = {
-    {"scl_chunk_body", (const void*)&scl_chunk_body_kernel<false, false>, &body_frame_bytes},
-    {"scl_chunk_body_onehot", (const void*)&scl_chunk_body_kernel<false, true>, &body_frame_bytes},
-    {"scl_chunk_body_devmem", (const void*)&scl_chunk_body_kernel<true, false>, nullptr},
-    {"scl_chunk_body_onehot_devmem", (const void*)&scl_chunk_body_kernel<true, true>, nullptr},
+    {"scl_chunk_body", (const void*)&scl_chunk_body_kernel<false, false, false>,
+     &body_frame_bytes},
+    {"scl_chunk_body_fast", (const void*)&scl_chunk_body_kernel<false, false, true>,
+     &body_frame_bytes},
+    {"scl_chunk_body_onehot", (const void*)&scl_chunk_body_kernel<false, true, false>,
+     &body_frame_bytes},
+    {"scl_chunk_body_devmem", (const void*)&scl_chunk_body_kernel<true, false, false>, nullptr},
+    {"scl_chunk_body_fast_devmem", (const void*)&scl_chunk_body_kernel<true, false, true>,
+     nullptr},
+    {"scl_chunk_body_onehot_devmem", (const void*)&scl_chunk_body_kernel<true, true, false>,
+     nullptr},
 };
 }  // namespace
 

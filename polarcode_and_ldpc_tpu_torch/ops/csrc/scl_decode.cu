@@ -27,31 +27,36 @@ extern "C" int scl_profile_read(unsigned long long* out) {
 // blocks of the device-memory mode).
 // lv_in / lv_out: the live paths entering and leaving the chunk (L, L: full
 // width); one_a / one_b: level bit masks of the one-lane pendings; onehot:
-// pend_a / pend_b are float one-hot planes [B][t][L][L] (full width only).
+// pend_a / pend_b are float one-hot planes [B][t][L][L] (full width only);
+// fast: the node program is a fast one (full width, rank vectors), run by the
+// fast instance.
 extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, int* pend_a,
                                      int* pend_b, float* pm, const int* prog, int n_ops,
                                      int has_R, int B, int N, int S, int L, int t, int lgS,
                                      int k, int inv, int j, int mask_a, int mask_b, int lv_in,
-                                     int lv_out, int one_a, int one_b, int onehot,
+                                     int lv_out, int one_a, int one_b, int onehot, int fast,
                                      int warps_per_block, float* ctx_dev, int grid,
                                      void* stream) {
-  decltype(&scl_chunk_step_kernel<false, false, false>) kernel;
+  decltype(&scl_chunk_step_kernel<false, false, false, false>) kernel;
   size_t smem;
   int blocks, warps;
   const bool narrow = lv_in < L || lv_out < L;
-  if (narrow && onehot) return (int)cudaErrorInvalidValue;
+  if ((narrow && onehot) || (fast && (narrow || onehot))) return (int)cudaErrorInvalidValue;
   const size_t per_frame =
       onehot ? step_frame_bytes<true>(L, S, lgS, N, t) : step_frame_bytes<false>(L, S, lgS, N, t);
   cudaError_t err =
-      narrow ? configure(&scl_chunk_step_kernel<false, true, false>,
-                         &scl_chunk_step_kernel<true, true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks, &warps)
-      : onehot ? configure(&scl_chunk_step_kernel<false, false, true>,
-                           &scl_chunk_step_kernel<true, false, true>, ctx_dev, per_frame, B,
-                           warps_per_block, grid, &kernel, &smem, &blocks, &warps)
-               : configure(&scl_chunk_step_kernel<false, false, false>,
-                           &scl_chunk_step_kernel<true, false, false>, ctx_dev, per_frame, B,
-                           warps_per_block, grid, &kernel, &smem, &blocks, &warps);
+      fast ? configure(&scl_chunk_step_kernel<false, false, false, true>,
+                       &scl_chunk_step_kernel<true, false, false, true>, ctx_dev, per_frame, B,
+                       warps_per_block, grid, &kernel, &smem, &blocks, &warps)
+      : narrow ? configure(&scl_chunk_step_kernel<false, true, false, false>,
+                           &scl_chunk_step_kernel<true, true, false, false>, ctx_dev, per_frame,
+                           B, warps_per_block, grid, &kernel, &smem, &blocks, &warps)
+      : onehot ? configure(&scl_chunk_step_kernel<false, false, true, false>,
+                           &scl_chunk_step_kernel<true, false, true, false>, ctx_dev, per_frame,
+                           B, warps_per_block, grid, &kernel, &smem, &blocks, &warps)
+               : configure(&scl_chunk_step_kernel<false, false, false, false>,
+                           &scl_chunk_step_kernel<true, false, false, false>, ctx_dev, per_frame,
+                           B, warps_per_block, grid, &kernel, &smem, &blocks, &warps);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
   const StepArgs a{k, inv, j, mask_a, mask_b, 0, n_ops, has_R, lv_in, lv_out, one_a, one_b};
@@ -63,16 +68,21 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
 
 namespace {
 const KernelEntry kKernels[] = {
-    {"scl_chunk_step", (const void*)&scl_chunk_step_kernel<false, false, false>,
+    {"scl_chunk_step", (const void*)&scl_chunk_step_kernel<false, false, false, false>,
      &step_frame_bytes<false>},
-    {"scl_chunk_step_narrow", (const void*)&scl_chunk_step_kernel<false, true, false>,
+    {"scl_chunk_step_fast", (const void*)&scl_chunk_step_kernel<false, false, false, true>,
      &step_frame_bytes<false>},
-    {"scl_chunk_step_onehot", (const void*)&scl_chunk_step_kernel<false, false, true>,
+    {"scl_chunk_step_narrow", (const void*)&scl_chunk_step_kernel<false, true, false, false>,
+     &step_frame_bytes<false>},
+    {"scl_chunk_step_onehot", (const void*)&scl_chunk_step_kernel<false, false, true, false>,
      &step_frame_bytes<true>},
-    {"scl_chunk_step_devmem", (const void*)&scl_chunk_step_kernel<true, false, false>, nullptr},
-    {"scl_chunk_step_narrow_devmem", (const void*)&scl_chunk_step_kernel<true, true, false>,
+    {"scl_chunk_step_devmem", (const void*)&scl_chunk_step_kernel<true, false, false, false>,
      nullptr},
-    {"scl_chunk_step_onehot_devmem", (const void*)&scl_chunk_step_kernel<true, false, true>,
+    {"scl_chunk_step_fast_devmem", (const void*)&scl_chunk_step_kernel<true, false, false, true>,
+     nullptr},
+    {"scl_chunk_step_narrow_devmem", (const void*)&scl_chunk_step_kernel<true, true, false, false>,
+     nullptr},
+    {"scl_chunk_step_onehot_devmem", (const void*)&scl_chunk_step_kernel<true, false, true, false>,
      nullptr},
 };
 }  // namespace

@@ -43,18 +43,23 @@
 // A fast program (node_mode="fast") adds the SSCL fast list nodes of the
 // TPU kernel's _rate1_fast_rank_loop / _rep_fast_rank_loop: OP_RATE1_FAST
 // decodes an all-info subtree in min(L-1, size) prune stages over its least
-// reliable positions (fastnode_device.cuh picks them), OP_REP_FAST scores a
-// repetition subtree's two codewords whole in one prune.  Both sum with the
-// halving tree (x[:h] + x[h:]), not the adjacent-pair tree of rate-0 / REP,
-// and use the levels below their own alpha plane as scratch: nothing reads
-// them before the next F or G writes them.
+// reliable positions, OP_REP_FAST scores a repetition subtree's two codewords
+// whole in one prune.  Both sum with the halving tree (x[:h] + x[h:]), not
+// the adjacent-pair tree of rate-0 / REP.  It runs in instances of its own
+// (kFast; the exact ones carry none of its code), and like the exact program
+// it decodes the bottom of the tree in registers: a fast OP_SUBTREE
+// (kFlagFast) takes the fast dispatch, and a larger fast node holds its
+// elements in its paths' lane groups (see rate1_fast): run through shared
+// memory, these nodes made a fast flagship step take 1.24x the cycles of the
+// exact one, 41 % of them in the small fast nodes (NVIDIA H100 80GB HBM3,
+// 700 W, the stage profile at position 3).
 //
 // LIVE WIDTH (the TPU kernel's widths= mode, make_superchunk_pallas): an
 // exact body can start at fewer live paths w than the list holds (the list
 // fills 1 -> 2 -> ... -> L, doubling per info leaf).  Every op then runs over
 // the first w rows only, an info leaf ranks 2w candidates (bit-0 paths, then
 // bit-1 paths) and keeps min(2w, L), and w doubles; rows and lanes >= w are
-// never read or written.  At w = L this is the full-width body.  The fast ops
+// never read or written.  At w = L this is the full-width body.  Fast programs
 // run at full width only.
 //
 // Where the context lives: Ctx is plain pointers.  The kernels point it at
@@ -75,7 +80,9 @@ namespace scl {
 // Stage profile (compile with -DSCL_PROFILE; the normal build has none of
 // it): lane 0 of each warp adds the clock64() cycles of each part of a chunk
 // step and of each body op kind (F / G / COMBINE split at w * size < 32, the
-// sub-warp ops) to a per-thread table, which the kernel adds to device-global
+// sub-warp ops; the fast nodes split at L * size <= 32, and inside a larger
+// fast node its sums, its selection rounds with its prunes, and its bits) to
+// a per-thread table, which the kernel adds to device-global
 // counters at the end of its frame; the whole-decode kernel also counts its
 // last chunk (descend, body, ascend), the butterfly with the outputs, and the
 // frame's whole decode.  The counters' cost lands outside the timed
@@ -85,7 +92,8 @@ enum ProfSlot : int {
   PROF_DESCEND = 0, PROF_COPY_IN, PROF_F_SMALL, PROF_F_WIDE, PROF_G_SMALL, PROF_G_WIDE,
   PROF_COMBINE_SMALL, PROF_COMBINE_WIDE, PROF_LEAF, PROF_REP, PROF_RATE0, PROF_RATE1_FAST,
   PROF_REP_FAST, PROF_SUBTREE, PROF_BODY, PROF_COMPOSE, PROF_ASCEND, PROF_STEP, PROF_LAST,
-  PROF_BUTTERFLY, PROF_DECODE, kProfSlots
+  PROF_BUTTERFLY, PROF_DECODE, PROF_RATE1_FAST_SMALL, PROF_REP_FAST_SMALL, PROF_FAST_SUM,
+  PROF_FAST_STAGES, PROF_FAST_BITS, kProfSlots
 };
 #ifdef SCL_PROFILE
 __device__ unsigned long long g_prof[2 * kProfSlots];  // cycles, then counts
@@ -130,13 +138,15 @@ enum Op : int {
 // flags in bits 8.. of the op word
 constexpr int kFlagRL = 1 << 8;  // the left child handed back a rank vector
 constexpr int kFlagRR = 2 << 8;  // the right child did
+constexpr int kFlagFast = 4 << 8;  // an OP_SUBTREE of a fast program (the fast instances
+                                   // run every OP_SUBTREE so)
 
 struct Ctx {
   float* alpha;   // the alpha stack below the chunk's top: depth d >= 1 is [L][S >> d]
   float* a0;      // L * S floats for a depth-0 plane kept in the context
   uint32_t* beta;
-  int* R;         // L: a rank vector that lanes read by index (fast rate-1 tail, outputs)
-  int* tmp;       // L: a fast rate-1 node's flips per slot, or an effective pending
+  int* R;         // L: a rank vector that lanes read by index (the body kernel's output)
+  int* tmp;       // L: an effective pending
   int* Rstack;    // (log2 S + 1) x L
   int L, S, lane;
 #ifdef SCL_PROFILE
@@ -191,6 +201,14 @@ __device__ __forceinline__ int pow2_ceil(int w) { return w <= 1 ? 1 : 1 << (32 -
 // The path whose candidates a lane holds in a prune of w live paths: lanes
 // form groups of pow2_ceil(w), and lane g * P + p holds path p.
 __device__ __forceinline__ int cand_path(int lane, int w) { return lane & (pow2_ceil(w) - 1); }
+
+// shuffles from lane src mod 32
+__device__ __forceinline__ float shfl_f(float v, int src) {
+  return __shfl_sync(kFull, v, src & (kWarp - 1));
+}
+__device__ __forceinline__ int shfl_i(int v, int src) {
+  return __shfl_sync(kFull, v, src & (kWarp - 1));
+}
 
 // rank apply on packed path bits: bit l of the result is bit r[l] of w
 __device__ __forceinline__ uint32_t perm_word(uint32_t w, const int* r, int L) {
@@ -342,75 +360,208 @@ __device__ __forceinline__ uint32_t info_leaf(float a_p, int w, int L, int lane,
   return prune<kWide>(pp + d0, pp + d1, w, kNarrow ? min(2 * w, L) : L, lane, pm, R);
 }
 
-// Fast rate-1 node on the [L][sz] plane a, beta words at c.beta + off, using
-// the L * sz words at `scratch`.  The metric pays the halving-tree sum of
-// log1p(exp(-|a|)); then K = min(L-1, sz) stages each offer every slot a flip
-// of its s-th least reliable position at cost -|a|_(s) through the prune.
-// Slot l's picks are those of its ORIGINAL path rtot[l] (lane l's register:
-// the composition of the stage rank vectors), so no per-path array moves.
-// Lane l's `flips` holds, bit s, whether slot l's lineage took stage s's flip,
-// composed through each stage's rank vector as rtot is (one shuffle a
-// stage).  Returns whether the node has a rank
-// vector (K > 0), which it leaves in R (and in c.R for its own tail).
-__device__ __forceinline__ bool rate1_fast(const Ctx& c, const float* a, int sz, int off,
+// ---- the larger fast nodes (OP_RATE1_FAST, OP_REP_FAST) ------------------
+//
+// A fast node too wide for OP_SUBTREE (L * size > 32, or a size above
+// SUBTREE_MAX) runs on its [L][sz] plane where F or G left it, with each
+// path's G = min(group_lanes(L), sz) lanes (lane = q * G + j) holding its
+// elements: lane (q, j) the positions j + G * k, k < E = sz / G.  For E <= 8
+// (at L = 8 the nodes of size 8, 16 and 32, most of a decode's larger fast
+// nodes) the lane keeps them in registers, read once (kE = E); a wider node
+// (kE = 0) reads them from the plane on every selection round and sums them
+// in shared memory (fastnode::halving_sum).  The levels below the node's
+// plane are scratch: nothing reads them before the next F or G writes them.
+struct GroupLanes {
+  int G, lgG, q, j;
+  bool on;  // q < L: the lane holds a path's elements
+};
+
+__device__ __forceinline__ GroupLanes group_of(int lane, int L, int sz) {
+  const int G = min(fastnode::group_lanes(L), sz), lgG = ilog2(G);
+  return GroupLanes{G, lgG, lane >> lgG, lane & (G - 1), (lane >> lgG) < L};
+}
+
+// the elements one lane holds in a fast node of size sz (E above)
+__device__ __forceinline__ int fast_elements(int L, int sz) {
+  return sz >> ilog2(min(fastnode::group_lanes(L), sz));
+}
+
+// The halving-tree sum (x[:h] + x[h:]) of a path's values: over the lane's
+// kE registers in k (the strides sz / 2 down to G), then over the group's
+// lanes by xor-shuffles (G / 2 down to 1); every lane of the path ends with
+// the sum.
+template <int kE>
+__device__ __forceinline__ float group_halving_sum(float (&v)[kE], int G) {
+#pragma unroll
+  for (int h = kE / 2; h >= 1; h >>= 1)
+#pragma unroll
+    for (int k = 0; k < h; ++k) v[k] = v[k] + v[k + h];
+  float z = v[0];
+  for (int d = G / 2; d >= 1; d >>= 1) z = z + __shfl_xor_sync(kFull, z, d);
+  return z;
+}
+
+// one element of a selection round: keep the least (|a|, position) pair
+// strictly above the last pick (ties to the lower position)
+__device__ __forceinline__ void pick_min(float m, int i, float last_m, int last_p, float& bm,
+                                         int& bp) {
+  const bool above = m > last_m || (m == last_m && i > last_p);
+  if (above && (m < bm || (m == bm && i < bp))) {
+    bm = m;
+    bp = i;
+  }
+}
+
+// Fast rate-1 node on the [L][sz] plane a, beta words at c.beta + off.  The
+// metric pays the halving-tree sum of log1p(exp(-|a|)); then K = min(L-1, sz)
+// stages each offer every slot a flip of its s-th least reliable position at
+// cost -|a|_(s) through the prune.  Stage s runs selection round s first
+// (fastnode::select_k's round over the lane's registers, then a group argmin
+// by shuffles), so slot p's cost is a shuffle from its ORIGINAL path
+// rtot[p]'s group (lane l's register: the composition of the stage rank
+// vectors) and the picks go to scratch ([L][K]) only for the flips.  Lane l's
+// `flips` holds, bit s, whether slot l's lineage took stage s's flip,
+// composed through each stage's rank vector as rtot is.  The words: slot l's
+// hard decisions of its original path, 32 / pow2(L) positions a ballot, then
+// each slot's flips XORed in at its original path's picks.  The node's rank
+// vector (K > 0) is left in R.
+template <int kE>
+__device__ __forceinline__ void rate1_fast(const Ctx& c, const float* a, int sz, int off,
                                            float* scratch, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
-  const int H = sz > 1 ? sz / 2 : 1;
-  fastnode::halving_sum(a, L, sz, scratch, fastnode::Softplus(), lane);
-  if (lane < L) pm = pm - scratch[lane * H];
-  __syncwarp();
-  const int K = min(L - 1, sz);
-  int* idx = reinterpret_cast<int*>(scratch);  // [L][K], over the sums just read
-  if (K > 0) fastnode::select_k(a, L, sz, K, idx, lane);
-  const int p = cand_path(lane, L);
+  const GroupLanes g = group_of(lane, L, sz);
+  const float* row = a + (g.on ? g.q : 0) * sz + g.j;  // element k at row[k << lgG]
+  float m[kE > 0 ? kE : 1];
+  float pen;
+  SCL_PROF_T(t_sum);
+  if constexpr (kE > 0) {
+    float v[kE];
+#pragma unroll
+    for (int k = 0; k < kE; ++k) {
+      m[k] = fabsf(row[k << g.lgG]);
+      v[k] = log1pf(expf(-m[k]));
+    }
+    pen = shfl_f(group_halving_sum<kE>(v, g.G), lane << g.lgG);
+  } else {
+    fastnode::halving_sum(a, L, sz, scratch, fastnode::Softplus(), lane);
+    pen = lane < L ? scratch[lane * (sz / 2)] : 0.0f;
+    __syncwarp();
+  }
+  if (lane < L) pm = pm - pen;
+  SCL_PROF_ADD(c, PROF_FAST_SUM, t_sum);
+  SCL_PROF_T(t_stages);
+  const int K = min(L - 1, sz), p = cand_path(lane, L);
+  int* idx = reinterpret_cast<int*>(scratch);
   int rtot = lane;
   uint32_t flips = 0;
+  float last_m = -INFINITY;
+  int last_p = -1;
   for (int s = 0; s < K; ++s) {
-    const float pp = __shfl_sync(kFull, pm, p);
-    const int rp = __shfl_sync(kFull, rtot, p);
-    const float c1 = p < L ? pp - fabsf(a[rp * sz + idx[rp * K + s]]) : pp;
+    float bm = INFINITY;
+    int bp = 0x7fffffff;
+    if constexpr (kE > 0) {
+#pragma unroll
+      for (int k = 0; k < kE; ++k) pick_min(m[k], g.j + (k << g.lgG), last_m, last_p, bm, bp);
+    } else {
+      for (int k = 0; k < (sz >> g.lgG); ++k)
+        pick_min(fabsf(row[k << g.lgG]), g.j + (k << g.lgG), last_m, last_p, bm, bp);
+    }
+    for (int d = g.G / 2; d >= 1; d >>= 1) {
+      const float om = __shfl_xor_sync(kFull, bm, d);
+      const int op = __shfl_xor_sync(kFull, bp, d);
+      if (om < bm || (om == bm && op < bp)) {
+        bm = om;
+        bp = op;
+      }
+    }
+    last_m = bm;
+    last_p = bp;
+    if (g.on && g.j == 0) idx[g.q * K + s] = bp;
+    const float pp = shfl_f(pm, p);
+    const float c1 = pp - shfl_f(bm, shfl_i(rtot, p) << g.lgG);
     const uint32_t word = prune(pp, c1, L, L, lane, pm, R);
     const int from = lane < L ? R : 0;  // x[l] = x[r[l]]
     flips = __shfl_sync(kFull, flips, from) | (((word >> lane) & 1u) << s);
-    rtot = __shfl_sync(kFull, rtot, from);
+    rtot = shfl_i(rtot, from);
   }
-  if (K > 0 && lane < L) {
-    R = rtot;
-    c.R[lane] = rtot;
-    c.tmp[lane] = (int)flips;
+  if (K > 0 && lane < L) R = rtot;
+  SCL_PROF_ADD(c, PROF_FAST_STAGES, t_stages);
+  SCL_PROF_T(t_bits);
+  // lane jj * P + l votes slot l's hard decision (a < 0, so -0.0 decides 0) of
+  // position base + jj of its original path
+  const int lgP = ilog2(pow2_ceil(L)), l = lane & ((1 << lgP) - 1), jj = lane >> lgP;
+  const int r = K > 0 ? shfl_i(rtot, l) : l;
+  const uint32_t mask = lgP == 5 ? kFull : (1u << (1 << lgP)) - 1u;
+  for (int base = 0; base < sz; base += kWarp >> lgP) {
+    const int i = base + jj;
+    const uint32_t b = __ballot_sync(kFull, l < L && i < sz && a[r * sz + i] < 0.0f);
+    if (l == 0 && i < sz) c.beta[off + i] = (b >> (jj << lgP)) & mask;
   }
   __syncwarp();
-  // hard decisions (a < 0, so -0.0 decides 0) of the original paths, moved
-  // through the final rank vector, then every stage's flips XORed in
-  for (int i = lane; i < sz; i += kWarp) {
-    uint32_t w = 0;
-    for (int q = 0; q < L; ++q) w |= (a[q * sz + i] < 0.0f ? 1u : 0u) << q;
-    c.beta[off + i] = K > 0 ? perm_word(w, c.R, L) : w;
+  for (int base = 0; base < L * K; base += kWarp) {  // every lane runs the shuffles
+    const int q = base + lane, sl = q < L * K ? q / K : 0, st = q - sl * K;
+    const int rs = shfl_i(rtot, sl);
+    const uint32_t fs = __shfl_sync(kFull, flips, sl);
+    if (q < L * K && ((fs >> st) & 1u)) atomicXor(&c.beta[off + idx[rs * K + st]], 1u << sl);
   }
-  __syncwarp();
-  for (int q = lane; q < L * K; q += kWarp) {
-    const int l = q / K, s = q - l * K;
-    if (((uint32_t)c.tmp[l] >> s) & 1u) atomicXor(&c.beta[off + idx[c.R[l] * K + s]], 1u << l);
-  }
-  return K > 0;
+  SCL_PROF_ADD(c, PROF_FAST_BITS, t_bits);
 }
 
 // Fast repetition node: the two candidates per slot are pm + the halving-tree
-// sums of log P(0 | a) and log P(1 | a) over the node, one prune, the bit
-// repeated over the node.
+// sums of log P(0 | a) and log P(1 | a) over the node (one softplus an
+// element), one prune, the bit repeated over the node.
+template <int kE>
 __device__ __forceinline__ void rep_fast(const Ctx& c, const float* a, int sz, int off,
                                          float* scratch, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
-  const int H = sz > 1 ? sz / 2 : 1;
-  float* z0 = scratch;
-  float* z1 = scratch + L * H;
-  fastnode::halving_sum(a, L, sz, z0, fastnode::LogP0(), lane);
-  fastnode::halving_sum(a, L, sz, z1, fastnode::LogP1(), lane);
+  const GroupLanes g = group_of(lane, L, sz);
   const int p = cand_path(lane, L);
-  const float pp = __shfl_sync(kFull, pm, p);
-  const float c0 = pp + (p < L ? z0[p * H] : 0.0f), c1 = pp + (p < L ? z1[p * H] : 0.0f);
-  const uint32_t word = prune(c0, c1, L, L, lane, pm, R);
+  float s0, s1;  // path p's two sums
+  SCL_PROF_T(t_sum);
+  if constexpr (kE > 0) {
+    const float* row = a + (g.on ? g.q : 0) * sz + g.j;
+    float v0[kE], v1[kE];
+#pragma unroll
+    for (int k = 0; k < kE; ++k) d0_d1(row[k << g.lgG], v0[k], v1[k]);
+    const float z0 = group_halving_sum<kE>(v0, g.G), z1 = group_halving_sum<kE>(v1, g.G);
+    s0 = shfl_f(z0, p << g.lgG);
+    s1 = shfl_f(z1, p << g.lgG);
+  } else {
+    const int H = sz / 2;
+    fastnode::halving_sum(a, L, sz, scratch, fastnode::LogP0(), lane);
+    fastnode::halving_sum(a, L, sz, scratch + L * H, fastnode::LogP1(), lane);
+    s0 = p < L ? scratch[p * H] : 0.0f;
+    s1 = p < L ? scratch[L * H + p * H] : 0.0f;
+  }
+  SCL_PROF_ADD(c, PROF_FAST_SUM, t_sum);
+  SCL_PROF_T(t_stages);
+  const float pp = shfl_f(pm, p);
+  const uint32_t word = prune(pp + s0, pp + s1, L, L, lane, pm, R);
+  SCL_PROF_ADD(c, PROF_FAST_STAGES, t_stages);
+  SCL_PROF_T(t_bits);
   for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
+  SCL_PROF_ADD(c, PROF_FAST_BITS, t_bits);
+}
+
+// A larger fast node (OP_RATE1_FAST or OP_REP_FAST): its registers' instance.
+template <int kE>
+__device__ __forceinline__ void fast_node_e(const Ctx& c, bool rate1, const float* a, int sz,
+                                            int off, float* scratch, float& pm, int& R) {
+  if (rate1)
+    rate1_fast<kE>(c, a, sz, off, scratch, pm, R);
+  else
+    rep_fast<kE>(c, a, sz, off, scratch, pm, R);
+}
+
+__device__ __forceinline__ void fast_node(const Ctx& c, bool rate1, const float* a, int sz,
+                                          int off, float* scratch, float& pm, int& R) {
+  switch (fast_elements(c.L, sz)) {
+    case 1: fast_node_e<1>(c, rate1, a, sz, off, scratch, pm, R); break;
+    case 2: fast_node_e<2>(c, rate1, a, sz, off, scratch, pm, R); break;
+    case 4: fast_node_e<4>(c, rate1, a, sz, off, scratch, pm, R); break;
+    case 8: fast_node_e<8>(c, rate1, a, sz, off, scratch, pm, R); break;
+    default: fast_node_e<0>(c, rate1, a, sz, off, scratch, pm, R); break;
+  }
 }
 
 // ---- a subtree in registers (OP_SUBTREE) -------------------------------
@@ -429,12 +580,6 @@ struct SubLanes {
   int lane, l, i, lgsz;  // l = lane >> lgsz, i = lane & (sz - 1)
 };
 
-__device__ __forceinline__ float shfl_f(float v, int src) {
-  return __shfl_sync(kFull, v, src & (kWarp - 1));
-}
-__device__ __forceinline__ int shfl_i(int v, int src) {
-  return __shfl_sync(kFull, v, src & (kWarp - 1));
-}
 
 // the all-zero-decision pass of a node of size 2^K on its lanes (in place
 // in the smem body: zero_dec_inplace)
@@ -448,11 +593,92 @@ __device__ __forceinline__ float sub_zero_dec(const SubLanes& s, float z) {
   return z;
 }
 
+// The halving-tree sum (x[:h] + x[h:], distance 2^K / 2 first) of a path's
+// values over its 2^K lanes, by xor-shuffles: every lane of the path ends
+// with the sum (a + b and b + a are the same float).
+template <int K>
+__device__ __forceinline__ float sub_halving_sum(float z) {
+#pragma unroll
+  for (int h = (1 << K) / 2; h >= 1; h >>= 1) z = z + __shfl_xor_sync(kFull, z, h);
+  return z;
+}
+
+// The fast rate-1 node of a fast program in registers (rate1_fast without
+// shared memory), at full width: the metric pays the halving-tree sum of
+// log1p(exp(-|a|)); lane (l, i) ranks its element in path l's stable
+// ascending order of |a| (ties to the lower position) from the path's 2^K
+// magnitudes, and holds the magnitude of rank i; then K = min(L - 1, 2^K)
+// register prunes, stage s offering slot p a flip of the rank-s position of
+// its original path rtot[p].  Lane (l, i)'s bit: the hard decision of
+// position i of slot l's original path, XOR the flip its lineage took at the
+// stage of that position's rank.
+template <int K>
+__device__ __forceinline__ uint32_t sub_rate1_fast(const SubLanes& s, float a, int L, float& pm,
+                                                   int& R, bool& has_r) {
+  constexpr int M = 1 << K;
+  const int lane = s.lane;
+  const float mag = fabsf(a);
+  const float pen = shfl_f(sub_halving_sum<K>(log1pf(expf(-mag))), lane << s.lgsz);
+  if (lane < L) pm = pm - pen;
+  float m[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) m[j] = shfl_f(mag, (s.l << s.lgsz) + j);
+  int rank = 0;       // of this lane's element
+  float smag = 0.0f;  // the magnitude of rank i
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    int rj = 0;
+#pragma unroll
+    for (int q = 0; q < M; ++q)
+      if (q != j) rj += m[q] < m[j] || (m[q] == m[j] && q < j) ? 1 : 0;
+    if (rj == s.i) smag = m[j];
+    if (j == s.i) rank = rj;
+  }
+  const int n = min(L - 1, M), p = cand_path(lane, L);
+  int rtot = lane;
+  uint32_t flips = 0;
+  for (int st = 0; st < n; ++st) {
+    const float pp = shfl_f(pm, p);
+    const float c1 = pp - shfl_f(smag, (shfl_i(rtot, p) << s.lgsz) + st);
+    const uint32_t word = prune<false>(pp, c1, L, L, lane, pm, R);
+    const int from = lane < L ? R : 0;  // x[l] = x[r[l]]
+    flips = __shfl_sync(kFull, flips, from) | (((word >> lane) & 1u) << st);
+    rtot = shfl_i(rtot, from);
+  }
+  if (n > 0 && lane < L) R = rtot;
+  has_r = n > 0;
+  const int src = ((n > 0 ? shfl_i(rtot, s.l) : s.l) << s.lgsz) + s.i;
+  const uint32_t hard = shfl_f(a, src) < 0.0f ? 1u : 0u;
+  const int rk = shfl_i(rank, src);
+  const uint32_t fl = __shfl_sync(kFull, flips, s.l & (kWarp - 1));
+  return hard ^ (rk < n ? (fl >> rk) & 1u : 0u);
+}
+
+// The fast repetition node in registers (rep_fast without shared memory):
+// log P(0 | a) and log P(1 | a) share one softplus, their halving-tree sums
+// are the two candidates of each slot's path, one register prune.
+template <int K>
+__device__ __forceinline__ uint32_t sub_rep_fast(const SubLanes& s, float a, int L, float& pm,
+                                                 int& R, bool& has_r) {
+  float d0, d1;
+  d0_d1(a, d0, d1);
+  d0 = sub_halving_sum<K>(d0);
+  d1 = sub_halving_sum<K>(d1);
+  const int p = cand_path(s.lane, L);
+  const float pp = shfl_f(pm, p);
+  const uint32_t word = prune<false>(pp + shfl_f(d0, p << s.lgsz), pp + shfl_f(d1, p << s.lgsz),
+                                     L, L, s.lane, pm, R);
+  has_r = true;
+  return (word >> s.l) & 1u;
+}
+
 // Decode a node of size 2^K (frozen bits fz, bit q = position q) whose alpha
 // is `a` on lanes (l, i < 2^K); returns this lane's partial-sum bit (lanes
 // (l, i < 2^K)), updates the metrics, the rank vector and the live width as
-// the smem body's ops do, and says whether the node pruned (has_r).
-template <int K, bool kNarrow>
+// the smem body's ops do, and says whether the node pruned (has_r).  kFast:
+// the node program's fast dispatch (full width): an all-info node is the
+// fast rate-1 node, a repetition node the fast REP.
+template <int K, bool kNarrow, bool kFast>
 __device__ __forceinline__ uint32_t sub_node(const SubLanes& s, float a, uint32_t fz, int L,
                                              int& w, float& pm, int& R, bool& has_r) {
   constexpr int M = 1 << K;
@@ -480,7 +706,10 @@ __device__ __forceinline__ uint32_t sub_node(const SubLanes& s, float a, uint32_
     has_r = true;
     return (word >> s.l) & 1u;
   } else {
-    if ((fz & all) == (all >> 1)) {  // REP: every position but the last frozen
+    if constexpr (kFast) {
+      if ((fz & all) == 0u) return sub_rate1_fast<K>(s, a, L, pm, R, has_r);
+      if ((fz & all) == (all >> 1)) return sub_rep_fast<K>(s, a, L, pm, R, has_r);
+    } else if ((fz & all) == (all >> 1)) {  // REP: every position but the last frozen
       float z = sub_zero_dec<K>(s, a);
       const float leaf = shfl_f(z, (cand_path(lane, w) << s.lgsz) + M - 1);
       float d0, d1;
@@ -505,15 +734,15 @@ __device__ __forceinline__ uint32_t sub_node(const SubLanes& s, float a, uint32_
     bool rl, rr;
     // F, the left child, G through its rank vector, the right child
     const uint32_t bl =
-        sub_node<K - 1, kNarrow>(s, f_minsum(a, __shfl_down_sync(kFull, a, h)), fz, L, w, pm,
-                                 R, rl);
+        sub_node<K - 1, kNarrow, kFast>(s, f_minsum(a, __shfl_down_sync(kFull, a, h)), fz, L,
+                                        w, pm, R, rl);
     const int Rl = R;
     const int r = rl ? shfl_i(Rl, s.l) : s.l;
     const float first = shfl_f(a, (r << s.lgsz) + s.i);
     const float second = shfl_f(a, (r << s.lgsz) + s.i + h);
     const float sgn = 1.0f - 2.0f * (float)bl;
-    const uint32_t br = sub_node<K - 1, kNarrow>(s, second + sgn * first, fz >> h, L, w, pm, R,
-                                                 rr);
+    const uint32_t br = sub_node<K - 1, kNarrow, kFast>(s, second + sgn * first, fz >> h, L, w,
+                                                        pm, R, rr);
     // COMBINE: left bits through the right child's rank vector, XOR the right
     const int lsrc = rr ? shfl_i(R, s.l) : s.l;
     const uint32_t left = __shfl_sync(kFull, bl, ((lsrc << s.lgsz) + s.i) & (kWarp - 1));
@@ -526,16 +755,17 @@ __device__ __forceinline__ uint32_t sub_node(const SubLanes& s, float a, uint32_
 }
 
 // OP_SUBTREE: the node's plane [L][sz] at `plane`; the packed partial sums of
-// its sz positions go to beta (bits of the live paths only).
-template <bool kNarrow>
+// its sz positions go to beta (bits of the live paths only).  kFast: a fast
+// program's subtree (kFlagFast in its op word), decoded by the fast dispatch.
+template <bool kNarrow, bool kFast>
 __device__ __forceinline__ void subtree(const Ctx& c, const float* plane, int sz, uint32_t fz,
                                         uint32_t* beta, int& w, float& pm, int& R) {
   const int L = c.L, lane = c.lane, lgsz = ilog2(sz);
   const SubLanes s{lane, lane >> lgsz, lane & (sz - 1), lgsz};
   const float a = lane < L * sz ? plane[lane] : 0.0f;
   bool has_r;
-  const uint32_t bit = sz == 2 ? sub_node<1, kNarrow>(s, a, fz, L, w, pm, R, has_r)
-                               : sub_node<2, kNarrow>(s, a, fz, L, w, pm, R, has_r);
+  const uint32_t bit = sz == 2 ? sub_node<1, kNarrow, kFast>(s, a, fz, L, w, pm, R, has_r)
+                               : sub_node<2, kNarrow, kFast>(s, a, fz, L, w, pm, R, has_r);
   const uint32_t ball = __ballot_sync(kFull, bit != 0u && s.l < w);
   if (lane < sz) {
     uint32_t word = 0;
@@ -550,8 +780,9 @@ __device__ __forceinline__ void subtree(const Ctx& c, const float* plane, int sz
 // partial sums in c.beta, the new metrics in pm and the chunk's rank vector
 // in R (lane l holds R[l]).  kNarrow: start at w_in live paths and double at
 // every info leaf (live width); otherwise the full list, the width a
-// constant the compiler sees.
-template <bool kNarrow>
+// constant the compiler sees.  kFast: a fast node program (the fast ops and
+// the fast OP_SUBTREE are compiled only into the fast instances).
+template <bool kNarrow, bool kFast>
 __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* __restrict__ prog,
                                            int n_ops, int has_R, int w_in, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
@@ -691,14 +922,14 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
         break;
       }
       case OP_RATE1_FAST:
-        rate1_fast(c, depth_ptr(c, a0, d), sz, off, depth_ptr(c, a0, d + 1), pm, R);
-        break;
       case OP_REP_FAST:
-        rep_fast(c, depth_ptr(c, a0, d), sz, off, depth_ptr(c, a0, d + 1), pm, R);
+        if constexpr (kFast)
+          fast_node(c, (op.x & 0xff) == OP_RATE1_FAST, depth_ptr(c, a0, d), sz, off,
+                    depth_ptr(c, a0, d + 1), pm, R);
         break;
       case OP_SUBTREE:
-        subtree<kNarrow>(c, depth_ptr(c, a0, d), sz, (uint32_t)op.x >> 16, c.beta + off, w, pm,
-                         R);
+        subtree<kNarrow, kFast>(c, depth_ptr(c, a0, d), sz, (uint32_t)op.x >> 16, c.beta + off,
+                                w, pm, R);
         break;
       default:
         break;
@@ -713,8 +944,10 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
                        : kind == OP_LEAF     ? PROF_LEAF
                        : kind == OP_REP      ? PROF_REP
                        : kind == OP_RATE0    ? PROF_RATE0
-                       : kind == OP_RATE1_FAST ? PROF_RATE1_FAST
-                       : kind == OP_REP_FAST ? PROF_REP_FAST
+                       : kind == OP_RATE1_FAST
+                           ? (L * sz <= kWarp ? PROF_RATE1_FAST_SMALL : PROF_RATE1_FAST)
+                       : kind == OP_REP_FAST
+                           ? (L * sz <= kWarp ? PROF_REP_FAST_SMALL : PROF_REP_FAST)
                                              : PROF_SUBTREE;
       SCL_PROF_ADD(c, slot, t_op);
     }

@@ -125,13 +125,16 @@ struct Stacks {
   __device__ __forceinline__ int* pend_b(int l) const { return PB + (l - 1) * L; }
 };
 
+// Each offset is one 32 x 32 -> 64-bit product (a frame's slice, L * (N - S)
+// or t * L words, fits an int): with two 64-bit products the whole-decode
+// kernel, held to 64 registers, spilled the high word of one.
 __device__ __forceinline__ Stacks frame_stacks(const Geometry& g, int frame, float* alpha,
                                                uint32_t* beta, int* pend_a, int* pend_b) {
   Stacks s;
-  s.A = alpha + (size_t)frame * g.L * (g.N - g.S);
+  s.A = alpha + (size_t)frame * (size_t)(g.L * (g.N - g.S));
   s.Bt = beta + (size_t)frame * (g.N - g.S);
-  s.PA = pend_a + (size_t)frame * g.t * g.L;
-  s.PB = pend_b + (size_t)frame * g.t * g.L;
+  s.PA = pend_a + (size_t)frame * (size_t)(g.t * g.L);
+  s.PB = pend_b + (size_t)frame * (size_t)(g.t * g.L);
   s.N = g.N;
   s.L = g.L;
   return s;
@@ -234,8 +237,8 @@ __device__ __forceinline__ void for_each_frame(int B, F&& f) {
 }
 
 // r_out: the rank vector [B][L] as long long, or (kOneHot) the one-hot plane
-// [B][L][L] as float.
-template <bool kDev, bool kOneHot>
+// [B][L][L] as float.  kFast: a fast node program.
+template <bool kDev, bool kOneHot, bool kFast>
 __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
                                       int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
                                       void* __restrict__ r_out,
@@ -253,7 +256,7 @@ __global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const flo
     float pmr = lane < L ? pm[(size_t)frame * L + lane] : 0.0f;
     int R = lane;
     __syncwarp();
-    chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
+    chunk_body<false, kFast>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
     if (kOneHot && lane < L) c.R[lane] = R;
     __syncwarp();
     int8_t* bo = beta_out + (size_t)frame * L * S;
@@ -394,8 +397,9 @@ __device__ __forceinline__ void step_ascend(const Ctx& c, const Geometry& g, con
   SCL_PROF_ADD(c, PROF_ASCEND, t_ascend);
 }
 
-// One chunk step of one frame (see the parts above).
-template <bool kNarrow, bool kOneHot = false>
+// One chunk step of one frame (see the parts above); kFast: a fast node
+// program.
+template <bool kNarrow, bool kOneHot, bool kFast>
 __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, const Stacks& st,
                                            const float* x, float* pm, const int4* prog,
                                            const StepArgs& a) {
@@ -412,7 +416,7 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   int R = lane;
   SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
   SCL_PROF_T(t_body);
-  chunk_body<kNarrow>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
+  chunk_body<kNarrow, kFast>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
   SCL_PROF_ADD(c, PROF_BODY, t_body);
   step_ascend<kNarrow>(c, g, st, pm, a, pmr, R);
   SCL_PROF_ADD(c, PROF_STEP, t_step);
@@ -467,8 +471,9 @@ __device__ __forceinline__ void last_ascend(const Ctx& c, uint32_t* root, const 
 
 // The last chunk of one frame, at full width: one g at level t, body,
 // last_ascend.  `pm` may be the same memory as `pm_out`: it is read before it
-// is written.  one_a / one_b: the one-lane pendings of the descend.
-template <bool kOneHot = false>
+// is written.  one_a / one_b: the one-lane pendings of the descend.  kFast: a
+// fast node program.
+template <bool kOneHot, bool kFast>
 __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
                                            const Stacks& st, const float* x, const float* pm,
                                            int8_t* u, float* pm_out, const int4* prog,
@@ -480,7 +485,7 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const G
   float pmr = lane < L ? pm[lane] : 0.0f;
   int R = lane;
   __syncwarp();
-  chunk_body<false>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
+  chunk_body<false, kFast>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
   last_ascend(c, root, g, st, pmr, R, u, pm_out, log2N);
 }
 
@@ -493,10 +498,12 @@ __device__ __forceinline__ void written_levels(const StepArgs& a, int t, int* la
 }
 
 // kOneHot: pend_a / pend_b are the one-hot planes [B][t][L][L] (float); the
-// warp stages their rank vectors after its chunk context.
+// warp stages their rank vectors after its chunk context.  kFast: a fast node
+// program (full width, rank vectors), compiled as instances of its own so
+// that the exact ones carry no fast code.
 // The shared-memory variants keep to 64 registers: 32 warps per SM, so that
 // 4096 flagship frames are one wave (132 SMs).
-template <bool kDev, bool kNarrow, bool kOneHot>
+template <bool kDev, bool kNarrow, bool kOneHot, bool kFast>
 __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
     scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, float* pm,
@@ -520,8 +527,8 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
       st.PA = ranks;
       st.PB = ranks + tl;
     }
-    chunk_step<kNarrow, kOneHot>(c, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
-                                 prog, a);
+    chunk_step<kNarrow, kOneHot, kFast>(c, g, st, llr + (size_t)frame * g.N,
+                                        pm + (size_t)frame * g.L, prog, a);
     if (kOneHot) {
       __syncwarp();
       int la, lb;
@@ -534,8 +541,8 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
 }
 
 // kOneHot: the pendings are one-hot planes, staged as rank vectors after the
-// root plane; the state is read only.
-template <bool kDev, bool kOneHot>
+// root plane; the state is read only.  kFast: a fast node program.
+template <bool kDev, bool kOneHot, bool kFast>
 __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, const float* pm,
                                       int8_t* __restrict__ u, float* __restrict__ pm_out,
@@ -561,9 +568,10 @@ __global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alph
       st.PA = ranks;
       st.PB = ranks + tl;
     }
-    last_chunk<kOneHot>(c, root, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
-                        u + (size_t)frame * g.L * g.N, pm_out + (size_t)frame * g.L, prog,
-                        n_ops, has_R, log2N, one_a, one_b);
+    last_chunk<kOneHot, kFast>(c, root, g, st, llr + (size_t)frame * g.N,
+                               pm + (size_t)frame * g.L, u + (size_t)frame * g.L * g.N,
+                               pm_out + (size_t)frame * g.L, prog, n_ops, has_R, log2N, one_a,
+                               one_b);
   });
   SCL_PROF_FLUSH(c);
 }
@@ -713,7 +721,7 @@ __global__ void __launch_bounds__(8 * kWarp, 4)
     float pmr = lane < L ? pm[(size_t)warp_frame() * L + lane] : -INFINITY;
     int R = lane;
     SCL_PROF_T(t_body);
-    chunk_body<false>(c, top, p, n_ops, a.has_R, L, pmr, R);
+    chunk_body<false, false>(c, top, p, n_ops, a.has_R, L, pmr, R);
     SCL_PROF_ADD(c, PROF_BODY, t_body);
     const int frame = warp_frame();
     const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);

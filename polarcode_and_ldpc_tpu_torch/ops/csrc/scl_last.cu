@@ -10,24 +10,29 @@
 // It takes `ctx_dev` (null: the context in shared memory; else grid *
 // warps_per_block slices of the context in device memory) and `grid` (the
 // blocks of the device-memory mode).
+// fast: the node program is a fast one, run by the fast instance.
 extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, int* pend_a,
                                      int* pend_b, const float* pm, int8_t* u, float* pm_out,
                                      const int* prog, int n_ops, int has_R, int B, int N, int S,
                                      int L, int t, int lgS, int log2N, int one_a, int one_b,
-                                     int onehot, int warps_per_block, float* ctx_dev, int grid,
-                                     void* stream) {
-  decltype(&scl_last_chunk_kernel<false, false>) kernel;
+                                     int onehot, int fast, int warps_per_block, float* ctx_dev,
+                                     int grid, void* stream) {
+  decltype(&scl_last_chunk_kernel<false, false, false>) kernel;
   size_t smem;
   int blocks, warps;
+  if (fast && onehot) return (int)cudaErrorInvalidValue;
   const size_t per_frame =
       onehot ? last_frame_bytes<true>(L, S, lgS, N, t) : last_frame_bytes<false>(L, S, lgS, N, t);
   cudaError_t err =
-      onehot ? configure(&scl_last_chunk_kernel<false, true>, &scl_last_chunk_kernel<true, true>,
-                         ctx_dev, per_frame, B, warps_per_block, grid, &kernel, &smem, &blocks,
-                         &warps)
-             : configure(&scl_last_chunk_kernel<false, false>,
-                         &scl_last_chunk_kernel<true, false>, ctx_dev, per_frame, B,
-                         warps_per_block, grid, &kernel, &smem, &blocks, &warps);
+      fast ? configure(&scl_last_chunk_kernel<false, false, true>,
+                       &scl_last_chunk_kernel<true, false, true>, ctx_dev, per_frame, B,
+                       warps_per_block, grid, &kernel, &smem, &blocks, &warps)
+      : onehot ? configure(&scl_last_chunk_kernel<false, true, false>,
+                           &scl_last_chunk_kernel<true, true, false>, ctx_dev, per_frame, B,
+                           warps_per_block, grid, &kernel, &smem, &blocks, &warps)
+               : configure(&scl_last_chunk_kernel<false, false, false>,
+                           &scl_last_chunk_kernel<true, false, false>, ctx_dev, per_frame, B,
+                           warps_per_block, grid, &kernel, &smem, &blocks, &warps);
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
   kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -39,11 +44,17 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
 
 namespace {
 const KernelEntry kKernels[] = {
-    {"scl_last_chunk", (const void*)&scl_last_chunk_kernel<false, false>, &last_frame_bytes<false>},
-    {"scl_last_chunk_onehot", (const void*)&scl_last_chunk_kernel<false, true>,
+    {"scl_last_chunk", (const void*)&scl_last_chunk_kernel<false, false, false>,
+     &last_frame_bytes<false>},
+    {"scl_last_chunk_fast", (const void*)&scl_last_chunk_kernel<false, false, true>,
+     &last_frame_bytes<false>},
+    {"scl_last_chunk_onehot", (const void*)&scl_last_chunk_kernel<false, true, false>,
      &last_frame_bytes<true>},
-    {"scl_last_chunk_devmem", (const void*)&scl_last_chunk_kernel<true, false>, nullptr},
-    {"scl_last_chunk_onehot_devmem", (const void*)&scl_last_chunk_kernel<true, true>, nullptr},
+    {"scl_last_chunk_devmem", (const void*)&scl_last_chunk_kernel<true, false, false>, nullptr},
+    {"scl_last_chunk_fast_devmem", (const void*)&scl_last_chunk_kernel<true, false, true>,
+     nullptr},
+    {"scl_last_chunk_onehot_devmem", (const void*)&scl_last_chunk_kernel<true, true, false>,
+     nullptr},
 };
 }  // namespace
 

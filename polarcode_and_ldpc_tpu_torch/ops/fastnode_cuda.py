@@ -4,10 +4,10 @@
 kernel of ``tools/mosaic_fastnode_probe.py`` (its body at :53-75, the
 ``pallas_call`` at :79): per frame and path, the K least-reliable positions
 (the first K of a stable ascending sort of ``|a|``, ties to the lower
-position) and the halving-tree sum of ``log1p(exp(−|a|))``.  Its body is the
-device function the list decoder's ``OP_RATE1_FAST`` op runs
-(``csrc/fastnode_device.cuh``), so this launch is that node's preamble on its
-own.  The probe's layout is kept: frames last.
+position) and the halving-tree sum of ``log1p(exp(−|a|))``: the preamble of
+the list decoder's ``OP_RATE1_FAST`` node on its own (``csrc/fastnode_device.cuh``;
+the list kernels run its selection rounds over registers).  The probe's layout
+is kept: frames last.
 
 Bound: device-memory bytes (each input read once, each output written once);
 one warp per frame.  The kernel equals its plain version bit for bit.  A

@@ -34,9 +34,11 @@ plain version's operands and back); on CUDA tensors it launches the kernel
 or raises.
 
 A fast node program (``node_mode="fast"``, the SSCL fast list nodes) runs
-through the same three per-chunk kernels: its ``OP_RATE1_FAST`` /
-``OP_REP_FAST`` ops are the fast modes of the TPU kernels K3 / K4 / K5, and
-their launches are counted apart (``scl_chunk_step_fast`` …).  The one-launch
+through the same three per-chunk kernels, each in a compiled instance of its
+own (``kFast``; the exact instances carry no fast code): its
+``OP_RATE1_FAST`` / ``OP_REP_FAST`` ops and its fast ``OP_SUBTREE`` (the
+small fast nodes in registers) are the fast modes of the TPU kernels K3 / K4
+/ K5, and their launches are counted apart (``scl_chunk_step_fast`` …).  The one-launch
 decode refuses a fast program, as the JAX package's mega control does.
 
 One-hot permutations (``perm_impl="onehot"``, the default mode of the TPU
@@ -89,10 +91,12 @@ from . import build, count_launch
 OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_LEAF, OP_REP, OP_RATE1_FAST, OP_REP_FAST, OP_SUBTREE = \
     range(9)
 FLAG_RL, FLAG_RR = 1 << 8, 2 << 8
+#: an ``OP_SUBTREE`` of a fast program: its nodes take the fast dispatch
+FLAG_FAST = 4 << 8
 #: the frozen bits of an ``OP_SUBTREE`` start at this bit of its op word
 SUBTREE_SHIFT = 16
-#: widest node an exact program decodes in registers (``OP_SUBTREE``), when
-#: its list x size fits a warp
+#: widest node a program decodes in registers (``OP_SUBTREE``), when its list
+#: x size fits a warp
 SUBTREE_MAX = 4
 
 #: widest repetition subtree the REP op decodes (the plain version's rule)
@@ -110,17 +114,21 @@ _DEVMEM_BLOCKS_PER_SM = 8
 
 
 def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
-                           list_size: Optional[int] = None) -> tuple[np.ndarray, bool]:
+                           list_size: Optional[int] = None,
+                           subtrees: bool = True) -> tuple[np.ndarray, bool]:
     """The static node program of one chunk pattern (``flags [S]`` bool in
     storage order, True = frozen): ``int32 [n_ops, 4]`` rows ``(op | flags,
     depth, size or half, beta_offset)``, walked exactly as the plain chunk
     body walks the pattern, and whether the chunk prunes at all (has a rank
     vector other than the identity).  ``node_mode="fast"`` emits the fast
     rate-1 and repetition ops; it needs ``list_size`` (a rate-1 node prunes
-    only when ``L > 1``).  An exact program given ``list_size`` decodes every
-    node of size 2 … ``SUBTREE_MAX`` with ``list_size · size <= 32`` as one
+    only when ``L > 1``).  A program given ``list_size`` decodes every node
+    of size 2 … ``SUBTREE_MAX`` with ``list_size · size <= 32`` as one
     ``OP_SUBTREE`` (its frozen bits from bit ``SUBTREE_SHIFT`` of the op
-    word), in registers, in the same order of operations."""
+    word; ``FLAG_FAST`` in a fast program, whose subtree takes the fast
+    dispatch), in registers, in the same order of operations;
+    ``subtrees=False`` keeps the per-node ops (the work a program stands
+    for)."""
     flags = np.asarray(flags, bool)
     S = len(flags)
     assert S >= 1 and S & (S - 1) == 0
@@ -129,13 +137,14 @@ def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
         raise ValueError("a fast node program needs list_size")
     ops: list[tuple[int, int, int, int]] = []
 
-    def node(depth: int, off: int, size: int) -> bool:
+    def node(depth: int, off: int, size: int, ops: list, fold: bool = True) -> bool:
         sub = flags[off:off + size]
-        if (not fast and list_size is not None and 2 <= size <= SUBTREE_MAX
+        if (fold and list_size is not None and 2 <= size <= SUBTREE_MAX
                 and list_size * size <= 32):
             bits = sum(1 << i for i in range(size) if sub[i])
-            ops.append((OP_SUBTREE | (bits << SUBTREE_SHIFT), depth, size, off))
-            return not sub.all()
+            ops.append((OP_SUBTREE | (FLAG_FAST if fast else 0) | (bits << SUBTREE_SHIFT),
+                        depth, size, off))
+            return node(depth, off, size, [], fold=False)  # whether its nodes prune
         if sub.all():
             ops.append((OP_RATE0, depth, size, off))
             return False
@@ -153,14 +162,14 @@ def build_scl_body_program(flags: np.ndarray, node_mode: str = "exact",
             return True
         half = size // 2
         ops.append((OP_F, depth, half, off))
-        rl = node(depth + 1, off, half)
+        rl = node(depth + 1, off, half, ops, fold)
         ops.append((OP_G | (FLAG_RL if rl else 0), depth, half, off))
-        rr = node(depth + 1, off + half, half)
+        rr = node(depth + 1, off + half, half, ops, fold)
         ops.append((OP_COMBINE | (FLAG_RL if rl else 0) | (FLAG_RR if rr else 0),
                     depth, half, off))
         return rl or rr
 
-    has_r = node(0, 0, S)
+    has_r = node(0, 0, S, ops, subtrees)
     return np.asarray(ops, np.int32).reshape(-1, 4), has_r
 
 
@@ -331,7 +340,7 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
     _check_cuda_f32(pm, "pm", (B, L))
     dev = alpha.device
     warps, grid, ctx = _context_plan(L, S, 0, B, dev)
-    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 8 + [_P, _I, _P])
+    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 9 + [_P, _I, _P])
     beta = torch.empty((B, L, S), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, L), dtype=torch.float32, device=dev)
     r_out = (torch.empty((B, L, L), dtype=torch.float32, device=dev) if program.onehot
@@ -340,7 +349,7 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
     with torch.cuda.device(dev):
         code = fn(alpha.data_ptr(), pm.data_ptr(), beta.data_ptr(), pm_out.data_ptr(),
                   r_out.data_ptr(), ops.data_ptr(), ops.shape[0], int(program.has_r),
-                  B, S, L, program.lgS, int(program.onehot), warps,
+                  B, S, L, program.lgS, int(program.onehot), int(program.fast), warps,
                   ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_body")
@@ -589,7 +598,7 @@ def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0,
                                      depth0=False)
-    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 19 + [_P, _I, _P], library)
+    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 20 + [_P, _I, _P], library)
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
         code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
@@ -597,7 +606,8 @@ def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
                   ops.data_ptr(), ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L,
                   s.t, spec.program.lgS, spec.k, int(spec.inv), spec.j, spec.mask_a,
                   spec.mask_b, spec.lv_in, spec.lv_out, spec.one_a, spec.one_b,
-                  int(state.onehot), warps, ctx.data_ptr() if ctx is not None else None, grid,
+                  int(state.onehot), int(spec.program.fast), warps,
+                  ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_step")
     return ctx
@@ -621,7 +631,7 @@ def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
     B = state.pm.shape[0]
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, s.N, B, dev, s.t if state.onehot else 0)
-    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 9 + [_I] * 13 + [_P, _I, _P])
+    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 9 + [_I] * 14 + [_P, _I, _P])
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, s.L), dtype=torch.float32, device=dev)
     ops = spec.program.device_ops(dev)
@@ -630,7 +640,8 @@ def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
                   state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
                   u.data_ptr(), pm_out.data_ptr(), ops.data_ptr(), ops.shape[0],
                   int(spec.program.has_r), B, s.N, s.S, s.L, s.t, spec.program.lgS,
-                  int(np.log2(s.N)), spec.one_a, spec.one_b, int(state.onehot), warps,
+                  int(np.log2(s.N)), spec.one_a, spec.one_b, int(state.onehot),
+                  int(spec.program.fast), warps,
                   ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_last_chunk")

@@ -14,13 +14,17 @@ Live-width (narrow) chunk steps are walked the same way, over the first
 ``w`` rows and lanes only, with the one-lane pendings read at lane 0, against
 the plain live-width step on the live-width state.
 
-The fast node ops (``node_mode="fast"``) are walked the same way: the grouped
-warp argmin of ``csrc/fastnode_device.cuh`` (each path's lanes pick the least
-``(|a|, position)`` pair strictly above the previous pick), the halving-tree
-sums with their flat indices, the slot → original-path composition the
-kernel keeps in a register per lane, the per-slot flip bits composed the
-same way, and the XOR of the flips into the packed partial sums.  The selection kernel ``fastnode.cu``
-is those same two device functions, walked against its plain version too.
+The fast node ops (``node_mode="fast"``) are walked the same way: a larger
+fast node on its paths' lane groups (lane (q, j) holds positions j + G·k in
+registers), the halving-tree sums over the registers then the group's
+xor-shuffles, each selection round (the least ``(|a|, position)`` pair
+strictly above the previous pick, the group's argmin) fused with its prune
+stage, the slot → original-path composition the kernel keeps in a register
+per lane, the per-slot flip bits composed the same way, the words by ballots
+and the XOR of the flips into them; a fast ``OP_SUBTREE`` lane by lane (the
+path's magnitudes on each lane, each lane's stable rank, the flips by rank).
+The selection kernel ``fastnode.cu`` (``fastnode_device.cuh``'s
+``halving_sum`` and ``select_k``) is walked against its plain version too.
 """
 
 import zlib
@@ -38,7 +42,8 @@ from polarcode_and_ldpc_tpu_torch.models.polar import scanscl as tscan
 from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum
 from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import fastnode_select, fastnode_select_plain
-from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (FLAG_RL, FLAG_RR, OP_COMBINE, OP_F, OP_G,
+from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (FLAG_FAST, FLAG_RL, FLAG_RR, OP_COMBINE,
+                                                       OP_F, OP_G,
                                                        OP_LEAF, OP_RATE0, OP_RATE1_FAST, OP_REP,
                                                        OP_REP_FAST, OP_SUBTREE, SUBTREE_SHIFT,
                                                        SCLBodyProgram, SCLState,
@@ -234,39 +239,114 @@ def select_k(a, L, M, K):
     return idx
 
 
+def fast_group(L, sz):
+    """``scl::group_of``: each path's G lanes (the most with G·L <= 32, at most
+    sz) and the E = sz / G elements a lane holds (positions j + G·k)."""
+    G = 32
+    while G * L > 32:
+        G //= 2
+    G = min(G, sz)
+    return G, sz // G
+
+
+def group_halving_sum(x, G):
+    """``scl::group_halving_sum``: ``x [B, L, E, G]`` (lane j's registers k)
+    halved over k, then xor-shuffled over the group's lanes j."""
+    h = x.shape[2] // 2
+    while h >= 1:
+        x = x[:, :, :h] + x[:, :, h:2 * h]
+        h //= 2
+    z = x[:, :, 0]
+    d = G // 2
+    while d >= 1:
+        z = z + z[:, :, np.arange(G) ^ d]
+        d //= 2
+    return z[:, :, 0]
+
+
 def rate1_fast(c, a, sz, off):
-    """``scl::rate1_fast`` on the node's flat plane ``a [B, L·sz]``."""
+    """``scl::rate1_fast<kE>`` on the node's flat plane ``a [B, L·sz]``: lane
+    (q, j) holds positions j + G·k of path q, in registers for E <= 8 (else
+    the sums go through ``fastnode::halving_sum`` and each round re-reads the
+    plane: the same values); selection round s fused with stage s — each
+    lane's least pair above the last pick, then the group's xor-shuffle
+    argmin, slot p's cost from its original path rtot[p]'s group —; the
+    words by ballots over slots of the original paths' hard decisions, then
+    each slot's flips at its original path's picks."""
     L, B = c.L, a.shape[0]
-    z, H = halving_sum(a, L, sz, softplus)
-    c.pm = c.pm - z[:, np.arange(L) * H]
+    G, E = fast_group(L, sz)
+    x = a.reshape(B, L, E, G)  # [frame, path q, register k, lane j]
+    if E <= 8:
+        pen = group_halving_sum(softplus(x), G)
+    else:
+        z, H = halving_sum(a, L, sz, softplus)
+        pen = z[:, np.arange(L) * H]
+    c.pm = c.pm - pen
     K = min(L - 1, sz)
-    idx = select_k(a, L, sz, K)
-    rtot = torch.arange(L).expand(B, L).clone()  # lane l's register
+    mags = x.abs()
+    pos = torch.arange(sz).reshape(E, G)
+    last_m = torch.full((B, L), -np.inf)
+    last_p = torch.full((B, L), -1, dtype=torch.int64)
+    idx = torch.zeros((B, L, K), dtype=torch.int64)
+    rtot = torch.arange(L).expand(B, L).clone()  # slot lane l's register
     flips = torch.zeros((B, L), dtype=torch.int64)  # lane l's: bit s = stage s's flip
     rows = torch.arange(B)[:, None]
     for s in range(K):
-        mag = torch.gather(a, 1, rtot * sz + idx[rows, rtot, s]).abs()
-        word = prune(c, torch.cat([c.pm, c.pm - mag], dim=1), L)
+        above = (mags > last_m[:, :, None, None]) | (
+            (mags == last_m[:, :, None, None]) & (pos > last_p[:, :, None, None]))
+        bm = torch.full((B, L, G), np.inf)
+        bp = torch.full((B, L, G), 2 ** 31 - 1, dtype=torch.int64)
+        for k in range(E):  # the lane's registers in order
+            m, i = mags[:, :, k], pos[k]
+            take = above[:, :, k] & ((m < bm) | ((m == bm) & (i < bp)))
+            bm, bp = torch.where(take, m, bm), torch.where(take, i, bp)
+        d = G // 2
+        while d >= 1:  # the group's argmin
+            partner = torch.as_tensor(np.arange(G) ^ d)
+            om, op = bm[:, :, partner], bp[:, :, partner]
+            take = (om < bm) | ((om == bm) & (op < bp))
+            bm, bp = torch.where(take, om, bm), torch.where(take, op, bp)
+            d //= 2
+        last_m, last_p = bm[:, :, 0], bp[:, :, 0]
+        idx[:, :, s] = last_p
+        mg = last_m[rows, rtot]  # slot p's flip cost, from its original path's group
+        word = prune(c, torch.cat([c.pm, c.pm - mg], dim=1), L)
         flips = torch.gather(flips, 1, c.R) | (((word[:, None] >> torch.arange(L)) & 1) << s)
         rtot = torch.gather(rtot, 1, c.R)
     if K:
         c.R = rtot
-    sign = (a.reshape(B, L, sz) < 0).to(torch.int64)
-    w = (sign << torch.arange(L)[None, :, None]).sum(dim=1)
-    c.beta[:, off:off + sz] = perm_word(w, c.R, L) if K else w
+    # the ballots: lane jj·P + l votes slot l's hard decision of position
+    # base + jj of its original path; position base + jj's word is bits jj·P..
+    P = _pow2_ceil(L)
+    hard = (torch.gather(a.reshape(B, L, sz), 1, rtot[:, :, None].expand(B, L, sz)) < 0).long()
+    for base in range(0, sz, 32 // P):
+        ballot = torch.zeros(B, dtype=torch.int64)
+        for lane in range(32):
+            jj, l = lane // P, lane % P
+            if l < L and base + jj < sz:
+                ballot |= hard[:, l, base + jj] << lane
+        for jj in range(min(32 // P, sz - base)):
+            c.beta[:, off + base + jj] = (ballot >> (jj * P)) & ((1 << P) - 1)
     for q in range(L * K):
         l, s = q // K, q % K
         hit = ((flips[:, l] >> s) & 1).bool()
-        pos = off + idx[torch.arange(B), c.R[:, l], s]
-        c.beta[rows[hit, 0], pos[hit]] ^= 1 << l
+        p = off + idx[torch.arange(B), rtot[:, l], s]
+        c.beta[rows[hit, 0], p[hit]] ^= 1 << l
 
 
 def rep_fast(c, a, sz, off):
-    L = c.L
-    z0, H = halving_sum(a, L, sz, lambda x: _d0_d1(x)[0])
-    z1, _ = halving_sum(a, L, sz, lambda x: _d0_d1(x)[1])
-    rows = np.arange(L) * H
-    word = prune(c, torch.cat([c.pm + z0[:, rows], c.pm + z1[:, rows]], dim=1), L)
+    """``scl::rep_fast<kE>``: both sums from one softplus an element, on the
+    group's registers (E <= 8) or through ``fastnode::halving_sum``."""
+    L, B = c.L, a.shape[0]
+    G, E = fast_group(L, sz)
+    if E <= 8:
+        d0, d1 = _d0_d1(a.reshape(B, L, E, G))
+        s0, s1 = group_halving_sum(d0, G), group_halving_sum(d1, G)
+    else:
+        z0, H = halving_sum(a, L, sz, lambda x: _d0_d1(x)[0])
+        z1, _ = halving_sum(a, L, sz, lambda x: _d0_d1(x)[1])
+        s0, s1 = z0[:, np.arange(L) * H], z1[:, np.arange(L) * H]
+    word = prune(c, torch.cat([c.pm + s0, c.pm + s1], dim=1), L)
     c.beta[:, off:off + sz] = word[:, None]
 
 
@@ -296,11 +376,66 @@ def sub_zero_dec(K, i, z):
     return z
 
 
-def sub_node(K, s, a, fz, c, st):
+def sub_halving_sum(K, z):
+    """``scl::sub_halving_sum<K>``: xor-shuffles at distance 2^K / 2 first."""
+    h = (1 << K) // 2
+    while h >= 1:
+        z = z + z[:, _LANE ^ h]
+        h //= 2
+    return z
+
+
+def sub_rate1_fast(K, s, a, c):
+    """``scl::sub_rate1_fast<K>`` lane by lane (full width): the penalty by
+    xor-shuffles, each lane's stable rank and the magnitude of rank i from
+    the path's 2^K magnitudes, ``min(L − 1, 2^K)`` register prunes, and lane
+    (l, i)'s bit from slot l's original path and the flip of its rank's
+    stage."""
+    M, L, B = 1 << K, c.L, a.shape[0]
+    lane, l, i, lg = _LANE, s["l"], s["i"], s["lg"]
+    c.pm = c.pm - _shfl(sub_halving_sum(K, softplus(a)), lane << lg)[:, :L]
+    mag = a.abs()
+    m = [_shfl(mag, (l << lg) + j) for j in range(M)]
+    rank = torch.zeros((B, 32), dtype=torch.int64)
+    smag = torch.zeros((B, 32))
+    ii = torch.as_tensor(i)
+    for j in range(M):
+        rj = sum(((m[q] < m[j]) | ((m[q] == m[j]) & (q < j))).long() for q in range(M) if q != j)
+        smag = torch.where(rj == ii, m[j], smag)
+        rank = torch.where(ii == j, rj, rank)
+    n = min(L - 1, M)
+    rtot = torch.as_tensor(lane).expand(B, 32).clone()
+    flips = torch.zeros((B, 32), dtype=torch.int64)
+    slots = torch.as_tensor(lane < L)
+    for st in range(n):
+        mg = torch.gather(smag, 1, (rtot[:, :L] << lg) + st)  # slot p's flip cost
+        word = prune(c, torch.cat([c.pm, c.pm - mg], dim=1), L)
+        frm = torch.where(slots, _slots(c.R), 0)
+        flips = torch.gather(flips, 1, frm) | (((word[:, None] >> torch.as_tensor(lane)) & 1) << st)
+        rtot = torch.gather(rtot, 1, frm)
+    if n:
+        c.R = rtot[:, :L].clone()
+    src = ((_shfl(rtot, l) if n else torch.as_tensor(l).expand(B, 32)) << lg) + ii
+    hard = (torch.gather(a, 1, src) < 0).long()
+    rk = torch.gather(rank, 1, src)
+    fl = _shfl(flips, l)
+    return hard ^ torch.where(rk < n, (fl >> rk.clamp(max=31)) & 1, 0), n > 0
+
+
+def sub_rep_fast(K, s, a, c):
+    """``scl::sub_rep_fast<K>``: one softplus for both sums, one prune."""
+    d0, d1 = (sub_halving_sum(K, x) for x in _d0_d1(a))
+    rows = np.arange(c.L) << s["lg"]
+    word = prune(c, torch.cat([c.pm + d0[:, rows], c.pm + d1[:, rows]], dim=1), c.L)
+    return (word[:, None] >> torch.as_tensor(s["l"])) & 1, True
+
+
+def sub_node(K, s, a, fz, c, st, fast=False):
     """``scl::sub_node<K>`` lane by lane: ``a [B, 32]`` the node's alpha on
     lanes ``(l, i < 2^K)`` (lane = l·sz + i), ``fz`` its frozen bits, slot
     registers ``c.pm`` / ``c.R``, the live width in ``st["w"]``; returns the
-    bit on each lane and whether the node pruned."""
+    bit on each lane and whether the node pruned.  ``fast``: the fast
+    program's dispatch (all-info and repetition nodes whole)."""
     M = 1 << K
     full = (1 << M) - 1
     lane, l, i, lg = _LANE, s["l"], s["i"], s["lg"]
@@ -316,6 +451,10 @@ def sub_node(K, s, a, fz, c, st):
         v = _shfl(z, lane << lg)
         c.pm[:, :w] = c.pm[:, :w] + v[:, :w]
         return torch.zeros_like(a, dtype=torch.int64), False
+    if fast and K > 0 and fz & full == 0:
+        return sub_rate1_fast(K, s, a, c)
+    if fast and K > 0 and fz & full == full >> 1:
+        return sub_rep_fast(K, s, a, c)
     if K == 0 or fz & full == full >> 1:  # an info leaf, or REP
         p = np.arange(w)
         if K == 0:
@@ -340,13 +479,13 @@ def sub_node(K, s, a, fz, c, st):
         return (word[:, None] >> torch.as_tensor(l)) & 1, True
     h = M // 2
     down = np.where(lane + h < 32, lane + h, lane)
-    bl, rl = sub_node(K - 1, s, f_minsum(a, a[:, down]), fz, c, st)
+    bl, rl = sub_node(K - 1, s, f_minsum(a, a[:, down]), fz, c, st, fast)
     Rl = _slots(c.R)
     r = _shfl(Rl, l) if rl else torch.as_tensor(l).expand_as(Rl)
     first = _shfl(a, (r << lg) + torch.as_tensor(i))
     second = _shfl(a, (r << lg) + torch.as_tensor(i) + h)
     sgn = 1.0 - 2.0 * bl.to(torch.float32)
-    br, rr = sub_node(K - 1, s, second + sgn * first, fz >> h, c, st)
+    br, rr = sub_node(K - 1, s, second + sgn * first, fz >> h, c, st, fast)
     Rr = _slots(c.R)
     lsrc = _shfl(Rr, l) if rr else torch.as_tensor(l).expand_as(Rr)
     left = _shfl(bl, (lsrc << lg) + torch.as_tensor(i))
@@ -357,15 +496,16 @@ def sub_node(K, s, a, fz, c, st):
     return torch.where(torch.as_tensor(i < h), left ^ br, up), rl or rr
 
 
-def subtree(c, plane, sz, fz, st):
+def subtree(c, plane, sz, fz, st, fast=False):
     """``scl::subtree``: the node's plane ``[B, L·sz]`` onto the lanes, the
-    node decoded, the bits of the live paths packed per position."""
+    node decoded (``fast``: by the fast dispatch), the bits of the live paths
+    packed per position."""
     B, L = plane.shape[0], c.L
     lg = int(np.log2(sz))
     s = {"l": _LANE >> lg, "i": _LANE & (sz - 1), "lg": lg}
     a = torch.zeros((B, 32), dtype=torch.float32)
     a[:, :L * sz] = plane
-    bits, _ = sub_node(lg, s, a, fz, c, st)
+    bits, _ = sub_node(lg, s, a, fz, c, st, fast)
     live = torch.as_tensor(s["l"] < st["w"])
     words = torch.zeros((B, sz), dtype=torch.int64)
     for i in range(sz):
@@ -451,7 +591,7 @@ def chunk_body(c, ops, has_r, w=None):
         elif kind == OP_SUBTREE:
             st = {"w": w}
             c.beta[:, off:off + sz] = subtree(c, c.alpha[:, base:base + L * sz].clone(), sz,
-                                              op >> SUBTREE_SHIFT, st)
+                                              op >> SUBTREE_SHIFT, st, bool(op & FLAG_FAST))
             w = st["w"]
         else:
             raise AssertionError(kind)
@@ -643,13 +783,18 @@ def test_body_program_walk_equals_plain_body(kind, S, L, case):
 
 @pytest.mark.parametrize("case", ["random", "phantoms", "ties"])
 @pytest.mark.parametrize("kind,S,L", [
-    ("dense", 16, 8), ("dense", 8, 1), ("dense", 4, 8), ("rep", 128, 4), ("mixed", 64, 8),
-    ("mixed", 32, 3), ("mixed", 32, 16), ("3", 128, 8), ("5", 128, 8), ("6", 128, 4),
-    ("7", 128, 2)])
+    ("dense", 16, 8), ("dense", 32, 8), ("dense", 64, 8), ("dense", 8, 1), ("dense", 4, 8),
+    ("rep", 128, 4), ("rep", 32, 8), ("mixed", 64, 8), ("mixed", 32, 3), ("mixed", 32, 16),
+    ("mixed", 16, 1), ("3", 128, 8), ("5", 128, 8), ("6", 128, 4), ("7", 128, 2)])
 def test_fast_body_program_walk_equals_plain_body(kind, S, L, case):
     """The fast ops as the kernel walks them: rate-1 nodes up to the whole
     chunk (``dense``), ``K = L − 1`` against ``K = size``, L = 1 (no stage),
-    a list of 3 (lane groups of 8, idle lanes)."""
+    a list of 3 (lane groups of 8, idle lanes); the larger nodes' lanes with
+    1, 2, 4 or 8 elements in registers and wider ones (``dense`` 64, ``rep``
+    128 at L = 4) read from the plane; the fast ``OP_SUBTREE`` in
+    registers (``dense`` 4, the patterns and mixed chunks at L ≤ 16, its
+    rate-1 nodes with ``K`` = size, below it at L = 2 and 4, and none at
+    L = 1)."""
     rng = np.random.default_rng(zlib.crc32(repr(("fast", kind, S, L, case)).encode()))
     program = SCLBodyProgram(_pattern(kind, S, rng), L, "fast")
     assert program.fast
@@ -664,20 +809,40 @@ def test_fast_body_program_walk_equals_plain_body(kind, S, L, case):
 def test_fast_body_program_shape_and_flags():
     ops, has_r = build_scl_body_program(np.zeros(64, bool), "fast", 8)
     assert ops.tolist() == [[OP_RATE1_FAST, 0, 64, 0]] and has_r
-    ops, has_r = build_scl_body_program(np.zeros(4, bool), "fast", 1)  # L = 1: no prune
-    assert ops.tolist() == [[OP_RATE1_FAST, 0, 4, 0]] and not has_r
+    ops, has_r = build_scl_body_program(np.zeros(8, bool), "fast", 1)  # L = 1: no prune
+    assert ops.tolist() == [[OP_RATE1_FAST, 0, 8, 0]] and not has_r
     f = np.ones(128, bool)
     f[-1] = False  # a repetition node of any width is one op
     ops, has_r = build_scl_body_program(f, "fast", 4)
     assert ops.tolist() == [[OP_REP_FAST, 0, 128, 0]] and has_r
     mixed = np.array([True, True, True, False, False, False, False, False])
-    ops, _ = build_scl_body_program(mixed, "fast", 2)
+    ops, _ = build_scl_body_program(mixed, "fast", 16)
     assert [o[0] & 0xFF for o in ops.tolist()] == [OP_F, OP_REP_FAST, OP_G, OP_RATE1_FAST,
                                                    OP_COMBINE]
     ops, _ = build_scl_body_program(mixed)  # the exact program has no fast op
     assert not {OP_RATE1_FAST, OP_REP_FAST} & {o[0] & 0xFF for o in ops.tolist()}
+    assert not any(o[0] & FLAG_FAST for o in build_scl_body_program(mixed, "exact", 2)[0])
     with pytest.raises(ValueError, match="list_size"):
         build_scl_body_program(np.zeros(4, bool), "fast")
+    # a node of size 2 .. SUBTREE_MAX whose list x size fits a warp is one fast
+    # OP_SUBTREE (FLAG_FAST, its frozen bits in the op word), whatever its kind;
+    # has_r follows the fast dispatch (an all-info node prunes only when L > 1)
+    sub = OP_SUBTREE | FLAG_FAST
+    for flags, L, want, prunes in (
+            (np.zeros(4, bool), 8, [[sub, 0, 4, 0]], True),
+            (np.zeros(4, bool), 1, [[sub, 0, 4, 0]], False),
+            (np.zeros(2, bool), 16, [[sub, 0, 2, 0]], True),
+            (np.zeros(4, bool), 16, [[OP_RATE1_FAST, 0, 4, 0]], True),
+            (np.array([True, True, True, False]), 8, [[sub | (0b0111 << SUBTREE_SHIFT), 0, 4, 0]],
+             True),
+            (np.ones(4, bool), 8, [[sub | (0b1111 << SUBTREE_SHIFT), 0, 4, 0]], False),
+            (np.array([False, True]), 1, [[sub | (0b10 << SUBTREE_SHIFT), 0, 2, 0]], True),
+            (mixed, 2, [[OP_F, 0, 4, 0], [sub | (0b0111 << SUBTREE_SHIFT), 1, 4, 0],
+                        [OP_G | FLAG_RL, 0, 4, 0], [sub, 1, 4, 4],
+                        [OP_COMBINE | FLAG_RL | FLAG_RR, 0, 4, 0]], True)):
+        ops, has_r = build_scl_body_program(flags, "fast", L)
+        assert ops.tolist() == want and has_r == prunes, (flags, L)
+        assert SCLBodyProgram(flags, L, "fast").ops.tolist() == want
 
 
 @pytest.mark.parametrize("L,S,B,case", [(8, 64, 128, "normal"), (8, 64, 16, "integer ties"),

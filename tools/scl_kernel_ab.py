@@ -34,7 +34,11 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
   can be compared bit for bit;
 * K3 of the large-code decode at each of its 63 chunk positions (N=4096,
   S=64, L=32: every prune 64 candidates wide, no ``OP_SUBTREE``), and its mean;
-* the stage profile of K3 at flagship positions 3 and 4 and at the large-code
+* the fast program against the exact one in the same run: K3-fast's mean per
+  launch over K3's, K4-fast over K4, K5-fast over K5, the whole fast decode
+  over the exact one;
+* the stage profile of K3 at flagship positions 3 and 4 (exact and fast node
+  programs) and at the large-code
   decode's positions 16 and 40 where the tree has the
   profiled build (``ops/build.py`` ``VARIANTS``), of K6 over the whole
   flagship decode where it has ``scl_mega_profile``, and the kernels'
@@ -228,6 +232,9 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
     step_times(steps, last)
     fsteps, flast = make_step_specs(sched, node_mode="fast")
     step_times(fsteps, flast, tag="-fast")
+    # the fast program against the exact one of the same tree, same run
+    out["K3-fast mean / K3 mean"] = out["K3-fast mean"] / out["K3 mean"]
+    out["K4-fast / K4"] = out["K4-fast"] / out["K4"]
     oprog = [SCLBodyProgram(f, L, perm_impl="onehot") for f in sched.unique_flags]
     osteps, olast = make_step_specs(sched, oprog)
     step_times(osteps, olast, "onehot", tag="-onehot")
@@ -261,6 +268,7 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
             times.append(time_ms(lambda: scl_chunk_body_cuda(alpha, pm0, prog)))
             note(*scl_chunk_body_cuda(alpha, pm0, prog))
         out[f"K5{tag} mean over patterns"] = sum(times) / len(times)
+    out["K5-fast / K5"] = out["K5-fast mean over patterns"] / out["K5 mean over patterns"]
     # whole decodes
     decs = {"flagship unroll-kernel": make_scl_decoder(N, mask, L, chunk=S, device=dev),
             "flagship fast": make_scl_decoder(N, mask, L, chunk=S, node_mode="fast", device=dev),
@@ -269,6 +277,8 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
     for name, dec in decs.items():
         out[name] = time_ms(lambda: dec(llr))
         note(*dec(llr))
+    out["flagship fast / flagship unroll-kernel"] = (out["flagship fast"]
+                                                     / out["flagship unroll-kernel"])
     # K6 at the serving list pass's sizes, beside the per-chunk decode
     for frames in (67, 128, 512):
         x, _ = llrs(N, K, frames, -1.0, 80 + frames, True)
@@ -341,12 +351,13 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
     if any("profile" in v for v in getattr(build, "VARIANTS", {})):
         sys.path.insert(0, os.getcwd())
         import chip_smoke
-        state = SCLState(sched, llr_rev)
         split = {}
-        for c, spec in enumerate(steps):
-            if c in (3, 4):
-                split[c] = chip_smoke.profile_step(state, spec)
-            scl_chunk_step_cuda(state, spec)
+        for tag, specs in (("", steps), ("fast ", fsteps)):
+            state = SCLState(sched, llr_rev)
+            for c, spec in enumerate(specs):
+                if c in (3, 4):
+                    split[f"{tag}{c}"] = chip_smoke.profile_step(state, spec)
+                scl_chunk_step_cuda(state, spec)
         out["profile"] = split
         st64, split64 = state64(), {}
         for c, spec in enumerate(s64):
