@@ -111,7 +111,8 @@ from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, O
                                                        SCLBodyProgram,
                                                        SCLMegaPlan, SCLState, build_mega_tables,
                                                        context_in_device_memory,
-                                                       launch_chunk_step, launch_mega,
+                                                       launch_chunk_step, launch_last_chunk,
+                                                       launch_mega,
                                                        make_step_specs, scl_chunk_body_cuda,
                                                        scl_chunk_step_cuda, scl_decode_mega_cuda,
                                                        scl_last_chunk_cuda)
@@ -632,7 +633,8 @@ def check_scl_bodies(sched, programs, B: int) -> float:
 
 def check_scl_steps(sched, steps, last, rev, llr: torch.Tensor, context: dict) -> float:
     """K3 on the level stacks of every chunk position reached by the plain
-    version, then K4 on the stacks before the last chunk."""
+    version, then K4 on the stacks before the last chunk, which it must
+    leave as they were (read only)."""
     worst = 0.0
     llr_rev = llr[:, rev].contiguous()
     state = SCLState(sched, llr_rev, "onehot" if last.program.onehot else "rank")
@@ -645,8 +647,12 @@ def check_scl_steps(sched, steps, last, rev, llr: torch.Tensor, context: dict) -
         worst = max(worst, hold_equal(
             "scl_chunk_step", {f: (getattr(kern, f), getattr(state, f)) for f in fields},
             {**context, "chunk": c}))
+    before = state.clone()
     u, pm = scl_last_chunk_cuda(state, last)
     torch.cuda.synchronize()
+    hold_equal("scl_last_chunk (the state it read)",
+               {f: (getattr(state, f), getattr(before, f)) for f in ("llr",) + fields},
+               {**context, "chunk": sched.C - 1})
     u_rev, pm_plain = last.plain(llr_rev, *state.to_plain())
     worst = max(worst, hold_equal(
         "scl_last_chunk", {"u": (u, u_rev[..., rev]), "pm": (pm, pm_plain)},
@@ -897,6 +903,7 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
          unique_patterns=len(unique), whole_decode_ms=decode_ms, cases=cases,
          other_codes=check_scl_other_codes())
     mega_resources(sched)
+    last_resources(sched)
 
 
 # the parts of a chunk step in the stage profile (ProfSlot of
@@ -906,7 +913,7 @@ PROFILE_SLOTS = ("descend", "copy_in", "F w*size<32", "F w*size>=32", "G w*size<
                  "rate-0", "rate-1 fast", "REP fast", "subtree", "body", "compose", "ascend",
                  "step", "last chunk", "butterfly", "decode", "rate-1 fast L*size<=32",
                  "REP fast L*size<=32", "fast node: sums", "fast node: selection and prunes",
-                 "fast node: bits")
+                 "fast node: bits", "outputs")
 
 
 def read_profile(lib, B: int, total: str) -> dict:
@@ -940,6 +947,24 @@ def profile_step(state, spec) -> dict:
     return read_profile(lib, state.pm.shape[0], "step")
 
 
+def profile_last(state, spec) -> dict:
+    """K4 of the profiled build (-DSCL_PROFILE) on ``state`` (read only):
+    held against the normal build, then each part's clock64() cycles per
+    frame (the descend's g, the body by op kind, the ascend to the root, the
+    butterfly, the output stores; "step": the whole frame), ops per frame and
+    share of the frame's cycles."""
+    lib = build.load("scl_last_profile")
+    launch_last_chunk(state, spec, "scl_last_profile")  # warm-up
+    torch.cuda.synchronize()
+    build.check_launch(lib, lib.scl_profile_reset(), "scl_profile_reset")
+    got = launch_last_chunk(state, spec, "scl_last_profile")
+    want = launch_last_chunk(state, spec, "scl_last")
+    torch.cuda.synchronize()
+    hold_equal("profiled scl_last_chunk", {"u": (got[0], want[0]), "pm": (got[1], want[1])},
+               {"fast": spec.program.fast})
+    return read_profile(lib, state.pm.shape[0], "step")
+
+
 def profile_mega(llr: torch.Tensor, plan) -> dict:
     """K6 of the profiled build (-DSCL_PROFILE) on ``llr``: held against the
     normal build, then each part's cycles per frame over the whole decode
@@ -970,18 +995,32 @@ def mega_resources(sched) -> dict:
     return mega
 
 
+def last_resources(sched) -> dict:
+    """K4's resource report at the flagship's launch plan: the exact, fast
+    and one-hot instances must each read at most 64 registers, no local
+    memory and 32 resident warps per SM, as K3 and K6 (one wave of 4096
+    frames on 132 SMs); the device-memory instances no local memory; returns
+    their rows."""
+    rows = {r["kernel"]: r for r in scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t)}
+    last = {k: r for k, r in rows.items() if k.startswith("scl_last_chunk")}
+    bad = {k: r for k, r in last.items() if r["local_bytes"] or (
+        "devmem" not in k and (r["registers"] > 64 or r["resident_warps_per_sm"] != 32))}
+    if len(last) != 6 or bad:
+        raise AssertionError(f"scl_last_chunk's resources {bad or last}")
+    return last
+
+
 # the exact list-kernel instances' registers and local bytes at the flagship's
 # launch plan before the fast node programs had instances of their own (chip
 # run of that tree, NVIDIA H100 80GB HBM3, 700.00 W): the exact instances no
-# longer compile fast code, so none of them may grow
+# longer compile fast code, so none of them may grow; K4's instances, its
+# redesign, are held by last_resources instead
 EXACT_RESOURCE_CEILINGS = {
     "scl_chunk_body": (48, 0), "scl_chunk_body_onehot": (48, 0),
     "scl_chunk_body_devmem": (72, 0), "scl_chunk_body_onehot_devmem": (72, 0),
     "scl_chunk_step": (64, 0), "scl_chunk_step_narrow": (64, 0),
     "scl_chunk_step_onehot": (64, 0), "scl_chunk_step_devmem": (104, 0),
     "scl_chunk_step_narrow_devmem": (110, 0), "scl_chunk_step_onehot_devmem": (108, 0),
-    "scl_last_chunk": (56, 0), "scl_last_chunk_onehot": (56, 0),
-    "scl_last_chunk_devmem": (80, 0), "scl_last_chunk_onehot_devmem": (80, 0),
     "scl_decode_mega": (64, 0), "scl_decode_mega_single": (64, 0),
     "scl_decode_mega_long": (64, 24)}
 
@@ -1004,23 +1043,25 @@ def fast_resources(sched) -> dict:
 def phase_scl_profile() -> None:
     """Where K3's time goes (stage profile of the profiled build) at flagship
     positions 3 and 4 (4096 frames, 3 dB, the state the kernel decode
-    reaches), on the exact and on the fast node program, and K6's over the
+    reaches), and K4's on the state before the last chunk, on the exact and
+    on the fast node program, and K6's over the
     whole flagship decode of the same frames; the registers, spills and
     resident warps per SM of every compiled variant of K3 / K4 / K5 / K6 at
     the flagship's launch shapes."""
     frozen, info, mask, sched, steps, last, rev = scl_flagship()
     llr = cascl_llrs(frozen, SCL_CHUNK, 3.0, seed=77)
     split = {}
-    fast_steps, _ = make_step_specs(sched, node_mode="fast")
-    for prefix, specs in (("", steps), ("fast, ", fast_steps)):
+    fast_steps, fast_last = make_step_specs(sched, node_mode="fast")
+    for prefix, specs, last_spec in (("", steps, last), ("fast, ", fast_steps, fast_last)):
         state = SCLState(sched, llr[:, rev].contiguous())
         for c, spec in enumerate(specs):
             if c in (3, 4):
                 split[f"{prefix}position {c}"] = profile_step(state, spec)
             scl_chunk_step_cuda(state, spec)
+        split[f"{prefix}scl_last_chunk"] = profile_last(state, last_spec)
     split["scl_decode_mega, whole decode"] = profile_mega(llr, SCLMegaPlan(sched))
     emit("scl_profile", frames=SCL_CHUNK, split=split, mega_resources=mega_resources(sched),
-         fast_resources=fast_resources(sched),
+         last_resources=last_resources(sched), fast_resources=fast_resources(sched),
          resources=scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t))
 
 
@@ -2921,9 +2962,10 @@ def main() -> int:
     reps = 3 if args.quick else 20
     dev_info: dict = {}
     q = args.quick
-    # the profiled K3, K6 and K1 are built beside the other sources only when
-    # their phases run
+    # the profiled K3, K4, K6 and K1 are built beside the other sources only
+    # when their phases run
     variants = tuple(v for p, v in (("scl_profile", "scl_decode_profile"),
+                                    ("scl_profile", "scl_last_profile"),
                                     ("scl_profile", "scl_mega_profile"),
                                     ("sc_profile", "sc_decode_profile")) if p in phases)
     run = {

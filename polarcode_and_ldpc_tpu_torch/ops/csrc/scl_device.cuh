@@ -84,16 +84,17 @@ namespace scl {
 // fast node its sums, its selection rounds with its prunes, and its bits) to
 // a per-thread table, which the kernel adds to device-global
 // counters at the end of its frame; the whole-decode kernel also counts its
-// last chunk (descend, body, ascend), the butterfly with the outputs, and the
-// frame's whole decode.  The counters' cost lands outside the timed
-// intervals, but it and the clock reads stretch the kernel: read the split as
-// shares, not as times.
+// last chunk (descend, body, ascend), the butterfly, the outputs, and the
+// frame's whole decode; the last-chunk kernel its descend, body, ascend to the
+// root, butterfly, outputs and whole frame (the STEP slot).  The counters'
+// cost lands outside the timed intervals, but it and the clock reads stretch
+// the kernel: read the split as shares, not as times.
 enum ProfSlot : int {
   PROF_DESCEND = 0, PROF_COPY_IN, PROF_F_SMALL, PROF_F_WIDE, PROF_G_SMALL, PROF_G_WIDE,
   PROF_COMBINE_SMALL, PROF_COMBINE_WIDE, PROF_LEAF, PROF_REP, PROF_RATE0, PROF_RATE1_FAST,
   PROF_REP_FAST, PROF_SUBTREE, PROF_BODY, PROF_COMPOSE, PROF_ASCEND, PROF_STEP, PROF_LAST,
   PROF_BUTTERFLY, PROF_DECODE, PROF_RATE1_FAST_SMALL, PROF_REP_FAST_SMALL, PROF_FAST_SUM,
-  PROF_FAST_STAGES, PROF_FAST_BITS, kProfSlots
+  PROF_FAST_STAGES, PROF_FAST_BITS, PROF_OUT, kProfSlots
 };
 #ifdef SCL_PROFILE
 __device__ unsigned long long g_prof[2 * kProfSlots];  // cycles, then counts
@@ -157,9 +158,10 @@ struct Ctx {
 // 32-bit words of shared memory one frame needs.  depth0: the chunk's top
 // plane has a region of its own (the body kernel copies its input there);
 // without, the chunk step, the last chunk and the whole decode read it where
-// their descend left it, in device memory, and the L * S words of the stack
-// region (depths 1.. take L * (S - 1)) hold it only for a chunk that is one
-// rate-0 or REP node, which works on it in place.
+// their descend left it, in device memory (the level stacks, or the last
+// chunk's scratch plane: its state is read only), and the L * S words of the
+// stack region (depths 1.. take L * (S - 1)) hold it only for a chunk that is
+// one rate-0 or REP node, which works on it in place.
 __host__ __device__ inline int ctx_words(int L, int S, int lgS, bool depth0) {
   return (depth0 ? 2 : 1) * S * L + S + L * (2 + lgS + 1);
 }

@@ -60,8 +60,9 @@
 // [L][S]) where their own descend wrote it, in device memory (L2-resident,
 // written by the same warp), instead of copying it into the context: only
 // the chunk's first F and G read it.  A chunk that is one rate-0 or REP node
-// works on it in place, so that one copy stays (chunk_top).  The last chunk
-// descends into its context, and the body kernel copies its input there
+// works on it in place, so that one copy stays (chunk_top).  The last chunk,
+// whose state is read only, descends into a scratch plane in device memory
+// and reads it there.  The body kernel copies its input into the context
 // (scl::ctx_words, depth0).
 //
 // Launch shape: the warps per block are planned from the SM's limits (the
@@ -69,7 +70,7 @@
 // memory), the most resident warps per SM, the smaller block on a tie.
 //
 // Where a warp's chunk context lives: in shared memory when it fits
-// (scl::ctx_words, plus the N-word root plane of the last chunk), else, in
+// (scl::ctx_words; last_ctx_words for the last chunk), else, in
 // the same layout, in the warp's slice of a scratch buffer in device memory
 // that the wrapper allocates (template argument kDev; a port mode: the JAX
 // package runs such chunks in XLA).  Then a grid of a few blocks per SM walks
@@ -422,71 +423,222 @@ __device__ __forceinline__ void chunk_step(const Ctx& c, const Geometry& g, cons
   SCL_PROF_ADD(c, PROF_STEP, t_step);
 }
 
-// Butterfly u = beta * G in storage order on the N packed words of `root`,
-// then natural order on the way out: u is [L][N] int8.
-__device__ __forceinline__ void root_out(uint32_t* root, int N, int L, int log2N, int8_t* u,
-                                         int lane) {
-  for (int s = 1; s < N; s <<= 1) {
-    for (int idx = lane; idx < N / 2; idx += kWarp) {
-      const int p = ((idx / s) * 2 * s) + (idx % s);
-      root[p] ^= root[p + s];
+// n-bit reversal of x (0 for n = 0)
+__device__ __forceinline__ int brev_bits(int x, int n) {
+  return n ? (int)(__brev((unsigned)x) >> (32 - n)) : 0;
+}
+// four-bit reversal, for offsets known at compile time
+__host__ __device__ constexpr int brev4(int r) {
+  return ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3);
+}
+
+// The butterfly u = beta * G on the N packed words of `root` (storage order
+// p; natural position i = the n-bit reversal of p, n = log2 N), then u in
+// natural order: u is [L][N] int8.  Each stage XORs the words whose index has
+// bit k clear with their partner at bit k set, and the stages commute.  The
+// stages on bits 0-4 run on one word a lane (word 32 j + lane) by
+// xor-shuffles; the higher bits in passes of two stages (four words a lane in
+// registers, consecutive lanes on consecutive words: no bank conflict), so
+// N = 1024 takes 3 __syncwarp and no index division.  Then each lane writes
+// runs of 16 natural positions (run k = lane R + j of N / 16, R = N / 512
+// runs a lane): run k's word o sits at p = brev4(o) << (n - 4) | the
+// reversal of k, so its 32 lanes read 32 banks; it packs each path's bits of
+// the run into one 16-byte store (__byte_perm gathers a byte of four words, a
+// shift and mask takes each path's bit of it): N L / 512 stores a lane,
+// against 32-way conflicted reads of one word a lane and N L / 32 byte stores
+// before.  Few live registers: with 16 or 32 words a lane in registers the
+// 64-register kernels spilled, and so did unrolled loops here.  N < 16 takes
+// plain loops.  The profile counts the butterfly and the output stores apart.
+__device__ __forceinline__ void root_out(const Ctx& c, uint32_t* root, int N, int L, int log2N,
+                                         int8_t* u) {
+  const int n = log2N, lane = c.lane;
+  SCL_PROF_T(t_fly);
+#pragma unroll 1
+  for (int j = 0; j < N; j += kWarp) {  // bits 0-4 (or 0 .. n-1)
+    const bool on = j + lane < N;
+    uint32_t w = on ? root[j + lane] : 0u;
+    for (int k = 0; k < min(5, n); ++k) {
+      const uint32_t o = __shfl_xor_sync(kFull, w, 1 << k);
+      if (!((lane >> k) & 1)) w ^= o;
+    }
+    if (on) root[j + lane] = w;
+  }
+  __syncwarp();
+  for (int k = 5; k < n; k += 2) {  // bits k and k + 1 (k alone at the top)
+    const int s = 1 << k;
+    if (k + 1 < n) {
+      for (int q = lane; q < N / 4; q += kWarp) {
+        const int p = ((q >> k) << (k + 2)) | (q & (s - 1));
+        uint32_t a = root[p], b = root[p + s], x = root[p + 2 * s], y = root[p + 3 * s];
+        a ^= b;
+        x ^= y;
+        root[p] = a ^ x;
+        root[p + s] = b ^ y;
+        root[p + 2 * s] = x;
+      }
+    } else {
+      for (int q = lane; q < N / 2; q += kWarp) {
+        const int p = ((q >> k) << (k + 1)) | (q & (s - 1));
+        root[p] ^= root[p + s];
+      }
     }
     __syncwarp();
   }
-  const int shift = 32 - log2N;
-  for (int i = lane; i < N; i += kWarp) {
-    const uint32_t w = root[log2N ? (int)(__brev((unsigned)i) >> shift) : 0];
-    for (int l = 0; l < L; ++l) u[(size_t)l * N + i] = (int8_t)((w >> l) & 1u);
+  SCL_PROF_ADD(c, PROF_BUTTERFLY, t_fly);
+  SCL_PROF_T(t_out);
+  if (n < 4) {
+    for (int idx = lane; idx < L * N; idx += kWarp)
+      u[idx] = (int8_t)((root[brev_bits(idx & (N - 1), n)] >> (idx >> n)) & 1u);
+  } else {
+    const int runs = N >> 4, per = max(1, runs / kWarp);
+#pragma unroll 1
+    for (int k = lane * per; k < min(runs, (lane + 1) * per); ++k) {
+      const int rk = brev_bits(k, n - 4), hi = n - 4;
+      int8_t* run = u + 16 * k;
+      for (int b = 0; b < L; b += 8) {
+        const uint32_t sel = (uint32_t)((b >> 3) | ((4 + (b >> 3)) << 4));
+        uint32_t x[4];  // byte b / 8 of the run's words 4q .. 4q + 3
+        const uint32_t* r = root + rk;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          x[q] = __byte_perm(
+              __byte_perm(r[brev4(4 * q) << hi], r[brev4(4 * q + 1) << hi], sel),
+              __byte_perm(r[brev4(4 * q + 2) << hi], r[brev4(4 * q + 3) << hi], sel), 0x5410);
+#pragma unroll 1
+        for (int l = b; l < min(b + 8, L); ++l) {
+          const int sh = l - b;
+          *reinterpret_cast<uint4*>(run + (size_t)l * N) =
+              make_uint4((x[0] >> sh) & 0x01010101u, (x[1] >> sh) & 0x01010101u,
+                         (x[2] >> sh) & 0x01010101u, (x[3] >> sh) & 0x01010101u);
+        }
+      }
+    }
   }
+  SCL_PROF_ADD(c, PROF_OUT, t_out);
 }
 
 // The last chunk after its body (metrics pmr and rank vector R in the lanes,
-// at full width): ascend to the root (the chunk's R composes into each pend_b
-// on the way), butterfly, outputs.  `root` is N words: the last-chunk
-// kernel's own plane, or (whole decode) the context's alpha region or the
-// frame's LLRs, which are dead once the body has returned.
+// at full width): the metrics out, the ascend to the root (the chunk's R
+// composes into each pend_b on the way), butterfly and u.  `root` is N
+// words: the context's alpha region when N <= L * S, else a plane of the
+// last-chunk kernel's own or (whole decode) the frame's bit-reversed LLRs;
+// those words are dead once the body has returned.  kWide (the last-chunk
+// kernel): four words a lane by 16-byte reads, two reads in flight, each
+// pending read from shared memory once for its four words (one word a read,
+// the ascend waited on device memory word by word: 5.5 % of the flagship's
+// last chunk, NVIDIA H100 80GB HBM3, 700 W, PERF.md); the whole-decode
+// kernel reads one word a lane (with the wide reads its long-table instance
+// spilled 48 B at 64 registers).
+template <bool kWide>
 __device__ __forceinline__ void last_ascend(const Ctx& c, uint32_t* root, const Geometry& g,
                                             const Stacks& st, float pmr, int R, int8_t* u,
                                             float* pm_out, int log2N) {
   const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
   SCL_PROF_T(t_last);
+  if (lane < L) pm_out[lane] = pmr;
   for (int i = lane; i < S; i += kWarp) root[N - S + i] = c.beta[i];
-  __syncwarp();
+  if constexpr (!kWide) {
+    __syncwarp();
+    for (int lev = t; lev >= 1; --lev) {
+      const int size = N >> lev;
+      const uint32_t* left = st.beta(lev);
+      if (lane < L) c.tmp[lane] = st.pend_b(lev)[R];
+      __syncwarp();
+      for (int i = lane; i < size; i += kWarp)
+        root[N - 2 * size + i] = perm_word(left[i], c.tmp, L) ^ root[N - size + i];
+      __syncwarp();
+    }
+    SCL_PROF_ADD(c, PROF_LAST, t_last);
+    root_out(c, root, N, L, log2N, u);
+    return;
+  }
+  const bool vec = S >= 4 && !(((uintptr_t)root | (uintptr_t)st.Bt) & 15u);
   for (int lev = t; lev >= 1; --lev) {
     const int size = N >> lev;
     const uint32_t* left = st.beta(lev);
+    uint32_t* dst = root + N - 2 * size;
     if (lane < L) c.tmp[lane] = st.pend_b(lev)[R];
     __syncwarp();
-    for (int i = lane; i < size; i += kWarp)
-      root[N - 2 * size + i] = perm_word(left[i], c.tmp, L) ^ root[N - size + i];
+    if (!vec) {
+      for (int i = lane; i < size; i += kWarp)
+        dst[i] = perm_word(left[i], c.tmp, L) ^ dst[size + i];
+      __syncwarp();
+      continue;
+    }
+    for (int i0 = 4 * lane; i0 < size; i0 += 8 * kWarp) {
+      uint4 lw[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (i0 + 4 * kWarp * k < size)
+          lw[k] = *reinterpret_cast<const uint4*>(left + i0 + 4 * kWarp * k);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int i = i0 + 4 * kWarp * k;
+        if (i >= size) break;
+        uint4 o = *reinterpret_cast<const uint4*>(dst + size + i);
+        for (int l = 0; l < L; ++l) {
+          const int r = c.tmp[l];
+          o.x ^= ((lw[k].x >> r) & 1u) << l;
+          o.y ^= ((lw[k].y >> r) & 1u) << l;
+          o.z ^= ((lw[k].z >> r) & 1u) << l;
+          o.w ^= ((lw[k].w >> r) & 1u) << l;
+        }
+        *reinterpret_cast<uint4*>(dst + i) = o;
+      }
+    }
     __syncwarp();
   }
+  __syncwarp();
   SCL_PROF_ADD(c, PROF_LAST, t_last);
 
-  SCL_PROF_T(t_out);
-  root_out(root, N, L, log2N, u, lane);
-  if (lane < L) pm_out[lane] = pmr;
-  SCL_PROF_ADD(c, PROF_BUTTERFLY, t_out);
+  root_out(c, root, N, L, log2N, u);
 }
 
-// The last chunk of one frame, at full width: one g at level t, body,
-// last_ascend.  `pm` may be the same memory as `pm_out`: it is read before it
-// is written.  one_a / one_b: the one-lane pendings of the descend.  kFast: a
-// fast node program.
-template <bool kOneHot, bool kFast>
-__device__ __forceinline__ void last_chunk(const Ctx& c, uint32_t* root, const Geometry& g,
-                                           const Stacks& st, const float* x, const float* pm,
-                                           int8_t* u, float* pm_out, const int4* prog,
-                                           int n_ops, int has_R, int log2N, int one_a,
-                                           int one_b) {
+// The last chunk's context: the chunk step's (its top plane in a scratch
+// buffer in device memory, as the chunk step reads level t of the stacks),
+// the root plane (on the context's alpha region, dead once the body has
+// returned, when N <= L * S, else N words of its own), and for kOneHot the
+// 2 t L staged rank vectors.  4,928 B a flagship frame (5,120 one-hot),
+// 13,120 (13,312) with a top plane and a root plane of their own: 17 warps
+// per SM, and 4096 frames took 1.83 waves.
+__host__ __device__ inline int last_root_words(int L, int S, int N) { return N > L * S ? N : 0; }
+__host__ __device__ inline int last_ctx_words(int L, int S, int lgS, int N, int t, bool onehot) {
+  return ctx_words(L, S, lgS, false) + last_root_words(L, S, N) + (onehot ? 2 * t * L : 0);
+}
+
+// The last chunk of one frame, at full width: one g at level t into `top`
+// (the frame's [L][S] scratch plane in device memory: the state is read
+// only), the body on it as the chunk step's (chunk_top), last_ascend.
+// `frame_stacks_of()` gives the frame's stacks, `outputs_of()` its u and
+// pm_out: built where they are used, not held through the body (with them
+// held, the fast instance spilled at 64 registers).  `pm` may be the same
+// memory as pm_out: it is read before it is written.  one_a / one_b: the
+// one-lane pendings of the descend.  kFast: a fast node program.
+template <bool kOneHot, bool kFast, typename StacksOf, typename OutputsOf>
+__device__ __forceinline__ void last_chunk(const Ctx& c, const Geometry& g,
+                                           StacksOf frame_stacks_of, OutputsOf outputs_of,
+                                           const float* x, const float* pm, float* top,
+                                           const int4* prog, int n_ops, int has_R, int log2N,
+                                           int one_a, int one_b) {
   const int L = g.L, t = g.t, lane = c.lane;
-  // ---- descend: a single g at level t, straight into the chunk context
-  descend_g<kOneHot>(g, st, x, t, false, c.a0, lane, L, one_a, one_b);
+  SCL_PROF_T(t_frame);
+  descend_g<kOneHot>(g, frame_stacks_of(), x, t, false, top, lane, L, one_a, one_b);
   float pmr = lane < L ? pm[lane] : 0.0f;
   int R = lane;
   __syncwarp();
-  chunk_body<false, kFast>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
-  last_ascend(c, root, g, st, pmr, R, u, pm_out, log2N);
+  float* a0 = chunk_top(c, top, prog, n_ops, L);
+  SCL_PROF_ADD(c, PROF_DESCEND, t_frame);
+  SCL_PROF_T(t_body);
+  chunk_body<false, kFast>(c, a0, prog, n_ops, has_R, L, pmr, R);
+  SCL_PROF_ADD(c, PROF_BODY, t_body);
+  int8_t* u;
+  float* pm_out;
+  outputs_of(u, pm_out);
+  // the root plane: the context's alpha region, else its own after the context
+  const int rw = last_root_words(L, g.S, g.N);
+  uint32_t* root = reinterpret_cast<uint32_t*>(c.a0 + (rw ? ctx_words(L, g.S, g.lgS, false) : 0));
+  last_ascend<true>(c, root, g, frame_stacks_of(), pmr, R, u, pm_out, log2N);
+  SCL_PROF_ADD(c, PROF_STEP, t_frame);
 }
 
 // The levels a chunk step writes a pending of: pend_a at the descend's
@@ -541,37 +693,50 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
 }
 
 // kOneHot: the pendings are one-hot planes, staged as rank vectors after the
-// root plane; the state is read only.  kFast: a fast node program.
+// root plane.  kFast: a fast node program.  The state is read only; `top` is
+// a scratch of [B][L][S] floats.  The shared-memory variants keep to 64
+// registers, as the chunk step: 32 warps per SM, so that 4096 flagship frames
+// are one wave (132 SMs); the device-memory ones to 128 (16 warps per SM).
 template <bool kDev, bool kOneHot, bool kFast>
-__global__ void scl_last_chunk_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
-                                      int* pend_a, int* pend_b, const float* pm,
-                                      int8_t* __restrict__ u, float* __restrict__ pm_out,
-                                      const int4* __restrict__ prog, int n_ops, int has_R,
-                                      Geometry g, int log2N, int one_a, int one_b,
-                                      float* ctx_dev) {
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 4)
+    scl_last_chunk_kernel(const float* __restrict__ llr, const float* __restrict__ alpha,
+                          const uint32_t* __restrict__ beta, const int* __restrict__ pend_a,
+                          const int* __restrict__ pend_b, const float* pm,
+                          int8_t* __restrict__ u, float* __restrict__ pm_out, float* top,
+                          const int4* __restrict__ prog, int n_ops, int has_R, Geometry g,
+                          int log2N, int one_a, int one_b, float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  const int cw = ctx_words(g.L, g.S, g.lgS, true), tl = g.t * g.L;
-  float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + g.N + (kOneHot ? 2 * tl : 0));
-  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, true);
+  const int cw = ctx_words(g.L, g.S, g.lgS, false), rw = last_root_words(g.L, g.S, g.N);
+  const int tl = g.t * g.L;
+  float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + rw + (kOneHot ? 2 * tl : 0));
+  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, false);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
-  uint32_t* root = reinterpret_cast<uint32_t*>(base + cw);
-  int* ranks = reinterpret_cast<int*>(base + cw + g.N);
+  int* ranks = reinterpret_cast<int*>(base + cw + rw);
   for_each_frame<kDev>(g.B, [&](int frame) {
-    Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
     if (kOneHot) {
       onehot_load(reinterpret_cast<const float*>(pend_a) + (size_t)frame * tl * g.L, ranks,
                   g.t, g.L, lane);
       onehot_load(reinterpret_cast<const float*>(pend_b) + (size_t)frame * tl * g.L,
                   ranks + tl, g.t, g.L, lane);
-      st.PA = ranks;
-      st.PB = ranks + tl;
     }
-    last_chunk<kOneHot, kFast>(c, root, g, st, llr + (size_t)frame * g.N,
-                               pm + (size_t)frame * g.L, u + (size_t)frame * g.L * g.N,
-                               pm_out + (size_t)frame * g.L, prog, n_ops, has_R, log2N, one_a,
-                               one_b);
+    const auto stacks_of = [&]() {
+      Stacks st = frame_stacks(g, frame, const_cast<float*>(alpha), const_cast<uint32_t*>(beta),
+                               const_cast<int*>(pend_a), const_cast<int*>(pend_b));
+      if (kOneHot) {
+        st.PA = ranks;
+        st.PB = ranks + tl;
+      }
+      return st;
+    };
+    const auto outputs_of = [&](int8_t*& u_f, float*& pm_f) {
+      u_f = u + (size_t)frame * g.L * g.N;
+      pm_f = pm_out + (size_t)frame * g.L;
+    };
+    last_chunk<kOneHot, kFast>(c, g, stacks_of, outputs_of, llr + (size_t)frame * g.N,
+                               pm + (size_t)frame * g.L, top + (size_t)frame * g.L * g.S,
+                               prog, n_ops, has_R, log2N, one_a, one_b);
   });
   SCL_PROF_FLUSH(c);
 }
@@ -691,9 +856,13 @@ __global__ void __launch_bounds__(8 * kWarp, 4)
     __syncwarp();
   }
 
-  // ---- the chunks: descend, body, then compose and ascend (the last chunk:
-  // ascend to the root, butterfly, outputs); one body for every chunk
-  for (int ch = 0; ch < C; ++ch) {
+  // ---- the chunks: descend, body, then compose and ascend; one body for
+  // every chunk; the last chunk's ascend to the root, butterfly and outputs
+  // after the loop, where the loop's own values are dead (inside it, the
+  // faster butterfly made the kernel spill at 64 registers)
+  float pmr;
+  int R;
+  for (int ch = 0;; ++ch) {
     const StepArgs& a = steps.args(ch, L);
     // the body's op count and program in registers: the compiler would
     // otherwise read them from the table again, by a register index, at every
@@ -718,21 +887,23 @@ __global__ void __launch_bounds__(8 * kWarp, 4)
       }
       SCL_PROF_ADD(c, PROF_DESCEND, t_descend);
     }
-    float pmr = lane < L ? pm[(size_t)warp_frame() * L + lane] : -INFINITY;
-    int R = lane;
+    pmr = lane < L ? pm[(size_t)warp_frame() * L + lane] : -INFINITY;
+    R = lane;
     SCL_PROF_T(t_body);
     chunk_body<false, false>(c, top, p, n_ops, a.has_R, L, pmr, R);
     SCL_PROF_ADD(c, PROF_BODY, t_body);
+    if (ch == C - 1) break;
     const int frame = warp_frame();
     const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
-    if (ch < C - 1) {
-      step_ascend<false>(c, g, st, pm + (size_t)frame * L, a, pmr, R);
-    } else {
-      float* root = N <= L * S ? base : llr_rev + (size_t)frame * N;
-      last_ascend(c, reinterpret_cast<uint32_t*>(root), g, st, pmr, R,
-                  u + (size_t)frame * L * N, pm + (size_t)frame * L, log2N);
-    }
+    step_ascend<false>(c, g, st, pm + (size_t)frame * L, a, pmr, R);
     __syncwarp();
+  }
+  {
+    const int frame = warp_frame();
+    float* root = N <= L * S ? base : llr_rev + (size_t)frame * N;
+    last_ascend<false>(c, reinterpret_cast<uint32_t*>(root), g,
+                frame_stacks(g, frame, alpha, beta, pend_a, pend_b), pmr, R,
+                u + (size_t)frame * L * N, pm + (size_t)frame * L, log2N);
   }
   SCL_PROF_ADD(c, PROF_DECODE, t_decode);
   SCL_PROF_FLUSH(c);
@@ -808,11 +979,11 @@ cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t 
 }
 
 // Bytes of shared memory one frame (one warp) of each kernel needs: the chunk
-// step and the one-launch decode keep no top plane (depth0 = false), the body
-// and last-chunk kernels do; the last chunk adds N words for the root plane
-// (the one-launch decode puts it on dead words, see its kernel), and the
-// one-hot variants of the chunk step and the last chunk the 2 * t * L staged
-// rank vectors.  The launchers and the resource report both size the context
+// step, the last chunk and the one-launch decode keep no top plane (depth0 =
+// false), the body kernel does; the last chunk adds a root plane only when
+// the context's alpha region cannot hold it (last_ctx_words), and the one-hot
+// variants of the chunk step and the last chunk the 2 * t * L staged rank
+// vectors.  The launchers and the resource report both size the context
 // from these.
 inline size_t smem_per_frame_bytes(int L, int S, int lgS, bool depth0) {
   return 4 * (size_t)scl::ctx_words(L, S, lgS, depth0);
@@ -823,8 +994,7 @@ size_t step_frame_bytes(int L, int S, int lgS, int, int t) {
 }
 template <bool kOneHot>
 size_t last_frame_bytes(int L, int S, int lgS, int N, int t) {
-  return smem_per_frame_bytes(L, S, lgS, true) + 4 * (size_t)N +
-         (kOneHot ? 8 * (size_t)t * L : 0);
+  return 4 * (size_t)last_ctx_words(L, S, lgS, N, t, kOneHot);
 }
 inline size_t body_frame_bytes(int L, int S, int lgS, int, int) {
   return smem_per_frame_bytes(L, S, lgS, true);

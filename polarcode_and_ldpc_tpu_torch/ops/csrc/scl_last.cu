@@ -1,18 +1,33 @@
 // K4, scl_last_chunk (replaces polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py,
 // make_last_superchunk_pallas): the last chunk, the ascend to the root and the
 // butterfly.  The kernel and its device functions are in scl_kernels.cuh and
-// scl_device.cuh.
+// scl_device.cuh.  Built with -DSCL_PROFILE (the build's scl_last_profile
+// variant) it also exports the stage profile's counters.
 
 #include "scl_kernels.cuh"
+
+#ifdef SCL_PROFILE
+// The stage profile's counters: zero them, or copy the 2 * kProfSlots
+// unsigned 64-bit values (cycles, then counts) to host memory.
+extern "C" int scl_profile_reset() {
+  static const unsigned long long zeros[2 * scl::kProfSlots] = {};
+  return (int)cudaMemcpyToSymbol(scl::g_prof, zeros, sizeof(zeros));
+}
+extern "C" int scl_profile_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, scl::g_prof, sizeof(scl::g_prof));
+}
+#endif
 
 // The launcher runs on `stream` and returns the cudaGetLastError code (0 =
 // ok).
 // It takes `ctx_dev` (null: the context in shared memory; else grid *
 // warps_per_block slices of the context in device memory) and `grid` (the
-// blocks of the device-memory mode).
+// blocks of the device-memory mode).  `top` is scratch for the chunk's top
+// plane, [B][L][S] floats.
 // fast: the node program is a fast one, run by the fast instance.
-extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, int* pend_a,
-                                     int* pend_b, const float* pm, int8_t* u, float* pm_out,
+extern "C" int scl_last_chunk_launch(const float* llr, const float* alpha, const int* beta,
+                                     const int* pend_a, const int* pend_b, const float* pm,
+                                     int8_t* u, float* pm_out, float* top,
                                      const int* prog, int n_ops, int has_R, int B, int N, int S,
                                      int L, int t, int lgS, int log2N, int one_a, int one_b,
                                      int onehot, int fast, int warps_per_block, float* ctx_dev,
@@ -21,8 +36,7 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
   size_t smem;
   int blocks, warps;
   if (fast && onehot) return (int)cudaErrorInvalidValue;
-  const size_t per_frame =
-      onehot ? last_frame_bytes<true>(L, S, lgS, N, t) : last_frame_bytes<false>(L, S, lgS, N, t);
+  const size_t per_frame = 4 * (size_t)last_ctx_words(L, S, lgS, N, t, onehot);
   cudaError_t err =
       fast ? configure(&scl_last_chunk_kernel<false, false, true>,
                        &scl_last_chunk_kernel<true, false, true>, ctx_dev, per_frame, B,
@@ -36,7 +50,7 @@ extern "C" int scl_last_chunk_launch(const float* llr, float* alpha, int* beta, 
   if (err != cudaSuccess) return (int)err;
   const Geometry g{B, N, S, L, t, lgS};
   kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm, u, pm_out,
+      llr, alpha, reinterpret_cast<const uint32_t*>(beta), pend_a, pend_b, pm, u, pm_out, top,
       reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N, one_a, one_b, ctx_dev);
   return (int)cudaGetLastError();
 }

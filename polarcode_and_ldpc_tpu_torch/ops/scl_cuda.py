@@ -221,6 +221,13 @@ def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0,
                 + 2 * onehot_levels * L)
 
 
+def last_root_words(L: int, S: int, N: int) -> int:
+    """Words of the last chunk's own root plane (``last_root_words`` of
+    ``csrc/scl_kernels.cuh``): none when the context's alpha region (``L · S``
+    words, dead once the body has returned) holds the ``N`` words."""
+    return N if N > L * S else 0
+
+
 def _warps_per_block(per_frame: int, what: str) -> int:
     """The most warps one block may hold at ``per_frame`` bytes each (the
     kernels plan within it); raises if one frame does not fit a block."""
@@ -626,27 +633,38 @@ def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
     """Launch the last-chunk kernel (full width): ``(u [B, L, N] int8
     natural order, pm [B, L])``.  The state is read only.  Does not
     synchronise."""
+    u, pm_out, ctx = launch_last_chunk(state, spec, "scl_last")
+    _count("scl_last_chunk", spec.program, ctx)
+    return u, pm_out
+
+
+def launch_last_chunk(state: SCLState, spec: SCLStepSpec, library: str):
+    """The last chunk's launch through the launcher of ``library``
+    (``"scl_last"``, or a variant of it such as the profiled
+    ``"scl_last_profile"``), uncounted: ``(u, pm, device-memory context)``
+    (the context None: in shared memory)."""
     _check_state(state, spec.program)
     s = state.sched
     B = state.pm.shape[0]
     dev = state.llr.device
-    warps, grid, ctx = _context_plan(s.L, s.S, s.N, B, dev, s.t if state.onehot else 0)
-    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 9 + [_I] * 14 + [_P, _I, _P])
+    warps, grid, ctx = _context_plan(s.L, s.S, last_root_words(s.L, s.S, s.N), B, dev,
+                                     s.t if state.onehot else 0, depth0=False)
+    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 10 + [_I] * 14 + [_P, _I, _P], library)
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, s.L), dtype=torch.float32, device=dev)
+    top = torch.empty((B, s.L * s.S), dtype=torch.float32, device=dev)  # scratch
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
         code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
                   state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
-                  u.data_ptr(), pm_out.data_ptr(), ops.data_ptr(), ops.shape[0],
-                  int(spec.program.has_r), B, s.N, s.S, s.L, s.t, spec.program.lgS,
-                  int(np.log2(s.N)), spec.one_a, spec.one_b, int(state.onehot),
-                  int(spec.program.fast), warps,
+                  u.data_ptr(), pm_out.data_ptr(), top.data_ptr(), ops.data_ptr(),
+                  ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L, s.t,
+                  spec.program.lgS, int(np.log2(s.N)), spec.one_a, spec.one_b,
+                  int(state.onehot), int(spec.program.fast), warps,
                   ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_last_chunk")
-    _count("scl_last_chunk", spec.program, ctx)
-    return u, pm_out
+    return u, pm_out, ctx
 
 
 def scl_last_chunk(state: SCLState, spec: SCLStepSpec):

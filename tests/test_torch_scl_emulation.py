@@ -24,7 +24,9 @@ per lane, the per-slot flip bits composed the same way, the words by ballots
 and the XOR of the flips into them; a fast ``OP_SUBTREE`` lane by lane (the
 path's magnitudes on each lane, each lane's stable rank, the flips by rank).
 The selection kernel ``fastnode.cu`` (``fastnode_device.cuh``'s
-``halving_sum`` and ``select_k``) is walked against its plain version too.
+``halving_sum`` and ``select_k``) is walked against its plain version too,
+and the last chunk's butterfly and output stores (``root_out``) lane by lane,
+with the banks of their shared-memory accesses.
 """
 
 import zlib
@@ -711,6 +713,8 @@ def emulate_step(state: SCLState, spec, onehot=False):
 
 
 def emulate_last(state: SCLState, spec, onehot=False):
+    """The last chunk: the descend's g (into the kernel's scratch plane), the
+    body on it, the ascend to the root, ``root_out``."""
     st = Stacks(state)
     N, S, L, t = st.N, st.S, st.L, st.t
     B = state.pm.shape[0]
@@ -725,15 +729,75 @@ def emulate_last(state: SCLState, spec, onehot=False):
         eff = torch.gather(st.PB[:, lev - 1].to(torch.int64), 1, c.R)
         left = st.Bt[:, st.b_off(lev):st.b_off(lev) + size]
         root[:, N - 2 * size:N - size] = perm_word(left, eff, L) ^ root[:, N - size:]
-    s = 1
-    while s < N:
-        idx = np.arange(N // 2)
-        p = (idx // s) * 2 * s + idx % s
-        root[:, p] ^= root[:, p + s]
-        s *= 2
-    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64)
-    u = ((root[:, rev][:, None, :] >> torch.arange(L)[None, :, None]) & 1).to(torch.int8)
-    return u, c.pm
+    return root_out(root, N, L), c.pm
+
+
+def _brev(x, n):
+    return int(f"{x:0{n}b}"[::-1], 2) if n else 0
+
+
+def root_out(root, N, L, banks=None):
+    """``root_out`` of ``csrc/scl_kernels.cuh`` lane by lane on ``root [B, N]``
+    (storage-order words): the stages on index bits 0-4 on word 32 j + lane
+    by xor-shuffles, the higher ones two at a time on four words a lane, then
+    runs of 16 natural positions (run k = lane · R + j) read from their
+    bit-reversed words and each path's bits packed from the byte-permuted
+    words into one 16-byte store; ``u [B, L, N]`` int8.  ``banks``: a list
+    that collects, per shared-memory instruction of the lanes that access
+    distinct words, their banks."""
+    B, n = root.shape[0], int(np.log2(N))
+    root = root.clone()
+    lane = np.arange(32)
+    for j in range(0, N, 32):
+        on = j + lane < N
+        w = torch.zeros((B, 32), dtype=torch.int64)
+        w[:, on] = root[:, j + lane[on]]
+        for k in range(min(5, n)):
+            low = torch.as_tensor(((lane >> k) & 1) == 0)
+            w = torch.where(low, w ^ w[:, lane ^ (1 << k)], w)
+        root[:, j + lane[on]] = w[:, on]
+    for k in range(5, n, 2):
+        s = 1 << k
+        if k + 1 < n:
+            for q0 in range(0, N // 4, 32):
+                q = q0 + lane[q0 + lane < N // 4]
+                p = ((q >> k) << (k + 2)) | (q & (s - 1))
+                if banks is not None:
+                    banks.extend((p + t * s) % 32 for t in range(4))
+                a, b, x, y = (root[:, p + t * s].clone() for t in range(4))
+                a ^= b
+                x ^= y
+                root[:, p], root[:, p + s], root[:, p + 2 * s] = a ^ x, b ^ y, x
+        else:
+            for q0 in range(0, N // 2, 32):
+                q = q0 + lane[q0 + lane < N // 2]
+                p = ((q >> k) << (k + 1)) | (q & (s - 1))
+                if banks is not None:
+                    banks.extend((p + t * s) % 32 for t in range(2))
+                root[:, p] ^= root[:, p + s]
+    u = torch.zeros((B, L * N), dtype=torch.int64)
+    if n < 4:
+        idx = np.arange(L * N)
+        u[:] = (root[:, [_brev(i & (N - 1), n) for i in idx]] >> torch.as_tensor(idx >> n)) & 1
+        return u.reshape(B, L, N).to(torch.int8)
+    runs, hi = N >> 4, n - 4
+    per = max(1, runs // 32)
+    lanes = lane[lane < runs]
+    for j in range(per):
+        k = lanes * per + j
+        rk = np.asarray([_brev(int(v), hi) for v in k])
+        for b in range(0, L, 8):
+            paths = torch.arange(b, min(b + 8, L))
+            for q in range(4):  # __byte_perm: byte b / 8 of the run's words 4q .. 4q + 3
+                addr = [rk + (_brev(4 * q + t, 4) << hi) for t in range(4)]
+                if banks is not None and b == 0:
+                    banks.extend(a % 32 for a in addr)
+                x = sum(((root[:, addr[t]] >> b) & 0xFF) << (8 * t) for t in range(4))
+                word = (x[:, :, None] >> (paths - b)) & 0x01010101  # [B, lanes, paths]
+                for t in range(4):  # the 16-byte store of each path, little-endian
+                    pos = paths[None, :] * N + torch.as_tensor(16 * k)[:, None] + 4 * q + t
+                    u[:, pos] = (word >> (8 * t)) & 0xFF
+    return u.reshape(B, L, N).to(torch.int8)
 
 
 # ---------------------------------------------------------------------------
@@ -937,6 +1001,42 @@ def test_step_and_last_walk_equal_plain_on_every_chunk(N, K, S, L):
     u2, p2 = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-fused",
                                    live_width=False, device="cpu")(llr)
     assert torch.equal(u0, u2) and torch.equal(p0, p2)
+
+
+@pytest.mark.parametrize("N", [64, 128, 256, 512, 1024, 2048])
+def test_root_out_lanes_equal_the_polar_transform(N):
+    """``root_out``'s lane scheme (the low stages by shuffles, the higher ones
+    two at a time in shared memory, runs of 16 natural positions packed into
+    16-byte stores) equals u = beta · G in natural order at every list size,
+    and every shared-memory access of its passes and runs hits as many banks
+    as it has lanes (32, or N / 16 runs below N = 512)."""
+    rng = np.random.default_rng(N)
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64)
+    for L in range(1, 33):
+        root = torch.from_numpy(rng.integers(0, 2 ** 32, (2, N), dtype=np.uint64).astype(np.int64))
+        banks = []
+        got = root_out(root, N, L, banks)
+        bits = ((root[:, None, :] >> torch.arange(L)[None, :, None]) & 1).to(torch.int8)
+        assert torch.equal(got, tfec.polar_transform(bits[..., rev]))
+        assert banks and all(len(set(b.tolist())) == len(b) in (32, N // 16) for b in banks)
+
+
+@pytest.mark.parametrize("N,K,S,L,onehot,own_root", [(1024, 512, 128, 8, False, False),
+                                                     (1024, 512, 128, 8, True, False),
+                                                     (4096, 2048, 64, 32, False, True)])
+def test_last_chunk_context_plan(N, K, S, L, onehot, own_root):
+    """The last chunk's shared memory per frame: the chunk step's context and,
+    one-hot, the staged rank vectors (4,928 / 5,120 B at the flagship: at
+    most 7,168, 32 warps per SM); its root plane lies on the context's alpha
+    region unless N > L · S."""
+    sched = build_scl_schedule(N, _code(N, K), L, S)
+    got = scl_cuda.smem_per_frame(L, S, scl_cuda.last_root_words(L, S, N),
+                                  sched.t if onehot else 0, depth0=False)
+    step = scl_cuda.smem_per_frame(L, S, depth0=False) + (8 * sched.t * L if onehot else 0)
+    assert scl_cuda.last_root_words(L, S, N) == (N if own_root else 0)
+    assert got == step + (4 * N if own_root else 0)
+    if N == 1024:
+        assert got == (5120 if onehot else 4928) <= 7168
 
 
 @pytest.mark.parametrize("N,K,S,L", [(128, 64, 16, 4), (256, 130, 32, 8), (64, 40, 64, 2)])

@@ -41,7 +41,9 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
   programs) and at the large-code
   decode's positions 16 and 40 where the tree has the
   profiled build (``ops/build.py`` ``VARIANTS``), of K6 over the whole
-  flagship decode where it has ``scl_mega_profile``, and the kernels'
+  flagship decode where it has ``scl_mega_profile``, of K4 and K4-fast on the
+  state before the flagship's last chunk where it has ``scl_last_profile``,
+  and the kernels'
   registers, spills and resident warps per SM where it has
   ``scl_cuda.kernel_resources``.
 
@@ -367,6 +369,12 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
         out["profile SCL-32 S=64"] = split64
         if "scl_mega_profile" in build.VARIANTS:
             out["profile K6"] = chip_smoke.profile_mega(llr, scl_cuda.SCLMegaPlan(sched))
+        if "scl_last_profile" in build.VARIANTS:
+            for tag, specs, last_spec in (("", steps, last), ("-fast", fsteps, flast)):
+                state = SCLState(sched, llr_rev)
+                for spec in specs:
+                    scl_chunk_step_cuda(state, spec)
+                out[f"profile K4{tag}"] = chip_smoke.profile_last(state, last_spec)
     if hasattr(scl_cuda, "kernel_resources"):
         out["resources"] = scl_cuda.kernel_resources(L, S, N, sched.t)
 
