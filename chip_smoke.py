@@ -111,8 +111,8 @@ from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, O
                                                        SCLBodyProgram,
                                                        SCLMegaPlan, SCLState, build_mega_tables,
                                                        context_in_device_memory,
-                                                       launch_chunk_step, launch_last_chunk,
-                                                       launch_mega,
+                                                       launch_chunk_body, launch_chunk_step,
+                                                       launch_last_chunk, launch_mega,
                                                        make_step_specs, scl_chunk_body_cuda,
                                                        scl_chunk_step_cuda, scl_decode_mega_cuda,
                                                        scl_last_chunk_cuda)
@@ -622,12 +622,15 @@ def check_scl_bodies(sched, programs, B: int) -> float:
             if case == "phantoms":
                 pm[:, 2:] = -np.inf
             alpha, pm = torch.from_numpy(alpha).to(DEV), torch.from_numpy(pm).to(DEV)
+            keep = alpha.clone()
             got = scl_chunk_body_cuda(alpha, pm, program)
             torch.cuda.synchronize()
             want = program.plain(alpha, pm)
+            context = {"pattern": pid, "case": case, "B": B}
+            # the kernel reads its input plane where it lies: read only
+            hold_equal("scl_chunk_body (its input)", {"alpha": (alpha, keep)}, context)
             worst = max(worst, hold_equal(
-                "scl_chunk_body", dict(zip(("beta", "pm", "R"), zip(got, want))),
-                {"pattern": pid, "case": case, "B": B}))
+                "scl_chunk_body", dict(zip(("beta", "pm", "R"), zip(got, want))), context))
     return worst
 
 
@@ -904,6 +907,7 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
          other_codes=check_scl_other_codes())
     mega_resources(sched)
     last_resources(sched)
+    body_resources(sched)
 
 
 # the parts of a chunk step in the stage profile (ProfSlot of
@@ -913,7 +917,7 @@ PROFILE_SLOTS = ("descend", "copy_in", "F w*size<32", "F w*size>=32", "G w*size<
                  "rate-0", "rate-1 fast", "REP fast", "subtree", "body", "compose", "ascend",
                  "step", "last chunk", "butterfly", "decode", "rate-1 fast L*size<=32",
                  "REP fast L*size<=32", "fast node: sums", "fast node: selection and prunes",
-                 "fast node: bits", "outputs")
+                 "fast node: bits", "outputs", "one-hot load", "one-hot store")
 
 
 def read_profile(lib, B: int, total: str) -> dict:
@@ -944,7 +948,31 @@ def profile_step(state, spec) -> dict:
     hold_equal("profiled scl_chunk_step", {
         f: (getattr(prof, f), getattr(plain, f)) for f in ("alpha", "beta", "pend_a", "pend_b", "pm")},
         {"k": spec.k, "j": spec.j})
-    return read_profile(lib, state.pm.shape[0], "step")
+    split = read_profile(lib, state.pm.shape[0], "step")
+    if spec.program.onehot:  # the staging lies outside the step: shares of the whole frame
+        parts = ("step", "one-hot load", "one-hot store")
+        frame = sum(split[p]["cycles_per_frame"] for p in parts if p in split)
+        for part in split.values():
+            part["share_of_frame"] = part["cycles_per_frame"] / frame
+        split["frame"] = {"cycles_per_frame": frame}
+    return split
+
+
+def profile_body(alpha: torch.Tensor, pm: torch.Tensor, program) -> dict:
+    """K5 of the profiled build (-DSCL_PROFILE) on ``alpha``, ``pm``: held
+    against the normal build, then each part's clock64() cycles per frame
+    (the copy-in, the body by op kind, the output stores; "step": the whole
+    frame), ops per frame and share of the frame's cycles."""
+    lib = build.load("scl_body_profile")
+    launch_chunk_body(alpha, pm, program, "scl_body_profile")  # warm-up
+    torch.cuda.synchronize()
+    build.check_launch(lib, lib.scl_profile_reset(), "scl_profile_reset")
+    got = launch_chunk_body(alpha, pm, program, "scl_body_profile")
+    want = launch_chunk_body(alpha, pm, program, "scl_body")
+    torch.cuda.synchronize()
+    hold_equal("profiled scl_chunk_body", dict(zip(("beta", "pm", "R"), zip(got, want))),
+               {"fast": program.fast, "onehot": program.onehot})
+    return read_profile(lib, alpha.shape[0], "step")
 
 
 def profile_last(state, spec) -> dict:
@@ -1010,17 +1038,33 @@ def last_resources(sched) -> dict:
     return last
 
 
+def body_resources(sched) -> dict:
+    """K5's and K3-onehot's resource report at the flagship's launch plan:
+    the shared-memory instances of the chunk body (exact, fast, one-hot) and
+    the one-hot chunk step must each read at most 64 registers, no local
+    memory and 32 resident warps per SM, as K3, K4 and K6 (one wave of 4096
+    frames on 132 SMs); their device-memory instances no local memory;
+    returns their rows."""
+    rows = {r["kernel"]: r for r in scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t)}
+    held = {k: r for k, r in rows.items()
+            if k.startswith("scl_chunk_body") or k.startswith("scl_chunk_step_onehot")}
+    bad = {k: r for k, r in held.items() if r["local_bytes"] or (
+        "devmem" not in k and (r["registers"] > 64 or r["resident_warps_per_sm"] != 32))}
+    if len(held) != 8 or bad:
+        raise AssertionError(f"scl_chunk_body's / scl_chunk_step_onehot's resources "
+                             f"{bad or held}")
+    return held
+
+
 # the exact list-kernel instances' registers and local bytes at the flagship's
 # launch plan before the fast node programs had instances of their own (chip
 # run of that tree, NVIDIA H100 80GB HBM3, 700.00 W): the exact instances no
-# longer compile fast code, so none of them may grow; K4's instances, its
-# redesign, are held by last_resources instead
+# longer compile fast code, so none of them may grow; the instances of a
+# later redesign are held by its own report instead: K4's by last_resources,
+# K5's and K3-onehot's by body_resources
 EXACT_RESOURCE_CEILINGS = {
-    "scl_chunk_body": (48, 0), "scl_chunk_body_onehot": (48, 0),
-    "scl_chunk_body_devmem": (72, 0), "scl_chunk_body_onehot_devmem": (72, 0),
     "scl_chunk_step": (64, 0), "scl_chunk_step_narrow": (64, 0),
-    "scl_chunk_step_onehot": (64, 0), "scl_chunk_step_devmem": (104, 0),
-    "scl_chunk_step_narrow_devmem": (110, 0), "scl_chunk_step_onehot_devmem": (108, 0),
+    "scl_chunk_step_devmem": (104, 0), "scl_chunk_step_narrow_devmem": (110, 0),
     "scl_decode_mega": (64, 0), "scl_decode_mega_single": (64, 0),
     "scl_decode_mega_long": (64, 24)}
 
@@ -1045,7 +1089,9 @@ def phase_scl_profile() -> None:
     positions 3 and 4 (4096 frames, 3 dB, the state the kernel decode
     reaches), and K4's on the state before the last chunk, on the exact and
     on the fast node program, and K6's over the
-    whole flagship decode of the same frames; the registers, spills and
+    whole flagship decode of the same frames; K3 and K4 on the one-hot state
+    (their staging of the planes apart); K5 on the last chunk's pattern,
+    exact, one-hot and fast; the registers, spills and
     resident warps per SM of every compiled variant of K3 / K4 / K5 / K6 at
     the flagship's launch shapes."""
     frozen, info, mask, sched, steps, last, rev = scl_flagship()
@@ -1060,8 +1106,28 @@ def phase_scl_profile() -> None:
             scl_chunk_step_cuda(state, spec)
         split[f"{prefix}scl_last_chunk"] = profile_last(state, last_spec)
     split["scl_decode_mega, whole decode"] = profile_mega(llr, SCLMegaPlan(sched))
+    # the one-hot modes: K3-onehot at the same positions (its staging of the
+    # planes apart), K4-onehot; K5 on the last chunk's pattern, exact, one-hot
+    # and fast, on Gaussian LLRs
+    *_, osteps, _, olast, _ = onehot_flagship()
+    state = SCLState(sched, llr[:, rev].contiguous(), "onehot")
+    for c, spec in enumerate(osteps):
+        if c in (3, 4):
+            split[f"onehot, position {c}"] = profile_step(state, spec)
+        scl_chunk_step_cuda(state, spec)
+    split["onehot, scl_last_chunk"] = profile_last(state, olast)
+    g = np.random.default_rng(12)
+    alpha = torch.from_numpy((2 * g.standard_normal((SCL_CHUNK, SCL_L, SCL_S))).astype(
+        np.float32)).to(DEV)
+    pm = -torch.from_numpy(np.abs(g.standard_normal((SCL_CHUNK, SCL_L))).astype(
+        np.float32)).to(DEV)
+    for name, program in (("scl_chunk_body", last.program),
+                          ("scl_chunk_body_onehot", olast.program),
+                          ("scl_chunk_body_fast", fast_last.program)):
+        split[f"{name}, last chunk's pattern"] = profile_body(alpha, pm, program)
     emit("scl_profile", frames=SCL_CHUNK, split=split, mega_resources=mega_resources(sched),
-         last_resources=last_resources(sched), fast_resources=fast_resources(sched),
+         last_resources=last_resources(sched), body_resources=body_resources(sched),
+         fast_resources=fast_resources(sched),
          resources=scl_cuda.kernel_resources(sched.L, sched.S, sched.N, sched.t))
 
 
@@ -2962,9 +3028,10 @@ def main() -> int:
     reps = 3 if args.quick else 20
     dev_info: dict = {}
     q = args.quick
-    # the profiled K3, K4, K6 and K1 are built beside the other sources only
+    # the profiled K3, K5, K4, K6 and K1 are built beside the other sources only
     # when their phases run
     variants = tuple(v for p, v in (("scl_profile", "scl_decode_profile"),
+                                    ("scl_profile", "scl_body_profile"),
                                     ("scl_profile", "scl_last_profile"),
                                     ("scl_profile", "scl_mega_profile"),
                                     ("sc_profile", "sc_decode_profile")) if p in phases)

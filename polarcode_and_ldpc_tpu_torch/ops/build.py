@@ -12,7 +12,8 @@ They are rebuilt when a source is newer than its library.
 
 A variant is one source built with extra flags into a library of its own
 name (``VARIANTS``): ``scl_decode_profile`` is ``scl_decode.cu`` (the chunk
-step, K3), ``scl_last_profile`` is ``scl_last.cu`` (the last chunk, K4) and
+step, K3), ``scl_body_profile`` is ``scl_body.cu`` (the chunk body, K5),
+``scl_last_profile`` is ``scl_last.cu`` (the last chunk, K4) and
 ``scl_mega_profile`` is ``scl_mega.cu`` (the one-launch decode, K6), each with
 the stage profile of the list kernels (``-DSCL_PROFILE``, see
 ``csrc/scl_device.cuh``); ``sc_decode_profile`` is ``sc_decode.cu`` (K1)
@@ -44,6 +45,7 @@ HEADERS = {"scl_decode": _SCL_HEADERS, "scl_body": _SCL_HEADERS, "scl_last": _SC
            "scl_mega": _SCL_HEADERS, "fastnode": ("fastnode_device.cuh",)}
 # variant library -> (source, extra nvcc flags)
 VARIANTS = {"scl_decode_profile": ("scl_decode", ("-DSCL_PROFILE",)),
+            "scl_body_profile": ("scl_body", ("-DSCL_PROFILE",)),
             "scl_last_profile": ("scl_last", ("-DSCL_PROFILE",)),
             "scl_mega_profile": ("scl_mega", ("-DSCL_PROFILE",)),
             "sc_decode_profile": ("sc_decode", ("-DSC_PROFILE",))}

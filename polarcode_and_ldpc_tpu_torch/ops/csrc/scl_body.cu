@@ -1,14 +1,29 @@
 // K5, scl_chunk_body (replaces polarcode_and_ldpc_tpu/ops/scl_body_pallas.py,
 // make_chunk_body_pallas): one chunk's list decode on its own.  The kernel
-// and its device functions are in scl_kernels.cuh and scl_device.cuh.
+// and its device functions are in scl_kernels.cuh and scl_device.cuh.  Built
+// with -DSCL_PROFILE (the build's scl_body_profile variant) it also exports
+// the stage profile's counters.
 
 #include "scl_kernels.cuh"
+
+#ifdef SCL_PROFILE
+// The stage profile's counters: zero them, or copy the 2 * kProfSlots
+// unsigned 64-bit values (cycles, then counts) to host memory.
+extern "C" int scl_profile_reset() {
+  static const unsigned long long zeros[2 * scl::kProfSlots] = {};
+  return (int)cudaMemcpyToSymbol(scl::g_prof, zeros, sizeof(zeros));
+}
+extern "C" int scl_profile_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, scl::g_prof, sizeof(scl::g_prof));
+}
+#endif
 
 // The launcher runs on `stream` and returns the cudaGetLastError code (0 =
 // ok).
 // It takes `ctx_dev` (null: the context in shared memory; else grid *
 // warps_per_block slices of the context in device memory) and `grid` (the
 // blocks of the device-memory mode).
+// alpha is read where it lies (the kernel's context has no top plane).
 // r_out: long long [B][L] rank vectors, or (onehot) float [B][L][L] planes.
 // fast: the node program is a fast one, run by the fast instance.
 extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t* beta_out,
@@ -20,7 +35,7 @@ extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t
   size_t smem;
   int blocks, warps;
   if (fast && onehot) return (int)cudaErrorInvalidValue;
-  const size_t per_frame = body_frame_bytes(L, S, lgS, 0, 0);
+  const size_t per_frame = ctx_frame_bytes(L, S, lgS, 0, 0);
   cudaError_t err =
       fast ? configure(&scl_chunk_body_kernel<false, false, true>,
                        &scl_chunk_body_kernel<true, false, true>, ctx_dev, per_frame, B,
@@ -42,11 +57,11 @@ extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t
 namespace {
 const KernelEntry kKernels[] = {
     {"scl_chunk_body", (const void*)&scl_chunk_body_kernel<false, false, false>,
-     &body_frame_bytes},
+     &ctx_frame_bytes},
     {"scl_chunk_body_fast", (const void*)&scl_chunk_body_kernel<false, false, true>,
-     &body_frame_bytes},
+     &ctx_frame_bytes},
     {"scl_chunk_body_onehot", (const void*)&scl_chunk_body_kernel<false, true, false>,
-     &body_frame_bytes},
+     &ctx_frame_bytes},
     {"scl_chunk_body_devmem", (const void*)&scl_chunk_body_kernel<true, false, false>, nullptr},
     {"scl_chunk_body_fast_devmem", (const void*)&scl_chunk_body_kernel<true, false, true>,
      nullptr},

@@ -27,7 +27,7 @@ extern "C" int scl_profile_read(unsigned long long* out) {
 // blocks of the device-memory mode).
 // lv_in / lv_out: the live paths entering and leaving the chunk (L, L: full
 // width); one_a / one_b: level bit masks of the one-lane pendings; onehot:
-// pend_a / pend_b are float one-hot planes [B][t][L][L] (full width only);
+// pend_a / pend_b are float one-hot planes [B][t][L][L] (full width only, t <= 16);
 // fast: the node program is a fast one (full width, rank vectors), run by the
 // fast instance.
 extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, int* pend_a,
@@ -41,7 +41,8 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
   size_t smem;
   int blocks, warps;
   const bool narrow = lv_in < L || lv_out < L;
-  if ((narrow && onehot) || (fast && (narrow || onehot))) return (int)cudaErrorInvalidValue;
+  if ((narrow && onehot) || (fast && (narrow || onehot)) || (onehot && 2 * t > 32))
+    return (int)cudaErrorInvalidValue;
   const size_t per_frame =
       onehot ? step_frame_bytes<true>(L, S, lgS, N, t) : step_frame_bytes<false>(L, S, lgS, N, t);
   cudaError_t err =

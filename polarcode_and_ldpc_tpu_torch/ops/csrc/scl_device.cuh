@@ -86,7 +86,11 @@ namespace scl {
 // counters at the end of its frame; the whole-decode kernel also counts its
 // last chunk (descend, body, ascend), the butterfly, the outputs, and the
 // frame's whole decode; the last-chunk kernel its descend, body, ascend to the
-// root, butterfly, outputs and whole frame (the STEP slot).  The counters'
+// root, butterfly, outputs and whole frame (the STEP slot); the one-hot modes
+// of the chunk step and the last chunk their staging of the pendings' planes
+// (ONEHOT_LOAD) and the chunk step its stores of the written planes
+// (ONEHOT_STORE), outside the STEP slot; the chunk-body kernel its copy-in,
+// body, output stores (OUT) and whole frame (STEP).  The counters'
 // cost lands outside the timed intervals, but it and the clock reads stretch
 // the kernel: read the split as shares, not as times.
 enum ProfSlot : int {
@@ -94,7 +98,7 @@ enum ProfSlot : int {
   PROF_COMBINE_SMALL, PROF_COMBINE_WIDE, PROF_LEAF, PROF_REP, PROF_RATE0, PROF_RATE1_FAST,
   PROF_REP_FAST, PROF_SUBTREE, PROF_BODY, PROF_COMPOSE, PROF_ASCEND, PROF_STEP, PROF_LAST,
   PROF_BUTTERFLY, PROF_DECODE, PROF_RATE1_FAST_SMALL, PROF_REP_FAST_SMALL, PROF_FAST_SUM,
-  PROF_FAST_STAGES, PROF_FAST_BITS, PROF_OUT, kProfSlots
+  PROF_FAST_STAGES, PROF_FAST_BITS, PROF_OUT, PROF_ONEHOT_LOAD, PROF_ONEHOT_STORE, kProfSlots
 };
 #ifdef SCL_PROFILE
 __device__ unsigned long long g_prof[2 * kProfSlots];  // cycles, then counts
@@ -143,10 +147,12 @@ constexpr int kFlagFast = 4 << 8;  // an OP_SUBTREE of a fast program (the fast 
                                    // run every OP_SUBTREE so)
 
 struct Ctx {
-  float* alpha;   // the alpha stack below the chunk's top: depth d >= 1 is [L][S >> d]
-  float* a0;      // L * S floats for a depth-0 plane kept in the context
+  float* alpha;   // the alpha stack below the chunk's top: depth d >= 1 is [L][S >> d];
+                  // its first L * S words hold the top plane of a chunk that is one
+                  // rate-0 or REP node (chunk_top)
   uint32_t* beta;
-  int* R;         // L: a rank vector that lanes read by index (the body kernel's output)
+  int* R;         // L: the fast body kernel's top-plane address (two words; at L = 1
+                  // the second is tmp[0], which no body reads), see ctx_top
   int* tmp;       // L: an effective pending
   int* Rstack;    // (log2 S + 1) x L
   int L, S, lane;
@@ -155,25 +161,22 @@ struct Ctx {
 #endif
 };
 
-// 32-bit words of shared memory one frame needs.  depth0: the chunk's top
-// plane has a region of its own (the body kernel copies its input there);
-// without, the chunk step, the last chunk and the whole decode read it where
-// their descend left it, in device memory (the level stacks, or the last
-// chunk's scratch plane: its state is read only), and the L * S words of the
-// stack region (depths 1.. take L * (S - 1)) hold it only for a chunk that is
-// one rate-0 or REP node, which works on it in place.
-__host__ __device__ inline int ctx_words(int L, int S, int lgS, bool depth0) {
-  return (depth0 ? 2 : 1) * S * L + S + L * (2 + lgS + 1);
+// 32-bit words of shared memory one frame needs.  No kernel keeps the chunk's
+// top plane in it: the chunk step, the last chunk and the whole decode read it
+// where their descend left it, in device memory (the level stacks, or the last
+// chunk's scratch plane: its state is read only), the body kernel where its
+// input lies; the L * S words of the stack region (depths 1.. take L * (S -
+// 1)) hold it only for a chunk that is one rate-0 or REP node, which works on
+// it in place.
+__host__ __device__ inline int ctx_words(int L, int S, int lgS) {
+  return S * L + S + L * (2 + lgS + 1);
 }
 
-__device__ __forceinline__ Ctx make_ctx(float* base, int L, int S, int lgS, int lane,
-                                        bool depth0) {
+__device__ __forceinline__ Ctx make_ctx(float* base, int L, int S, int lane) {
   Ctx c;
-  const int top = depth0 ? S * L : 0;
-  c.a0 = base;
-  c.alpha = base + top;
-  c.beta = reinterpret_cast<uint32_t*>(base + top + S * L);
-  c.R = reinterpret_cast<int*>(base + top + S * L + S);
+  c.alpha = base;
+  c.beta = reinterpret_cast<uint32_t*>(base + S * L);
+  c.R = reinterpret_cast<int*>(base + S * L + S);
   c.tmp = c.R + L;
   c.Rstack = c.tmp + L;
   c.L = L;
@@ -242,9 +245,17 @@ __device__ __forceinline__ uint32_t perm_words_ballot(uint32_t w, int r, int n, 
 }
 
 // the alpha plane at depth d ([L][S >> d] floats): the top plane a0 at depth
-// 0, else the stack
+// 0, else the stack.  kTopInCtx: the top plane's address is read from the
+// context (two words at c.R, written by the kernel before the body; volatile,
+// so it is read where it is used and held in no register through the body)
+__device__ __forceinline__ float* ctx_top(const Ctx& c) {
+  const volatile uint32_t* w = reinterpret_cast<const volatile uint32_t*>(c.R);
+  return reinterpret_cast<float*>(((uint64_t)w[1] << 32) | w[0]);
+}
+template <bool kTopInCtx = false>
 __device__ __forceinline__ float* depth_ptr(const Ctx& c, float* a0, int d) {
-  return d == 0 ? a0 : c.alpha + c.L * (c.S - ((2 * c.S) >> d));
+  if (d != 0) return c.alpha + c.L * (c.S - ((2 * c.S) >> d));
+  return kTopInCtx ? ctx_top(c) : a0;
 }
 
 // leaf LLRs of a subtree under all-zero decisions, in place: z is [L][M]
@@ -784,7 +795,9 @@ __device__ __forceinline__ void subtree(const Ctx& c, const float* plane, int sz
 // every info leaf (live width); otherwise the full list, the width a
 // constant the compiler sees.  kFast: a fast node program (the fast ops and
 // the fast OP_SUBTREE are compiled only into the fast instances).
-template <bool kNarrow, bool kFast>
+// kTopInCtx: a0's address is also in the context (ctx_top), and the body
+// reads it there at each depth-0 op.
+template <bool kNarrow, bool kFast, bool kTopInCtx = false>
 __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* __restrict__ prog,
                                            int n_ops, int has_R, int w_in, float& pm, int& R) {
   const int L = c.L, lane = c.lane;
@@ -798,8 +811,8 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
     const int d = op.y, sz = op.z, off = op.w;
     switch (op.x & 0xff) {
       case OP_F: {
-        const float* src = depth_ptr(c, a0, d);
-        float* dst = depth_ptr(c, a0, d + 1);
+        const float* src = depth_ptr<kTopInCtx>(c, a0, d);
+        float* dst = depth_ptr<kTopInCtx>(c, a0, d + 1);
         const int lg = ilog2(sz);
         if (vec && sz >= 4) {
           for (int q = lane; q < (w * sz) >> 2; q += kWarp) {
@@ -818,8 +831,8 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
         break;
       }
       case OP_G: {
-        const float* src = depth_ptr(c, a0, d);
-        float* dst = depth_ptr(c, a0, d + 1);
+        const float* src = depth_ptr<kTopInCtx>(c, a0, d);
+        float* dst = depth_ptr<kTopInCtx>(c, a0, d + 1);
         int* saved = c.Rstack + d * L;
         const bool rl = op.x & kFlagRL;
         if (rl) {
@@ -871,7 +884,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
         break;
       }
       case OP_RATE0: {
-        float* z = depth_ptr(c, a0, d);
+        float* z = depth_ptr<kTopInCtx>(c, a0, d);
         zero_dec_inplace(z, w * sz, sz, lane);
         d0_inplace(z, w * sz, lane);
         // adjacent-pair tree sum per path, in place with a growing stride
@@ -887,7 +900,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
         break;
       }
       case OP_LEAF: {
-        const float* a = depth_ptr(c, a0, d);
+        const float* a = depth_ptr<kTopInCtx>(c, a0, d);
         const int p = cand_path(lane, w);
         const uint32_t word = info_leaf<kNarrow>(p < w ? a[p] : 0.0f, w, L, lane, pm, R);
         if (lane == 0) c.beta[off] = word;
@@ -895,7 +908,7 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
         break;
       }
       case OP_REP: {
-        float* z = depth_ptr(c, a0, d);
+        float* z = depth_ptr<kTopInCtx>(c, a0, d);
         const int lgM = ilog2(sz);
         zero_dec_inplace(z, w * sz, sz, lane);
         const int pp = cand_path(lane, w);
@@ -926,11 +939,11 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
       case OP_RATE1_FAST:
       case OP_REP_FAST:
         if constexpr (kFast)
-          fast_node(c, (op.x & 0xff) == OP_RATE1_FAST, depth_ptr(c, a0, d), sz, off,
-                    depth_ptr(c, a0, d + 1), pm, R);
+          fast_node(c, (op.x & 0xff) == OP_RATE1_FAST, depth_ptr<kTopInCtx>(c, a0, d), sz, off,
+                    depth_ptr<kTopInCtx>(c, a0, d + 1), pm, R);
         break;
       case OP_SUBTREE:
-        subtree<kNarrow, kFast>(c, depth_ptr(c, a0, d), sz, (uint32_t)op.x >> 16, c.beta + off,
+        subtree<kNarrow, kFast>(c, depth_ptr<kTopInCtx>(c, a0, d), sz, (uint32_t)op.x >> 16, c.beta + off,
                                 w, pm, R);
         break;
       default:

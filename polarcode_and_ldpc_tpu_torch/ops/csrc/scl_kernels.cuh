@@ -62,8 +62,8 @@
 // the chunk's first F and G read it.  A chunk that is one rate-0 or REP node
 // works on it in place, so that one copy stays (chunk_top).  The last chunk,
 // whose state is read only, descends into a scratch plane in device memory
-// and reads it there.  The body kernel copies its input into the context
-// (scl::ctx_words, depth0).
+// and reads it there; the body kernel reads its input plane where it lies
+// (read only; the one rate-0 or REP chunk takes its copy the same way).
 //
 // Launch shape: the warps per block are planned from the SM's limits (the
 // occupancy of the compiled kernel at its registers and the context's shared
@@ -83,17 +83,18 @@
 // float planes, pend_a / pend_b [B][t][L][L] with P[l][j] = 1 where slot l
 // reads path j, and the chunk body hands its permutation back as such a plane.
 // The one-hot algebra selects exactly what the rank algebra selects, so these
-// modes run the rank device functions: on load, lane q of a warp finds the
-// column of the 1 in row q of the level planes (a rank vector), the step runs
-// on those rank vectors staged in shared memory (2 t L words after the chunk
-// context), and on the way out every level the step wrote (its descend resets,
-// its composes, the parked level) is stored as a plane of exact 1.0 / +0.0
-// again.  The one float that differs: a one-hot apply is the SUM
+// modes run the rank device functions: on load, the warp finds the column of
+// the 1 in each row of the level planes the step reads (a rank vector; by
+// 16-byte pieces, see onehot_load), the step runs on those rank vectors
+// staged in shared memory (2 t L words after the chunk context), and on the
+// way out every level the step wrote (its descend resets, its composes, the
+// parked level) is stored as a plane of exact 1.0 / +0.0 again, by 16-byte
+// pieces.  The one float that differs: a one-hot apply is the SUM
 // sum_j P[l][j] * x[j], so when the selected value is a zero, the result is
 // -0.0 only if every term is -0.0, i.e. if every row of the column has its
 // sign bit set, and +0.0 otherwise (the rank algebra's select keeps the
 // selected -0.0).  The descend's g reads its parent through pend_a that way
-// (onehot_value), so the level stacks equal the plain one-hot step's bit for
+// (onehot_zero), so the level stacks equal the plain one-hot step's bit for
 // bit.  Exact nodes only, full list width only, as in the JAX package.
 
 
@@ -141,38 +142,98 @@ __device__ __forceinline__ Stacks frame_stacks(const Geometry& g, int frame, flo
   return s;
 }
 
-// The value of a one-hot apply whose selected element is v, in a column
-// col[0], col[stride], ... of `rows` rows: v itself unless it is a zero; a
-// zero is -0.0 only if every row of the column has its sign bit set.
-__device__ __forceinline__ float onehot_value(float v, const float* col, int stride, int rows) {
-  if (v != 0.0f) return v;
+// The value of a one-hot apply whose selected element is a zero, in a column
+// col[0], col[stride], ... of `rows` rows: -0.0 only if every row of the
+// column has its sign bit set, else +0.0.  A selected zero is rare, so the
+// descend calls this out of its loop's line (noinline: the scan is not
+// compiled into the hot loop).
+__device__ __noinline__ float onehot_zero(const float* col, int stride, int rows) {
   for (int q = 0; q < rows; ++q)
     if (!(__float_as_uint(col[(size_t)q * stride]) >> 31)) return 0.0f;
   return -0.0f;
 }
 
-// One-hot planes [t][L][L] -> rank vectors [t][L]: entry q = (level, row) is
-// the column of the 1 in that row (every row of a pending holds exactly one).
-__device__ __forceinline__ void onehot_load(const float* planes, int* ranks, int t, int L,
-                                            int lane) {
-  for (int q = lane; q < t * L; q += kWarp) {
-    const float* row = planes + (size_t)q * L;
-    int r = 0;
-    for (int j = 0; j < L; ++j)
-      if (row[j] != 0.0f) r = j;
-    ranks[q] = r;
+// The planes of the one-hot pendings, by level bit: bits 0 .. t-1 are pend_a's
+// levels 1 .. t, bits t .. 2t-1 pend_b's, each an [L][L] float plane.  The
+// which-th set bit of m: clear the lowest bit `which` times.
+__device__ __forceinline__ int nth_level(unsigned m, int which) {
+  for (; which > 0; --which) m &= m - 1;
+  return __ffs(m) - 1;
+}
+template <typename T>
+__device__ __forceinline__ T* level_plane(T* pa, T* pb, int bit, int t, int L) {
+  return bit < t ? pa + (size_t)bit * L * L : pb + (size_t)(bit - t) * L * L;
+}
+// L a power of two of at least 4: the planes go by 16-byte pieces of four
+// columns of a row (piece p: row p >> (lgL - 2), columns 4p & (L - 1) on)
+__device__ __forceinline__ bool onehot_vectors(int L) { return L >= 4 && !(L & (L - 1)); }
+
+// Stage the one-hot planes of the levels of mask m as rank vectors: entry
+// (bit, row) of ranks [2t][L] is the last column of that row holding a nonzero
+// (every row of a pending holds one 1; a row with none reads 0).  With
+// vectors, consecutive lanes read consecutive 16-byte pieces of the selected
+// planes (coalesced), a lane keeps the last nonzero column of its four (or
+// -1), and the L / 4 lanes of a row take the max by xor-shuffles; else one
+// row a lane.  Only the levels a step reads are staged (read_levels): the
+// parent staged every level of both planes, one float a read, the lanes L * 4
+// bytes apart.
+__device__ __forceinline__ void onehot_load(const float* pa, const float* pb, int* ranks,
+                                            unsigned m, int t, int L, int lane) {
+  const int lgL = ilog2(L);
+  if (onehot_vectors(L)) {
+    const int lgP = 2 * lgL - 2, G = L >> 2, total = __popc(m) << lgP;
+    for (int base = 0; base < total; base += kWarp) {  // every lane runs the shuffles
+      const int idx = base + lane;
+      int v = -1, bit = 0, row = 0;
+      if (idx < total) {
+        bit = nth_level(m, idx >> lgP);
+        const int piece = idx & ((1 << lgP) - 1), col0 = (piece << 2) & (L - 1);
+        row = piece >> (lgL - 2);
+        const float4 x =
+            *reinterpret_cast<const float4*>(level_plane(pa, pb, bit, t, L) + (piece << 2));
+        v = x.w != 0.0f   ? col0 + 3
+            : x.z != 0.0f ? col0 + 2
+            : x.y != 0.0f ? col0 + 1
+            : x.x != 0.0f ? col0
+                          : -1;
+      }
+      for (int off = 1; off < G; off <<= 1) v = max(v, __shfl_xor_sync(kFull, v, off));
+      if (idx < total && !(idx & (G - 1))) ranks[bit * L + row] = max(v, 0);
+    }
+  } else {
+    for (int q = lane; q < __popc(m) * L; q += kWarp) {
+      const int which = q / L, row = q - which * L, bit = nth_level(m, which);
+      const float* r = level_plane(pa, pb, bit, t, L) + row * L;
+      int k = 0;
+      for (int j = 0; j < L; ++j)
+        if (r[j] != 0.0f) k = j;
+      ranks[bit * L + row] = k;
+    }
   }
   __syncwarp();
 }
 
-// Rank vectors -> one-hot planes, for the levels whose bit is set in `levels`.
-__device__ __forceinline__ void onehot_store(float* planes, const int* ranks, int levels, int t,
-                                             int L, int lane) {
-  for (int l = 0; l < t; ++l) {
-    if (!((levels >> l) & 1)) continue;
-    for (int idx = lane; idx < L * L; idx += kWarp) {
-      const int row = idx / L;
-      planes[(size_t)l * L * L + idx] = idx - row * L == ranks[l * L + row] ? 1.0f : 0.0f;
+// Rank vectors -> one-hot planes of exact 1.0 / +0.0, for the levels of mask
+// m: with vectors a 16-byte store a piece, row and columns by shift and mask;
+// else one float a store.
+__device__ __forceinline__ void onehot_store(float* pa, float* pb, const int* ranks, unsigned m,
+                                             int t, int L, int lane) {
+  const int lgL = ilog2(L);
+  if (onehot_vectors(L)) {
+    const int lgP = 2 * lgL - 2, total = __popc(m) << lgP;
+    for (int idx = lane; idx < total; idx += kWarp) {
+      const int bit = nth_level(m, idx >> lgP), piece = idx & ((1 << lgP) - 1);
+      const int r = ranks[bit * L + (piece >> (lgL - 2))] - ((piece << 2) & (L - 1));
+      *reinterpret_cast<float4*>(level_plane(pa, pb, bit, t, L) + (piece << 2)) =
+          make_float4(r == 0 ? 1.0f : 0.0f, r == 1 ? 1.0f : 0.0f, r == 2 ? 1.0f : 0.0f,
+                      r == 3 ? 1.0f : 0.0f);
+    }
+  } else {
+    const bool pow2 = !(L & (L - 1));
+    for (int q = lane; q < __popc(m) * L * L; q += kWarp) {
+      const int which = pow2 ? q >> (2 * lgL) : q / (L * L), e = q - which * L * L;
+      const int bit = nth_level(m, which), row = pow2 ? e >> lgL : e / L;
+      level_plane(pa, pb, bit, t, L)[e] = e - row * L == ranks[bit * L + row] ? 1.0f : 0.0f;
     }
   }
   __syncwarp();
@@ -182,8 +243,8 @@ __device__ __forceinline__ void onehot_store(float* planes, const int* ranks, in
 // parent[r][i] with the parent read through pend_a (row 0 when `inv`, the
 // LLRs at lo = 1) and the left bits through pend_b; a pending whose level bit
 // is set in one_a / one_b holds one lane, read by every slot.  dst is [w][M].
-// kOneHot: the parent is read as the one-hot apply's sum (onehot_value over
-// the parent's g.L rows).
+// kOneHot: the parent is read as the one-hot apply's sum (a selected zero's
+// sign by onehot_zero over the parent's g.L rows).
 template <bool kOneHot = false>
 __device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, const float* x,
                                           int lo, bool inv, float* dst, int lane, int w,
@@ -203,8 +264,8 @@ __device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, c
     const float sgn = 1.0f - 2.0f * (float)((bl[i] >> pb[pb_one ? 0 : l]) & 1u);
     float first = src[i], second = src[M + i];
     if (kOneHot && through) {
-      first = onehot_value(first, parent + i, 2 * M, g.L);
-      second = onehot_value(second, parent + M + i, 2 * M, g.L);
+      if (first == 0.0f) first = onehot_zero(parent + i, 2 * M, g.L);
+      if (second == 0.0f) second = onehot_zero(parent + M + i, 2 * M, g.L);
     }
     dst[idx] = second + sgn * first;
   }
@@ -237,48 +298,6 @@ __device__ __forceinline__ void for_each_frame(int B, F&& f) {
   }
 }
 
-// r_out: the rank vector [B][L] as long long, or (kOneHot) the one-hot plane
-// [B][L][L] as float.  kFast: a fast node program.
-template <bool kDev, bool kOneHot, bool kFast>
-__global__ void scl_chunk_body_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
-                                      int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
-                                      void* __restrict__ r_out,
-                                      const int4* __restrict__ prog, int n_ops, int has_R,
-                                      int B, int S, int L, int lgS, float* ctx_dev) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x % kWarp;
-  Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS, true)), L, S, lgS, lane,
-                   true);
-  SCL_PROF_DECL;
-  SCL_PROF_BIND(c);
-  for_each_frame<kDev>(B, [&](int frame) {
-    const float* a = alpha + (size_t)frame * L * S;
-    for (int i = lane; i < L * S; i += kWarp) c.a0[i] = a[i];
-    float pmr = lane < L ? pm[(size_t)frame * L + lane] : 0.0f;
-    int R = lane;
-    __syncwarp();
-    chunk_body<false, kFast>(c, c.a0, prog, n_ops, has_R, L, pmr, R);
-    if (kOneHot && lane < L) c.R[lane] = R;
-    __syncwarp();
-    int8_t* bo = beta_out + (size_t)frame * L * S;
-    for (int idx = lane; idx < L * S; idx += kWarp) {
-      const int l = idx >> lgS, i = idx & (S - 1);
-      bo[idx] = (int8_t)((c.beta[i] >> l) & 1u);
-    }
-    if (lane < L) pm_out[(size_t)frame * L + lane] = pmr;
-    if (kOneHot) {
-      float* ro = static_cast<float*>(r_out) + (size_t)frame * L * L;
-      for (int idx = lane; idx < L * L; idx += kWarp) {
-        const int row = idx / L;
-        ro[idx] = idx - row * L == c.R[row] ? 1.0f : 0.0f;
-      }
-    } else if (lane < L) {
-      static_cast<long long*>(r_out)[(size_t)frame * L + lane] = R;
-    }
-  });
-  SCL_PROF_FLUSH(c);
-}
-
 // The arguments of one chunk step, as a launch passes them or as the
 // whole-decode kernel builds them from a row of its step table (at full
 // width); the live widths and one-lane masks are read by a narrow step only.
@@ -294,9 +313,124 @@ __device__ __forceinline__ float* chunk_top(const Ctx& c, float* top, const int4
                                             int n_ops, int w) {
   const int kind = __ldg(&prog->x) & 0xff;
   if (n_ops != 1 || (kind != OP_RATE0 && kind != OP_REP)) return top;
-  for (int i = c.lane; i < w * c.S; i += kWarp) c.a0[i] = top[i];
+  for (int i = c.lane; i < w * c.S; i += kWarp) c.alpha[i] = top[i];
   __syncwarp();
-  return c.a0;
+  return c.alpha;
+}
+
+// The body kernel's outputs of one frame, from the packed partial sums in
+// c.beta and the metrics and rank vector in the lanes: beta_out [L][S] int8,
+// pm_out [L], and r_out, the rank vector [L] as long long or (kOneHot) the
+// one-hot plane [L][L] as float.  beta by 16-byte stores when S >= 16: piece
+// k of the L S / 16 is path l = k mod L (path fastest: the eight lanes of a
+// 16-byte shared-memory read phase share the piece's words, L >= 8), 16
+// positions from 16 (k / L); __byte_perm gathers byte l / 8 of four words, a
+// shift and mask leaves one 0 / 1 byte a position (root_out's runs): L S / 512
+// stores a lane against L S / 32 byte stores, each a shift of a shared word.
+// The one-hot plane by 16-byte stores of four exact 1.0 / +0.0 (piece v: row
+// v >> (lgL - 2), columns 4v & (L - 1) on), the row's rank shuffled from its
+// lane, no division; one float a store when L < 4 or not a power of two.
+template <bool kOneHot>
+__device__ __forceinline__ void body_out(const Ctx& c, int8_t* beta_out, float* pm_out,
+                                         void* r_out, int L, int S, int lgS, float pmr, int R) {
+  const int lane = c.lane, lgL = ilog2(L);
+  const bool pow2 = !(L & (L - 1));
+  if (S >= 16 && !(((uintptr_t)beta_out | (uintptr_t)c.beta) & 15u)) {
+#pragma unroll 1
+    for (int k = lane; k < (L * S) >> 4; k += kWarp) {
+      const int ib = pow2 ? k >> lgL : k / L, l = k - ib * L;
+      const uint4* w = reinterpret_cast<const uint4*>(c.beta + 16 * ib);
+      const uint32_t sel = (uint32_t)((l >> 3) | ((4 + (l >> 3)) << 4));
+      uint32_t x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = w[q];
+        x[q] = (__byte_perm(__byte_perm(v.x, v.y, sel), __byte_perm(v.z, v.w, sel), 0x5410) >>
+                (l & 7)) &
+               0x01010101u;
+      }
+      *reinterpret_cast<uint4*>(beta_out + (size_t)l * S + 16 * ib) =
+          make_uint4(x[0], x[1], x[2], x[3]);
+    }
+  } else {
+    for (int idx = lane; idx < L * S; idx += kWarp)
+      beta_out[idx] = (int8_t)((c.beta[idx & (S - 1)] >> (idx >> lgS)) & 1u);
+  }
+  if (lane < L) pm_out[lane] = pmr;
+  if (!kOneHot) {
+    if (lane < L) static_cast<long long*>(r_out)[lane] = R;
+    return;
+  }
+  float* ro = static_cast<float*>(r_out);
+  if (onehot_vectors(L)) {
+    const int n = (L * L) >> 2;
+    for (int base = 0; base < n; base += kWarp) {  // every lane runs the shuffle
+      const int v = base + lane;
+      const int r = __shfl_sync(kFull, R, (v >> (lgL - 2)) & (kWarp - 1)) - ((v << 2) & (L - 1));
+      if (v < n)
+        *reinterpret_cast<float4*>(ro + 4 * v) =
+            make_float4(r == 0 ? 1.0f : 0.0f, r == 1 ? 1.0f : 0.0f, r == 2 ? 1.0f : 0.0f,
+                        r == 3 ? 1.0f : 0.0f);
+    }
+  } else {
+    for (int base = 0; base < L * L; base += kWarp) {
+      const int idx = base + lane, row = pow2 ? idx >> lgL : idx / L;
+      const int r = __shfl_sync(kFull, R, row & (kWarp - 1));
+      if (idx < L * L) ro[idx] = idx - row * L == r ? 1.0f : 0.0f;
+    }
+  }
+}
+
+// K5: one chunk body a frame, on its input plane where it lies in device
+// memory (read only, as the chunk step reads level t; a chunk that is one
+// rate-0 or REP node takes a copy, chunk_top), on the chunk step's context:
+// 4,928 B a flagship frame, rank or one-hot, against 9,024 with a top plane
+// of its own (25 warps per SM, 4096 frames in 1.24 waves).  r_out: the rank
+// vector [B][L] as long long, or (kOneHot) the one-hot plane [B][L][L] as
+// float.  kFast: a fast node program.  The shared-memory variants keep to 64
+// registers: 32 warps per SM, 4096 flagship frames in one wave (132 SMs); the
+// device-memory ones to 128.  The fast instance at 64 spilled the input
+// plane's address (8 B, read back at each depth-0 op: ptxas, nvdisasm
+// --print-line-info), so it keeps that address in its context (ctx_top); held
+// to 72 registers instead it ran at 28 warps per SM, 1.11 waves, 0.95x its
+// parent (NVIDIA H100 80GB HBM3, 700 W, tools/scl_kernel_ab.py).
+template <bool kDev, bool kOneHot, bool kFast>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 4)
+    scl_chunk_body_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
+                          int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
+                          void* __restrict__ r_out, const int4* __restrict__ prog, int n_ops,
+                          int has_R, int B, int S, int L, int lgS, float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(L, S, lgS)), L, S, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
+  for_each_frame<kDev>(B, [&](int frame) {
+    SCL_PROF_T(t_frame);
+    // written only by a chunk that is one rate-0 or REP node, which gets a copy
+    float* top = chunk_top(c, const_cast<float*>(alpha) + (size_t)frame * (size_t)(L * S), prog,
+                           n_ops, L);
+    float pmr = lane < L ? pm[(size_t)frame * (size_t)L + lane] : 0.0f;
+    int R = lane;
+    if (kFast && lane == 0) {  // the top plane's address, out of the registers
+      c.R[0] = (int)(uint32_t)(uintptr_t)top;
+      c.R[1] = (int)(uint32_t)((uintptr_t)top >> 32);
+    }
+    __syncwarp();
+    SCL_PROF_ADD(c, PROF_COPY_IN, t_frame);
+    SCL_PROF_T(t_body);
+    chunk_body<false, kFast, kFast>(c, top, prog, n_ops, has_R, L, pmr, R);
+    SCL_PROF_ADD(c, PROF_BODY, t_body);
+    SCL_PROF_T(t_out);
+    body_out<kOneHot>(c, beta_out + (size_t)frame * (size_t)(L * S),
+                      pm_out + (size_t)frame * (size_t)L,
+                      kOneHot ? (void*)(static_cast<float*>(r_out) + (size_t)frame * (size_t)(L * L))
+                              : (void*)(static_cast<long long*>(r_out) + (size_t)frame * (size_t)L),
+                      L, S, lgS, pmr, R);
+    SCL_PROF_ADD(c, PROF_OUT, t_out);
+    SCL_PROF_ADD(c, PROF_STEP, t_frame);
+  });
+  SCL_PROF_FLUSH(c);
 }
 
 // The parts of one chunk step of one frame: descend -> body -> pending
@@ -603,7 +737,7 @@ __device__ __forceinline__ void last_ascend(const Ctx& c, uint32_t* root, const 
 // per SM, and 4096 frames took 1.83 waves.
 __host__ __device__ inline int last_root_words(int L, int S, int N) { return N > L * S ? N : 0; }
 __host__ __device__ inline int last_ctx_words(int L, int S, int lgS, int N, int t, bool onehot) {
-  return ctx_words(L, S, lgS, false) + last_root_words(L, S, N) + (onehot ? 2 * t * L : 0);
+  return ctx_words(L, S, lgS) + last_root_words(L, S, N) + (onehot ? 2 * t * L : 0);
 }
 
 // The last chunk of one frame, at full width: one g at level t into `top`
@@ -636,7 +770,7 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, const Geometry& g,
   outputs_of(u, pm_out);
   // the root plane: the context's alpha region, else its own after the context
   const int rw = last_root_words(L, g.S, g.N);
-  uint32_t* root = reinterpret_cast<uint32_t*>(c.a0 + (rw ? ctx_words(L, g.S, g.lgS, false) : 0));
+  uint32_t* root = reinterpret_cast<uint32_t*>(c.alpha + (rw ? ctx_words(L, g.S, g.lgS) : 0));
   last_ascend<true>(c, root, g, frame_stacks_of(), pmr, R, u, pm_out, log2N);
   SCL_PROF_ADD(c, PROF_STEP, t_frame);
 }
@@ -649,8 +783,34 @@ __device__ __forceinline__ void written_levels(const StepArgs& a, int t, int* la
   *lb = a.mask_b | (1 << (t - a.j - 1));
 }
 
+// The levels a full-width chunk step reads a pending of before it writes it:
+// pend_a at the parent of the descend's g (level lo - 1) when the g reads
+// through it, and at the composed levels the descend did not reset (it resets
+// lo .. t first); pend_b at the g's level lo, the composed levels, and the
+// ascend's j levels t - j + 1 .. t.  Chunk 0 (k == t) reads no pending in its
+// descend.  Narrow and one-lane masks do not apply: one-hot is full width.
+__device__ __forceinline__ void read_levels(const StepArgs& a, int t, int* ra, int* rb) {
+  const int full = (1 << t) - 1, ascend = full & ~((1 << (t - a.j)) - 1);
+  if (a.k == t) {
+    *ra = 0;
+    *rb = a.mask_b | ascend;
+    return;
+  }
+  const int lo = t - a.k, reset = full & ~((1 << (lo - 1)) - 1);
+  *ra = (lo > 1 && !a.inv ? 1 << (lo - 2) : 0) | (a.mask_a & ~reset);
+  *rb = (1 << (lo - 1)) | a.mask_b | ascend;
+}
+
+// The levels the last chunk reads: pend_a at the parent of its g (level t -
+// 1), every pend_b (its ascend to the root); as level bits of onehot_load.
+__device__ __forceinline__ unsigned last_read_levels(int t) {
+  return (t > 1 ? 1u << (t - 2) : 0u) | (((1u << t) - 1u) << t);
+}
+
 // kOneHot: pend_a / pend_b are the one-hot planes [B][t][L][L] (float); the
-// warp stages their rank vectors after its chunk context.  kFast: a fast node
+// warp stages the rank vectors of the levels the step reads (read_levels)
+// after its chunk context and stores the levels it wrote (2 t <= 32 levels
+// in one bit mask; the launcher refuses more).  kFast: a fast node
 // program (full width, rank vectors), compiled as instances of its own so
 // that the exact ones carry no fast code.
 // The shared-memory variants keep to 64 registers: 32 warps per SM, so that
@@ -663,9 +823,9 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
                                       float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  const int cw = ctx_words(g.L, g.S, g.lgS, false), tl = g.t * g.L;
+  const int cw = ctx_words(g.L, g.S, g.lgS), tl = g.t * g.L;
   float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + (kOneHot ? 2 * tl : 0));
-  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, false);
+  Ctx c = make_ctx(base, g.L, g.S, lane);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
   int* ranks = reinterpret_cast<int*>(base + cw);
@@ -674,26 +834,33 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
     float* pa_planes = reinterpret_cast<float*>(pend_a) + (size_t)frame * tl * g.L;
     float* pb_planes = reinterpret_cast<float*>(pend_b) + (size_t)frame * tl * g.L;
     if (kOneHot) {
-      onehot_load(pa_planes, ranks, g.t, g.L, lane);
-      onehot_load(pb_planes, ranks + tl, g.t, g.L, lane);
+      SCL_PROF_T(t_load);
+      int ra, rb;
+      read_levels(a, g.t, &ra, &rb);
+      onehot_load(pa_planes, pb_planes, ranks, (unsigned)ra | ((unsigned)rb << g.t), g.t, g.L,
+                  lane);
       st.PA = ranks;
       st.PB = ranks + tl;
+      SCL_PROF_ADD(c, PROF_ONEHOT_LOAD, t_load);
     }
     chunk_step<kNarrow, kOneHot, kFast>(c, g, st, llr + (size_t)frame * g.N,
                                         pm + (size_t)frame * g.L, prog, a);
     if (kOneHot) {
+      SCL_PROF_T(t_store);
       __syncwarp();
       int la, lb;
       written_levels(a, g.t, &la, &lb);
-      onehot_store(pa_planes, ranks, la, g.t, g.L, lane);
-      onehot_store(pb_planes, ranks + tl, lb, g.t, g.L, lane);
+      onehot_store(pa_planes, pb_planes, ranks, (unsigned)la | ((unsigned)lb << g.t), g.t, g.L,
+                   lane);
+      SCL_PROF_ADD(c, PROF_ONEHOT_STORE, t_store);
     }
   });
   SCL_PROF_FLUSH(c);
 }
 
-// kOneHot: the pendings are one-hot planes, staged as rank vectors after the
-// root plane.  kFast: a fast node program.  The state is read only; `top` is
+// kOneHot: the pendings are one-hot planes, the levels the last chunk reads
+// (last_read_levels) staged as rank vectors after the root plane.  kFast: a
+// fast node program.  The state is read only; `top` is
 // a scratch of [B][L][S] floats.  The shared-memory variants keep to 64
 // registers, as the chunk step: 32 warps per SM, so that 4096 flagship frames
 // are one wave (132 SMs); the device-memory ones to 128 (16 warps per SM).
@@ -707,19 +874,20 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 4)
                           int log2N, int one_a, int one_b, float* ctx_dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
-  const int cw = ctx_words(g.L, g.S, g.lgS, false), rw = last_root_words(g.L, g.S, g.N);
+  const int cw = ctx_words(g.L, g.S, g.lgS), rw = last_root_words(g.L, g.S, g.N);
   const int tl = g.t * g.L;
   float* base = ctx_base<kDev>(smem_raw, ctx_dev, cw + rw + (kOneHot ? 2 * tl : 0));
-  Ctx c = make_ctx(base, g.L, g.S, g.lgS, lane, false);
+  Ctx c = make_ctx(base, g.L, g.S, lane);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
   int* ranks = reinterpret_cast<int*>(base + cw + rw);
   for_each_frame<kDev>(g.B, [&](int frame) {
     if (kOneHot) {
-      onehot_load(reinterpret_cast<const float*>(pend_a) + (size_t)frame * tl * g.L, ranks,
-                  g.t, g.L, lane);
-      onehot_load(reinterpret_cast<const float*>(pend_b) + (size_t)frame * tl * g.L,
-                  ranks + tl, g.t, g.L, lane);
+      SCL_PROF_T(t_load);
+      onehot_load(reinterpret_cast<const float*>(pend_a) + (size_t)frame * tl * g.L,
+                  reinterpret_cast<const float*>(pend_b) + (size_t)frame * tl * g.L, ranks,
+                  last_read_levels(g.t), g.t, g.L, lane);
+      SCL_PROF_ADD(c, PROF_ONEHOT_LOAD, t_load);
     }
     const auto stacks_of = [&]() {
       Stacks st = frame_stacks(g, frame, const_cast<float*>(alpha), const_cast<uint32_t*>(beta),
@@ -832,8 +1000,8 @@ __global__ void __launch_bounds__(8 * kWarp, 4)
   if (warp_frame() >= g.B) return;
   const int N = g.N, S = g.S, L = g.L, t = g.t;
   float* base = reinterpret_cast<float*>(smem_raw) +
-                (size_t)(threadIdx.x / kWarp) * ctx_words(L, S, g.lgS, false);
-  Ctx c = make_ctx(base, L, S, g.lgS, lane, false);
+                (size_t)(threadIdx.x / kWarp) * ctx_words(L, S, g.lgS);
+  Ctx c = make_ctx(base, L, S, lane);
   SCL_PROF_DECL;
   SCL_PROF_BIND(c);
   SCL_PROF_T(t_decode);
@@ -978,29 +1146,23 @@ cudaError_t configure(K smem_kernel, K dev_kernel, const float* ctx_dev, size_t 
   return allow_smem(smem_kernel, *smem);
 }
 
-// Bytes of shared memory one frame (one warp) of each kernel needs: the chunk
-// step, the last chunk and the one-launch decode keep no top plane (depth0 =
-// false), the body kernel does; the last chunk adds a root plane only when
-// the context's alpha region cannot hold it (last_ctx_words), and the one-hot
-// variants of the chunk step and the last chunk the 2 * t * L staged rank
-// vectors.  The launchers and the resource report both size the context
+// Bytes of shared memory one frame (one warp) of each kernel needs: the
+// chunk context (scl::ctx_words, no top plane: the body kernel and the
+// one-launch decode take just that); the last chunk adds a root plane only
+// when the context's alpha region cannot hold it (last_ctx_words), and the
+// one-hot variants of the chunk step and the last chunk the 2 * t * L staged
+// rank vectors.  The launchers and the resource report both size the context
 // from these.
-inline size_t smem_per_frame_bytes(int L, int S, int lgS, bool depth0) {
-  return 4 * (size_t)scl::ctx_words(L, S, lgS, depth0);
+inline size_t ctx_frame_bytes(int L, int S, int lgS, int, int) {
+  return 4 * (size_t)scl::ctx_words(L, S, lgS);
 }
 template <bool kOneHot>
 size_t step_frame_bytes(int L, int S, int lgS, int, int t) {
-  return smem_per_frame_bytes(L, S, lgS, false) + (kOneHot ? 8 * (size_t)t * L : 0);
+  return ctx_frame_bytes(L, S, lgS, 0, 0) + (kOneHot ? 8 * (size_t)t * L : 0);
 }
 template <bool kOneHot>
 size_t last_frame_bytes(int L, int S, int lgS, int N, int t) {
   return 4 * (size_t)last_ctx_words(L, S, lgS, N, t, kOneHot);
-}
-inline size_t body_frame_bytes(int L, int S, int lgS, int, int) {
-  return smem_per_frame_bytes(L, S, lgS, true);
-}
-inline size_t mega_frame_bytes(int L, int S, int lgS, int, int) {
-  return smem_per_frame_bytes(L, S, lgS, false);
 }
 
 // A compiled kernel variant, for a resource report: its name, its function

@@ -35,7 +35,7 @@ extern "C" int scl_last_chunk_launch(const float* llr, const float* alpha, const
   decltype(&scl_last_chunk_kernel<false, false, false>) kernel;
   size_t smem;
   int blocks, warps;
-  if (fast && onehot) return (int)cudaErrorInvalidValue;
+  if ((fast && onehot) || (onehot && 2 * t > 32)) return (int)cudaErrorInvalidValue;
   const size_t per_frame = 4 * (size_t)last_ctx_words(L, S, lgS, N, t, onehot);
   cudaError_t err =
       fast ? configure(&scl_last_chunk_kernel<false, false, true>,

@@ -40,7 +40,7 @@ static cudaError_t launch(const Steps& steps, const float* llr, float* llr_rev, 
                           const int* prog, int C, const Geometry& g, int log2N,
                           int warps_per_block, void* stream) {
   const auto kernel = &scl_decode_mega_kernel<Steps, kSingle>;
-  const size_t per_frame = mega_frame_bytes(g.L, g.S, g.lgS, g.N, g.t);
+  const size_t per_frame = ctx_frame_bytes(g.L, g.S, g.lgS, g.N, g.t);
   const int warps = plan_warps((const void*)kernel, per_frame, warps_per_block);
   const size_t smem = (size_t)warps * per_frame;
   cudaError_t err = allow_smem(kernel, smem);
@@ -82,11 +82,11 @@ extern "C" int scl_decode_mega_launch(const float* llr, float* llr_rev, float* a
 namespace {
 const KernelEntry kKernels[] = {
     {"scl_decode_mega", (const void*)&scl_decode_mega_kernel<ParamSteps, false>,
-     &mega_frame_bytes},
+     &ctx_frame_bytes},
     {"scl_decode_mega_single", (const void*)&scl_decode_mega_kernel<ParamSteps, true>,
-     &mega_frame_bytes},
+     &ctx_frame_bytes},
     {"scl_decode_mega_long", (const void*)&scl_decode_mega_kernel<DeviceSteps, false>,
-     &mega_frame_bytes},
+     &ctx_frame_bytes},
 };
 }  // namespace
 

@@ -210,12 +210,13 @@ class SCLBodyProgram:
 
 def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0,
                    depth0: bool = True) -> int:
-    """Bytes of shared memory one frame needs (mirrors ``scl::ctx_words``),
-    plus ``root_words`` for the last chunk's root plane and, for a one-hot
-    state of ``onehot_levels`` levels, the two pendings' rank vectors that
-    the one-hot kernels stage (``2 · levels · L`` words).  ``depth0=False``:
-    the chunk step's context, which reads the chunk's top plane from device
-    memory (``L · S`` words fewer)."""
+    """Bytes of shared memory one frame needs with ``depth0=False`` (mirrors
+    ``scl::ctx_words``: every kernel reads the chunk's top plane where it
+    lies in device memory), plus ``root_words`` for the last chunk's root
+    plane and, for a one-hot state of ``onehot_levels`` levels, the two
+    pendings' rank vectors that the one-hot kernels stage (``2 · levels · L``
+    words).  The default ``depth0=True`` adds a top plane of ``L · S`` words:
+    the size the device-memory threshold counts (``context_in_device_memory``)."""
     lgS = int(np.log2(S))
     return 4 * ((2 if depth0 else 1) * S * L + S + L * (2 + lgS + 1) + root_words
                 + 2 * onehot_levels * L)
@@ -243,24 +244,24 @@ def context_in_device_memory(L: int, S: int, root_words: int = 0,
     """Whether a per-chunk kernel keeps its chunk context in device memory:
     the context with its top plane (plus ``root_words`` for the last chunk's
     root plane, plus the staged rank vectors of ``onehot_levels`` one-hot
-    levels) does not fit one thread block's shared memory; the chunk step,
-    whose context has no top plane, takes the same threshold."""
+    levels) does not fit one thread block's shared memory; the kernels,
+    whose contexts have no top plane, take the same threshold."""
     return smem_per_frame(L, S, root_words, onehot_levels) > SMEM_LIMIT_BYTES
 
 
-def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels: int = 0,
-                  depth0: bool = True):
-    """``(warps per block, grid, scratch)`` of a per-chunk launch: the
-    context in shared memory (``scratch`` None, the grid covering the
-    batch, the warps per block the bound the kernel plans within), or in a
-    device-memory scratch of ``grid`` blocks of ``_DEVMEM_WARPS`` warps, one
-    context slice per warp, walking the frames.  The mode's threshold is the
-    context with its top plane (``context_in_device_memory``) for every
-    kernel: the chunk step's smaller context
-    (``depth0=False``, its size here) would fit one block at S=1024, L=32,
-    but at one warp per SM, which runs slower than the device-memory mode's
-    12 warps per SM (NVIDIA H100 80GB HBM3, 700 W, ``tools/scl_kernel_ab.py``)."""
-    per_frame = smem_per_frame(L, S, root_words, onehot_levels, depth0)
+def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels: int = 0):
+    """``(warps per block, grid, scratch)`` of a per-chunk launch on the
+    chunk step's context (no top plane: ``smem_per_frame(..., depth0=False)``,
+    every kernel reads its chunk's top plane in device memory): in shared
+    memory (``scratch`` None, the grid covering the batch, the warps per
+    block the bound the kernel plans within), or in a device-memory scratch
+    of ``grid`` blocks of ``_DEVMEM_WARPS`` warps, one context slice per
+    warp, walking the frames.  The mode's threshold is the context with its
+    top plane (``context_in_device_memory``): the smaller context would fit
+    one block at S=1024, L=32, but at one warp per SM, which runs slower than
+    the device-memory mode's 12 warps per SM (NVIDIA H100 80GB HBM3, 700 W,
+    ``tools/scl_kernel_ab.py``)."""
+    per_frame = smem_per_frame(L, S, root_words, onehot_levels, depth0=False)
     if not context_in_device_memory(L, S, root_words, onehot_levels):
         return _warps_per_block(per_frame, "a chunk context"), 0, None
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -339,6 +340,17 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
     L]`` → ``(beta [B, L, S] int8, pm' [B, L], R)`` with ``R`` a rank vector
     ``[B, L]`` int64, or a one-hot plane ``[B, L, L]`` float32 for a one-hot
     program.  Does not synchronise."""
+    beta, pm_out, r_out, ctx = launch_chunk_body(alpha, pm, program, "scl_body")
+    _count("scl_chunk_body", program, ctx)
+    return beta, pm_out, r_out
+
+
+def launch_chunk_body(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyProgram,
+                      library: str):
+    """The chunk body's launch through the launcher of ``library``
+    (``"scl_body"``, or its profiled variant ``"scl_body_profile"``),
+    uncounted: ``(beta, pm', R, device-memory context)`` (the context None:
+    in shared memory)."""
     B = alpha.shape[0] if alpha.dim() == 3 else -1
     L, S = program.L, program.S
     if B < 1:
@@ -347,7 +359,7 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
     _check_cuda_f32(pm, "pm", (B, L))
     dev = alpha.device
     warps, grid, ctx = _context_plan(L, S, 0, B, dev)
-    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 9 + [_P, _I, _P])
+    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 9 + [_P, _I, _P], library)
     beta = torch.empty((B, L, S), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, L), dtype=torch.float32, device=dev)
     r_out = (torch.empty((B, L, L), dtype=torch.float32, device=dev) if program.onehot
@@ -360,8 +372,7 @@ def scl_chunk_body_cuda(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyP
                   ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_body")
-    _count("scl_chunk_body", program, ctx)
-    return beta, pm_out, r_out
+    return beta, pm_out, r_out, ctx
 
 
 def scl_chunk_body(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyProgram):
@@ -603,8 +614,7 @@ def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
     s = state.sched
     B = state.pm.shape[0]
     dev = state.llr.device
-    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0,
-                                     depth0=False)
+    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0)
     lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 20 + [_P, _I, _P], library)
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
@@ -648,7 +658,7 @@ def launch_last_chunk(state: SCLState, spec: SCLStepSpec, library: str):
     B = state.pm.shape[0]
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, last_root_words(s.L, s.S, s.N), B, dev,
-                                     s.t if state.onehot else 0, depth0=False)
+                                     s.t if state.onehot else 0)
     lib, fn = _launcher("scl_last_chunk_launch", [_P] * 10 + [_I] * 14 + [_P, _I, _P], library)
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, s.L), dtype=torch.float32, device=dev)

@@ -192,18 +192,27 @@ def test_chunk_body_equals_jax_body(kind, S, L, phantoms, dtype):
     close(to_j(tp), jp, dtype)
 
 
-@pytest.mark.parametrize("kind,S,L", [("dense", 32, 2), ("rep", 64, 4), ("code", 32, 4)])
-def test_chunk_body_equals_pallas_body_interpreted(kind, S, L):
+@pytest.mark.parametrize("kind,S,L,perm", [
+    pytest.param("dense", 32, 2, "rank", id="dense-32-2"),
+    pytest.param("rep", 64, 4, "rank", id="rep-64-4"),
+    pytest.param("code", 32, 4, "rank", id="code-32-4"),
+    pytest.param("code", 32, 4, "onehot", id="code-32-4-onehot")])
+def test_chunk_body_equals_pallas_body_interpreted(kind, S, L, perm):
     """Against the TPU kernel itself, run in interpret mode on the CPU as the
-    JAX package's own tests run it."""
+    JAX package's own tests run it; ``onehot``: the R plane the one-hot body
+    hands back (the layout K5-onehot stores), bit for bit."""
     flags = pattern(kind, S, seed=7)
     alpha, pm = body_inputs(np.random.default_rng(S + L), L, S, 128, np.float32, True)
     kb, kp, kr = jax.jit(make_chunk_body_pallas(
-        flags, L, jnp.float32, interpret=True, perm_impl="rank"))(
+        flags, L, jnp.float32, interpret=True, perm_impl=perm))(
             jnp.asarray(alpha), jnp.asarray(pm))
-    tb, tp, tr = tscan._make_chunk_body(flags, L)(to_t(alpha), to_t(pm))
+    tb, tp, tr = tscan._make_chunk_body(flags, L, perm_impl=perm)(to_t(alpha), to_t(pm))
     assert np.array_equal(to_j(tb), np.asarray(kb))
-    assert np.array_equal(to_j(tr), np.asarray(kr))
+    if perm == "onehot":
+        assert tr.shape == (128, L, L) and tr.dtype == torch.float32
+        assert np.array_equal(to_j(tr).view(np.int32), np.asarray(kr).view(np.int32))
+    else:
+        assert np.array_equal(to_j(tr), np.asarray(kr))
     close(to_j(tp), kp, np.float32)
 
 

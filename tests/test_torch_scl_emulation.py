@@ -63,9 +63,16 @@ class Ctx:
         self.pm = torch.zeros((B, L), dtype=torch.float32)
         self.R = torch.zeros((B, L), dtype=torch.int64)
         self.Rstack = torch.zeros((B, self.lgS + 1, L), dtype=torch.int64)
+        self.top = None  # the chunk's top plane where it lies ([B, L·S]), else in alpha
 
     def depth_base(self, d):
         return self.L * (2 * self.S - ((2 * self.S) >> d))
+
+    def plane(self, d):
+        """The alpha plane at depth d and on (a view: writes go in place)."""
+        if d == 0 and self.top is not None:
+            return self.top
+        return self.alpha[:, self.depth_base(d):]
 
 
 def perm_word(w, r, L):
@@ -523,12 +530,12 @@ def chunk_body(c, ops, has_r, w=None):
     w = L if w is None else w
     for op, d, sz, off in ops.tolist():
         kind = op & 0xFF
-        base, nxt = c.depth_base(d), c.depth_base(d + 1)
+        nxt = c.depth_base(d + 1)
+        src = c.plane(d)
         if kind == OP_F:
             idx = np.arange(w * sz)
             l, i = idx // sz, idx % sz
-            c.alpha[:, nxt + idx] = f_minsum(c.alpha[:, base + l * 2 * sz + i],
-                                             c.alpha[:, base + l * 2 * sz + sz + i])
+            c.alpha[:, nxt + idx] = f_minsum(src[:, l * 2 * sz + i], src[:, l * 2 * sz + sz + i])
         elif kind == OP_G:
             if op & FLAG_RL:
                 c.Rstack[:, d, :w] = c.R[:, :w]
@@ -537,7 +544,6 @@ def chunk_body(c, ops, has_r, w=None):
             r = c.Rstack[:, d][:, l] if op & FLAG_RL else l[None, :].expand(c.pm.shape[0], -1)
             bit = (c.beta[:, off + i] >> l[None, :]) & 1
             sgn = 1.0 - 2.0 * bit.to(torch.float32)
-            src = c.alpha[:, base:]
             second = torch.gather(src, 1, r * 2 * sz + sz + i[None, :])
             first = torch.gather(src, 1, r * 2 * sz + i[None, :])
             c.alpha[:, nxt + idx] = second + sgn * first
@@ -551,7 +557,7 @@ def chunk_body(c, ops, has_r, w=None):
                 c.R[:, :w] = (torch.gather(saved, 1, c.R[:, :w]) if op & FLAG_RR
                               else saved[:, :w].clone())
         elif kind == OP_RATE0:
-            z = c.alpha[:, base:base + w * sz]  # a view: in place
+            z = src[:, :w * sz]  # a view: in place
             zero_dec_inplace(z, w * sz, sz)
             z[:] = _d0_d1(z)[0]
             s = 1
@@ -562,11 +568,11 @@ def chunk_body(c, ops, has_r, w=None):
             c.pm[:, :w] = c.pm[:, :w] + z[:, np.arange(w) * sz]
             c.beta[:, off:off + sz] = 0
         elif kind == OP_LEAF:
-            word = info_leaf(c, c.alpha[:, base:base + w].clone(), w)
+            word = info_leaf(c, src[:, :w].clone(), w)
             c.beta[:, off] = word
             w = min(2 * w, L)
         elif kind == OP_REP:
-            z = c.alpha[:, base:base + w * sz]
+            z = src[:, :w * sz]
             lgM = int(np.log2(sz))
             zero_dec_inplace(z, w * sz, sz)
             leaf_a = z[:, np.arange(w) * sz + sz - 1].clone()
@@ -587,12 +593,12 @@ def chunk_body(c, ops, has_r, w=None):
             c.beta[:, off:off + sz] = word[:, None]
             w = min(2 * w, L)
         elif kind == OP_RATE1_FAST:
-            rate1_fast(c, c.alpha[:, base:base + L * sz].clone(), sz, off)
+            rate1_fast(c, src[:, :L * sz].clone(), sz, off)
         elif kind == OP_REP_FAST:
-            rep_fast(c, c.alpha[:, base:base + L * sz].clone(), sz, off)
+            rep_fast(c, src[:, :L * sz].clone(), sz, off)
         elif kind == OP_SUBTREE:
             st = {"w": w}
-            c.beta[:, off:off + sz] = subtree(c, c.alpha[:, base:base + L * sz].clone(), sz,
+            c.beta[:, off:off + sz] = subtree(c, src[:, :L * sz].clone(), sz,
                                               op >> SUBTREE_SHIFT, st, bool(op & FLAG_FAST))
             w = st["w"]
         else:
@@ -601,14 +607,89 @@ def chunk_body(c, ops, has_r, w=None):
         c.R = torch.arange(L).expand(c.pm.shape[0], L).clone()
 
 
+def works_in_place(ops) -> bool:
+    """``chunk_top``'s rule: a chunk that is one rate-0 or REP node works on
+    its top plane in place, so it takes a copy in the context."""
+    return len(ops) == 1 and (int(ops[0][0]) & 0xFF) in (OP_RATE0, OP_REP)
+
+
+def byte_perm(a, b, sel):
+    """``__byte_perm(a, b, sel)`` on words held as int64: byte i of the result
+    is byte ``(sel >> 4 i) & 7`` of the eight bytes of a (0-3) and b (4-7)."""
+    out = torch.zeros_like(a)
+    for i in range(4):
+        k = (sel >> (4 * i)) & 7
+        out |= (((a if k < 4 else b) >> (8 * (k & 3))) & 0xFF) << (8 * i)
+    return out
+
+
+def beta_out_lanes(words, L, S):
+    """The body kernel's β stores lane by lane (``body_out``): piece k of the
+    L · S / 16 pieces is path ``l = k mod L`` (path fastest, so the lanes of a
+    16-byte shared-memory read phase share its words), positions ``16 (k / L)``
+    on; its 16 packed words' byte ``l / 8`` gathered four at a time by
+    ``__byte_perm``, a shift and mask leaves one 0 / 1 byte a position, one
+    16-byte store.  S < 16: one byte a store."""
+    B = words.shape[0]
+    out = torch.full((B, L * S), -1, dtype=torch.int64)
+    if S < 16:
+        for idx in range(L * S):
+            out[:, idx] = (words[:, idx % S] >> (idx // S)) & 1
+    else:
+        pieces = L * S // 16
+        for k in range(pieces):
+            ib, l = divmod(k, L)
+            sel = (l >> 3) | ((4 + (l >> 3)) << 4)
+            for q in range(4):
+                w = [words[:, 16 * ib + 4 * q + e] for e in range(4)]
+                x = byte_perm(byte_perm(w[0], w[1], sel), byte_perm(w[2], w[3], sel), 0x5410)
+                v = (x >> (l & 7)) & 0x01010101
+                for e in range(4):
+                    assert (out[:, l * S + 16 * ib + 4 * q + e] == -1).all()  # written once
+                    out[:, l * S + 16 * ib + 4 * q + e] = (v >> (8 * e)) & 0xFF
+    assert (out >= 0).all()  # every position written
+    return out.reshape(B, L, S).to(torch.int8)
+
+
+def _pow2_vectors(L) -> bool:
+    """The one-hot planes go by 16-byte pieces of four columns when L is a
+    power of two of at least 4 (row and column by shift and mask)."""
+    return L >= 4 and L & (L - 1) == 0
+
+
+def r_plane_lanes(R, L):
+    """The body kernel's one-hot R stores: piece v of row ``4v >> lg L``,
+    columns ``4v & (L − 1)`` on, the row's rank shuffled from lane row, four
+    exact 1.0 / +0.0 in one 16-byte store; else one float a store."""
+    B = R.shape[0]
+    out = torch.full((B, L * L), float("nan"))
+    if _pow2_vectors(L):
+        lg = L.bit_length() - 1
+        for v in range(L * L // 4):
+            idx = 4 * v
+            row, col0 = idx >> lg, idx & (L - 1)
+            for q in range(4):
+                out[:, idx + q] = (col0 + q == R[:, row]).float()
+    else:
+        for idx in range(L * L):
+            out[:, idx] = (idx % L == R[:, idx // L]).float()
+    return out.reshape(B, L, L)
+
+
 def emulate_body(program: SCLBodyProgram, alpha, pm):
+    """K5 as the kernel runs it: the body on the input plane where it lies (a
+    view: a write would show in ``alpha``), a chunk that is one rate-0 or REP
+    node on a copy in the context; β by 16-byte stores."""
     B, L, S = alpha.shape
     c = Ctx(B, L, S)
-    c.alpha[:, :L * S] = alpha.reshape(B, L * S)
+    flat = alpha.reshape(B, L * S)
+    if works_in_place(program.ops):
+        c.alpha[:, :L * S] = flat
+    else:
+        c.top = flat
     c.pm = pm.clone()
     chunk_body(c, program.ops, program.has_r)
-    beta = ((c.beta[:, None, :] >> torch.arange(L)[None, :, None]) & 1).to(torch.int8)
-    return beta, c.pm, c.R
+    return beta_out_lanes(c.beta, L, S), c.pm, c.R
 
 
 class Stacks:
@@ -1206,26 +1287,141 @@ def onehot_planes(ranks, L, dtype):
     return (ranks[..., None].to(torch.int64) == torch.arange(L)).to(dtype)
 
 
-def as_rank_state(state: SCLState) -> SCLState:
+def read_levels(spec, t):
+    """``read_levels`` of ``csrc/scl_kernels.cuh``: the level bits of pend_a
+    and pend_b that a full-width chunk step reads before it writes them.
+    pend_a: the parent's level lo − 1 when the g reads through it, and the
+    composed levels that the descend did not reset (it resets lo .. t);
+    pend_b: the g's level lo, the composed levels, and the ascend's j levels
+    t − j + 1 .. t.  Chunk 0 (k = t) reads no pending in its descend."""
+    full = (1 << t) - 1
+    ascend = full & ~((1 << (t - spec.j)) - 1)
+    if spec.k == t:
+        return 0, spec.mask_b | ascend
+    lo = t - spec.k
+    reset = full & ~((1 << (lo - 1)) - 1)
+    ra = (1 << (lo - 2) if lo > 1 and not spec.inv else 0) | (spec.mask_a & ~reset)
+    return ra, (1 << (lo - 1)) | spec.mask_b | ascend
+
+
+def written_levels(spec, t):
+    """``written_levels``: pend_a at the descend's resets and the composes,
+    pend_b at the composes and the parked level t − j."""
+    lo = 1 if spec.k == t else t - spec.k
+    return ((1 << t) - 1) & ~((1 << (lo - 1)) - 1) | spec.mask_a, spec.mask_b | 1 << (t - spec.j - 1)
+
+
+def _levels_of(m):
+    """The set bits of m, lowest first, as the lanes find them (the which-th
+    set bit: clear the lowest bit which times)."""
+    return [i for i in range(32) if (m >> i) & 1]
+
+
+def onehot_load_lanes(planes, m, L, ranks):
+    """``onehot_load`` lane by lane: ``planes [B, 2t, L·L]`` (pend_a's levels,
+    then pend_b's), the levels of bit mask m staged into ``ranks [B, 2t, L]``
+    (the others untouched).  Piece idx of the warp's walk is the which-th set
+    level's piece ``p`` of four floats (row ``4p >> lg L``, columns ``4p &
+    (L − 1)`` on: consecutive lanes, consecutive 16 bytes); a lane keeps the
+    last nonzero column of its four (or −1), the L / 4 lanes of a row take
+    the max by xor-shuffles, and the row's first lane writes it (0 if none:
+    the rule of a row scan).  L < 4 or not a power of two: a row scan a lane."""
+    B = planes.shape[0]
+    levels = _levels_of(m)
+    if not _pow2_vectors(L):
+        for bit in levels:
+            ranks[:, bit] = onehot_ranks(planes[:, bit].reshape(B, L, L))
+        return
+    P, lgL, G = L * L // 4, L.bit_length() - 1, L // 4
+    lgP = P.bit_length() - 1
+    total = len(levels) * P
+    for base in range(0, total, 32):
+        v, where = [], []
+        for lane in range(32):
+            idx = base + lane
+            if idx >= total:
+                v.append(torch.full((B,), -1, dtype=torch.int64))
+                where.append(None)
+                continue
+            bit, piece = levels[idx >> lgP], idx & (P - 1)
+            row, col0 = (4 * piece) >> lgL, (4 * piece) & (L - 1)
+            four = planes[:, bit, 4 * piece:4 * piece + 4]
+            last = torch.full((B,), -1, dtype=torch.int64)
+            for q in range(4):
+                last = torch.where(four[:, q] != 0, col0 + q, last)
+            v.append(last)
+            where.append((bit, row) if piece & (G - 1) == 0 else None)
+        off = 1
+        while off < G:
+            v = [torch.maximum(v[lane], v[lane ^ off]) for lane in range(32)]
+            off *= 2
+        for lane in range(32):
+            if where[lane] is not None:
+                ranks[:, where[lane][0], where[lane][1]] = v[lane].clamp(min=0).to(ranks.dtype)
+
+
+def onehot_store_lanes(planes, ranks, m, L):
+    """``onehot_store`` lane by lane: the levels of bit mask m written into
+    ``planes [B, 2t, L·L]`` from ``ranks [B, 2t, L]``, piece p (row and
+    columns by shift and mask) as four exact 1.0 / +0.0 in one 16-byte store;
+    L < 4 or not a power of two: one float a store."""
+    for bit in _levels_of(m):
+        r = ranks[:, bit].to(torch.int64)
+        if _pow2_vectors(L):
+            lgL = L.bit_length() - 1
+            for piece in range(L * L // 4):
+                row, col0 = (4 * piece) >> lgL, (4 * piece) & (L - 1)
+                for q in range(4):
+                    planes[:, bit, 4 * piece + q] = (col0 + q == r[:, row]).to(planes.dtype)
+        else:
+            for idx in range(L * L):
+                planes[:, bit, idx] = (idx % L == r[:, idx // L]).to(planes.dtype)
+
+
+# a staged rank vector the walk did not load: an index no gather can take
+_GARBAGE = 1 << 20
+
+
+def staged_rank_state(state: SCLState, ra: int, rb: int) -> SCLState:
+    """A rank state whose pendings are what the kernel stages from the
+    one-hot state: the levels of ra / rb by ``onehot_load_lanes``, every
+    other one garbage."""
+    s, B = state.sched, state.pm.shape[0]
+    t, L = s.t, s.L
+    planes = torch.cat([state.pend_a, state.pend_b], 1).reshape(B, 2 * t, L * L)
+    ranks = torch.full((B, 2 * t, L), _GARBAGE, dtype=torch.int32)
+    onehot_load_lanes(planes, ra | rb << t, L, ranks)
     out = state.clone()
     out.onehot = False
-    out.pend_a, out.pend_b = onehot_ranks(state.pend_a), onehot_ranks(state.pend_b)
+    out.pend_a, out.pend_b = ranks[:, :t].clone(), ranks[:, t:].clone()
     return out
 
 
 def emulate_step_onehot(state: SCLState, spec):
-    """The one-hot chunk step as the kernel walks it, on a one-hot state."""
-    t, L = state.sched.t, state.sched.L
-    work = as_rank_state(state)
+    """The one-hot chunk step as the kernel walks it, on a one-hot state: the
+    levels of ``read_levels`` staged, the rank walk with the one-hot zero
+    rule, the levels of ``written_levels`` stored."""
+    s, B = state.sched, state.pm.shape[0]
+    t, L = s.t, s.L
+    work = staged_rank_state(state, *read_levels(spec, t))
     emulate_step(work, spec, onehot=True)
     state.alpha, state.beta, state.pm = work.alpha, work.beta, work.pm
-    lo = 1 if spec.k == t else t - spec.k
-    la = set(range(lo - 1, t)) | {i for i in range(t) if (spec.mask_a >> i) & 1}
-    lb = {i for i in range(t) if (spec.mask_b >> i) & 1} | {t - spec.j - 1}
-    for i in la:
-        state.pend_a[:, i] = onehot_planes(work.pend_a[:, i], L, state.pend_a.dtype)
-    for i in lb:
-        state.pend_b[:, i] = onehot_planes(work.pend_b[:, i], L, state.pend_b.dtype)
+    la, lb = written_levels(spec, t)
+    planes = torch.cat([state.pend_a, state.pend_b], 1).reshape(B, 2 * t, L * L).clone()
+    onehot_store_lanes(planes, torch.cat([work.pend_a, work.pend_b], 1), la | lb << t, L)
+    state.pend_a = planes[:, :t].reshape(B, t, L, L).contiguous()
+    state.pend_b = planes[:, t:].reshape(B, t, L, L).contiguous()
+
+
+def last_read_levels(t):
+    """The levels the one-hot last chunk stages: pend_a of the parent of its
+    g (level t − 1), every pend_b (its ascend to the root)."""
+    return (1 << (t - 2) if t > 1 else 0), (1 << t) - 1
+
+
+def emulate_last_onehot(state: SCLState, spec):
+    return emulate_last(staged_rank_state(state, *last_read_levels(state.sched.t)), spec,
+                        onehot=True)
 
 
 def _assert_bits_equal(a: SCLState, b: SCLState, c):
@@ -1263,8 +1459,7 @@ def test_onehot_step_and_last_walk_equal_plain_by_bit_pattern(N, K, S, L, union)
         body_in = plain.to_plain()[0][sched.t - 1].contiguous()
         beta, pm, R = emulate_body(program, body_in, plain.pm.clone())
         want = program.plain(body_in, plain.pm.clone())
-        assert torch.equal(onehot_planes(R, L, torch.float32).view(torch.int32),
-                           want[2].view(torch.int32)), c
+        assert torch.equal(r_plane_lanes(R, L).view(torch.int32), want[2].view(torch.int32)), c
         assert torch.equal(beta, want[0]) and torch.equal(pm, want[1])
         scl_cuda.scl_chunk_step(plain, spec)  # on the CPU: the plain one-hot step
         scl_cuda.scl_chunk_step(rank, rank_steps[c])
@@ -1275,11 +1470,155 @@ def test_onehot_step_and_last_walk_equal_plain_by_bit_pattern(N, K, S, L, union)
     if N == 256:  # the zero rule is exercised, not vacuous
         assert zero_signs > 0
     u0, p0 = scl_cuda.scl_last_chunk(plain, last)
-    u1, p1 = emulate_last(as_rank_state(emu), last, onehot=True)
+    u1, p1 = emulate_last_onehot(emu, last)
     assert torch.equal(u0, u1) and torch.equal(p0, p1)
     u2, p2 = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-fused",
                                    live_width=False, device="cpu")(llr)
     assert torch.equal(u0, u2) and torch.equal(p0, p2)
+
+
+def _nan_unread(state: SCLState, ra: int, rb: int) -> SCLState:
+    """A copy of a one-hot state with NaN in every plane outside ra / rb."""
+    out = state.clone()
+    for i in range(state.sched.t):
+        if not (ra >> i) & 1:
+            out.pend_a[:, i] = float("nan")
+        if not (rb >> i) & 1:
+            out.pend_b[:, i] = float("nan")
+    return out
+
+
+@pytest.mark.parametrize("N,K,S,L,union", [(128, 64, 16, 4, False), (256, 128, 32, 8, True),
+                                           (64, 40, 8, 8, False), (256, 128, 8, 4, True)])
+def test_onehot_step_and_last_stage_only_the_levels_they_read(N, K, S, L, union):
+    """K3-onehot and K4-onehot stage only ``read_levels``: with NaN in every
+    plane the step does not read, the walk equals the plain one-hot step on
+    every chunk by bit pattern, the planes it writes equal the plain step's,
+    and those it neither reads nor writes stay as they were; the last chunk
+    with NaN outside its levels equals the plain last chunk."""
+    sched = build_scl_schedule(N, _code(N, K), L, S)
+    t = sched.t
+    steps, last = make_step_specs(
+        sched, [SCLBodyProgram(f, L, perm_impl="onehot") for f in sched.unique_flags], union=union)
+    rng = np.random.default_rng(N + S + L + 3)
+    llr = torch.from_numpy(rng.integers(-3, 4, (6, N)).astype(np.float32))
+    llr[:3] = torch.from_numpy((1.5 + 2 * rng.standard_normal((3, N))).astype(np.float32))
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64)
+    plain = SCLState(sched, llr[:, rev].contiguous(), "onehot")
+    staged = 0
+    for c, spec in enumerate(steps):
+        ra, rb = read_levels(spec, t)
+        la, lb = written_levels(spec, t)
+        staged += bin(ra).count("1") + bin(rb).count("1")
+        emu = _nan_unread(plain, ra, rb)
+        before = emu.clone()
+        scl_cuda.scl_chunk_step(plain, spec)  # on the CPU: the plain one-hot step
+        emulate_step_onehot(emu, spec)
+        for name in ("alpha", "beta", "pm"):
+            x, y = getattr(emu, name), getattr(plain, name)
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32)), (name, c)
+        for name, written in (("pend_a", la), ("pend_b", lb)):
+            for i in range(t):
+                want = getattr(plain if (written >> i) & 1 else before, name)[:, i]
+                got = getattr(emu, name)[:, i]
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (name, i, c)
+    assert staged < 2 * t * len(steps)  # fewer levels than the whole state
+    u0, p0 = scl_cuda.scl_last_chunk(plain, last)
+    u1, p1 = emulate_last_onehot(_nan_unread(plain, *last_read_levels(t)), last)
+    assert torch.equal(u0, u1) and torch.equal(p0, p1)
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32])
+def test_onehot_vector_load_and_store_lanes(L):
+    """``onehot_load`` / ``onehot_store`` lane by lane (16-byte pieces, the
+    row's lanes combined by xor-shuffles, row and column by shift and mask)
+    against the row scan (``onehot_ranks``) and the plane (``onehot_planes``)
+    on three levels of each pending, two of them selected; rows with no 1 and
+    with stray nonzeros take the row scan's rule (the last nonzero, else 0)."""
+    t, B = 3, 4
+    g = np.random.default_rng(L)
+    ranks = torch.from_numpy(g.integers(0, L, (B, 2 * t, L)).astype(np.int32))
+    planes = onehot_planes(ranks, L, torch.float32).reshape(B, 2 * t, L * L)
+    odd = planes.clone().reshape(B, 2 * t, L, L)
+    odd[0, 1, 0] = 0.0                      # a row with no 1
+    odd[1, 1, -1, 0] = -0.0                 # a stray -0.0 counts as zero
+    odd[2, 1, 0, L // 2] = float("nan")     # a stray NaN counts as nonzero
+    odd = odd.reshape(B, 2 * t, L * L)
+    m = 0b100110  # pend_a levels 1, 2; pend_b level 2
+    for src in (planes, odd):
+        got = torch.full_like(ranks, _GARBAGE)
+        onehot_load_lanes(src, m, L, got)
+        want = onehot_ranks(src.reshape(B, 2 * t, L, L))
+        for bit in range(2 * t):
+            assert torch.equal(got[:, bit], want[:, bit] if (m >> bit) & 1
+                               else torch.full_like(got[:, bit], _GARBAGE)), (bit, L)
+    out = torch.full_like(planes, float("nan"))
+    onehot_store_lanes(out, ranks, m, L)
+    for bit in range(2 * t):
+        want = planes[:, bit] if (m >> bit) & 1 else torch.full_like(planes[:, bit], float("nan"))
+        assert torch.equal(out[:, bit].view(torch.int32), want.view(torch.int32)), (bit, L)
+
+
+@pytest.mark.parametrize("kind,S,L", [("frozen", 32, 4), ("rep", 32, 4), ("mixed", 64, 8),
+                                      ("3", 128, 8), ("mixed", 16, 32), ("mixed", 8, 4),
+                                      ("mixed", 32, 3)])
+def test_body_walk_on_its_input_plane_and_vector_outputs(kind, S, L):
+    """K5 on its input plane where it lies: the input unchanged afterwards,
+    and a chunk that is one rate-0 or REP node (which works in place) on a
+    copy, without which its input would change; β by 16-byte stores (S < 16:
+    by bytes) and the one-hot R plane by 16-byte stores (L not a power of
+    two: by floats) equal the plain rank and one-hot bodies."""
+    rng = np.random.default_rng(zlib.crc32(repr((kind, S, L)).encode()))
+    flags = _pattern(kind, S, rng)
+    program = SCLBodyProgram(flags, L)
+    alpha, pm = _body_inputs(rng, 5, L, S, "ties" if L == 8 else "random")
+    keep = alpha.clone()
+    beta, pm1, R = emulate_body(program, alpha, pm)
+    assert torch.equal(alpha.view(torch.int32), keep.view(torch.int32))
+    assert works_in_place(program.ops) == (kind in ("frozen", "rep"))
+    if works_in_place(program.ops):
+        c = Ctx(5, L, S)
+        c.top, c.pm = alpha.clone().reshape(5, L * S), pm.clone()
+        chunk_body(c, program.ops, program.has_r)
+        assert not torch.equal(c.top, keep.reshape(5, L * S))
+    b0, p0, r0 = program.plain(alpha, pm)
+    assert torch.equal(beta, b0) and torch.equal(pm1, p0) and torch.equal(R, r0)
+    b2, p2, plane = SCLBodyProgram(flags, L, perm_impl="onehot").plain(alpha, pm)
+    assert torch.equal(b2, b0) and torch.equal(p2, p0)
+    assert torch.equal(r_plane_lanes(R, L).view(torch.int32), plane.view(torch.int32))
+
+
+class _Planned(Exception):
+    pass
+
+
+def test_body_context_plan(monkeypatch):
+    """The body kernel's context is the chunk step's (no top plane: it reads
+    its input where it lies): 4,928 B a flagship frame, rank and one-hot (the
+    one-hot R plane is written from the lanes' registers, nothing staged),
+    so 32 warps per SM fit (at most 7,168 B); the device-memory threshold is
+    still the context with its top plane, so no code changes mode."""
+    seen = []
+
+    def plan(L, S, root_words, B, device, onehot_levels=0):  # _context_plan's sizes
+        seen.append((scl_cuda.smem_per_frame(L, S, root_words, onehot_levels, depth0=False),
+                     scl_cuda.context_in_device_memory(L, S, root_words, onehot_levels)))
+        raise _Planned
+
+    monkeypatch.setattr(scl_cuda, "_check_cuda_f32", lambda *args: None)
+    monkeypatch.setattr(scl_cuda, "_context_plan", plan)
+    flags = _pattern("5", 128, None)
+    for L, S, perm in ((8, 128, "rank"), (8, 128, "onehot"), (32, 1024, "rank"), (32, 512, "rank")):
+        program = SCLBodyProgram(flags if S == 128 else np.zeros(S, bool), L, perm_impl=perm)
+        with pytest.raises(_Planned):
+            scl_cuda.launch_chunk_body(torch.zeros(2, L, S), torch.zeros(2, L), program,
+                                       "scl_body")
+    assert seen[0] == seen[1] == (4928, False) and 4928 <= 7168
+    # the modes of the top-plane context: S=1024, L=32 in device memory (its
+    # 136,832 B without the top plane would fit one block, at one warp an SM)
+    assert seen[2] == (scl_cuda.smem_per_frame(32, 1024, depth0=False), True)
+    assert seen[3] == (scl_cuda.smem_per_frame(32, 512, depth0=False), False)
+    assert seen[2][0] < scl_cuda.SMEM_LIMIT_BYTES < scl_cuda.smem_per_frame(32, 1024)
 
 
 def test_onehot_state_roundtrip_and_union_specs():

@@ -17,9 +17,10 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
 
 * K3 (``scl_chunk_step``) at each of the seven chunk positions on the state
   the kernel decode reaches, full width, and its mean; K3 with fast node
-  programs, with one-hot pendings, the two narrow (live-width) launches of
-  the live decode; K4 in the same three modes; K5 on the eight chunk
-  patterns, with fast and with one-hot programs too; K6 (the one-launch decode);
+  programs, with one-hot pendings (each position and the mean), the two
+  narrow (live-width) launches of the live decode; K4 in the same three
+  modes; K5 on each of the eight chunk patterns and the mean, with fast and
+  with one-hot programs too; K6 (the one-launch decode);
 * whole decodes of the flagship (``unroll-kernel``, live width, CRC-free
   decoder of ``make_scl_decoder``) and of JAX's SCL-8 benchmark shape (8192
   frames, chunk 128, rank and one-hot);
@@ -38,12 +39,13 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
   launch over K3's, K4-fast over K4, K5-fast over K5, the whole fast decode
   over the exact one;
 * the stage profile of K3 at flagship positions 3 and 4 (exact and fast node
-  programs) and at the large-code
+  programs, and one-hot pendings with their staging apart) and at the large-code
   decode's positions 16 and 40 where the tree has the
   profiled build (``ops/build.py`` ``VARIANTS``), of K6 over the whole
   flagship decode where it has ``scl_mega_profile``, of K4 and K4-fast on the
   state before the flagship's last chunk where it has ``scl_last_profile``,
-  and the kernels'
+  of K5, K5-fast and K5-onehot on the last chunk's pattern where it has
+  ``scl_body_profile``, and the kernels'
   registers, spills and resident warps per SM where it has
   ``scl_cuda.kernel_resources``.
 
@@ -259,6 +261,7 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
         pm0 = -torch.from_numpy(np.abs(g.standard_normal((B, L))).astype(np.float32)).to(dev)
         body.append(time_ms(lambda: scl_chunk_body_cuda(alpha, pm0, prog)))
         note(*scl_chunk_body_cuda(alpha, pm0, prog))
+    out["K5 per pattern"] = body
     out["K5 mean over patterns"] = sum(body) / len(body)
     for tag, progs in (("-fast", [SCLBodyProgram(f, L, "fast") for f in sched.unique_flags]),
                        ("-onehot", oprog)):
@@ -269,6 +272,7 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
             pm0 = -torch.from_numpy(np.abs(g.standard_normal((B, L))).astype(np.float32)).to(dev)
             times.append(time_ms(lambda: scl_chunk_body_cuda(alpha, pm0, prog)))
             note(*scl_chunk_body_cuda(alpha, pm0, prog))
+        out[f"K5{tag} per pattern"] = times
         out[f"K5{tag} mean over patterns"] = sum(times) / len(times)
     out["K5-fast / K5"] = out["K5-fast mean over patterns"] / out["K5 mean over patterns"]
     # whole decodes
@@ -354,8 +358,9 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
         sys.path.insert(0, os.getcwd())
         import chip_smoke
         split = {}
-        for tag, specs in (("", steps), ("fast ", fsteps)):
-            state = SCLState(sched, llr_rev)
+        for tag, specs, perm in (("", steps, "rank"), ("fast ", fsteps, "rank"),
+                                 ("onehot ", osteps, "onehot")):
+            state = SCLState(sched, llr_rev, perm)
             for c, spec in enumerate(specs):
                 if c in (3, 4):
                     split[f"{tag}{c}"] = chip_smoke.profile_step(state, spec)
@@ -375,6 +380,13 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
                 for spec in specs:
                     scl_chunk_step_cuda(state, spec)
                 out[f"profile K4{tag}"] = chip_smoke.profile_last(state, last_spec)
+        if "scl_body_profile" in build.VARIANTS:
+            g = np.random.default_rng(12)
+            alpha = torch.from_numpy((2 * g.standard_normal((B, L, S))).astype(np.float32)).to(dev)
+            pm0 = -torch.from_numpy(np.abs(g.standard_normal((B, L))).astype(np.float32)).to(dev)
+            for tag, spec in (("", last), ("-fast", flast), ("-onehot", olast)):
+                out[f"profile K5{tag} last chunk's pattern"] = chip_smoke.profile_body(
+                    alpha, pm0, spec.program)
     if hasattr(scl_cuda, "kernel_resources"):
         out["resources"] = scl_cuda.kernel_resources(L, S, N, sched.t)
 
