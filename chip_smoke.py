@@ -43,8 +43,9 @@ and last chunk in the same way; the one-launch decode must refuse them),
 launch at N=32768, the LDPC kernel flooding and layered on the MacKay n=8192
 and n=4096 codes in shared memory and, in device memory, on a MacKay code of
 column weight 16 whose frame exceeds a block, the list kernels with the chunk
-context in device memory at S=1024, L=32, and the narrow live-width chunk
-step beside the full-width one), ``onehot_kernels`` (the one-hot permutation
+context in device memory at S=1024, L=32, and the live width's narrow
+prefix, each narrow position alone and the whole prefix in one launch,
+beside the full-width steps), ``onehot_kernels`` (the one-hot permutation
 modes of the chunk body, chunk step and last chunk: every chunk pattern, the
 level stacks after every chunk position held by bit pattern, whole decodes
 under every control, other codes, integer LLRs, the control ``"kernel"`` with
@@ -77,6 +78,7 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from torch.profiler import schedule as profiler_schedule
 
 import polarcode_and_ldpc_tpu_torch as fec
 from polarcode_and_ldpc_tpu_torch import ops
@@ -103,19 +105,21 @@ from polarcode_and_ldpc_tpu_torch.ops.sc_mega_cuda import (SCProgram, hybrid_sub
                                                           sc_decode_cuda)
 from polarcode_and_ldpc_tpu_torch.ops.roll_cuda import (PROBE_SHAPE, PROBE_SHIFT, sublane_roll,
                                                         sublane_roll_cuda, sublane_roll_plain)
-from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (fastnode_select,
+from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import (STREAM_MAX_K, fastnode_select,
                                                             fastnode_select_cuda,
                                                             fastnode_select_plain)
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, OP_LEAF, OP_RATE1_FAST,
                                                        OP_REP, OP_REP_FAST, OP_SUBTREE,
-                                                       SCLBodyProgram,
-                                                       SCLMegaPlan, SCLState, build_mega_tables,
+                                                       PREFIX_PARAM_ROWS, SCLBodyProgram,
+                                                       SCLMegaPlan, SCLPrefixSpec, SCLState,
+                                                       build_mega_tables,
                                                        context_in_device_memory,
                                                        launch_chunk_body, launch_chunk_step,
                                                        launch_last_chunk, launch_mega,
                                                        make_step_specs, scl_chunk_body_cuda,
                                                        scl_chunk_step_cuda, scl_decode_mega_cuda,
-                                                       scl_last_chunk_cuda)
+                                                       scl_last_chunk_cuda,
+                                                       scl_narrow_prefix_cuda)
 from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
                                               make_polar_pipeline)
 
@@ -194,22 +198,36 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> dict:
+def device_ms(fn, reps: int, expect: "int | None" = None, tries: int = 3) -> dict:
     """Device time of ``fn()`` by ``torch.profiler`` (CUPTI times each kernel
     on the card, whatever the host costs): the mean per call of the summed
     kernel durations over ``reps`` calls after a warm-up, and the kernels per
-    call; "not measured" when the profiler saw no kernel."""
+    call.  ``expect`` is the kernels one call launches (by default the
+    package's launch counters over the warm-up call).  The profiler can drop
+    events (the first launches of a session): each reading follows a step of
+    ``reps`` calls whose events it discards, and a reading that saw another
+    count is taken again, up to ``tries`` times, and is "not measured" (with
+    the count it saw) when none saw exactly ``expect``."""
+    before = sum(ops.launch_counts().values())
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if total_ms <= 0:
-        return {"ms": "not measured", "kernels_per_call": "not measured"}
-    return {"ms": total_ms / reps, "kernels_per_call": sum(e.count for e in kernels) / reps}
+    if expect is None:
+        expect = sum(ops.launch_counts().values()) - before
+    seen = 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=profiler_schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the discarded step, then the one read
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen = sum(e.count for e in kernels) / reps
+        if seen == expect:
+            return {"ms": sum(e.self_device_time_total for e in kernels) / 1e3 / reps,
+                    "kernels_per_call": seen}
+    return {"ms": "not measured", "kernels_per_call": seen, "expected": expect}
 
 
 def seeded_llrs(codewords: torch.Tensor, snr_db: float, seed: int) -> torch.Tensor:
@@ -502,6 +520,13 @@ def flagship_narrow_steps() -> int:
     kernel control): the positions entering with fewer live paths than L."""
     _, _, mask = polar_code()
     return sum(w < SCL_L for w in build_scl_schedule(POLAR_N, mask, SCL_L, SCL_S).lv_in[:-1])
+
+
+def prefix_launches(n_narrow: int) -> int:
+    """``scl_narrow_prefix`` launches of a decode with ``n_narrow`` narrow
+    steps: one, or consecutive launches of at most ``PREFIX_PARAM_ROWS``
+    rows for a longer prefix (none without a narrow step)."""
+    return -(-n_narrow // PREFIX_PARAM_ROWS)
 
 
 def cascl_llrs(frozen, B: int, snr_db: float, seed: int) -> torch.Tensor:
@@ -1061,10 +1086,13 @@ def body_resources(sched) -> dict:
 # run of that tree, NVIDIA H100 80GB HBM3, 700.00 W): the exact instances no
 # longer compile fast code, so none of them may grow; the instances of a
 # later redesign are held by its own report instead: K4's by last_resources,
-# K5's and K3-onehot's by body_resources
+# K5's and K3-onehot's by body_resources; the narrow prefix, which replaced
+# the single narrow step (ceilings 64 / 0 and 110 / 0; 64 and 90 registers in
+# the last chip run of that tree), at its own first chip run's (and by
+# prefix_resources)
 EXACT_RESOURCE_CEILINGS = {
-    "scl_chunk_step": (64, 0), "scl_chunk_step_narrow": (64, 0),
-    "scl_chunk_step_devmem": (104, 0), "scl_chunk_step_narrow_devmem": (110, 0),
+    "scl_chunk_step": (64, 0), "scl_narrow_prefix": (64, 0),
+    "scl_chunk_step_devmem": (104, 0), "scl_narrow_prefix_devmem": (95, 0),
     "scl_decode_mega": (64, 0), "scl_decode_mega_single": (64, 0),
     "scl_decode_mega_long": (64, 24)}
 
@@ -1209,27 +1237,41 @@ def raises_value_error(fn) -> bool:
     return False
 
 
+# K7's checks: (L, S, B, K) on normal and tie-heavy integer inputs — the probe's
+# shape, the flagship's node shape, one path, a full list of 32, one position,
+# lists of 15 on two lanes, and K = S
+FASTNODE_CASES = ((8, 64, 128, 7), (8, 128, 4096, 7), (1, 128, 999, 1), (32, 128, 1000, 31),
+                  (32, 1, 777, 1), (8, 2, 333, 2), (32, 16, 130, 16), (16, 64, 300, 15),
+                  (4, 32, 515, 8))
+
+
 def check_fastnode_kernel(results: dict, reps: int) -> list:
-    """K7 against its plain version at the probe's shape [8, 64, 128] and at
-    [8, 128, 4096], on normal and tie-heavy integer inputs; then the probe's
-    own path (its input, the kernel, its ground truth: a numpy stable argsort
-    and the softplus tree sum), with the launch counts set to 0 just before;
-    then times at [8, 128, 4096]."""
-    cases = []
-    worst = 0.0
-    for L, S, B in ((8, 64, 128), (8, 128, 4096)):
+    """K7 against its plain version on ``FASTNODE_CASES``, normal and
+    tie-heavy integer inputs; a K above ``STREAM_MAX_K`` refused; then the
+    probe's own path (its input, the kernel, its ground truth: a numpy
+    stable argsort and the softplus tree sum), with the launch counts set to
+    0 just before; then times at [8, 128, 4096], K = 7, by CUDA events and by
+    profiler device time."""
+    cases, worst = [], 0.0
+    for L, S, B, K in FASTNODE_CASES:
         for kind in ("normal", "integer ties"):
-            g = np.random.default_rng(L * S + B + len(kind))
+            g = np.random.default_rng(L * S + B + K + len(kind))
             a = (g.integers(-3, 4, (L, S, B)) if kind == "integer ties"
                  else 2 * g.standard_normal((L, S, B))).astype(np.float32)
             a = torch.from_numpy(a).to(DEV)
-            got = fastnode_select_cuda(a, L - 1)
+            before = ops.launch_counts()["fastnode_select"]
+            got = fastnode_select_cuda(a, K)
             torch.cuda.synchronize()
-            want = fastnode_select_plain(a, L - 1)
-            context = {"shape": [L, S, B], "K": L - 1, "input": kind}
+            if ops.launch_counts()["fastnode_select"] != before + 1:
+                raise AssertionError(f"fastnode_select [{L}, {S}, {B}] K={K} did not launch")
+            want = fastnode_select_plain(a, K)
+            context = {"shape": [L, S, B], "K": K, "input": kind}
             worst = max(worst, hold_equal("fastnode_select", dict(
                 zip(("mags", "idx", "penalty"), zip(got, want))), context))
             cases.append({**context, "equal_plain": True})
+    big_k = torch.zeros((8, 128, 64), device=DEV)
+    if not raises_value_error(lambda: fastnode_select_cuda(big_k, STREAM_MAX_K + 1)):
+        raise AssertionError(f"fastnode_select took K = {STREAM_MAX_K + 1}")
     # the probe's path (tools/mosaic_fastnode_probe.py: L, S, B = 8, 64, 128, K = 7)
     L, S, B, K = 8, 64, 128, 7
     a_np = (np.random.default_rng(0).standard_normal((L, S, B)) * 2).astype(np.float32)
@@ -1247,17 +1289,20 @@ def check_fastnode_kernel(results: dict, reps: int) -> list:
     L, S, B, K = 8, 128, 4096, 7
     a = (2 * torch.randn((L, S, B), generator=torch.Generator().manual_seed(5))).to(DEV)
     ms = time_ms(lambda: fastnode_select_cuda(a, K), reps)
+    dev = device_ms(lambda: fastnode_select_cuda(a, K), reps, expect=1)
     plain_ms = time_ms(lambda: fastnode_select_plain(a, K), max(1, reps // 5), warmup=1)
     byts = B * L * (4 * S + 8 * K + 4)
     flops = B * L * (4 * S + S - 1 + K * S)
     results["fastnode_select"] = kernel_row(
         "fastnode_select", "tools/mosaic_fastnode_probe.py:79", ms, plain_ms, byts, flops, worst,
         source="polarcode_and_ldpc_tpu_torch/ops/csrc/fastnode.cu", shape=[L, S, B], K=K,
-        note="launches: the probe's path (its input through fastnode_select); the same device "
-             "functions run inside every K3 / K4 / K5 launch of a fast node program, at each "
-             "rate-1 node", cases=cases)
+        device_ms=dev, cases=cases,
+        note="launches: the probe's path (its input through fastnode_select); the same "
+             "selection runs inside every K3 / K4 / K5 launch of a fast node program, at "
+             "each rate-1 node")
     results["fastnode_select"]["launches"] = counts["fastnode_select"]
-    return [{"probe_shape_equals_numpy_ground_truth": True, "launches": counts["fastnode_select"]}]
+    return [{"probe_shape_equals_numpy_ground_truth": True, "launches": counts["fastnode_select"],
+             "refuses_k_above": STREAM_MAX_K}]
 
 
 FAST_OTHER_CODES = ((64, 20, 16, 1), (128, 64, 32, 2), (256, 130, 64, 4), (256, 128, 256, 8),
@@ -1368,8 +1413,8 @@ def phase_fast_kernels(results: dict, reps: int, quick: bool) -> None:
         raise AssertionError(f"the one-launch decode took a fast program: {refused}")
     emit("fast_kernels",
          kernels=[{k: v for k, v in results[k].items() if k != "cases"}
-                  for k in ("fastnode_select", "scl_chunk_body_fast", "scl_chunk_step_fast",
-                            "scl_last_chunk_fast")],
+                  for k in ("fastnode_select", "scl_chunk_body_fast",
+                            "scl_chunk_step_fast", "scl_last_chunk_fast")],
          fastnode_cases=results["fastnode_select"]["cases"], probe=probe,
          fast_nodes_per_decode=counts, unique_patterns=len(unique), whole_decode_ms=decode_ms,
          cases=cases, other_codes=check_fast_other_codes(), mega_refuses_fast=True,
@@ -1647,7 +1692,8 @@ def check_scl_devmem(results: dict, reps: int) -> dict:
         singles.append({"N": n1, "K": k1, "L": l1, "node_mode": mode, "B": 128,
                         "kernels_equal_plain": True})
     # the whole decode through the default kernel control: live width on, so the
-    # first chunk steps are narrow AND keep their context in device memory
+    # first chunk steps are narrow, in one prefix launch that keeps its context
+    # in device memory
     dec = make_scl_decoder(N, mask, L, chunk=S, device=DEV)
     want = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-fused", device=DEV)(llr[:64])
     ops.reset_launch_counts()
@@ -1656,11 +1702,11 @@ def check_scl_devmem(results: dict, reps: int) -> dict:
     counts = ops.launch_counts()
     hold_equal("whole decode [live width, device memory]",
                {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, {"N": N, "S": S, "L": L})
-    if not (dec.live_width and counts["scl_chunk_step_narrow_devmem"] >= 1
-            and counts["scl_last_chunk_devmem"] == 1):
+    if not (dec.live_width and counts["scl_narrow_prefix_devmem"] == 1
+            and counts["scl_narrow_prefix"] == 0 and counts["scl_last_chunk_devmem"] == 1):
         raise AssertionError(f"N={N}, S={S}, L={L}: launched {counts}")
     singles.append({"N": N, "S": S, "L": L, "B": 64, "control": "unroll-kernel, live width",
-                    "narrow_devmem_launches": counts["scl_chunk_step_narrow_devmem"],
+                    "narrow_prefix_devmem_launches": counts["scl_narrow_prefix_devmem"],
                     "devmem_launches": counts["scl_chunk_step_devmem"],
                     "kernels_equal_plain": True})
     shape = {"frames": B, "N": N, "S": S, "L": L}
@@ -1682,42 +1728,145 @@ def check_scl_devmem(results: dict, reps: int) -> dict:
     return {"shape": shape, "single_chunk_codes": singles}
 
 
-def check_scl_narrow(results: dict, reps: int) -> dict:
-    """K3's live width at the large code (N=4096, L=32, S=64): every narrow
-    chunk position against the plain live-width step on the card, bit for
-    bit on the whole state, timed beside the full-width launch at the same
-    position; whole decodes, live against full width and the plain decoder."""
-    N, K, S, L, B = LARGE_SCL_N, LARGE_SCL_K, LARGE_SCL_S, LARGE_SCL_L, LARGE_SCL_CHUNK
+# a code whose narrow prefix is longer than one launch's table (124 narrow
+# positions: two scl_narrow_prefix launches a decode)
+LONG_PREFIX_CODE = (1024, 128, 16, 4)
+# resident warps per SM of the single narrow chunk step (scl_chunk_step_narrow)
+# that the prefix replaced, at the launch plans (L, S, N, t) of the flagship and
+# of the large code (chip run of that tree, NVIDIA H100 80GB HBM3, 700.00 W):
+# the prefix's shared-memory instance may hold no fewer
+NARROW_STEP_WARPS_PER_SM = {(8, 128, 1024, 3): 32, (32, 64, 4096, 6): 24}
+
+
+def prefix_resources() -> dict:
+    """The narrow prefix's resource report at the flagship's and the large
+    code's launch plans: its shared-memory instance at most 64 registers, no
+    local memory and no fewer resident warps per SM than the narrow chunk
+    step it replaced; its device-memory instance no local memory and at
+    most ``EXACT_RESOURCE_CEILINGS``'s registers."""
+    out = {}
+    for shape, warps in NARROW_STEP_WARPS_PER_SM.items():
+        rows = {r["kernel"]: r for r in scl_cuda.kernel_resources(*shape)}
+        smem, dev = rows["scl_narrow_prefix"], rows["scl_narrow_prefix_devmem"]
+        if not (smem["registers"] <= 64 and smem["local_bytes"] == 0
+                and smem["resident_warps_per_sm"] >= warps and dev["local_bytes"] == 0
+                and dev["registers"] <= EXACT_RESOURCE_CEILINGS["scl_narrow_prefix_devmem"][0]):
+            raise AssertionError(f"scl_narrow_prefix's resources at {shape}: {smem}, {dev}")
+        out[str(shape)] = {"scl_narrow_prefix": smem, "scl_narrow_prefix_devmem": dev}
+    return out
+
+
+def hold_narrow_prefix(N: int, K: int, L: int, S: int, llr: torch.Tensor, reps: int,
+                       crc: bool = False) -> dict:
+    """The live width's narrow prefix of one code on the card (``llr`` [B,
+    N] natural order): each narrow position as a one-row prefix on the state
+    the plain live steps reach, then the whole prefix from the decode's
+    start, each against the plain narrow steps in order, bit for bit on the
+    whole state; with ``reps``, the prefix per decode by events and device
+    time beside its positions as single-row launches back to back (the
+    launches before the prefix), their full-width launches and the plain
+    steps.  Returns the code's figures; the bytes and operations of the
+    prefix per decode under ``bytes`` / ``flops``."""
+    B = llr.shape[0]
     frozen, _, mask = polar_code(N, K)
     sched = build_scl_schedule(N, mask, L, S)
-    live_steps, live_last = make_step_specs(sched, live=True)
-    full_steps, _ = make_step_specs(sched, [s.program for s in live_steps] + [live_last.program])
-    narrow = [c for c, spec in enumerate(live_steps) if spec.narrow]
+    programs = [SCLBodyProgram(f, L) for f in sched.unique_flags]
+    (prefix, *rest), _ = make_step_specs(sched, programs, live=True)
+    full_steps, _ = make_step_specs(sched, programs)
+    narrow = prefix.steps
     rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64, device=DEV)
-    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, device=DEV)
-    llr = seeded_llrs(enc.encode(np.random.default_rng(80).integers(0, 2, (B, K))), 3.0, seed=81)
     llr_rev = llr[:, rev].contiguous()
-    live, full = SCLState(sched, llr_rev), SCLState(sched, llr_rev)
     fields = ("alpha", "beta", "pend_a", "pend_b", "pm")
-    rows, ms, full_ms, plain_ms, byts, flops = [], [], [], [], 0, 0
-    for c in range(max(narrow) + 1):
-        spec, fspec = live_steps[c], full_steps[c]
-        scratch, scratch_full = live.clone(), full.clone()
+    start = SCLState(sched, llr_rev)
+    live, full = start.clone(), start.clone()
+    context = {"N": N, "K": K, "L": L, "S": S, "B": B}
+    rows, byts, flops = [], 0, 0
+    for c, spec in enumerate(narrow):
+        one = SCLPrefixSpec([spec])
         kern = live.clone()
-        scl_chunk_step_cuda(kern, spec)
+        scl_narrow_prefix_cuda(kern, one)
         torch.cuda.synchronize()
         ops_in = live.to_plain(spec.widths)
-        plain_ms.append(time_ms(lambda: spec.plain(llr_rev, *ops_in), 2, warmup=1))
+        row = {"chunk": c, "lv_in": spec.lv_in, "lv_out": spec.lv_out}
+        if reps:
+            row["plain_ms"] = time_ms(lambda: spec.plain(llr_rev, *ops_in), 2, warmup=1)
         live.load_plain(*spec.plain(llr_rev, *ops_in))
-        hold_equal("scl_chunk_step [narrow]", {f: (getattr(kern, f), getattr(live, f))
-                                               for f in fields}, {"chunk": c, "B": B})
-        ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec), reps))
-        full_ms.append(time_ms(lambda: scl_chunk_step_cuda(scratch_full, fspec), reps))
+        hold_equal("scl_narrow_prefix [one row]", {f: (getattr(kern, f), getattr(live, f))
+                                                   for f in fields}, {**context, "chunk": c})
+        if reps:
+            scratch, scratch_full = kern, full.clone()
+            row["one_row_ms"] = time_ms(lambda: scl_narrow_prefix_cuda(scratch, one), reps)
+            row["full_width_ms"] = time_ms(
+                lambda: scl_chunk_step_cuda(scratch_full, full_steps[c]), reps)
+            scl_chunk_step_cuda(full, full_steps[c])
         b, f = step_cost(sched, c, spec)
         byts, flops = byts + B * b, flops + B * f
-        rows.append({"chunk": c, "lv_in": spec.lv_in, "lv_out": spec.lv_out,
-                     "narrow_ms": ms[-1], "full_width_ms": full_ms[-1], "plain_ms": plain_ms[-1]})
-        scl_chunk_step_cuda(full, fspec)
+        row["bound_ms"] = max(B * b / HBM_BYTES_PER_S, B * f / F32_FLOP_PER_S) * 1e3
+        rows.append(row)
+    # the whole prefix from the decode's start: one launch (or one per
+    # PREFIX_PARAM_ROWS rows), every row on the same state
+    kern = start.clone()
+    before = ops.launch_counts()
+    scl_narrow_prefix_cuda(kern, prefix)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["scl_narrow_prefix"] - before["scl_narrow_prefix"]
+    if launched != prefix_launches(len(narrow)):
+        raise AssertionError(f"the prefix of {len(narrow)} steps took {launched} launches")
+    hold_equal("scl_narrow_prefix [whole prefix]", {f: (getattr(kern, f), getattr(live, f))
+                                                    for f in fields},
+               {**context, "positions": len(narrow)})
+    out = {**context, "crc": crc, "narrow_positions": len(narrow),
+           "launches_per_decode": launched, "full_width_steps": len(rest),
+           "lv_in": list(sched.lv_in[:len(narrow) + 1]), "positions": rows,
+           "bytes": byts, "flops": flops, "bound_ms_per_decode": sum(r["bound_ms"] for r in rows)}
+    if reps:
+        singles = [SCLPrefixSpec([spec]) for spec in narrow]
+
+        def single_rows():
+            for one in singles:
+                scl_narrow_prefix_cuda(kern, one)
+
+        def whole():
+            scl_narrow_prefix_cuda(kern, prefix)
+
+        out.update(
+            prefix_ms=time_ms(whole, reps), single_row_launches_ms=time_ms(single_rows, reps),
+            prefix_device=device_ms(whole, reps),
+            single_row_launches_device=device_ms(single_rows, reps),
+            full_width_ms=sum(r["full_width_ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows))
+    return out
+
+
+def check_scl_narrow(results: dict, reps: int) -> dict:
+    """K3's live width: the narrow prefix at the large code (N=4096, L=32,
+    S=64: eight narrow positions, 1024 frames), at the flagship (two, 4096
+    frames) and on a code whose prefix takes two launches, each position and
+    the whole prefix against the plain live-width steps on the card, bit for
+    bit on the whole state (``hold_narrow_prefix``), timed; the prefix's
+    resources; whole decodes, live against full width and the plain
+    decoder."""
+    lib = build.load("scl_decode")
+    lib.scl_narrow_prefix_rows.restype = ctypes.c_int
+    if lib.scl_narrow_prefix_rows() != PREFIX_PARAM_ROWS:
+        raise AssertionError(f"the prefix kernel takes {lib.scl_narrow_prefix_rows()} rows a "
+                             f"launch, the host plans {PREFIX_PARAM_ROWS}")
+    N, K, S, L, B = LARGE_SCL_N, LARGE_SCL_K, LARGE_SCL_S, LARGE_SCL_L, LARGE_SCL_CHUNK
+    frozen, _, mask = polar_code(N, K)
+    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, device=DEV)
+    llr = seeded_llrs(enc.encode(np.random.default_rng(80).integers(0, 2, (B, K))), 3.0, seed=81)
+    large = hold_narrow_prefix(N, K, L, S, llr, reps)
+    ffrozen, _, _ = polar_code()
+    flagship = hold_narrow_prefix(POLAR_N, POLAR_K, SCL_L, SCL_S,
+                                  cascl_llrs(ffrozen, SCL_CHUNK, 3.0, seed=82), reps, crc=True)
+    n1, k1, l1, s1 = LONG_PREFIX_CODE
+    g = np.random.default_rng(n1 + l1)
+    x1 = torch.from_numpy((1.0 + 1.6 * g.standard_normal((256, n1))).astype(np.float32))
+    x1[:3] = torch.from_numpy(g.integers(-2, 3, (3, n1)).astype(np.float32))
+    longer = hold_narrow_prefix(n1, k1, l1, s1, x1.to(DEV), 0)
+    if (large["narrow_positions"], large["launches_per_decode"], flagship["narrow_positions"],
+            flagship["launches_per_decode"], longer["launches_per_decode"]) != (8, 1, 2, 1, 2):
+        raise AssertionError(f"narrow prefixes: {large}, {flagship}, {longer}")
     # whole decodes on 256 frames: live kernel control = full-width kernel
     # control = plain live-width control
     x = llr[:256]
@@ -1735,17 +1884,25 @@ def check_scl_narrow(results: dict, reps: int) -> dict:
         "metrics vs plain live": (got[1], want_plain[1])}, {"N": N, "L": L, "B": 256})
     decode_ms = {"live": time_ms(lambda: dec_live(llr), max(2, reps // 4), warmup=1),
                  "full width": time_ms(lambda: full_dec(llr), max(2, reps // 4), warmup=1)}
-    n = len(rows)
-    results["scl_chunk_step_narrow"] = kernel_row(
-        "scl_chunk_step_narrow", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:175",
-        sum(ms) / n, sum(plain_ms) / n, byts / n, flops / n, 0.0,
-        shape={"frames": B, "N": N, "S": S, "L": L}, positions=rows,
-        full_width_ms=sum(full_ms) / n, narrow_launches_per_decode=len(narrow),
-        whole_decode_ms=decode_ms,
-        note="means per launch over the narrow chunk positions; full_width_ms is the "
-             "full-width launch at the same positions")
-    return {"narrow_positions": narrow, "lv_in": list(sched.lv_in[:max(narrow) + 2]),
-            "whole_decode_ms": decode_ms}
+    resources = prefix_resources()
+    results["scl_narrow_prefix"] = kernel_row(
+        "scl_narrow_prefix", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:175",
+        large["prefix_ms"], large["plain_ms"], large["bytes"], large["flops"], 0.0,
+        shape={"frames": B, "N": N, "S": S, "L": L}, device_ms=large["prefix_device"],
+        single_row_launches_ms=large["single_row_launches_ms"],
+        single_row_launches_device=large["single_row_launches_device"],
+        full_width_ms=large["full_width_ms"], positions=large["positions"],
+        narrow_steps_per_decode=large["narrow_positions"],
+        launches_per_decode=large["launches_per_decode"], flagship={
+            k: v for k, v in flagship.items() if k not in ("bytes", "flops")},
+        whole_decode_ms=decode_ms, resources=resources,
+        note="ms, plain_ms and bound_ms per decode: the whole narrow prefix (one launch) at "
+             "the large code; single_row_launches_ms: its positions as one-row launches "
+             "back to back; full_width_ms: the full-width launches at the same positions")
+    return {"large_code": {k: v for k, v in large.items() if k != "positions"},
+            "flagship": {k: v for k, v in flagship.items() if k != "positions"},
+            "long_prefix": {k: v for k, v in longer.items() if k != "positions"},
+            "whole_decode_ms": decode_ms, "resources": resources}
 
 
 def phase_large_kernels(results: dict, reps: int) -> None:
@@ -1754,7 +1911,7 @@ def phase_large_kernels(results: dict, reps: int) -> None:
     scl = check_scl_devmem(results, reps)
     live = check_scl_narrow(results, reps)
     keys = ("sc_decode_sub", *LARGE_BP_ROWS, *DEVMEM_BP_ROWS, "scl_chunk_step_devmem",
-            "scl_last_chunk_devmem", "scl_chunk_body_devmem", "scl_chunk_step_narrow")
+            "scl_last_chunk_devmem", "scl_chunk_body_devmem", "scl_narrow_prefix")
     emit("large_kernels", kernels=[{k: v for k, v in results[k].items() if k != "cases"}
                                    for k in keys],
          sc_hybrid=sc, ldpc=bp, scl_device_memory=scl, live_width=live)
@@ -2006,7 +2163,7 @@ def phase_polar_scl8_controls(results: dict, mbps: dict, reps: int, quick: bool)
     res = sim.run(frames, max_errors=None, seed=0)
     mc_counts = record_launches(results, ["scl_chunk_step", "scl_last_chunk"])
     mc_chunks = frames // SCL_CHUNK
-    if (mc_counts["scl_chunk_step"], mc_counts["scl_chunk_step_narrow"],
+    if (mc_counts["scl_chunk_step"], mc_counts["scl_narrow_prefix"],
             mc_counts["scl_last_chunk"]) != ((POLAR_N // SCL_S - 1) * mc_chunks, 0, mc_chunks):
         raise AssertionError(f"CA-SCL kernel control launched {mc_counts}")
     if res.frames != frames or not (0.0 <= res.fer < 0.01):
@@ -2018,7 +2175,7 @@ def phase_polar_scl8_controls(results: dict, mbps: dict, reps: int, quick: bool)
          bit_errors=bit_errors, decode_ms=decode_ms, info_mbps=rates,
          cascl_kernel_control={**result_fields(res), "launches": {
              k: mc_counts[k] for k in ("scl_chunk_step", "scl_last_chunk",
-                                       "scl_chunk_step_narrow")}})
+                                       "scl_narrow_prefix")}})
     mbps["polar_cascl_kernel_control"] = res.throughput_mbps
 
 
@@ -2075,7 +2232,8 @@ def check_roll_kernel(results: dict, reps: int) -> dict:
                      2 * x.numel(), 0, 0.0, source="polarcode_and_ldpc_tpu_torch/ops/csrc/sublane_roll.cu",
                      shape=list(PROBE_SHAPE), shift=PROBE_SHIFT,
                      device_ms=device_ms(lambda: sublane_roll_cuda(x, PROBE_SHIFT), 10 * reps),
-                     library_device_ms=device_ms(lambda: torch.roll(x, PROBE_SHIFT, 0), 10 * reps),
+                     library_device_ms=device_ms(lambda: torch.roll(x, PROBE_SHIFT, 0), 10 * reps,
+                                                expect=1),
                      note="on no path: a probe; launches: the probe's path; ms and library_ms "
                           "by CUDA events around back-to-back calls, device_ms and "
                           "library_device_ms by torch.profiler", cases=cases)
@@ -2175,11 +2333,12 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
     sim.run(SCL_CHUNK, seed=1)  # warm-up
     ops.reset_launch_counts()
     res = sim.run(frames, max_errors=None, seed=0)
-    counts = record_launches(results, ["scl_chunk_step_narrow", "scl_chunk_step",
+    counts = record_launches(results, ["scl_narrow_prefix", "scl_chunk_step",
                                        "scl_last_chunk"])
     mc_chunks = frames // SCL_CHUNK
-    if (counts["scl_chunk_step_narrow"], counts["scl_chunk_step"], counts["scl_last_chunk"],
-            counts["scl_chunk_body"]) != (n_narrow * mc_chunks,
+    # the narrow positions (2) in one prefix launch a decode
+    if (counts["scl_narrow_prefix"], counts["scl_chunk_step"], counts["scl_last_chunk"],
+            counts["scl_chunk_body"]) != (prefix_launches(n_narrow) * mc_chunks,
                                           (n_chunks - 1 - n_narrow) * mc_chunks, mc_chunks, 0):
         raise AssertionError(f"CA-SCL: {mc_chunks} Monte-Carlo chunks launched {counts}")
     if res.frames != frames or not (0.0 <= res.fer < 0.01):
@@ -2214,7 +2373,7 @@ def phase_polar_cascl_mc(results: dict, mbps: dict, frames: int, body_frames: in
     res_mega = sim_mega.run(frames, max_errors=None, seed=0)
     counts_mega = record_launches(results, ["scl_decode_mega"])
     if (counts_mega["scl_decode_mega"], counts_mega["scl_chunk_step"],
-            counts_mega["scl_chunk_step_narrow"], counts_mega["scl_last_chunk"]) != (
+            counts_mega["scl_narrow_prefix"], counts_mega["scl_last_chunk"]) != (
             mc_chunks, 0, 0, 0):
         raise AssertionError(f"CA-SCL mega: {mc_chunks} Monte-Carlo chunks launched {counts_mega}")
     if (res_mega.frames, res_mega.bit_errors, res_mega.frame_errors) != (
@@ -2287,8 +2446,9 @@ def phase_polar_fast_mc(results: dict, mbps: dict, frames: int, body_frames: int
             counts = ops.launch_counts()
             n_narrow = flagship_narrow_steps()
             want = {"scl_chunk_step": (n_chunks - 1 - n_narrow) * mc_chunks,
-                    "scl_chunk_step_narrow": n_narrow * mc_chunks, "scl_last_chunk": mc_chunks,
-                    "scl_chunk_step_fast": 0, "scl_last_chunk_fast": 0}
+                    "scl_narrow_prefix": prefix_launches(n_narrow) * mc_chunks,
+                    "scl_last_chunk": mc_chunks, "scl_chunk_step_fast": 0,
+                    "scl_last_chunk_fast": 0}
         if any(counts[k] != v for k, v in want.items()):
             raise AssertionError(f"CA-SCL {mode}: {mc_chunks} Monte-Carlo chunks launched {counts}")
         if res.frames != frames or not (0.0 <= res.fer < 0.01):
@@ -2498,8 +2658,9 @@ def pipelines_agree_where_frames_fail(what: str, make, plain_options: dict,
 
 def phase_polar_large_mc(results: dict, mbps: dict, frames: int) -> None:
     """The large-code list path at full width: N=4096, K=2048, SCL-32, chunk
-    64 (63 chunk-step launches per decode, the first narrow at the live path
-    count, and one last-chunk launch), 3 dB: it must decode error-free."""
+    64 (63 chunk steps per decode: the first eight narrow at the live path
+    count, in one narrow-prefix launch, then 55 chunk-step launches; and one
+    last-chunk launch), 3 dB: it must decode error-free."""
     N, K, S, L, B = LARGE_SCL_N, LARGE_SCL_K, LARGE_SCL_S, LARGE_SCL_L, LARGE_SCL_CHUNK
     frozen, _, mask = polar_code(N, K)
     sched = build_scl_schedule(N, mask, L, S)
@@ -2510,10 +2671,10 @@ def phase_polar_large_mc(results: dict, mbps: dict, frames: int) -> None:
     sim.run(B, seed=1)  # warm-up
     ops.reset_launch_counts()
     res = sim.run(frames, max_errors=None, seed=0)
-    counts = record_launches(results, ["scl_chunk_step_narrow", "scl_chunk_step",
+    counts = record_launches(results, ["scl_narrow_prefix", "scl_chunk_step",
                                        "scl_last_chunk"])
     mc_chunks = frames // B
-    want = {"scl_chunk_step_narrow": n_narrow * mc_chunks,
+    want = {"scl_narrow_prefix": prefix_launches(n_narrow) * mc_chunks,
             "scl_chunk_step": (sched.C - 1 - n_narrow) * mc_chunks,
             "scl_last_chunk": mc_chunks, "scl_chunk_step_devmem": 0, "scl_chunk_body": 0}
     if any(counts[k] != v for k, v in want.items()):
@@ -2527,7 +2688,8 @@ def phase_polar_large_mc(results: dict, mbps: dict, frames: int) -> None:
         dict(scl_control_impl="unroll-fused"))
     emit("polar_large_mc", **result_fields(res), code=[N, K], list_size=L, scl_chunk=S,
          chunk_frames=B, launches={k: counts[k] for k in want},
-         narrow_launches_per_decode=n_narrow, equal_plain_at_failing_snr=failing)
+         narrow_steps_per_decode=n_narrow, narrow_launches_per_decode=prefix_launches(n_narrow),
+         equal_plain_at_failing_snr=failing)
     mbps["polar_scl32_n4096"] = res.throughput_mbps
 
 

@@ -42,13 +42,15 @@
 // goes through the non-coherent path).  One compiled kernel per entry point
 // serves every chunk of every code: the chunk's node program and (k, inv, j,
 // compose masks) are arguments.  Any batch size; the list runs at full width
-// with -inf phantom rows, or (chunk step, LIVE WIDTH) at the live path count.
+// with -inf phantom rows, or (the narrow prefix, LIVE WIDTH) at the live path
+// count.
 //
 // Live width (the TPU kernel's widths= mode of make_superchunk_pallas): the
 // list fills 1 -> 2 -> ... -> L, doubling per info leaf, so the early chunks
-// of a decode hold fewer live paths than the list.  A chunk step launched with
-// lv_in / lv_out < L runs its descend, body, prunes, composes and ascend over
-// the live rows and lanes only, in the same full-width frame-major state: it
+// of a decode hold fewer live paths than the list.  A narrow chunk step (lv_in
+// / lv_out < L; all of them run in one launch, scl_narrow_prefix_kernel)
+// runs its descend, body, prunes, composes and ascend over the live rows and
+// lanes only, in the same full-width frame-major state: it
 // reads and writes exactly the rows and lanes the plain live-width step keeps
 // (models/polar/scanscl.py, _make_super_fn with lv_in / lv_out), and leaves
 // the others untouched (phantom metrics stay -inf).  A pending rank vector
@@ -298,9 +300,10 @@ __device__ __forceinline__ void for_each_frame(int B, F&& f) {
   }
 }
 
-// The arguments of one chunk step, as a launch passes them or as the
-// whole-decode kernel builds them from a row of its step table (at full
-// width); the live widths and one-lane masks are read by a narrow step only.
+// The arguments of one chunk step, as a launch passes them, as a row of the
+// narrow prefix's table, or as the whole-decode kernel builds them from a row
+// of its step table (at full width); the live widths and one-lane masks are
+// read by a narrow step only.
 struct StepArgs {
   int k, inv, j, mask_a, mask_b, prog_off, n_ops, has_R;
   int lv_in, lv_out, one_a, one_b;
@@ -807,15 +810,16 @@ __device__ __forceinline__ unsigned last_read_levels(int t) {
   return (t > 1 ? 1u << (t - 2) : 0u) | (((1u << t) - 1u) << t);
 }
 
-// kOneHot: pend_a / pend_b are the one-hot planes [B][t][L][L] (float); the
-// warp stages the rank vectors of the levels the step reads (read_levels)
-// after its chunk context and stores the levels it wrote (2 t <= 32 levels
-// in one bit mask; the launcher refuses more).  kFast: a fast node
-// program (full width, rank vectors), compiled as instances of its own so
-// that the exact ones carry no fast code.
+// One chunk step at full width.  kOneHot: pend_a / pend_b are the one-hot
+// planes [B][t][L][L] (float); the warp stages the rank vectors of the levels
+// the step reads (read_levels) after its chunk context and stores the levels
+// it wrote (2 t <= 32 levels in one bit mask; the launcher refuses more).
+// kFast: a fast node program (full width, rank vectors), compiled as
+// instances of its own so that the exact ones carry no fast code.  The live
+// width's narrow steps run in scl_narrow_prefix_kernel.
 // The shared-memory variants keep to 64 registers: 32 warps per SM, so that
 // 4096 flagship frames are one wave (132 SMs).
-template <bool kDev, bool kNarrow, bool kOneHot, bool kFast>
+template <bool kDev, bool kOneHot, bool kFast>
 __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
     scl_chunk_step_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
                                       int* pend_a, int* pend_b, float* pm,
@@ -843,8 +847,8 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
       st.PB = ranks + tl;
       SCL_PROF_ADD(c, PROF_ONEHOT_LOAD, t_load);
     }
-    chunk_step<kNarrow, kOneHot, kFast>(c, g, st, llr + (size_t)frame * g.N,
-                                        pm + (size_t)frame * g.L, prog, a);
+    chunk_step<false, kOneHot, kFast>(c, g, st, llr + (size_t)frame * g.N,
+                                      pm + (size_t)frame * g.L, prog, a);
     if (kOneHot) {
       SCL_PROF_T(t_store);
       __syncwarp();
@@ -853,6 +857,56 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
       onehot_store(pa_planes, pb_planes, ranks, (unsigned)la | ((unsigned)lb << g.t), g.t, g.L,
                    lane);
       SCL_PROF_ADD(c, PROF_ONEHOT_STORE, t_store);
+    }
+  });
+  SCL_PROF_FLUSH(c);
+}
+
+// The narrow prefix of a live decode (the TPU kernel's widths= mode): its
+// chunk steps whose live path counts lv_in / lv_out are below L, in ONE
+// launch.  Live path counts only grow, so those steps are the positions 0 ..
+// P - 1 of the decode.  At a few live paths a step's device work is tiny and
+// a launch of its own cost the host's issue of it (0.04-0.05 ms a launch
+// against a 0.002 ms bound, NVIDIA H100 80GB HBM3, 700 W, PERF.md); here the
+// warp keeps its frame through every row of the step table, in order, with
+// a __syncwarp between rows (frames are independent: no grid-wide sync).
+// Each row is one narrow step's StepArgs (its node program at prog_off of the
+// rows' programs back to back), in the launch's parameters; a longer prefix
+// is split by the host into consecutive launches of at most kPrefixParamRows
+// rows.  The body is the narrow chunk step's (chunk_step<true>), whose width
+// is a variable: every row is narrow, so no full-width chunk pays for that.
+// Compiled inside the row loop, it runs rows where the list grows 5-9 %
+// slower than the launch-per-step kernel did (the flagship's two rows: 0.918x
+// by device time, NVIDIA H100 80GB HBM3, 700 W; PERF.md lists the variants
+// tried).  A table of one row is exactly one narrow step.  The shared-memory
+// variant keeps to 64 registers (32 warps per SM at the flagship's context),
+// the device-memory one walks the frames of its scratch slices.
+constexpr int kPrefixParamRows = 64;
+struct PrefixSteps {
+  int n;  // rows in use
+  StepArgs rows[kPrefixParamRows];
+};
+
+template <bool kDev>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 1 : 4)
+    scl_narrow_prefix_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
+                             int* pend_a, int* pend_b, float* pm, const int4* __restrict__ prog,
+                             Geometry g, const __grid_constant__ PrefixSteps steps,
+                             float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  Ctx c = make_ctx(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words(g.L, g.S, g.lgS)), g.L, g.S,
+                   lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    for (int r = 0; r < steps.n; ++r) {
+      const StepArgs& a = steps.rows[r];
+      // the frame's pointers at every row, not held through a body
+      const Stacks st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+      chunk_step<true, false, false>(c, g, st, llr + (size_t)frame * g.N,
+                                     pm + (size_t)frame * g.L, prog + a.prog_off, a);
+      __syncwarp();
     }
   });
   SCL_PROF_FLUSH(c);

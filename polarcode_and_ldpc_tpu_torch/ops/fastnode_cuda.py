@@ -9,10 +9,13 @@ the list decoder's ``OP_RATE1_FAST`` node on its own (``csrc/fastnode_device.cuh
 the list kernels run its selection rounds over registers).  The probe's layout
 is kept: frames last.
 
-Bound: device-memory bytes (each input read once, each output written once);
-one warp per frame.  The kernel equals its plain version bit for bit.  A
-wrapper uses the plain version only for tensors on the CPU; on a CUDA tensor
-it launches the kernel or raises.
+Bound: device-memory bytes (each input read once, each output written once).
+One or two lanes stream each (path, frame), the K least pairs in a sorted
+register list, the sum in the halving tree's order.  K is at most
+``STREAM_MAX_K`` (a list of up to 32 paths has K = L − 1 ≤ 31; the probe runs
+K = 7).  The kernel equals the plain version bit for bit.  A wrapper uses the
+plain version only for tensors on the CPU; on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,9 +26,6 @@ import torch
 
 from ..models.polar.scanscl import _tree_sum
 from . import build, count_launch
-from .scl_cuda import SMEM_LIMIT_BYTES
-
-_MAX_WARPS = 8
 
 
 def fastnode_select_plain(a: torch.Tensor, K: int):
@@ -39,41 +39,40 @@ def fastnode_select_plain(a: torch.Tensor, K: int):
             pen[:, None, :].contiguous())
 
 
-def words_per_frame(L: int, S: int, K: int) -> int:
-    """32-bit words of shared memory one frame needs (mirrors
-    ``fastnode_words_per_frame`` of the source)."""
-    return L * S + L * max(S // 2 if S > 1 else 1, K)
+#: the largest K of the kernel's register list (``kStreamMaxK`` of
+#: ``csrc/fastnode.cu``)
+STREAM_MAX_K = 32
+#: the largest S the kernel's stack of partial sums holds
+STREAM_MAX_S = 1 << 16
 
 
 def fastnode_select_cuda(a: torch.Tensor, K: int):
-    """Launch ``fastnode_select`` on a contiguous float32 CUDA ``a [L, S, B]``.
-    Does not synchronise."""
+    """Launch K7 on a contiguous float32 CUDA ``a [L, S, B]``.  Does not
+    synchronise."""
+    L, S, B = a.shape if a.dim() == 3 else (0, 0, 0)
+    if not (1 <= L <= 32 and S >= 1 and S & (S - 1) == 0 and 1 <= K <= min(S, STREAM_MAX_K)
+            and S <= STREAM_MAX_S and B >= 1 and L * B < 2 ** 31):
+        raise ValueError(f"fastnode_select takes a [L, S, B] tensor with 1 <= L <= 32, S a "
+                         f"power of two up to {STREAM_MAX_S}, 1 <= K <= min(S, "
+                         f"STREAM_MAX_K = {STREAM_MAX_K}) and L * B < 2^31; got shape "
+                         f"{tuple(a.shape)}, K={K}")
     if a.device.type != "cuda":
         raise ValueError(f"fastnode_select_cuda needs a CUDA tensor, got {a.device}")
     if a.dtype != torch.float32:
         raise TypeError(f"fastnode_select is float32 only, got {a.dtype}")
-    if a.dim() != 3 or not a.is_contiguous():
+    if not a.is_contiguous():
         raise ValueError(f"expected a contiguous [L, S, B] tensor, got {tuple(a.shape)}")
-    L, S, B = a.shape
-    if not (1 <= L <= 32 and S >= 1 and S & (S - 1) == 0 and 1 <= K <= S and B >= 1):
-        raise ValueError(f"fastnode_select takes 1 <= L <= 32, S a power of two and "
-                         f"1 <= K <= S; got L={L}, S={S}, K={K}, B={B}")
-    per_frame = 4 * words_per_frame(L, S, K)
-    if per_frame > SMEM_LIMIT_BYTES:
-        raise ValueError(f"fastnode_select needs {per_frame} bytes of shared memory per "
-                         f"frame; one thread block has {SMEM_LIMIT_BYTES}")
-    warps = max(1, min(_MAX_WARPS, (48 * 1024) // per_frame))
     lib = build.load("fastnode")
     fn = lib.fastnode_select_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     dev = a.device
     mags = torch.empty((L, K, B), dtype=torch.float32, device=dev)
     idx = torch.empty((L, K, B), dtype=torch.int32, device=dev)
     pen = torch.empty((L, 1, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = fn(a.data_ptr(), mags.data_ptr(), idx.data_ptr(), pen.data_ptr(), L, S, K, B,
-                  warps, torch.cuda.current_stream().cuda_stream)
+                  torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "fastnode_select")
     count_launch("fastnode_select")
     return mags, idx, pen

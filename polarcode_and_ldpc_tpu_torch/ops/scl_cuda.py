@@ -56,10 +56,14 @@ as in the JAX package; the one-launch decode keeps rank vectors.
 
 Live width (``make_step_specs(..., live=True)``, the TPU kernel's ``widths=``
 mode of ``make_superchunk_pallas``): a chunk step whose live path count
-``lv_in`` / ``lv_out`` is below L runs over the live rows only
-(``scl_chunk_step_narrow``), reading and writing exactly the rows and lanes
-the plain live-width step keeps; the last chunk stays at full width, as in
-the JAX package.  Exact nodes only.
+``lv_in`` / ``lv_out`` is below L runs over the live rows only, reading and
+writing exactly the rows and lanes the plain live-width step keeps.  Live
+path counts only grow, so those narrow steps are the first positions of a
+decode, and they run together, as one step table, in one launch
+(``SCLPrefixSpec``, ``scl_narrow_prefix``): at a few live paths a step's
+device work is tiny, and a launch of its own cost the host's issue of it.
+The last chunk stays at full width, as in the JAX package.  Exact nodes
+only.
 
 Where the chunk context lives (decided on the host by size): in shared
 memory when ``smem_per_frame`` fits one thread block, else in a scratch
@@ -271,10 +275,9 @@ def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels
     return _DEVMEM_WARPS, grid, scratch
 
 
-def _count(base: str, program: "SCLBodyProgram", scratch, narrow: bool = False) -> None:
+def _count(base: str, program: "SCLBodyProgram", scratch) -> None:
     """Count one launch under the name of its kernel mode."""
-    count_launch(base + ("_fast" if program.fast else "") + ("_narrow" if narrow else "")
-                 + ("_onehot" if program.onehot else "")
+    count_launch(base + ("_fast" if program.fast else "") + ("_onehot" if program.onehot else "")
                  + ("_devmem" if scratch is not None else ""))
 
 
@@ -295,7 +298,8 @@ _I = ctypes.c_int
 
 #: the library that launches each kernel
 _LIBRARY = {"scl_chunk_body_launch": "scl_body", "scl_chunk_step_launch": "scl_decode",
-            "scl_last_chunk_launch": "scl_last", "scl_decode_mega_launch": "scl_mega"}
+            "scl_narrow_prefix_launch": "scl_decode", "scl_last_chunk_launch": "scl_last",
+            "scl_decode_mega_launch": "scl_mega"}
 
 
 def _launcher(name: str, argtypes: list, library: Optional[str] = None):
@@ -525,8 +529,10 @@ def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None,
                     node_mode: str = "exact", live: bool = False, union: bool = False):
     """``(step specs of chunks 0..C−2, last-chunk spec)`` of a schedule;
     ``live=True``: the chunk steps at the schedule's live path counts (exact
-    nodes, rank vectors only), the last chunk at full width on the
-    live-width state; ``union=True``: the compose masks united per variant
+    nodes, rank vectors only), those below L (the first positions: live
+    path counts only grow) as ONE spec, an ``SCLPrefixSpec`` in front of the
+    full-width steps, and the last chunk at full width on the live-width
+    state; ``union=True``: the compose masks united per variant
     (``scanscl.union_masks``: the control ``"kernel"`` and
     ``mask_dedup="union"``).  Positions of one variant share one spec (the
     variant table of ``scanscl.variant_table``).  The programs' permutation
@@ -573,7 +579,63 @@ def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None,
                        plain=_make_last_fn(t, sizes, L, prog.plain, transform=True,
                                            lv_in=lv_last, perm_impl=perm),
                        lv_in=L, lv_out=L, **width_args(C - 1))
+    if live:
+        p = next((c for c, spec in enumerate(steps) if not spec.narrow), len(steps))
+        if any(spec.narrow for spec in steps[p:]):
+            raise ValueError("the narrow (live-width) chunk steps are not a prefix of the decode")
+        if p:
+            steps = [SCLPrefixSpec(steps[:p]), *steps[p:]]
     return steps, last
+
+
+#: the most narrow steps one ``scl_narrow_prefix`` launch takes in its launch
+#: parameters (``kPrefixParamRows`` of ``csrc/scl_kernels.cuh``); a longer
+#: prefix runs as consecutive launches of at most that many rows
+PREFIX_PARAM_ROWS = 64
+#: columns of one row of the narrow prefix's step table (``StepArgs`` of
+#: ``csrc/scl_kernels.cuh``)
+PREFIX_TABLE_COLUMNS = ("k", "inv", "j", "mask_a", "mask_b", "prog_off", "n_ops", "has_R",
+                        "lv_in", "lv_out", "one_a", "one_b")
+
+
+class SCLPrefixSpec:
+    """The narrow prefix of a live decode as one spec: its narrow chunk steps
+    ``steps`` (``SCLStepSpec``, positions 0 … P−1 in order, exact node
+    programs on rank vectors; their plain versions run it on the CPU), their
+    step table ``rows`` (int32 ``[P, 12]``, ``PREFIX_TABLE_COLUMNS``) and
+    their node programs back to back, ``prog`` (int32 ``[n, 4]``, each
+    distinct program once, at the offset of its rows' ``prog_off``); the
+    device copy of ``prog`` is cached per device.  A prefix of one step is
+    exactly that narrow step."""
+
+    def __init__(self, steps):
+        self.steps = list(steps)
+        if not self.steps or not all(s.narrow for s in self.steps):
+            raise ValueError("a narrow prefix holds one or more narrow (live-width) chunk steps")
+        if any(s.program.fast or s.program.onehot or s.program.L != self.steps[0].program.L
+               for s in self.steps):
+            raise ValueError("a narrow prefix runs exact node programs of one list size on "
+                             "rank vectors")
+        offsets, progs, n = {}, [], 0
+        for s in self.steps:
+            if id(s.program) not in offsets:
+                offsets[id(s.program)] = n
+                progs.append(s.program)
+                n += len(s.program.ops)
+        self.programs = progs
+        self.prog = np.ascontiguousarray(np.concatenate([p.ops for p in progs]), dtype=np.int32)
+        self.rows = np.asarray(
+            [[s.k, int(s.inv), s.j, s.mask_a, s.mask_b, offsets[id(s.program)],
+              len(s.program.ops), int(s.program.has_r), s.lv_in, s.lv_out, s.one_a, s.one_b]
+             for s in self.steps], np.int32).reshape(-1, len(PREFIX_TABLE_COLUMNS))
+        self._on_device: dict[torch.device, torch.Tensor] = {}
+
+    def device_prog(self, device: torch.device) -> torch.Tensor:
+        t = self._on_device.get(device)
+        if t is None:
+            t = torch.from_numpy(self.prog).to(device).contiguous()
+            self._on_device[device] = t
+        return t
 
 
 def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
@@ -599,10 +661,10 @@ def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
 # ---------------------------------------------------------------------------
 
 def scl_chunk_step_cuda(state: SCLState, spec: SCLStepSpec) -> None:
-    """Launch the chunk-step kernel on the state, IN PLACE (at the spec's
-    live width).  Does not synchronise."""
+    """Launch the chunk-step kernel on the state, IN PLACE (full width; a
+    narrow step runs in ``scl_narrow_prefix_cuda``).  Does not synchronise."""
     ctx = launch_chunk_step(state, spec, "scl_decode")
-    _count("scl_chunk_step", spec.program, ctx, spec.narrow)
+    _count("scl_chunk_step", spec.program, ctx)
 
 
 def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
@@ -610,20 +672,22 @@ def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
     (``"scl_decode"``, or a variant of it such as the profiled
     ``"scl_decode_profile"``), uncounted; returns the device-memory context
     (None: in shared memory)."""
+    if spec.narrow:
+        raise ValueError("a narrow (live-width) chunk step runs in scl_narrow_prefix_cuda "
+                         "(a prefix of one step is that step)")
     _check_state(state, spec.program)
     s = state.sched
     B = state.pm.shape[0]
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0)
-    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 20 + [_P, _I, _P], library)
+    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 16 + [_P, _I, _P], library)
     ops = spec.program.device_ops(dev)
     with torch.cuda.device(dev):
         code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
                   state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
                   ops.data_ptr(), ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L,
                   s.t, spec.program.lgS, spec.k, int(spec.inv), spec.j, spec.mask_a,
-                  spec.mask_b, spec.lv_in, spec.lv_out, spec.one_a, spec.one_b,
-                  int(state.onehot), int(spec.program.fast), warps,
+                  spec.mask_b, int(state.onehot), int(spec.program.fast), warps,
                   ctx.data_ptr() if ctx is not None else None, grid,
                   torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, code, "scl_chunk_step")
@@ -637,6 +701,54 @@ def scl_chunk_step(state: SCLState, spec: SCLStepSpec) -> None:
         state.load_plain(*spec.plain(state.llr, *state.to_plain(spec.widths)))
         return
     scl_chunk_step_cuda(state, spec)
+
+
+def scl_narrow_prefix_cuda(state: SCLState, prefix: SCLPrefixSpec) -> None:
+    """Launch the narrow prefix on the state, IN PLACE: one
+    ``scl_narrow_prefix`` launch (consecutive launches of at most
+    ``PREFIX_PARAM_ROWS`` steps for a longer prefix).  Does not synchronise."""
+    launches, ctx = launch_narrow_prefix(state, prefix, "scl_decode")
+    for _ in range(launches):
+        count_launch("scl_narrow_prefix" + ("_devmem" if ctx is not None else ""))
+
+
+def launch_narrow_prefix(state: SCLState, prefix: SCLPrefixSpec, library: str):
+    """The narrow prefix's launches through the launcher of ``library``
+    (``"scl_decode"``, or a variant of it such as the profiled
+    ``"scl_decode_profile"``), uncounted: ``(launches, device-memory
+    context)`` (the context None: in shared memory)."""
+    for program in prefix.programs:
+        _check_state(state, program)
+    program = prefix.programs[0]
+    s = state.sched
+    B = state.pm.shape[0]
+    dev = state.llr.device
+    warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev)
+    lib, fn = _launcher("scl_narrow_prefix_launch", [_P] * 8 + [_I] * 8 + [_P, _I, _P], library)
+    prog = prefix.device_prog(dev)
+    launches = 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for lo in range(0, len(prefix.rows), PREFIX_PARAM_ROWS):
+            rows = prefix.rows[lo:lo + PREFIX_PARAM_ROWS]
+            code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
+                      state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
+                      prog.data_ptr(), rows.ctypes.data, len(rows), B, s.N, s.S, s.L, s.t,
+                      program.lgS, warps, ctx.data_ptr() if ctx is not None else None, grid,
+                      stream)
+            build.check_launch(lib, code, "scl_narrow_prefix")
+            launches += 1
+    return launches, ctx
+
+
+def scl_narrow_prefix(state: SCLState, prefix: SCLPrefixSpec) -> None:
+    """The narrow prefix on the state, in place: its plain narrow steps in
+    order for a state on the CPU, the kernel for a state on a CUDA device."""
+    if state.llr.device.type == "cpu":
+        for spec in prefix.steps:
+            scl_chunk_step(state, spec)
+        return
+    scl_narrow_prefix_cuda(state, prefix)
 
 
 def scl_last_chunk_cuda(state: SCLState, spec: SCLStepSpec):
@@ -808,10 +920,12 @@ def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact", live: 
                             union: bool = False, perm_impl: str = "rank"):
     """The kernel controls of the chunked decoder: ``decode(llr_rev [B, N]) →
     (u [B, L, N] int8 natural order, metrics [B, L])`` with ``llr_rev`` in
-    bit-reversed storage.  ``C − 1`` chunk-step launches (narrow at the live
-    path counts with ``live``; at the united compose masks with ``union``)
-    and one last-chunk launch, on a rank or one-hot state (``perm_impl``); a
-    single-chunk code is one chunk-body launch and the butterfly."""
+    bit-reversed storage.  ``C − 1`` chunk-step launches (at the united
+    compose masks with ``union``) and one last-chunk launch, on a rank or
+    one-hot state (``perm_impl``); with ``live``, the chunk steps whose live
+    path counts are below L run first, in one narrow-prefix launch, and the
+    others after it.  A single-chunk code is one chunk-body launch and the
+    butterfly."""
     programs = [SCLBodyProgram(f, sched.L, node_mode, perm_impl) for f in sched.unique_flags]
     L = sched.L
     if sched.C == 1:
@@ -832,7 +946,10 @@ def make_scl_kernel_decoder(sched: SCLSchedule, node_mode: str = "exact", live: 
     def decode(llr_rev):
         state = SCLState(sched, llr_rev, perm_impl)
         for spec in steps:
-            scl_chunk_step(state, spec)
+            if isinstance(spec, SCLPrefixSpec):
+                scl_narrow_prefix(state, spec)
+            else:
+                scl_chunk_step(state, spec)
         return scl_last_chunk(state, last)
 
     return decode

@@ -12,7 +12,8 @@ torch operators as the plain version, so equality is exact.
 
 Live-width (narrow) chunk steps are walked the same way, over the first
 ``w`` rows and lanes only, with the one-lane pendings read at lane 0, against
-the plain live-width step on the live-width state.
+the plain live-width step on the live-width state; and the narrow prefix,
+the narrow steps of a decode in one launch, row by row from its step table.
 
 The fast node ops (``node_mode="fast"``) are walked the same way: a larger
 fast node on its paths' lane groups (lane (q, j) holds positions j + G·k in
@@ -23,13 +24,17 @@ stage, the slot → original-path composition the kernel keeps in a register
 per lane, the per-slot flip bits composed the same way, the words by ballots
 and the XOR of the flips into them; a fast ``OP_SUBTREE`` lane by lane (the
 path's magnitudes on each lane, each lane's stable rank, the flips by rank).
-The selection kernel ``fastnode.cu`` (``fastnode_device.cuh``'s
-``halving_sum`` and ``select_k``) is walked against its plain version too,
-and the last chunk's butterfly and output stores (``root_out``) lane by lane,
-with the banks of their shared-memory accesses.
+``fastnode_device.cuh``'s ``halving_sum`` and ``select_k`` and the selection
+kernel ``fastnode.cu`` (one or two lanes a path and frame, the K least keys
+in a sorted register list, the halving-tree sum in bit-reversed order as a
+binary counter) are walked against their plain version too, and the last
+chunk's butterfly and output stores (``root_out``) lane by lane, with the
+banks of their shared-memory accesses.
 """
 
+import dataclasses
 import zlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -1164,7 +1169,8 @@ def test_narrow_step_walk_equals_plain_live_step_on_every_chunk(N, K, S, L):
     fills, the missing slots are the phantoms' zero bits and −inf)."""
     fm = _code(N, K)
     sched = build_scl_schedule(N, fm, L, S)
-    steps, last = make_step_specs(sched, live=True)
+    (prefix, *rest), last = make_step_specs(sched, live=True)
+    steps = prefix.steps + rest  # the narrow prefix's steps, then the full-width ones
     assert steps[0].narrow and steps[0].lv_in == 1 and not last.narrow
     rng = np.random.default_rng(N + S + L + 1)
     llr = torch.from_numpy((1.5 + 2 * rng.standard_normal((7, N))).astype(np.float32))
@@ -1705,3 +1711,180 @@ def test_sublane_roll_plain_equals_np_roll_on_the_probe_tile():
     assert ops.launch_counts()["sublane_roll"] == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         sublane_roll_cuda(torch.from_numpy(x), PROBE_SHIFT)
+
+
+# ---------------------------------------------------------------------------
+# K3-live: the narrow prefix of a live decode in one launch (scl_narrow_prefix)
+
+# the flagship (CA-SCL-8), the reference's large code (N=4096 SCL-32, chunk
+# 64), two small codes, and a code whose prefix is longer than one launch's
+# table (124 narrow positions)
+PREFIX_CODES = [(1024, 512, 128, 8), (4096, 2048, 64, 32), (128, 64, 16, 4), (256, 100, 32, 8),
+                (1024, 128, 4, 16)]
+
+
+@pytest.mark.parametrize("N,K,S,L", PREFIX_CODES)
+def test_narrow_prefix_table_equals_the_per_position_specs(N, K, S, L):
+    """``make_step_specs(live=True)`` puts the narrow positions first, as one
+    ``SCLPrefixSpec``: its step table, row by row, is the per-position narrow
+    specs (``StepArgs`` order; each row's node program at its offset of the
+    programs back to back); the prefix holds exactly the positions entering
+    below L, and the full-width steps follow from the first full-width
+    position on; a longer prefix runs as launches of at most
+    ``PREFIX_PARAM_ROWS`` rows; a narrow step alone is refused by the
+    chunk-step launch, and a prefix of a fast or one-hot program, of a
+    full-width step or of none by the spec."""
+    sched = build_scl_schedule(N, _code(N, K), L, S)
+    (prefix, *rest), last = make_step_specs(sched, live=True)
+    full, _ = make_step_specs(sched)
+    P = len(prefix.steps)
+    assert isinstance(prefix, scl_cuda.SCLPrefixSpec) and P == len(full) - len(rest)
+    assert P == sum(w < L for w in sched.lv_in[:-1]) and all(s.narrow for s in prefix.steps)
+    assert not any(isinstance(s, scl_cuda.SCLPrefixSpec) or s.narrow for s in rest)
+    assert not last.narrow
+    assert prefix.rows.dtype == np.int32 and prefix.rows.flags.c_contiguous
+    assert prefix.rows.shape == (P, len(scl_cuda.PREFIX_TABLE_COLUMNS))
+    for row, spec, wide in zip(prefix.rows.tolist(), prefix.steps, full):
+        k, inv, j, ma, mb, off, n_ops, has_r, lvi, lvo, oa, ob = row
+        assert (k, inv, j, ma, mb, lvi, lvo, oa, ob) == (
+            spec.k, int(spec.inv), spec.j, spec.mask_a, spec.mask_b, spec.lv_in, spec.lv_out,
+            spec.one_a, spec.one_b)
+        assert (k, inv, j) == (wide.k, int(wide.inv), wide.j)
+        assert np.array_equal(prefix.prog[off:off + n_ops], spec.program.ops)
+        assert has_r == int(spec.program.has_r) and lvi < L
+    assert len(range(0, P, scl_cuda.PREFIX_PARAM_ROWS)) == (2 if P > 64 else 1)
+    st = SCLState(sched, torch.zeros(2, N))
+    with pytest.raises(ValueError, match="narrow"):
+        scl_cuda.scl_chunk_step_cuda(st, prefix.steps[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scl_cuda.scl_narrow_prefix_cuda(st, prefix)
+    with pytest.raises(ValueError, match="narrow"):
+        scl_cuda.SCLPrefixSpec(prefix.steps[:1] + full[-1:])
+    with pytest.raises(ValueError, match="narrow"):
+        scl_cuda.SCLPrefixSpec([])
+    fast = SCLBodyProgram(sched.unique_flags[0], L, "fast")
+    with pytest.raises(ValueError, match="exact"):
+        scl_cuda.SCLPrefixSpec([dataclasses.replace(prefix.steps[0], program=fast)])
+    assert not any(isinstance(s, scl_cuda.SCLPrefixSpec) for s in full)
+
+
+def emulate_prefix(state: SCLState, prefix):
+    """The prefix kernel's walk: the rows of its step table in order on one
+    state, each a narrow chunk step whose node program is read at its
+    offset of the programs back to back."""
+    for row in prefix.rows.tolist():
+        k, inv, j, ma, mb, off, n_ops, has_r, lvi, lvo, oa, ob = row
+        program = SimpleNamespace(ops=prefix.prog[off:off + n_ops], has_r=bool(has_r))
+        emulate_step(state, SimpleNamespace(k=k, inv=bool(inv), j=j, mask_a=ma, mask_b=mb,
+                                            lv_in=lvi, lv_out=lvo, one_a=oa, one_b=ob,
+                                            program=program))
+
+
+@pytest.mark.parametrize("N,K,S,L", [(128, 64, 16, 4), (256, 100, 32, 8), (64, 3, 8, 8),
+                                     (512, 64, 4, 8)])
+def test_narrow_prefix_walk_equals_plain_narrow_steps(N, K, S, L):
+    """The prefix walked from its table on one state, as the kernel walks
+    it, equals the plain narrow steps in order (``scl_narrow_prefix`` on a
+    CPU state) bit for bit on the whole state; then the full-width steps
+    and the last chunk from there equal the plain live-width decoder."""
+    fm = _code(N, K)
+    sched = build_scl_schedule(N, fm, L, S)
+    (prefix, *rest), last = make_step_specs(sched, live=True)
+    rng = np.random.default_rng(N + K + L)
+    llr = torch.from_numpy((1.5 + 2 * rng.standard_normal((6, N))).astype(np.float32))
+    llr[0] = torch.from_numpy(rng.integers(-2, 3, N).astype(np.float32))  # tie-heavy frame
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64)
+    plain = SCLState(sched, llr[:, rev].contiguous())
+    emu = plain.clone()
+    scl_cuda.scl_narrow_prefix(plain, prefix)
+    emulate_prefix(emu, prefix)
+    _assert_state_equal(plain, emu, "prefix")
+    for spec in rest:
+        scl_cuda.scl_chunk_step(plain, spec)
+    u0, p0 = scl_cuda.scl_last_chunk(plain, last)
+    u1, p1 = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-fused",
+                                   live_width=True, device="cpu")(llr)
+    assert torch.equal(u0, u1) and torch.equal(p0, p1)
+
+
+# ---------------------------------------------------------------------------
+# K7: the streaming selection (fastnode.cu, fastnode_stream_kernel)
+
+def fastnode_stream_walk(a, K):
+    """The streaming kernel on ``a [L, S, B]``: per (path, frame) two lanes
+    (one when S < 32 or the list is 32 long), each on its half of the
+    positions in bit-reversed order, in runs of 16 (of 1 when S < 16); each
+    value's 64-bit key (``|a|``'s bits above its position) inserted into the
+    lane's sorted list of ``kMaxK`` keys (7, 15 or 32: the first that holds
+    K) by the compare-exchange pass; each run's softplus summed pairwise, its
+    sum pushed into the lane's counter of levels; then the second lane's
+    first K keys inserted into the first lane's list and the two halves' sums
+    added (the halving tree's additions); returns ``(mags, idx, penalty)``
+    as the kernel writes them."""
+    L, S, B = a.shape
+    kmax, run = next(n for n in (7, 15, 32) if K <= n), (16 if S >= 16 else 1)
+    lanes = 2 if S >= 32 and kmax <= 15 else 1
+    lgS = S.bit_length() - 1
+    vals = a.permute(0, 2, 1).reshape(L * B, S)
+
+    def insert(keys, key):  # the compare-exchange pass, from the top of the list
+        key = key[:, None]
+        below = torch.cat([torch.full((L * B, 1), -1, dtype=torch.int64), keys[:, :-1]], 1)
+        return torch.where(key < below, below, torch.minimum(key, keys))
+
+    lists, sums = [], []
+    runs = S // run // lanes
+    for half in range(lanes):
+        keys = torch.full((L * B, kmax), 2 ** 63 - 1, dtype=torch.int64)  # above every key
+        level, carry = [None] * 13, None
+        for r in range(runs):
+            pos = [int(format((half * runs + r) * run + u, f"0{lgS}b")[::-1], 2) if lgS else 0
+                   for u in range(run)]
+            x = vals[:, pos]
+            for u in range(run):
+                keys = insert(keys, ((x[:, u].abs().view(torch.int32).to(torch.int64)
+                                      & 0xFFFFFFFF) << 32) | pos[u])
+            x = torch.log1p(torch.exp(-x.abs()))
+            while x.shape[1] > 1:  # the run's subtree, pairwise
+                x = x[:, 0::2] + x[:, 1::2]
+            carry = x[:, 0]
+            merges = (~r & (r + 1)).bit_length() - 1  # the trailing ones of r
+            for k in range(merges):
+                carry = level[k] + carry
+            level[merges] = carry
+        lists.append(keys)
+        sums.append(carry)
+    keys, total = lists[0], sums[0]
+    if lanes == 2:
+        for k in range(K):
+            keys = insert(keys, lists[1][:, k])
+        total = total + sums[1]
+    mags = (keys[:, :K] >> 32).to(torch.int32).view(torch.float32)
+    idx = (keys[:, :K] & 0xFFFFFFFF).to(torch.int32)
+    return (mags.reshape(L, B, K).permute(0, 2, 1), idx.reshape(L, B, K).permute(0, 2, 1),
+            total.reshape(L, 1, B))
+
+
+@pytest.mark.parametrize("L", [1, 8, 32])
+@pytest.mark.parametrize("S", [1, 2, 64, 128])
+@pytest.mark.parametrize("case", ["normal", "integer ties"])
+def test_fastnode_stream_walk_equals_plain(L, S, case):
+    """K7's walk (``fastnode_stream_walk``) against ``fastnode_select_plain``
+    by bit pattern at K = 1, L − 1 and S (ties to the lower position, in any
+    order of visit); a K above ``STREAM_MAX_K`` (the register list) is
+    refused."""
+    from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import STREAM_MAX_K, fastnode_select_cuda
+    B = 5
+    rng = np.random.default_rng(L * S + len(case))
+    a = torch.from_numpy((rng.integers(-2, 3, (L, S, B)) if case == "integer ties"
+                          else 2 * rng.standard_normal((L, S, B))).astype(np.float32))
+    for K in sorted({1, min(max(L - 1, 1), S), S}):
+        if K > STREAM_MAX_K:
+            with pytest.raises(ValueError, match="STREAM_MAX_K"):
+                fastnode_select_cuda(a, K)
+            continue
+        want = fastnode_select_plain(a, K)
+        got = fastnode_stream_walk(a, K)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, K
+            assert torch.equal(g.contiguous().view(torch.int32), w.view(torch.int32)), K

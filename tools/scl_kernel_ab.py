@@ -17,10 +17,9 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
 
 * K3 (``scl_chunk_step``) at each of the seven chunk positions on the state
   the kernel decode reaches, full width, and its mean; K3 with fast node
-  programs, with one-hot pendings (each position and the mean), the two
-  narrow (live-width) launches of the live decode; K4 in the same three
-  modes; K5 on each of the eight chunk patterns and the mean, with fast and
-  with one-hot programs too; K6 (the one-launch decode);
+  programs, with one-hot pendings (each position and the mean); K4 in the
+  same three modes; K5 on each of the eight chunk patterns and the mean, with
+  fast and with one-hot programs too; K6 (the one-launch decode);
 * whole decodes of the flagship (``unroll-kernel``, live width, CRC-free
   decoder of ``make_scl_decoder``) and of JAX's SCL-8 benchmark shape (8192
   frames, chunk 128, rank and one-hot);
@@ -48,6 +47,19 @@ the flagship shape (4096 frames, N=1024, K=512, chunk S=128, list L=8, 3 dB):
   ``scl_body_profile``, and the kernels'
   registers, spills and resident warps per SM where it has
   ``scl_cuda.kernel_resources``.
+
+Part ``narrow`` times the narrow (live-width) positions of the live
+decodes, the flagship's (two) and the large code's (N=4096, SCL-32, chunk 64,
+1024 frames: eight): each position alone and the whole narrow prefix of a
+decode, by CUDA events and by ``torch.profiler``'s device time, as one
+``scl_narrow_prefix`` launch where the tree has it, else the single narrow
+chunk-step launches back to back; and the host's microseconds of a
+prefix's launches and of one launch by part (the state's checks, the launch
+plan, the node program's device copy).  Part ``fastnode`` times K7
+(``fastnode_select``) by events and device time at [8, 128, 4096] with K = 7
+and at [32, 128, 4096] with K = 31, each device time with the kernels the
+profiler saw per call (a reading that missed a launch is taken again, and is
+"not measured" if every try missed one).
 
 Part ``sc`` times K1 on one Monte-Carlo chunk of the polar SC path (16384
 frames, N=1024, K=512, 3 dB, with and without fast nodes), the two subtree
@@ -91,21 +103,40 @@ from pathlib import Path
 N, K, L, S, B, SNR = 1024, 512, 8, 128, 4096, 3.0
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Mean device time per call of the kernels ``fn()`` launches, by
-    ``torch.profiler`` (0.0 when the profiler saw none)."""
+def _device_ms(fn, reps: int, expect: "int | None" = None, tries: int = 3):
+    """``(ms, kernels per call)``: the mean device time per call of the
+    kernels ``fn()`` launches, by ``torch.profiler``, and the kernels the
+    profiler saw per call.  ``expect`` is the kernels one call launches (by
+    default the package's launch counters over one call).  The profiler can
+    drop events (the first launches of a session): each reading follows a
+    step of ``reps`` calls whose events it discards, and a reading that saw
+    another count is taken again, up to ``tries`` times, and is "not
+    measured" when none saw exactly ``expect``."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    from polarcode_and_ldpc_tpu_torch import ops
+
+    before = sum(ops.launch_counts().values())
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    if expect is None:
+        expect = sum(ops.launch_counts().values()) - before
+    seen = 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the discarded step, then the one read
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen = sum(e.count for e in kernels) / reps
+        if seen == expect:
+            return sum(e.self_device_time_total for e in kernels) / 1e3 / reps, seen
+    return "not measured", seen
 
 
 def _child(reps: int, parts: tuple) -> dict:
@@ -118,7 +149,8 @@ def _child(reps: int, parts: tuple) -> dict:
 
     dev = "cuda"
     if "scl" not in parts:  # only the sources this child times
-        wanted = {"sc": "sc_decode", "roll": "sublane_roll", "bp": "bp_decode"}
+        wanted = {"sc": "sc_decode", "roll": "sublane_roll", "bp": "bp_decode",
+                  "narrow": "scl_decode", "fastnode": "fastnode"}
         build.SOURCES = tuple(s for s in build.SOURCES
                               if s in {wanted[p] for p in parts if p in wanted})
     variants = tuple(v for v in getattr(build, "VARIANTS", ())
@@ -169,9 +201,12 @@ def _child(reps: int, parts: tuple) -> dict:
         calls = {"K8": lambda: sublane_roll_cuda(x, 30), "torch.roll": lambda: torch.roll(x, 30, 0)}
         for name, fn in list(calls.items()) * 2:  # in turns, each twice
             out.setdefault(f"{name} events", []).append(time_ms(fn, 10 * reps))
-            out.setdefault(f"{name} device", []).append(_device_ms(fn, 10 * reps))
+            ms, seen = _device_ms(fn, 10 * reps, expect=1)
+            out.setdefault(f"{name} device", []).append(ms)
+            out.setdefault(f"{name} kernels per call", []).append(seen)
         for key in [k for k in out if k.startswith(tuple(calls))]:
-            out[key] = sum(out[key]) / len(out[key])
+            ok = [v for v in out[key] if isinstance(v, float)]
+            out[key] = sum(ok) / len(ok) if len(ok) == len(out[key]) else out[key]
         note(sublane_roll_cuda(x, 30))
         # host microseconds a call, no synchronise inside: the wrapper, torch.roll,
         # and the wrapper's two parts (the output's allocation; the C launcher)
@@ -191,6 +226,10 @@ def _child(reps: int, parts: tuple) -> dict:
             torch.cuda.synchronize()
     if "scl" in parts:
         _child_scl(out, llrs, time_ms, note, reps)
+    if "narrow" in parts:
+        _child_narrow(out, llrs, time_ms, note, reps)
+    if "fastnode" in parts:
+        _child_fastnode(out, time_ms, note, reps)
     if "bp" in parts:
         _child_bp(out, time_ms, note)
     out["digest"] = digest.hexdigest()
@@ -242,17 +281,6 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
     oprog = [SCLBodyProgram(f, L, perm_impl="onehot") for f in sched.unique_flags]
     osteps, olast = make_step_specs(sched, oprog)
     step_times(osteps, olast, "onehot", tag="-onehot")
-    # the narrow launches of the live decode (positions entering below L)
-    lsteps, _ = make_step_specs(sched, live=True)
-    state = SCLState(sched, llr_rev)
-    narrow = []
-    for spec in lsteps:
-        if spec.narrow:
-            scratch = state.clone()
-            narrow.append(time_ms(lambda: scl_chunk_step_cuda(scratch, spec)))
-        scl_chunk_step_cuda(state, spec)
-    note(state.alpha, state.beta, state.pm)
-    out["K3-live narrow per launch"] = narrow
     # K5 on each chunk pattern at the level-t alpha of the state
     body = []
     g = np.random.default_rng(5)
@@ -391,6 +419,110 @@ def _child_scl(out, llrs, time_ms, note, reps) -> None:
         out["resources"] = scl_cuda.kernel_resources(L, S, N, sched.t)
 
 
+def _narrow_runner(scl_cuda, specs):
+    """``run(state)``: the narrow (live-width) positions ``specs`` of a live
+    decode, in order, on the state: one ``scl_narrow_prefix`` launch where
+    the tree has it, else the single narrow ``scl_chunk_step`` launches back
+    to back."""
+    if hasattr(scl_cuda, "scl_narrow_prefix_cuda"):
+        prefix = scl_cuda.SCLPrefixSpec(specs)
+        return lambda state: scl_cuda.scl_narrow_prefix_cuda(state, prefix)
+    return lambda state: [scl_cuda.scl_chunk_step_cuda(state, spec) for spec in specs]
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn()``, no synchronise inside."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _child_narrow(out, llrs, time_ms, note, reps) -> None:
+    """The narrow prefix of the live decodes: the flagship (4096 frames,
+    N=1024, L=8, S=128) and the large code (1024 frames, N=4096, L=32,
+    S=64), each narrow position alone (one launch) and the whole prefix of a
+    decode, by CUDA events and by profiler device time; the host's
+    microseconds a launch, split into its parts where the tree has them."""
+    import numpy as np
+    import torch
+
+    from polarcode_and_ldpc_tpu_torch.models.polar.construction import bit_reverse_permutation
+    from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import build_scl_schedule
+    from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
+    from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import SCLState, make_step_specs
+
+    for tag, (n, k, lsz, s, frames, seed, crc) in (
+            ("flagship", (N, K, L, S, B, 77, True)),
+            ("SCL-32 N=4096", (4096, 2048, 32, 64, 1024, 92, False))):
+        llr, mask = llrs(n, k, frames, SNR, seed, crc)
+        sched = build_scl_schedule(n, mask, lsz, s)
+        rev = torch.as_tensor(np.asarray(bit_reverse_permutation(n)), dtype=torch.int64,
+                              device=llr.device)
+        state = SCLState(sched, llr[:, rev].contiguous())
+        specs, _ = make_step_specs(sched, live=True)
+        if isinstance(specs[0], getattr(scl_cuda, "SCLPrefixSpec", ())):
+            narrow = specs[0].steps  # the tree's live specs begin with their narrow prefix
+        else:
+            narrow = [spec for spec in specs if spec.narrow]
+            assert specs[:len(narrow)] == narrow, "the narrow positions are not a prefix"
+        events, device, seen = [], [], []
+        for spec in narrow:  # each position alone, on the state it starts from
+            one, scratch = _narrow_runner(scl_cuda, [spec]), state.clone()
+            events.append(time_ms(lambda: one(scratch)))
+            ms, kernels = _device_ms(lambda: one(scratch), reps)
+            device.append(ms)
+            seen.append(kernels)
+            one(state)
+            note(state.alpha, state.beta, state.pend_a, state.pend_b, state.pm)
+        out[f"narrow {tag} per position events"] = events
+        out[f"narrow {tag} per position device"] = device
+        out[f"narrow {tag} per position kernels per call"] = seen
+        out[f"narrow {tag} positions"] = len(narrow)
+        state = SCLState(sched, llr[:, rev].contiguous())
+        run = _narrow_runner(scl_cuda, narrow)
+        scratch = state.clone()
+        out[f"narrow {tag} per decode events"] = time_ms(lambda: run(scratch))
+        (out[f"narrow {tag} per decode device"],
+         out[f"narrow {tag} per decode kernels per call"]) = _device_ms(lambda: run(scratch), reps)
+        run(state)
+        note(state.alpha, state.beta, state.pend_a, state.pend_b, state.pm)
+        out[f"narrow {tag} per decode host us"] = _host_us(lambda: run(scratch))
+        # one launch's host work, and three of its parts: the state's checks,
+        # the launch plan, the node program's device copy (the rest is the
+        # ctypes call and its arguments)
+        first = narrow[0]
+        one = _narrow_runner(scl_cuda, [first])
+        split = {"whole launch": lambda: one(scratch),
+                 "checks": lambda: scl_cuda._check_state(scratch, first.program)}
+        split["launch plan"] = lambda: scl_cuda._context_plan(lsz, s, 0, frames, llr.device)
+        split["program on the device"] = lambda: first.program.device_ops(llr.device)
+        out[f"narrow {tag} host us split"] = {name: _host_us(fn) for name, fn in split.items()}
+
+
+def _child_fastnode(out, time_ms, note, reps) -> None:
+    """K7 (``fastnode_select``) by CUDA events and by profiler device time at
+    the flagship's node shape [8, 128, 4096] (K = 7, the probe's K), and at
+    [32, 128, 4096] with K = 31 (a list of 32, L − 1)."""
+    import torch
+
+    from polarcode_and_ldpc_tpu_torch.ops.fastnode_cuda import fastnode_select_cuda
+
+    for lsz, s, frames, k in ((8, 128, 4096, 7), (32, 128, 4096, 31)):
+        a = (2 * torch.randn((lsz, s, frames), generator=torch.Generator().manual_seed(5))).cuda()
+        key = f"K7 [{lsz}, {s}, {frames}] K={k}"
+        out[f"{key} events"] = time_ms(lambda: fastnode_select_cuda(a, k))
+        out[f"{key} device"], out[f"{key} kernels per call"] = _device_ms(
+            lambda: fastnode_select_cuda(a, k), reps)
+        note(*fastnode_select_cuda(a, k))
+
+
 def _child_bp(out, time_ms, note) -> None:
     import numpy as np
     import torch
@@ -499,7 +631,8 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], help="name=dir")
     ap.add_argument("--order", default="")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--parts", default="scl,sc,roll", help="of scl, sc, roll, bp")
+    ap.add_argument("--parts", default="scl,sc,roll",
+                    help="of scl, narrow, fastnode, sc, roll, bp")
     ap.add_argument("--child", action="store_true")
     ap.add_argument("--out", default="build/scl_kernel_ab.json")
     args = ap.parse_args()
