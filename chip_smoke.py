@@ -14,9 +14,10 @@ min-sum and the quasi-cyclic n=8192 pipelines, the large codes — polar
 N=4096 SCL-32, SC at N=32768, the MacKay LDPC code at n=8192 —, the adaptive
 SC-first CA-SCL serving decoder on batches of 8192 frames, exact and fast,
 the SNR-curve CLI, and JAX's SCL-8 benchmark shape under every list control and
-both permutation algebras) at full code size through the kernels, checks the
-frame-id invariance of the counters and checkpoint/resume, and prints one
-JSON line per phase.  Any failure raises, and the exit code is then non-zero.
+both permutation algebras; the BSC and fading channels; the reference's
+benchmark CLIs and throughput probes) at full code size through the kernels,
+checks the frame-id invariance of the counters and checkpoint/resume, and
+prints one JSON line per phase.  Any failure raises, and the exit code is then non-zero.
 
 The second line from the end lists every kernel with its launches on the main
 path, its error against the plain version, its time, the plain version's
@@ -52,8 +53,16 @@ under every control, other codes, integer LLRs, the control ``"kernel"`` with
 its context in device memory), ``polar_sc_mc``, ``polar_cascl_mc``,
 ``polar_fast_mc``, ``polar_scl8_controls``, ``ldpc_mc``, ``ldpc_layered_mc``, ``ldpc_qc_mc``,
 ``polar_large_mc``, ``polar_sc_large_mc``, ``ldpc_large_mc``, ``serving``,
-``serving_fast``, ``snr_curves`` (the main paths, each with the launch counts
-set to 0 just before and read just after), ``invariance``, ``stages``.  The
+``serving_fast``, ``snr_curves``, ``channels_mc`` (polar SC over the BSC at
+p = 0.05 / 0.11 and Rayleigh at 3 / 6 dB, CA-SCL-8 over Rayleigh, LDPC BP and
+NMS over the BSC and Rician fading, each against its plain pipeline on one
+chunk and at two chunk sizes), ``throughput`` (the throughput CLI at the main
+paths' batches, and one ``profile_trace`` of an SC chunk), ``run_benchmark``
+(the reference's main CLI over Rayleigh), ``code_params`` (its default length
+and rate sweeps), ``sc_vs_scl`` (quick and full modes) (the main paths, each
+with the launch counts set to 0 just before and read just after; the CLIs
+write under ``chiprun_out/``), ``invariance``, ``stages``.  The kernel holds
+include BSC batches (every LLR ±c, and ±0.0 at p = 0.5).  The
 ``summary`` line (``partial`` when phases were chosen) gives each phase's
 seconds.
 
@@ -84,6 +93,7 @@ import polarcode_and_ldpc_tpu_torch as fec
 from polarcode_and_ldpc_tpu_torch import ops
 from polarcode_and_ldpc_tpu_torch.convert import qc_code_from_numpy
 from polarcode_and_ldpc_tpu_torch.channels.awgn import awgn_noise_std, awgn_transmit
+from polarcode_and_ldpc_tpu_torch.channels.bsc import bsc_llr, bsc_transmit
 from polarcode_and_ldpc_tpu_torch.core import rng
 from polarcode_and_ldpc_tpu_torch.models.ldpc.encoder import gf2_matmul
 from polarcode_and_ldpc_tpu_torch.models.ldpc.graph import TannerGraph
@@ -120,8 +130,8 @@ from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (OP_COMBINE, OP_F, OP_G, O
                                                        scl_chunk_step_cuda, scl_decode_mega_cuda,
                                                        scl_last_chunk_cuda,
                                                        scl_narrow_prefix_cuda)
-from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_ldpc_pipeline,
-                                              make_polar_pipeline)
+from polarcode_and_ldpc_tpu_torch.sim import (MonteCarloSimulator, make_channel_fn,
+                                              make_ldpc_pipeline, make_polar_pipeline)
 
 DEV = "cuda"
 
@@ -169,7 +179,8 @@ PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "sc_profil
           "onehot_kernels", "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc",
           "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
           "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
-          "serving_fast", "snr_curves", "invariance", "stages")
+          "serving_fast", "snr_curves", "channels_mc", "throughput", "run_benchmark",
+          "code_params", "sc_vs_scl", "invariance", "stages")
 
 
 def emit(phase: str, **fields) -> None:
@@ -238,6 +249,18 @@ def seeded_llrs(codewords: torch.Tensor, snr_db: float, seed: int) -> torch.Tens
     return (2.0 * y / (std * std)).contiguous()
 
 
+# the BSC batches of the kernel holds: every LLR ±log((1 − p)/p), and at
+# p = 0.5 every LLR ±0.0 (a received 1 gives −0.0), so every sum is a tie
+BSC_HOLD_PROBS = (0.05, 0.5)
+
+
+def bsc_llrs(codewords: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """BSC LLRs of int8 codewords on the card, each frame keyed by its row."""
+    keys = rng.frame_keys(rng.prng_key(seed, DEV),
+                          torch.arange(codewords.shape[0], device=DEV))
+    return bsc_llr(bsc_transmit(keys, codewords, p), p).contiguous()
+
+
 # -- phases --------------------------------------------------------------------
 
 def phase_device() -> dict:
@@ -296,6 +319,12 @@ def check_sc_kernel(results: dict, reps: int) -> None:
         diff = int((sc_decode_cuda(q, program) != program.plain(q)).sum())
         worst = max(worst, diff)
         cases.append({"B": 512, "input": "integer ties", "fast_nodes": fast, "diff_bits": diff})
+        cw = enc.encode(np.random.default_rng(6).integers(0, 2, (512, POLAR_K)))
+        for p in BSC_HOLD_PROBS:
+            q = bsc_llrs(cw, p, seed=13)
+            diff = int((sc_decode_cuda(q, program) != program.plain(q)).sum())
+            worst = max(worst, diff)
+            cases.append({"B": 512, "input": f"bsc p={p}", "fast_nodes": fast, "diff_bits": diff})
     # the main path's shape: one Monte-Carlo chunk
     program = SCProgram(POLAR_N, mask, fast_nodes=True)
     msgs = np.random.default_rng(11).integers(0, 2, (POLAR_CHUNK, POLAR_K))
@@ -352,6 +381,17 @@ def check_bp_kernel(results: dict, reps: int) -> None:
                         sp_differ += differ
                     elif differ:
                         raise AssertionError(f"bp_decode[{name}] is not bit-identical: {cases[-1]}")
+        # BSC batches (all ±c, all ±0.0): bit for bit under every rule
+        plan = BPKernelPlan(graph, LDPC_ITERS, True, rule, alpha, beta)
+        cw = enc.encode(np.random.default_rng(7).integers(0, 2, (999, LDPC_K)))
+        for p in BSC_HOLD_PROBS:
+            llr = bsc_llrs(cw, p, seed=17)
+            bits, iters = bp_decode_cuda(llr, plan)
+            pbits, piters = plan.plain(llr)
+            differ = int(((bits != pbits).any(dim=1) | (iters != piters)).sum())
+            cases.append({"rule": name, "input": f"bsc p={p}", "B": 999, "frames_differ": differ})
+            if differ:
+                raise AssertionError(f"bp_decode[{name}] is not bit-identical: {cases[-1]}")
         # padded slots: an irregular (MacKay) graph of the same size, odd batch
         plan = BPKernelPlan(irregular, LDPC_ITERS, True, rule, alpha, beta)
         llr = seeded_llrs(torch.zeros((777, LDPC_N), dtype=torch.int8, device=DEV), 2.0, seed=99)
@@ -424,6 +464,8 @@ def check_bp_layered_kernel(results: dict, reps: int, quick: bool) -> None:
     inputs = [(B, snr, seeded_llrs(enc.encode(np.random.default_rng(B + int(snr)).integers(
         0, 2, (B, LDPC_K))), snr, seed=5 * B + int(10 * snr) + 100))
         for B in (4096, 999) for snr in (-1.0, 1.0, 3.0)]
+    cw = enc.encode(np.random.default_rng(7).integers(0, 2, (999, LDPC_K)))
+    inputs += [(999, f"bsc p={p}", bsc_llrs(cw, p, seed=19)) for p in BSC_HOLD_PROBS]
     padded = seeded_llrs(torch.zeros((777, LDPC_N), dtype=torch.int8, device=DEV), 2.0, seed=98)
     for name, (alpha, beta) in rules.items():
         for layers in (1, 4, 6):
@@ -856,6 +898,10 @@ def phase_scl_kernels(results: dict, reps: int, quick: bool) -> None:
     ties = torch.from_numpy(np.random.default_rng(6).integers(
         -3, 4, (512, POLAR_N)).astype(np.float32)).to(DEV)
     inputs.append((512, "integer ties", ties))
+    crc_enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, use_crc=True,
+                               crc_polynomial=SCL_CRC, device=DEV)
+    cw = crc_enc.encode(np.random.default_rng(8).integers(0, 2, (512, crc_enc.K_data)))
+    inputs += [(512, f"bsc p={p}", bsc_llrs(cw, p, seed=23)) for p in BSC_HOLD_PROBS]
     for B, snr, llr in inputs:
         context = {"B": B, "snr_db": snr}
         worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr, context))
@@ -2257,7 +2303,9 @@ def phase_kernels(results: dict, reps: int, quick: bool) -> None:
                        "frames_differ": sum(c["frames_differ"] for c in layered),
                        "rules": ["nms 0.75", "oms 0.5", "ms"], "num_layers": [1, 4, 6],
                        "early_stop": [True, False], "B": [4096, 999, "777 (padded slots)"],
-                       "snr_db": [-1.0, 1.0, 3.0]})
+                       "snr_db": [-1.0, 1.0, 3.0],
+                       "bsc_cases": sum("bsc" in str(c["snr_db"]) for c in layered
+                                        if "snr_db" in c)})
 
 
 def record_launches(results: dict, keys) -> dict:
@@ -2567,6 +2615,285 @@ def phase_snr_curves(results: dict) -> None:
          ldpc={k: curves["ldpc"][k] for k in ("snr_db", "ber", "fer", "frames_tested",
                                                "avg_iterations", "throughput_mbps")},
          analysis=files["snr_analysis.json"], first_point_equals_plain_pipeline=True)
+
+
+# -- the channels and the benchmark front end (BSC, fading; the reference's CLIs) --------
+
+# the Monte-Carlo paths over the other channels: (name, kind, channel keywords,
+# the runtime SNR in dB or None for the BSC)
+SC_CHANNELS = (("bsc_p0.05", "bsc", {"crossover_prob": 0.05}, None),
+               ("bsc_p0.11", "bsc", {"crossover_prob": 0.11}, None),
+               ("rayleigh_3db", "rayleigh", {}, 3.0),
+               ("rayleigh_6db", "rayleigh", {}, 6.0))
+LDPC_CHANNELS = (("bsc_p0.05", "bsc", {"crossover_prob": 0.05}, None),
+                 ("rician_k3_3db", "rician", {"k_factor": 3.0}, 3.0))
+CHANNEL_SCL_SNR_DB = 3.0
+CHANNEL_SCL_FRAMES = 4096
+
+
+def channel_step(make, kind: str, chan_kw: dict, **kw):
+    """A pipeline over one channel (a runtime-SNR step for the fading kinds)."""
+    return make(channel_fn=make_channel_fn(kind, snr_db=None, **chan_kw), **kw)
+
+
+def hold_channel_path(what: str, results: dict, keys, step, plain, snr, chunk: int,
+                      frames: int, k: int, allowed: int = 0) -> dict:
+    """One Monte-Carlo path over a channel: the kernel pipeline's launches
+    counted over its run, its counters equal at half the chunk size, and its
+    first chunk held frame for frame against the same pipeline on the plain
+    versions (``allowed`` frames may differ)."""
+    extra = () if snr is None else (snr,)
+    sim = MonteCarloSimulator(step, k, chunk_frames=chunk)
+    sim.run(chunk, seed=1, extra_args=extra)  # warm-up
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0, extra_args=extra)
+    torch.cuda.synchronize()
+    counts = record_launches(results, keys)
+    half = MonteCarloSimulator(step, k, chunk_frames=chunk // 2).run(
+        frames, max_errors=None, seed=0, extra_args=extra)
+    if (half.frames, half.bit_errors, half.frame_errors, half.total_iterations) != (
+            res.frames, res.bit_errors, res.frame_errors, res.total_iterations):
+        raise AssertionError(f"{what}: the counters differ between chunks of {chunk} and "
+                             f"{chunk // 2}: {res.to_dict()} {half.to_dict()}")
+    key = rng.prng_key(0, DEV)
+    ids = torch.arange(chunk, device=DEV)
+    a, b = step(key, ids, *extra), plain(key, ids, *extra)
+    bad = (a["bit_errors"] != b["bit_errors"]) | (a["frame_error"] != b["frame_error"])
+    if "iterations" in a:
+        bad |= a["iterations"] != b["iterations"]
+    differ = int(bad.sum())
+    if differ > allowed:
+        raise AssertionError(f"{what}: the kernel and plain pipelines differ on {differ} "
+                             "frames of the first chunk")
+    if res.frames != frames or not 0.0 <= res.ber < 0.5:
+        raise AssertionError(f"{what}: unexpected result {res.to_dict()}")
+    return {**result_fields(res), "mean_iterations": res.avg_iterations,
+            "launches": {name: v for name, v in counts.items() if v},
+            "first_chunk_frames_differ_from_plain": differ,
+            "chunk_sizes_equal": [chunk, chunk // 2]}
+
+
+def phase_channels_mc(results: dict, mbps: dict, quick: bool) -> None:
+    """The Monte-Carlo main paths over the BSC and the fading channels at full
+    width: polar SC N=1024 (K1), CA-SCL-8 N=1024 CRC-8 (narrow prefix, K3,
+    K4) and LDPC (504, 252) BP / NMS 0.75 (K2)."""
+    frozen, info, mask = polar_code()
+    out = {}
+    for name, kind, kw, snr in SC_CHANNELS:
+        polar = functools.partial(make_polar_pipeline, POLAR_N, POLAR_K, frozen, None,
+                                  decoder="sc", device=DEV)
+        out[f"polar_sc_{name}"] = hold_channel_path(
+            f"polar SC over {name}", results, ["sc_decode"], channel_step(polar, kind, kw),
+            channel_step(polar, kind, kw, sc_impl="unrolled"), snr, POLAR_CHUNK,
+            (2 if quick else 4) * POLAR_CHUNK, POLAR_K)
+    cascl = functools.partial(make_polar_pipeline, POLAR_N, POLAR_K, frozen, None,
+                              decoder="ca-scl", list_size=SCL_L, crc_polynomial=SCL_CRC,
+                              scl_chunk=SCL_S, device=DEV)
+    out["polar_cascl_rayleigh_3db"] = hold_channel_path(
+        "CA-SCL-8 over rayleigh", results,
+        ["scl_narrow_prefix", "scl_chunk_step", "scl_last_chunk"],
+        channel_step(cascl, "rayleigh", {}),
+        channel_step(cascl, "rayleigh", {}, scl_control_impl="unroll-fused"),
+        CHANNEL_SCL_SNR_DB, SCL_CHUNK, CHANNEL_SCL_FRAMES, POLAR_K - 8)
+    enc = ldpc_code()
+    for decoder, key, kw_dec in (("bp", "bp_decode_bp", {}),
+                                 ("nms", "bp_decode_ms", {"normalization": 0.75})):
+        for name, kind, kw, snr in LDPC_CHANNELS:
+            ldpc = functools.partial(make_ldpc_pipeline, enc.H, enc.G, None, decoder=decoder,
+                                     max_iter=LDPC_ITERS, message_idx=enc.info_positions,
+                                     device=DEV, **kw_dec)
+            out[f"ldpc_{decoder}_{name}"] = hold_channel_path(
+                f"LDPC {decoder} over {name}", results, [key], channel_step(ldpc, kind, kw),
+                channel_step(ldpc, kind, kw, bp_impl="torch"), snr, LDPC_CHUNK,
+                (2 if quick else 8) * LDPC_CHUNK, LDPC_K,
+                allowed=LDPC_CHUNK // 1000 if decoder == "bp" else 0)
+    mbps.update({name: r["info_mbps"] for name, r in out.items()})
+    emit("channels_mc", **out)
+
+
+# the throughput CLI at the main paths' batches: (name, flags, its kernels)
+THROUGHPUT_RUNS = (
+    ("polar_sc", ["--batch", "16384", "--skip-ldpc"], ["sc_decode"]),
+    ("polar_scl8", ["--polar-decoder", "scl", "--list-size", "8", "--batch", "4096",
+                    "--skip-ldpc"], ["scl_narrow_prefix", "scl_chunk_step", "scl_last_chunk"]),
+    ("ldpc_bp", ["--batch", "4096", "--skip-polar"], ["bp_decode_bp"]))
+RATE_KEYS = ("encoding_throughput", "decoding_throughput", "end_to_end_throughput")
+
+
+def check_rates(what: str, r: dict) -> None:
+    bad = {k: r[k] for k in RATE_KEYS if not (math.isfinite(r[k]) and r[k] > 0)}
+    if bad:
+        raise AssertionError(f"{what}: rates not positive: {bad}")
+
+
+def phase_throughput(results: dict, mbps: dict) -> None:
+    """``cli.throughput`` at SC batch 16384, SCL-8 batch 4096 and LDPC BP batch
+    4096 (the first call of each probe, outside its clock, may build), and one
+    ``profile_trace`` of a polar SC chunk, whose trace must hold the SC
+    kernel's device events."""
+    from polarcode_and_ldpc_tpu_torch.cli import throughput
+    from polarcode_and_ldpc_tpu_torch.utils import profile_trace
+
+    out = {}
+    for name, argv, keys in THROUGHPUT_RUNS:
+        ops.reset_launch_counts()
+        (r,) = throughput.main(argv + ["--output-dir", f"chiprun_out/throughput/{name}"]).values()
+        torch.cuda.synchronize()
+        counts = record_launches(results, keys)
+        check_rates(f"throughput {name}", r)
+        out[name] = {**r, "launches": {k: v for k, v in counts.items() if v}}
+        mbps.update({f"throughput_{name}_{k.split('_')[0]}": r[k] for k in RATE_KEYS})
+    frozen, info, mask = polar_code()
+    step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, 3.0, decoder="sc", device=DEV)
+    key, ids = rng.prng_key(0, DEV), torch.arange(POLAR_CHUNK, device=DEV)
+    step(key, ids)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as logdir:
+            step(key, ids)
+        (trace,) = list(logdir.glob("trace_*.json"))
+        events = json.loads(trace.read_text())["traceEvents"]
+    sc = [e for e in events if e.get("cat") == "kernel" and "sc_decode" in e.get("name", "")]
+    if len(sc) != 1:
+        raise AssertionError(f"profile_trace of one SC chunk holds {len(sc)} sc_decode kernel "
+                             "events, not 1")
+    device_events = [e for e in events if e.get("cat") == "kernel"]
+    emit("throughput", **out, trace={"events": len(events), "kernel_events": len(device_events),
+                                     "sc_decode_events": len(sc),
+                                     "sc_decode_us": sc[0].get("dur")})
+
+
+RUN_BENCHMARK_ARGS = ["--channel", "rayleigh", "--snr-range", "0:6:2", "--batch-size", "4096",
+                      "--num-frames", "16384", "--skip-plots"]
+
+
+def check_curve(what: str, curve: dict, snrs: list) -> None:
+    fers = curve["fer"]
+    if (curve["snr_db"] != snrs or not all(0.0 <= b < 0.5 for b in curve["ber"])
+            or not all(f2 <= f1 for f1, f2 in zip(fers, fers[1:]))):
+        raise AssertionError(f"{what}: unexpected curve {curve}")
+
+
+def phase_run_benchmark(results: dict, mbps: dict) -> None:
+    """``cli.run_benchmark`` with the default codes (polar SC N=1024, LDPC
+    (504, 252) BP) over Rayleigh at 0, 2, 4, 6 dB, batch 4096, with its
+    throughput probes and complexity counts."""
+    from polarcode_and_ldpc_tpu_torch.cli import run_benchmark
+
+    out_dir = Path("chiprun_out") / "run_benchmark"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_benchmark.main(RUN_BENCHMARK_ARGS + ["--output-dir", str(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = record_launches(results, ["sc_decode", "bp_decode_bp"])
+    for name in ("benchmark_results.json", "data/ber_simulation_results.json",
+                 "data/throughput_results.json", "data/complexity_results.json"):
+        json.loads((out_dir / name).read_text())
+    curves = {f: res["ber_simulation"][f]["self"] for f in ("polar", "ldpc")}
+    for family, curve in curves.items():
+        check_curve(f"run_benchmark {family}", curve, [0.0, 2.0, 4.0, 6.0])
+        check_rates(f"run_benchmark {family} throughput", res["throughput"][family])
+        mbps.update({f"run_benchmark_{family}_{k.split('_')[0]}": res["throughput"][family][k]
+                     for k in RATE_KEYS})
+    emit("run_benchmark", argv=RUN_BENCHMARK_ARGS, seconds=seconds, output_dir=str(out_dir),
+         launches={k: v for k, v in counts.items() if v},
+         curves={f: {k: c[k] for k in ("snr_db", "ber", "fer", "frames_tested",
+                                       "avg_iterations", "throughput_mbps")}
+                 for f, c in curves.items()},
+         throughput={f: {k: res["throughput"][f][k] for k in RATE_KEYS} for f in curves},
+         complexity=res["complexity"])
+
+
+CODE_PARAMS_ARGS = ["--num-frames", "4096", "--batch-size", "4096"]
+
+
+def phase_code_params(results: dict, mbps: dict) -> None:
+    """``cli.code_params`` at its default lengths and rates (polar SC at N=128
+    … 4096, LDPC BP at n=126 … 4032, rates 0.25 … 0.875 at length 1024),
+    4096 frames an entry: no entry may record an error unless its code,
+    built alone, raises."""
+    from polarcode_and_ldpc_tpu_torch.cli import code_params
+    from polarcode_and_ldpc_tpu_torch.sim.experiments import build_code
+
+    out_dir = Path("chiprun_out") / "code_params"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = code_params.main(CODE_PARAMS_ARGS + ["--output-dir", str(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = record_launches(results, ["sc_decode", "bp_decode_bp"])
+    entries = {}
+    for sweep, fams in res.items():
+        for fam, rows in fams.items():
+            for e in rows:
+                K = int(e["length"] * e["rate"])
+                dc = 6 if sweep == "length_tests" else max(
+                    4, int(round(3 * e["length"] / (e["length"] - K))))
+                try:
+                    build_code(fam, e["length"], K, dc=dc, device=DEV)
+                    raises = None
+                except (ValueError, AssertionError) as x:
+                    raises = str(x)
+                if ("error" in e) != (raises is not None):
+                    raise AssertionError(f"code_params {sweep} {fam}: {e} (built alone: "
+                                         f"{raises})")
+                if "error" not in e:
+                    rate = e.get("decoding_throughput", e.get("throughput_mbps"))
+                    if not (0.0 <= e["ber"] < 0.5 and rate > 0):
+                        raise AssertionError(f"code_params {sweep} {fam}: unexpected {e}")
+                entries[f"{sweep}/{fam}/{e['length']}/{e['rate']}"] = {
+                    k: e.get(k) for k in ("ber", "fer", "decoding_throughput",
+                                          "throughput_mbps", "decode_ms_per_frame", "error")
+                    if k in e}
+    emit("code_params", argv=CODE_PARAMS_ARGS, seconds=seconds, output_dir=str(out_dir),
+         launches={k: v for k, v in counts.items() if v}, entries=entries)
+
+
+SC_VS_SCL_QUICK_ARGS: list = []  # the CLI's defaults
+SC_VS_SCL_FULL_ARGS = ["--mode", "full", "--N", "1024", "--K", "512", "--use-crc",
+                       "--list-sizes", "1,2,4,8", "--snr-range=-2:0:1", "--num-frames",
+                       "4096", "--batch-size", "4096", "--skip-plots"]
+
+
+def phase_sc_vs_scl(results: dict, mbps: dict) -> None:
+    """``cli.sc_vs_scl``: quick mode at its defaults (N=128, K=64, L = 1 … 16,
+    one list chunk, which the chunk-body kernel decodes), and full mode at
+    N=1024, K=512 with CRC-8, L = 1, 2, 4, 8, at −2, −1 and 0 dB (where the
+    list sizes differ), with its latency probes."""
+    from polarcode_and_ldpc_tpu_torch.cli import sc_vs_scl
+
+    out = {}
+    for mode, argv, keys in (
+            ("quick", SC_VS_SCL_QUICK_ARGS, ["sc_decode", "scl_chunk_body"]),
+            ("full", SC_VS_SCL_FULL_ARGS,
+             ["sc_decode", "scl_narrow_prefix", "scl_chunk_step", "scl_last_chunk"])):
+        out_dir = Path("chiprun_out") / "sc_vs_scl" / mode
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sc_vs_scl.main(argv + ["--output-dir", str(out_dir)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = record_launches(results, keys)
+        if mode == "quick":
+            fers = {k: v["fer"] for k, v in res.items() if isinstance(v, dict)}
+            if set(fers) != {"sc", "scl_1", "scl_2", "scl_4", "scl_8", "scl_16"} or not all(
+                    0.0 <= f < 0.5 for f in fers.values()):
+                raise AssertionError(f"sc_vs_scl quick: unexpected {res}")
+            out[mode] = {"seconds": seconds, "fer": fers,
+                         "launches": {k: v for k, v in counts.items() if v}}
+            continue
+        for name, curve in res["curves"].items():
+            check_curve(f"sc_vs_scl {name}", curve, [-2.0, -1.0, 0.0])
+        sc_fer, l8_fer = res["curves"]["sc"]["fer"], res["curves"]["scl_8"]["fer"]
+        if any(b > a for a, b in zip(sc_fer, l8_fer)) or not all(
+                v > 0 for v in res["latency_ms_per_frame"].values()):
+            raise AssertionError(f"sc_vs_scl full: unexpected {res['curves']} "
+                                 f"{res['latency_ms_per_frame']}")
+        out[mode] = {"argv": argv, "seconds": seconds,
+                     "fer": {k: v["fer"] for k, v in res["curves"].items()},
+                     "latency_ms_per_frame": res["latency_ms_per_frame"],
+                     "launches": {k: v for k, v in counts.items() if v}}
+    emit("sc_vs_scl", **out)
 
 
 def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
@@ -3227,6 +3554,11 @@ def main() -> int:
         "serving": lambda: phase_serving(results, mbps, reps),
         "serving_fast": lambda: phase_serving(results, mbps, reps, node_mode="fast"),
         "snr_curves": lambda: phase_snr_curves(results),
+        "channels_mc": lambda: phase_channels_mc(results, mbps, q),
+        "throughput": lambda: phase_throughput(results, mbps),
+        "run_benchmark": lambda: phase_run_benchmark(results, mbps),
+        "code_params": lambda: phase_code_params(results, mbps),
+        "sc_vs_scl": lambda: phase_sc_vs_scl(results, mbps),
         "invariance": phase_invariance,
         "stages": lambda: phase_stages(reps),
     }

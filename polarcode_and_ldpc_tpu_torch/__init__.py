@@ -3,8 +3,9 @@
 
 Ported so far: the Monte-Carlo main path with SC and CRC-aided list polar
 decoding (exact, or with the SSCL fast list nodes) and flooding BP / min-sum
-LDPC decoding, the serving paths (adaptive SC-first CA-SCL, row-layered
-min-sum, quasi-cyclic LDPC) and the SNR-curve study with its CLI —
+LDPC decoding over every channel, the serving paths (adaptive SC-first
+CA-SCL, row-layered min-sum, quasi-cyclic LDPC) and the benchmark front end
+with its CLIs —
 
 * Polar codes: construction, Kronecker-butterfly encoder with optional CRC,
   SC decoder (the whole decode in one hand-written CUDA kernel), SCL and
@@ -15,9 +16,13 @@ min-sum, quasi-cyclic LDPC) and the SNR-curve study with its CLI —
   (sum-product) and Min-Sum (normalized + offset) decoders, flooding or
   row-layered (the whole decode in one CUDA kernel), the roll-based
   quasi-cyclic decoder for large codes.
-* AWGN channel with BPSK modulation and LLR demodulation.
+* Channels: AWGN, BSC, Rayleigh and Rician fading, with BPSK modulation and
+  LLR demodulation.
 * Monte-Carlo BER/FER simulation with per-frame keyed randomness, SNR sweeps,
-  rate studies and ``python -m polarcode_and_ldpc_tpu_torch.cli.snr_curves``.
+  rate and code-length studies, throughput probes, complexity counts, tracing
+  spans, and the CLIs ``run_benchmark``, ``throughput``, ``code_params``,
+  ``sc_vs_scl`` and ``snr_curves`` (``python -m
+  polarcode_and_ldpc_tpu_torch.cli.<name>``).
 
 Sub-packages mirror the JAX package so each counterpart is easy to find.
 Every factory function and class takes ``device=`` and defaults to ``"cuda"``; the CPU
@@ -25,7 +30,7 @@ is used only when the caller asks for it.  Importing the package builds no
 kernel and imports neither ``jax`` nor the JAX package.
 """
 
-from .channels import AWGNChannel
+from .channels import AWGNChannel, BSCChannel, RayleighFadingChannel, RicianFadingChannel
 from .models.ldpc import (BPDecoder, LayeredMSDecoder, LDPCEncoder, MSDecoder,
                           NMSDecoder, OMSDecoder, QCBPDecoder, check_matrix_rank,
                           create_systematic_generator, generate_ldpc_matrix,
@@ -47,7 +52,8 @@ __all__ = [
     "polar_transform", "LDPCEncoder", "BPDecoder", "MSDecoder", "NMSDecoder",
     "OMSDecoder", "generate_ldpc_matrix", "mackay_construction",
     "regular_construction", "create_systematic_generator",
-    "check_matrix_rank", "gf2_rank", "AWGNChannel", "AdaptiveCASCLDecoder",
+    "check_matrix_rank", "gf2_rank", "AWGNChannel", "BSCChannel", "RayleighFadingChannel",
+    "RicianFadingChannel", "AdaptiveCASCLDecoder",
     "LayeredMSDecoder", "QCBPDecoder", "qc_base_matrix", "qc_expand",
     "qc_ldpc_construction",
 ]

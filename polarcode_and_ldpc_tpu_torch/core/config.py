@@ -82,7 +82,7 @@ class LDPCCodeConfig:
 
 @dataclass
 class ChannelConfig:
-    kind: str = "awgn"  # awgn (bsc | rayleigh | rician: not in this package yet)
+    kind: str = "awgn"  # awgn | bsc | rayleigh | rician
     snr_db: float = 3.0
     crossover_prob: float = 0.1  # BSC only
     k_factor: float = 1.0  # Rician only

@@ -6,8 +6,8 @@ depend on batch size, chunking or dispatch layout.  The generator is the
 threefry2x32 block cipher with the counter layout of ``jax.random`` under
 ``jax_threefry_partitionable=True`` (the 64-bit flat index of a shaped draw,
 high word / low word), so the same key gives the same bits as the JAX
-package: ``fold_in``, ``split``, raw bits and ``bernoulli(0.5)`` are equal
-bit for bit; ``normal`` agrees to the last bits of the float32 ``erf_inv``
+package: ``fold_in``, ``split``, raw bits and ``bernoulli`` are equal bit
+for bit; ``normal`` agrees to the last bits of the float32 ``erf_inv``
 polynomial (see ``erf_inv_f32``).
 
 A key is an ``int32`` tensor ``[..., 2]`` holding the *bit patterns* of the
@@ -82,9 +82,11 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``num`` new keys ``[num, 2]`` from one key ``[2]``."""
+    """``num`` new keys from each key: ``[..., 2]`` → ``[..., num, 2]`` (one
+    key ``[2]`` gives ``[num, 2]``; per-frame keys ``[B, 2]`` give ``[B, num,
+    2]``, what ``jax.random.split`` gives each frame under ``vmap``)."""
     idx = torch.arange(num, dtype=torch.int32, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(idx), idx)
+    y0, y1 = threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(idx), idx)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -118,6 +120,27 @@ def bernoulli_half(keys: torch.Tensor, n: int, x64: bool = False) -> torch.Tenso
     b0, b1 = random_bits_2x32(keys, n)
     top = b0 if x64 else b0.bitwise_xor_(b1)
     return (top >= 0).to(torch.int8)  # sign bit clear ⇔ uniform < 0.5
+
+
+def bernoulli(keys: torch.Tensor, p: float, n: int, x64: bool = False) -> torch.Tensor:
+    """Bernoulli draws ``[..., n]`` bool, equal to ``jax.random.bernoulli(key,
+    p, (n,))``: ``uniform < p`` in the uniform's dtype, float32 by default
+    and float64 under ``jax_enable_x64`` (``x64=True``), where the two give
+    other draws from the same key."""
+    if x64:
+        return uniform_f64(keys, n, 0.0, 1.0) < float(p)
+    return uniform_f32(keys, n, 0.0, 1.0) < float(np.float32(p))
+
+
+def draw(sample, key: torch.Tensor, shape) -> torch.Tensor:
+    """``sample(keys, n)`` over a tensor of ``shape``: one key ``[2]`` draws
+    the whole tensor as one flat stream of ``prod(shape)`` values, as a
+    shaped ``jax.random`` draw does; keys ``[..., 2]`` whose leading axes are
+    ``shape[:-1]`` draw ``shape[-1]`` values each (one key per frame)."""
+    shape = tuple(shape)
+    if key.dim() == 1:
+        return sample(key, math.prod(shape)).reshape(shape)
+    return sample(key, shape[-1])
 
 
 def uniform_f32(keys: torch.Tensor, n: int, minval: float, maxval: float) -> torch.Tensor:

@@ -6,9 +6,8 @@ runs them through ``sim.sweep.run_snr_sweep`` and returns the JAX package's
 result dicts, so its plots and analyses read either package's output.
 Everything runs on ``device`` (default ``"cuda"``).
 
-Not in this package yet (``NotImplementedError``): channels other than AWGN,
-the third-party oracle curves (``use_oracle=True``) and the code-length
-sweep ``test_code_lengths`` (it needs the throughput probes).
+Not in this package yet (``NotImplementedError``): the third-party oracle
+curves (``use_oracle=True``) and ``mesh=`` (frames sharded over devices).
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import numpy as np
 from ..core.config import ChannelConfig, LDPCCodeConfig, PolarCodeConfig, SimulationConfig
 from ..models.ldpc.encoder import LDPCEncoder
 from ..models.polar.construction import construct_polar_code
-from .pipelines import make_ldpc_pipeline, make_polar_pipeline
+from .pipelines import make_channel_fn, make_ldpc_pipeline, make_polar_pipeline
 from .sweep import run_snr_sweep
 
 
@@ -29,10 +28,13 @@ def _polar_decoder_name(cfg: PolarCodeConfig) -> str:
             "ca-scl": "ca-scl"}[cfg.algorithm]
 
 
-def _check_channel(channel: Optional[ChannelConfig]) -> None:
-    if channel is not None and channel.kind != "awgn":
-        raise NotImplementedError(f"channel kind {channel.kind!r} is not in this package yet "
-                                  "(only awgn)")
+def _channel_builder(channel: Optional[ChannelConfig]):
+    """snr_db → channel_fn for the configured channel kind (None → AWGN)."""
+    if channel is None or channel.kind == "awgn":
+        return lambda snr: None  # the pipelines default to AWGN at that SNR
+    return lambda snr: make_channel_fn(channel.kind, snr_db=snr,
+                                       crossover_prob=channel.crossover_prob,
+                                       k_factor=channel.k_factor)
 
 
 def simulate_polar(
@@ -44,18 +46,19 @@ def simulate_polar(
     frozen: Optional[np.ndarray] = None,
     device="cuda",
 ) -> dict:
-    """Polar BER/FER curve over ``sim.snr_points()``.  ``frozen`` overrides
-    the construction with an explicit frozen set."""
-    _check_channel(channel)
+    """Polar BER/FER curve over ``sim.snr_points()`` on ``channel`` (AWGN by
+    default).  ``frozen`` overrides the construction with an explicit frozen
+    set."""
     if frozen is None:
         frozen, _ = construct_polar_code(cfg.N, cfg.K, cfg.construction, cfg.design_snr_db)
     decoder = _polar_decoder_name(cfg)
     use_crc = cfg.use_crc or decoder == "ca-scl"
+    chan = _channel_builder(channel)
 
     def builder(snr_db):
         return make_polar_pipeline(
             cfg.N, cfg.K, frozen, snr_db, decoder=decoder, list_size=cfg.list_size,
-            use_crc=use_crc, crc_polynomial=cfg.crc_polynomial,
+            use_crc=use_crc, crc_polynomial=cfg.crc_polynomial, channel_fn=chan(snr_db),
             scl_body_impl=cfg.scl_body_impl, scl_chunk=cfg.scl_chunk,
             scl_control_impl=cfg.scl_control_impl, scl_node_mode=cfg.scl_node_mode,
             device=device)
@@ -79,20 +82,22 @@ def simulate_ldpc(
     channel: Optional[ChannelConfig] = None,
     device="cuda",
 ) -> dict:
-    """LDPC BER/FER curve over ``sim.snr_points()``."""
-    _check_channel(channel)
+    """LDPC BER/FER curve over ``sim.snr_points()`` on ``channel`` (AWGN by
+    default)."""
     enc = LDPCEncoder(cfg.n, cfg.k, H=H, dv=cfg.dv, dc=cfg.dc, seed=cfg.seed,
                       method=cfg.construction, device=device)
     decoder = {"bp": "bp", "min_sum": "ms", "ms": "ms", "nms": "nms",
                "oms": "oms"}[cfg.algorithm]
     norm = cfg.normalization if decoder in ("ms", "nms") else 1.0
     offset = cfg.offset if decoder == "oms" else 0.0
+    chan = _channel_builder(channel)
 
     def builder(snr_db):
         return make_ldpc_pipeline(
             enc.H, enc.G, snr_db, decoder=decoder, max_iter=cfg.max_iterations,
             normalization=norm, offset=offset, early_stop=cfg.early_stop,
-            message_idx=enc.info_positions, bp_impl=cfg.bp_impl, device=device)
+            message_idx=enc.info_positions, channel_fn=chan(snr_db), bp_impl=cfg.bp_impl,
+            device=device)
 
     out = run_snr_sweep(builder, enc.k, sim.snr_points(), num_frames=sim.num_frames,
                         max_errors=sim.max_errors, seed=sim.seed, chunk_frames=sim.batch_size,
@@ -200,7 +205,77 @@ def analyze_snr_requirements(results_by_rate: dict,
     return analysis
 
 
-def test_code_lengths(family: str, lengths: Sequence[int], **kw) -> list:
-    """Code-length sweep with throughput probes: not in this package yet."""
-    raise NotImplementedError("test_code_lengths needs the throughput probes "
-                              "(sim/throughput.py), which are not in this package yet")
+def build_code(family: str, N: int, K: int, dv: int = 3, dc: int = 6, device="cuda"):
+    """The code of one entry of a code-parameter sweep, built before anything
+    decodes: ``(cfg, frozen)`` of an SC polar code (``PolarCodeConfig``'s
+    construction) or ``(cfg, encoder)`` of a (dv, dc) LDPC code.  What the
+    construction refuses raises ``ValueError`` or ``AssertionError`` here; the
+    sweeps record those and nothing else."""
+    if family == "polar":
+        cfg = PolarCodeConfig(N=N, K=K, algorithm="sc")
+        frozen, _ = construct_polar_code(cfg.N, cfg.K, cfg.construction, cfg.design_snr_db)
+        return cfg, frozen
+    cfg = LDPCCodeConfig(n=N, k=K, dv=dv, dc=dc)
+    return cfg, LDPCEncoder(cfg.n, cfg.k, dv=cfg.dv, dc=cfg.dc, seed=cfg.seed,
+                            method=cfg.construction, device=device)
+
+
+def measure_code(family: str, cfg, code, sim: SimulationConfig, snr_db: float,
+                 batch_size: int, mesh=None, sc_impl: Optional[str] = None,
+                 device="cuda") -> tuple[dict, dict]:
+    """One entry of a code-parameter sweep on a code of ``build_code``: its
+    curve at ``sim``'s points and its throughput probe (a steady-state rate:
+    warmed up, kernels built outside the clock; a sweep's first Monte-Carlo
+    point also times building the kernels, so its rate is not a decode
+    rate)."""
+    from .throughput import measure_ldpc_throughput, measure_polar_throughput
+
+    if family == "polar":
+        curve = simulate_polar(cfg, sim, mesh, frozen=code, device=device)
+        thpt = measure_polar_throughput(N=cfg.N, K=cfg.K, snr_db=snr_db, batch=batch_size,
+                                        sc_impl=sc_impl, device=device)
+    else:
+        curve = simulate_ldpc(cfg, sim, mesh, H=code.H, device=device)
+        thpt = measure_ldpc_throughput(n=cfg.n, k=cfg.k, dv=cfg.dv, dc=cfg.dc, snr_db=snr_db,
+                                       batch=batch_size, H=code.H, device=device)
+    return curve, thpt
+
+
+def test_code_lengths(
+    family: str,
+    lengths: Sequence[int],
+    rate: float = 0.5,
+    snr_db: float = 3.0,
+    num_frames: int = 256,
+    batch_size: int = 256,
+    mesh=None,
+    sc_impl: Optional[str] = None,
+    device="cuda",
+) -> list[dict]:
+    """Code-length sweep at a fixed rate: per length BER / FER at ``snr_db``
+    and the throughput probe's encode / decode rates.
+
+    An entry whose code cannot be built (``build_code``: a length that is not
+    a power of 2 for polar codes, degrees that do not fit the LDPC length)
+    records ``"error"`` and the sweep goes on; any other failure (a kernel's
+    build or launch) raises.  ``sc_impl``: the SC decoder of the polar probe
+    (``None``: the device's choice)."""
+    out = []
+    sim = SimulationConfig(snr_start=snr_db, snr_stop=snr_db, snr_step=1,
+                           num_frames=num_frames, max_errors=None, batch_size=batch_size)
+    for N in lengths:
+        entry: dict = {"length": N, "rate": rate}
+        try:
+            cfg, code = build_code(family, N, int(N * rate), device=device)
+        except (ValueError, AssertionError) as e:
+            entry["error"] = str(e)
+            out.append(entry)
+            continue
+        curve, thpt = measure_code(family, cfg, code, sim, snr_db, batch_size, mesh, sc_impl,
+                                   device)
+        entry.update(ber=curve["ber"][0], fer=curve["fer"][0],
+                     encoding_throughput=thpt["encoding_throughput"],
+                     decoding_throughput=thpt["decoding_throughput"],
+                     decode_ms_per_frame=thpt["decode_ms_per_frame"])
+        out.append(entry)
+    return out

@@ -8,12 +8,15 @@ are invariant to chunk size and dispatch layout.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..channels.awgn import awgn_transmit
+from ..channels.bsc import bsc_llr, bsc_transmit
+from ..channels.fading import rayleigh_transmit, rician_transmit
 from ..core import rng
 from ..core.device import resolve_device
 from ..models.ldpc.bp import make_bp_decoder
@@ -98,30 +101,40 @@ def reduce_step(step):
     return reduced
 
 
-def _awgn_channel_fn(snr_db, dtype=torch.float32):
-    """``snr_db=None`` builds a runtime-SNR channel: the step then takes the
-    SNR as a trailing scalar argument, so one step serves every SNR point of
-    a sweep."""
+def make_channel_fn(kind: str = "awgn", snr_db=3.0, crossover_prob: float = 0.1,
+                    k_factor: float = 1.0, dtype=torch.float32, rng_x64: bool = False):
+    """Per-frame-keyed channel function for the Monte-Carlo pipelines:
+    ``(keys [B, 2], codewords [B, n], *extra) → LLRs [B, n]``.
+
+    ``kind``: ``awgn`` | ``bsc`` | ``rayleigh`` | ``rician``.  BSC gives
+    ±log((1 − p)/p) LLRs (``crossover_prob``); Rician takes ``k_factor``.
+    ``snr_db=None`` (awgn / rayleigh / rician) builds a runtime-SNR channel:
+    the step then takes the SNR as a trailing argument, so one step serves
+    every SNR point of a sweep; BSC has no SNR (``runtime_snr`` is False).
+    ``rng_x64`` draws the BSC flips as ``jax.random.bernoulli`` does under
+    ``jax_enable_x64`` (float64 uniforms): pass the pipeline's ``rng_x64``.
+    """
+    if kind == "bsc":
+        def channel(keys, cw, *extra):
+            return bsc_llr(bsc_transmit(keys, cw, crossover_prob, rng_x64), crossover_prob,
+                           dtype)
+
+        channel.runtime_snr = False
+        return channel
+    transmit = {"awgn": awgn_transmit, "rayleigh": rayleigh_transmit,
+                "rician": functools.partial(rician_transmit, k_factor=k_factor)}.get(kind)
+    if transmit is None:
+        raise ValueError(f"unknown channel kind: {kind!r}")
 
     def channel(keys, cw, *extra):
-        snr = extra[0] if snr_db is None else snr_db
-        if snr_db is None and not isinstance(snr, torch.Tensor):
-            snr = torch.as_tensor(snr, dtype=dtype, device=cw.device)
-        return awgn_transmit(keys, cw, snr, dtype=dtype)
+        snr = snr_db
+        if snr is None:  # the step's trailing argument, on the codewords' device
+            snr = extra[0] if isinstance(extra[0], torch.Tensor) else torch.as_tensor(
+                extra[0], dtype=dtype, device=cw.device)
+        return transmit(keys, cw, snr, dtype=dtype)
 
     channel.runtime_snr = snr_db is None
     return channel
-
-
-def make_channel_fn(kind: str = "awgn", snr_db=3.0, dtype=torch.float32):
-    """Per-frame-keyed channel function for the Monte-Carlo pipelines.  Only
-    ``awgn`` is in this package yet."""
-    if kind == "awgn":
-        return _awgn_channel_fn(snr_db, dtype)
-    if kind in ("bsc", "rayleigh", "rician"):
-        raise NotImplementedError(
-            f"channel kind {kind!r} is not in this package yet")
-    raise ValueError(f"unknown channel kind: {kind!r}")
 
 
 def make_polar_pipeline(
@@ -205,7 +218,7 @@ def make_polar_pipeline(
     else:
         raise ValueError(f"unknown polar decoder: {decoder!r}")
 
-    chan = channel_fn or _awgn_channel_fn(snr_db, dtype)
+    chan = channel_fn or make_channel_fn("awgn", snr_db, dtype=dtype)
     step = make_montecarlo_step(k_message, encode, chan, decode,
                                 compare_len=k_message, rng_x64=rng_x64)
     step.runtime_snr = getattr(chan, "runtime_snr", False)
@@ -299,7 +312,7 @@ def make_ldpc_pipeline(
         bits, iters = dec(llr)
         return bits[..., midx], {"iterations": iters}
 
-    chan = channel_fn or _awgn_channel_fn(snr_db, dtype)
+    chan = channel_fn or make_channel_fn("awgn", snr_db, dtype=dtype)
     step = make_montecarlo_step(k, encode, chan, decode, rng_x64=rng_x64)
     step.runtime_snr = getattr(chan, "runtime_snr", False)
     step.device = dev

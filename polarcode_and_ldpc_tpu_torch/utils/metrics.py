@@ -1,10 +1,13 @@
-"""Error-rate and throughput metrics used by the Monte-Carlo result."""
+"""Error-rate and throughput metrics: host-side NumPy versions, the SNR
+conversions, and ``ber_fer_counts``, the error counts of a batch of frames on
+its own device."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 
 def calculate_ber(original, decoded) -> float:
@@ -61,3 +64,20 @@ def _erfinv(x: float) -> float:
         err = math.erf(y) - x
         y -= err * math.sqrt(math.pi) / 2.0 * math.exp(y * y)
     return y
+
+
+def snr_to_ebn0(snr_db: float, code_rate: float, bits_per_symbol: int = 1) -> float:
+    """Es/N0 [dB] → Eb/N0 [dB]."""
+    return snr_db - 10.0 * math.log10(code_rate * bits_per_symbol)
+
+
+def ebn0_to_snr(ebn0_db: float, code_rate: float, bits_per_symbol: int = 1) -> float:
+    """Eb/N0 [dB] → Es/N0 [dB]."""
+    return ebn0_db + 10.0 * math.log10(code_rate * bits_per_symbol)
+
+
+def ber_fer_counts(original: torch.Tensor, decoded: torch.Tensor):
+    """Bit and frame errors of a batch ``[batch, k]``: two int64 scalars on
+    the tensors' device (no host read)."""
+    diff = original != decoded
+    return diff.sum(dtype=torch.int64), diff.any(dim=-1).sum(dtype=torch.int64)

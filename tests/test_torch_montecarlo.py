@@ -87,7 +87,7 @@ def test_step_messages_and_llrs_equal_jax(polar):
     jstep = jpipes.make_montecarlo_step(
         K, spy("jmsg", lambda m: m), spy("jllr", jchan),
         lambda llr: (jnp.zeros((llr.shape[0], K), jnp.int8), {}))
-    tchan = tpipes._awgn_channel_fn(POLAR_SNR)
+    tchan = tpipes.make_channel_fn("awgn", POLAR_SNR)
     tstep = tpipes.make_montecarlo_step(
         K, spy("tmsg", lambda m: m), spy("tllr", tchan),
         lambda llr: (torch.zeros((llr.shape[0], K), dtype=torch.int8), {}), rng_x64=True)
