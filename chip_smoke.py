@@ -15,7 +15,10 @@ N=4096 SCL-32, SC at N=32768, the MacKay LDPC code at n=8192 —, the adaptive
 SC-first CA-SCL serving decoder on batches of 8192 frames, exact and fast,
 the SNR-curve CLI, and JAX's SCL-8 benchmark shape under every list control and
 both permutation algebras; the BSC and fading channels; the reference's
-benchmark CLIs and throughput probes) at full code size through the kernels,
+benchmark CLIs and throughput probes; codes built by the Monte-Carlo polar
+construction and the PEG and Gallager LDPC constructions) at full code size
+through the kernels, holds the kernels against the trellis and float64 parity
+twins,
 checks the frame-id invariance of the counters and checkpoint/resume, and
 prints one JSON line per phase.  Any failure raises, and the exit code is then non-zero.
 
@@ -59,9 +62,14 @@ NMS over the BSC and Rician fading, each against its plain pipeline on one
 chunk and at two chunk sizes), ``throughput`` (the throughput CLI at the main
 paths' batches, and one ``profile_trace`` of an SC chunk), ``run_benchmark``
 (the reference's main CLI over Rayleigh), ``code_params`` (its default length
-and rate sweeps), ``sc_vs_scl`` (quick and full modes) (the main paths, each
-with the launch counts set to 0 just before and read just after; the CLIs
-write under ``chiprun_out/``), ``invariance``, ``stages``.  The kernel holds
+and rate sweeps), ``sc_vs_scl`` (quick and full modes), ``construction`` (the
+Monte-Carlo polar construction at N=1024 and 4096 on the card against the
+CPU, polar SC and CA-SCL-8 on its code, BP and layered NMS on the PEG and
+Gallager (504, 252) codes, each against its plain pipeline) (the main paths,
+each with the launch counts set to 0 just before and read just after; the CLIs
+write under ``chiprun_out/``), ``twins`` (the SC kernel's exact program and the
+list decode against the trellis twins ``impl="scan"``, and the SC, list and
+LDPC kernels against the float64 parity twins), ``invariance``, ``stages``.  The kernel holds
 include BSC batches (every LLR ±c, and ±0.0 at p = 0.5).  The
 ``summary`` line (``partial`` when phases were chosen) gives each phase's
 seconds.
@@ -98,7 +106,8 @@ from polarcode_and_ldpc_tpu_torch.core import rng
 from polarcode_and_ldpc_tpu_torch.models.ldpc.encoder import gf2_matmul
 from polarcode_and_ldpc_tpu_torch.models.ldpc.graph import TannerGraph
 from polarcode_and_ldpc_tpu_torch.models.polar.construction import (bit_reverse_permutation,
-                                                                    frozen_mask_from_positions)
+                                                                    frozen_mask_from_positions,
+                                                                    monte_carlo_reliabilities)
 from polarcode_and_ldpc_tpu_torch.models.polar.crc import CRCCodec
 from polarcode_and_ldpc_tpu_torch.models.polar.encoder import polar_transform
 from polarcode_and_ldpc_tpu_torch.models.polar.fastsc import make_sc_decoder_unrolled
@@ -180,7 +189,7 @@ PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "sc_profil
           "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
           "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
           "serving_fast", "snr_curves", "channels_mc", "throughput", "run_benchmark",
-          "code_params", "sc_vs_scl", "invariance", "stages")
+          "code_params", "sc_vs_scl", "construction", "twins", "invariance", "stages")
 
 
 def emit(phase: str, **fields) -> None:
@@ -2896,6 +2905,230 @@ def phase_sc_vs_scl(results: dict, mbps: dict) -> None:
     emit("sc_vs_scl", **out)
 
 
+# -- construction and the twins ---------------------------------------------------------
+
+# the Monte-Carlo construction at JAX's defaults: 10,000 frames in chunks of
+# 1024 (10 chunks, 10,240 frames) at a design SNR of 2 dB
+MC_DESIGN_SNR_DB = 2.0
+MC_FRAMES = 10 * 1024
+# card and CPU draw the same uniforms; their float32 log1p / sqrt may differ in
+# the last bits, which flips a genie leaf only where it lies within rounding
+# of 0: at most one decision in 10^5 may count otherwise
+MC_COUNT_SLACK = 1e-5
+CONSTRUCTION_SNR_DB = 2.0
+CONSTRUCTION_LDPC = ("peg", "gallager")
+
+
+def mc_construction(N: int, K: int, device) -> dict:
+    """The ``"monte_carlo"`` construction through ``construct_polar_code``
+    on ``device``, timed (host clock ending in a synchronise), and its error
+    counts per u-position from ``monte_carlo_reliabilities``."""
+    t0 = time.perf_counter()
+    frozen, info = fec.construct_polar_code(N, K, "monte_carlo", MC_DESIGN_SNR_DB,
+                                            device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    pe = monte_carlo_reliabilities(N, MC_DESIGN_SNR_DB, device=device)
+    return {"frozen": frozen, "info": info, "seconds": seconds,
+            "errors": np.rint(pe * MC_FRAMES).astype(np.int64)}
+
+
+def phase_construction(results: dict, mbps: dict, quick: bool) -> None:
+    """The Monte-Carlo polar construction on the card (N=1024, K=512 and
+    N=4096, K=2048 at 2 dB, JAX's defaults) held against the same call on the
+    CPU; the polar SC (K1) and CA-SCL-8 (narrow prefix, K3, K4) Monte-Carlo
+    paths on the constructed code; the PEG and banded Gallager (504, 252)
+    dv=3 codes with their girth, under flooding BP and layered NMS (K2) —
+    each path against its plain pipeline on its first chunk and at two chunk
+    sizes."""
+    mc = mc_construction(POLAR_N, POLAR_K, DEV)
+    repeat = mc_construction(POLAR_N, POLAR_K, DEV)["seconds"]
+    cpu = mc_construction(POLAR_N, POLAR_K, "cpu")
+    diff = np.abs(mc["errors"] - cpu["errors"])
+    slack = int(MC_COUNT_SLACK * MC_FRAMES * POLAR_N)
+    if not np.array_equal(mc["frozen"], cpu["frozen"]) or int(diff.sum()) > slack:
+        raise AssertionError(
+            f"Monte-Carlo construction: card and CPU differ (frozen sets equal: "
+            f"{np.array_equal(mc['frozen'], cpu['frozen'])}; counts differ at "
+            f"{np.nonzero(diff)[0].tolist()} by {int(diff.sum())}, allowed {slack})")
+    large = mc_construction(4 * POLAR_N, 2 * POLAR_K, DEV)
+    frozen = mc["frozen"]
+    mask = frozen_mask_from_positions(POLAR_N, frozen)
+    out = {"monte_carlo": {
+        "N": POLAR_N, "K": POLAR_K, "design_snr_db": MC_DESIGN_SNR_DB, "frames": MC_FRAMES,
+        "seconds_first": mc["seconds"], "seconds_repeat": repeat,
+        "seconds_cpu": cpu["seconds"], "seconds_n4096": large["seconds"],
+        "frozen_equal_cpu": True, "count_positions_differ_cpu": int((diff > 0).sum()),
+        "count_abs_diff_cpu": int(diff.sum()),
+        "frozen_differs_from_bhattacharyya": int(np.setxor1d(frozen, polar_code()[0]).size // 2),
+        "worst_info_errors": int(mc["errors"][mc["info"]].max())}}
+
+    polar = functools.partial(make_polar_pipeline, POLAR_N, POLAR_K, frozen,
+                              CONSTRUCTION_SNR_DB, device=DEV)
+    out["polar_sc"] = hold_channel_path(
+        "polar SC on the Monte-Carlo code", results, ["sc_decode"], polar(decoder="sc"),
+        polar(decoder="sc", sc_impl="unrolled"), None, POLAR_CHUNK,
+        (2 if quick else 4) * POLAR_CHUNK, POLAR_K)
+    n_narrow = sum(w < SCL_L for w in build_scl_schedule(POLAR_N, mask, SCL_L, SCL_S).lv_in[:-1])
+    cascl = functools.partial(polar, decoder="ca-scl", list_size=SCL_L,
+                              crc_polynomial=SCL_CRC, scl_chunk=SCL_S)
+    out["polar_cascl"] = hold_channel_path(
+        "CA-SCL-8 on the Monte-Carlo code", results,
+        ["scl_chunk_step", "scl_last_chunk"] + (["scl_narrow_prefix"] if n_narrow else []),
+        cascl(), cascl(scl_control_impl="unroll-fused"), None, SCL_CHUNK,
+        (2 if quick else 4) * SCL_CHUNK, POLAR_K - 8)
+    out["polar_cascl"]["narrow_steps_per_decode"] = n_narrow
+
+    for method in CONSTRUCTION_LDPC:
+        t0 = time.perf_counter()
+        enc = fec.LDPCEncoder(LDPC_N, LDPC_K, dv=3, dc=6, seed=42, method=method, device=DEV)
+        girth = fec.calculate_girth(enc.H)
+        code = {"setup_s": time.perf_counter() - t0, "girth": girth, "k": enc.k,
+                "row_degrees": sorted({int(d) for d in enc.H.sum(axis=1)})}
+        for name, key, kw in (("bp", "bp_decode_bp", dict(decoder="bp")),
+                              ("layered_nms", "bp_decode_layered",
+                               dict(decoder="nms", normalization=0.75, schedule="layered",
+                                    num_layers=LDPC_LAYERS))):
+            ldpc = functools.partial(make_ldpc_pipeline, enc.H, enc.G, 3.0, max_iter=LDPC_ITERS,
+                                     message_idx=enc.info_positions, device=DEV, **kw)
+            code[name] = hold_channel_path(
+                f"LDPC {name} on the {method} code", results, [key], ldpc(),
+                ldpc(bp_impl="torch"), None, LDPC_CHUNK, (2 if quick else 4) * LDPC_CHUNK,
+                enc.k, allowed=LDPC_CHUNK // 1000 if name == "bp" else 0)
+            mbps[f"ldpc_{method}_{name}"] = code[name]["info_mbps"]
+        out[f"ldpc_{method}"] = code
+    mbps["polar_sc_monte_carlo_code"] = out["polar_sc"]["info_mbps"]
+    mbps["polar_cascl_monte_carlo_code"] = out["polar_cascl"]["info_mbps"]
+    emit("construction", **out)
+
+
+# the twins: K1 against the SC trellis twin on 4096 frames at 2 dB and on
+# integer ties; the default list decode (CA-SCL-8) against the SCL trellis
+# twin on 1024 frames; K1, the list kernels and K2 against the float64
+# parity twins on 16 frames
+TWIN_SNR_DB = 2.0
+TWIN_SC_FRAMES, TWIN_SCL_FRAMES, PARITY_FRAMES = 4096, 1024, 16
+# float32 metrics of N=1024 summed in other orders (the chunk body's
+# adjacent-pair trees against the trellis' leaf-by-leaf sums)
+SCL_TWIN_RTOL = 1e-5
+PARITY_LDPC_SNR_DB = 1.0
+
+
+def frames_differ(a: torch.Tensor, b) -> int:
+    b = torch.as_tensor(b, device=a.device).to(a.dtype)
+    return int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+
+
+def phase_twins(quick: bool) -> None:
+    """The kernels against the independent formulations: K1 with its exact
+    node program against ``make_sc_decoder(impl="scan")`` (bit for bit;
+    the fast program's differing frames are counted), the default list
+    decode against ``make_scl_decoder(impl="scan")`` (paths equal, metrics
+    within ``SCL_TWIN_RTOL``), and K1, the list kernels and K2 against the
+    float64 parity twins on integer LLRs (0 frames may differ; on Gaussian
+    LLRs the differing frames are counted)."""
+    from polarcode_and_ldpc_tpu_torch.parity import ldpc_np, polar_np
+
+    frozen, info, mask = polar_code()
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, device=DEV)
+    exact, fast = SCProgram(POLAR_N, mask, fast_nodes=False), SCProgram(POLAR_N, mask)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    # K1 against the SC trellis twin
+    twin_sc = make_sc_decoder(POLAR_N, mask, impl="scan", device=DEV)
+    msgs = np.random.default_rng(21).integers(0, 2, (TWIN_SC_FRAMES, POLAR_K))
+    ties = torch.from_numpy(np.random.default_rng(22).integers(
+        -3, 4, (TWIN_SC_FRAMES, POLAR_N)).astype(np.float32)).to(DEV)
+    sc = {}
+    for name, llr in ((f"gaussian_{TWIN_SNR_DB:g}db",
+                       seeded_llrs(enc.encode(msgs), TWIN_SNR_DB, seed=23)),
+                      ("integer_ties", ties)):
+        t = time.perf_counter()
+        want = twin_sc(llr)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t
+        sc[name] = {"frames": llr.shape[0], "twin_seconds": twin_s,
+                    "twin_info_mbps": llr.shape[0] * POLAR_K / twin_s / 1e6,
+                    "exact_frames_differ": frames_differ(sc_decode_cuda(llr, exact), want),
+                    "fast_frames_differ": frames_differ(sc_decode_cuda(llr, fast), want)}
+        if sc[name]["exact_frames_differ"]:
+            raise AssertionError(f"K1 (exact program) differs from the SC trellis twin on "
+                                 f"{name}: {sc[name]}")
+
+    # the default list decode against the SCL trellis twin
+    scl = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, device=DEV)
+    twin_scl = make_scl_decoder(POLAR_N, mask, SCL_L, impl="scan", device=DEV)
+    llr = cascl_llrs(frozen, TWIN_SCL_FRAMES, TWIN_SNR_DB, seed=24)
+    u, pm = scl(llr)
+    t = time.perf_counter()
+    wu, wpm = twin_scl(llr)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t
+    fin = torch.isfinite(wpm)
+    rel = float(((pm - wpm).abs() / wpm.abs().clamp_min(1.0))[fin].max())
+    scl_case = {"frames": TWIN_SCL_FRAMES, "list_size": SCL_L, "twin_seconds": twin_s,
+                "twin_info_mbps": TWIN_SCL_FRAMES * POLAR_K / twin_s / 1e6,
+                "paths_frames_differ": frames_differ(u, wu), "metric_max_rel_diff": rel,
+                "metric_rtol": SCL_TWIN_RTOL,
+                "phantoms_equal": bool(torch.equal(fin, torch.isfinite(pm)))}
+    if scl_case["paths_frames_differ"] or not scl_case["phantoms_equal"] or rel > SCL_TWIN_RTOL:
+        raise AssertionError(f"the list decode differs from the SCL trellis twin: {scl_case}")
+
+    # K1, the list kernels and K2 against the float64 parity twins
+    parity = {}
+    pmsgs = np.random.default_rng(25).integers(0, 2, (PARITY_FRAMES, POLAR_K))
+    gauss = seeded_llrs(enc.encode(pmsgs), TWIN_SNR_DB, seed=26)
+    for name, llr in (("integer", torch.round(gauss)), ("gaussian", gauss)):
+        x = llr.double().cpu().numpy()
+        sc_want = np.stack([polar_np.sc_decode_np(r, mask) for r in x])
+        scl_want = np.stack([polar_np.scl_decode_np(r, mask, SCL_L)[2] for r in x])
+        parity[name] = {"frames": PARITY_FRAMES,
+                        "k1_exact": frames_differ(sc_decode_cuda(llr, exact), sc_want),
+                        "k1_fast": frames_differ(sc_decode_cuda(llr, fast), sc_want),
+                        "list_paths": frames_differ(scl(llr)[0], scl_want)}
+    genc = fec.LDPCEncoder(LDPC_N, LDPC_K, dv=3, dc=6, seed=42, method="gallager", device=DEV)
+    cw = genc.encode(np.random.default_rng(27).integers(0, 2, (PARITY_FRAMES, genc.k)))
+    gauss = seeded_llrs(cw, PARITY_LDPC_SNR_DB, seed=28)
+    H = genc.H
+    # min-sum without scaling, with offset 0.5 and layered are exact on integer
+    # LLRs in float32; sum-product (tanh) and NMS 0.75 are counted only
+    rules = {"ms": (fec.MSDecoder(H, LDPC_ITERS, device=DEV),
+                    lambda r: ldpc_np.ms_decode_np(H, r, LDPC_ITERS)),
+             "oms_0.5": (fec.OMSDecoder(H, LDPC_ITERS, offset=0.5, device=DEV),
+                         lambda r: ldpc_np.ms_decode_np(H, r, LDPC_ITERS, 1.0, 0.5)),
+             "layered_ms": (fec.LayeredMSDecoder(H, LDPC_ITERS, num_layers=LDPC_LAYERS,
+                                                 device=DEV),
+                            lambda r: ldpc_np.layered_ms_decode_np(H, r, LDPC_ITERS, 1.0, 0.0,
+                                                                   True, LDPC_LAYERS)),
+             "bp": (fec.BPDecoder(H, LDPC_ITERS, device=DEV),
+                    lambda r: ldpc_np.bp_decode_np(H, r, LDPC_ITERS)),
+             "nms_0.75": (fec.NMSDecoder(H, LDPC_ITERS, 0.75, device=DEV),
+                          lambda r: ldpc_np.ms_decode_np(H, r, LDPC_ITERS, 0.75))}
+    for name, llr in (("integer", torch.round(gauss)), ("gaussian", gauss)):
+        x = llr.double().cpu().numpy()
+        for rule, (dec, twin) in rules.items():
+            bits, iters = dec.decode(llr, return_iterations=True)
+            want = [twin(r) for r in x]
+            bad = [i for i, (b, it) in enumerate(want)
+                   if not (np.array_equal(bits[i].cpu().numpy(), b) and int(iters[i]) == it)]
+            parity[name][f"k2_{rule}"] = len(bad)
+    exact_rules = ("k1_exact", "list_paths", "k2_ms", "k2_oms_0.5", "k2_layered_ms")
+    if any(parity["integer"][k] for k in exact_rules):
+        raise AssertionError(f"kernels differ from the float64 parity twins on integer "
+                             f"LLRs: {parity}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = record_launches({}, ["sc_decode", "scl_chunk_step", "scl_last_chunk",
+                                  "bp_decode_ms", "bp_decode_layered", "bp_decode_bp"])
+    emit("twins", seconds=seconds, launches={k: v for k, v in counts.items() if v},
+         sc_trellis=sc, scl_trellis=scl_case,
+         parity={"frames_differ": parity, "held_to_zero_on_integer": list(exact_rules),
+                 "ldpc_code": "gallager (504, 252) seed 42", "ldpc_snr_db": PARITY_LDPC_SNR_DB,
+                 "polar_snr_db": TWIN_SNR_DB})
+
+
 def phase_ldpc_mc(results: dict, mbps: dict, frames: int) -> None:
     enc = ldpc_code()
     summary = {}
@@ -3559,6 +3792,8 @@ def main() -> int:
         "run_benchmark": lambda: phase_run_benchmark(results, mbps),
         "code_params": lambda: phase_code_params(results, mbps),
         "sc_vs_scl": lambda: phase_sc_vs_scl(results, mbps),
+        "construction": lambda: phase_construction(results, mbps, q),
+        "twins": lambda: phase_twins(q),
         "invariance": phase_invariance,
         "stages": lambda: phase_stages(reps),
     }

@@ -32,16 +32,17 @@ kernel and imports neither ``jax`` nor the JAX package.
 
 from .channels import AWGNChannel, BSCChannel, RayleighFadingChannel, RicianFadingChannel
 from .models.ldpc import (BPDecoder, LayeredMSDecoder, LDPCEncoder, MSDecoder,
-                          NMSDecoder, OMSDecoder, QCBPDecoder, check_matrix_rank,
-                          create_systematic_generator, generate_ldpc_matrix,
-                          gf2_rank, mackay_construction, qc_base_matrix,
-                          qc_expand, qc_ldpc_construction, regular_construction)
+                          NMSDecoder, OMSDecoder, QCBPDecoder, calculate_girth,
+                          check_matrix_rank, create_systematic_generator,
+                          generate_ldpc_matrix, gf2_rank, mackay_construction,
+                          peg_construction, qc_base_matrix, qc_expand,
+                          qc_ldpc_construction, regular_construction)
 from .models.polar import (AdaptiveCASCLDecoder, CASCLDecoder, CRCCodec,
                            PolarEncoder, SCDecoder,
                            SCLDecoder, bhattacharyya_bounds,
-                           construct_polar_code, crc_check, crc_encode,
-                           gaussian_approximation, generate_frozen_bits,
-                           polar_transform)
+                           calculate_channel_capacities, construct_polar_code,
+                           crc_check, crc_encode, gaussian_approximation,
+                           generate_frozen_bits, polar_transform)
 
 __version__ = "0.1.0"
 
@@ -55,5 +56,6 @@ __all__ = [
     "check_matrix_rank", "gf2_rank", "AWGNChannel", "BSCChannel", "RayleighFadingChannel",
     "RicianFadingChannel", "AdaptiveCASCLDecoder",
     "LayeredMSDecoder", "QCBPDecoder", "qc_base_matrix", "qc_expand",
-    "qc_ldpc_construction",
+    "qc_ldpc_construction", "calculate_channel_capacities", "peg_construction",
+    "calculate_girth",
 ]

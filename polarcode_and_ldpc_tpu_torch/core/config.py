@@ -26,7 +26,8 @@ class PolarCodeConfig:
     K: int = 512
     use_crc: bool = False
     crc_polynomial: str = "CRC-8"
-    construction: str = "bhattacharyya"  # bhattacharyya | gaussian_approximation | dega | default
+    # bhattacharyya | gaussian_approximation | dega | monte_carlo | default
+    construction: str = "bhattacharyya"
     design_snr_db: float = 2.0
     # decoding
     algorithm: str = "sc"  # sc | scl | ca_scl
@@ -60,7 +61,7 @@ class LDPCCodeConfig:
     k: int = 252
     dv: int = 3
     dc: int = 6
-    construction: str = "regular"  # regular | mackay | qc
+    construction: str = "regular"  # regular | mackay | peg | gallager | random | qc
     seed: Optional[int] = 42
     # decoding
     algorithm: str = "bp"  # bp | min_sum | nms | oms

@@ -90,6 +90,9 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+split_key = split  # the JAX package's name: ``num`` keys, key *i* = ``fold_in(key, i)``
+
+
 def frame_keys(root_key: torch.Tensor, global_frame_ids) -> torch.Tensor:
     """One key per frame from its global frame id: the key of frame *i* is
     the same whichever chunk or batch the frame lands in."""

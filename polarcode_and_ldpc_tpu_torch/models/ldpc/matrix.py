@@ -1,12 +1,13 @@
 """LDPC parity-check matrix construction (host-side NumPy).
 
 Seeded ``np.random`` draws are made in a fixed order, so a seed gives the same
-``H`` as the JAX package's constructors.  PEG and banded Gallager
-constructions and the girth diagnostic are not in this package yet.
+``H`` as the JAX package's constructors.  Rank is computed over GF(2), and
+the Tanner-graph girth exactly by BFS.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Optional, Tuple
 
 import numpy as np
@@ -121,14 +122,29 @@ def qc_ldpc_construction(n: int, k: int, z: int, dv: int = 3, dc: int = 6,
 def generate_ldpc_matrix(n: int, k: int, method: str = "mackay", dv: int = 3,
                          dc: int = 6, seed: Optional[int] = None,
                          z: Optional[int] = None) -> np.ndarray:
-    """Dispatching constructor: ``mackay``, ``regular``, ``qc`` and
-    ``random``.  ``gallager`` and ``peg`` are not in this package yet."""
+    """Dispatching constructor: ``mackay``, ``regular``, ``qc``, ``gallager``,
+    ``peg`` and ``random``.
+
+    ``method="gallager"`` is the classic banded construction (band 0 =
+    consecutive runs of d_c ones, bands 1..d_v−1 independent column
+    permutations — the pyldpc algorithm, ``oracle/constructions_np.py``);
+    where the bands cannot honour (n, k, dv, dc) it falls back to MacKay.
+    ``regular`` remains the default of ``LDPCEncoder``."""
     m = n - k
     if method in ("qc", "qc_ldpc"):
         return qc_ldpc_construction(n, k, z or max(2, n // 64), dv, dc, seed)
-    if method in ("gallager", "peg"):
-        raise NotImplementedError(
-            f"method={method!r} is not in this package yet")
+    if method == "gallager":
+        from ...oracle.constructions_np import parity_check_matrix_np
+
+        feasible = (dv > 1 and dc > dv
+                    and (dv * n) % dc == 0
+                    and ((n * dv) // dc) % dv == 0
+                    and (n * dv) // dc == m)  # honours the requested rate
+        if not feasible:
+            print("Warning: banded Gallager construction impossible for "
+                  f"(n={n}, k={k}, dv={dv}, dc={dc}); using mackay")
+            return mackay_construction(n, k, dv, dc, seed)
+        return parity_check_matrix_np(n, dv, dc, seed)
     if method in ("mackay", "regular"):
         if dv * n != dc * m:
             dc = (dv * n) // m
@@ -143,10 +159,30 @@ def generate_ldpc_matrix(n: int, k: int, method: str = "mackay", dv: int = 3,
                   f"(dv·n={dv * n} % m={m} != 0); using mackay")
             return mackay_construction(n, k, dv, dc, seed)
         return regular_construction(n, k, dv, dc, seed)
+    if method == "peg":
+        return peg_construction(n, k, dv)
     if method == "random":
         rng = np.random.RandomState(seed) if seed is not None else np.random
         return rng.randint(0, 2, (m, n)).astype(np.int64)
     raise ValueError(f"unknown method: {method}")
+
+
+def peg_construction(n: int, k: int, dv: int) -> np.ndarray:
+    """Simplified greedy PEG: attach each edge to the currently least-loaded
+    check node (ties break to the lowest index, ``np.argmin``'s rule).  A
+    running row-degree vector replaces a scan of ``H`` per edge."""
+    m = n - k
+    H = np.zeros((m, n), dtype=np.int64)
+    degrees = np.zeros(m, dtype=np.int64)
+    big = np.iinfo(np.int64).max
+    for col in range(n):
+        masked = degrees.copy()
+        for _ in range(min(dv, m)):
+            best = int(np.argmin(masked))
+            H[best, col] = 1
+            degrees[best] += 1
+            masked[best] = big  # exclude from this column's remaining picks
+    return H
 
 
 # -- packed GF(2) row operations ---------------------------------------------
@@ -264,3 +300,42 @@ def gf2_rank(H: np.ndarray) -> int:
 def check_matrix_rank(H: np.ndarray) -> int:
     """GF(2) rank."""
     return gf2_rank(H)
+
+
+def calculate_girth(H: np.ndarray, max_girth: int = 64) -> int:
+    """Exact Tanner-graph girth (shortest cycle length) by BFS.
+
+    BFS from every variable node; when an edge (x, y) reaches an
+    already-visited y that is not x's BFS parent, a cycle of length
+    ``dist[x] + dist[y] + 1`` exists.  Over all start vertices this yields
+    the exact girth (even, ≥ 4 for a bipartite graph).  Returns
+    ``max_girth`` if the graph is cycle-free up to that bound.
+    """
+    H = (np.asarray(H) % 2).astype(bool)
+    m, n = H.shape
+    # bipartite adjacency: nodes 0..n-1 are variables, n..n+m-1 are checks
+    adj: list[list[int]] = [[] for _ in range(n + m)]
+    rows, cols = np.nonzero(H)
+    for c, v in zip(rows.tolist(), cols.tolist()):
+        adj[v].append(n + c)
+        adj[n + c].append(v)
+
+    best = max_girth
+    for start in range(n):
+        dist = {start: 0}
+        parent = {start: -1}
+        q = deque([start])
+        while q:
+            x = q.popleft()
+            if 2 * dist[x] + 2 >= best:
+                break  # no shorter cycle reachable from here
+            for y in adj[x]:
+                if y not in dist:
+                    dist[y] = dist[x] + 1
+                    parent[y] = x
+                    q.append(y)
+                elif parent[x] != y:
+                    best = min(best, dist[x] + dist[y] + 1)
+        if best == 4:
+            return 4
+    return best

@@ -1,9 +1,11 @@
 from .adaptive import AdaptiveCASCLDecoder
-from .construction import (bhattacharyya_bounds, bit_reverse_permutation,
+from .construction import (bhattacharyya_bounds, bit_reverse, bit_reverse_array,
+                           bit_reverse_permutation, calculate_channel_capacities,
                            construct_polar_code, dega_llr_means,
                            frozen_mask_from_positions, gaussian_approximation,
-                           generate_frozen_bits)
-from .crc import CRCCodec, crc_check, crc_encode
+                           generate_frozen_bits, genie_leaf_llrs,
+                           monte_carlo_reliabilities)
+from .crc import CRC_POLYNOMIALS, CRCCodec, crc_check, crc_encode
 from .encoder import PolarEncoder, polar_transform
 from .fastsc import make_sc_decoder_unrolled
 from .sc import SCDecoder, make_sc_decoder
@@ -18,5 +20,7 @@ __all__ = [
     "make_sc_decoder_unrolled", "SCDecoder", "make_sc_decoder", "f_minsum",
     "g_update", "CRCCodec", "crc_check", "crc_encode", "make_scl_decoder_scan",
     "CASCLDecoder", "SCLDecoder", "make_scl_decoder", "select_best_path",
-    "AdaptiveCASCLDecoder",
+    "AdaptiveCASCLDecoder", "bit_reverse", "bit_reverse_array",
+    "calculate_channel_capacities", "genie_leaf_llrs", "monte_carlo_reliabilities",
+    "CRC_POLYNOMIALS",
 ]

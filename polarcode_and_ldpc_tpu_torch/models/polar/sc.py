@@ -4,6 +4,13 @@ All frames decode in lock-step — the control flow (leaf order, frozen
 pattern) is identical across frames, only the data differs.  Same min-sum f,
 same g, same ``llr ≥ 0 → 0`` hard decision and decode order as the reference
 decoder, so float64 inputs reproduce its bits exactly.
+
+``impl="scan"`` is the trellis twin: the reference's ``[n+1, N]`` LLR and
+bit trellises per frame, walked leaf by leaf in the order of a host-side
+schedule (``schedule.py``), each stage a full-width masked vector op
+(``trellis.py``).  It is an independent formulation of the same decoder —
+slow by design (N sequential steps of a few dozen small ops each) — against
+which the recursive decoders and the CUDA kernel are held.
 """
 
 from __future__ import annotations
@@ -16,6 +23,32 @@ from torch import nn
 
 from ...core.device import resolve_device
 from .construction import frozen_mask_from_positions, generate_frozen_bits
+from .schedule import build_schedule
+from .trellis import leaf_llr, propagate_bits, set_leaf_bit, update_llr_columns
+
+
+def make_sc_decoder_trellis(N: int, frozen_mask: np.ndarray, dtype=torch.float32):
+    """The trellis SC decoder: ``decode(llr [..., N]) → u [..., N] int8`` on
+    the device of ``llr``, one schedule step per leaf."""
+    sched = build_schedule(N, frozen_mask)
+    n = sched.n
+
+    def decode(llr):
+        llr = llr.to(dtype)
+        lead = llr.shape[:-1]
+        L = torch.zeros((*lead, n + 1, N), dtype=dtype, device=llr.device)
+        L[..., 0, :] = llr
+        B = torch.zeros((*lead, n + 1, N), dtype=torch.int8, device=llr.device)
+        for i in range(N):
+            l = int(sched.leaf[i])
+            update_llr_columns(L, B, l, sched.llr_active[i])
+            # hard decision: llr >= 0 → 0; a frozen leaf keeps B's 0
+            if not sched.frozen[i]:
+                set_leaf_bit(B, l, (leaf_llr(L, l) < 0).to(torch.int8))
+            propagate_bits(B, l, sched.bit_active[i])
+        return B[..., n, :].clone()
+
+    return decode
 
 
 def make_sc_decoder(N: int, frozen_mask: np.ndarray, dtype=torch.float32,
@@ -29,8 +62,8 @@ def make_sc_decoder(N: int, frozen_mask: np.ndarray, dtype=torch.float32,
     ``ops/sc_mega_cuda.py``; float32, the default on a CUDA device) or
     ``"unrolled"`` (the O(N log N) recursion in plain PyTorch with the
     rate-0/rate-1/REP/SPC node shortcuts, ``fastsc.py``; the default on the
-    CPU).  Both give the same bits.  The ``"scan"`` trellis formulation is
-    not in this package yet.
+    CPU), or ``"scan"`` (the trellis twin, plain PyTorch, any float dtype;
+    ``make_sc_decoder_trellis``).  All give the same bits.
     """
     dev = resolve_device(device)
     if impl is None:
@@ -44,9 +77,7 @@ def make_sc_decoder(N: int, frozen_mask: np.ndarray, dtype=torch.float32,
 
         inner = make_sc_decoder_mega(N, frozen_mask, dtype)
     elif impl == "scan":
-        raise NotImplementedError(
-            "impl='scan' (the trellis formulation) is not in this "
-            "package yet")
+        inner = make_sc_decoder_trellis(N, frozen_mask, dtype)
     else:
         raise ValueError(f"unknown impl {impl!r}")
 

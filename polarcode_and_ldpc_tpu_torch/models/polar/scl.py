@@ -14,6 +14,14 @@ By default every list decoder of this package is the chunked decoder of
 N)``, so that the card runs the list kernels at every code length; the
 unrolled recursive decoder of ``fastscl.py`` (``impl="unrolled"``, the JAX
 package's default below N=512) computes the same outputs.
+
+``impl="scan"`` is the trellis twin (``make_scl_decoder_trellis``): every
+path's ``[n+1, N]`` LLR and bit trellises as a list axis, walked leaf by
+leaf in the schedule's order; at an info leaf the ``2L`` candidates, ordered
+``[bit-0 paths…, bit-1 paths…]``, are ranked by a stable descending sort and
+the survivors' trellises gathered by source path.  An independent
+formulation of the same decoder, slow by design, against which the chunked
+decoder and its CUDA kernels are held.
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ from ...core.device import resolve_device
 from .construction import frozen_mask_from_positions, generate_frozen_bits
 from .crc import CRCCodec
 from .fastscl import make_scl_decoder_unrolled
-from .scanscl import make_scl_decoder_scan
+from .scanscl import _d0_d1, make_scl_decoder_scan
+from .schedule import build_schedule
+from .trellis import leaf_llr, propagate_bits, set_leaf_bit, update_llr_columns
 
 
 def select_best_path(info_paths, metrics, crc: Optional[CRCCodec] = None):
@@ -45,6 +55,49 @@ def select_best_path(info_paths, metrics, crc: Optional[CRCCodec] = None):
     return torch.gather(info_paths, 1, idx)[:, 0, :]
 
 
+def make_scl_decoder_trellis(N: int, frozen_mask: np.ndarray, list_size: int,
+                             dtype=torch.float32, device="cuda"):
+    """The trellis SCL decoder: ``decode(llr [batch, N]) → (u [batch, L, N]
+    int8, metrics [batch, L])`` on ``device``, one schedule step per leaf.
+    Path 0 starts active with metric 0, the other slots as −inf phantoms;
+    the metric deltas are ``(log P(0|llr), log P(1|llr))`` =
+    ``(−logaddexp(0, −llr), −logaddexp(0, llr))``."""
+    sched = build_schedule(N, frozen_mask)
+    n, Lsz = sched.n, list_size
+    dev = resolve_device(device)
+
+    def decode(llr):
+        llr = torch.as_tensor(llr, device=dev).to(dtype)
+        assert llr.dim() == 2, "SCL decode expects [batch, N]"
+        batch = llr.shape[0]
+        L = torch.zeros((batch, Lsz, n + 1, N), dtype=dtype, device=dev)
+        L[..., 0, :] = llr[:, None, :]  # every path sees the channel
+        B = torch.zeros((batch, Lsz, n + 1, N), dtype=torch.int8, device=dev)
+        pm = torch.full((batch, Lsz), -torch.inf, dtype=dtype, device=dev)
+        pm[:, 0] = 0.0  # one active path
+        rows = torch.arange(batch, device=dev)[:, None]
+        for i in range(N):
+            l = int(sched.leaf[i])
+            update_llr_columns(L, B, l, sched.llr_active[i])
+            d0, d1 = _d0_d1(leaf_llr(L, l))  # [batch, L]
+            if sched.frozen[i]:
+                pm = pm + d0  # −inf + finite = −inf keeps phantoms inert; B keeps its 0
+            else:
+                # candidates [bit-0 paths…, bit-1 paths…], stable descending
+                cand = torch.cat([pm + d0, pm + d1], dim=-1)  # [batch, 2L]
+                order = torch.sort(-cand, dim=-1, stable=True).indices[:, :Lsz]
+                src = order % Lsz
+                pm = torch.gather(cand, 1, order)
+                L = L[rows, src]
+                B = B[rows, src]
+                set_leaf_bit(B, l, (order // Lsz).to(torch.int8))
+            propagate_bits(B, l, sched.bit_active[i])
+        return B[..., n, :].clone(), pm
+
+    decode.control_impl = None
+    return decode
+
+
 def make_scl_decoder(N: int, frozen_mask: np.ndarray, list_size: int,
                      dtype=torch.float32, impl: str = "scan-chunked",
                      chunk: int = 128, body_impl: Optional[str] = None,
@@ -58,19 +111,19 @@ def make_scl_decoder(N: int, frozen_mask: np.ndarray, list_size: int,
 
     ``impl``: ``"scan-chunked"`` (the chunked decoder of ``scanscl.py``;
     ``chunk`` sets the subtree size) or ``"unrolled"`` (the recursive decoder
-    of ``fastscl.py``, one-hot selections; it takes none of the chunked
-    decoder's tuning keywords, and exact nodes only).  ``"scan"`` (the
-    trellis twin) is not in this package yet.  The other keywords are those of
-    ``scanscl.make_scl_decoder_scan``.
+    of ``fastscl.py``, one-hot selections) or ``"scan"`` (the trellis twin,
+    ``make_scl_decoder_trellis``, plain PyTorch on ``device``); these two take
+    none of the chunked decoder's tuning keywords, and exact nodes only.  The
+    other keywords are those of ``scanscl.make_scl_decoder_scan``.
     """
-    if impl == "scan":
-        raise NotImplementedError(f"impl={impl!r} is not in this package yet")
-    if impl not in ("scan-chunked", "unrolled"):
+    if impl not in ("scan-chunked", "unrolled", "scan"):
         raise ValueError(f"unknown impl {impl!r}")
     if node_mode != "exact" and impl != "scan-chunked":
         raise ValueError("node_mode='fast' requires impl='scan-chunked'")
     if impl == "unrolled":
         return make_scl_decoder_unrolled(N, frozen_mask, list_size, dtype, device=device)
+    if impl == "scan":
+        return make_scl_decoder_trellis(N, frozen_mask, list_size, dtype, device=device)
     return make_scl_decoder_scan(N, frozen_mask, list_size, min(chunk, N), dtype,
                                  leaf_impl=leaf_impl, body_impl=body_impl,
                                  control_impl=control_impl, node_mode=node_mode,
@@ -88,8 +141,9 @@ class SCLDecoder(nn.Module):
     in one kernel launch; ``"split"``, ``"fused"`` and ``"kernel"`` are the JAX
     package's other controls.  ``node_mode="fast"`` takes the SSCL fast list
     nodes (an approximate serving mode, see ``scanscl.make_scl_decoder_scan``).
-    ``impl="unrolled"`` takes the recursive decoder of ``fastscl.py`` (the
-    default stays ``"scan-chunked"`` at every N).
+    ``impl="unrolled"`` takes the recursive decoder of ``fastscl.py``,
+    ``impl="scan"`` the trellis twin (the default stays ``"scan-chunked"`` at
+    every N).
     """
 
     def __init__(self, N: int, K: int, list_size: int = 8,

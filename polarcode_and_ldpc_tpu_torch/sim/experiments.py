@@ -50,7 +50,8 @@ def simulate_polar(
     default).  ``frozen`` overrides the construction with an explicit frozen
     set."""
     if frozen is None:
-        frozen, _ = construct_polar_code(cfg.N, cfg.K, cfg.construction, cfg.design_snr_db)
+        frozen, _ = construct_polar_code(cfg.N, cfg.K, cfg.construction, cfg.design_snr_db,
+                                         device=device)
     decoder = _polar_decoder_name(cfg)
     use_crc = cfg.use_crc or decoder == "ca-scl"
     chan = _channel_builder(channel)
@@ -213,7 +214,8 @@ def build_code(family: str, N: int, K: int, dv: int = 3, dc: int = 6, device="cu
     sweeps record those and nothing else."""
     if family == "polar":
         cfg = PolarCodeConfig(N=N, K=K, algorithm="sc")
-        frozen, _ = construct_polar_code(cfg.N, cfg.K, cfg.construction, cfg.design_snr_db)
+        frozen, _ = construct_polar_code(cfg.N, cfg.K, cfg.construction, cfg.design_snr_db,
+                                         device=device)
         return cfg, frozen
     cfg = LDPCCodeConfig(n=N, k=K, dv=dv, dc=dc)
     return cfg, LDPCEncoder(cfg.n, cfg.k, dv=cfg.dv, dc=cfg.dc, seed=cfg.seed,

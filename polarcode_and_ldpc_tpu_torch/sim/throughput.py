@@ -91,8 +91,8 @@ def measure_polar_throughput(
 
     ``decoder``: ``"sc"`` or ``"scl"`` (all ``list_size`` paths, no
     selection).  ``sc_impl``: the SC decoder (``None``: the device's choice,
-    the whole-decode kernel on a CUDA device; ``"mega"`` or ``"unrolled"``;
-    ``"scan"`` raises ``NotImplementedError``)."""
+    the whole-decode kernel on a CUDA device; ``"mega"``, ``"unrolled"`` or
+    ``"scan"``, the trellis twin)."""
     dev = resolve_device(device)
     frozen, _ = construct_polar_code(N, K, "bhattacharyya", 2.0)
     enc = PolarEncoder(N, K, frozen_bits=frozen, device=dev)

@@ -7,7 +7,9 @@ and a decoded-bits-per-second counter.
 * ``profile_trace``: ``torch.profiler`` over a block (host and, on a CUDA
   device, kernel events), written as a Chrome trace into a directory (open it
   in Perfetto or ``chrome://tracing``);
-* ``DecodeRateCounter``: decoded bits per second, and per device.
+* ``DecodeRateCounter``: decoded bits per second, and per device;
+* ``trace_sc_trellis``: the step-by-step SC trellis dump of one frame, from
+  the float64 NumPy twin (``parity.polar_np``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -114,3 +117,38 @@ class DecodeRateCounter:
 
 
 decode_rate_counter = DecodeRateCounter  # the JAX package's other name
+
+
+def trace_sc_trellis(llr: np.ndarray, frozen_mask: np.ndarray) -> dict:
+    """Step-by-step SC trellis dump of one frame.
+
+    Runs the NumPy twin one leaf at a time and records the full ``[N, n+1]``
+    L / B matrices after each decision (entries not yet written are NaN) —
+    the ground-truth trace for debugging any decoder discrepancy.  Returns
+    ``{"u": [N] int64, "steps": [{"step", "leaf", "frozen", "decision_llr",
+    "bit", "L", "B"}, ...]}``.
+    """
+    from ..models.polar.construction import bit_reverse
+    from ..parity import polar_np
+
+    llr = np.asarray(llr, np.float64)
+    N = llr.size
+    n = int(np.log2(N))
+    L = np.full((N, n + 1), np.nan)
+    B = np.full((N, n + 1), np.nan)
+    L[:, 0] = llr
+    steps = []
+    for i in range(N):
+        leaf = bit_reverse(i, n)
+        polar_np._update_llrs(L, B, leaf, n, N)
+        if frozen_mask[leaf]:
+            B[leaf, n] = 0
+        else:
+            B[leaf, n] = 0 if L[leaf, n] >= 0 else 1
+        polar_np._update_bits(B, leaf, n)
+        steps.append({"step": i, "leaf": leaf,
+                      "frozen": bool(frozen_mask[leaf]),
+                      "decision_llr": float(L[leaf, n]),
+                      "bit": int(B[leaf, n]),
+                      "L": L.copy(), "B": B.copy()})
+    return {"u": B[:, n].astype(np.int64), "steps": steps}

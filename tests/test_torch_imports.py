@@ -183,10 +183,15 @@ def test_unported_options_raise_not_implemented():
     for kw in (dict(perm_impl="onehot"), dict(impl="unrolled")):
         got = make_scl_decoder(32, mask, 2, device="cpu", **kw)(llr)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kw
-    with pytest.raises(NotImplementedError, match="scan"):
-        make_scl_decoder(32, mask, 2, impl="scan", device="cpu")
-    with pytest.raises(NotImplementedError):
-        fec.SCDecoder(32, 16, frozen_bits=frozen, impl="scan", device="cpu")
+    # the trellis twins are in the package now: the same paths and bits, the
+    # metrics within the list decoders' float32 tolerance (rtol=1e-6)
+    got = make_scl_decoder(32, mask, 2, impl="scan", device="cpu")(llr)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    sc_scan = fec.SCDecoder(32, 16, frozen_bits=frozen, impl="scan", device="cpu")
+    assert sc_scan.impl == "scan"
+    assert torch.equal(sc_scan.decode(llr),
+                       fec.SCDecoder(32, 16, frozen_bits=frozen, device="cpu").decode(llr))
     # the one-launch list control, the layered schedule and the quasi-cyclic
     # decoder are in the package now: the steps build and run
     step = make_polar_pipeline(32, 16, frozen, 3.0, decoder="ca-scl", list_size=2,
@@ -200,6 +205,9 @@ def test_unported_options_raise_not_implemented():
     step = make_ldpc_pipeline(qenc.H, qenc.G, 3.0, qc_base=base, z=4,
                               message_idx=qenc.info_positions, device="cpu")
     assert step(rng.prng_key(0), torch.arange(8))["iterations"].shape == (8,)
+    # the banded Gallager and PEG constructions are in the package now: every
+    # column holds dv = 3 ones (Gallager's rows dc = 6)
     for method in ("gallager", "peg"):
-        with pytest.raises(NotImplementedError, match=method):
-            fec.generate_ldpc_matrix(24, 12, method=method)
+        H = fec.generate_ldpc_matrix(24, 12, method=method, seed=1)
+        assert H.shape == (12, 24) and (H.sum(axis=0) == 3).all(), method
+        assert method == "peg" or (H.sum(axis=1) == 6).all()

@@ -405,8 +405,11 @@ def test_config_and_cli_keep_the_controls():
     for control in ("kernel-interpret", "unroll-kernel-interpret", "mega-interpret"):
         with pytest.raises(NotImplementedError, match=control):
             tscl.make_scl_decoder(N, mask, L, control_impl=control, device="cpu")
-    with pytest.raises(NotImplementedError, match="scan"):
-        tscl.make_scl_decoder(N, mask, L, impl="scan", device="cpu")
+    # the trellis twin is in the package now: the default decoder's paths
+    llr = torch.from_numpy(np.random.default_rng(3).normal(1.0, 2.0, (4, N)))
+    assert torch.equal(tscl.make_scl_decoder(N, mask, L, torch.float64, impl="scan",
+                                             device="cpu")(llr)[0],
+                       tscl.make_scl_decoder(N, mask, L, torch.float64, device="cpu")(llr)[0])
     with pytest.raises(ValueError):
         tscl.make_scl_decoder(N, mask, L, mask_dedup="both", device="cpu")
     for control in ("split", "fused", "kernel", "unroll-kernel", "mega"):

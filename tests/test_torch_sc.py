@@ -138,8 +138,10 @@ def test_impl_selection_and_errors():
     assert make_sc_decoder(32, mask, device="cpu", impl="mega").impl == "mega"
     with pytest.raises(TypeError, match="float32 only"):
         make_sc_decoder(32, mask, torch.float64, impl="mega", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_sc_decoder(32, mask, impl="scan", device="cpu")
+    scan = make_sc_decoder(32, mask, impl="scan", device="cpu")  # the trellis twin
+    assert scan.impl == "scan"
+    llr = torch.linspace(-2.0, 3.0, 4 * 32).reshape(4, 32)
+    assert torch.equal(scan(llr), make_sc_decoder(32, mask, impl="unrolled", device="cpu")(llr))
     with pytest.raises(ValueError):
         make_sc_decoder(32, mask, impl="nope", device="cpu")
     if not torch.cuda.is_available():

@@ -464,11 +464,15 @@ def test_unported_options_raise_with_their_name():
                                             for c in ("split", "fused", "kernel")]:
         got = tscl.make_scl_decoder(32, mask, 2, chunk=8, device="cpu", **kw)(llr)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kw
+    # the trellis twin is in the package now: the same paths, the metrics
+    # within the float32 tolerance of the list decoders (rtol=1e-6)
+    got = tscl.make_scl_decoder(32, mask, 2, impl="scan", device="cpu")(llr)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
     # what this package leaves out says so, by name
-    for kw, word in [(dict(impl="scan"), "impl='scan'")] + [
-                         (dict(control_impl=c), f"control_impl={c!r}")
-                         for c in ("kernel-interpret", "mega-interpret",
-                                   "unroll-kernel-interpret")]:
+    for kw, word in [(dict(control_impl=c), f"control_impl={c!r}")
+                     for c in ("kernel-interpret", "mega-interpret",
+                               "unroll-kernel-interpret")]:
         with pytest.raises(NotImplementedError, match=word.replace("'", ".")):
             tscl.make_scl_decoder(32, mask, 2, device="cpu", **kw)
     for kw in (dict(perm_impl="x"), dict(node_mode="x"), dict(leaf_impl="x"), dict(impl="x"),
