@@ -69,7 +69,15 @@ Gallager (504, 252) codes, each against its plain pipeline) (the main paths,
 each with the launch counts set to 0 just before and read just after; the CLIs
 write under ``chiprun_out/``), ``twins`` (the SC kernel's exact program and the
 list decode against the trellis twins ``impl="scan"``, and the SC, list and
-LDPC kernels against the float64 parity twins), ``invariance``, ``stages``.  The kernel holds
+LDPC kernels against the float64 parity twins), ``sharded`` (frame-sharded
+Monte-Carlo of polar SC, CA-SCL-8 and LDPC BP: a one-rank NCCL group in this
+process, then two child ranks sharing the card over gloo — and two cards over
+NCCL where there are two — each against the unsharded counts, with the QC
+n=8192 decode and the polar transform code-sharded over the two ranks and the
+weak scaling of the SC step; the children's launches are counted),
+``oracle`` (the oracle-differential CLI at its default codes, SCL-8 N=1024 and
+BP n=504 on the self and oracle constructions, each arm's first chunk against
+its plain pipeline), ``invariance``, ``stages``.  The kernel holds
 include BSC batches (every LLR ±c, and ±0.0 at p = 0.5).  The
 ``summary`` line (``partial`` when phases were chosen) gives each phase's
 seconds.
@@ -85,6 +93,7 @@ import ctypes
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -189,7 +198,8 @@ PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "sc_profil
           "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
           "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
           "serving_fast", "snr_curves", "channels_mc", "throughput", "run_benchmark",
-          "code_params", "sc_vs_scl", "construction", "twins", "invariance", "stages")
+          "code_params", "sc_vs_scl", "construction", "twins", "sharded", "oracle",
+          "invariance", "stages")
 
 
 def emit(phase: str, **fields) -> None:
@@ -3529,6 +3539,368 @@ def phase_serving(results: dict, mbps: dict, reps: int, node_mode: str = "exact"
          **out)
 
 
+# the sharded Monte-Carlo paths: polar SC (K1), CA-SCL-8 at the flagship
+# (narrow prefix, K3, K4) and LDPC BP at n=504 (K2), each at a low SNR with a
+# max_errors that the run crosses in its second chunk; the QC n=8192 decode
+# and the polar transform with the code axis sharded; weak scaling of the SC
+# step at one chunk a device
+SHARDED_RANKS = 2
+SHARDED_KEYS = ["sc_decode", "scl_narrow_prefix", "scl_chunk_step", "scl_last_chunk",
+                "bp_decode_bp"]
+SHARDED_QC_FRAMES, SHARDED_TRANSFORM_FRAMES = 1024, 4096
+SHARDED_TIMEOUT_S = 300
+# the settings a child rank takes from its parent
+SHARDED_SETTINGS = ("DEV", "POLAR_CHUNK", "SCL_CHUNK", "LDPC_CHUNK", "SHARDED_QC_FRAMES",
+                    "SHARDED_TRANSFORM_FRAMES")
+
+
+def sharded_paths(dev) -> dict:
+    """name → (step, message bits, chunk frames, run keywords): four chunks,
+    and an early stop that crosses (the errors a chunk makes at these SNRs:
+    FER ≈ 0.15, 0.31, 0.15)."""
+    frozen, info, mask = polar_code()
+    enc = fec.LDPCEncoder(LDPC_N, LDPC_K, dv=3, dc=6, seed=42, device=dev)
+    return {
+        "polar_sc": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, LOW_SNR_DB, decoder="sc",
+                                         device=dev), POLAR_K, POLAR_CHUNK,
+                     dict(num_frames=4 * POLAR_CHUNK, max_errors=POLAR_CHUNK // 5, seed=0)),
+        "polar_cascl": (make_polar_pipeline(POLAR_N, POLAR_K, frozen, SCL_LOW_SNR_DB,
+                                            decoder="ca-scl", list_size=SCL_L,
+                                            crc_polynomial=SCL_CRC, scl_chunk=SCL_S,
+                                            device=dev), POLAR_K - 8, SCL_CHUNK,
+                        dict(num_frames=4 * SCL_CHUNK, max_errors=SCL_CHUNK * 9 // 20,
+                             seed=0)),
+        "ldpc_bp": (make_ldpc_pipeline(enc.H, enc.G, LOW_SNR_DB, decoder="bp",
+                                       max_iter=LDPC_ITERS, message_idx=enc.info_positions,
+                                       device=dev), LDPC_K, LDPC_CHUNK,
+                    dict(num_frames=4 * LDPC_CHUNK, max_errors=LDPC_CHUNK // 5, seed=0)),
+    }
+
+
+def run_sharded_paths(paths: dict, mesh) -> dict:
+    """Counters of each path, per frame and scalar (both with the early stop)."""
+    out = {}
+    for name, (step, k, chunk, run_kw) in paths.items():
+        for reduction in ("per_frame", "scalar"):
+            res = MonteCarloSimulator(step, k, chunk_frames=chunk, mesh=mesh,
+                                      reduction=reduction).run(**run_kw)
+            out[f"{name}/{reduction}"] = [res.frames, res.bit_errors, res.frame_errors,
+                                          res.total_iterations, res.elapsed_seconds]
+    return out
+
+
+def qc_sharding_inputs(dev):
+    """The QC n=8192 shift matrix and all-zero codeword LLRs at QC_LOW_SNR_DB."""
+    base = fec.qc_base_matrix(QC_N, QC_K, QC_Z, dv=3, dc=6, seed=42)
+    sigma = awgn_noise_std(QC_LOW_SNR_DB)
+    noise = np.random.default_rng(31).standard_normal((SHARDED_QC_FRAMES, QC_N))
+    llr = torch.from_numpy((2.0 * (1.0 + sigma * noise) / sigma ** 2).astype(np.float32))
+    return base, llr.to(dev)
+
+
+def sharded_child(out_path: str, settings: dict) -> None:
+    """One rank of a local group (the environment torchrun gives), with the
+    parent's ``settings``: joins the group as the CLIs do (gloo where the
+    ranks share a card), runs the sharded paths, the code-sharded QC decode
+    and polar transform, and the weak scaling, and writes its results and
+    kernel launches as JSON."""
+    import argparse as _argparse
+
+    import torch.distributed as dist
+
+    from polarcode_and_ldpc_tpu_torch.cli._common import join_group
+    from polarcode_and_ldpc_tpu_torch.models.ldpc.qc import make_qc_bp_decoder
+    from polarcode_and_ldpc_tpu_torch.parallel import (code_sharded_decode,
+                                                       code_sharded_polar_transform,
+                                                       default_mesh, mesh_2d)
+    from polarcode_and_ldpc_tpu_torch.sim import measure_scaling
+
+    globals().update(settings)
+    args = _argparse.Namespace(device=DEV, mesh=False)
+    join_group(args)
+    dev = torch.device(args.device)
+    out = {"device": str(dev), "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+    paths = sharded_paths(dev)
+    mesh = default_mesh(device=dev)
+    run_sharded_paths(paths, mesh)  # warm-up: first use of every op on the card
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["mc"] = run_sharded_paths(paths, mesh)
+    sync(dev)
+    out["mc_seconds"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+
+    base, llr = qc_sharding_inputs(dev)
+    dec = make_qc_bp_decoder(base, QC_Z, max_iter=LDPC_ITERS, device=dev)
+    want_bits, want_iters = dec(llr)
+    out["qc"] = {}
+    for shape in ((1, SHARDED_RANKS), (SHARDED_RANKS, 1)):
+        m2 = mesh_2d(*shape, device=dev)
+        bits, iters = code_sharded_decode(dec, m2)(llr)
+        f, c = m2.get_coordinate()
+        rows = slice(f * llr.shape[0] // shape[0], (f + 1) * llr.shape[0] // shape[0])
+        cols = slice(c * QC_N // shape[1], (c + 1) * QC_N // shape[1])
+        out["qc"][f"{shape[0]}x{shape[1]}"] = {
+            "bits_equal": bool(torch.equal(bits, want_bits[rows, cols])),
+            "iters_equal": bool(torch.equal(iters, want_iters[rows])),
+            "block": list(bits.shape), "mean_iterations": float(iters.float().mean())}
+    u = torch.from_numpy(np.random.default_rng(32).integers(
+        0, 2, (SHARDED_TRANSFORM_FRAMES, POLAR_N)).astype(np.int8)).to(dev)
+    m2 = mesh_2d(1, SHARDED_RANKS, device=dev)
+    c = m2.get_coordinate()[1]
+    x = code_sharded_polar_transform(m2)(u)
+    width = POLAR_N // SHARDED_RANKS
+    out["transform_equal"] = bool(torch.equal(x, polar_transform(u)[:, c * width:(c + 1) * width]))
+    out["scaling"] = measure_scaling(paths["polar_sc"][0], frames_per_device=POLAR_CHUNK)
+    Path(out_path).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def run_sharded_children(ranks: int, tag: str, **env_extra) -> list:
+    """Start ``ranks`` local ranks of ``sharded_child`` and return their
+    results; a rank that fails or outlives the timeout raises.  With fewer
+    visible cards than ranks, the ranks share a card over gloo."""
+    from polarcode_and_ldpc_tpu_torch.cli._common import free_port
+
+    out_dir = Path("chiprun_out") / "sharded" / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks), **env_extra)
+    settings = {name: globals()[name] for name in SHARDED_SETTINGS}
+    procs = []
+    for r in range(ranks):
+        log = open(out_dir / f"rank{r}.log", "w")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.sharded_child("
+                                   f"{str(out_dir / f'rank{r}.json')!r}, {settings!r})"],
+            stdout=log, stderr=subprocess.STDOUT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))))
+    try:
+        for r, (log, p) in enumerate(procs):
+            code = p.wait(timeout=SHARDED_TIMEOUT_S)
+            if code != 0:
+                raise AssertionError(f"sharded rank {r} ({tag}) exited with {code}: "
+                                     + (out_dir / f"rank{r}.log").read_text()[-3000:])
+    finally:
+        for log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(ranks)]
+
+
+def require_launches(counts: dict, keys, what: str) -> None:
+    missing = [k for k in keys if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{what} launched {missing} no time: {counts}")
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def check_children(children: list, want: dict, results: dict, tag: str) -> dict:
+    """Every child rank's counters equal the unsharded run's, the code-sharded
+    results are bit-identical, and every kernel of the paths was launched;
+    the children's launches join the kernel table."""
+    counters = lambda mc: {k: v[:4] for k, v in mc.items()}  # noqa: E731
+    for r, child in enumerate(children):
+        if counters(child["mc"]) != counters(want):
+            raise AssertionError(f"{tag}: rank {r} counts {counters(child['mc'])}, "
+                                 f"unsharded {counters(want)}")
+        bad = [k for k, v in child["qc"].items() if not (v["bits_equal"] and v["iters_equal"])]
+        if bad or not child["transform_equal"]:
+            raise AssertionError(f"{tag}: rank {r}: code-sharded QC {bad} / polar transform "
+                                 f"equal {child['transform_equal']}")
+        require_launches(child["launches"], SHARDED_KEYS, f"{tag}: rank {r}")
+        for key in SHARDED_KEYS:
+            if key in results:
+                results[key]["launches"] += child["launches"][key]
+    return {"ranks": len(children), "backend": children[0]["backend"],
+            "devices": [c["device"] for c in children],
+            "counts_equal_unsharded": True, "code_sharded_bit_identical": True,
+            "mc_seconds": [c["mc_seconds"] for c in children],
+            "mc_run_seconds": {k: [c["mc"][k][4] for c in children] for k in want},
+            "launches": [{k: c["launches"][k] for k in SHARDED_KEYS} for c in children],
+            "qc": children[0]["qc"],
+            "scaling": children[0]["scaling"]}
+
+
+def check_launch_device() -> dict:
+    """Kernels launch on their tensors' card whatever device is current: K1
+    and a list decode on cuda:1 while cuda:0 is current, against cuda:0."""
+    frozen, info, mask = polar_code()
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, device="cuda:0")
+    msgs = np.random.default_rng(33).integers(0, 2, (1024, POLAR_K))
+    llr0 = seeded_llrs(enc.encode(msgs), LOW_SNR_DB, seed=34)
+    llr1 = llr0.to("cuda:1")
+    out = {}
+    for name, mk in (("sc", lambda d: make_sc_decoder(POLAR_N, mask, device=d)),
+                     ("scl", lambda d: make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S,
+                                                        device=d))):
+        want = mk("cuda:0")(llr0)
+        with torch.cuda.device(0):
+            got = mk("cuda:1")(llr1)
+        torch.cuda.synchronize(1)
+        want, got = (want[0], got[0]) if isinstance(want, tuple) else (want, got)
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError(f"{name}: the decode of cuda:1 tensors with cuda:0 current "
+                                 "differs from cuda:0's")
+        out[name] = "equal"
+    return out
+
+
+def phase_sharded(results: dict) -> None:
+    """Frame-sharded Monte-Carlo (``MonteCarloSimulator(mesh=)``): (a) a one-rank
+    NCCL group in this process; (b) two local ranks sharing the card over gloo,
+    (c) with the QC n=8192 decode and the polar transform code-sharded over
+    them, and (d) the weak scaling of the SC step.  Counts must equal the
+    unsharded runs', the code-sharded results must be bit-identical; the
+    children's launches are counted.  With two cards or more, two ranks on
+    two cards over NCCL too, and the launches' device check."""
+    import torch.distributed as dist
+
+    from polarcode_and_ldpc_tpu_torch.parallel import default_mesh
+
+    paths = sharded_paths(DEV)
+    run_sharded_paths(paths, None)  # warm-up: first use of every op on the card
+    t0 = time.perf_counter()
+    want = run_sharded_paths(paths, None)
+    unsharded_s = time.perf_counter() - t0
+    counters = lambda mc: {k: v[:4] for k, v in mc.items()}  # noqa: E731
+    for name, (_, _, chunk, run_kw) in paths.items():
+        frames, _, errors, _, _ = want[f"{name}/per_frame"]
+        if errors != run_kw["max_errors"] or frames >= run_kw["num_frames"]:
+            raise AssertionError(f"{name}: the early stop did not cross: "
+                                 f"{want[f'{name}/per_frame']}")
+    mesh = default_mesh(device=DEV)  # no group yet: a one-rank NCCL group over this card
+    backend = "nccl" if torch.device(DEV).type == "cuda" else "gloo"
+    if (dist.get_backend(), dist.get_world_size()) != (backend, 1):
+        raise AssertionError(f"one-rank group: {dist.get_backend()}, {dist.get_world_size()}")
+    run_sharded_paths(paths, mesh)  # warm-up: the communicator's first collectives
+    ops.reset_launch_counts()
+    one = run_sharded_paths(paths, mesh)
+    sync(DEV)
+    counts = record_launches(results, SHARDED_KEYS)
+    dist.destroy_process_group()
+    if counters(one) != counters(want):
+        raise AssertionError(f"one-rank NCCL mesh counts {counters(one)}, unsharded "
+                             f"{counters(want)}")
+    out = {"unsharded": want, "unsharded_seconds": unsharded_s,
+           "one_rank_nccl": {"counts_equal_unsharded": True,
+                             "launches": {k: counts[k] for k in SHARDED_KEYS},
+                             "run_seconds": {k: v[4] for k, v in one.items()}}}
+    # one visible card for both ranks, whatever the machine has
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    out["two_ranks_shared_card_gloo"] = check_children(
+        run_sharded_children(SHARDED_RANKS, "gloo", CUDA_VISIBLE_DEVICES=first),
+        want, results, "two ranks on one card (gloo)")
+    if torch.cuda.device_count() >= 2:
+        out["two_ranks_two_cards_nccl"] = check_children(
+            run_sharded_children(SHARDED_RANKS, "nccl"), want, results,
+            "two ranks on two cards (NCCL)")
+        out["launch_device"] = check_launch_device()
+    else:
+        out["two_ranks_two_cards_nccl"] = "not run: this step needs a second card"
+        out["launch_device"] = "not run: this check needs a second card"
+        print("sharded: two ranks on two cards over NCCL need a second card; "
+              f"this machine has {torch.cuda.device_count()}", flush=True)
+    out["nvidia_smi"] = nvidia_smi_line()
+    emit("sharded", **out)
+
+
+# the oracle differential at its default codes (SCL-8 at N=1024, K=512 on the
+# self and oracle frozen sets; BP at n=504 on the self and oracle (H, G)),
+# 8192 frames a point at −1, 0, 1 dB
+ORACLE_ARGS = ["--num-frames", "8192", "--max-errors", "500", "--batch-size", "4096",
+               "--snr-range=-1:1:1", "--skip-plots"]
+ORACLE_HOLD_SNR_DB, ORACLE_HOLD_FRAMES = -1.0, 4096
+
+
+def phase_oracle(results: dict, mbps: dict) -> None:
+    """``cli.oracle_differential`` at its default codes with fewer frames,
+    each arm's first chunk held against its plain pipeline."""
+    from polarcode_and_ldpc_tpu_torch.cli import oracle_differential
+    from polarcode_and_ldpc_tpu_torch.core.config import LDPCCodeConfig, PolarCodeConfig
+    from polarcode_and_ldpc_tpu_torch.oracle import (oracle_ldpc_matrices,
+                                                     oracle_polar_frozen_set)
+
+    defaults = oracle_differential.build_parser().parse_args([])
+    N, K, L, S = defaults.polar_n, defaults.polar_k, defaults.list_size, PolarCodeConfig().scl_chunk
+    frozen_self, _ = fec.construct_polar_code(N, K, "bhattacharyya", defaults.design_snr_db)
+    frozen_orc, _ = oracle_polar_frozen_set(N, K, defaults.design_snr_db)
+    narrow = any(sum(w < L for w in build_scl_schedule(
+        N, frozen_mask_from_positions(N, f), L, S).lv_in[:-1]) for f in (frozen_self,
+                                                                            frozen_orc))
+    keys = ["scl_chunk_step", "scl_last_chunk", "bp_decode_bp"] + (
+        ["scl_narrow_prefix"] if narrow else [])
+    out_dir = Path("chiprun_out") / "oracle_differential"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if oracle_differential.main(ORACLE_ARGS + ["--device", DEV, "--output-dir", str(out_dir)]) != 0:
+        raise AssertionError("oracle_differential did not return 0")
+    sync(DEV)
+    seconds = time.perf_counter() - t0
+    counts = record_launches(results, keys)
+    res = json.loads((out_dir / "oracle_differential.json").read_text())
+    for fam in ("polar", "ldpc"):
+        for arm in ("self", "oracle"):
+            c = res[fam][arm]
+            if (c["snr_db"] != [-1.0, 0.0, 1.0] or min(c["frames_tested"]) < 1
+                    or not all(0.0 <= b < 0.5 for b in c["ber"])):
+                raise AssertionError(f"oracle_differential {fam}/{arm}: {c}")
+
+    # each arm's first chunk against its plain pipeline
+    H_o, G_o, _ = oracle_ldpc_matrices(defaults.ldpc_n, defaults.dv, defaults.dc,
+                                       defaults.ldpc_seed)
+    enc = fec.LDPCEncoder(defaults.ldpc_n, defaults.ldpc_k, dv=defaults.dv, dc=defaults.dc,
+                          seed=defaults.ldpc_seed, device=DEV)
+    polar = lambda f, **kw: make_polar_pipeline(  # noqa: E731
+        N, K, f, ORACLE_HOLD_SNR_DB, decoder="scl", list_size=L, scl_chunk=S, device=DEV,
+        **kw)
+    ldpc = lambda H, G, idx, **kw: make_ldpc_pipeline(  # noqa: E731
+        H, G, ORACLE_HOLD_SNR_DB, decoder="bp", max_iter=LDPCCodeConfig().max_iterations,
+        message_idx=idx, device=DEV, **kw)
+    arms = {
+        "polar_self": (polar(frozen_self), polar(frozen_self, scl_control_impl="unroll-fused"), 0),
+        "polar_oracle": (polar(frozen_orc), polar(frozen_orc, scl_control_impl="unroll-fused"),
+                         0),
+        "ldpc_self": (ldpc(enc.H, enc.G, enc.info_positions),
+                      ldpc(enc.H, enc.G, enc.info_positions, bp_impl="torch"),
+                      LDPC_CHUNK // 1000),
+        "ldpc_oracle": (ldpc(H_o, G_o.T % 2, np.arange(G_o.shape[1])),
+                        ldpc(H_o, G_o.T % 2, np.arange(G_o.shape[1]), bp_impl="torch"),
+                        LDPC_CHUNK // 1000),
+    }
+    key = rng.prng_key(0, DEV)
+    ids = torch.arange(ORACLE_HOLD_FRAMES, device=DEV)
+    held = {}
+    for name, (step, plain, allowed) in arms.items():
+        a, b = step(key, ids), plain(key, ids)
+        bad = (a["bit_errors"] != b["bit_errors"]) | (a["frame_error"] != b["frame_error"])
+        if "iterations" in a:
+            bad |= a["iterations"] != b["iterations"]
+        held[name] = int(bad.sum())
+        if held[name] > allowed:
+            raise AssertionError(f"oracle_differential {name}: kernel and plain pipelines "
+                                 f"differ on {held[name]} frames of the first chunk")
+    for fam in ("polar", "ldpc"):
+        for arm in ("self", "oracle"):
+            mbps[f"oracle_{fam}_{arm}"] = max(res[fam][arm]["throughput_mbps"])
+    emit("oracle", argv=ORACLE_ARGS, seconds=seconds, output_dir=str(out_dir),
+         launches={k: v for k, v in counts.items() if v},
+         first_chunk_frames_differ_from_plain=held,
+         backends={f: res[f]["oracle_backend"] for f in ("polar", "ldpc")},
+         frozen_overlap=res["polar"]["frozen_overlap"], k_actual=res["ldpc"]["k_actual"],
+         gaps={f: res[f]["gap"]["max_abs_log10_ber_gap"] for f in ("polar", "ldpc")},
+         curves={f: {a: {k: res[f][a][k] for k in ("snr_db", "ber", "fer", "frames_tested",
+                                                   "throughput_mbps")}
+                     for a in ("self", "oracle")} for f in ("polar", "ldpc")},
+         nvidia_smi=nvidia_smi_line())
+
+
 def phase_invariance(frames: int = 8192) -> None:
     frozen, info, mask = polar_code()
     enc = ldpc_code()
@@ -3794,6 +4166,8 @@ def main() -> int:
         "sc_vs_scl": lambda: phase_sc_vs_scl(results, mbps),
         "construction": lambda: phase_construction(results, mbps, q),
         "twins": lambda: phase_twins(q),
+        "sharded": lambda: phase_sharded(results),
+        "oracle": lambda: phase_oracle(results, mbps),
         "invariance": phase_invariance,
         "stages": lambda: phase_stages(reps),
     }

@@ -19,7 +19,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from ._common import add_common_args, check_common_args
+from ._common import add_common_args, run_cli
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,8 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_common_args(args)
+    return run_cli("code_params", args, argv, _main)
 
+
+def _main(args, mesh) -> dict:
     from ..core.config import SimulationConfig
     from ..sim.experiments import build_code, measure_code, test_code_lengths
     from ..utils import save_results
@@ -61,7 +63,7 @@ def main(argv=None) -> dict:
             print(f"{fam} length sweep {lengths} @ {args.snr_db} dB:")
             res = test_code_lengths(fam, lengths, rate=0.5, snr_db=args.snr_db,
                                     num_frames=args.num_frames, batch_size=args.batch_size,
-                                    sc_impl=args.sc_impl, device=args.device)
+                                    mesh=mesh, sc_impl=args.sc_impl, device=args.device)
             for e in res:
                 print(f"  N={e['length']}: BER {e['ber']:.2e} "
                       f"dec {e['decoding_throughput']:.3f} Mbps" if "ber" in e
@@ -92,7 +94,7 @@ def main(argv=None) -> dict:
                 # the probe's steady-state decode rate, not the sweep's first
                 # Monte-Carlo point, whose time includes building the kernels
                 curve, thpt = measure_code(fam, cfg, code, sim, args.snr_db, args.batch_size,
-                                           sc_impl=args.sc_impl, device=args.device)
+                                           mesh=mesh, sc_impl=args.sc_impl, device=args.device)
                 entry.update(ber=curve["ber"][0], fer=curve["fer"][0],
                              throughput_mbps=thpt["decoding_throughput"],
                              decode_ms_per_frame=thpt["decode_ms_per_frame"])
@@ -101,7 +103,8 @@ def main(argv=None) -> dict:
                 out.append(entry)
             results["rate_tests"][fam] = out
 
-    save_results(results, outdir / "code_params_results.json")
+    if args.main_rank:
+        save_results(results, outdir / "code_params_results.json")
     print(f"Done → {outdir}/")
     return results
 

@@ -18,7 +18,7 @@ import argparse
 import time
 from pathlib import Path
 
-from ._common import add_common_args, check_common_args, parse_snr_range
+from ._common import add_common_args, run_cli, parse_snr_range
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,7 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crossover-prob", type=float, default=0.1, help="BSC only")
     p.add_argument("--k-factor", type=float, default=1.0, help="Rician only")
     p.add_argument("--use-third-party", action="store_true",
-                   help="overlay the third-party oracle curves: not in this package yet")
+                   help="overlay the third-party oracle curves (polarcodes / pyldpc), where "
+                        "those libraries import")
     p.add_argument("--skip-polar", action="store_true")
     p.add_argument("--skip-ldpc", action="store_true")
     p.add_argument("--skip-throughput", action="store_true")
@@ -46,8 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_common_args(args)
+    return run_cli("run_benchmark", args, argv, _main)
 
+
+def _main(args, mesh) -> dict:
     from ..core.config import (ChannelConfig, LDPCCodeConfig, PolarCodeConfig,
                                SimulationConfig, load_yaml_config)
     from ..sim.experiments import run_ber_simulation
@@ -71,13 +74,14 @@ def main(argv=None) -> dict:
     channel = ChannelConfig(kind=args.channel, crossover_prob=args.crossover_prob,
                             k_factor=args.k_factor)
     ber = run_ber_simulation(None if args.skip_polar else polar_cfg,
-                             None if args.skip_ldpc else ldpc_cfg, sim,
+                             None if args.skip_ldpc else ldpc_cfg, sim, mesh=mesh,
                              use_oracle=args.use_third_party, verbose=True, channel=channel,
                              device=args.device)
     combined["ber_simulation"] = ber
-    save_results(ber, outdir / "data" / "ber_simulation_results.json")
+    if args.main_rank:
+        save_results(ber, outdir / "data" / "ber_simulation_results.json")
 
-    if not args.skip_plots:
+    if args.main_rank and not args.skip_plots:
         curves_ber, curves_fer = {}, {}
         for fam in ("polar", "ldpc"):
             for impl in ("self", "library"):
@@ -101,7 +105,8 @@ def main(argv=None) -> dict:
             {"n": ldpc_cfg.n, "k": ldpc_cfg.k, "batch": args.batch_size,
              "max_iter": ldpc_cfg.max_iterations}, device=args.device)
         combined["throughput"] = thpt
-        save_results(thpt, outdir / "data" / "throughput_results.json")
+        if args.main_rank:
+            save_results(thpt, outdir / "data" / "throughput_results.json")
         print(f"  polar decode: {thpt['polar']['decoding_throughput']:.3f} Mbps, "
               f"ldpc decode: {thpt['ldpc']['decoding_throughput']:.3f} Mbps")
 
@@ -111,10 +116,12 @@ def main(argv=None) -> dict:
             {"n": ldpc_cfg.n, "k": ldpc_cfg.k, "dv": ldpc_cfg.dv, "dc": ldpc_cfg.dc,
              "max_iterations": ldpc_cfg.max_iterations})
         combined["complexity"] = comp
-        save_results(comp, outdir / "data" / "complexity_results.json")
+        if args.main_rank:
+            save_results(comp, outdir / "data" / "complexity_results.json")
 
     combined["elapsed_seconds"] = time.perf_counter() - t0
-    save_results(combined, outdir / "benchmark_results.json")
+    if args.main_rank:
+        save_results(combined, outdir / "benchmark_results.json")
     print(f"Done in {combined['elapsed_seconds']:.1f}s → {outdir}/")
     return combined
 

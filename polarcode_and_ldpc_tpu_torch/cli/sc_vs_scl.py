@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from ._common import add_common_args, check_common_args, parse_snr_range
+from ._common import add_common_args, run_cli, parse_snr_range
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,8 +49,10 @@ def _measure_latency(N, K, list_sizes, batch, device):
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_common_args(args)
+    return run_cli("sc_vs_scl", args, argv, _main)
 
+
+def _main(args, mesh) -> dict:
     from ..core.config import SimulationConfig
     from ..models.polar.construction import construct_polar_code
     from ..sim import MonteCarloSimulator, make_polar_pipeline, run_snr_sweep
@@ -66,18 +68,20 @@ def main(argv=None) -> dict:
     if args.mode == "quick":
         results: dict = {"mode": "quick", "N": N, "K": K, "snr_db": args.snr_db}
         step = make_polar_pipeline(N, K, frozen, args.snr_db, decoder="sc", device=dev)
-        res = MonteCarloSimulator(step, K, chunk_frames=args.batch_size).run(
+        res = MonteCarloSimulator(step, K, chunk_frames=args.batch_size, mesh=mesh).run(
             args.num_frames, max_errors=args.max_errors, seed=args.seed)
         results["sc"] = res.to_dict()
         print(f"SC:      BER {res.ber:.3e}  FER {res.fer:.3e}")
         for L in list_sizes:
             step = make_polar_pipeline(N, K, frozen, args.snr_db, decoder=decoder,
                                        list_size=L, device=dev)
-            res = MonteCarloSimulator(step, k_counted, chunk_frames=args.batch_size).run(
+            res = MonteCarloSimulator(step, k_counted, chunk_frames=args.batch_size,
+                                      mesh=mesh).run(
                 args.num_frames, max_errors=args.max_errors, seed=args.seed)
             results[f"scl_{L}"] = res.to_dict()
             print(f"SCL-{L:<3}: BER {res.ber:.3e}  FER {res.fer:.3e}")
-        save_results(results, outdir / "quick_results.json")
+        if args.main_rank:
+            save_results(results, outdir / "quick_results.json")
         return results
 
     start, stop, step_db = parse_snr_range(args.snr_range)
@@ -89,13 +93,13 @@ def main(argv=None) -> dict:
     print("SC:")
     results["curves"]["sc"] = run_snr_sweep(
         lambda s: make_polar_pipeline(N, K, frozen, s, decoder="sc", device=dev), K, snrs,
-        sim.num_frames, sim.max_errors, sim.seed, sim.batch_size, verbose=True)
+        sim.num_frames, sim.max_errors, sim.seed, sim.batch_size, mesh, verbose=True)
     for L in list_sizes:
         print(f"SCL-{L}:")
         results["curves"][f"scl_{L}"] = run_snr_sweep(
             lambda s, L=L: make_polar_pipeline(N, K, frozen, s, decoder=decoder, list_size=L,
                                                device=dev),
-            k_counted, snrs, sim.num_frames, sim.max_errors, sim.seed, sim.batch_size,
+            k_counted, snrs, sim.num_frames, sim.max_errors, sim.seed, sim.batch_size, mesh,
             verbose=True)
 
     print("Latency:")
@@ -103,8 +107,9 @@ def main(argv=None) -> dict:
     for name, ms in results["latency_ms_per_frame"].items():
         print(f"  {name}: {ms:.4f} ms/frame")
 
-    save_results(results, outdir / "results.json")
-    if not args.skip_plots:
+    if args.main_rank:
+        save_results(results, outdir / "results.json")
+    if args.main_rank and not args.skip_plots:
         curves = results["curves"]
         plot_ber_curves(snrs, {k: v["ber"] for k, v in curves.items()},
                         title=f"SC vs SCL BER, N={N} K={K}",

@@ -17,7 +17,7 @@ import argparse
 import json
 from pathlib import Path
 
-from ._common import add_common_args, check_common_args, parse_snr_range
+from ._common import add_common_args, run_cli, parse_snr_range
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_common_args(args)
+    return run_cli("snr_curves", args, argv, _main)
 
+
+def _main(args, mesh) -> dict:
     from ..core.config import SimulationConfig
     from ..sim.experiments import analyze_snr_requirements, test_multiple_rates
     from ..utils import plot_ber_curves, save_results
@@ -75,17 +77,20 @@ def main(argv=None) -> dict:
         polar = json.loads((outdir / "polar_results.json").read_text())
     else:
         print(f"Polar N={args.polar_n}, rates {rates}:")
-        polar = test_multiple_rates("polar", rates, N=args.polar_n, sim=sim, verbose=True,
+        polar = test_multiple_rates("polar", rates, N=args.polar_n, sim=sim, mesh=mesh,
+                                    verbose=True,
                                     algorithm=args.polar_algorithm, list_size=args.list_size,
                                     polar_perf=polar_perf, device=args.device)
-        save_results(polar, outdir / "polar_results.json")
+        if args.main_rank:
+            save_results(polar, outdir / "polar_results.json")
     if args.skip_ldpc:
         ldpc = json.loads((outdir / "ldpc_results.json").read_text())
     else:
         print(f"LDPC n={args.ldpc_n}, rates {rates}:")
-        ldpc = test_multiple_rates("ldpc", rates, N=args.ldpc_n, sim=sim, verbose=True,
-                                   device=args.device)
-        save_results(ldpc, outdir / "ldpc_results.json")
+        ldpc = test_multiple_rates("ldpc", rates, N=args.ldpc_n, sim=sim, mesh=mesh,
+                                   verbose=True, device=args.device)
+        if args.main_rank:
+            save_results(ldpc, outdir / "ldpc_results.json")
 
     # the SNR each rate needs, and the polar − LDPC gap
     analysis: dict = {}
@@ -99,9 +104,10 @@ def main(argv=None) -> dict:
                 "polar_snr": p_req, "ldpc_snr": l_req,
                 "snr_gap": (p_req - l_req if p_req is not None and l_req is not None else None),
             }
-    save_results(analysis, outdir / "snr_analysis.json")
+    if args.main_rank:
+        save_results(analysis, outdir / "snr_analysis.json")
 
-    if not args.skip_plots:
+    if args.main_rank and not args.skip_plots:
         snrs = sim.snr_points()
         plot_ber_curves(snrs, {f"polar r={r}": polar["self"][r]["ber"] for r in polar["self"]},
                         title=f"Polar N={args.polar_n} BER vs SNR",

@@ -13,7 +13,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from ._common import add_common_args, check_common_args
+from ._common import add_common_args, run_cli
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,8 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_common_args(args)
+    return run_cli("throughput", args, argv, _main)
 
+
+def _main(args, mesh) -> dict:
     from ..sim.throughput import measure_ldpc_throughput, measure_polar_throughput
     from ..utils import save_results
 
@@ -65,7 +67,8 @@ def main(argv=None) -> dict:
               f"enc {r['encoding_throughput']:.2f} / dec {r['decoding_throughput']:.2f} "
               f"/ e2e {r['end_to_end_throughput']:.2f} Mbps "
               f"({r['decode_ms_per_frame']:.4f} ms/frame)")
-    save_results(results, Path(args.output_dir) / "data" / "throughput_results.json")
+    if args.main_rank:
+        save_results(results, Path(args.output_dir) / "data" / "throughput_results.json")
     return results
 
 

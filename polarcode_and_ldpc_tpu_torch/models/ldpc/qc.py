@@ -130,9 +130,12 @@ def make_qc_bp_decoder(base: np.ndarray, z: int, max_iter: int = 50,
             ok = row_ok if ok is None else ok & row_ok
         return ok
 
-    def run(llr, init, one_iteration):
-        """The shared iteration loop with per-frame first-converged latching."""
-        batch = llr.shape[0]
+    def run(llr, init, one_iteration, converged=None):
+        """The shared iteration loop with per-frame first-converged latching;
+        ``converged(bits_blocks) → [B] bool`` is the syndrome check
+        (``syndrome_ok`` unless the code axis is sharded)."""
+        converged = converged or syndrome_ok
+        batch, width = llr.shape
         state = init
         bits = (llr <= 0).to(torch.int8)
         done = torch.zeros(batch, dtype=torch.bool, device=llr.device)
@@ -143,9 +146,9 @@ def make_qc_bp_decoder(base: np.ndarray, z: int, max_iter: int = 50,
                 break
             state, totals = one_iteration(state)
             bits_blocks = (totals <= 0).to(torch.int8)
-            bits = bits_blocks.reshape(batch, n)
+            bits = bits_blocks.reshape(batch, width)
             if early_stop:
-                ok = syndrome_ok(bits_blocks)
+                ok = converged(bits_blocks)
                 newly = ok & ~done
                 latched = torch.where(newly[:, None], bits, latched)
                 iters = torch.where(newly, it + 1, iters).to(torch.int32)
@@ -199,7 +202,104 @@ def make_qc_bp_decoder(base: np.ndarray, z: int, max_iter: int = 50,
 
         return run(llr, to_check_major(llr_blocks), one_iteration)
 
-    return decode_layered if schedule == "layered" else decode
+    def build_sharded(shard):
+        """This rank's decoder when the code axis is sharded over ``shard``
+        (``parallel.mesh.CodeShard``): it holds variable blocks ``[r·nbl,
+        (r+1)·nbl)``, ``nbl = nb / size``, of the LLRs, the totals and the
+        messages of their edges (var-major, ``[B, nbl, dv, z]``, each at its
+        check's alignment).  Every collective moves whole blocks and the
+        arithmetic is the unsharded decoder's, in the same order."""
+        if nb % shard.size:
+            raise ValueError(f"{nb} variable blocks do not split over {shard.size} code ranks")
+        nbl = nb // shard.size
+        mine = range(shard.rank * nbl, (shard.rank + 1) * nbl)
+        dv = len(cols[0])
+        # var-major edge (bj, sv) → its place (bi, sc) in the check-major layout
+        order = torch.tensor([bj * dv + sv for bi in range(mb) for (bj, _sh, sv) in rows[bi]],
+                             device=dev)
+
+        def converged(bits_blocks):
+            """Each check block's partial XOR sum over this rank's blocks,
+            all-reduced (integer sums: exact in any order)."""
+            part = torch.stack([
+                sum((torch.roll(bits_blocks[:, bj - mine.start], -sh, dims=-1)
+                     .to(torch.int32) for (bj, sh, _sv) in rows[bi] if bj in mine),
+                    torch.zeros_like(bits_blocks[:, 0], dtype=torch.int32))
+                for bi in range(mb)], dim=1)
+            return ((shard.all_reduce(part) % 2) == 0).all(dim=-1).all(dim=-1)
+
+        def aligned(blocks):
+            """``[B, nbl, z]`` → each local edge's copy at its check's
+            alignment, var-major ``[B, nbl, dv, z]``."""
+            return torch.stack([torch.stack([torch.roll(blocks[:, bj - mine.start], -sh, dims=-1)
+                                             for (_bi, _sc, sh) in cols[bj]], dim=1)
+                                for bj in mine], dim=1)
+
+        def decode_local(llr):
+            llr = prepare_local(llr)
+            batch = llr.shape[0]
+            llr_blocks = llr.reshape(batch, nbl, z)
+
+            def one_iteration(v2c_local):
+                v2c = shard.all_gather(v2c_local, 1).reshape(batch, nb * dv, z)
+                c2v = check_update(v2c[:, order].reshape(batch, mb, dc, z))
+                totals, v2c_next = [], []
+                for jl, bj in enumerate(mine):
+                    acc = None
+                    for (bi, sc, sh) in cols[bj]:
+                        contrib = torch.roll(c2v[:, bi, sc], sh, dims=-1)
+                        acc = contrib if acc is None else acc + contrib
+                    totals.append(llr_blocks[:, jl] + acc)
+                    v2c_next.append(torch.stack([torch.roll(totals[-1], -sh, dims=-1)
+                                                 - c2v[:, bi, sc]
+                                                 for (bi, sc, sh) in cols[bj]], dim=1))
+                return torch.stack(v2c_next, dim=1), torch.stack(totals, dim=1)
+
+            return run(llr, aligned(llr_blocks), one_iteration, converged)
+
+        def decode_layered_local(llr):
+            llr = prepare_local(llr)
+            batch = llr.shape[0]
+            Q0 = llr.reshape(batch, nbl, z).clone()
+            R0 = torch.zeros((batch, nbl, dv, z), dtype=dtype, device=llr.device)
+            slot_of = {(bi, bj): sv for bj in mine for sv, (bi, _sc, _sh) in enumerate(cols[bj])}
+
+            def one_iteration(state):
+                Q, R = state  # updated in place: this decode owns both
+                for bi in range(mb):
+                    # this rank's part of the row's input, one block per local
+                    # variable block (zeros where the row has no edge)
+                    part = torch.zeros((batch, nbl, z), dtype=dtype, device=llr.device)
+                    for (bj, sh, _sv) in rows[bi]:
+                        if bj in mine:
+                            jl = bj - mine.start
+                            part[:, jl] = (torch.roll(Q[:, jl], -sh, dims=-1)
+                                           - R[:, jl, slot_of[(bi, bj)]])
+                    full = shard.all_gather(part, 1)
+                    r_new = check_update(torch.stack([full[:, bj] for (bj, _sh, _sv) in rows[bi]],
+                                                     dim=1))
+                    for si, (bj, sh, _sv) in enumerate(rows[bi]):
+                        if bj in mine:
+                            jl, sv = bj - mine.start, slot_of[(bi, bj)]
+                            delta = r_new[:, si] - R[:, jl, sv]
+                            R[:, jl, sv] = r_new[:, si]
+                            Q[:, jl] += torch.roll(delta, sh, dims=-1)
+                return (Q, R), Q
+
+            return run(llr, (Q0, R0), one_iteration, converged)
+
+        def prepare_local(llr):
+            llr = torch.as_tensor(llr, device=dev).to(dtype)
+            if llr.dim() != 2 or llr.shape[1] != nbl * z:
+                raise ValueError(f"expected this rank's [batch, {nbl * z}] block, "
+                                 f"got {tuple(llr.shape)}")
+            return llr
+
+        return decode_layered_local if schedule == "layered" else decode_local
+
+    out = decode_layered if schedule == "layered" else decode
+    out.qc_build = build_sharded
+    return out
 
 
 class QCBPDecoder(nn.Module):

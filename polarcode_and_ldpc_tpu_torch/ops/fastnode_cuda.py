@@ -70,9 +70,8 @@ def fastnode_select_cuda(a: torch.Tensor, K: int):
     mags = torch.empty((L, K, B), dtype=torch.float32, device=dev)
     idx = torch.empty((L, K, B), dtype=torch.int32, device=dev)
     pen = torch.empty((L, 1, B), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = fn(a.data_ptr(), mags.data_ptr(), idx.data_ptr(), pen.data_ptr(), L, S, K, B,
-                  torch.cuda.current_stream().cuda_stream)
+    code = build.launch_on(dev.index, fn, a.data_ptr(), mags.data_ptr(), idx.data_ptr(),
+                           pen.data_ptr(), L, S, K, B)
     build.check_launch(lib, code, "fastnode_select")
     count_launch("fastnode_select")
     return mags, idx, pen

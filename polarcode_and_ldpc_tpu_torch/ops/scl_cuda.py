@@ -369,12 +369,11 @@ def launch_chunk_body(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyPro
     r_out = (torch.empty((B, L, L), dtype=torch.float32, device=dev) if program.onehot
              else torch.empty((B, L), dtype=torch.int64, device=dev))
     ops = program.device_ops(dev)
-    with torch.cuda.device(dev):
-        code = fn(alpha.data_ptr(), pm.data_ptr(), beta.data_ptr(), pm_out.data_ptr(),
-                  r_out.data_ptr(), ops.data_ptr(), ops.shape[0], int(program.has_r),
-                  B, S, L, program.lgS, int(program.onehot), int(program.fast), warps,
-                  ctx.data_ptr() if ctx is not None else None, grid,
-                  torch.cuda.current_stream().cuda_stream)
+    code = build.launch_on(dev.index, fn, alpha.data_ptr(), pm.data_ptr(), beta.data_ptr(),
+                           pm_out.data_ptr(), r_out.data_ptr(), ops.data_ptr(), ops.shape[0],
+                           int(program.has_r), B, S, L, program.lgS, int(program.onehot),
+                           int(program.fast), warps,
+                           ctx.data_ptr() if ctx is not None else None, grid)
     build.check_launch(lib, code, "scl_chunk_body")
     return beta, pm_out, r_out, ctx
 
@@ -682,14 +681,13 @@ def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
     warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0)
     lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 16 + [_P, _I, _P], library)
     ops = spec.program.device_ops(dev)
-    with torch.cuda.device(dev):
-        code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
-                  state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
-                  ops.data_ptr(), ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L,
-                  s.t, spec.program.lgS, spec.k, int(spec.inv), spec.j, spec.mask_a,
-                  spec.mask_b, int(state.onehot), int(spec.program.fast), warps,
-                  ctx.data_ptr() if ctx is not None else None, grid,
-                  torch.cuda.current_stream().cuda_stream)
+    code = build.launch_on(dev.index, fn, state.llr.data_ptr(), state.alpha.data_ptr(),
+                           state.beta.data_ptr(), state.pend_a.data_ptr(),
+                           state.pend_b.data_ptr(), state.pm.data_ptr(), ops.data_ptr(),
+                           ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L, s.t,
+                           spec.program.lgS, spec.k, int(spec.inv), spec.j, spec.mask_a,
+                           spec.mask_b, int(state.onehot), int(spec.program.fast), warps,
+                           ctx.data_ptr() if ctx is not None else None, grid)
     build.check_launch(lib, code, "scl_chunk_step")
     return ctx
 
@@ -727,17 +725,16 @@ def launch_narrow_prefix(state: SCLState, prefix: SCLPrefixSpec, library: str):
     lib, fn = _launcher("scl_narrow_prefix_launch", [_P] * 8 + [_I] * 8 + [_P, _I, _P], library)
     prog = prefix.device_prog(dev)
     launches = 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for lo in range(0, len(prefix.rows), PREFIX_PARAM_ROWS):
-            rows = prefix.rows[lo:lo + PREFIX_PARAM_ROWS]
-            code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
-                      state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
-                      prog.data_ptr(), rows.ctypes.data, len(rows), B, s.N, s.S, s.L, s.t,
-                      program.lgS, warps, ctx.data_ptr() if ctx is not None else None, grid,
-                      stream)
-            build.check_launch(lib, code, "scl_narrow_prefix")
-            launches += 1
+    for lo in range(0, len(prefix.rows), PREFIX_PARAM_ROWS):
+        rows = prefix.rows[lo:lo + PREFIX_PARAM_ROWS]
+        code = build.launch_on(dev.index, fn, state.llr.data_ptr(), state.alpha.data_ptr(),
+                               state.beta.data_ptr(), state.pend_a.data_ptr(),
+                               state.pend_b.data_ptr(), state.pm.data_ptr(), prog.data_ptr(),
+                               rows.ctypes.data, len(rows), B, s.N, s.S, s.L, s.t,
+                               program.lgS, warps, ctx.data_ptr() if ctx is not None else None,
+                               grid)
+        build.check_launch(lib, code, "scl_narrow_prefix")
+        launches += 1
     return launches, ctx
 
 
@@ -776,15 +773,14 @@ def launch_last_chunk(state: SCLState, spec: SCLStepSpec, library: str):
     pm_out = torch.empty((B, s.L), dtype=torch.float32, device=dev)
     top = torch.empty((B, s.L * s.S), dtype=torch.float32, device=dev)  # scratch
     ops = spec.program.device_ops(dev)
-    with torch.cuda.device(dev):
-        code = fn(state.llr.data_ptr(), state.alpha.data_ptr(), state.beta.data_ptr(),
-                  state.pend_a.data_ptr(), state.pend_b.data_ptr(), state.pm.data_ptr(),
-                  u.data_ptr(), pm_out.data_ptr(), top.data_ptr(), ops.data_ptr(),
-                  ops.shape[0], int(spec.program.has_r), B, s.N, s.S, s.L, s.t,
-                  spec.program.lgS, int(np.log2(s.N)), spec.one_a, spec.one_b,
-                  int(state.onehot), int(spec.program.fast), warps,
-                  ctx.data_ptr() if ctx is not None else None, grid,
-                  torch.cuda.current_stream().cuda_stream)
+    code = build.launch_on(dev.index, fn, state.llr.data_ptr(), state.alpha.data_ptr(),
+                           state.beta.data_ptr(), state.pend_a.data_ptr(),
+                           state.pend_b.data_ptr(), state.pm.data_ptr(), u.data_ptr(),
+                           pm_out.data_ptr(), top.data_ptr(), ops.data_ptr(), ops.shape[0],
+                           int(spec.program.has_r), B, s.N, s.S, s.L, s.t, spec.program.lgS,
+                           int(np.log2(s.N)), spec.one_a, spec.one_b, int(state.onehot),
+                           int(spec.program.fast), warps,
+                           ctx.data_ptr() if ctx is not None else None, grid)
     build.check_launch(lib, code, "scl_last_chunk")
     return u, pm_out, ctx
 
@@ -906,12 +902,11 @@ def launch_mega(llr: torch.Tensor, plan: SCLMegaPlan, library: str):
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
     pm = torch.empty((B, s.L), dtype=torch.float32, device=dev)
     prog, steps = plan.device_tables(dev)
-    with torch.cuda.device(dev):
-        code = fn(llr.data_ptr(), llr_rev.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                  pend_a.data_ptr(), pend_b.data_ptr(), u.data_ptr(), pm.data_ptr(),
-                  prog.data_ptr(), plan.steps.ctypes.data, steps.data_ptr(), s.C, B, s.N, s.S,
-                  s.L, s.t, int(np.log2(s.S)), int(np.log2(s.N)), int(plan.table_in_params),
-                  plan.warps, torch.cuda.current_stream().cuda_stream)
+    code = build.launch_on(dev.index, fn, llr.data_ptr(), llr_rev.data_ptr(), alpha.data_ptr(),
+                           beta.data_ptr(), pend_a.data_ptr(), pend_b.data_ptr(), u.data_ptr(),
+                           pm.data_ptr(), prog.data_ptr(), plan.steps.ctypes.data,
+                           steps.data_ptr(), s.C, B, s.N, s.S, s.L, s.t, int(np.log2(s.S)),
+                           int(np.log2(s.N)), int(plan.table_in_params), plan.warps)
     build.check_launch(lib, code, "scl_decode_mega")
     return u, pm
 

@@ -4,10 +4,8 @@ polar or LDPC configuration, rate sweeps, and the SNR each rate needs.
 Each experiment builds runtime-SNR Monte-Carlo pipelines (``sim.pipelines``),
 runs them through ``sim.sweep.run_snr_sweep`` and returns the JAX package's
 result dicts, so its plots and analyses read either package's output.
-Everything runs on ``device`` (default ``"cuda"``).
-
-Not in this package yet (``NotImplementedError``): the third-party oracle
-curves (``use_oracle=True``) and ``mesh=`` (frames sharded over devices).
+Everything runs on ``device`` (default ``"cuda"``); ``mesh=`` shards each
+curve's frames over the ranks of a ``DeviceMesh`` (``parallel``).
 """
 
 from __future__ import annotations
@@ -119,10 +117,10 @@ def run_ber_simulation(
     device="cuda",
 ) -> dict:
     """Combined polar + LDPC BER study: ``{"snr_range", "polar": {"self"},
-    "ldpc": {"self"}}``."""
-    if use_oracle:
-        raise NotImplementedError("the third-party oracle curves (use_oracle=True) are not "
-                                  "in this package yet")
+    "ldpc": {"self"}}``.  ``use_oracle`` adds the third-party library curves
+    (``"library"``, sequential NumPy on the host) where ``polarcodes`` /
+    ``pyldpc`` import; without them the result is that of
+    ``use_oracle=False``."""
     sim = sim or SimulationConfig()
     results: dict = {"snr_range": sim.snr_points()}
     if polar_cfg is not None:
@@ -135,6 +133,17 @@ def run_ber_simulation(
             print(f"LDPC n={ldpc_cfg.n} k={ldpc_cfg.k} ({ldpc_cfg.algorithm}):")
         results["ldpc"] = {"self": simulate_ldpc(ldpc_cfg, sim, mesh, verbose,
                                                  channel=channel, device=device)}
+    if use_oracle:
+        from ..oracle import oracle_available
+
+        if oracle_available("polar") and polar_cfg is not None:
+            from ..oracle.polar_oracle import simulate_polar_oracle
+
+            results["polar"]["library"] = simulate_polar_oracle(polar_cfg, sim)
+        if oracle_available("ldpc") and ldpc_cfg is not None:
+            from ..oracle.ldpc_oracle import simulate_ldpc_oracle
+
+            results["ldpc"]["library"] = simulate_ldpc_oracle(ldpc_cfg, sim)
     return results
 
 

@@ -1,10 +1,11 @@
-"""Chunked Monte-Carlo engine with reference early-stop semantics.
+"""Chunked, sharded Monte-Carlo engine with reference early-stop semantics.
 
-The device processes fixed-size chunks of frames; the host inspects per-frame
-results *in frame order* and reproduces the exact accounting of a
-frame-at-a-time loop that breaks when ``max_errors`` frame errors accumulate:
-``frames_tested`` includes every frame up to and including the one that
-crossed ``max_errors``.
+The device processes fixed-size chunks of frames (over a mesh, each rank its
+contiguous block of the chunk); the host inspects per-frame results *in frame
+order* and reproduces the exact accounting of a frame-at-a-time loop that
+breaks when ``max_errors`` frame errors accumulate: ``frames_tested``
+includes every frame up to and including the one that crossed
+``max_errors``.
 
 Periodic accumulator checkpointing lets long runs resume: the accumulated
 counters plus the next global frame id fully determine the rest of the run,
@@ -21,9 +22,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import rng
 from ..core.device import resolve_device
+from ..parallel.mesh import (all_gather_cat, all_reduce, is_mesh_root, mesh_barrier,
+                             pad_to_multiple)
 from ..utils.metrics import wilson_confidence_interval
 
 
@@ -110,7 +114,8 @@ class _Pending:
 
 
 class MonteCarloSimulator:
-    """Run a Monte-Carlo step over chunks of frames on one device.
+    """Run a Monte-Carlo step over chunks of frames on one device, or sharded
+    over the ranks of a mesh.
 
     Args:
         step_fn: ``(root_key, frame_ids [B]) → {"bit_errors": [B],
@@ -119,6 +124,16 @@ class MonteCarloSimulator:
         bits_per_frame: message bits counted per frame (BER denominator).
         chunk_frames: device batch size per step; the final partial chunk is
             masked on the host.
+        mesh: optional ``DeviceMesh`` (``parallel.default_mesh``); frames
+            shard over its first axis, each rank decoding its contiguous block
+            of a chunk's frame ids with its own step (built on its own
+            device).  ``chunk_frames`` is rounded up to a multiple of that
+            axis's size.  Per-frame results are all-gathered in frame order
+            (``"per_frame"``) or the counters all-reduced (``"scalar"``, whose
+            exact crossing trim runs over the group too), so every rank does
+            the same accounting and returns the same counts, and the counts
+            equal an unsharded run's: randomness is keyed by global frame id.
+            Every rank of the mesh must call ``run`` alike.
         reduction: ``"per_frame"`` (default — per-frame results cross to the
             host and the early stop is trimmed there) or ``"scalar"`` (the
             step is wrapped by ``pipelines.reduce_step`` so only scalar
@@ -140,6 +155,7 @@ class MonteCarloSimulator:
         step_fn: Callable,
         bits_per_frame: int,
         chunk_frames: int = 1024,
+        mesh=None,
         reduction: str = "per_frame",
         chunks_per_dispatch: int = 1,
         device=None,
@@ -147,7 +163,14 @@ class MonteCarloSimulator:
         if device is None:
             device = getattr(step_fn, "device", "cuda")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._group, self._rank, self._shards = None, 0, 1
+        if mesh is not None:
+            self._group = mesh.get_group(0)
+            self._rank, self._shards = mesh.get_local_rank(0), mesh.size(0)
+            chunk_frames = pad_to_multiple(chunk_frames, self._shards)
         self.chunk_frames = chunk_frames
+        self._local_frames = chunk_frames // self._shards
         self.bits_per_frame = bits_per_frame
         assert reduction in ("per_frame", "scalar")
         self.reduction = reduction
@@ -170,6 +193,12 @@ class MonteCarloSimulator:
                 # chunk (the final partial chunk of a ``num_frames`` budget
                 # that is not a chunk multiple)
                 idx = torch.arange(fe.shape[0], device=fe.device)
+                if self._group is not None:
+                    # the frame errors of the blocks before this rank's, and
+                    # this block's place in the chunk
+                    counts = all_gather_cat(fe.sum(dtype=torch.int64).reshape(1), self._group)
+                    cum = cum + counts[:self._rank].sum()
+                    idx = idx + self._rank * fe.shape[0]
                 mask = ((cum - fe) < remaining) & (idx < take_frames)
                 red = {
                     "take": mask.sum(dtype=torch.int64),
@@ -178,7 +207,7 @@ class MonteCarloSimulator:
                 }
                 if "iterations" in out:
                     red["iterations"] = (out["iterations"] * mask).sum(dtype=torch.int64)
-                return red
+                return self._combine(red)
 
             self._trim = trim
             step_fn = reduce_step(step_fn)
@@ -187,15 +216,32 @@ class MonteCarloSimulator:
         self.chunks_per_dispatch = chunks_per_dispatch
 
     def _frame_ids(self, start: int) -> torch.Tensor:
-        return torch.arange(start, start + self.chunk_frames, dtype=torch.int64,
-                            device=self.device)
+        """This rank's block of the chunk's global frame ids (all of them
+        without a mesh)."""
+        lo = start + self._rank * self._local_frames
+        return torch.arange(lo, lo + self._local_frames, dtype=torch.int64, device=self.device)
+
+    def _combine(self, out: dict) -> dict:
+        """The whole chunk's outputs from every rank's block: per-frame fields
+        all-gathered in frame order, scalar counters all-reduced (one
+        collective either way)."""
+        if self._group is None:
+            return out
+        keys = list(out)
+        if out[keys[0]].dim() == 0:
+            total = all_reduce(torch.stack([out[k] for k in keys]), self._group)
+            return dict(zip(keys, total))
+        full = all_gather_cat(torch.stack([out[k].to(torch.int32) for k in keys]),
+                              self._group, dim=1)
+        return {k: full[i].to(out[k].dtype) for i, k in enumerate(keys)}
 
     def _dispatch_chunk(self, root_key, start: int, extra_args: tuple = ()) -> _Pending:
         """Queue one dispatch (1+ chunks) and its copy to the host; returns
         without waiting for the device."""
         with torch.no_grad():
-            outs = [self._step(root_key, self._frame_ids(start + j * self.chunk_frames),
-                               *extra_args)
+            outs = [self._combine(self._step(root_key,
+                                             self._frame_ids(start + j * self.chunk_frames),
+                                             *extra_args))
                     for j in range(self.chunks_per_dispatch)]
         return _Pending(outs, self.device)
 
@@ -336,6 +382,10 @@ class MonteCarloSimulator:
             # a dispatch queued ahead of an early stop may still be running
             torch.cuda.synchronize(self.device)
         acc.elapsed_seconds += time.perf_counter() - t0
+        if self._group is not None:  # the run lasts as long as its slowest rank
+            acc.elapsed_seconds = float(all_reduce(
+                torch.tensor([acc.elapsed_seconds], dtype=torch.float64), self._group,
+                dist.ReduceOp.MAX))
         if checkpoint_path is not None:
             self._save_checkpoint(checkpoint_path, seed, acc, offset)
         return acc
@@ -364,16 +414,20 @@ class MonteCarloSimulator:
         return take
 
     # -- checkpoint/resume -----------------------------------------------------
-    @staticmethod
-    def _save_checkpoint(path, seed, acc: MonteCarloResult, offset: int) -> None:
-        payload = {"seed": seed, "next_frame": offset, **acc.to_dict(),
-                   "total_iterations": acc.total_iterations,
-                   "iteration_frames": acc.iteration_frames}
-        p = Path(path)
-        p.parent.mkdir(parents=True, exist_ok=True)
-        tmp = p.with_suffix(p.suffix + ".tmp")
-        tmp.write_text(json.dumps(payload))
-        tmp.replace(p)
+    def _save_checkpoint(self, path, seed, acc: MonteCarloResult, offset: int) -> None:
+        """The mesh's first rank writes; every rank waits for it, so that each
+        reads the same file."""
+        if is_mesh_root(self.mesh):
+            payload = {"seed": seed, "next_frame": offset, **acc.to_dict(),
+                       "total_iterations": acc.total_iterations,
+                       "iteration_frames": acc.iteration_frames}
+            p = Path(path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            tmp = p.with_suffix(p.suffix + ".tmp")
+            tmp.write_text(json.dumps(payload))
+            tmp.replace(p)
+        if self.mesh is not None:
+            mesh_barrier(self.mesh)
 
     def _load_checkpoint(self, path, seed):
         p = Path(path)

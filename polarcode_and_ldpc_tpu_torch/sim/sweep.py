@@ -33,16 +33,14 @@ def run_snr_sweep(
             ``runtime_snr`` (the AWGN channel), one step serves every point.
             Otherwise, or if the builder cannot take ``None`` (``TypeError``
             / ``ValueError``), it builds one step per point.
-        mesh: sharding frames over devices is not in this package yet; only
-            ``None`` is taken.
+        mesh: optional ``DeviceMesh``: each point's frames are sharded over
+            it (``MonteCarloSimulator(mesh=)``); every rank of the mesh runs
+            the sweep and gets the same result.
 
     Returns ``{"snr_db", "ber", "fer", "frames_tested", "bit_errors",
     "frame_errors", "avg_iterations", "elapsed_seconds", "throughput_mbps"}``,
     one list entry per point.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= (frames sharded over devices) is not in this "
-                                  "package yet")
     shared_sim = None
     try:
         step = pipeline_builder(None)
@@ -50,7 +48,7 @@ def run_snr_sweep(
         step = None  # the builder needs a concrete SNR: one step per point
     if getattr(step, "runtime_snr", False):
         shared_sim = MonteCarloSimulator(step, bits_per_frame, chunk_frames=chunk_frames,
-                                         chunks_per_dispatch=chunks_per_dispatch)
+                                         mesh=mesh, chunks_per_dispatch=chunks_per_dispatch)
 
     out = {"snr_db": [], "ber": [], "fer": [], "frames_tested": [],
            "bit_errors": [], "frame_errors": [], "avg_iterations": [],
@@ -61,7 +59,7 @@ def run_snr_sweep(
                 num_frames, max_errors=max_errors, seed=seed, extra_args=(float(snr_db),))
         else:
             sim = MonteCarloSimulator(pipeline_builder(snr_db), bits_per_frame,
-                                      chunk_frames=chunk_frames,
+                                      chunk_frames=chunk_frames, mesh=mesh,
                                       chunks_per_dispatch=chunks_per_dispatch)
             res = sim.run(num_frames, max_errors=max_errors, seed=seed)
         out["snr_db"].append(float(snr_db))

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from polarcode_and_ldpc_tpu.cli import run_benchmark as jrun_benchmark
 from polarcode_and_ldpc_tpu.core import config as jcfg
@@ -38,6 +39,19 @@ from polarcode_and_ldpc_tpu_torch.sim import throughput as tthpt
 from polarcode_and_ldpc_tpu_torch.utils import complexity as tcomplexity
 from polarcode_and_ldpc_tpu_torch.utils import tracing as ttracing
 from test_torch_snr_curves import same_curve
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 POLAR = dict(N=64, K=32)
 LDPC = dict(n=96, k=48)
@@ -74,18 +88,22 @@ def test_simulate_over_channels_equals_jax(kind):
         same_curve(got, want)
 
 
+def benchmark_argv(root):
+    (root / "polar.yaml").write_text("N: 32\nK: 16\nalgorithm: ca_scl\nlist_size: 2\n"
+                                     "scl_chunk: 16\n")
+    (root / "ldpc.yaml").write_text("n: 96\nk: 48\nmax_iterations: 10\n")
+    return ["--polar-config", str(root / "polar.yaml"), "--ldpc-config",
+            str(root / "ldpc.yaml"), "--snr-range=0:2:2", "--num-frames", "256",
+            "--max-errors", "1000", "--batch-size", "64", "--channel", "rayleigh",
+            "--skip-throughput", "--skip-plots", "--seed", "5"]
+
+
 @pytest.fixture(scope="module")
 def benchmark_runs(tmp_path_factory):
     """``run_benchmark`` of each package, once: CA-SCL-2 polar N=32 and BP
     LDPC n=96 (YAML configs) over Rayleigh, two points, 256 frames each."""
     root = tmp_path_factory.mktemp("run_benchmark")
-    (root / "polar.yaml").write_text("N: 32\nK: 16\nalgorithm: ca_scl\nlist_size: 2\n"
-                                     "scl_chunk: 16\n")
-    (root / "ldpc.yaml").write_text("n: 96\nk: 48\nmax_iterations: 10\n")
-    argv = ["--polar-config", str(root / "polar.yaml"), "--ldpc-config",
-            str(root / "ldpc.yaml"), "--snr-range=0:2:2", "--num-frames", "256",
-            "--max-errors", "1000", "--batch-size", "64", "--channel", "rayleigh",
-            "--skip-throughput", "--skip-plots", "--seed", "5"]
+    argv = benchmark_argv(root)
     with jax.enable_x64(False):
         want = jrun_benchmark.main(argv + ["--output-dir", str(root / "jax")])
     got = trun_benchmark.main(argv + ["--output-dir", str(root / "port"), "--device", "cpu"])
@@ -109,19 +127,29 @@ def test_run_benchmark_equals_jax(benchmark_runs):
     assert not list((root / "port").rglob("*.png"))  # --skip-plots
 
 
-def test_run_benchmark_flags(tmp_path):
-    """The channel flags reach the simulation; the oracle overlay and the
-    multi-device flags are not in this package yet."""
+def test_run_benchmark_flags(benchmark_runs, tmp_path):
+    """The channel flags reach the simulation; the oracle overlay without its
+    libraries and ``--mesh`` (a one-rank mesh over this lone process, taken
+    down after) give the unsharded run's curves."""
     ap = trun_benchmark.build_parser()
     args = ap.parse_args(["--channel", "bsc", "--crossover-prob", "0.2", "--k-factor", "4"])
     assert (args.channel, args.crossover_prob, args.k_factor) == ("bsc", 0.2, 4.0)
     assert {a.dest for a in ap._actions} - {"device"} == \
         {a.dest for a in jrun_benchmark.build_parser()._actions} - {"platform"}
-    with pytest.raises(NotImplementedError, match="oracle"):
-        trun_benchmark.main(["--use-third-party", "--device", "cpu", "--num-frames", "8",
-                             "--skip-ldpc", "--output-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        trun_benchmark.main(["--mesh", "--device", "cpu", "--output-dir", str(tmp_path)])
+    root, want, _ = benchmark_runs
+    assert not dist.is_initialized()
+    try:
+        got = trun_benchmark.main(benchmark_argv(tmp_path) + [
+            "--use-third-party", "--mesh", "--device", "cpu", "--skip-complexity",
+            "--output-dir", str(tmp_path / "out")])
+    finally:
+        dist.destroy_process_group()
+    times = ("elapsed_seconds", "throughput_mbps")
+    for family in ("polar", "ldpc"):
+        assert set(got["ber_simulation"][family]) == {"self"}
+        g, w = got["ber_simulation"][family]["self"], want["ber_simulation"][family]["self"]
+        assert {k: v for k, v in g.items() if k not in times} == \
+            {k: v for k, v in w.items() if k not in times}
 
 
 # -- throughput probes ----------------------------------------------------------------

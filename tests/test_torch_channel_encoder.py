@@ -21,6 +21,18 @@ from polarcode_and_ldpc_tpu_torch.models.polar import construction as tcons
 from polarcode_and_ldpc_tpu_torch.models.polar.encoder import polar_transform
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # -- AWGN ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("snr_db", [-1.0, 0.0, 3.0, 6.5])

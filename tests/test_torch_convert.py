@@ -19,6 +19,18 @@ from polarcode_and_ldpc_tpu_torch.models.polar.sc import make_sc_decoder
 from polarcode_and_ldpc_tpu_torch.sim import make_ldpc_pipeline
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _llr(shape, seed, scale=2.0):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape) * scale + 1.0)
 

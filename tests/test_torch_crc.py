@@ -11,6 +11,19 @@ from polarcode_and_ldpc_tpu.models.polar import crc as jcrc
 from polarcode_and_ldpc_tpu_torch import convert
 from polarcode_and_ldpc_tpu_torch.models.polar import crc as tcrc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 POLYS = ["CRC-8", "CRC-16", "CRC-24"]
 
 

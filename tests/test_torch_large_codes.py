@@ -33,6 +33,18 @@ from polarcode_and_ldpc_tpu_torch.ops import bp_cuda, scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops import sc_mega_cuda as scm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mask(N, K):
     frozen, _ = construct_polar_code(N, K, "bhattacharyya", 2.0)
     return frozen_mask_from_positions(N, frozen)

@@ -23,6 +23,19 @@ from polarcode_and_ldpc_tpu_torch.models.ldpc.matrix import (mackay_construction
                                                              regular_construction)
 from polarcode_and_ldpc_tpu_torch.ops import bp_cuda
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RULES = {"bp": (1.0, 0.0), "ms": (1.0, 0.0), "nms": (0.75, 0.0), "oms": (1.0, 0.5)}
 TDT = {"f32": torch.float32, "f64": torch.float64}
 JDT = {"f32": jnp.float32, "f64": jnp.float64}

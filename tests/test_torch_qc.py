@@ -28,6 +28,19 @@ from polarcode_and_ldpc_tpu_torch.models.ldpc import matrix as tmat
 from polarcode_and_ldpc_tpu_torch.models.ldpc import qc as tqc
 from polarcode_and_ldpc_tpu_torch.sim import pipelines as tpipes
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, K, Z = 96, 48, 8
 VARIANTS = {"bp": {}, "ms": {}, "nms": {"normalization": 0.75}, "oms": {"offset": 0.5}}
 TDT = {"f32": torch.float32, "f64": torch.float64}

@@ -14,6 +14,18 @@ from polarcode_and_ldpc_tpu.core.rng import frame_keys as jax_frame_keys
 from polarcode_and_ldpc_tpu_torch.core import rng
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_key_words(key):
     return np.asarray(key, np.uint32)
 

@@ -25,6 +25,19 @@ from polarcode_and_ldpc_tpu_torch.models.polar.sc import make_sc_decoder
 from polarcode_and_ldpc_tpu_torch.models.polar.trellis import f_minsum, g_update
 from polarcode_and_ldpc_tpu_torch.ops import sc_mega_cuda as scm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TDT = {"f32": torch.float32, "f64": torch.float64}
 JDT = {"f32": jnp.float32, "f64": jnp.float64}
 NDT = {"f32": np.float32, "f64": np.float64}

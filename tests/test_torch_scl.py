@@ -32,6 +32,19 @@ from polarcode_and_ldpc_tpu_torch.models.polar import scl as tscl
 from polarcode_and_ldpc_tpu_torch.models.polar.crc import CRCCodec
 from polarcode_and_ldpc_tpu_torch.sim import make_polar_pipeline
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RTOL = {np.float32: 1e-6, np.float64: 1e-12}
 JDT = {np.float32: jnp.float32, np.float64: jnp.float64}
 

@@ -36,6 +36,18 @@ from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (MEGA_PARAM_ROWS, SMEM_LIM
 from polarcode_and_ldpc_tpu_torch.sim import make_polar_pipeline
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _code(N, K):
     frozen, _ = tfec.construct_polar_code(N, K, "bhattacharyya", 2.0)
     return frozen, frozen_mask_from_positions(N, frozen)

@@ -11,6 +11,7 @@ whose LLRs sit on a decision boundary may decode otherwise: at most 1 frame in
 256 may differ.  Times and rates are each run's own and are not compared.
 """
 
+import contextlib
 import dataclasses
 import json
 import sys
@@ -19,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import polarcode_and_ldpc_tpu_torch as tfec
 from polarcode_and_ldpc_tpu.cli import snr_curves as jcli
@@ -26,13 +28,48 @@ from polarcode_and_ldpc_tpu.core import config as jcfg
 from polarcode_and_ldpc_tpu.sim import experiments as jexp
 from polarcode_and_ldpc_tpu.sim import pipelines as jpipes
 from polarcode_and_ldpc_tpu.sim import sweep as jsweep
+from polarcode_and_ldpc_tpu_torch.cli import _common as tcommon
 from polarcode_and_ldpc_tpu_torch.cli import snr_curves as tcli
 from polarcode_and_ldpc_tpu_torch.convert import config_from_jax
 from polarcode_and_ldpc_tpu_torch.core import config as tcfg
+from polarcode_and_ldpc_tpu_torch.parallel import default_mesh
 from polarcode_and_ldpc_tpu_torch.sim import experiments as texp
 from polarcode_and_ldpc_tpu_torch.sim import pipelines as tpipes
 from polarcode_and_ldpc_tpu_torch.sim import sweep as tsweep
 from polarcode_and_ldpc_tpu_torch.utils import visualization as tvis
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+TIMES = ("elapsed_seconds", "throughput_mbps")
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank mesh over this process's CPU: its group is made here and
+    taken down on leaving."""
+    assert not dist.is_initialized()
+    try:
+        yield default_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture
+def lone_mesh():
+    with one_rank_mesh() as mesh:
+        yield mesh
+
 
 CLI_ARGS = ["--polar-n", "64", "--ldpc-n", "96", "--rates", "0.5", "--snr-range=-1:1:1",
             "--num-frames", "256", "--max-errors", "1000", "--batch-size", "64",
@@ -124,9 +161,10 @@ def test_load_yaml_config_equal_jax(tmp_path, monkeypatch):
 
 # -- the sweep, the experiments, the CLI ---------------------------------------------
 
-def test_run_snr_sweep_equals_jax():
+def test_run_snr_sweep_equals_jax(lone_mesh):
     """An SC polar sweep through one runtime-SNR step, and an LDPC sweep
-    through a builder that takes a concrete SNR (one step per point)."""
+    through a builder that takes a concrete SNR (one step per point), also
+    sharded over a one-rank mesh."""
     N, K = 64, 32
     frozen, _ = tfec.construct_polar_code(N, K, "bhattacharyya", 2.0)
     kw = dict(snr_points=[-1.0, 0.5], num_frames=256, max_errors=30, seed=5, chunk_frames=64)
@@ -153,8 +191,12 @@ def test_run_snr_sweep_equals_jax():
     got = tsweep.run_snr_sweep(concrete(lambda s: tpipes.make_ldpc_pipeline(
         enc.H, enc.G, s, max_iter=10, message_idx=enc.info_positions, device="cpu")), 48, **kw)
     same_curve(got, want)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tsweep.run_snr_sweep(lambda s: None, 1, [0.0], mesh=object())
+    # frames sharded over a one-rank mesh (this lone process) give the same curve
+    sharded = tsweep.run_snr_sweep(concrete(lambda s: tpipes.make_ldpc_pipeline(
+        enc.H, enc.G, s, max_iter=10, message_idx=enc.info_positions, device="cpu")), 48,
+        mesh=lone_mesh, **kw)
+    assert {k: v for k, v in sharded.items() if k not in TIMES} == \
+        {k: v for k, v in got.items() if k not in TIMES}
 
 
 @pytest.fixture(scope="module")
@@ -208,7 +250,10 @@ def test_multiple_rates_and_ber_simulation_equal_jax(cli_runs):
         same_curve(res[family]["self"], jres[family]["self"])
 
 
-def test_unported_parts_raise(tmp_path):
+def test_unported_parts_raise(tmp_path, monkeypatch):
+    """What the package refuses, and what it once refused: the oracle overlay
+    without its libraries, a one-rank mesh and the multi-device CLI flags give
+    the unsharded results."""
     sim = tcfg.SimulationConfig(snr_start=0, snr_stop=0, num_frames=8, batch_size=8)
     polar = tcfg.PolarCodeConfig(N=32, K=16)
     # the fading channels and the code-length sweep (with its throughput
@@ -218,15 +263,33 @@ def test_unported_parts_raise(tmp_path):
     assert res["frames_tested"] == [8]
     (entry,) = texp.test_code_lengths("polar", [64], num_frames=8, batch_size=8, device="cpu")
     assert entry["length"] == 64 and entry["decoding_throughput"] > 0
-    with pytest.raises(NotImplementedError, match="oracle"):
-        texp.run_ber_simulation(polar, sim=sim, use_oracle=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        texp.simulate_polar(polar, sim, mesh=object(), device="cpu")
+    counts = lambda r: {k: v for k, v in r.items() if k not in TIMES}  # noqa: E731
+    small = ["--polar-n", "32", "--ldpc-n", "48", "--rates", "0.5", "--snr-range=0:0:1",
+             "--num-frames", "64", "--batch-size", "64", "--skip-plots", "--device", "cpu"]
+    # --host-devices 4 in a process with no group starts four CPU ranks
+    launched = []
+    monkeypatch.setattr(tcommon, "launch_local_ranks",
+                        lambda name, argv, ranks, cpu: launched.append((name, ranks, cpu)))
+    assert tcli.main(["--host-devices", "4", "--output-dir", str(tmp_path / "hd")] + small) \
+        is None
+    assert launched == [("snr_curves", 4, True)] and not (tmp_path / "hd").exists()
+    plain = texp.simulate_polar(polar, sim, device="cpu")
+    with one_rank_mesh() as mesh:
+        assert counts(texp.simulate_polar(polar, sim, mesh=mesh, device="cpu")) == counts(plain)
+        want = tcli.main(small + ["--output-dir", str(tmp_path / "plain")])
+        # --mesh and --distributed (torchrun's environment of a one-rank group)
+        # join the group this process has
+        for flag, env in (("--mesh", {}), ("--distributed", dict(
+                RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost"))):
+            for k, v in env.items():
+                monkeypatch.setenv(k, v)
+            got = tcli.main(small + [flag, "--output-dir", str(tmp_path / flag)])
+            for fam in ("polar", "ldpc"):
+                assert counts(got[fam]["self"]["0.50"]) == counts(want[fam]["self"]["0.50"])
+    oracle = texp.run_ber_simulation(polar, sim=sim, use_oracle=True, device="cpu")
+    assert set(oracle["polar"]) == {"self"} and counts(oracle["polar"]["self"]) == counts(plain)
     with pytest.raises(ValueError, match="family"):
         texp.test_multiple_rates("turbo", (0.5,), sim=sim, device="cpu")
-    for flag in (["--mesh"], ["--distributed"], ["--host-devices", "4"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            tcli.main(flag + ["--device", "cpu", "--output-dir", str(tmp_path)])
     # JAX's list controls are the port's too; an interpret twin of a Pallas control is not
     assert tcli.build_parser().parse_args(["--scl-control", "split"]).scl_control == "split"
     with pytest.raises(SystemExit):

@@ -12,6 +12,7 @@ import json
 
 import jax
 import pytest
+import torch
 
 import polarcode_and_ldpc_tpu as jfec
 from polarcode_and_ldpc_tpu.cli import code_params as jcode_params
@@ -22,6 +23,18 @@ from polarcode_and_ldpc_tpu_torch.cli import code_params as tcode_params
 from polarcode_and_ldpc_tpu_torch.cli import sc_vs_scl as tsc_vs_scl
 from polarcode_and_ldpc_tpu_torch.sim import experiments as texp
 from test_torch_snr_curves import same_curve
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side, module fixtures included: many
+    small ops cost a fraction on one thread of what waking torch's thread pool
+    costs on a busy host, and the cores of the other test workers are left
+    alone.  The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def same_entry(got: dict, want: dict, frames: int):
