@@ -9,8 +9,8 @@ It needs one CUDA device and ``nvcc``.  It builds the package's CUDA kernels
 from the sources in the checkout, holds each kernel against its plain PyTorch
 version on the card at the shapes the Monte-Carlo main path gives it, drives
 the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8
-exact and with fast list nodes, the LDPC BP / min-sum, the row-layered
-min-sum and the quasi-cyclic n=8192 pipelines, the large codes — polar
+exact and with fast list nodes, the polar CA-SCL-64 (two paths a lane), the
+LDPC BP / min-sum, the row-layered min-sum and the quasi-cyclic n=8192 pipelines, the large codes — polar
 N=4096 SCL-32, SC at N=32768, the MacKay LDPC code at n=8192 —, the adaptive
 SC-first CA-SCL serving decoder on batches of 8192 frames, exact and fast,
 the SNR-curve CLI, and JAX's SCL-8 benchmark shape under every list control and
@@ -49,7 +49,12 @@ and n=4096 codes in shared memory and, in device memory, on a MacKay code of
 column weight 16 whose frame exceeds a block, the list kernels with the chunk
 context in device memory at S=1024, L=32, and the live width's narrow
 prefix, each narrow position alone and the whole prefix in one launch,
-beside the full-width steps), ``onehot_kernels`` (the one-hot permutation
+beside the full-width steps), ``wide_list`` (lists of 33–64 paths, two a lane:
+the chunk body, chunk step, narrow prefix and last chunk at L=64 and 48 on Gaussian,
+integer-tie and BSC batches, their device-memory modes, the control ``"mega"``
+past the one launch's reach, ``"mega"`` with ``body_impl="cuda"``, live width under
+united masks, the wide instances' resources, and the CA-SCL-64 CRC-16 Monte-Carlo
+held across two chunk sizes), ``onehot_kernels`` (the one-hot permutation
 modes of the chunk body, chunk step and last chunk: every chunk pattern, the
 level stacks after every chunk position held by bit pattern, whole decodes
 under every control, other codes, integer LLRs, the control ``"kernel"`` with
@@ -193,7 +198,7 @@ SNR_CURVE_ARGS = ["--polar-n", "1024", "--ldpc-n", "1008", "--rates", "0.5",
 
 PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "sc_profile",
           "fast_kernels",
-          "large_kernels",
+          "large_kernels", "wide_list",
           "onehot_kernels", "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc",
           "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
           "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
@@ -820,6 +825,9 @@ SCL_REPLACES = {
     "scl_chunk_step_onehot": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:172",
     "scl_last_chunk_onehot": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:360",
     "scl_chunk_body_onehot": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:381",
+    "scl_chunk_step_wide": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:167",
+    "scl_last_chunk_wide": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:356",
+    "scl_chunk_body_wide": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378",
 }
 
 
@@ -832,7 +840,8 @@ def time_scl_kernels(results: dict, sched, steps, last, rev, llr, worst: dict, r
     chunk steps and of the last chunk."""
     B = llr.shape[0]
     onehot = last.program.onehot
-    suffix = "_fast" if last.program.fast else "_onehot" if onehot else ""
+    suffix = ("_fast" if last.program.fast else "_onehot" if onehot
+              else "_wide" if sched.L > scl_cuda.NARROW_LIST_MAX else "")
     llr_rev = llr[:, rev].contiguous()
     state = SCLState(sched, llr_rev, "onehot" if onehot else "rank")
     step_ms, step_plain_ms, body_ms, body_plain_ms, step_bound_ms = [], [], [], [], []
@@ -1874,7 +1883,9 @@ def hold_narrow_prefix(N: int, K: int, L: int, S: int, llr: torch.Tensor, reps: 
     before = ops.launch_counts()
     scl_narrow_prefix_cuda(kern, prefix)
     torch.cuda.synchronize()
-    launched = ops.launch_counts()["scl_narrow_prefix"] - before["scl_narrow_prefix"]
+    counter = ("scl_narrow_prefix" + ("_wide" if L > scl_cuda.NARROW_LIST_MAX else "")
+               + ("_devmem" if context_in_device_memory(L, S) else ""))
+    launched = ops.launch_counts()[counter] - before[counter]
     if launched != prefix_launches(len(narrow)):
         raise AssertionError(f"the prefix of {len(narrow)} steps took {launched} launches")
     hold_equal("scl_narrow_prefix [whole prefix]", {f: (getattr(kern, f), getattr(live, f))
@@ -1980,6 +1991,278 @@ def phase_large_kernels(results: dict, reps: int) -> None:
     emit("large_kernels", kernels=[{k: v for k, v in results[k].items() if k != "cases"}
                                    for k in keys],
          sc_hybrid=sc, ldpc=bp, scl_device_memory=scl, live_width=live)
+
+
+# -- wide lists: 32 < L <= 64, two paths a lane ------------------------------------
+
+# this slice's path: CA-SCL-64 with CRC-16 on the N=1024, K=512 code (frozen
+# set by Bhattacharyya at 2 dB), chunk 128, 2048 frames a Monte-Carlo chunk,
+# at an SNR where the list still errs (so that the counts compared across
+# chunk sizes are not all zero); the kernels are held at L=64 and L=48
+WIDE_L, WIDE_CRC, WIDE_CHUNK, WIDE_SNR_DB = 64, "CRC-16", 2048, -2.0
+WIDE_HOLD_LISTS = (64, 48)
+WIDE_HOLD_FRAMES = 128
+# the wide device-memory modes, once: N=2048, K=1024, L=64, S=512 (a frame's
+# context with its top plane is beyond one block's shared memory)
+WIDE_DEVMEM_CODE = (2048, 1024, 64, 512)
+# codes the one-launch decode cannot take, (N, K, L, S): a wide list, and a
+# context beyond one block; the control "mega" runs "unroll-kernel" on them
+MEGA_OVER_REACH = ((1024, 512, 64, 128), (4096, 2048, 32, 2048))
+# codes of the live width under united compose masks, (N, K, L, S): the
+# flagship and the large code
+LIVE_UNION_CODES = ((1024, 512, 8, 128), (4096, 2048, 32, 64))
+# the wide instances at the flagship's launch plan (L=64, S=128, N=1024):
+# at most 128 registers (their launch bounds), no local memory, and the
+# shared-memory instances at least 6 resident warps per SM (six 36,352 B
+# contexts an SM; the device-memory ones at least 1)
+WIDE_RESOURCES = {"registers": 128, "local_bytes": 0, "warps_per_sm": 6}
+
+
+def wide_inputs(frozen, B: int, N: int = POLAR_N, K: int = POLAR_K) -> dict:
+    """The hold inputs of the wide kernels: Gaussian LLRs at 2 and -1 dB of
+    CRC-16 codewords, integer ties, and the BSC batches (every LLR ±c, and
+    ±0.0 at p = 0.5)."""
+    enc = fec.PolarEncoder(N, K, frozen_bits=frozen, use_crc=True, crc_polynomial=WIDE_CRC,
+                           device=DEV)
+    cw = enc.encode(np.random.default_rng(B + N).integers(0, 2, (B, enc.K_data)))
+    out = {f"{snr} dB": seeded_llrs(cw, snr, seed=B + N + int(10 * snr)) for snr in (2.0, -1.0)}
+    out["integer ties"] = torch.from_numpy(np.random.default_rng(B + N + 5).integers(
+        -3, 4, (B, N)).astype(np.float32)).to(DEV)
+    out.update({f"bsc p={p}": bsc_llrs(cw, p, seed=B + N + 9) for p in BSC_HOLD_PROBS})
+    return out
+
+
+def hold_wide_list(L: int, S: int, N: int = POLAR_N, K: int = POLAR_K,
+                   B: int = WIDE_HOLD_FRAMES) -> dict:
+    """K5, K3 (every chunk position, the level stacks after each), K4 and
+    the narrow prefix (each narrow position and the whole prefix) of a wide
+    list against their plain versions on every input of ``wide_inputs``,
+    bit for bit, and whole decodes under the kernel controls (live width on
+    and off, the chunk body in the plain glue, ``"mega"``, which runs
+    ``"unroll-kernel"`` here) against the plain decoder.  Returns the
+    worst errors (all 0) and the shapes held."""
+    frozen, _, mask = polar_code(N, K)
+    sched = build_scl_schedule(N, mask, L, S)
+    steps, last = make_step_specs(sched)
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64, device=DEV)
+    unique = list({id(p): p for p in [s.program for s in steps] + [last.program]}.values())
+    worst = {"body": check_scl_bodies(sched, unique, B), "step": 0.0, "prefix": 0.0}
+    kw = dict(chunk=S, device=DEV)
+    plain = make_scl_decoder(N, mask, L, control_impl="unroll-fused", live_width=False, **kw)
+    decoders = {"unroll-kernel": make_scl_decoder(N, mask, L, **kw),
+                "unroll-kernel full width": make_scl_decoder(N, mask, L, live_width=False, **kw),
+                "body_impl=cuda": make_scl_decoder(N, mask, L, control_impl="unroll-fused",
+                                                   body_impl="cuda", live_width=False, **kw),
+                "mega": make_scl_decoder(N, mask, L, control_impl="mega", **kw)}
+    if decoders["mega"].control_impl != "unroll-kernel" or not decoders["unroll-kernel"].live_width:
+        raise AssertionError(f"L={L}: controls {[d.control_impl for d in decoders.values()]}")
+    narrow, inputs = 0, wide_inputs(frozen, B, N, K)
+    for name, llr in inputs.items():
+        context = {"N": N, "L": L, "S": S, "input": name, "B": B}
+        worst["step"] = max(worst["step"], check_scl_steps(sched, steps, last, rev, llr, context))
+        narrow = hold_narrow_prefix(N, K, L, S, llr, 0)["narrow_positions"]
+        want = plain(llr)
+        for dname, dec in decoders.items():
+            got = dec(llr)
+            torch.cuda.synchronize()
+            hold_equal(f"whole decode [{dname}]",
+                       {"u": (got[0], want[0]), "metrics": (got[1], want[1])}, context)
+    return {"N": N, "K": K, "L": L, "S": S, "B": B, "inputs": list(inputs),
+            "narrow_positions": narrow, "context_in_device_memory": context_in_device_memory(L, S),
+            "worst": worst, "kernels_equal_plain": True}
+
+
+def check_mega_reach() -> list:
+    """The control "mega" on codes the one launch cannot take runs
+    "unroll-kernel" (chosen on the host from sizes): equal outputs to that
+    control's, and no one-launch kernel launched."""
+    out = []
+    for N, K, L, S in MEGA_OVER_REACH:
+        frozen, _, mask = polar_code(N, K)
+        g = np.random.default_rng(N + L)
+        x = torch.from_numpy((1.0 + 1.6 * g.standard_normal((64, N))).astype(np.float32)).to(DEV)
+        dec = make_scl_decoder(N, mask, L, chunk=S, control_impl="mega", device=DEV)
+        ref = make_scl_decoder(N, mask, L, chunk=S, control_impl="unroll-kernel",
+                               live_width=False, device=DEV)
+        want = ref(x)
+        ops.reset_launch_counts()
+        got = dec(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        hold_equal("mega past its reach", {"u": (got[0], want[0]), "metrics": (got[1], want[1])},
+                   {"N": N, "L": L, "S": S})
+        if dec.control_impl != "unroll-kernel" or any(k.startswith("scl_decode_mega")
+                                                      for k in counts):
+            raise AssertionError(f"mega at N={N}, L={L}, S={S}: {dec.control_impl}, {counts}")
+        out.append({"N": N, "K": K, "L": L, "S": S, "control_impl": dec.control_impl,
+                    "launches": counts, "equal_unroll_kernel": True})
+    return out
+
+
+def check_mega_body_and_live_union() -> dict:
+    """The control "mega" with body_impl="cuda" equals "mega" (the flagship:
+    one-launch kernel both); the live width under united compose masks
+    equals its exact-mask decode and its plain version (the flagship and the
+    large code)."""
+    frozen, _, mask = polar_code()
+    x = cascl_llrs(frozen, 512, -1.0, seed=91)
+    a = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="mega", device=DEV)
+    b = make_scl_decoder(POLAR_N, mask, SCL_L, chunk=SCL_S, control_impl="mega",
+                         body_impl="cuda", device=DEV)
+    want = a(x)
+    ops.reset_launch_counts()
+    got = b(x)
+    torch.cuda.synchronize()
+    mega_launches = ops.launch_counts()["scl_decode_mega"]
+    hold_equal("mega body_impl=cuda", {"u": (got[0], want[0]), "metrics": (got[1], want[1])},
+               {"L": SCL_L})
+    if (a.control_impl, b.control_impl, mega_launches) != ("mega", "mega", 1):
+        raise AssertionError(f"mega with body_impl='cuda': {b.control_impl}, {mega_launches}")
+    union = []
+    for N, K, L, S in LIVE_UNION_CODES:
+        frozen, _, mask = polar_code(N, K)
+        g = np.random.default_rng(N + S)
+        x = torch.from_numpy((1.0 + 1.6 * g.standard_normal((256, N))).astype(np.float32))
+        x[:3] = torch.from_numpy(g.integers(-2, 3, (3, N)).astype(np.float32))
+        x = x.to(DEV)
+        kw = dict(chunk=S, live_width=True, device=DEV)
+        dec = make_scl_decoder(N, mask, L, mask_dedup="union", **kw)
+        got = dec(x)
+        exact = make_scl_decoder(N, mask, L, **kw)(x)
+        plain = make_scl_decoder(N, mask, L, control_impl="unroll-fused", mask_dedup="union",
+                                 **kw)(x)
+        torch.cuda.synchronize()
+        hold_equal("live width, united masks", {
+            "u vs exact masks": (got[0], exact[0]), "metrics vs exact masks": (got[1], exact[1]),
+            "u vs plain": (got[0], plain[0]), "metrics vs plain": (got[1], plain[1])},
+            {"N": N, "L": L, "S": S})
+        if not (dec.live_width and dec.control_impl == "unroll-kernel"):
+            raise AssertionError(f"live union at N={N}: {dec.control_impl}, {dec.live_width}")
+        union.append({"N": N, "K": K, "L": L, "S": S, "B": 256, "equal": True})
+    return {"mega_body_impl_cuda": {"B": 512, "mega_launches": mega_launches, "equal": True},
+            "live_width_union": union}
+
+
+def wide_resources() -> dict:
+    """The eight wide instances (K3, the narrow prefix, K4, K5; shared and
+    device memory) at the flagship's launch plan (L=64, S=128, N=1024):
+    registers, local bytes and resident warps per SM, held to
+    ``WIDE_RESOURCES``."""
+    rows = {r["kernel"]: r for r in scl_cuda.kernel_resources(WIDE_L, SCL_S, POLAR_N, 3)}
+    if len(rows) != 8:
+        raise AssertionError(f"wide instances: {sorted(rows)}")
+    for name, r in rows.items():
+        warps = 1 if name.endswith("_devmem") else WIDE_RESOURCES["warps_per_sm"]
+        if (r["registers"] > WIDE_RESOURCES["registers"]
+                or r["local_bytes"] > WIDE_RESOURCES["local_bytes"]
+                or r["resident_warps_per_sm"] < warps):
+            raise AssertionError(f"{name} at L={WIDE_L}, S={SCL_S}: {r}")
+    return rows
+
+
+def phase_wide_list(results: dict, mbps: dict, reps: int, quick: bool) -> None:
+    """This slice: list decoding at L = 33-64 on the card (two paths a lane).
+    K5 / K3 / K4 / the narrow prefix at L=64 and L=48 bit for bit against
+    their plain versions on Gaussian, integer-tie and BSC batches; the wide
+    device-memory modes once; the repaired option combinations (the control
+    "mega" past the one launch's reach, "mega" with body_impl="cuda", live
+    width under united masks); the wide instances' resources; the main path
+    (CA-SCL-64, CRC-16, N=1024) through MonteCarloSimulator, its counts held
+    across two chunk sizes; the wide kernels timed at its shape."""
+    holds = [hold_wide_list(L, SCL_S) for L in WIDE_HOLD_LISTS]
+    N, K, L, S = WIDE_DEVMEM_CODE
+    if not context_in_device_memory(L, S):
+        raise AssertionError(f"S={S} at L={L} fits one block")
+    ops.reset_launch_counts()
+    devmem = hold_wide_list(L, S, N, K, B=64)
+    devmem["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    for key in ("scl_chunk_step_wide_devmem", "scl_last_chunk_wide_devmem",
+                "scl_chunk_body_wide_devmem", "scl_narrow_prefix_wide_devmem"):
+        if not devmem["launches"].get(key):
+            raise AssertionError(f"the wide device-memory hold launched {devmem['launches']}")
+    reach = check_mega_reach()
+    repairs = check_mega_body_and_live_union()
+    resources = wide_resources()
+
+    # the main path: CA-SCL-64 Monte-Carlo, then the same frames at half the
+    # chunk size; a chunk through the chunk body in the plain glue
+    frozen, info, mask = polar_code()
+    k_msg = POLAR_K - 16
+    kw = dict(decoder="ca-scl", list_size=WIDE_L, crc_polynomial=WIDE_CRC, scl_chunk=SCL_S)
+    sched = build_scl_schedule(POLAR_N, mask, WIDE_L, SCL_S)
+    n_narrow = sum(w < WIDE_L for w in sched.lv_in[:-1])
+    frames = 2 * WIDE_CHUNK
+    step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, WIDE_SNR_DB, device=DEV, **kw)
+    sim = MonteCarloSimulator(step, k_msg, chunk_frames=WIDE_CHUNK)
+    sim.run(WIDE_CHUNK, seed=1)  # warm-up
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0)
+    counts = record_launches(results, ["scl_narrow_prefix_wide", "scl_chunk_step_wide",
+                                       "scl_last_chunk_wide"])
+    mc_chunks = frames // WIDE_CHUNK
+    if (counts["scl_narrow_prefix_wide"], counts["scl_chunk_step_wide"],
+            counts["scl_last_chunk_wide"], counts["scl_chunk_step"],
+            counts["scl_narrow_prefix"]) != (prefix_launches(n_narrow) * mc_chunks,
+                                             (sched.C - 1 - n_narrow) * mc_chunks, mc_chunks,
+                                             0, 0):
+        raise AssertionError(f"CA-SCL-64: {mc_chunks} Monte-Carlo chunks launched {counts}")
+    half = MonteCarloSimulator(step, k_msg, chunk_frames=WIDE_CHUNK // 2).run(
+        frames, max_errors=None, seed=0)
+    if (half.frames, half.bit_errors, half.frame_errors) != (res.frames, res.bit_errors,
+                                                           res.frame_errors):
+        raise AssertionError(f"CA-SCL-64 counts {res.to_dict()} at chunk {WIDE_CHUNK}, "
+                             f"{half.to_dict()} at {WIDE_CHUNK // 2}")
+    if not (res.frames == frames and 0.0 < res.fer < 0.9):
+        raise AssertionError(f"CA-SCL-64 at {WIDE_SNR_DB} dB: unexpected result {res.to_dict()}")
+    step_body = make_polar_pipeline(POLAR_N, POLAR_K, frozen, WIDE_SNR_DB, device=DEV,
+                                    scl_control_impl="unroll-fused", scl_body_impl="cuda", **kw)
+    sim_body = MonteCarloSimulator(step_body, k_msg, chunk_frames=WIDE_CHUNK)
+    sim_body.run(WIDE_CHUNK, seed=1)
+    ops.reset_launch_counts()
+    res_body = sim_body.run(WIDE_CHUNK, max_errors=None, seed=0)
+    counts_body = record_launches(results, ["scl_chunk_body_wide"])
+    first = MonteCarloSimulator(step, k_msg, chunk_frames=WIDE_CHUNK).run(
+        WIDE_CHUNK, max_errors=None, seed=0)
+    if (counts_body["scl_chunk_body_wide"] != sched.C
+            or (res_body.bit_errors, res_body.frame_errors) != (first.bit_errors,
+                                                                first.frame_errors)):
+        raise AssertionError(f"CA-SCL-64 body_impl=cuda launched {counts_body}, counts "
+                             f"{res_body.to_dict()} against {first.to_dict()}")
+
+    # the wide kernels at the main path's shape, beside their plain versions
+    steps, last = make_step_specs(sched)
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(POLAR_N)), dtype=torch.int64,
+                          device=DEV)
+    llr = wide_inputs(frozen, WIDE_CHUNK)["2.0 dB"]
+    worst = {"step": max(h["worst"]["step"] for h in holds),
+             "body": max(h["worst"]["body"] for h in holds)}
+    time_scl_kernels(results, sched, steps, last, rev, llr, worst, max(3, reps // 4), 1)
+    prefix = hold_narrow_prefix(POLAR_N, POLAR_K, WIDE_L, SCL_S, llr, max(3, reps // 4), crc=True)
+    results["scl_narrow_prefix_wide"] = kernel_row(
+        "scl_narrow_prefix_wide", "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:175",
+        prefix["prefix_ms"], prefix["plain_ms"], prefix["bytes"], prefix["flops"], 0.0,
+        shape={"frames": WIDE_CHUNK, "N": POLAR_N, "S": SCL_S, "L": WIDE_L},
+        device_ms=prefix["prefix_device"], single_row_launches_ms=prefix["single_row_launches_ms"],
+        full_width_ms=prefix["full_width_ms"], positions=prefix["positions"],
+        narrow_steps_per_decode=prefix["narrow_positions"],
+        launches_per_decode=prefix["launches_per_decode"],
+        note="ms, plain_ms and bound_ms per decode: the whole narrow prefix (one launch)")
+    for name in ("scl_chunk_step_wide", "scl_last_chunk_wide", "scl_chunk_body_wide",
+                 "scl_narrow_prefix_wide"):
+        results[name]["launches"] = (counts_body if name == "scl_chunk_body_wide"
+                                     else counts)[name]
+    dec = make_scl_decoder(POLAR_N, mask, WIDE_L, chunk=SCL_S, device=DEV)
+    decode_ms = {"unroll-kernel (live width)": time_ms(lambda: dec(llr), max(2, reps // 4),
+                                                       warmup=1)}
+    mbps["polar_cascl64"] = res.throughput_mbps
+    emit("wide_list", kernels=[{k: v for k, v in results[n].items() if "per_position" not in k}
+                               for n in ("scl_chunk_body_wide", "scl_chunk_step_wide",
+                                         "scl_narrow_prefix_wide", "scl_last_chunk_wide")],
+         holds=holds, devmem=devmem, mega_reach=reach, repairs=repairs, resources=resources,
+         monte_carlo={**result_fields(res), "snr_db": WIDE_SNR_DB, "chunk_frames": WIDE_CHUNK,
+                      "launches": counts, "half_chunk": result_fields(half),
+                      "body_impl_cuda": {**result_fields(res_body), "launches": counts_body}},
+         whole_decode_ms=decode_ms)
 
 
 # -- the one-hot permutation modes of K5 / K3 / K4 -----------------------------------
@@ -2126,7 +2409,7 @@ def phase_onehot_kernels(results: dict, reps: int, quick: bool) -> None:
     worst = {"body": 0.0, "step": 0.0}
     for B in ((512,) if quick else (512, 1000)):
         worst["body"] = max(worst["body"], check_scl_bodies(sched, unique, B))
-    inputs = [(1000, snr, cascl_llrs(frozen, 1000, snr, seed=int(10 * snr) + 250))
+    inputs = [(520, snr, cascl_llrs(frozen, 520, snr, seed=int(10 * snr) + 250))
               for snr in (-2.0, 3.0)]
     inputs.append((512, "integer LLRs", torch.from_numpy(np.random.default_rng(9).integers(
         -3, 4, (512, POLAR_N)).astype(np.float32)).to(DEV)))
@@ -4138,6 +4421,7 @@ def main() -> int:
         "sc_profile": phase_sc_profile,
         "fast_kernels": lambda: phase_fast_kernels(results, reps, q),
         "large_kernels": lambda: phase_large_kernels(results, reps),
+        "wide_list": lambda: phase_wide_list(results, mbps, reps, q),
         "onehot_kernels": lambda: phase_onehot_kernels(results, reps, q),
         "polar_sc_mc": lambda: phase_polar_sc_mc(
             results, mbps, 4 * POLAR_CHUNK if q else 16 * POLAR_CHUNK),

@@ -673,6 +673,19 @@ def union_masks(sched: SCLSchedule):
             tuple(frozenset(union[k][1]) for k in keys))
 
 
+def step_masks(sched: SCLSchedule, union: bool, live: bool):
+    """The compose masks ``(comp_a, comp_b)`` the chunk steps run with: the
+    united ones with ``union`` (``mask_dedup="union"``, the controls
+    ``"fused"`` and ``"kernel"``), else the per-position ones.  With ``live``
+    the per-position ones in every case: a united mask adds levels that are
+    dead at that position (reset before they are read again), and under live
+    width such a level may be narrower than the chunk's permutation (the JAX
+    package composes it reading zeros there); leaving it out changes nothing
+    that is read, so the outputs equal JAX's ``live_width=True,
+    mask_dedup="union"`` decode."""
+    return union_masks(sched) if union and not live else (sched.comp_a, sched.comp_b)
+
+
 def variant_table(sched: SCLSchedule, masks, lv_in, lv_out, extra=None):
     """Chunk positions ``0..C−2`` grouped by step variant: ``(variants, tid)``
     with ``variants`` the distinct keys ``(descend selector, pattern id,
@@ -901,6 +914,19 @@ def init_metrics(batch: int, width: int, Lsz: int, dtype, device):
 # the decoder
 # ---------------------------------------------------------------------------
 
+def mega_reaches(list_size: int, chunk: int) -> bool:
+    """Whether the one-launch list decode (``scl_decode_mega``) takes a code of
+    list ``list_size`` and chunk ``chunk``: a frame's chunk context fits one
+    thread block's shared memory and the list is at most ``NARROW_LIST_MAX``
+    (the one-launch kernel has no wide instance).  Sizes only: the control
+    ``"mega"`` runs ``"unroll-kernel"`` past it, as the JAX package's mega
+    control degrades to its per-chunk kernels past its VMEM budget."""
+    from ...ops.scl_cuda import NARROW_LIST_MAX, SMEM_LIMIT_BYTES, smem_per_frame
+
+    return (list_size <= NARROW_LIST_MAX
+            and smem_per_frame(list_size, chunk, depth0=False) <= SMEM_LIMIT_BYTES)
+
+
 def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
                           chunk: int = 128, dtype=torch.float32,
                           leaf_impl: str = "onehot",
@@ -937,13 +963,22 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     * ``"mega"``: the whole decode in ONE ``scl_decode_mega`` launch (bit
       reversal of the LLRs, state set-up, every chunk, the root butterfly) on
       a CUDA device, float32 only; on the CPU it runs the plain chunk program,
-      which computes the same function.  Any batch; a code whose working set
-      one thread block cannot hold raises ``ValueError``.  The kernel keeps
-      rank vectors whatever ``perm_impl`` says (equal outputs).
+      which computes the same function.  Any batch.  A code the one launch
+      cannot take (``mega_reaches``: a frame's context beyond one thread
+      block's shared memory, or a list above 32) runs ``"unroll-kernel"``
+      instead, at full width, as the JAX package's mega control degrades to
+      its per-chunk kernels past its VMEM budget; the decoder's
+      ``control_impl`` says which runs.  The kernel keeps rank vectors
+      whatever ``perm_impl`` says (equal outputs).
+
+    The kernels take lists up to 64: above 32 (a wide list) with exact nodes
+    and rank vectors (``ops/scl_cuda.py``).
 
     ``body_impl``: ``"torch"`` (the plain chunk bodies) or ``"cuda"`` (the
     ``scl_chunk_body`` kernel inside the plain glue of ``"unroll-fused"``,
-    ``"fused"`` or ``"split"``).
+    ``"fused"`` or ``"split"``; under ``"mega"`` the one launch, or the
+    per-chunk kernels past its reach, run the bodies, as the JAX package's
+    ``body_impl="pallas"`` there).
 
     ``perm_impl``: ``"rank"`` (list permutations as rank vectors) or
     ``"onehot"`` (as one-hot planes in ``dtype``, the JAX package's Pallas
@@ -973,9 +1008,9 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
 
     ``live_width``: run the early chunks at the actual LIVE path count (1 →
     2 → … → L, doubling per info leaf) instead of the full list width.
-    ``node_mode="exact"``, ``perm_impl="rank"`` and ``mask_dedup="exact"`` only
-    (a united mask composes into levels narrower than the chunk's
-    permutation), on the plain control
+    ``node_mode="exact"`` and ``perm_impl="rank"`` only (with
+    ``mask_dedup="union"`` the live steps compose at the per-position masks,
+    ``step_masks``: equal outputs), on the plain control
     ``"unroll-fused"`` (or any plain control of a single-chunk code) with
     ``body_impl="torch"`` and, for a code of more than one chunk, on the
     kernel control ``"unroll-kernel"`` (narrow ``scl_chunk_step`` launches;
@@ -1022,10 +1057,11 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
             f"node_mode='fast' is a small-list serving mode: its rate-1 flip stages "
             f"scale O(L^2) per stage x min(L-1, S) stages. With list_size={list_size} "
             f"> 16, use node_mode='exact'.", stacklevel=2)
-    mega = control_impl == "mega"
-    if mega and body_impl == "cuda":
-        raise ValueError("control_impl='mega' runs the chunk bodies inside its one "
-                         "kernel; body_impl='cuda' does not apply")
+    mega = mega_asked = control_impl == "mega"
+    if mega and not mega_reaches(list_size, min(chunk, N)):
+        # the JAX package's own rule (its mega control past its VMEM budget):
+        # the per-chunk kernels, equal outputs, chosen on the host from sizes
+        control_impl, mega = "unroll-kernel", False
     kernel_control = control_impl in ("unroll-kernel", "kernel")
     if mega and dev.type == "cpu":
         control_impl = "unroll-fused"  # the plain version of the same function
@@ -1036,7 +1072,7 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     sched = build_scl_schedule(N, frozen_mask, list_size, chunk)
     C, t, sizes, Lsz = sched.C, sched.t, sched.sizes, list_size
     union = control_impl in ("fused", "kernel") or mask_dedup == "union"
-    live_capable = not fast and not mega and not onehot and (not union or C == 1) and (
+    live_capable = not fast and not mega_asked and not onehot and (
         (body_impl == "torch" and (control_impl == "unroll-fused"
                                    or (C == 1 and control_impl in ("split", "fused"))))
         or (control_impl == "unroll-kernel" and C > 1))
@@ -1046,11 +1082,10 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
         live_on = bool(live_width)
         if live_on and not live_capable:
             raise ValueError(
-                "live_width needs node_mode='exact', perm_impl='rank', mask_dedup='exact' and "
-                "the plain control (control_impl='unroll-fused', body_impl='torch') or, for a "
-                "code of more than one chunk, the kernel control 'unroll-kernel': the other "
-                "kernels, the one-hot algebra, the united compose masks and the fast nodes "
-                "run at full list width")
+                "live_width needs node_mode='exact', perm_impl='rank' and the plain control "
+                "(control_impl='unroll-fused', body_impl='torch') or, for a code of more than "
+                "one chunk, the kernel control 'unroll-kernel': the other kernels, the one-hot "
+                "algebra and the fast nodes run at full list width")
     lv_in_c = sched.lv_in if live_on else (Lsz,) * C
     lv_out_c = sched.lv_out if live_on else (Lsz,) * C
     rev = torch.as_tensor(np.asarray(bit_reverse_permutation(N)), dtype=torch.int64,
@@ -1117,7 +1152,7 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
     if control_impl == "split":
         masks = ((None,) * (C - 1), (None,) * (C - 1))
     else:
-        masks = union_masks(sched) if union else (sched.comp_a, sched.comp_b)
+        masks = step_masks(sched, union, live_on)
     variants, tid = variant_table(sched, masks, lv_in_c, lv_out_c)
     if control_impl == "unroll-fused":  # one step function per position
         variants = [variants[tid[c]] for c in range(C - 1)]

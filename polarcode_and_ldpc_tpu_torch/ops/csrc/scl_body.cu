@@ -25,12 +25,29 @@ extern "C" int scl_profile_read(unsigned long long* out) {
 // blocks of the device-memory mode).
 // alpha is read where it lies (the kernel's context has no top plane).
 // r_out: long long [B][L] rank vectors, or (onehot) float [B][L][L] planes.
-// fast: the node program is a fast one, run by the fast instance.
+// fast: the node program is a fast one, run by the fast instance.  A wide list
+// (32 < L <= 64) runs the wide instance: exact nodes, rank vectors.
 extern "C" int scl_chunk_body_launch(const float* alpha, const float* pm, int8_t* beta_out,
                                      float* pm_out, void* r_out, const int* prog, int n_ops,
                                      int has_R, int B, int S, int L, int lgS, int onehot,
                                      int fast, int warps_per_block, float* ctx_dev, int grid,
                                      void* stream) {
+  if (L < 1 || L > kWideListMax || (L > kNarrowListMax && (fast || onehot)))
+    return (int)cudaErrorInvalidValue;
+  if (L > kNarrowListMax) {
+    decltype(&scl_chunk_body_wide_kernel<false>) kernel;
+    size_t smem;
+    int blocks, warps;
+    cudaError_t err = configure(&scl_chunk_body_wide_kernel<false>,
+                                &scl_chunk_body_wide_kernel<true>, ctx_dev,
+                                ctx_frame_bytes_wide(L, S, lgS, 0, 0), B, warps_per_block, grid,
+                                &kernel, &smem, &blocks, &warps);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+        alpha, pm, beta_out, pm_out, static_cast<long long*>(r_out),
+        reinterpret_cast<const int4*>(prog), n_ops, has_R, B, S, L, lgS, ctx_dev);
+    return (int)cudaGetLastError();
+  }
   decltype(&scl_chunk_body_kernel<false, false, false>) kernel;
   size_t smem;
   int blocks, warps;
@@ -67,6 +84,9 @@ const KernelEntry kKernels[] = {
      nullptr},
     {"scl_chunk_body_onehot_devmem", (const void*)&scl_chunk_body_kernel<true, true, false>,
      nullptr},
+    {"scl_chunk_body_wide", (const void*)&scl_chunk_body_wide_kernel<false>,
+     &ctx_frame_bytes_wide},
+    {"scl_chunk_body_wide_devmem", (const void*)&scl_chunk_body_wide_kernel<true>, nullptr},
 };
 }  // namespace
 

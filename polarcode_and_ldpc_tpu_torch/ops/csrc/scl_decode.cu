@@ -30,13 +30,32 @@ extern "C" int scl_profile_read(unsigned long long* out) {
 // One chunk step at full width (a narrow step runs in
 // scl_narrow_prefix_launch).  onehot: pend_a / pend_b are float one-hot planes
 // [B][t][L][L] (t <= 16); fast: the node program is a fast one (rank
-// vectors), run by the fast instance.
+// vectors), run by the fast instance.  A wide list (32 < L <= 64; beta as
+// 64-bit words) runs the wide instance: exact nodes, rank vectors.
 extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, int* pend_a,
                                      int* pend_b, float* pm, const int* prog, int n_ops,
                                      int has_R, int B, int N, int S, int L, int t, int lgS,
                                      int k, int inv, int j, int mask_a, int mask_b, int onehot,
                                      int fast, int warps_per_block, float* ctx_dev, int grid,
                                      void* stream) {
+  if (L < 1 || L > kWideListMax || (L > kNarrowListMax && (fast || onehot)))
+    return (int)cudaErrorInvalidValue;
+  if (L > kNarrowListMax) {
+    decltype(&scl_chunk_step_wide_kernel<false>) kernel;
+    size_t smem;
+    int blocks, warps;
+    cudaError_t err = configure(&scl_chunk_step_wide_kernel<false>,
+                                &scl_chunk_step_wide_kernel<true>, ctx_dev,
+                                ctx_frame_bytes_wide(L, S, lgS, N, t), B, warps_per_block, grid,
+                                &kernel, &smem, &blocks, &warps);
+    if (err != cudaSuccess) return (int)err;
+    const Geometry g{B, N, S, L, t, lgS};
+    const StepArgs a{k, inv, j, mask_a, mask_b, 0, n_ops, has_R, L, L, 0, 0};
+    kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+        llr, alpha, reinterpret_cast<WideWord*>(beta), pend_a, pend_b, pm,
+        reinterpret_cast<const int4*>(prog), g, a, ctx_dev);
+    return (int)cudaGetLastError();
+  }
   decltype(&scl_chunk_step_kernel<false, false, false>) kernel;
   size_t smem;
   int blocks, warps;
@@ -68,19 +87,27 @@ extern "C" int scl_chunk_step_launch(const float* llr, float* alpha, int* beta, 
 // bit masks of the pendings kept at one lane), into the launch's parameters
 // (1 <= n_rows <= kPrefixParamRows); `prog` the rows' node programs back to
 // back.  Rank vectors, exact node programs (the host's SCLPrefixSpec refuses
-// others); a row that is not narrow is refused.
+// others); a row that is not narrow is refused.  A wide list (32 < L <= 64;
+// beta as 64-bit words) runs the wide instance.
 extern "C" int scl_narrow_prefix_launch(const float* llr, float* alpha, int* beta, int* pend_a,
                                         int* pend_b, float* pm, const int* prog,
                                         const int* rows, int n_rows, int B, int N, int S, int L,
                                         int t, int lgS, int warps_per_block, float* ctx_dev,
                                         int grid, void* stream) {
-  if (n_rows < 1 || n_rows > kPrefixParamRows) return (int)cudaErrorInvalidValue;
+  if (n_rows < 1 || n_rows > kPrefixParamRows || L < 1 || L > kWideListMax)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = L > kNarrowListMax;
   decltype(&scl_narrow_prefix_kernel<false>) kernel;
+  decltype(&scl_narrow_prefix_wide_kernel<false>) kernel_wide;
   size_t smem;
   int blocks, warps;
-  cudaError_t err = configure(&scl_narrow_prefix_kernel<false>, &scl_narrow_prefix_kernel<true>,
-                              ctx_dev, step_frame_bytes<false>(L, S, lgS, N, t), B,
-                              warps_per_block, grid, &kernel, &smem, &blocks, &warps);
+  cudaError_t err =
+      wide ? configure(&scl_narrow_prefix_wide_kernel<false>, &scl_narrow_prefix_wide_kernel<true>,
+                       ctx_dev, ctx_frame_bytes_wide(L, S, lgS, N, t), B, warps_per_block, grid,
+                       &kernel_wide, &smem, &blocks, &warps)
+           : configure(&scl_narrow_prefix_kernel<false>, &scl_narrow_prefix_kernel<true>,
+                       ctx_dev, step_frame_bytes<false>(L, S, lgS, N, t), B, warps_per_block,
+                       grid, &kernel, &smem, &blocks, &warps);
   if (err != cudaSuccess) return (int)err;
   PrefixSteps steps{};
   steps.n = n_rows;
@@ -93,9 +120,14 @@ extern "C" int scl_narrow_prefix_launch(const float* llr, float* alpha, int* bet
                              q[11]};
   }
   const Geometry g{B, N, S, L, t, lgS};
-  kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm,
-      reinterpret_cast<const int4*>(prog), g, steps, ctx_dev);
+  if (wide)
+    kernel_wide<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+        llr, alpha, reinterpret_cast<WideWord*>(beta), pend_a, pend_b, pm,
+        reinterpret_cast<const int4*>(prog), g, steps, ctx_dev);
+  else
+    kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+        llr, alpha, reinterpret_cast<uint32_t*>(beta), pend_a, pend_b, pm,
+        reinterpret_cast<const int4*>(prog), g, steps, ctx_dev);
   return (int)cudaGetLastError();
 }
 
@@ -117,6 +149,13 @@ const KernelEntry kKernels[] = {
     {"scl_chunk_step_onehot_devmem", (const void*)&scl_chunk_step_kernel<true, true, false>,
      nullptr},
     {"scl_narrow_prefix_devmem", (const void*)&scl_narrow_prefix_kernel<true>, nullptr},
+    {"scl_chunk_step_wide", (const void*)&scl_chunk_step_wide_kernel<false>,
+     &ctx_frame_bytes_wide},
+    {"scl_narrow_prefix_wide", (const void*)&scl_narrow_prefix_wide_kernel<false>,
+     &ctx_frame_bytes_wide},
+    {"scl_chunk_step_wide_devmem", (const void*)&scl_chunk_step_wide_kernel<true>, nullptr},
+    {"scl_narrow_prefix_wide_devmem", (const void*)&scl_narrow_prefix_wide_kernel<true>,
+     nullptr},
 };
 }  // namespace
 

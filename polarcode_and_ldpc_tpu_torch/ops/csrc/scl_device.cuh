@@ -146,11 +146,14 @@ constexpr int kFlagRR = 2 << 8;  // the right child did
 constexpr int kFlagFast = 4 << 8;  // an OP_SUBTREE of a fast program (the fast instances
                                    // run every OP_SUBTREE so)
 
-struct Ctx {
+// W: the word of a position's path bits, uint32_t up to L = 32, or (a wide
+// list, see WIDE LISTS below) a 64-bit word
+template <typename W>
+struct CtxT {
   float* alpha;   // the alpha stack below the chunk's top: depth d >= 1 is [L][S >> d];
                   // its first L * S words hold the top plane of a chunk that is one
                   // rate-0 or REP node (chunk_top)
-  uint32_t* beta;
+  W* beta;
   int* R;         // L: the fast body kernel's top-plane address (two words; at L = 1
                   // the second is tmp[0], which no body reads), see ctx_top
   int* tmp;       // L: an effective pending
@@ -160,6 +163,7 @@ struct Ctx {
   unsigned long long* prof;  // the warp's cycle and count table (lane 0)
 #endif
 };
+using Ctx = CtxT<uint32_t>;
 
 // 32-bit words of shared memory one frame needs.  No kernel keeps the chunk's
 // top plane in it: the chunk step, the last chunk and the whole decode read it
@@ -183,6 +187,14 @@ __device__ __forceinline__ Ctx make_ctx(float* base, int L, int S, int lane) {
   c.S = S;
   c.lane = lane;
   return c;
+}
+
+// A wide list (33 <= L <= 64, see WIDE LISTS below): its context in the same
+// order, each region rounded up to four words so that the 64-bit words of
+// beta and the next warp's slice stay aligned; beta holds S 64-bit words.
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ inline int ctx_words_wide(int L, int S, int lgS) {
+  return round4(S * L) + 2 * S + round4(L * (2 + lgS + 1));
 }
 
 __device__ __forceinline__ float f_minsum(float a, float b) {
@@ -222,6 +234,14 @@ __device__ __forceinline__ uint32_t perm_word(uint32_t w, const int* r, int L) {
   return out;
 }
 
+// the same on 64-bit words (a wide list, see WIDE LISTS)
+__device__ __forceinline__ unsigned long long perm_word_wide(unsigned long long w, const int* r,
+                                                             int L) {
+  unsigned long long out = 0;
+  for (int l = 0; l < L; ++l) out |= ((w >> r[l]) & 1ull) << l;
+  return out;
+}
+
 // The same with the rank vector in registers (lane l holds r[l]); every lane
 // of the warp must call it, each with its own word: n shuffles.
 __device__ __forceinline__ uint32_t perm_word_reg(uint32_t w, int r, int n) {
@@ -248,12 +268,13 @@ __device__ __forceinline__ uint32_t perm_words_ballot(uint32_t w, int r, int n, 
 // 0, else the stack.  kTopInCtx: the top plane's address is read from the
 // context (two words at c.R, written by the kernel before the body; volatile,
 // so it is read where it is used and held in no register through the body)
-__device__ __forceinline__ float* ctx_top(const Ctx& c) {
+template <typename W>
+__device__ __forceinline__ float* ctx_top(const CtxT<W>& c) {
   const volatile uint32_t* w = reinterpret_cast<const volatile uint32_t*>(c.R);
   return reinterpret_cast<float*>(((uint64_t)w[1] << 32) | w[0]);
 }
-template <bool kTopInCtx = false>
-__device__ __forceinline__ float* depth_ptr(const Ctx& c, float* a0, int d) {
+template <bool kTopInCtx = false, typename W>
+__device__ __forceinline__ float* depth_ptr(const CtxT<W>& c, float* a0, int d) {
   if (d != 0) return c.alpha + c.L * (c.S - ((2 * c.S) >> d));
   return kTopInCtx ? ctx_top(c) : a0;
 }
@@ -969,6 +990,325 @@ __device__ __forceinline__ void chunk_body(const Ctx& c, float* a0, const int4* 
 #endif
   }
   if (!has_R) R = lane;
+}
+
+
+// ---- WIDE LISTS (33 <= L <= 64): two paths a lane -------------------------
+//
+// A list wider than a warp runs at TWO PATHS A LANE (kP = 2 in the kernels'
+// templates; every L <= 32 keeps the one-path instances above, unchanged):
+// lane l holds paths l and l + 32 in slots 0 and 1 of its pm[2] and R[2] (a
+// slot whose path is not live holds nothing that is read), and the bits of a
+// position are one 64-bit word, bit p = path p.  Exact node programs only
+// (F, G, COMBINE, rate-0, REP, leaves): OP_SUBTREE needs L * size <= 32, and
+// the fast nodes and the one-hot modes stay at L <= 32, as the host says.
+// The float expressions and their order are chunk_body's, the candidates'
+// order and ties prune's, so the wide body equals the plain version bit for
+// bit as the narrow one does.  An info leaf ranks its 2w <= 128 candidates
+// four a lane (prune_wide).
+using WideWord = unsigned long long;
+using CtxWide = CtxT<WideWord>;
+
+__device__ __forceinline__ CtxWide make_ctx_wide(float* base, int L, int S, int lane) {
+  CtxWide c;
+  c.alpha = base;
+  c.beta = reinterpret_cast<WideWord*>(base + round4(S * L));
+  c.R = reinterpret_cast<int*>(base + round4(S * L) + 2 * S);
+  c.tmp = c.R + L;
+  c.Rstack = c.tmp + L;
+  c.L = L;
+  c.S = S;
+  c.lane = lane;
+  return c;
+}
+
+// Stable top-`keep` prune of the 2w candidates of w <= 64 live paths, four a
+// lane: c0[s] / c1[s] are the bit-0 / bit-1 candidates (indices p and w + p)
+// of path p = lane + 32 s, read only where p < w.  Candidate i goes before
+// candidate j iff its metric is larger, or equal with i < j, as in prune.
+// Every lane counts the candidates above each of its four over the w paths
+// (two shuffles a path of slot 0, two more for slot 1's paths: the lanes hold
+// distinct paths, so no lane group shares a count); then slot s (lane s & 31,
+// register s >> 5) finds the candidate of rank s from the ranks' bits, one
+// ballot per bit and kind of candidate (the four (slot, bit) kinds), and
+// takes its metric and path by shuffles.  Afterwards slot s < keep holds the
+// s-th candidate's metric in pm and its path in R (the others keep theirs);
+// returns the 64-bit word of the slots' bit-1 flags.  No shared memory.
+__device__ __forceinline__ WideWord prune_wide(const float (&c0)[2], const float (&c1)[2], int w,
+                                               int keep, int lane, float (&pm)[2], int (&R)[2]) {
+  int r[4] = {0, 0, 0, 0};  // the ranks of c0[0], c1[0], c0[1], c1[1]
+  for (int k = 0; k < min(w, kWarp); ++k) {
+    // path k (candidates k and w + k) against paths lane and lane + 32
+    const float a = __shfl_sync(kFull, c0[0], k), b = __shfl_sync(kFull, c1[0], k);
+    r[0] += (a > c0[0] || (a == c0[0] && k < lane) ? 1 : 0) + (b > c0[0] ? 1 : 0);
+    r[1] += (a >= c1[0] ? 1 : 0) + (b > c1[0] || (b == c1[0] && k < lane) ? 1 : 0);
+    r[2] += (a >= c0[1] ? 1 : 0) + (b > c0[1] ? 1 : 0);
+    r[3] += (a >= c1[1] ? 1 : 0) + (b >= c1[1] ? 1 : 0);
+    if (k + kWarp < w) {  // path k + 32 (warp-uniform)
+      const float a1 = __shfl_sync(kFull, c0[1], k), b1 = __shfl_sync(kFull, c1[1], k);
+      r[0] += (a1 > c0[0] ? 1 : 0) + (b1 > c0[0] ? 1 : 0);
+      r[1] += (a1 >= c1[0] ? 1 : 0) + (b1 > c1[0] ? 1 : 0);
+      r[2] += (a1 > c0[1] || (a1 == c0[1] && k < lane) ? 1 : 0) + (b1 > c0[1] ? 1 : 0);
+      r[3] += (a1 >= c1[1] ? 1 : 0) + (b1 > c1[1] || (b1 == c1[1] && k < lane) ? 1 : 0);
+    }
+  }
+  // m[t][q]: the lanes whose candidate of kind q has rank lane + 32 t
+  const bool v0 = lane < w, v1 = lane + kWarp < w;
+  uint32_t m[2][4];
+  {
+    const uint32_t o0 = __ballot_sync(kFull, v0), o1 = __ballot_sync(kFull, v1);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      m[t][0] = m[t][1] = o0;
+      m[t][2] = m[t][3] = o1;
+    }
+  }
+  for (int b = 0, nb = 32 - __clz(2 * w - 1); b < nb; ++b) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t bq = __ballot_sync(kFull, (q < 2 ? v0 : v1) && ((r[q] >> b) & 1));
+      m[0][q] &= (lane >> b) & 1 ? bq : ~bq;
+      m[1][q] &= ((lane + kWarp) >> b) & 1 ? bq : ~bq;
+    }
+  }
+  float v[2];
+  int path[2];
+  bool one[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {  // slot t's candidate (used where it is < keep)
+    // by selects, not by an index: m indexed at run time went to local memory
+    const int q = m[t][0] ? 0 : m[t][1] ? 1 : m[t][2] ? 2 : 3;
+    const uint32_t mq = m[t][0] ? m[t][0] : m[t][1] ? m[t][1] : m[t][2] ? m[t][2] : m[t][3];
+    const int src = mq ? __ffs(mq) - 1 : 0;
+    const float x00 = __shfl_sync(kFull, c0[0], src), x10 = __shfl_sync(kFull, c1[0], src);
+    const float x01 = __shfl_sync(kFull, c0[1], src), x11 = __shfl_sync(kFull, c1[1], src);
+    v[t] = q == 0 ? x00 : q == 1 ? x10 : q == 2 ? x01 : x11;
+    path[t] = src + (q >> 1) * kWarp;
+    one[t] = q & 1;
+  }
+  if (lane < keep) {
+    pm[0] = v[0];
+    R[0] = path[0];
+  }
+  if (lane + kWarp < keep) {
+    pm[1] = v[1];
+    R[1] = path[1];
+  }
+  const uint32_t lo = __ballot_sync(kFull, lane < keep && one[0]);
+  const uint32_t hi = __ballot_sync(kFull, lane + kWarp < keep && one[1]);
+  return lo | ((WideWord)hi << 32);
+}
+
+// Branch + stable top-L prune (kNarrow: keeping min(2w, L)) of the paths of
+// the lane's two slots: a[s] is the leaf LLR of path lane + 32 s.
+template <bool kNarrow>
+__device__ __forceinline__ WideWord info_leaf_wide(const float (&a)[2], int w, int L, int lane,
+                                                   float (&pm)[2], int (&R)[2]) {
+  float c0[2], c1[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float d0, d1;
+    d0_d1(a[s], d0, d1);
+    c0[s] = pm[s] + d0;
+    c1[s] = pm[s] + d1;
+  }
+  return prune_wide(c0, c1, w, kNarrow ? min(2 * w, L) : L, lane, pm, R);
+}
+
+// rank apply on a 64-bit word with the rank vector in the slots (entry p on
+// lane p & 31, slot p >> 5); every lane must call it: n shuffles
+__device__ __forceinline__ WideWord perm_word_reg_wide(WideWord w, const int (&r)[2], int n) {
+  WideWord out = 0;
+  for (int l = 0; l < min(n, kWarp); ++l)
+    out |= ((w >> __shfl_sync(kFull, r[0], l)) & 1ull) << l;
+  for (int l = kWarp; l < n; ++l)
+    out |= ((w >> __shfl_sync(kFull, r[1], l - kWarp)) & 1ull) << l;
+  return out;
+}
+
+// perm_words_ballot for 64-bit words (m <= 32 positions, position i's word on
+// lane i): two ballots a position, one per slot
+__device__ __forceinline__ WideWord perm_words_ballot_wide(WideWord w, const int (&r)[2], int n,
+                                                           int m, int lane) {
+  WideWord out = 0;
+  for (int i = 0; i < m; ++i) {
+    const WideWord wi = __shfl_sync(kFull, w, i);
+    const uint32_t b0 = __ballot_sync(kFull, lane < n && ((wi >> r[0]) & 1ull));
+    const uint32_t b1 = __ballot_sync(kFull, lane + kWarp < n && ((wi >> r[1]) & 1ull));
+    if (lane == i) out = b0 | ((WideWord)b1 << 32);
+  }
+  return out;
+}
+
+// The chunk body of a wide list (chunk_body's ops, exact nodes): the metrics
+// and the rank vector in the slots (pm[s], R[s]: path lane + 32 s), the
+// packed partial sums in c.beta as 64-bit words.  kNarrow: from w_in live
+// paths, doubling at every info leaf.
+template <bool kNarrow>
+__device__ __forceinline__ void chunk_body_wide(const CtxWide& c, float* a0,
+                                                const int4* __restrict__ prog, int n_ops,
+                                                int has_R, int w_in, float (&pm)[2],
+                                                int (&R)[2]) {
+  const int L = c.L, lane = c.lane;
+  int w = kNarrow ? w_in : L;
+  const bool vec = (((uintptr_t)a0 | (uintptr_t)c.alpha) & 15u) == 0;
+  for (int pc = 0; pc < n_ops; ++pc) {
+    SCL_PROF_T(t_op);
+    const int4 op = __ldg(prog + pc);
+    const int d = op.y, sz = op.z, off = op.w;
+    switch (op.x & 0xff) {
+      case OP_F: {
+        const float* src = depth_ptr(c, a0, d);
+        float* dst = depth_ptr(c, a0, d + 1);
+        const int lg = ilog2(sz);
+        if (vec && sz >= 4) {
+          for (int q = lane; q < (w * sz) >> 2; q += kWarp) {
+            const int idx = q << 2, l = idx >> lg, i = idx & (sz - 1);
+            const float4 x = *reinterpret_cast<const float4*>(src + l * 2 * sz + i);
+            const float4 y = *reinterpret_cast<const float4*>(src + l * 2 * sz + sz + i);
+            *reinterpret_cast<float4*>(dst + idx) = make_float4(
+                f_minsum(x.x, y.x), f_minsum(x.y, y.y), f_minsum(x.z, y.z), f_minsum(x.w, y.w));
+          }
+          break;
+        }
+        for (int idx = lane; idx < w * sz; idx += kWarp) {
+          const int l = idx >> lg, i = idx & (sz - 1);
+          dst[idx] = f_minsum(src[l * 2 * sz + i], src[l * 2 * sz + sz + i]);
+        }
+        break;
+      }
+      case OP_G: {
+        const float* src = depth_ptr(c, a0, d);
+        float* dst = depth_ptr(c, a0, d + 1);
+        int* saved = c.Rstack + d * L;
+        const bool rl = op.x & kFlagRL;
+        if (rl) {
+          if (lane < w) saved[lane] = R[0];
+          if (lane + kWarp < w) saved[lane + kWarp] = R[1];
+          __syncwarp();
+        }
+        const int lg = ilog2(sz);
+        if (vec && sz >= 4) {
+          for (int q = lane; q < (w * sz) >> 2; q += kWarp) {
+            const int idx = q << 2, l = idx >> lg, i = idx & (sz - 1);
+            const int r = rl ? saved[l] : l;
+            const float4 x = *reinterpret_cast<const float4*>(src + r * 2 * sz + i);
+            const float4 y = *reinterpret_cast<const float4*>(src + r * 2 * sz + sz + i);
+            const WideWord* b = c.beta + off + i;
+            *reinterpret_cast<float4*>(dst + idx) =
+                make_float4(y.x + (1.0f - 2.0f * (float)((b[0] >> l) & 1ull)) * x.x,
+                            y.y + (1.0f - 2.0f * (float)((b[1] >> l) & 1ull)) * x.y,
+                            y.z + (1.0f - 2.0f * (float)((b[2] >> l) & 1ull)) * x.z,
+                            y.w + (1.0f - 2.0f * (float)((b[3] >> l) & 1ull)) * x.w);
+          }
+          break;
+        }
+        for (int idx = lane; idx < w * sz; idx += kWarp) {
+          const int l = idx >> lg, i = idx & (sz - 1);
+          const int r = rl ? saved[l] : l;
+          const float sgn = 1.0f - 2.0f * (float)((c.beta[off + i] >> l) & 1ull);
+          dst[idx] = src[r * 2 * sz + sz + i] + sgn * src[r * 2 * sz + i];
+        }
+        break;
+      }
+      case OP_COMBINE: {
+        const bool rl = op.x & kFlagRL, rr = op.x & kFlagRR;
+        if (rr && 2 * sz < w) {
+          const WideWord word =
+              perm_words_ballot_wide(lane < sz ? c.beta[off + lane] : 0ull, R, w, sz, lane);
+          if (lane < sz) c.beta[off + lane] = word ^ c.beta[off + sz + lane];
+        } else {
+          for (int base = 0; base < sz; base += kWarp) {  // every lane runs the shuffles
+            const int i = base + lane;
+            WideWord word = i < sz ? c.beta[off + i] : 0ull;
+            if (rr) word = perm_word_reg_wide(word, R, w);
+            if (i < sz) c.beta[off + i] = word ^ c.beta[off + sz + i];
+          }
+        }
+        if (rl) {  // R_l[R_r[l]]
+          const int* rs = c.Rstack + d * L;
+          if (lane < w) R[0] = rs[rr ? R[0] : lane];
+          if (lane + kWarp < w) R[1] = rs[rr ? R[1] : lane + kWarp];
+        }
+        break;
+      }
+      case OP_RATE0: {
+        float* z = depth_ptr(c, a0, d);
+        zero_dec_inplace(z, w * sz, sz, lane);
+        d0_inplace(z, w * sz, lane);
+        for (int s = 1; s < sz; s <<= 1) {
+          for (int q = lane; q < (w * sz) / (2 * s); q += kWarp) {
+            const int p = q * 2 * s;
+            z[p] = z[p] + z[p + s];
+          }
+          __syncwarp();
+        }
+        if (lane < w) pm[0] = pm[0] + z[lane * sz];
+        if (lane + kWarp < w) pm[1] = pm[1] + z[(lane + kWarp) * sz];
+        for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = 0ull;
+        break;
+      }
+      case OP_LEAF: {
+        const float* a = depth_ptr(c, a0, d);
+        const float leaf[2] = {lane < w ? a[lane] : 0.0f,
+                               lane + kWarp < w ? a[lane + kWarp] : 0.0f};
+        const WideWord word = info_leaf_wide<kNarrow>(leaf, w, L, lane, pm, R);
+        if (lane == 0) c.beta[off] = word;
+        if (kNarrow) w = min(2 * w, L);
+        break;
+      }
+      case OP_REP: {
+        float* z = depth_ptr(c, a0, d);
+        const int lgM = ilog2(sz);
+        zero_dec_inplace(z, w * sz, sz, lane);
+        const float leaf[2] = {lane < w ? z[lane * sz + sz - 1] : 0.0f,
+                               lane + kWarp < w ? z[(lane + kWarp) * sz + sz - 1] : 0.0f};
+        __syncwarp();
+        d0_inplace(z, w * sz, lane);
+        for (int k = 0; (sz >> k) > 2; ++k) {
+          const int pairs = (sz >> (k + 1)) - 1;  // per path
+          for (int q = lane; q < w * pairs; q += kWarp) {
+            const int l = q / pairs, i = q - l * pairs;
+            const int p = l * sz + (i << (k + 1));
+            z[p] = z[p] + z[p + (1 << k)];
+          }
+          __syncwarp();
+        }
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int path = lane + s * kWarp;
+          if (path < w) {
+            float p = pm[s];
+            for (int j = 1; j <= lgM; ++j) p = p + z[path * sz + sz - (sz >> (j - 1))];
+            pm[s] = p;
+          }
+        }
+        const WideWord word = info_leaf_wide<kNarrow>(leaf, w, L, lane, pm, R);
+        for (int i = lane; i < sz; i += kWarp) c.beta[off + i] = word;
+        if (kNarrow) w = min(2 * w, L);
+        break;
+      }
+      default:
+        break;
+    }
+    __syncwarp();
+#ifdef SCL_PROFILE
+    {
+      const int kind = op.x & 0xff, small = kind == OP_COMBINE ? sz < kWarp : w * sz < kWarp;
+      const int slot = kind == OP_F         ? (small ? PROF_F_SMALL : PROF_F_WIDE)
+                       : kind == OP_G       ? (small ? PROF_G_SMALL : PROF_G_WIDE)
+                       : kind == OP_COMBINE ? (small ? PROF_COMBINE_SMALL : PROF_COMBINE_WIDE)
+                       : kind == OP_LEAF    ? PROF_LEAF
+                       : kind == OP_REP     ? PROF_REP
+                                            : PROF_RATE0;
+      SCL_PROF_ADD(c, slot, t_op);
+    }
+#endif
+  }
+  if (!has_R) {
+    R[0] = lane;
+    R[1] = lane + kWarp;
+  }
 }
 
 }  // namespace scl

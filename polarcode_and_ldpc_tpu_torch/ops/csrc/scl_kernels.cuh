@@ -32,7 +32,8 @@
 //   alpha   [B][L*(N-S)]         levels 1..t back to back, level l is
 //                                [L][N>>l] at offset L*(N - (N>>(l-1)))
 //   beta    [B][N-S] words       level l at offset N - (N>>(l-1)); bit p of
-//                                a word is path p's left partial sum
+//                                a word is path p's left partial sum (32-bit
+//                                words; 64-bit for a wide list, L > 32)
 //   pend_a, pend_b [B][t][L]     pending rank vectors of the levels
 //   pm      [B][L]               path metrics
 //
@@ -117,24 +118,28 @@ struct Geometry {
   int B, N, S, L, t, lgS;
 };
 
-struct Stacks {
-  float* A;      // this frame's alpha levels
-  uint32_t* Bt;  // this frame's packed beta levels
+// W: a position's word of path bits (uint32_t; a 64-bit word for a wide list)
+template <typename W>
+struct StacksT {
+  float* A;  // this frame's alpha levels
+  W* Bt;     // this frame's packed beta levels
   int* PA;
   int* PB;
   int N, L;
   __device__ __forceinline__ float* alpha(int l) const { return A + (size_t)L * (N - (N >> (l - 1))); }
-  __device__ __forceinline__ uint32_t* beta(int l) const { return Bt + (N - (N >> (l - 1))); }
+  __device__ __forceinline__ W* beta(int l) const { return Bt + (N - (N >> (l - 1))); }
   __device__ __forceinline__ int* pend_a(int l) const { return PA + (l - 1) * L; }
   __device__ __forceinline__ int* pend_b(int l) const { return PB + (l - 1) * L; }
 };
+using Stacks = StacksT<uint32_t>;
 
 // Each offset is one 32 x 32 -> 64-bit product (a frame's slice, L * (N - S)
 // or t * L words, fits an int): with two 64-bit products the whole-decode
 // kernel, held to 64 registers, spilled the high word of one.
-__device__ __forceinline__ Stacks frame_stacks(const Geometry& g, int frame, float* alpha,
-                                               uint32_t* beta, int* pend_a, int* pend_b) {
-  Stacks s;
+template <typename W>
+__device__ __forceinline__ StacksT<W> frame_stacks(const Geometry& g, int frame, float* alpha,
+                                                   W* beta, int* pend_a, int* pend_b) {
+  StacksT<W> s;
   s.A = alpha + (size_t)frame * (size_t)(g.L * (g.N - g.S));
   s.Bt = beta + (size_t)frame * (g.N - g.S);
   s.PA = pend_a + (size_t)frame * (size_t)(g.t * g.L);
@@ -247,12 +252,12 @@ __device__ __forceinline__ void onehot_store(float* pa, float* pb, const int* ra
 // is set in one_a / one_b holds one lane, read by every slot.  dst is [w][M].
 // kOneHot: the parent is read as the one-hot apply's sum (a selected zero's
 // sign by onehot_zero over the parent's g.L rows).
-template <bool kOneHot = false>
-__device__ __forceinline__ void descend_g(const Geometry& g, const Stacks& st, const float* x,
+template <bool kOneHot = false, typename W>
+__device__ __forceinline__ void descend_g(const Geometry& g, const StacksT<W>& st, const float* x,
                                           int lo, bool inv, float* dst, int lane, int w,
                                           int one_a, int one_b) {
   const int M = g.N >> lo, lgM = ilog2(M);
-  const uint32_t* bl = st.beta(lo);
+  const W* bl = st.beta(lo);
   const int* pb = st.pend_b(lo);
   const bool pb_one = (one_b >> (lo - 1)) & 1;
   const float* parent = lo == 1 ? x : st.alpha(lo - 1);
@@ -312,13 +317,27 @@ struct StepArgs {
 // The plane a chunk body runs on: the level-t plane `top` where the descend
 // left it, or, for a chunk that is one rate-0 or REP node (which works on its
 // plane in place), a copy of its w rows in the context.
-__device__ __forceinline__ float* chunk_top(const Ctx& c, float* top, const int4* prog,
-                                            int n_ops, int w) {
+template <typename C>
+__device__ __forceinline__ float* chunk_top(const C& c, float* top, const int4* prog, int n_ops,
+                                            int w) {
   const int kind = __ldg(&prog->x) & 0xff;
   if (n_ops != 1 || (kind != OP_RATE0 && kind != OP_REP)) return top;
   for (int i = c.lane; i < w * c.S; i += kWarp) c.alpha[i] = top[i];
   __syncwarp();
   return c.alpha;
+}
+
+// A wide list's words are 64-bit: paths b .. b + 7 are byte (b / 8) & 3 of
+// the word's half b / 32.
+template <typename W>
+__device__ __forceinline__ uint32_t paths_half(W w, int b) {
+  if constexpr (sizeof(W) == 4) return w;
+  else return (uint32_t)(w >> (b & 32));
+}
+template <typename W>
+__device__ __forceinline__ uint32_t paths_byte_sel(int b) {
+  const int q = sizeof(W) == 4 ? b >> 3 : (b >> 3) & 3;
+  return (uint32_t)(q | ((4 + q) << 4));
 }
 
 // The body kernel's outputs of one frame, from the packed partial sums in
@@ -384,6 +403,43 @@ __device__ __forceinline__ void body_out(const Ctx& c, int8_t* beta_out, float* 
   }
 }
 
+// body_out of a wide list (rank vectors): piece k of beta_out's L S / 16 is
+// path l = k mod L, positions 16 (k / L) on, gathered from the 32-bit half of
+// each 64-bit word that holds path l (words 2i + l / 32 of c.beta as 32-bit
+// words) as body_out gathers; the metrics and rank vector from the slots.
+__device__ __forceinline__ void body_out_wide(const CtxWide& c, int8_t* beta_out, float* pm_out,
+                                              long long* r_out, int L, int S, int lgS,
+                                              const float (&pmr)[2], const int (&R)[2]) {
+  const int lane = c.lane;
+  if (S >= 16 && !((uintptr_t)beta_out & 15u)) {
+    const uint32_t* halves = reinterpret_cast<const uint32_t*>(c.beta);
+#pragma unroll 1
+    for (int k = lane; k < (L * S) >> 4; k += kWarp) {
+      const int ib = k / L, l = k - ib * L;
+      const uint32_t* w = halves + 32 * ib + (l >> 5);  // word 16 ib + e at w[2 e]
+      const uint32_t sel = paths_byte_sel<WideWord>(l);
+      uint32_t x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        x[q] = (__byte_perm(__byte_perm(w[8 * q], w[8 * q + 2], sel),
+                            __byte_perm(w[8 * q + 4], w[8 * q + 6], sel), 0x5410) >>
+                (l & 7)) &
+               0x01010101u;
+      *reinterpret_cast<uint4*>(beta_out + (size_t)l * S + 16 * ib) =
+          make_uint4(x[0], x[1], x[2], x[3]);
+    }
+  } else {
+    for (int idx = lane; idx < L * S; idx += kWarp)
+      beta_out[idx] = (int8_t)((c.beta[idx & (S - 1)] >> (idx >> lgS)) & 1ull);
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    if (lane + s * kWarp < L) {
+      pm_out[lane + s * kWarp] = pmr[s];
+      r_out[lane + s * kWarp] = R[s];
+    }
+}
+
 // K5: one chunk body a frame, on its input plane where it lies in device
 // memory (read only, as the chunk step reads level t; a chunk that is one
 // rate-0 or REP node takes a copy, chunk_top), on the chunk step's context:
@@ -444,10 +500,17 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 4)
 // g is read as a one-hot apply (the pendings are rank vectors staged from the
 // one-hot planes).  The whole-decode kernel runs the same parts.
 
+// The identity on the first w entries of a pending, kP entries a lane.
+template <int kP>
+__device__ __forceinline__ void set_identity(int* p, int w, int lane) {
+  if (lane < w) p[lane] = lane;
+  if (kP == 2 && lane + kWarp < w) p[lane + kWarp] = lane + kWarp;
+}
+
 // The descend: one g at level t-k (all f from the LLRs when k == t), then an
 // f chain down to level t; every written level's pend_a resets.
-template <bool kNarrow, bool kOneHot = false>
-__device__ __forceinline__ void step_descend(const Ctx& c, const Geometry& g, const Stacks& st,
+template <bool kNarrow, bool kOneHot = false, int kP = 1, typename C, typename W>
+__device__ __forceinline__ void step_descend(const C& c, const Geometry& g, const StacksT<W>& st,
                                              const float* x, const StepArgs& a) {
   const int N = g.N, t = g.t, lane = c.lane;
   const int wi = kNarrow ? a.lv_in : g.L;
@@ -462,14 +525,14 @@ __device__ __forceinline__ void step_descend(const Ctx& c, const Geometry& g, co
         const float v = f_minsum(src[i], src[M + i]);
         for (int r = 0; r < wi; ++r) dst[(size_t)r * M + i] = v;
       }
-      if (lane < wi) st.pend_a(l)[lane] = lane;
+      set_identity<kP>(st.pend_a(l), wi, lane);
       __syncwarp();
     }
     return;
   }
   const int lo = t - a.k;
   descend_g<kOneHot>(g, st, x, lo, a.inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
-  if (lane < wi) st.pend_a(lo)[lane] = lane;
+  set_identity<kP>(st.pend_a(lo), wi, lane);
   __syncwarp();
   for (int l = lo + 1; l <= t; ++l) {
     const int M = N >> l, lgM = ilog2(M);
@@ -479,7 +542,7 @@ __device__ __forceinline__ void step_descend(const Ctx& c, const Geometry& g, co
       const int r = idx >> lgM, i = idx & (M - 1);
       dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
     }
-    if (lane < wi) st.pend_a(l)[lane] = lane;
+    set_identity<kP>(st.pend_a(l), wi, lane);
     __syncwarp();
   }
 }
@@ -535,6 +598,88 @@ __device__ __forceinline__ void step_ascend(const Ctx& c, const Geometry& g, con
   SCL_PROF_ADD(c, PROF_ASCEND, t_ascend);
 }
 
+// step_ascend of a wide list: the metrics and R in the slots (path lane + 32
+// s in slot s), 64-bit words.
+template <bool kNarrow>
+__device__ __forceinline__ void step_ascend_wide(const CtxWide& c, const Geometry& g,
+                                                 const StacksT<WideWord>& st, float* pm,
+                                                 const StepArgs& a, const float (&pmr)[2],
+                                                 const int (&R)[2]) {
+  const int S = g.S, t = g.t, lane = c.lane;
+  const int j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
+  const int wo = kNarrow ? a.lv_out : g.L, one_b = kNarrow ? a.one_b : 0;
+  SCL_PROF_T(t_compose);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    if (lane + s * kWarp < wo) pm[lane + s * kWarp] = pmr[s];
+
+  // ---- compose the chunk's R into the live pendings: p[l] = p[R[l]]
+  for (int l = 1; l <= t; ++l) {
+    int va[2] = {0, 0}, vb[2] = {0, 0};
+    const bool ca = (mask_a >> (l - 1)) & 1, cb = (mask_b >> (l - 1)) & 1;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      if (lane + s * kWarp < wo) {
+        if (ca) va[s] = st.pend_a(l)[R[s]];
+        if (cb) vb[s] = st.pend_b(l)[R[s]];
+      }
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      if (lane + s * kWarp < wo) {
+        if (ca) st.pend_a(l)[lane + s * kWarp] = va[s];
+        if (cb) st.pend_b(l)[lane + s * kWarp] = vb[s];
+      }
+  }
+  __syncwarp();
+  SCL_PROF_ADD(c, PROF_COMPOSE, t_compose);
+
+  // ---- ascend, as step_ascend
+  SCL_PROF_T(t_ascend);
+  const int D = S << j;
+  WideWord* dest = st.beta(t - j);
+  for (int i = lane; i < S; i += kWarp) dest[D - S + i] = c.beta[i];
+  __syncwarp();
+  for (int s = 0; s < j; ++s) {
+    const int lev = t - s, size = S << s;
+    const WideWord* left = st.beta(lev);
+    const bool one = ((one_b >> (lev - 1)) & 1) && !((mask_b >> (lev - 1)) & 1);
+    for (int p = lane; p < wo; p += kWarp) c.tmp[p] = st.pend_b(lev)[one ? 0 : p];
+    __syncwarp();
+    for (int i = lane; i < size; i += kWarp)
+      dest[D - 2 * size + i] = perm_word_wide(left[i], c.tmp, wo) ^ dest[D - size + i];
+    __syncwarp();
+  }
+  set_identity<2>(st.pend_b(t - j), wo, lane);
+  SCL_PROF_ADD(c, PROF_ASCEND, t_ascend);
+}
+
+// One chunk step of one frame of a wide list (exact nodes, rank vectors).
+template <bool kNarrow>
+__device__ __forceinline__ void chunk_step_wide(const CtxWide& c, const Geometry& g,
+                                                const StacksT<WideWord>& st, const float* x,
+                                                float* pm, const int4* prog, const StepArgs& a) {
+  const int lane = c.lane, wi = kNarrow ? a.lv_in : g.L;
+  SCL_PROF_T(t_step);
+  step_descend<kNarrow, false, 2>(c, g, st, x, a);
+  SCL_PROF_ADD(c, PROF_DESCEND, t_step);
+  SCL_PROF_T(t_copy);
+  float* top = chunk_top(c, st.alpha(g.t), prog, a.n_ops, wi);
+  float pmr[2];
+  int R[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    pmr[s] = lane + s * kWarp < wi ? pm[lane + s * kWarp] : -INFINITY;
+    R[s] = lane + s * kWarp;
+  }
+  SCL_PROF_ADD(c, PROF_COPY_IN, t_copy);
+  SCL_PROF_T(t_body);
+  chunk_body_wide<kNarrow>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
+  SCL_PROF_ADD(c, PROF_BODY, t_body);
+  step_ascend_wide<kNarrow>(c, g, st, pm, a, pmr, R);
+  SCL_PROF_ADD(c, PROF_STEP, t_step);
+}
+
 // One chunk step of one frame (see the parts above); kFast: a fast node
 // program.
 template <bool kNarrow, bool kOneHot, bool kFast>
@@ -586,16 +731,17 @@ __host__ __device__ constexpr int brev4(int r) {
 // before.  Few live registers: with 16 or 32 words a lane in registers the
 // 64-register kernels spilled, and so did unrolled loops here.  N < 16 takes
 // plain loops.  The profile counts the butterfly and the output stores apart.
-__device__ __forceinline__ void root_out(const Ctx& c, uint32_t* root, int N, int L, int log2N,
+template <typename W>
+__device__ __forceinline__ void root_out(const CtxT<W>& c, W* root, int N, int L, int log2N,
                                          int8_t* u) {
   const int n = log2N, lane = c.lane;
   SCL_PROF_T(t_fly);
 #pragma unroll 1
   for (int j = 0; j < N; j += kWarp) {  // bits 0-4 (or 0 .. n-1)
     const bool on = j + lane < N;
-    uint32_t w = on ? root[j + lane] : 0u;
+    W w = on ? root[j + lane] : (W)0;
     for (int k = 0; k < min(5, n); ++k) {
-      const uint32_t o = __shfl_xor_sync(kFull, w, 1 << k);
+      const W o = __shfl_xor_sync(kFull, w, 1 << k);
       if (!((lane >> k) & 1)) w ^= o;
     }
     if (on) root[j + lane] = w;
@@ -606,7 +752,7 @@ __device__ __forceinline__ void root_out(const Ctx& c, uint32_t* root, int N, in
     if (k + 1 < n) {
       for (int q = lane; q < N / 4; q += kWarp) {
         const int p = ((q >> k) << (k + 2)) | (q & (s - 1));
-        uint32_t a = root[p], b = root[p + s], x = root[p + 2 * s], y = root[p + 3 * s];
+        W a = root[p], b = root[p + s], x = root[p + 2 * s], y = root[p + 3 * s];
         a ^= b;
         x ^= y;
         root[p] = a ^ x;
@@ -633,14 +779,16 @@ __device__ __forceinline__ void root_out(const Ctx& c, uint32_t* root, int N, in
       const int rk = brev_bits(k, n - 4), hi = n - 4;
       int8_t* run = u + 16 * k;
       for (int b = 0; b < L; b += 8) {
-        const uint32_t sel = (uint32_t)((b >> 3) | ((4 + (b >> 3)) << 4));
+        const uint32_t sel = paths_byte_sel<W>(b);
         uint32_t x[4];  // byte b / 8 of the run's words 4q .. 4q + 3
-        const uint32_t* r = root + rk;
+        const W* r = root + rk;
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          x[q] = __byte_perm(
-              __byte_perm(r[brev4(4 * q) << hi], r[brev4(4 * q + 1) << hi], sel),
-              __byte_perm(r[brev4(4 * q + 2) << hi], r[brev4(4 * q + 3) << hi], sel), 0x5410);
+          x[q] = __byte_perm(__byte_perm(paths_half(r[brev4(4 * q) << hi], b),
+                                         paths_half(r[brev4(4 * q + 1) << hi], b), sel),
+                             __byte_perm(paths_half(r[brev4(4 * q + 2) << hi], b),
+                                         paths_half(r[brev4(4 * q + 3) << hi], b), sel),
+                             0x5410);
 #pragma unroll 1
         for (int l = b; l < min(b + 8, L); ++l) {
           const int sh = l - b;
@@ -731,6 +879,56 @@ __device__ __forceinline__ void last_ascend(const Ctx& c, uint32_t* root, const 
   root_out(c, root, N, L, log2N, u);
 }
 
+// last_ascend<true> of a wide list: the metrics and R in the slots, the
+// root plane N 64-bit words; four words a lane (two 16-byte reads each of
+// the left betas and of the right halves), each pending read once for them.
+__device__ __forceinline__ void last_ascend_wide(const CtxWide& c, WideWord* root,
+                                                 const Geometry& g, const StacksT<WideWord>& st,
+                                                 const float (&pmr)[2], const int (&R)[2],
+                                                 int8_t* u, float* pm_out, int log2N) {
+  const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
+  SCL_PROF_T(t_last);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    if (lane + s * kWarp < L) pm_out[lane + s * kWarp] = pmr[s];
+  for (int i = lane; i < S; i += kWarp) root[N - S + i] = c.beta[i];
+  const bool vec = S >= 4 && !(((uintptr_t)root | (uintptr_t)st.Bt) & 15u);
+  for (int lev = t; lev >= 1; --lev) {
+    const int size = N >> lev;
+    const WideWord* left = st.beta(lev);
+    WideWord* dst = root + N - 2 * size;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      if (lane + s * kWarp < L) c.tmp[lane + s * kWarp] = st.pend_b(lev)[R[s]];
+    __syncwarp();
+    if (!vec) {
+      for (int i = lane; i < size; i += kWarp)
+        dst[i] = perm_word_wide(left[i], c.tmp, L) ^ dst[size + i];
+      __syncwarp();
+      continue;
+    }
+    for (int i = 4 * lane; i < size; i += 4 * kWarp) {
+      const ulonglong2 l0 = *reinterpret_cast<const ulonglong2*>(left + i);
+      const ulonglong2 l1 = *reinterpret_cast<const ulonglong2*>(left + i + 2);
+      ulonglong2 o0 = *reinterpret_cast<const ulonglong2*>(dst + size + i);
+      ulonglong2 o1 = *reinterpret_cast<const ulonglong2*>(dst + size + i + 2);
+      for (int l = 0; l < L; ++l) {
+        const int r = c.tmp[l];
+        o0.x ^= ((l0.x >> r) & 1ull) << l;
+        o0.y ^= ((l0.y >> r) & 1ull) << l;
+        o1.x ^= ((l1.x >> r) & 1ull) << l;
+        o1.y ^= ((l1.y >> r) & 1ull) << l;
+      }
+      *reinterpret_cast<ulonglong2*>(dst + i) = o0;
+      *reinterpret_cast<ulonglong2*>(dst + i + 2) = o1;
+    }
+    __syncwarp();
+  }
+  __syncwarp();
+  SCL_PROF_ADD(c, PROF_LAST, t_last);
+  root_out(c, root, N, L, log2N, u);
+}
+
 // The last chunk's context: the chunk step's (its top plane in a scratch
 // buffer in device memory, as the chunk step reads level t of the stacks),
 // the root plane (on the context's alpha region, dead once the body has
@@ -741,6 +939,13 @@ __device__ __forceinline__ void last_ascend(const Ctx& c, uint32_t* root, const 
 __host__ __device__ inline int last_root_words(int L, int S, int N) { return N > L * S ? N : 0; }
 __host__ __device__ inline int last_ctx_words(int L, int S, int lgS, int N, int t, bool onehot) {
   return ctx_words(L, S, lgS) + last_root_words(L, S, N) + (onehot ? 2 * t * L : 0);
+}
+// a wide list's: its root plane is N 64-bit words
+__host__ __device__ inline int last_root_words_wide(int L, int S, int N) {
+  return 2 * N > L * S ? 2 * N : 0;
+}
+__host__ __device__ inline int last_ctx_words_wide(int L, int S, int lgS, int N) {
+  return ctx_words_wide(L, S, lgS) + last_root_words_wide(L, S, N);
 }
 
 // The last chunk of one frame, at full width: one g at level t into `top`
@@ -775,6 +980,39 @@ __device__ __forceinline__ void last_chunk(const Ctx& c, const Geometry& g,
   const int rw = last_root_words(L, g.S, g.N);
   uint32_t* root = reinterpret_cast<uint32_t*>(c.alpha + (rw ? ctx_words(L, g.S, g.lgS) : 0));
   last_ascend<true>(c, root, g, frame_stacks_of(), pmr, R, u, pm_out, log2N);
+  SCL_PROF_ADD(c, PROF_STEP, t_frame);
+}
+
+// last_chunk of a wide list (exact nodes, rank vectors).
+template <typename StacksOf, typename OutputsOf>
+__device__ __forceinline__ void last_chunk_wide(const CtxWide& c, const Geometry& g,
+                                                StacksOf frame_stacks_of, OutputsOf outputs_of,
+                                                const float* x, const float* pm, float* top,
+                                                const int4* prog, int n_ops, int has_R,
+                                                int log2N, int one_a, int one_b) {
+  const int L = g.L, t = g.t, lane = c.lane;
+  SCL_PROF_T(t_frame);
+  descend_g(g, frame_stacks_of(), x, t, false, top, lane, L, one_a, one_b);
+  float pmr[2];
+  int R[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    pmr[s] = lane + s * kWarp < L ? pm[lane + s * kWarp] : 0.0f;
+    R[s] = lane + s * kWarp;
+  }
+  __syncwarp();
+  float* a0 = chunk_top(c, top, prog, n_ops, L);
+  SCL_PROF_ADD(c, PROF_DESCEND, t_frame);
+  SCL_PROF_T(t_body);
+  chunk_body_wide<false>(c, a0, prog, n_ops, has_R, L, pmr, R);
+  SCL_PROF_ADD(c, PROF_BODY, t_body);
+  int8_t* u;
+  float* pm_out;
+  outputs_of(u, pm_out);
+  const int rw = last_root_words_wide(L, g.S, g.N);
+  WideWord* root =
+      reinterpret_cast<WideWord*>(c.alpha + (rw ? ctx_words_wide(L, g.S, g.lgS) : 0));
+  last_ascend_wide(c, root, g, frame_stacks_of(), pmr, R, u, pm_out, log2N);
   SCL_PROF_ADD(c, PROF_STEP, t_frame);
 }
 
@@ -959,6 +1197,130 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 4)
     last_chunk<kOneHot, kFast>(c, g, stacks_of, outputs_of, llr + (size_t)frame * g.N,
                                pm + (size_t)frame * g.L, top + (size_t)frame * g.L * g.S,
                                prog, n_ops, has_R, log2N, one_a, one_b);
+  });
+  SCL_PROF_FLUSH(c);
+}
+
+// ---- the wide-list instances (33 <= L <= 64, two paths a lane) -----------
+//
+// K5, K3, the narrow prefix and K4 for a wide list: the kernels above with
+// the wide device functions (chunk_body_wide, step_ascend_wide,
+// last_ascend_wide, body_out_wide) on the wide context (ctx_words_wide) and
+// 64-bit words of path bits in the state (beta [B][N-S] as 64-bit words).
+// Exact node programs on rank vectors only.  A wide frame's context is large
+// (36,352 B at L=64, S=128), so shared memory holds a few frames an SM, and
+// the launch bounds let the instances take up to 128 registers (the
+// device-memory ones likewise).
+template <bool kDev>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 4 : 2)
+    scl_chunk_body_wide_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
+                               int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
+                               long long* __restrict__ r_out, const int4* __restrict__ prog,
+                               int n_ops, int has_R, int B, int S, int L, int lgS,
+                               float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  CtxWide c =
+      make_ctx_wide(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words_wide(L, S, lgS)), L, S, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
+  for_each_frame<kDev>(B, [&](int frame) {
+    SCL_PROF_T(t_frame);
+    float* top = chunk_top(c, const_cast<float*>(alpha) + (size_t)frame * (size_t)(L * S), prog,
+                           n_ops, L);
+    float pmr[2];
+    int R[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      pmr[s] = lane + s * kWarp < L ? pm[(size_t)frame * (size_t)L + lane + s * kWarp] : 0.0f;
+      R[s] = lane + s * kWarp;
+    }
+    __syncwarp();
+    SCL_PROF_ADD(c, PROF_COPY_IN, t_frame);
+    SCL_PROF_T(t_body);
+    chunk_body_wide<false>(c, top, prog, n_ops, has_R, L, pmr, R);
+    SCL_PROF_ADD(c, PROF_BODY, t_body);
+    SCL_PROF_T(t_out);
+    body_out_wide(c, beta_out + (size_t)frame * (size_t)(L * S),
+                  pm_out + (size_t)frame * (size_t)L, r_out + (size_t)frame * (size_t)L, L, S,
+                  lgS, pmr, R);
+    SCL_PROF_ADD(c, PROF_OUT, t_out);
+    SCL_PROF_ADD(c, PROF_STEP, t_frame);
+  });
+  SCL_PROF_FLUSH(c);
+}
+
+template <bool kDev>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 4 : 2)
+    scl_chunk_step_wide_kernel(const float* __restrict__ llr, float* alpha, WideWord* beta,
+                               int* pend_a, int* pend_b, float* pm,
+                               const int4* __restrict__ prog, Geometry g, StepArgs a,
+                               float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  CtxWide c = make_ctx_wide(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words_wide(g.L, g.S, g.lgS)),
+                            g.L, g.S, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    const StacksT<WideWord> st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+    chunk_step_wide<false>(c, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L, prog,
+                           a);
+  });
+  SCL_PROF_FLUSH(c);
+}
+
+template <bool kDev>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 4 : 2)
+    scl_narrow_prefix_wide_kernel(const float* __restrict__ llr, float* alpha, WideWord* beta,
+                                  int* pend_a, int* pend_b, float* pm,
+                                  const int4* __restrict__ prog, Geometry g,
+                                  const __grid_constant__ PrefixSteps steps, float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  CtxWide c = make_ctx_wide(ctx_base<kDev>(smem_raw, ctx_dev, ctx_words_wide(g.L, g.S, g.lgS)),
+                            g.L, g.S, lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    for (int r = 0; r < steps.n; ++r) {
+      const StepArgs& a = steps.rows[r];
+      const StacksT<WideWord> st = frame_stacks(g, frame, alpha, beta, pend_a, pend_b);
+      chunk_step_wide<true>(c, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
+                            prog + a.prog_off, a);
+      __syncwarp();
+    }
+  });
+  SCL_PROF_FLUSH(c);
+}
+
+template <bool kDev>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 4 : 2)
+    scl_last_chunk_wide_kernel(const float* __restrict__ llr, const float* __restrict__ alpha,
+                               const WideWord* __restrict__ beta, const int* __restrict__ pend_a,
+                               const int* __restrict__ pend_b, const float* pm,
+                               int8_t* __restrict__ u, float* __restrict__ pm_out, float* top,
+                               const int4* __restrict__ prog, int n_ops, int has_R, Geometry g,
+                               int log2N, int one_a, int one_b, float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  CtxWide c = make_ctx_wide(
+      ctx_base<kDev>(smem_raw, ctx_dev, last_ctx_words_wide(g.L, g.S, g.lgS, g.N)), g.L, g.S,
+      lane);
+  SCL_PROF_DECL;
+  SCL_PROF_BIND(c);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    const auto stacks_of = [&]() {
+      return frame_stacks(g, frame, const_cast<float*>(alpha), const_cast<WideWord*>(beta),
+                          const_cast<int*>(pend_a), const_cast<int*>(pend_b));
+    };
+    const auto outputs_of = [&](int8_t*& u_f, float*& pm_f) {
+      u_f = u + (size_t)frame * g.L * g.N;
+      pm_f = pm_out + (size_t)frame * g.L;
+    };
+    last_chunk_wide(c, g, stacks_of, outputs_of, llr + (size_t)frame * g.N,
+                    pm + (size_t)frame * g.L, top + (size_t)frame * g.L * g.S, prog, n_ops,
+                    has_R, log2N, one_a, one_b);
   });
   SCL_PROF_FLUSH(c);
 }
@@ -1218,6 +1580,17 @@ template <bool kOneHot>
 size_t last_frame_bytes(int L, int S, int lgS, int N, int t) {
   return 4 * (size_t)last_ctx_words(L, S, lgS, N, t, kOneHot);
 }
+// the wide-list instances' (33 <= L <= 64)
+inline size_t ctx_frame_bytes_wide(int L, int S, int lgS, int, int) {
+  return 4 * (size_t)scl::ctx_words_wide(L, S, lgS);
+}
+inline size_t last_frame_bytes_wide(int L, int S, int lgS, int N, int) {
+  return 4 * (size_t)last_ctx_words_wide(L, S, lgS, N);
+}
+// the widest list the one-path instances take (a 32-bit word of path bits)
+constexpr int kNarrowListMax = 32;
+// the widest list of the wide instances
+constexpr int kWideListMax = 64;
 
 // A compiled kernel variant, for a resource report: its name, its function
 // and the bytes of shared memory one frame of it needs (null: a

@@ -24,7 +24,9 @@ extern "C" int scl_profile_read(unsigned long long* out) {
 // warps_per_block slices of the context in device memory) and `grid` (the
 // blocks of the device-memory mode).  `top` is scratch for the chunk's top
 // plane, [B][L][S] floats.
-// fast: the node program is a fast one, run by the fast instance.
+// fast: the node program is a fast one, run by the fast instance.  A wide list
+// (32 < L <= 64; beta as 64-bit words) runs the wide instance: exact nodes,
+// rank vectors.
 extern "C" int scl_last_chunk_launch(const float* llr, const float* alpha, const int* beta,
                                      const int* pend_a, const int* pend_b, const float* pm,
                                      int8_t* u, float* pm_out, float* top,
@@ -32,6 +34,23 @@ extern "C" int scl_last_chunk_launch(const float* llr, const float* alpha, const
                                      int L, int t, int lgS, int log2N, int one_a, int one_b,
                                      int onehot, int fast, int warps_per_block, float* ctx_dev,
                                      int grid, void* stream) {
+  if (L < 1 || L > kWideListMax || (L > kNarrowListMax && (fast || onehot)))
+    return (int)cudaErrorInvalidValue;
+  if (L > kNarrowListMax) {
+    decltype(&scl_last_chunk_wide_kernel<false>) kernel;
+    size_t smem;
+    int blocks, warps;
+    cudaError_t err = configure(&scl_last_chunk_wide_kernel<false>,
+                                &scl_last_chunk_wide_kernel<true>, ctx_dev,
+                                last_frame_bytes_wide(L, S, lgS, N, t), B, warps_per_block, grid,
+                                &kernel, &smem, &blocks, &warps);
+    if (err != cudaSuccess) return (int)err;
+    const Geometry g{B, N, S, L, t, lgS};
+    kernel<<<blocks, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+        llr, alpha, reinterpret_cast<const WideWord*>(beta), pend_a, pend_b, pm, u, pm_out, top,
+        reinterpret_cast<const int4*>(prog), n_ops, has_R, g, log2N, one_a, one_b, ctx_dev);
+    return (int)cudaGetLastError();
+  }
   decltype(&scl_last_chunk_kernel<false, false, false>) kernel;
   size_t smem;
   int blocks, warps;
@@ -69,6 +88,9 @@ const KernelEntry kKernels[] = {
      nullptr},
     {"scl_last_chunk_onehot_devmem", (const void*)&scl_last_chunk_kernel<true, true, false>,
      nullptr},
+    {"scl_last_chunk_wide", (const void*)&scl_last_chunk_wide_kernel<false>,
+     &last_frame_bytes_wide},
+    {"scl_last_chunk_wide_devmem", (const void*)&scl_last_chunk_wide_kernel<true>, nullptr},
 };
 }  // namespace
 

@@ -58,6 +58,8 @@ extern "C" int scl_decode_mega_launch(const float* llr, float* llr_rev, float* a
                                       const int* steps_dev, int C, int B, int N, int S, int L,
                                       int t, int lgS, int log2N, int in_params,
                                       int warps_per_block, void* stream) {
+  // no wide instance: a list wider than 32 runs on the per-chunk kernels
+  if (L < 1 || L > kNarrowListMax) return (int)cudaErrorInvalidValue;
   if (in_params && C > kMegaParamRows) return (int)cudaErrorInvalidValue;
   if (!in_params && t == 0) return (int)cudaErrorInvalidValue;  // one chunk: one row
   const Geometry g{B, N, S, L, t, lgS};

@@ -72,6 +72,14 @@ counts; a port mode: the JAX package runs such chunks in XLA).  The
 one-launch decode keeps its refusal of a code whose chunk-step context one
 block cannot hold.
 
+Wide lists (``32 < L <= 64``): the kernels' wide instances hold two paths a
+lane (lane l: paths l and l + 32) and a position's path bits as one 64-bit
+word, so the state's ``beta`` is int64; the body, chunk step, narrow prefix
+and last chunk each have one (launches counted apart, ``scl_chunk_step_wide``
+…), shared or device memory alike.  Exact node programs on rank vectors only:
+the fast nodes, the one-hot modes and the one-launch decode stay at ``L <=
+32`` (ROADMAP.md queue B).
+
 Precondition, as for the plain decoder: finite LLRs.
 """
 
@@ -88,7 +96,7 @@ from ..models.polar.construction import bit_reverse_permutation
 from ..models.polar.encoder import polar_transform
 from ..models.polar.scanscl import (_LEVELPAR_MAX, SCLSchedule, _make_chunk_body,
                                     _make_last_fn, _make_super_fn, decode_selector,
-                                    init_metrics, live_state_widths, pad_paths, union_masks,
+                                    init_metrics, live_state_widths, pad_paths, step_masks,
                                     variant_table)
 from . import build, count_launch
 
@@ -105,8 +113,11 @@ SUBTREE_MAX = 4
 
 #: widest repetition subtree the REP op decodes (the plain version's rule)
 REP_MAX = _LEVELPAR_MAX
-#: widest list the packed path bits hold
-MAX_LIST = 32
+#: widest list the kernels take: up to ``NARROW_LIST_MAX`` one path a lane and
+#: a 32-bit word of path bits a position, above it (a wide list) two paths a
+#: lane and a 64-bit word
+MAX_LIST = 64
+NARROW_LIST_MAX = 32
 #: shared memory one thread block may use on Hopper (bytes)
 SMEM_LIMIT_BYTES = 232448
 #: the most warps of a block (1024 threads); the kernels plan the warps per
@@ -186,11 +197,23 @@ class SCLBodyProgram:
     def __init__(self, flags: np.ndarray, list_size: int, node_mode: str = "exact",
                  perm_impl: str = "rank"):
         if not 1 <= list_size <= MAX_LIST:
-            raise ValueError(f"the SCL kernels take list sizes 1..{MAX_LIST}, got {list_size}")
+            raise ValueError(
+                f"the SCL kernels take list sizes 1..{MAX_LIST}, got {list_size}: a wider list "
+                f"runs on the plain controls ('unroll-fused', 'split', 'fused'); the kernels' "
+                f"lists above {MAX_LIST} are ROADMAP.md queue B item B7")
         if node_mode not in ("exact", "fast"):
             raise ValueError(f"unknown node_mode {node_mode!r}")
         if perm_impl not in ("rank", "onehot"):
             raise ValueError(f"unknown perm_impl {perm_impl!r}")
+        if list_size > NARROW_LIST_MAX and node_mode == "fast":
+            raise ValueError(
+                f"the SCL kernels run fast nodes up to L={NARROW_LIST_MAX}, got {list_size}: "
+                f"the wide-list fast nodes are ROADMAP.md queue B item B4; use node_mode='exact'")
+        if list_size > NARROW_LIST_MAX and perm_impl == "onehot":
+            raise ValueError(
+                f"the SCL kernels run one-hot permutations up to L={NARROW_LIST_MAX}, got "
+                f"{list_size}: the wide-list one-hot modes are ROADMAP.md queue B item B5; use "
+                f"perm_impl='rank'")
         if node_mode == "fast" and perm_impl == "onehot":
             raise ValueError("the one-hot kernel modes have no fast nodes: node_mode='fast' "
                              "runs with perm_impl='rank'")
@@ -212,25 +235,36 @@ class SCLBodyProgram:
         return t
 
 
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
 def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0,
                    depth0: bool = True) -> int:
     """Bytes of shared memory one frame needs with ``depth0=False`` (mirrors
-    ``scl::ctx_words``: every kernel reads the chunk's top plane where it
-    lies in device memory), plus ``root_words`` for the last chunk's root
-    plane and, for a one-hot state of ``onehot_levels`` levels, the two
-    pendings' rank vectors that the one-hot kernels stage (``2 · levels · L``
-    words).  The default ``depth0=True`` adds a top plane of ``L · S`` words:
-    the size the device-memory threshold counts (``context_in_device_memory``)."""
+    ``scl::ctx_words``, or ``scl::ctx_words_wide`` for a wide list, ``L >
+    NARROW_LIST_MAX``: S 64-bit words of path bits, regions rounded up to four
+    words; every kernel reads the chunk's top plane where it lies in device
+    memory), plus ``root_words`` for the last chunk's root plane and, for a
+    one-hot state of ``onehot_levels`` levels, the two pendings' rank vectors
+    that the one-hot kernels stage (``2 · levels · L`` words).  The default
+    ``depth0=True`` adds a top plane of ``L · S`` words: the size the
+    device-memory threshold counts (``context_in_device_memory``)."""
     lgS = int(np.log2(S))
-    return 4 * ((2 if depth0 else 1) * S * L + S + L * (2 + lgS + 1) + root_words
-                + 2 * onehot_levels * L)
+    if L > NARROW_LIST_MAX:
+        ctx = _round4(S * L) + 2 * S + _round4(L * (2 + lgS + 1))
+    else:
+        ctx = S * L + S + L * (2 + lgS + 1)
+    return 4 * ((S * L if depth0 else 0) + ctx + root_words + 2 * onehot_levels * L)
 
 
 def last_root_words(L: int, S: int, N: int) -> int:
     """Words of the last chunk's own root plane (``last_root_words`` of
-    ``csrc/scl_kernels.cuh``): none when the context's alpha region (``L · S``
-    words, dead once the body has returned) holds the ``N`` words."""
-    return N if N > L * S else 0
+    ``csrc/scl_kernels.cuh``, ``last_root_words_wide`` for a wide list, whose
+    root plane is ``N`` 64-bit words): none when the context's alpha region
+    (``L · S`` words, dead once the body has returned) holds it."""
+    words = 2 * N if L > NARROW_LIST_MAX else N
+    return words if words > L * S else 0
 
 
 def _warps_per_block(per_frame: int, what: str) -> int:
@@ -278,6 +312,7 @@ def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels
 def _count(base: str, program: "SCLBodyProgram", scratch) -> None:
     """Count one launch under the name of its kernel mode."""
     count_launch(base + ("_fast" if program.fast else "") + ("_onehot" if program.onehot else "")
+                 + ("_wide" if program.L > NARROW_LIST_MAX else "")
                  + ("_devmem" if scratch is not None else ""))
 
 
@@ -312,11 +347,13 @@ def _launcher(name: str, argtypes: list, library: Optional[str] = None):
 
 def kernel_resources(L: int, S: int, N: int, t: int) -> list:
     """Registers, local memory (spills) and resident warps per SM of every
-    compiled variant of the four list kernels, each at the launch plan its
-    launcher makes for a code of length ``N``, chunk ``S``, list ``L`` with
-    ``t`` levels (the device-memory variants at theirs).  Needs a CUDA
-    device."""
+    compiled variant of the four list kernels that serves list ``L`` (the
+    wide instances for ``L > NARROW_LIST_MAX``, else the others), each at the
+    launch plan its launcher makes for a code of length ``N``, chunk ``S``,
+    list ``L`` with ``t`` levels (the device-memory variants at theirs).
+    Needs a CUDA device."""
     out = []
+    wide = L > NARROW_LIST_MAX
     for library in ("scl_body", "scl_decode", "scl_last", "scl_mega"):
         lib = build.load(library)
         lib.scl_kernel_name.restype = ctypes.c_char_p
@@ -325,6 +362,8 @@ def kernel_resources(L: int, S: int, N: int, t: int) -> list:
         lib.scl_kernel_report.argtypes = [_I] * 7 + [_P]
         for which in range(lib.scl_kernel_count()):
             name = lib.scl_kernel_name(which).decode()
+            if ("_wide" in name) != wide:
+                continue
             vals = (ctypes.c_int * 5)()
             code = lib.scl_kernel_report(which, L, S, N, t, _MAX_WARPS, _DEVMEM_WARPS,
                                          ctypes.addressof(vals))
@@ -402,26 +441,33 @@ def make_chunk_body_cuda(flags: np.ndarray, list_size: int, node_mode: str = "ex
 # the decode state between launches
 # ---------------------------------------------------------------------------
 
-def pack_paths(bits: torch.Tensor) -> torch.Tensor:
-    """``[B, L, M]`` 0/1 int8 → ``[B, M]`` int32 words, bit l = path l."""
-    L = bits.shape[1]
-    sh = torch.arange(L, device=bits.device, dtype=torch.int64)[None, :, None]
-    return (bits.to(torch.int64) << sh).sum(dim=1).to(torch.int32)
+def path_word_dtype(L: int) -> torch.dtype:
+    """The state's word of a position's path bits: int32 up to
+    ``NARROW_LIST_MAX`` paths, int64 for a wide list."""
+    return torch.int64 if L > NARROW_LIST_MAX else torch.int32
+
+
+def pack_paths(bits: torch.Tensor, L: Optional[int] = None) -> torch.Tensor:
+    """``[B, w, M]`` 0/1 int8 → ``[B, M]`` words (``path_word_dtype(L)``, L
+    the list size, ``w`` by default), bit l = path l."""
+    w = bits.shape[1]
+    sh = torch.arange(w, device=bits.device, dtype=torch.int64)[None, :, None]
+    return (bits.to(torch.int64) << sh).sum(dim=1).to(path_word_dtype(L or w))
 
 
 def unpack_paths(words: torch.Tensor, L: int) -> torch.Tensor:
-    """``[B, M]`` int32 words → ``[B, L, M]`` int8 bit planes."""
-    sh = torch.arange(L, device=words.device, dtype=torch.int32)[None, :, None]
+    """``[B, M]`` int32 or int64 words → ``[B, L, M]`` int8 bit planes."""
+    sh = torch.arange(L, device=words.device, dtype=words.dtype)[None, :, None]
     return ((words[:, None, :] >> sh) & 1).to(torch.int8)
 
 
 class SCLState:
     """The level stacks of a batch of frames between chunk launches, in the
     layout the kernels read (see ``csrc/scl_kernels.cuh``): ``llr [B, N]``
-    (bit-reversed storage), ``alpha [B, L·(N−S)]``, ``beta [B, N−S]`` int32
-    packed words, ``pend_a`` / ``pend_b [B, t, L]`` int32 rank vectors (with
-    ``perm_impl="onehot"``: ``[B, t, L, L]`` one-hot planes in the LLRs'
-    dtype), ``pm [B, L]``."""
+    (bit-reversed storage), ``alpha [B, L·(N−S)]``, ``beta [B, N−S]`` packed
+    words (int32, int64 for a wide list: ``path_word_dtype``), ``pend_a`` /
+    ``pend_b [B, t, L]`` int32 rank vectors (with ``perm_impl="onehot"``:
+    ``[B, t, L, L]`` one-hot planes in the LLRs' dtype), ``pm [B, L]``."""
 
     def __init__(self, sched: SCLSchedule, llr_rev: torch.Tensor, perm_impl: str = "rank"):
         assert sched.C > 1, "a single-chunk code keeps no level stacks"
@@ -431,7 +477,7 @@ class SCLState:
         B, dev = llr_rev.shape[0], llr_rev.device
         self.llr = llr_rev
         self.alpha = torch.zeros((B, L * (N - S)), dtype=llr_rev.dtype, device=dev)
-        self.beta = torch.zeros((B, N - S), dtype=torch.int32, device=dev)
+        self.beta = torch.zeros((B, N - S), dtype=path_word_dtype(L), device=dev)
         if self.onehot:
             eye = torch.eye(L, dtype=llr_rev.dtype, device=dev).expand(B, t, L, L)
         else:
@@ -487,7 +533,7 @@ class SCLState:
             a0, b0 = self._alpha_off(l), self._beta_off(l)
             w = alpha[l - 1].shape[1]
             self.alpha[:, a0:a0 + w * M] = alpha[l - 1].reshape(B, w * M)
-            self.beta[:, b0:b0 + M] = pack_paths(beta[l - 1])
+            self.beta[:, b0:b0 + M] = pack_paths(beta[l - 1], s.L)
             self.pend_a[:, l - 1, :pend_a[l - 1].shape[1]] = pend_a[l - 1].to(self.pend_a.dtype)
             self.pend_b[:, l - 1, :pend_b[l - 1].shape[1]] = pend_b[l - 1].to(self.pend_b.dtype)
         self.pm[:, :pm.shape[1]] = pm
@@ -533,19 +579,20 @@ def make_step_specs(sched: SCLSchedule, programs: Optional[list] = None,
     full-width steps, and the last chunk at full width on the live-width
     state; ``union=True``: the compose masks united per variant
     (``scanscl.union_masks``: the control ``"kernel"`` and
-    ``mask_dedup="union"``).  Positions of one variant share one spec (the
+    ``mask_dedup="union"``), except with ``live`` (``scanscl.step_masks``:
+    a united mask's extra levels are dead at that position, and the live
+    steps leave them out).  Positions of one variant share one spec (the
     variant table of ``scanscl.variant_table``).  The programs' permutation
     algebra is that of the state the specs run on; the default programs are
     rank programs (``SCLBodyProgram(..., perm_impl="onehot")`` builds one-hot
     ones)."""
     if programs is None:
         programs = [SCLBodyProgram(f, sched.L, node_mode) for f in sched.unique_flags]
-    if live and (union or any(p.fast or p.onehot for p in programs)):
-        raise ValueError("live width runs exact node programs on rank vectors at the "
-                         "per-position compose masks only")
+    if live and any(p.fast or p.onehot for p in programs):
+        raise ValueError("live width runs exact node programs on rank vectors")
     perm = "onehot" if programs[0].onehot else "rank"
     t, sizes, L, C = sched.t, sched.sizes, sched.L, sched.C
-    masks = union_masks(sched) if union else (sched.comp_a, sched.comp_b)
+    masks = step_masks(sched, union, live)
     widths = live_state_widths(sched, masks) if live else None
 
     def width_args(c: int) -> dict:
@@ -646,7 +693,7 @@ def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
     if state.onehot != program.onehot:
         raise ValueError("the state's permutation algebra is not the program's")
     pend = ((B, s.t, s.L, s.L), torch.float32) if state.onehot else ((B, s.t, s.L), torch.int32)
-    for name, (shape, dtype) in (("beta", ((B, s.N - s.S), torch.int32)),
+    for name, (shape, dtype) in (("beta", ((B, s.N - s.S), path_word_dtype(s.L))),
                                  ("pend_a", pend), ("pend_b", pend)):
         x = getattr(state, name)
         if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() \
@@ -707,7 +754,8 @@ def scl_narrow_prefix_cuda(state: SCLState, prefix: SCLPrefixSpec) -> None:
     ``PREFIX_PARAM_ROWS`` steps for a longer prefix).  Does not synchronise."""
     launches, ctx = launch_narrow_prefix(state, prefix, "scl_decode")
     for _ in range(launches):
-        count_launch("scl_narrow_prefix" + ("_devmem" if ctx is not None else ""))
+        count_launch("scl_narrow_prefix" + ("_wide" if state.sched.L > NARROW_LIST_MAX else "")
+                     + ("_devmem" if ctx is not None else ""))
 
 
 def launch_narrow_prefix(state: SCLState, prefix: SCLPrefixSpec, library: str):
@@ -849,8 +897,12 @@ class SCLMegaPlan:
         if node_mode != "exact":
             raise ValueError("the one-launch list decode (scl_decode_mega) has no fast nodes: "
                              f"node_mode={node_mode!r} runs on the per-chunk kernels")
-        if not 1 <= sched.L <= MAX_LIST:
-            raise ValueError(f"the SCL kernels take list sizes 1..{MAX_LIST}, got {sched.L}")
+        if not 1 <= sched.L <= NARROW_LIST_MAX:
+            raise ValueError(
+                f"the one-launch list decode (scl_decode_mega) takes list sizes "
+                f"1..{NARROW_LIST_MAX}, got {sched.L}: a wider list runs on the per-chunk kernels "
+                f"(control_impl='unroll-kernel'; the wide one-launch decode is ROADMAP.md queue "
+                f"B item B6)")
         self.sched = sched
         self.smem_per_frame = smem_per_frame(sched.L, sched.S, depth0=False)
         if self.smem_per_frame > SMEM_LIMIT_BYTES:

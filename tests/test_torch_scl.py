@@ -26,6 +26,7 @@ from polarcode_and_ldpc_tpu.models.polar import scanscl as jscan
 from polarcode_and_ldpc_tpu.models.polar import scl as jscl
 from polarcode_and_ldpc_tpu.models.polar.construction import (bit_reverse_permutation,
                                                               frozen_mask_from_positions)
+from polarcode_and_ldpc_tpu.parity import polar_np as jpolar
 from polarcode_and_ldpc_tpu.ops.scl_body_pallas import make_chunk_body_pallas
 from polarcode_and_ldpc_tpu_torch.models.polar import scanscl as tscan
 from polarcode_and_ldpc_tpu_torch.models.polar import scl as tscl
@@ -395,6 +396,173 @@ def test_chunk_sizes_give_one_result():
             np.testing.assert_allclose(m.numpy(), ref[1].numpy(), rtol=1e-5)
 
 
+# -- wide lists (32 < L <= 64: the kernels' two-paths-a-lane instances) ---------------------
+#
+# Whole decodes are held to the JAX package's float64 list-decoding twin
+# (``parity/polar_np.scl_decode_np``, about 2 s for 8 frames at L = 64): its
+# jitted chunked decoder compiles for 16-21 s at L >= 48 on an 8-core host,
+# more than the suite's margin allows.  The float32 chunk bodies are held to
+# JAX's jitted bodies.
+
+WIDE_CODES = ((128, 64), (256, 48))
+
+
+def wide_llrs(N, B, seed):
+    """Half Gaussian LLRs (the all-zero codeword over a noisy channel), half
+    small integers (ties everywhere)."""
+    rng = np.random.default_rng(seed)
+    llr = noisy_llrs(rng, B, N)
+    llr[B // 2:] = rng.integers(-3, 4, (B - B // 2, N))
+    return llr
+
+
+@pytest.fixture(scope="module")
+def jax_twin_wide():
+    """JAX's float64 twin on 4 frames of each wide code (K = N / 2)."""
+    out = {}
+    for N, L in WIDE_CODES:
+        mask = mask_of(N, N // 2)
+        llr = wide_llrs(N, 4, seed=N + L).astype(np.float64)
+        out[N, L] = mask, llr, [jpolar.scl_decode_np(r, mask, L) for r in llr]
+    return out
+
+
+@pytest.mark.parametrize("N,L", WIDE_CODES)
+@pytest.mark.parametrize("live", [False, True])
+def test_wide_list_decoder_equals_jax_twin(jax_twin_wide, N, L, live):
+    """L = 64 at N = 128 and L = 48 at N = 256, chunk 32, float64 (the
+    kernels' float32 path: ``test_wide_list_controls_agree``): the plain
+    decoder, full and live width, gives the twin's survivor paths in its slot
+    order and its metrics within 1e-12."""
+    mask, llr, ref = jax_twin_wide[N, L]
+    dec = tscl.make_scl_decoder(N, mask, L, torch.float64, chunk=32, live_width=live,
+                                device="cpu")
+    assert dec.live_width == live
+    u, pm = dec(torch.from_numpy(llr))
+    for i, (_, ref_m, ref_paths) in enumerate(ref):
+        assert np.array_equal(u[i].numpy(), ref_paths), i
+        close(pm[i].numpy(), ref_m, np.float64)
+
+
+def test_wide_list_cascl_selects_from_jax_paths(jax_twin_wide):
+    """CA-SCL-64 with CRC-8 in float64: the class's choice equals the CRC
+    selection over the twin's paths and metrics."""
+    mask, llr, ref = jax_twin_wide[128, 64]
+    dec = tfec.SCLDecoder(128, 64, 64, frozen_bits=np.nonzero(mask)[0], use_crc=True,
+                          dtype=torch.float64, chunk=32, device="cpu")
+    info = torch.as_tensor(np.nonzero(~mask)[0])
+    paths = torch.from_numpy(np.stack([r[2] for r in ref]))
+    metrics = torch.from_numpy(np.stack([r[1] for r in ref]))
+    want = tscl.select_best_path(paths[..., info], metrics, CRCCodec(64 - 8, "CRC-8", "cpu"))
+    assert torch.equal(dec.decode(torch.from_numpy(llr)), want)
+
+
+@pytest.mark.parametrize("kind,S,L,dtype,phantoms", [
+    ("mixed", 8, 48, np.float32, True), ("dense", 8, 64, np.float32, False)])
+def test_wide_chunk_body_equals_jax_body(kind, S, L, dtype, phantoms):
+    """Chunk bodies at L = 48 and 64 (96 and 128 candidates a prune) in
+    float32 against JAX's jitted body."""
+    flags = pattern(kind, S, seed=S + L)
+    alpha, pm = body_inputs(np.random.default_rng(S * L), L, S, 16, dtype, phantoms)
+    jbody = jax.jit(jscan._make_chunk_body(flags, L, JDT[dtype], algebra=jscan._RANK_ALGEBRA))
+    jb, jp, jr = jbody(jnp.asarray(alpha), jnp.asarray(pm))
+    tb, tp, tr = tscan._make_chunk_body(flags, L)(to_t(alpha), to_t(pm))
+    assert np.array_equal(to_j(tb), np.asarray(jb))
+    assert np.array_equal(to_j(tr), np.asarray(jr))
+    close(to_j(tp), jp, dtype)
+
+
+@pytest.mark.parametrize("N,L", [(128, 33), (128, 64)])
+def test_wide_list_controls_agree(N, L):
+    """A wide list under the port's controls on the CPU, float32: the kernel
+    control (its state's 64-bit words, the narrow prefix), live width on and
+    off, the chunk body wrapper and ``"mega"`` (the per-chunk kernels past its
+    reach) give the plain decoder's paths and metrics bit for bit."""
+    mask = mask_of(N, N // 2)
+    llr = torch.from_numpy(wide_llrs(N, 32, seed=N + L))
+    want = tscl.make_scl_decoder(N, mask, L, chunk=32, live_width=False, device="cpu")(llr)
+    for kw in (dict(), dict(control_impl="unroll-kernel"),
+               dict(control_impl="unroll-kernel", live_width=False),
+               dict(control_impl="unroll-fused", body_impl="cuda", live_width=False),
+               dict(control_impl="mega")):
+        u, m = tscl.make_scl_decoder(N, mask, L, chunk=32, device="cpu", **kw)(llr)
+        assert torch.equal(u, want[0]) and torch.equal(m, want[1]), kw
+
+
+@pytest.mark.parametrize("L", [2, 8])
+@pytest.mark.parametrize("control", ["unroll-fused", "unroll-kernel"])
+def test_live_width_united_masks_equal_jax(jax_decoders, control, L):
+    """``live_width=True`` with ``mask_dedup="union"`` (the JAX package takes
+    it on its unroll controls): the live steps compose at the per-position
+    masks (``step_masks``), and the decode is JAX's."""
+    mask, jdecs = jax_decoders
+    llr = decode_inputs(L)
+    ju, jm = jdecs[L](jnp.asarray(llr))
+    dec = tscl.make_scl_decoder(N_DEC, mask, L, chunk=S_DEC, control_impl=control,
+                                live_width=True, mask_dedup="union", device="cpu")
+    assert dec.live_width and dec.control_impl == control
+    tu, tm = dec(torch.from_numpy(llr))
+    assert np.array_equal(tu.numpy(), np.asarray(ju))
+    close(tm.numpy(), jm, np.float32)
+
+
+@pytest.mark.parametrize("what", ["sizes", "state", "specs", "refusals"])
+def test_wide_list_host_plans(what):
+    """The host side of the wide kernels at L = 64: shared memory per frame
+    (S 64-bit words of path bits), the device-memory threshold, the warps per
+    block, the last chunk's root plane, the state's 64-bit words, the
+    programs and step tables, and what stays at L <= 32."""
+    from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
+
+    mask = mask_of(1024, 512)
+    sched = tscan.build_scl_schedule(1024, mask, 64, 128)
+    if what == "sizes":
+        assert (scl_cuda.MAX_LIST, scl_cuda.NARROW_LIST_MAX) == (64, 32)
+        # L = 64, S = 128: 69,120 B with a top plane, 36,352 B the kernels' context
+        assert scl_cuda.smem_per_frame(64, 128) == 69120
+        assert scl_cuda.smem_per_frame(64, 128, depth0=False) == 36352
+        assert scl_cuda._warps_per_block(36352, "a chunk context") == 6
+        assert not scl_cuda.context_in_device_memory(64, 256)
+        assert scl_cuda.context_in_device_memory(64, 512)
+        assert scl_cuda.last_root_words(64, 128, 1024) == 0  # 2048 words fit the alpha region
+        assert scl_cuda.last_root_words(64, 16, 1024) == 2048
+        assert scl_cuda.smem_per_frame(8, 128, depth0=False) == 4928  # L <= 32 as before
+        assert scl_cuda.smem_per_frame(48, 32, depth0=False) == 4 * (1536 + 64 + 48 * 8)
+    elif what == "state":
+        rng = np.random.default_rng(1)
+        st = scl_cuda.SCLState(sched, torch.from_numpy(
+            rng.standard_normal((3, 1024)).astype(np.float32)))
+        assert st.beta.dtype == torch.int64 and st.beta.shape == (3, 1024 - 128)
+        st.beta.copy_(torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (3, 896), dtype=np.int64)))
+        other = st.clone()
+        other.load_plain(*st.to_plain())
+        assert torch.equal(other.beta, st.beta)
+        bits = torch.from_numpy(rng.integers(0, 2, (2, 64, 5)).astype(np.int8))
+        words = scl_cuda.pack_paths(bits)  # path 63 in the sign bit
+        assert words.dtype == torch.int64 and torch.equal(scl_cuda.unpack_paths(words, 64), bits)
+        assert scl_cuda.pack_paths(bits[:, :8], 64).dtype == torch.int64  # a narrow level
+    elif what == "specs":
+        prog = scl_cuda.SCLBodyProgram(sched.unique_flags[0], 64)
+        assert not ((prog.ops[:, 0] & 0xFF) == scl_cuda.OP_SUBTREE).any()  # L * size > 32
+        (prefix, *rest), last = scl_cuda.make_step_specs(sched, live=True)
+        assert [r[8:10].tolist() for r in prefix.rows] == [
+            [sched.lv_in[c], sched.lv_out[c]] for c in range(len(prefix.rows))]
+        assert all(s.lv_in == s.lv_out == 64 for s in rest) and last.program.L == 64
+    else:
+        flags = sched.unique_flags[0]
+        with pytest.raises(ValueError, match="B4"):
+            scl_cuda.SCLBodyProgram(flags, 64, "fast")
+        with pytest.raises(ValueError, match="B5"):
+            scl_cuda.SCLBodyProgram(flags, 64, perm_impl="onehot")
+        with pytest.raises(ValueError, match="per-chunk kernels.*B6"):
+            scl_cuda.SCLMegaPlan(sched)
+        with pytest.raises(ValueError, match="list sizes 1..64"):
+            scl_cuda.SCLBodyProgram(flags, 65)
+        with pytest.raises(ValueError, match="B4"):
+            tscl.make_scl_decoder(1024, mask, 64, node_mode="fast", control_impl="unroll-kernel",
+                                  device="cpu")
+
+
 # -- classes, selection, options ----------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -509,7 +677,7 @@ def test_unported_options_raise_with_their_name():
     assert not tscl.make_scl_decoder(32, mask, 4, node_mode="fast", device="cpu").live_width
     with pytest.warns(UserWarning, match="small-list serving mode"):
         tscl.make_scl_decoder(32, mask, 32, node_mode="fast", device="cpu")
-    # the kernels are float32 and hold lists up to 32; a single-chunk code is
+    # the kernels are float32 and hold lists up to 64; a single-chunk code is
     # one chunk-body launch, at full width
     with pytest.raises(TypeError, match="float32"):
         tscl.make_scl_decoder(32, mask, 2, torch.float64, control_impl="unroll-kernel",
@@ -519,8 +687,10 @@ def test_unported_options_raise_with_their_name():
                               device="cpu")
     assert tscl.make_scl_decoder(32, mask, 2, chunk=8, control_impl="unroll-kernel",
                                  device="cpu").live_width
+    assert tscl.make_scl_decoder(32, mask, 64, control_impl="unroll-kernel",
+                                 device="cpu").control_impl == "unroll-kernel"
     with pytest.raises(ValueError, match="list sizes"):
-        tscl.make_scl_decoder(32, mask, 64, control_impl="unroll-kernel", device="cpu")
+        tscl.make_scl_decoder(32, mask, 65, control_impl="unroll-kernel", device="cpu")
 
 
 def test_defaults_follow_the_device():

@@ -196,6 +196,54 @@ def prune_lanes(cand, w, keep):
     return _src_word(torch.where(m0.any(-1), first(m0), w + first(m1))[:, :keep], w, keep)
 
 
+def prune_wide_lanes(cand, w, keep):
+    """``scl::prune_wide`` as the warp runs it (a wide list, two paths a
+    lane): ``cand [B, 2w]`` (w <= 64) → ``(src [B, keep], word [B])``.  Lane l
+    holds paths l and l + 32 (slots 0 and 1) and counts, for its four
+    candidates c0[0], c1[0], c0[1], c1[1], those above them over the w paths
+    (the index rule written out per kind, as the kernel has it); then slot s
+    (lane s mod 32, register s // 32) intersects, bit by bit of s, the ballots
+    of the lanes whose candidate of each kind has that bit, and takes the
+    first kind that matched."""
+    B = cand.shape[0]
+    lane = np.arange(32)
+    lt = torch.as_tensor(lane)
+    c00, c10 = cand[:, :w][:, np.minimum(lane, w - 1)], cand[:, w:][:, np.minimum(lane, w - 1)]
+    c01 = cand[:, :w][:, np.minimum(lane + 32, w - 1)]
+    c11 = cand[:, w:][:, np.minimum(lane + 32, w - 1)]
+    r = [torch.zeros((B, 32), dtype=torch.int64) for _ in range(4)]
+    for k in range(min(w, 32)):
+        a, b = c00[:, k:k + 1], c10[:, k:k + 1]
+        r[0] += ((a > c00) | ((a == c00) & (k < lt))).long() + (b > c00).long()
+        r[1] += (a >= c10).long() + ((b > c10) | ((b == c10) & (k < lt))).long()
+        r[2] += (a >= c01).long() + (b > c01).long()
+        r[3] += (a >= c11).long() + (b >= c11).long()
+        if k + 32 < w:
+            a1, b1 = c01[:, k:k + 1], c11[:, k:k + 1]
+            r[0] += (a1 > c00).long() + (b1 > c00).long()
+            r[1] += (a1 >= c10).long() + (b1 > c10).long()
+            r[2] += ((a1 > c01) | ((a1 == c01) & (k < lt))).long() + (b1 > c01).long()
+            r[3] += (a1 >= c11).long() + ((b1 > c11) | ((b1 == c11) & (k < lt))).long()
+    valid = [torch.as_tensor(lane < w), torch.as_tensor(lane + 32 < w)]
+    # m[t][q]: [frame, slot lane, lane j], the lanes whose kind-q candidate has rank lane + 32 t
+    m = [[valid[q // 2][None, None, :].expand(B, 32, 32).clone() for q in range(4)]
+         for _ in range(2)]
+    for bit in range((2 * w - 1).bit_length()):
+        for q in range(4):
+            bq = valid[q // 2] & ((r[q] >> bit) & 1).bool()
+            for t in range(2):
+                want = torch.as_tensor(((lane + 32 * t) >> bit) & 1).bool()[None, :, None]
+                m[t][q] &= torch.where(want, bq[:, None, :], ~bq[:, None, :])
+    src = []
+    for t in range(2):
+        hit = torch.stack([mq.any(-1) for mq in m[t]], -1)  # [frame, slot lane, kind]
+        q = torch.where(hit.any(-1), hit.int().argmax(-1), 3)
+        mq = torch.gather(torch.stack(m[t], 2), 2, q[..., None, None].expand(B, 32, 1, 32))[:, :, 0]
+        j = torch.where(mq.any(-1), mq.int().argmax(-1), 0)  # __ffs(m) - 1
+        src.append((q % 2) * w + j + (q // 2) * 32)
+    return _src_word(torch.cat(src, 1)[:, :keep], w, keep)
+
+
 def _src_word(src, w, keep):
     """Each slot's candidate and the ballot of the slots' bit-1 flags."""
     return src, ((src >= w).long() << torch.arange(keep)).sum(dim=1)
@@ -1249,7 +1297,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_oversize():
     with pytest.raises(ValueError, match="shared memory"):
         scl_cuda._warps_per_block(scl_cuda.smem_per_frame(32, 4096), "a chunk")
     with pytest.raises(ValueError, match="list sizes"):
-        SCLBodyProgram(np.zeros(8, bool), 64)
+        SCLBodyProgram(np.zeros(8, bool), 65)
 
 
 @pytest.mark.cuda
@@ -1669,8 +1717,13 @@ def test_onehot_state_roundtrip_and_union_specs():
         assert u.mask_a == np.bitwise_or.reduce([exact[c].mask_a for c in pos])
         assert u.mask_b == np.bitwise_or.reduce([exact[c].mask_b for c in pos])
     assert len(by_key) < sched.C - 1  # some variants repeat at this code
-    with pytest.raises(ValueError, match="live width"):
-        make_step_specs(sched, live=True, union=True)
+    # live width composes at the per-position masks (scanscl.step_masks): a
+    # united mask's extra levels are dead there
+    live_united, _ = make_step_specs(sched, live=True, union=True)
+    live_exact, _ = make_step_specs(sched, live=True)
+    assert np.array_equal(live_united[0].rows, live_exact[0].rows)
+    assert [(s.mask_a, s.mask_b) for s in live_united[1:]] == [
+        (s.mask_a, s.mask_b) for s in live_exact[1:]]
     with pytest.raises(ValueError, match="fast"):
         SCLBodyProgram(np.zeros(8, bool), 4, "fast", "onehot")
 
@@ -1696,6 +1749,32 @@ def test_register_prune_rank_rule_equals_plain_prune(L):
         cand = torch.from_numpy(np.concatenate(rows + [phantom]))
         second, pm, r = tscan._prune_rank(cand, keep)
         src, word = prune_lanes(cand, w, keep)
+        assert torch.equal(src >= w, second), (L, w)
+        assert torch.equal(torch.where(src < w, src, src - w), r), (L, w)
+        assert torch.equal(torch.gather(cand, 1, src).view(torch.int32), pm.view(torch.int32))
+        assert torch.equal(word, (second.long() << torch.arange(keep)).sum(dim=1))
+
+
+@pytest.mark.parametrize("L", [33, 48, 64])
+def test_wide_prune_rank_rule_equals_plain_prune(L):
+    """The wide lists' register prune (``prune_wide_lanes``: two paths a lane,
+    four candidates a lane) against the plain prune at list L and every live
+    width w <= L (keeping min(2w, L)), on the inputs of
+    ``test_register_prune_rank_rule_equals_plain_prune``."""
+    rng = np.random.default_rng(L)
+    for w in range(1, L + 1):
+        keep = min(2 * w, L)
+        rows = [rng.integers(-2, 3, (4, 2 * w)).astype(np.float32),
+                np.full((1, 2 * w), 1.5, np.float32),
+                rng.choice(np.array([0.0, -0.0, 1.0], np.float32), (3, 2 * w)),
+                (rng.standard_normal((3, 2 * w))).astype(np.float32)]
+        phantom = rng.standard_normal((3, 2 * w)).astype(np.float32)
+        live = max(1, w // 2)
+        phantom[:, live:w] = -np.inf
+        phantom[:, w + live:] = -np.inf
+        cand = torch.from_numpy(np.concatenate(rows + [phantom]))
+        second, pm, r = tscan._prune_rank(cand, keep)
+        src, word = prune_wide_lanes(cand, w, keep)
         assert torch.equal(src >= w, second), (L, w)
         assert torch.equal(torch.where(src < w, src, src - w), r), (L, w)
         assert torch.equal(torch.gather(cand, 1, src).view(torch.int32), pm.view(torch.int32))

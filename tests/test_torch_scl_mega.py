@@ -27,7 +27,8 @@ from polarcode_and_ldpc_tpu_torch.core import rng
 from polarcode_and_ldpc_tpu_torch.models.polar.construction import (
     bit_reverse_permutation, frozen_mask_from_positions)
 from polarcode_and_ldpc_tpu_torch.models.polar.scanscl import (build_scl_schedule,
-                                                               make_scl_decoder_scan)
+                                                               make_scl_decoder_scan,
+                                                               mega_reaches)
 from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
 from polarcode_and_ldpc_tpu_torch.ops.scl_cuda import (MEGA_PARAM_ROWS, SMEM_LIMIT_BYTES,
                                                        STEP_TABLE_COLUMNS, SCLBodyProgram,
@@ -105,19 +106,61 @@ def test_mega_options_that_raise():
     _, fm = _code(64, 32)
     with pytest.raises(NotImplementedError, match="mega-interpret"):
         make_scl_decoder_scan(64, fm, 2, chunk=16, control_impl="mega-interpret", device="cpu")
-    with pytest.raises(ValueError, match="body_impl"):
-        make_scl_decoder_scan(64, fm, 2, chunk=16, control_impl="mega", body_impl="cuda",
-                              device="cpu")
+    # body_impl="cuda" under "mega" builds, as the JAX package takes
+    # body_impl="pallas" there: the one launch runs the bodies (on the CPU the
+    # plain chunk program, through the chunk-body wrapper)
+    llr = torch.from_numpy(np.random.default_rng(3).normal(1.0, 1.5, (20, 64)).astype(np.float32))
+    with_body = make_scl_decoder_scan(64, fm, 2, chunk=16, control_impl="mega", body_impl="cuda",
+                                      device="cpu")
+    plain = make_scl_decoder_scan(64, fm, 2, chunk=16, control_impl="mega", device="cpu")
+    assert with_body.control_impl == plain.control_impl == "mega"
+    got, want = with_body(llr), plain(llr)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     plan = SCLMegaPlan(build_scl_schedule(64, fm, 2, 16))
     with pytest.raises(ValueError, match="CUDA tensor"):
         scl_cuda.scl_decode_mega_cuda(torch.zeros(3, 64), plan)
-    # a configuration one thread block cannot hold raises and names its sizes:
-    # nothing degrades to another control
+    # the plan itself refuses a configuration one thread block cannot hold and
+    # names its sizes; the factory runs "unroll-kernel" there instead
+    # (test_mega_past_its_reach_runs_the_per_chunk_kernels)
     _, big = _code(4096, 2048)
     with pytest.raises(ValueError, match=r"N=4096, chunk S=2048, list L=32.*232448"):
         SCLMegaPlan(build_scl_schedule(4096, big, 32, 2048))
     with pytest.raises(ValueError, match="list sizes"):
         SCLMegaPlan(build_scl_schedule(64, fm, 64, 16))
+
+
+@pytest.mark.parametrize("N,K,S,L,control", [(1024, 512, 128, 8, "mega"),
+                                             (128, 64, 32, 64, "unroll-kernel"),
+                                             (4096, 2048, 2048, 32, "unroll-kernel")])
+def test_mega_past_its_reach_runs_the_per_chunk_kernels(N, K, S, L, control):
+    """The control "mega" on a code the one launch cannot take (a list above
+    32, or a frame's context beyond one thread block) runs "unroll-kernel",
+    chosen on the host from sizes (``mega_reaches``), at full width, as the
+    JAX package's mega control degrades past its VMEM budget; the flagship
+    stays on the one launch.  The decoder's ``control_impl`` says which runs;
+    the outputs are those of the per-chunk control."""
+    frozen, fm = _code(N, K)
+    dec = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="mega", device="cpu")
+    assert dec.control_impl == control and not dec.live_width
+    assert mega_reaches(L, S) == (control == "mega")
+    if control == "mega" or N > 128:
+        return
+    llr = torch.from_numpy((1.0 + 1.5 * np.random.default_rng(N + L).standard_normal(
+        (24, N))).astype(np.float32))
+    want = make_scl_decoder_scan(N, fm, L, chunk=S, control_impl="unroll-kernel",
+                                 live_width=False, device="cpu")(llr)
+    got = dec(llr)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # and through the entry points
+    assert tfec.CASCLDecoder(N, K, L, frozen_bits=frozen, control_impl="mega",
+                             device="cpu").control_impl == control
+    ada = tfec.AdaptiveCASCLDecoder(N, K, L, frozen_bits=frozen, scl_control_impl="mega",
+                                    device="cpu")
+    ids = torch.arange(16)
+    kw = dict(decoder="ca-scl", list_size=L, device="cpu")
+    a = make_polar_pipeline(N, K, frozen, -1.0, scl_control_impl="mega", **kw)(rng.prng_key(0), ids)
+    b = make_polar_pipeline(N, K, frozen, -1.0, **kw)(rng.prng_key(0), ids)
+    assert torch.equal(a["bit_errors"], b["bit_errors"]) and ada.scl_control_impl == control
 
 
 def test_mega_tables_hold_the_launch_arguments_of_every_chunk():
