@@ -9,7 +9,8 @@ It needs one CUDA device and ``nvcc``.  It builds the package's CUDA kernels
 from the sources in the checkout, holds each kernel against its plain PyTorch
 version on the card at the shapes the Monte-Carlo main path gives it, drives
 the main paths (``MonteCarloSimulator`` over the polar SC, the polar CA-SCL-8
-exact and with fast list nodes, the polar CA-SCL-64 (two paths a lane), the
+exact and with fast list nodes, the polar CA-SCL-64 (two paths a lane), CA-SCL-128
+and CA-SCL-256 (four and eight paths a lane), the
 LDPC BP / min-sum, the row-layered min-sum and the quasi-cyclic n=8192 pipelines, the large codes — polar
 N=4096 SCL-32, SC at N=32768, the MacKay LDPC code at n=8192 —, the adaptive
 SC-first CA-SCL serving decoder on batches of 8192 frames, exact and fast,
@@ -54,7 +55,11 @@ the chunk body, chunk step, narrow prefix and last chunk at L=64 and 48 on Gauss
 integer-tie and BSC batches, their device-memory modes, the control ``"mega"``
 past the one launch's reach, ``"mega"`` with ``body_impl="cuda"``, live width under
 united masks, the wide instances' resources, and the CA-SCL-64 CRC-16 Monte-Carlo
-held across two chunk sizes), ``onehot_kernels`` (the one-hot permutation
+held across two chunk sizes), ``xl_list`` (lists of 65–256 paths, four or eight a
+lane: the chunk body, chunk step, narrow prefix and last chunk at L=128 and 96 (S=128)
+and L=256 (S=64; S=128 in device memory) on the same batches, the XL instances'
+resources, CA-SCL-128 and CA-SCL-256 Monte-Carlo held across two chunk sizes, and the
+adaptive decoder's list pass at L=128), ``onehot_kernels`` (the one-hot permutation
 modes of the chunk body, chunk step and last chunk: every chunk pattern, the
 level stacks after every chunk position held by bit pattern, whole decodes
 under every control, other codes, integer LLRs, the control ``"kernel"`` with
@@ -198,7 +203,7 @@ SNR_CURVE_ARGS = ["--polar-n", "1024", "--ldpc-n", "1008", "--rates", "0.5",
 
 PHASES = ("device", "build", "kernels", "scl_kernels", "scl_profile", "sc_profile",
           "fast_kernels",
-          "large_kernels", "wide_list",
+          "large_kernels", "wide_list", "xl_list",
           "onehot_kernels", "polar_sc_mc", "polar_cascl_mc", "polar_fast_mc",
           "polar_scl8_controls", "ldpc_mc", "ldpc_layered_mc",
           "ldpc_qc_mc", "polar_large_mc", "polar_sc_large_mc", "ldpc_large_mc", "serving",
@@ -653,19 +658,21 @@ def body_flops(program, w=None) -> int:
 def step_cost(sched, c: int, spec) -> tuple[int, int]:
     """(bytes, operations) per frame of chunk step ``c``: every touched level
     read once and written once (``super_touch_sets`` at the spec's compose
-    masks), pendings (``L`` words each, ``L²`` for a one-hot plane) and
-    metrics, at the step's live width (``spec.lv_in``: L at full width)."""
+    masks; a position's path bits ``paths_per_lane(L)`` 32-bit words),
+    pendings (``L`` words each, ``L²`` for a one-hot plane) and metrics, at
+    the step's live width (``spec.lv_in``: L at full width)."""
     t, L, sizes = sched.t, spec.lv_in, sched.sizes
+    wb = 4 * scl_cuda.paths_per_lane(sched.L)
     masks = [frozenset(i for i in range(t) if (m >> i) & 1) for m in (spec.mask_a, spec.mask_b)]
     touch = super_touch_sets(int(sched.desc_k[c]), int(sched.asc_j[c]), t, *masks)
     rows = 1 if spec.inv or spec.k == t else L
     pend = 4 * L * (L if spec.program.onehot else 1)
     byts = (4 * sched.N * touch["needs_llr"]
             + sum(4 * rows * sizes[i + 1] for i in touch["alpha_read"])
-            + sum(4 * sizes[i + 1] for i in touch["beta_read"])
+            + sum(wb * sizes[i + 1] for i in touch["beta_read"])
             + pend * (len(touch["pend_a_in"]) + len(touch["pend_b_in"])) + 4 * L
             + sum(4 * L * sizes[i + 1] for i in touch["alpha_write"])
-            + sum(4 * sizes[i + 1] for i in touch["beta_write"])
+            + sum(wb * sizes[i + 1] for i in touch["beta_write"])
             + pend * (len(touch["pend_a_out"]) + len(touch["pend_a_eye"])
                       + len(touch["pend_b_out"]) + len(touch["pend_b_eye"])) + 4 * L)
     flops = (body_flops(spec.program, L)
@@ -676,12 +683,13 @@ def step_cost(sched, c: int, spec) -> tuple[int, int]:
 
 def last_cost(sched, spec) -> tuple[int, int]:
     """(bytes, operations) per frame of the last chunk: the parent alpha, the
-    left betas, the pendings it reads (pend_a above level t, every pend_b;
-    ``L²`` words each when one-hot), the metrics, u and the metrics out."""
+    left betas (``paths_per_lane(L)`` words a position), the pendings it
+    reads (pend_a above level t, every pend_b; ``L²`` words each when
+    one-hot), the metrics, u and the metrics out."""
     t, L, N, S = sched.t, sched.L, sched.N, sched.S
     pend = 4 * L * (L if spec.program.onehot else 1)
-    byts = (4 * (N if t == 1 else 2 * S * L) + 4 * (N - S) + pend * (t + (t > 1)) + 4 * L
-            + L * N + 4 * L)
+    byts = (4 * (N if t == 1 else 2 * S * L) + 4 * scl_cuda.paths_per_lane(L) * (N - S)
+            + pend * (t + (t > 1)) + 4 * L + L * N + 4 * L)
     flops = body_flops(spec.program) + 3 * L * S + (1 + L) * (N - S) + N * int(math.log2(N)) // 2
     return byts, flops
 
@@ -828,20 +836,28 @@ SCL_REPLACES = {
     "scl_chunk_step_wide": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:167",
     "scl_last_chunk_wide": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:356",
     "scl_chunk_body_wide": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378",
+    **{f"scl_chunk_step_xl{m}": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:167"
+       for m in ("", "_devmem")},
+    **{f"scl_last_chunk_xl{m}": "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:356"
+       for m in ("", "_devmem")},
+    **{f"scl_chunk_body_xl{m}": "polarcode_and_ldpc_tpu/ops/scl_body_pallas.py:378"
+       for m in ("", "_devmem")},
 }
 
 
 def time_scl_kernels(results: dict, sched, steps, last, rev, llr, worst: dict, reps: int,
-                     plain_reps: int) -> tuple[int, int]:
+                     plain_reps: int, suffix: "str | None" = None) -> tuple[int, int]:
     """Time K3 at every chunk position, K4, and K5 on every chunk's pattern,
     each beside its plain version, on the level stacks the decode of ``llr``
     reaches; write their rows (``_fast`` names for a fast node program,
-    ``_onehot`` for one-hot permutations).  Returns the operations of the
-    chunk steps and of the last chunk."""
+    ``_onehot`` for one-hot permutations, ``_wide`` / ``_xl`` for a wide or
+    XL list, or ``suffix``).  Returns the operations of the chunk steps and
+    of the last chunk."""
     B = llr.shape[0]
     onehot = last.program.onehot
-    suffix = ("_fast" if last.program.fast else "_onehot" if onehot
-              else "_wide" if sched.L > scl_cuda.NARROW_LIST_MAX else "")
+    if suffix is None:
+        suffix = ("_fast" if last.program.fast else "_onehot" if onehot
+                  else scl_cuda._list_suffix(sched.L))
     llr_rev = llr[:, rev].contiguous()
     state = SCLState(sched, llr_rev, "onehot" if onehot else "rank")
     step_ms, step_plain_ms, body_ms, body_plain_ms, step_bound_ms = [], [], [], [], []
@@ -1883,7 +1899,7 @@ def hold_narrow_prefix(N: int, K: int, L: int, S: int, llr: torch.Tensor, reps: 
     before = ops.launch_counts()
     scl_narrow_prefix_cuda(kern, prefix)
     torch.cuda.synchronize()
-    counter = ("scl_narrow_prefix" + ("_wide" if L > scl_cuda.NARROW_LIST_MAX else "")
+    counter = ("scl_narrow_prefix" + scl_cuda._list_suffix(L)
                + ("_devmem" if context_in_device_memory(L, S) else ""))
     launched = ops.launch_counts()[counter] - before[counter]
     if launched != prefix_launches(len(narrow)):
@@ -2036,7 +2052,7 @@ def hold_wide_list(L: int, S: int, N: int = POLAR_N, K: int = POLAR_K,
                    B: int = WIDE_HOLD_FRAMES) -> dict:
     """K5, K3 (every chunk position, the level stacks after each), K4 and
     the narrow prefix (each narrow position and the whole prefix) of a wide
-    list against their plain versions on every input of ``wide_inputs``,
+    or XL list against their plain versions on every input of ``wide_inputs``,
     bit for bit, and whole decodes under the kernel controls (live width on
     and off, the chunk body in the plain glue, ``"mega"``, which runs
     ``"unroll-kernel"`` here) against the plain decoder.  Returns the
@@ -2187,47 +2203,8 @@ def phase_wide_list(results: dict, mbps: dict, reps: int, quick: bool) -> None:
     # the main path: CA-SCL-64 Monte-Carlo, then the same frames at half the
     # chunk size; a chunk through the chunk body in the plain glue
     frozen, info, mask = polar_code()
-    k_msg = POLAR_K - 16
-    kw = dict(decoder="ca-scl", list_size=WIDE_L, crc_polynomial=WIDE_CRC, scl_chunk=SCL_S)
     sched = build_scl_schedule(POLAR_N, mask, WIDE_L, SCL_S)
-    n_narrow = sum(w < WIDE_L for w in sched.lv_in[:-1])
-    frames = 2 * WIDE_CHUNK
-    step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, WIDE_SNR_DB, device=DEV, **kw)
-    sim = MonteCarloSimulator(step, k_msg, chunk_frames=WIDE_CHUNK)
-    sim.run(WIDE_CHUNK, seed=1)  # warm-up
-    ops.reset_launch_counts()
-    res = sim.run(frames, max_errors=None, seed=0)
-    counts = record_launches(results, ["scl_narrow_prefix_wide", "scl_chunk_step_wide",
-                                       "scl_last_chunk_wide"])
-    mc_chunks = frames // WIDE_CHUNK
-    if (counts["scl_narrow_prefix_wide"], counts["scl_chunk_step_wide"],
-            counts["scl_last_chunk_wide"], counts["scl_chunk_step"],
-            counts["scl_narrow_prefix"]) != (prefix_launches(n_narrow) * mc_chunks,
-                                             (sched.C - 1 - n_narrow) * mc_chunks, mc_chunks,
-                                             0, 0):
-        raise AssertionError(f"CA-SCL-64: {mc_chunks} Monte-Carlo chunks launched {counts}")
-    half = MonteCarloSimulator(step, k_msg, chunk_frames=WIDE_CHUNK // 2).run(
-        frames, max_errors=None, seed=0)
-    if (half.frames, half.bit_errors, half.frame_errors) != (res.frames, res.bit_errors,
-                                                           res.frame_errors):
-        raise AssertionError(f"CA-SCL-64 counts {res.to_dict()} at chunk {WIDE_CHUNK}, "
-                             f"{half.to_dict()} at {WIDE_CHUNK // 2}")
-    if not (res.frames == frames and 0.0 < res.fer < 0.9):
-        raise AssertionError(f"CA-SCL-64 at {WIDE_SNR_DB} dB: unexpected result {res.to_dict()}")
-    step_body = make_polar_pipeline(POLAR_N, POLAR_K, frozen, WIDE_SNR_DB, device=DEV,
-                                    scl_control_impl="unroll-fused", scl_body_impl="cuda", **kw)
-    sim_body = MonteCarloSimulator(step_body, k_msg, chunk_frames=WIDE_CHUNK)
-    sim_body.run(WIDE_CHUNK, seed=1)
-    ops.reset_launch_counts()
-    res_body = sim_body.run(WIDE_CHUNK, max_errors=None, seed=0)
-    counts_body = record_launches(results, ["scl_chunk_body_wide"])
-    first = MonteCarloSimulator(step, k_msg, chunk_frames=WIDE_CHUNK).run(
-        WIDE_CHUNK, max_errors=None, seed=0)
-    if (counts_body["scl_chunk_body_wide"] != sched.C
-            or (res_body.bit_errors, res_body.frame_errors) != (first.bit_errors,
-                                                                first.frame_errors)):
-        raise AssertionError(f"CA-SCL-64 body_impl=cuda launched {counts_body}, counts "
-                             f"{res_body.to_dict()} against {first.to_dict()}")
+    mc = list_monte_carlo(results, WIDE_L, WIDE_CHUNK, WIDE_SNR_DB, "_wide")
 
     # the wide kernels at the main path's shape, beside their plain versions
     steps, last = make_step_specs(sched)
@@ -2247,21 +2224,226 @@ def phase_wide_list(results: dict, mbps: dict, reps: int, quick: bool) -> None:
         narrow_steps_per_decode=prefix["narrow_positions"],
         launches_per_decode=prefix["launches_per_decode"],
         note="ms, plain_ms and bound_ms per decode: the whole narrow prefix (one launch)")
-    for name in ("scl_chunk_step_wide", "scl_last_chunk_wide", "scl_chunk_body_wide",
-                 "scl_narrow_prefix_wide"):
-        results[name]["launches"] = (counts_body if name == "scl_chunk_body_wide"
-                                     else counts)[name]
+    # the launches of the main path's runs, not the timing's
+    launched = {**mc["launches"], "scl_chunk_body_wide": mc["body_impl_cuda"]["launches"]}
+    for name in launched:
+        results[name]["launches"] = launched[name]
     dec = make_scl_decoder(POLAR_N, mask, WIDE_L, chunk=SCL_S, device=DEV)
     decode_ms = {"unroll-kernel (live width)": time_ms(lambda: dec(llr), max(2, reps // 4),
                                                        warmup=1)}
-    mbps["polar_cascl64"] = res.throughput_mbps
+    mbps["polar_cascl64"] = mc["info_mbps"]
     emit("wide_list", kernels=[{k: v for k, v in results[n].items() if "per_position" not in k}
                                for n in ("scl_chunk_body_wide", "scl_chunk_step_wide",
                                          "scl_narrow_prefix_wide", "scl_last_chunk_wide")],
          holds=holds, devmem=devmem, mega_reach=reach, repairs=repairs, resources=resources,
-         monte_carlo={**result_fields(res), "snr_db": WIDE_SNR_DB, "chunk_frames": WIDE_CHUNK,
-                      "launches": counts, "half_chunk": result_fields(half),
-                      "body_impl_cuda": {**result_fields(res_body), "launches": counts_body}},
+         monte_carlo=mc, whole_decode_ms=decode_ms)
+
+
+# -- XL lists: 64 < L <= 256, four or eight paths a lane ----------------------------
+
+# this slice's path: CA-SCL-128 with CRC-16 on the N=1024, K=512 code (frozen
+# set by Bhattacharyya at 2 dB), chunk 128, 2048 frames a Monte-Carlo chunk,
+# at -2 dB (the list still errs there); CA-SCL-256 at chunk 128, whose chunk
+# context with its top plane is beyond one block (device memory), 128 frames
+# a chunk; the kernels held at (L, S, frames): L=128 and 96 at S=128 in shared
+# memory on 128 frames of each input, L=256 at S=64 in shared memory and at
+# S=128 in device memory on 64 (the plain version's all-pairs prune of 512
+# candidates is the slow part); the adaptive decoder's list pass at L=128 on
+# one batch at -0.25 dB (SC fails on a few frames, within the budget)
+XL_L, XL_CHUNK, XL_SNR_DB = 128, 2048, -2.0
+XL_DEVMEM_L, XL_DEVMEM_CHUNK = 256, 128
+XL_HOLDS = ((128, 128, 128), (96, 128, 128), (256, 64, 64), (256, 128, 64))
+XL_SERVE_BATCH, XL_SERVE_SNR_DB = 2048, -0.25
+# the XL instances at their launch plans, (L, S): four paths a lane at L=128,
+# S=128 (72,704 B a frame), eight at L=256, S=64 (76,800 B): at most 255
+# registers (their launch bounds), no local memory, the shared-memory
+# instances at least 3 resident warps per SM (three contexts an SM), the
+# device-memory ones at least 4 (one block)
+XL_RESOURCE_PLANS = ((128, 128), (256, 64))
+XL_RESOURCES = {"registers": 255, "local_bytes": 0, "warps_per_sm": 3, "devmem_warps_per_sm": 4}
+XL_SOURCE = {k: f"polarcode_and_ldpc_tpu_torch/ops/csrc/{f}.cu" for k, f in
+             (("scl_chunk_step", "scl_decode_xl"), ("scl_narrow_prefix", "scl_decode_xl"),
+              ("scl_last_chunk", "scl_last_xl"), ("scl_chunk_body", "scl_body_xl"))}
+
+
+def xl_resources() -> dict:
+    """The sixteen XL instances (K3, the narrow prefix, K4, K5; four and
+    eight paths a lane; shared and device memory) at ``XL_RESOURCE_PLANS``:
+    registers, local bytes and resident warps per SM, held to
+    ``XL_RESOURCES``."""
+    rows = {}
+    for L, S in XL_RESOURCE_PLANS:
+        t = int(np.log2(POLAR_N // S))
+        rows.update({r["kernel"]: {**r, "L": L, "S": S}
+                     for r in scl_cuda.kernel_resources(L, S, POLAR_N, t)})
+    if len(rows) != 16:
+        raise AssertionError(f"XL instances: {sorted(rows)}")
+    for name, r in rows.items():
+        warps = XL_RESOURCES["devmem_warps_per_sm" if name.endswith("_devmem") else "warps_per_sm"]
+        if (r["registers"] > XL_RESOURCES["registers"]
+                or r["local_bytes"] > XL_RESOURCES["local_bytes"]
+                or r["resident_warps_per_sm"] < warps):
+            raise AssertionError(f"{name} at L={r['L']}, S={r['S']}: {r}")
+    return rows
+
+
+def list_monte_carlo(results: dict, L: int, chunk: int, snr_db: float, m: str) -> dict:
+    """CA-SCL-``L`` (CRC-16, N=1024, S=128) at ``snr_db`` through
+    ``MonteCarloSimulator``: two chunks of ``chunk`` frames, the launches of
+    the list kernels' mode ``m`` (``"_wide"``, ``"_xl"``, ``"_xl_devmem"``)
+    counted and no other list kernel launched, the counts held equal at half
+    the chunk size, and one chunk with the chunk body in the plain glue
+    (``scl_body_impl="cuda"``) against the first chunk of the default."""
+    frozen, info, mask = polar_code()
+    k_msg = POLAR_K - 16
+    if (not m.startswith(scl_cuda._list_suffix(L))
+            or context_in_device_memory(L, SCL_S) != m.endswith("_devmem")):
+        raise AssertionError(f"L={L}, S={SCL_S}: not the {m} instances")
+    kw = dict(decoder="ca-scl", list_size=L, crc_polynomial=WIDE_CRC, scl_chunk=SCL_S)
+    sched = build_scl_schedule(POLAR_N, mask, L, SCL_S)
+    n_narrow = sum(w < L for w in sched.lv_in[:-1])
+    frames = 2 * chunk
+    step = make_polar_pipeline(POLAR_N, POLAR_K, frozen, snr_db, device=DEV, **kw)
+    sim = MonteCarloSimulator(step, k_msg, chunk_frames=chunk)
+    sim.run(chunk, seed=1)  # warm-up
+    ops.reset_launch_counts()
+    res = sim.run(frames, max_errors=None, seed=0)
+    keys = ["scl_narrow_prefix" + m, "scl_chunk_step" + m, "scl_last_chunk" + m]
+    counts = record_launches(results, keys)
+    mc_chunks = frames // chunk
+    if ([counts[k] for k in keys] != [prefix_launches(n_narrow) * mc_chunks,
+                                      (sched.C - 1 - n_narrow) * mc_chunks, mc_chunks]
+            or any(v for k, v in counts.items() if k.startswith("scl_") and k not in keys)):
+        raise AssertionError(f"CA-SCL-{L}: {mc_chunks} Monte-Carlo chunks launched {counts}")
+    half = MonteCarloSimulator(step, k_msg, chunk_frames=chunk // 2).run(
+        frames, max_errors=None, seed=0)
+    if (half.frames, half.bit_errors, half.frame_errors) != (res.frames, res.bit_errors,
+                                                           res.frame_errors):
+        raise AssertionError(f"CA-SCL-{L} counts {res.to_dict()} at chunk {chunk}, "
+                             f"{half.to_dict()} at {chunk // 2}")
+    if not (res.frames == frames and 0.0 < res.fer < 0.9):
+        raise AssertionError(f"CA-SCL-{L} at {snr_db} dB: unexpected result {res.to_dict()}")
+    step_body = make_polar_pipeline(POLAR_N, POLAR_K, frozen, snr_db, device=DEV,
+                                    scl_control_impl="unroll-fused", scl_body_impl="cuda", **kw)
+    ops.reset_launch_counts()
+    res_body = MonteCarloSimulator(step_body, k_msg, chunk_frames=chunk).run(
+        chunk, max_errors=None, seed=0)
+    counts_body = record_launches(results, ["scl_chunk_body" + m])
+    first = MonteCarloSimulator(step, k_msg, chunk_frames=chunk).run(chunk, max_errors=None,
+                                                                     seed=0)
+    if (counts_body["scl_chunk_body" + m] != sched.C
+            or (res_body.bit_errors, res_body.frame_errors) != (first.bit_errors,
+                                                                first.frame_errors)):
+        raise AssertionError(f"CA-SCL-{L} body_impl=cuda launched {counts_body}, counts "
+                             f"{res_body.to_dict()} against {first.to_dict()}")
+    return {**result_fields(res), "L": L, "snr_db": snr_db, "chunk_frames": chunk,
+            "launches": {k: counts[k] for k in keys}, "half_chunk": result_fields(half),
+            "body_impl_cuda": {**result_fields(res_body),
+                               "launches": counts_body["scl_chunk_body" + m]}}
+
+
+def xl_serving() -> dict:
+    """``AdaptiveCASCLDecoder`` with a list of ``XL_L`` on one batch: its
+    list pass runs the XL instances, and the output equals, frame for frame,
+    the SC result where its CRC passes and the plain CA-SCL-128 result
+    elsewhere."""
+    frozen, info, mask = polar_code()
+    k_msg = POLAR_K - 16
+    enc = fec.PolarEncoder(POLAR_N, POLAR_K, frozen_bits=frozen, use_crc=True,
+                           crc_polynomial=WIDE_CRC, device=DEV)
+    msgs = np.random.default_rng(77).integers(0, 2, (XL_SERVE_BATCH, k_msg))
+    llr = fec.AWGNChannel(XL_SERVE_SNR_DB, seed=78, device=DEV).transmit(
+        enc.encode(msgs)).contiguous()
+    info_idx = torch.as_tensor(info, dtype=torch.int64, device=DEV)
+    crc = CRCCodec(k_msg, WIDE_CRC, DEV)
+    u_sc = make_sc_decoder(POLAR_N, mask, impl="unrolled", device=DEV)(llr)
+    want = u_sc[:, info_idx].clone()
+    fail = torch.nonzero(~crc.check(want))[:, 0]
+    dec = fec.AdaptiveCASCLDecoder(POLAR_N, POLAR_K, XL_L, frozen_bits=frozen,
+                                   crc_polynomial=WIDE_CRC, device=DEV)
+    if not 0 < len(fail) <= dec._budget(XL_SERVE_BATCH):
+        raise AssertionError(f"adaptive L={XL_L}: {len(fail)} SC failures")
+    plain = make_scl_decoder(POLAR_N, mask, XL_L, control_impl="unroll-fused", live_width=False,
+                             device=DEV)
+    u0, m0 = plain(llr[fail])
+    want[fail] = select_best_path(u0[..., info_idx], m0, crc)
+    ops.reset_launch_counts()
+    got, stats = dec.decode(llr, return_stats=True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if not torch.equal(got, want):
+        raise AssertionError(f"adaptive L={XL_L}: {int((got != want).any(dim=1).sum())} frames "
+                             "differ from SC-where-CRC-passes-else-CA-SCL")
+    if counts.get("scl_last_chunk_xl") != 1 or counts.get("sc_decode") != 1:
+        raise AssertionError(f"adaptive L={XL_L} launched {counts}")
+    return {"B": XL_SERVE_BATCH, "snr_db": XL_SERVE_SNR_DB, "list_size": XL_L,
+            "scl_fallbacks": stats["scl_fallbacks"], "launches": counts,
+            "equals_sc_else_cascl": True}
+
+
+def phase_xl_list(results: dict, mbps: dict, reps: int, quick: bool) -> None:
+    """This slice: list decoding at L = 65-256 on the card (four and eight
+    paths a lane).  K5 / K3 / K4 / the narrow prefix at ``XL_HOLDS`` bit for
+    bit against their plain versions on Gaussian, integer-tie and BSC batches
+    (the level stacks after every chunk, whole decodes under the kernel
+    controls), the device-memory modes at L=256, S=128; the XL instances'
+    resources; the main path (CA-SCL-128, CRC-16, N=1024) through
+    MonteCarloSimulator, its counts held across two chunk sizes, and
+    CA-SCL-256 in device memory the same way; the adaptive decoder's list
+    pass at L=128; the XL kernels timed at the main paths' shapes."""
+    t0 = time.perf_counter()
+    holds = []
+    for L, S, B in XL_HOLDS:
+        ops.reset_launch_counts()
+        hold = hold_wide_list(L, S, B=B)
+        hold["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+        m = "_xl_devmem" if context_in_device_memory(L, S) else "_xl"
+        if not all(hold["launches"].get(base + m) for base in XL_SOURCE):
+            raise AssertionError(f"the hold at L={L}, S={S} launched {hold['launches']}")
+        holds.append(hold)
+    t_holds = time.perf_counter() - t0
+    resources = xl_resources()
+    mc = list_monte_carlo(results, XL_L, XL_CHUNK, XL_SNR_DB, "_xl")
+    mc_devmem = list_monte_carlo(results, XL_DEVMEM_L, XL_DEVMEM_CHUNK, XL_SNR_DB, "_xl_devmem")
+    serving = xl_serving()
+    mbps["polar_cascl128"] = mc["info_mbps"]
+    mbps["polar_cascl256"] = mc_devmem["info_mbps"]
+
+    # the XL kernels at the main paths' shapes, beside their plain versions
+    frozen, _, mask = polar_code()
+    rev = torch.as_tensor(np.asarray(bit_reverse_permutation(POLAR_N)), dtype=torch.int64,
+                          device=DEV)
+    rows = {}
+    for L, B, m in ((XL_L, XL_CHUNK, "_xl"), (XL_DEVMEM_L, XL_DEVMEM_CHUNK // 2, "_xl_devmem")):
+        sched = build_scl_schedule(POLAR_N, mask, L, SCL_S)
+        steps, last = make_step_specs(sched)
+        llr = wide_inputs(frozen, B)["2.0 dB"]
+        worst = {k: max(h["worst"][k] for h in holds) for k in ("step", "body")}
+        time_scl_kernels(results, sched, steps, last, rev, llr, worst, max(2, reps // 8), 1,
+                         suffix=m)
+        prefix = hold_narrow_prefix(POLAR_N, POLAR_K, L, SCL_S, llr, max(2, reps // 8), crc=True)
+        results["scl_narrow_prefix" + m] = kernel_row(
+            "scl_narrow_prefix" + m, "polarcode_and_ldpc_tpu/ops/scl_superchunk_pallas.py:175",
+            prefix["prefix_ms"], prefix["plain_ms"], prefix["bytes"], prefix["flops"], 0.0,
+            shape={"frames": B, "N": POLAR_N, "S": SCL_S, "L": L},
+            device_ms=prefix["prefix_device"],
+            single_row_launches_ms=prefix["single_row_launches_ms"],
+            full_width_ms=prefix["full_width_ms"], positions=prefix["positions"],
+            narrow_steps_per_decode=prefix["narrow_positions"],
+            launches_per_decode=prefix["launches_per_decode"],
+            note="ms, plain_ms and bound_ms per decode: the whole narrow prefix (one launch)")
+        # the launches of the main path's runs (list_monte_carlo), not the timing's
+        run = mc if m == "_xl" else mc_devmem
+        launched = {**run["launches"], "scl_chunk_body" + m: run["body_impl_cuda"]["launches"]}
+        for base, source in XL_SOURCE.items():
+            results[base + m].update(source=source, launches=launched[base + m])
+            rows[base + m] = {k: v for k, v in results[base + m].items()
+                              if "per_position" not in k}
+    dec = make_scl_decoder(POLAR_N, mask, XL_L, chunk=SCL_S, device=DEV)
+    llr = wide_inputs(frozen, XL_CHUNK)["2.0 dB"]
+    decode_ms = {"unroll-kernel (live width), L=128": time_ms(lambda: dec(llr), 2, warmup=1)}
+    emit("xl_list", kernels=list(rows.values()), holds=holds, hold_seconds=round(t_holds, 1),
+         resources=resources, monte_carlo=mc, monte_carlo_devmem=mc_devmem, serving=serving,
          whole_decode_ms=decode_ms)
 
 
@@ -4422,6 +4604,7 @@ def main() -> int:
         "fast_kernels": lambda: phase_fast_kernels(results, reps, q),
         "large_kernels": lambda: phase_large_kernels(results, reps),
         "wide_list": lambda: phase_wide_list(results, mbps, reps, q),
+        "xl_list": lambda: phase_xl_list(results, mbps, reps, q),
         "onehot_kernels": lambda: phase_onehot_kernels(results, reps, q),
         "polar_sc_mc": lambda: phase_polar_sc_mc(
             results, mbps, 4 * POLAR_CHUNK if q else 16 * POLAR_CHUNK),

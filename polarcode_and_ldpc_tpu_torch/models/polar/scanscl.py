@@ -971,8 +971,12 @@ def make_scl_decoder_scan(N: int, frozen_mask: np.ndarray, list_size: int,
       ``control_impl`` says which runs.  The kernel keeps rank vectors
       whatever ``perm_impl`` says (equal outputs).
 
-    The kernels take lists up to 64: above 32 (a wide list) with exact nodes
-    and rank vectors (``ops/scl_cuda.py``).
+    The kernels take lists up to 256: above 32 with exact nodes and rank
+    vectors, two paths a lane up to 64 (the ``_wide`` instances), four up to
+    128 and eight up to 256 (the ``_xl`` instances; ``ops/scl_cuda.py``); a
+    context beyond one block runs in device memory (L = 256 at chunk 128).
+    Fast nodes and one-hot permutations above 32, and lists above 256, raise
+    ``ValueError`` on a kernel path; the plain controls take any list.
 
     ``body_impl``: ``"torch"`` (the plain chunk bodies) or ``"cuda"`` (the
     ``scl_chunk_body`` kernel inside the plain glue of ``"unroll-fused"``,

@@ -36,13 +36,15 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # the list kernels are four sources over one header (scl_kernels.cuh), so that
-# their builds run side by side
+# their builds run side by side, and their XL-list instances (64 < L <= 256)
+# three sources more, built beside them
 SOURCES = ("sc_decode", "bp_decode", "scl_decode", "scl_body", "scl_last", "scl_mega",
-           "fastnode", "sublane_roll")
+           "scl_decode_xl", "scl_body_xl", "scl_last_xl", "fastnode", "sublane_roll")
 _SCL_HEADERS = ("scl_kernels.cuh", "scl_device.cuh", "fastnode_device.cuh")
 # headers a source includes: it is rebuilt when one of them is newer, too
 HEADERS = {"scl_decode": _SCL_HEADERS, "scl_body": _SCL_HEADERS, "scl_last": _SCL_HEADERS,
-           "scl_mega": _SCL_HEADERS, "fastnode": ("fastnode_device.cuh",)}
+           "scl_mega": _SCL_HEADERS, "scl_decode_xl": _SCL_HEADERS, "scl_body_xl": _SCL_HEADERS,
+           "scl_last_xl": _SCL_HEADERS, "fastnode": ("fastnode_device.cuh",)}
 # variant library -> (source, extra nvcc flags)
 VARIANTS = {"scl_decode_profile": ("scl_decode", ("-DSCL_PROFILE",)),
             "scl_body_profile": ("scl_body", ("-DSCL_PROFILE",)),

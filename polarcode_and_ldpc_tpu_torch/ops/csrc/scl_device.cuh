@@ -1311,4 +1311,343 @@ __device__ __forceinline__ void chunk_body_wide(const CtxWide& c, float* a0,
   }
 }
 
+
+// ---- XL LISTS (65 <= L <= 256): four or eight paths a lane ----------------
+//
+// A list above 64 runs at kP = 4 (L <= 128) or kP = 8 (L <= 256) paths a
+// lane (every L <= 64 keeps the instances above, unchanged): lane l holds
+// paths l + 32 s in slot s of its pm[kP] and R[kP] (a slot whose path is not
+// live holds nothing that is read), and a position's path bits are kP 32-bit
+// words, bit b of word s = path 32 s + b, at beta[kP m + s] for position m.
+// Exact node programs on rank vectors only (F, G, COMBINE, rate-0, REP,
+// leaves), as for the wide lists.  The float expressions and their order are
+// chunk_body's, the candidates' order and ties prune's, so the body equals the
+// plain version bit for bit.
+//
+// The prune (prune_xl) does not rank by ballots over rank bits, whose table
+// grows as kP^2 (prune_wide's m[2][4] spilled until it was rewritten with
+// selects): every lane writes its 2 kP candidates into a per-frame scratch of
+// 2L words of the context, counts each one's rank by a loop over the 2w
+// scratch entries (broadcast reads), and the candidate of rank r < keep
+// writes its metric, path and bit into slot r of the scratch; slot lane + 32 s
+// reads entry lane + 32 s back.  O(w) per candidate, exact under the tie rule.
+// A rank apply on a position's kP words (COMBINE, the ascend) is kP ballots,
+// one per slot, each lane voting its path's source bit.
+
+// The context of an XL list: alpha as chunk_body's, beta S positions of kP
+// words, Rstack (log2 S + 1) x L saved rank vectors, scr the prune's 2L words;
+// each region rounded up to four words (16-byte aligned slices).
+template <int kP>
+struct CtxXl {
+  float* alpha;
+  uint32_t* beta;
+  int* Rstack;
+  float* scr;
+  int L, S, lane;
+};
+
+__host__ __device__ inline int ctx_words_xl(int L, int S, int lgS, int kP) {
+  return round4(S * L) + kP * S + round4(L * (lgS + 1)) + round4(2 * L);
+}
+
+template <int kP>
+__device__ __forceinline__ CtxXl<kP> make_ctx_xl(float* base, int L, int S, int lgS, int lane) {
+  CtxXl<kP> c;
+  c.alpha = base;
+  c.beta = reinterpret_cast<uint32_t*>(base + round4(S * L));
+  c.Rstack = reinterpret_cast<int*>(c.beta + kP * S);
+  c.scr = reinterpret_cast<float*>(c.Rstack + round4(L * (lgS + 1)));
+  c.L = L;
+  c.S = S;
+  c.lane = lane;
+  return c;
+}
+
+template <int kP>
+__device__ __forceinline__ float* depth_ptr_xl(const CtxXl<kP>& c, float* a0, int d) {
+  return d != 0 ? c.alpha + c.L * (c.S - ((2 * c.S) >> d)) : a0;
+}
+
+// path p's bit of the position whose kP words start at w
+template <int kP>
+__device__ __forceinline__ uint32_t path_bit_xl(const uint32_t* w, int p) {
+  return (w[p >> 5] >> (p & 31)) & 1u;
+}
+
+// n positions' kP words, the same at each: `mine` is word lane mod kP (a
+// lane keeps the one word it stores: the ballots' kP words held in an array
+// and selected by lane went to local memory), lanes q < n kP storing word q
+// mod kP (the warp's stride is a multiple of kP)
+__device__ __forceinline__ void fill_words_xl(uint32_t* dst, int n, int kP, uint32_t mine,
+                                              int lane) {
+  for (int q = lane; q < n * kP; q += kWarp) dst[q] = mine;
+}
+
+// dst = (src through the rank vector r) XOR right, for n positions of kP
+// words: bit p of position i's result is bit r[p] of src's position i, for
+// the live paths p < w (slot s of each lane: r[s], path lane + 32 s); kP
+// ballots a position, lanes q < kP storing word q.  dst may be src.
+template <int kP>
+__device__ __forceinline__ void perm_xor_xl(uint32_t* dst, const uint32_t* src,
+                                            const uint32_t* right, const int (&r)[kP], int w,
+                                            int n, int lane) {
+  for (int i = 0; i < n; ++i) {
+    uint32_t mine = 0;  // word lane of the position (lanes < kP)
+#pragma unroll
+    for (int s = 0; s < kP; ++s) {
+      const bool live = lane + kWarp * s < w;
+      const uint32_t b =
+          __ballot_sync(kFull, live && path_bit_xl<kP>(src + kP * i, live ? r[s] : 0));
+      if (lane == s) mine = b;
+    }
+    if (lane < kP) dst[kP * i + lane] = mine ^ right[kP * i + lane];
+  }
+}
+
+// Stable top-`keep` prune of the 2w candidates of w <= L live paths: c0[s] /
+// c1[s] are the bit-0 / bit-1 candidates (indices p and w + p) of path p =
+// lane + 32 s, read only where p < w.  Candidate i goes before candidate j iff
+// its metric is larger, or equal with i < j, as in prune.  Afterwards slot q
+// < keep (lane q & 31, register q >> 5) holds the q-th candidate's metric in
+// pm and its path in R (the others keep theirs); returns word lane mod kP of
+// the slots' bit-1 flags (word s: slots 32 s .. 32 s + 31).  scr: the
+// context's 2L words.
+template <int kP>
+__device__ __forceinline__ uint32_t prune_xl(const float (&c0)[kP], const float (&c1)[kP],
+                                             int w, int keep, int L, int lane, float* scr,
+                                             float (&pm)[kP], int (&R)[kP]) {
+#pragma unroll
+  for (int s = 0; s < kP; ++s) {
+    const int p = lane + kWarp * s;
+    if (p < w) {
+      scr[p] = c0[s];
+      scr[w + p] = c1[s];
+    }
+  }
+  __syncwarp();
+  int r0[kP], r1[kP];
+#pragma unroll
+  for (int s = 0; s < kP; ++s) r0[s] = r1[s] = 0;
+  for (int j = 0; j < 2 * w; ++j) {
+    const float x = scr[j];  // one address: a broadcast
+#pragma unroll
+    for (int s = 0; s < kP; ++s) {
+      const int p = lane + kWarp * s;
+      r0[s] += x > c0[s] || (x == c0[s] && j < p) ? 1 : 0;
+      r1[s] += x > c1[s] || (x == c1[s] && j < w + p) ? 1 : 0;
+    }
+  }
+  __syncwarp();  // every rank counted before the slots overwrite the candidates
+  int* from = reinterpret_cast<int*>(scr) + L;  // slot q's path, | 1 << 16 for bit 1
+#pragma unroll
+  for (int s = 0; s < kP; ++s) {
+    const int p = lane + kWarp * s;
+    if (p < w) {
+      if (r0[s] < keep) {
+        scr[r0[s]] = c0[s];
+        from[r0[s]] = p;
+      }
+      if (r1[s] < keep) {
+        scr[r1[s]] = c1[s];
+        from[r1[s]] = p | (1 << 16);
+      }
+    }
+  }
+  __syncwarp();
+  uint32_t mine = 0;
+#pragma unroll
+  for (int s = 0; s < kP; ++s) {
+    const int q = lane + kWarp * s;
+    bool one = false;
+    if (q < keep) {
+      const int v = from[q];
+      pm[s] = scr[q];
+      R[s] = v & 0xffff;
+      one = (v >> 16) != 0;
+    }
+    const uint32_t b = __ballot_sync(kFull, one);
+    if ((lane & (kP - 1)) == s) mine = b;
+  }
+  __syncwarp();  // the slots read before the next prune writes
+  return mine;
+}
+
+// Branch + stable top-L prune (kNarrow: keeping min(2w, L)) of the paths of
+// the lane's slots: a[s] is the leaf LLR of path lane + 32 s; returns prune_xl's
+// word.
+template <bool kNarrow, int kP>
+__device__ __forceinline__ uint32_t info_leaf_xl(const CtxXl<kP>& c, const float (&a)[kP],
+                                                 int w, float (&pm)[kP], int (&R)[kP]) {
+  float c0[kP], c1[kP];
+#pragma unroll
+  for (int s = 0; s < kP; ++s) {
+    float d0, d1;
+    d0_d1(a[s], d0, d1);
+    c0[s] = pm[s] + d0;
+    c1[s] = pm[s] + d1;
+  }
+  return prune_xl<kP>(c0, c1, w, kNarrow ? min(2 * w, c.L) : c.L, c.L, c.lane, c.scr, pm, R);
+}
+
+// The chunk body of an XL list (chunk_body's ops, exact nodes): the metrics
+// and the rank vector in the slots (pm[s], R[s]: path lane + 32 s), the
+// packed partial sums in c.beta as kP words a position.  kNarrow: from w_in
+// live paths, doubling at every info leaf.
+template <bool kNarrow, int kP>
+__device__ __forceinline__ void chunk_body_xl(const CtxXl<kP>& c, float* a0,
+                                              const int4* __restrict__ prog, int n_ops, int has_R,
+                                              int w_in, float (&pm)[kP], int (&R)[kP]) {
+  const int L = c.L, lane = c.lane;
+  int w = kNarrow ? w_in : L;
+  const bool vec = (((uintptr_t)a0 | (uintptr_t)c.alpha) & 15u) == 0;
+  for (int pc = 0; pc < n_ops; ++pc) {
+    const int4 op = __ldg(prog + pc);
+    const int d = op.y, sz = op.z, off = op.w;
+    switch (op.x & 0xff) {
+      case OP_F: {
+        const float* src = depth_ptr_xl(c, a0, d);
+        float* dst = depth_ptr_xl(c, a0, d + 1);
+        const int lg = ilog2(sz);
+        if (vec && sz >= 4) {
+          for (int q = lane; q < (w * sz) >> 2; q += kWarp) {
+            const int idx = q << 2, l = idx >> lg, i = idx & (sz - 1);
+            const float4 x = *reinterpret_cast<const float4*>(src + l * 2 * sz + i);
+            const float4 y = *reinterpret_cast<const float4*>(src + l * 2 * sz + sz + i);
+            *reinterpret_cast<float4*>(dst + idx) = make_float4(
+                f_minsum(x.x, y.x), f_minsum(x.y, y.y), f_minsum(x.z, y.z), f_minsum(x.w, y.w));
+          }
+          break;
+        }
+        for (int idx = lane; idx < w * sz; idx += kWarp) {
+          const int l = idx >> lg, i = idx & (sz - 1);
+          dst[idx] = f_minsum(src[l * 2 * sz + i], src[l * 2 * sz + sz + i]);
+        }
+        break;
+      }
+      case OP_G: {
+        const float* src = depth_ptr_xl(c, a0, d);
+        float* dst = depth_ptr_xl(c, a0, d + 1);
+        int* saved = c.Rstack + d * L;
+        const bool rl = op.x & kFlagRL;
+        if (rl) {
+#pragma unroll
+          for (int s = 0; s < kP; ++s)
+            if (lane + kWarp * s < w) saved[lane + kWarp * s] = R[s];
+          __syncwarp();
+        }
+        const uint32_t* bits = c.beta + kP * off;
+        const int lg = ilog2(sz);
+        if (vec && sz >= 4) {
+          for (int q = lane; q < (w * sz) >> 2; q += kWarp) {
+            const int idx = q << 2, l = idx >> lg, i = idx & (sz - 1);
+            const int r = rl ? saved[l] : l;
+            const float4 x = *reinterpret_cast<const float4*>(src + r * 2 * sz + i);
+            const float4 y = *reinterpret_cast<const float4*>(src + r * 2 * sz + sz + i);
+            const uint32_t* b = bits + kP * i;
+            *reinterpret_cast<float4*>(dst + idx) =
+                make_float4(y.x + (1.0f - 2.0f * (float)path_bit_xl<kP>(b, l)) * x.x,
+                            y.y + (1.0f - 2.0f * (float)path_bit_xl<kP>(b + kP, l)) * x.y,
+                            y.z + (1.0f - 2.0f * (float)path_bit_xl<kP>(b + 2 * kP, l)) * x.z,
+                            y.w + (1.0f - 2.0f * (float)path_bit_xl<kP>(b + 3 * kP, l)) * x.w);
+          }
+          break;
+        }
+        for (int idx = lane; idx < w * sz; idx += kWarp) {
+          const int l = idx >> lg, i = idx & (sz - 1);
+          const int r = rl ? saved[l] : l;
+          const float sgn = 1.0f - 2.0f * (float)path_bit_xl<kP>(bits + kP * i, l);
+          dst[idx] = src[r * 2 * sz + sz + i] + sgn * src[r * 2 * sz + i];
+        }
+        break;
+      }
+      case OP_COMBINE: {
+        const bool rl = op.x & kFlagRL, rr = op.x & kFlagRR;
+        uint32_t* left = c.beta + kP * off;
+        const uint32_t* right = left + kP * sz;
+        if (rr) {
+          perm_xor_xl<kP>(left, left, right, R, w, sz, lane);
+        } else {
+          for (int q = lane; q < sz * kP; q += kWarp) left[q] ^= right[q];
+        }
+        if (rl) {  // R_l[R_r[l]]
+          const int* rs = c.Rstack + d * L;
+#pragma unroll
+          for (int s = 0; s < kP; ++s)
+            if (lane + kWarp * s < w) R[s] = rs[rr ? R[s] : lane + kWarp * s];
+        }
+        break;
+      }
+      case OP_RATE0: {
+        float* z = depth_ptr_xl(c, a0, d);
+        zero_dec_inplace(z, w * sz, sz, lane);
+        d0_inplace(z, w * sz, lane);
+        for (int s = 1; s < sz; s <<= 1) {
+          for (int q = lane; q < (w * sz) / (2 * s); q += kWarp) {
+            const int p = q * 2 * s;
+            z[p] = z[p] + z[p + s];
+          }
+          __syncwarp();
+        }
+#pragma unroll
+        for (int s = 0; s < kP; ++s)
+          if (lane + kWarp * s < w) pm[s] = pm[s] + z[(lane + kWarp * s) * sz];
+        for (int q = lane; q < sz * kP; q += kWarp) c.beta[kP * off + q] = 0u;
+        break;
+      }
+      case OP_LEAF: {
+        const float* a = depth_ptr_xl(c, a0, d);
+        float leaf[kP];
+#pragma unroll
+        for (int s = 0; s < kP; ++s) leaf[s] = lane + kWarp * s < w ? a[lane + kWarp * s] : 0.0f;
+        const uint32_t word = info_leaf_xl<kNarrow, kP>(c, leaf, w, pm, R);
+        fill_words_xl(c.beta + kP * off, 1, kP, word, lane);
+        if (kNarrow) w = min(2 * w, L);
+        break;
+      }
+      case OP_REP: {
+        float* z = depth_ptr_xl(c, a0, d);
+        const int lgM = ilog2(sz);
+        zero_dec_inplace(z, w * sz, sz, lane);
+        float leaf[kP];
+#pragma unroll
+        for (int s = 0; s < kP; ++s) {
+          const int p = lane + kWarp * s;
+          leaf[s] = p < w ? z[p * sz + sz - 1] : 0.0f;
+        }
+        __syncwarp();
+        d0_inplace(z, w * sz, lane);
+        for (int k = 0; (sz >> k) > 2; ++k) {
+          const int pairs = (sz >> (k + 1)) - 1;  // per path
+          for (int q = lane; q < w * pairs; q += kWarp) {
+            const int l = q / pairs, i = q - l * pairs;
+            const int p = l * sz + (i << (k + 1));
+            z[p] = z[p] + z[p + (1 << k)];
+          }
+          __syncwarp();
+        }
+#pragma unroll
+        for (int s = 0; s < kP; ++s) {
+          const int path = lane + kWarp * s;
+          if (path < w) {
+            float p = pm[s];
+            for (int j = 1; j <= lgM; ++j) p = p + z[path * sz + sz - (sz >> (j - 1))];
+            pm[s] = p;
+          }
+        }
+        const uint32_t word = info_leaf_xl<kNarrow, kP>(c, leaf, w, pm, R);
+        fill_words_xl(c.beta + kP * off, sz, kP, word, lane);
+        if (kNarrow) w = min(2 * w, L);
+        break;
+      }
+      default:
+        break;
+    }
+    __syncwarp();
+  }
+  if (!has_R) {
+#pragma unroll
+    for (int s = 0; s < kP; ++s) R[s] = lane + kWarp * s;
+  }
+}
+
 }  // namespace scl

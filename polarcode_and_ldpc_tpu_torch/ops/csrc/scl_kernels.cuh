@@ -1325,6 +1325,406 @@ __global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, kDev ? 4 : 2)
   SCL_PROF_FLUSH(c);
 }
 
+// ---- the XL-list instances (65 <= L <= 256, four or eight paths a lane) --
+//
+// K5, K3, the narrow prefix and K4 for an XL list: the kernels above with the
+// XL device functions (chunk_body_xl, prune_xl, perm_xor_xl) on the XL context
+// (ctx_words_xl) and kP 32-bit words of path bits a position in the state
+// (beta [B][N-S][kP]).  Exact node programs on rank vectors only.  A frame's
+// context is large (72,704 B at L=128, S=128; 76,800 B at L=256, S=64), so
+// shared memory holds one to three frames an SM, and the launch bounds let
+// the instances take up to 255 registers.  Built apart from the other
+// instances (scl_body_xl.cu, scl_decode_xl.cu, scl_last_xl.cu: three more
+// nvcc processes beside the others), so that the L <= 64 instances keep their
+// build time and their code.
+
+// The level stacks of one frame of an XL list: as StacksT, beta kP words a
+// position.
+template <int kP>
+struct StacksXl {
+  float* A;
+  uint32_t* Bt;
+  int* PA;
+  int* PB;
+  int N, L;
+  __device__ __forceinline__ float* alpha(int l) const {
+    return A + (size_t)L * (N - (N >> (l - 1)));
+  }
+  __device__ __forceinline__ uint32_t* beta(int l) const {
+    return Bt + (size_t)kP * (N - (N >> (l - 1)));
+  }
+  __device__ __forceinline__ int* pend_a(int l) const { return PA + (l - 1) * L; }
+  __device__ __forceinline__ int* pend_b(int l) const { return PB + (l - 1) * L; }
+};
+
+template <int kP>
+__device__ __forceinline__ StacksXl<kP> frame_stacks_xl(const Geometry& g, int frame,
+                                                        float* alpha, uint32_t* beta,
+                                                        int* pend_a, int* pend_b) {
+  StacksXl<kP> s;
+  s.A = alpha + (size_t)frame * (size_t)(g.L * (g.N - g.S));
+  s.Bt = beta + (size_t)frame * (size_t)(kP * (g.N - g.S));
+  s.PA = pend_a + (size_t)frame * (size_t)(g.t * g.L);
+  s.PB = pend_b + (size_t)frame * (size_t)(g.t * g.L);
+  s.N = g.N;
+  s.L = g.L;
+  return s;
+}
+
+// The identity on the first w entries of a pending, kP entries a lane.
+template <int kP>
+__device__ __forceinline__ void set_identity_xl(int* p, int w, int lane) {
+#pragma unroll
+  for (int s = 0; s < kP; ++s)
+    if (lane + kWarp * s < w) p[lane + kWarp * s] = lane + kWarp * s;
+}
+
+// descend_g of an XL list (rank vectors): path r's left bit is bit r & 31 of
+// word r >> 5 of the position.
+template <int kP>
+__device__ __forceinline__ void descend_g_xl(const Geometry& g, const StacksXl<kP>& st,
+                                             const float* x, int lo, bool inv, float* dst,
+                                             int lane, int w, int one_a, int one_b) {
+  const int M = g.N >> lo, lgM = ilog2(M);
+  const uint32_t* bl = st.beta(lo);
+  const int* pb = st.pend_b(lo);
+  const bool pb_one = (one_b >> (lo - 1)) & 1;
+  const float* parent = lo == 1 ? x : st.alpha(lo - 1);
+  const int* pa = lo == 1 ? nullptr : st.pend_a(lo - 1);
+  const bool pa_one = lo != 1 && ((one_a >> (lo - 2)) & 1);
+  const bool through = lo != 1 && !inv;
+  for (int idx = lane; idx < w * M; idx += kWarp) {
+    const int l = idx >> lgM, i = idx & (M - 1);
+    const float* src = parent;
+    if (through) src += (size_t)pa[pa_one ? 0 : l] * 2 * M;
+    const float sgn =
+        1.0f - 2.0f * (float)path_bit_xl<kP>(bl + (size_t)kP * i, pb[pb_one ? 0 : l]);
+    dst[idx] = src[M + i] + sgn * src[i];
+  }
+}
+
+// step_descend of an XL list.
+template <bool kNarrow, int kP>
+__device__ __forceinline__ void step_descend_xl(int lane, const Geometry& g,
+                                                const StacksXl<kP>& st, const float* x,
+                                                const StepArgs& a) {
+  const int N = g.N, t = g.t;
+  const int wi = kNarrow ? a.lv_in : g.L;
+  const int one_a = kNarrow ? a.one_a : 0, one_b = kNarrow ? a.one_b : 0;
+  if (a.k == t) {
+    // chunk 0: the planes are path-invariant, compute once, store lv_in rows
+    for (int l = 1; l <= t; ++l) {
+      const int M = N >> l;
+      const float* src = l == 1 ? x : st.alpha(l - 1);  // row 0 of the level above
+      float* dst = st.alpha(l);
+      for (int i = lane; i < M; i += kWarp) {
+        const float v = f_minsum(src[i], src[M + i]);
+        for (int r = 0; r < wi; ++r) dst[(size_t)r * M + i] = v;
+      }
+      set_identity_xl<kP>(st.pend_a(l), wi, lane);
+      __syncwarp();
+    }
+    return;
+  }
+  const int lo = t - a.k;
+  descend_g_xl<kP>(g, st, x, lo, a.inv != 0, st.alpha(lo), lane, wi, one_a, one_b);
+  set_identity_xl<kP>(st.pend_a(lo), wi, lane);
+  __syncwarp();
+  for (int l = lo + 1; l <= t; ++l) {
+    const int M = N >> l, lgM = ilog2(M);
+    const float* src = st.alpha(l - 1);
+    float* dst = st.alpha(l);
+    for (int idx = lane; idx < wi * M; idx += kWarp) {
+      const int r = idx >> lgM, i = idx & (M - 1);
+      dst[idx] = f_minsum(src[(size_t)r * 2 * M + i], src[(size_t)r * 2 * M + M + i]);
+    }
+    set_identity_xl<kP>(st.pend_a(l), wi, lane);
+    __syncwarp();
+  }
+}
+
+// step_ascend of an XL list: the metrics and R in the slots, kP words a
+// position; each ascend level's pend_b read into the slots (no staging), its
+// rank apply kP ballots a position (perm_xor_xl).
+template <bool kNarrow, int kP>
+__device__ __forceinline__ void step_ascend_xl(const CtxXl<kP>& c, const Geometry& g,
+                                               const StacksXl<kP>& st, float* pm,
+                                               const StepArgs& a, const float (&pmr)[kP],
+                                               const int (&R)[kP]) {
+  const int S = g.S, t = g.t, lane = c.lane;
+  const int j = a.j, mask_a = a.mask_a, mask_b = a.mask_b;
+  const int wo = kNarrow ? a.lv_out : g.L, one_b = kNarrow ? a.one_b : 0;
+#pragma unroll
+  for (int s = 0; s < kP; ++s)
+    if (lane + s * kWarp < wo) pm[lane + s * kWarp] = pmr[s];
+
+  // ---- compose the chunk's R into the live pendings: p[l] = p[R[l]]
+  for (int l = 1; l <= t; ++l) {
+    int va[kP], vb[kP];
+    const bool ca = (mask_a >> (l - 1)) & 1, cb = (mask_b >> (l - 1)) & 1;
+#pragma unroll
+    for (int s = 0; s < kP; ++s) {
+      va[s] = vb[s] = 0;
+      if (lane + s * kWarp < wo) {
+        if (ca) va[s] = st.pend_a(l)[R[s]];
+        if (cb) vb[s] = st.pend_b(l)[R[s]];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < kP; ++s)
+      if (lane + s * kWarp < wo) {
+        if (ca) st.pend_a(l)[lane + s * kWarp] = va[s];
+        if (cb) st.pend_b(l)[lane + s * kWarp] = vb[s];
+      }
+  }
+  __syncwarp();
+
+  // ---- ascend, as step_ascend
+  const int D = S << j;
+  uint32_t* dest = st.beta(t - j);
+  for (int q = lane; q < kP * S; q += kWarp) dest[(size_t)kP * (D - S) + q] = c.beta[q];
+  __syncwarp();
+  for (int s = 0; s < j; ++s) {
+    const int lev = t - s, size = S << s;
+    const bool one = ((one_b >> (lev - 1)) & 1) && !((mask_b >> (lev - 1)) & 1);
+    int r[kP];
+#pragma unroll
+    for (int q = 0; q < kP; ++q)
+      r[q] = lane + q * kWarp < wo ? st.pend_b(lev)[one ? 0 : lane + q * kWarp] : 0;
+    perm_xor_xl<kP>(dest + (size_t)kP * (D - 2 * size), st.beta(lev),
+                    dest + (size_t)kP * (D - size), r, wo, size, lane);
+    __syncwarp();
+  }
+  set_identity_xl<kP>(st.pend_b(t - j), wo, lane);
+}
+
+// One chunk step of one frame of an XL list (exact nodes, rank vectors).
+template <bool kNarrow, int kP>
+__device__ __forceinline__ void chunk_step_xl(const CtxXl<kP>& c, const Geometry& g,
+                                              const StacksXl<kP>& st, const float* x, float* pm,
+                                              const int4* prog, const StepArgs& a) {
+  const int lane = c.lane, wi = kNarrow ? a.lv_in : g.L;
+  step_descend_xl<kNarrow, kP>(lane, g, st, x, a);
+  float* top = chunk_top(c, st.alpha(g.t), prog, a.n_ops, wi);
+  float pmr[kP];
+  int R[kP];
+#pragma unroll
+  for (int s = 0; s < kP; ++s) {
+    pmr[s] = lane + s * kWarp < wi ? pm[lane + s * kWarp] : -INFINITY;
+    R[s] = lane + s * kWarp;
+  }
+  chunk_body_xl<kNarrow, kP>(c, top, prog, a.n_ops, a.has_R, wi, pmr, R);
+  step_ascend_xl<kNarrow, kP>(c, g, st, pm, a, pmr, R);
+}
+
+// The butterfly u = beta * G on the N positions of `root` (kP words each,
+// storage order p), one stage a pass (words whose position has bit k clear
+// XOR their partner at bit k set), then u [L][N] int8 in natural order (the
+// n-bit reversal of p), four positions of a path a 4-byte store.
+template <int kP>
+__device__ __forceinline__ void root_out_xl(uint32_t* root, int N, int L, int log2N, int8_t* u,
+                                            int lane) {
+  const int n = log2N, lgP = ilog2(kP);
+  for (int k = 0; k < n; ++k) {
+    const int s = 1 << k;
+    for (int q = lane; q < (N / 2) * kP; q += kWarp) {
+      const int pair = q >> lgP, wd = q & (kP - 1);
+      const int p = ((pair >> k) << (k + 1)) | (pair & (s - 1));
+      root[kP * p + wd] ^= root[kP * (p + s) + wd];
+    }
+    __syncwarp();
+  }
+  if (n < 2) {
+    for (int idx = lane; idx < L * N; idx += kWarp)
+      u[idx] = (int8_t)path_bit_xl<kP>(root + kP * brev_bits(idx & (N - 1), n), idx >> n);
+    return;
+  }
+  for (int q = lane; q < (L * N) >> 2; q += kWarp) {
+    const int l = q >> (n - 2), i0 = (q & ((N >> 2) - 1)) << 2;
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v |= path_bit_xl<kP>(root + kP * brev_bits(i0 + k, n), l) << (8 * k);
+    *reinterpret_cast<uint32_t*>(u + (size_t)l * N + i0) = v;
+  }
+}
+
+// The last chunk's root plane of an XL list: N positions of kP words, on the
+// context's alpha region when it holds them, else after the context.
+__host__ __device__ inline int last_root_words_xl(int L, int S, int N, int kP) {
+  return kP * N > L * S ? kP * N : 0;
+}
+
+// last_chunk of an XL list (exact nodes, rank vectors): one g at level t into
+// `top`, the body, the ascend to the root (the chunk's R composed into each
+// pend_b on the way, in the slots), butterfly and u.
+template <int kP, typename StacksOf, typename OutputsOf>
+__device__ __forceinline__ void last_chunk_xl(const CtxXl<kP>& c, const Geometry& g,
+                                              StacksOf frame_stacks_of, OutputsOf outputs_of,
+                                              const float* x, const float* pm, float* top,
+                                              const int4* prog, int n_ops, int has_R, int log2N,
+                                              int one_a, int one_b) {
+  const int N = g.N, S = g.S, L = g.L, t = g.t, lane = c.lane;
+  descend_g_xl<kP>(g, frame_stacks_of(), x, t, false, top, lane, L, one_a, one_b);
+  float pmr[kP];
+  int R[kP];
+#pragma unroll
+  for (int s = 0; s < kP; ++s) {
+    pmr[s] = lane + s * kWarp < L ? pm[lane + s * kWarp] : 0.0f;
+    R[s] = lane + s * kWarp;
+  }
+  __syncwarp();
+  float* a0 = chunk_top(c, top, prog, n_ops, L);
+  chunk_body_xl<false, kP>(c, a0, prog, n_ops, has_R, L, pmr, R);
+  int8_t* u;
+  float* pm_out;
+  outputs_of(u, pm_out);
+#pragma unroll
+  for (int s = 0; s < kP; ++s)
+    if (lane + s * kWarp < L) pm_out[lane + s * kWarp] = pmr[s];
+  const int rw = last_root_words_xl(L, S, N, kP);
+  uint32_t* root =
+      reinterpret_cast<uint32_t*>(c.alpha + (rw ? ctx_words_xl(L, S, g.lgS, kP) : 0));
+  for (int q = lane; q < kP * S; q += kWarp) root[kP * (N - S) + q] = c.beta[q];
+  __syncwarp();
+  const StacksXl<kP> st = frame_stacks_of();
+  for (int lev = t; lev >= 1; --lev) {
+    const int size = N >> lev;
+    int r[kP];
+#pragma unroll
+    for (int s = 0; s < kP; ++s) r[s] = lane + s * kWarp < L ? st.pend_b(lev)[R[s]] : 0;
+    perm_xor_xl<kP>(root + kP * (N - 2 * size), st.beta(lev), root + kP * (N - size), r, L,
+                    size, lane);
+    __syncwarp();
+  }
+  root_out_xl<kP>(root, N, L, log2N, u, lane);
+}
+
+// The body kernel's outputs of one frame of an XL list: beta_out [L][S] int8
+// (four positions of a path a 4-byte store when S >= 4), pm_out [L] and the
+// rank vector r_out [L] from the slots.
+template <int kP>
+__device__ __forceinline__ void body_out_xl(const CtxXl<kP>& c, int8_t* beta_out, float* pm_out,
+                                            long long* r_out, int L, int S, int lgS,
+                                            const float (&pmr)[kP], const int (&R)[kP]) {
+  const int lane = c.lane;
+  if (S >= 4) {
+    for (int q = lane; q < (L * S) >> 2; q += kWarp) {
+      const int l = q >> (lgS - 2), i0 = (q & ((S >> 2) - 1)) << 2;
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v |= path_bit_xl<kP>(c.beta + kP * (i0 + k), l) << (8 * k);
+      *reinterpret_cast<uint32_t*>(beta_out + (size_t)l * S + i0) = v;
+    }
+  } else {
+    for (int idx = lane; idx < L * S; idx += kWarp)
+      beta_out[idx] = (int8_t)path_bit_xl<kP>(c.beta + kP * (idx & (S - 1)), idx >> lgS);
+  }
+#pragma unroll
+  for (int s = 0; s < kP; ++s)
+    if (lane + s * kWarp < L) {
+      pm_out[lane + s * kWarp] = pmr[s];
+      r_out[lane + s * kWarp] = R[s];
+    }
+}
+
+template <bool kDev, int kP>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 1)
+    scl_chunk_body_xl_kernel(const float* __restrict__ alpha, const float* __restrict__ pm,
+                             int8_t* __restrict__ beta_out, float* __restrict__ pm_out,
+                             long long* __restrict__ r_out, const int4* __restrict__ prog,
+                             int n_ops, int has_R, int B, int S, int L, int lgS, float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const CtxXl<kP> c = make_ctx_xl<kP>(
+      ctx_base<kDev>(smem_raw, ctx_dev, ctx_words_xl(L, S, lgS, kP)), L, S, lgS, lane);
+  for_each_frame<kDev>(B, [&](int frame) {
+    float* top = chunk_top(c, const_cast<float*>(alpha) + (size_t)frame * (size_t)(L * S), prog,
+                           n_ops, L);
+    float pmr[kP];
+    int R[kP];
+#pragma unroll
+    for (int s = 0; s < kP; ++s) {
+      pmr[s] = lane + s * kWarp < L ? pm[(size_t)frame * (size_t)L + lane + s * kWarp] : 0.0f;
+      R[s] = lane + s * kWarp;
+    }
+    __syncwarp();
+    chunk_body_xl<false, kP>(c, top, prog, n_ops, has_R, L, pmr, R);
+    body_out_xl<kP>(c, beta_out + (size_t)frame * (size_t)(L * S),
+                    pm_out + (size_t)frame * (size_t)L, r_out + (size_t)frame * (size_t)L, L, S,
+                    lgS, pmr, R);
+  });
+}
+
+template <bool kDev, int kP>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 1)
+    scl_chunk_step_xl_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
+                             int* pend_a, int* pend_b, float* pm, const int4* __restrict__ prog,
+                             Geometry g, StepArgs a, float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const CtxXl<kP> c = make_ctx_xl<kP>(
+      ctx_base<kDev>(smem_raw, ctx_dev, ctx_words_xl(g.L, g.S, g.lgS, kP)), g.L, g.S, g.lgS,
+      lane);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    const StacksXl<kP> st = frame_stacks_xl<kP>(g, frame, alpha, beta, pend_a, pend_b);
+    chunk_step_xl<false, kP>(c, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L, prog,
+                             a);
+  });
+}
+
+template <bool kDev, int kP>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 1)
+    scl_narrow_prefix_xl_kernel(const float* __restrict__ llr, float* alpha, uint32_t* beta,
+                                int* pend_a, int* pend_b, float* pm,
+                                const int4* __restrict__ prog, Geometry g,
+                                const __grid_constant__ PrefixSteps steps, float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const CtxXl<kP> c = make_ctx_xl<kP>(
+      ctx_base<kDev>(smem_raw, ctx_dev, ctx_words_xl(g.L, g.S, g.lgS, kP)), g.L, g.S, g.lgS,
+      lane);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    for (int r = 0; r < steps.n; ++r) {
+      const StepArgs& a = steps.rows[r];
+      const StacksXl<kP> st = frame_stacks_xl<kP>(g, frame, alpha, beta, pend_a, pend_b);
+      chunk_step_xl<true, kP>(c, g, st, llr + (size_t)frame * g.N, pm + (size_t)frame * g.L,
+                              prog + a.prog_off, a);
+      __syncwarp();
+    }
+  });
+}
+
+template <bool kDev, int kP>
+__global__ void __launch_bounds__(kDev ? 4 * kWarp : 8 * kWarp, 1)
+    scl_last_chunk_xl_kernel(const float* __restrict__ llr, const float* __restrict__ alpha,
+                             const uint32_t* __restrict__ beta, const int* __restrict__ pend_a,
+                             const int* __restrict__ pend_b, const float* pm,
+                             int8_t* __restrict__ u, float* __restrict__ pm_out, float* top,
+                             const int4* __restrict__ prog, int n_ops, int has_R, Geometry g,
+                             int log2N, int one_a, int one_b, float* ctx_dev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const int words = ctx_words_xl(g.L, g.S, g.lgS, kP) + last_root_words_xl(g.L, g.S, g.N, kP);
+  const CtxXl<kP> c =
+      make_ctx_xl<kP>(ctx_base<kDev>(smem_raw, ctx_dev, words), g.L, g.S, g.lgS, lane);
+  for_each_frame<kDev>(g.B, [&](int frame) {
+    const auto stacks_of = [&]() {
+      return frame_stacks_xl<kP>(g, frame, const_cast<float*>(alpha),
+                                 const_cast<uint32_t*>(beta), const_cast<int*>(pend_a),
+                                 const_cast<int*>(pend_b));
+    };
+    const auto outputs_of = [&](int8_t*& u_f, float*& pm_f) {
+      u_f = u + (size_t)frame * g.L * g.N;
+      pm_f = pm_out + (size_t)frame * g.L;
+    };
+    last_chunk_xl<kP>(c, g, stacks_of, outputs_of, llr + (size_t)frame * g.N,
+                      pm + (size_t)frame * g.L, top + (size_t)frame * g.L * g.S, prog, n_ops,
+                      has_R, log2N, one_a, one_b);
+  });
+}
+
 #ifdef SCL_DECODE_MEGA  // defined by scl_mega.cu, the one source that launches it
 // The whole chunked list decode of a frame in ONE launch (replaces
 // ops/scl_mega_pallas.py, make_scl_mega_pallas): bit-reverse the LLRs, seed the
@@ -1591,6 +1991,18 @@ inline size_t last_frame_bytes_wide(int L, int S, int lgS, int N, int) {
 constexpr int kNarrowListMax = 32;
 // the widest list of the wide instances
 constexpr int kWideListMax = 64;
+// the widest list of the XL instances, and their paths a lane (kP)
+constexpr int kXlListMax = 256;
+inline int xl_paths_per_lane(int L) { return L <= 128 ? 4 : 8; }
+// the XL-list instances' frame bytes (65 <= L <= 256)
+template <int kP>
+size_t ctx_frame_bytes_xl(int L, int S, int lgS, int, int) {
+  return 4 * (size_t)scl::ctx_words_xl(L, S, lgS, kP);
+}
+template <int kP>
+size_t last_frame_bytes_xl(int L, int S, int lgS, int N, int) {
+  return 4 * (size_t)(scl::ctx_words_xl(L, S, lgS, kP) + last_root_words_xl(L, S, N, kP));
+}
 
 // A compiled kernel variant, for a resource report: its name, its function
 // and the bytes of shared memory one frame of it needs (null: a

@@ -76,9 +76,15 @@ Wide lists (``32 < L <= 64``): the kernels' wide instances hold two paths a
 lane (lane l: paths l and l + 32) and a position's path bits as one 64-bit
 word, so the state's ``beta`` is int64; the body, chunk step, narrow prefix
 and last chunk each have one (launches counted apart, ``scl_chunk_step_wide``
-…), shared or device memory alike.  Exact node programs on rank vectors only:
-the fast nodes, the one-hot modes and the one-launch decode stay at ``L <=
-32`` (ROADMAP.md queue B).
+…), shared or device memory alike.  XL lists (``64 < L <= 256``): instances
+of their own, built from sources of their own (``scl_body_xl``,
+``scl_decode_xl``, ``scl_last_xl``: the same launchers' names and
+arguments), at four paths a lane up to 128 and eight up to 256
+(``paths_per_lane``), a position's path bits ``kP`` 32-bit words, so the
+state's ``beta`` is int32 ``[B, N − S, kP]`` (launches counted apart,
+``scl_chunk_step_xl`` …).  Exact node programs on rank vectors only: the
+fast nodes, the one-hot modes and the one-launch decode stay at ``L <= 32``
+(ROADMAP.md queue B).
 
 Precondition, as for the plain decoder: finite LLRs.
 """
@@ -114,10 +120,12 @@ SUBTREE_MAX = 4
 #: widest repetition subtree the REP op decodes (the plain version's rule)
 REP_MAX = _LEVELPAR_MAX
 #: widest list the kernels take: up to ``NARROW_LIST_MAX`` one path a lane and
-#: a 32-bit word of path bits a position, above it (a wide list) two paths a
-#: lane and a 64-bit word
-MAX_LIST = 64
+#: a 32-bit word of path bits a position, up to ``WIDE_LIST_MAX`` (a wide list)
+#: two paths a lane and a 64-bit word, above it (an XL list) four or eight
+#: paths a lane and as many 32-bit words (``paths_per_lane``)
+MAX_LIST = 256
 NARROW_LIST_MAX = 32
+WIDE_LIST_MAX = 64
 #: shared memory one thread block may use on Hopper (bytes)
 SMEM_LIMIT_BYTES = 232448
 #: the most warps of a block (1024 threads); the kernels plan the warps per
@@ -200,7 +208,7 @@ class SCLBodyProgram:
             raise ValueError(
                 f"the SCL kernels take list sizes 1..{MAX_LIST}, got {list_size}: a wider list "
                 f"runs on the plain controls ('unroll-fused', 'split', 'fused'); the kernels' "
-                f"lists above {MAX_LIST} are ROADMAP.md queue B item B7")
+                f"lists above {MAX_LIST} are what is left of ROADMAP.md queue B item B7")
         if node_mode not in ("exact", "fast"):
             raise ValueError(f"unknown node_mode {node_mode!r}")
         if perm_impl not in ("rank", "onehot"):
@@ -239,19 +247,29 @@ def _round4(x: int) -> int:
     return (x + 3) & ~3
 
 
+def paths_per_lane(L: int) -> int:
+    """Paths a lane of the kernel instances that serve list ``L`` (``kP``):
+    1 up to 32, 2 up to 64, 4 up to 128, 8 up to 256."""
+    return 1 if L <= NARROW_LIST_MAX else 2 if L <= WIDE_LIST_MAX else 4 if L <= 128 else 8
+
+
 def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0,
                    depth0: bool = True) -> int:
     """Bytes of shared memory one frame needs with ``depth0=False`` (mirrors
-    ``scl::ctx_words``, or ``scl::ctx_words_wide`` for a wide list, ``L >
+    ``scl::ctx_words``, ``scl::ctx_words_wide`` for a wide list, ``L >
     NARROW_LIST_MAX``: S 64-bit words of path bits, regions rounded up to four
-    words; every kernel reads the chunk's top plane where it lies in device
-    memory), plus ``root_words`` for the last chunk's root plane and, for a
+    words, or ``scl::ctx_words_xl`` for an XL list, ``L > WIDE_LIST_MAX``: S
+    positions of ``kP`` words, the saved rank vectors, the prune's 2L words;
+    every kernel reads the chunk's top plane where it lies in device memory),
+    plus ``root_words`` for the last chunk's root plane and, for a
     one-hot state of ``onehot_levels`` levels, the two pendings' rank vectors
     that the one-hot kernels stage (``2 · levels · L`` words).  The default
     ``depth0=True`` adds a top plane of ``L · S`` words: the size the
     device-memory threshold counts (``context_in_device_memory``)."""
     lgS = int(np.log2(S))
-    if L > NARROW_LIST_MAX:
+    if L > WIDE_LIST_MAX:
+        ctx = _round4(S * L) + paths_per_lane(L) * S + _round4(L * (lgS + 1)) + _round4(2 * L)
+    elif L > NARROW_LIST_MAX:
         ctx = _round4(S * L) + 2 * S + _round4(L * (2 + lgS + 1))
     else:
         ctx = S * L + S + L * (2 + lgS + 1)
@@ -260,10 +278,11 @@ def smem_per_frame(L: int, S: int, root_words: int = 0, onehot_levels: int = 0,
 
 def last_root_words(L: int, S: int, N: int) -> int:
     """Words of the last chunk's own root plane (``last_root_words`` of
-    ``csrc/scl_kernels.cuh``, ``last_root_words_wide`` for a wide list, whose
-    root plane is ``N`` 64-bit words): none when the context's alpha region
+    ``csrc/scl_kernels.cuh``; ``last_root_words_wide`` for a wide list, whose
+    root plane is ``N`` 64-bit words, ``last_root_words_xl`` for an XL list,
+    ``N`` positions of ``kP`` words): none when the context's alpha region
     (``L · S`` words, dead once the body has returned) holds it."""
-    words = 2 * N if L > NARROW_LIST_MAX else N
+    words = paths_per_lane(L) * N
     return words if words > L * S else 0
 
 
@@ -309,11 +328,15 @@ def _context_plan(L: int, S: int, root_words: int, B: int, device, onehot_levels
     return _DEVMEM_WARPS, grid, scratch
 
 
+def _list_suffix(L: int) -> str:
+    """The launch counters' suffix of the instances that serve list ``L``."""
+    return "_xl" if L > WIDE_LIST_MAX else "_wide" if L > NARROW_LIST_MAX else ""
+
+
 def _count(base: str, program: "SCLBodyProgram", scratch) -> None:
     """Count one launch under the name of its kernel mode."""
     count_launch(base + ("_fast" if program.fast else "") + ("_onehot" if program.onehot else "")
-                 + ("_wide" if program.L > NARROW_LIST_MAX else "")
-                 + ("_devmem" if scratch is not None else ""))
+                 + _list_suffix(program.L) + ("_devmem" if scratch is not None else ""))
 
 
 def _check_cuda_f32(x: torch.Tensor, what: str, shape: tuple) -> None:
@@ -337,6 +360,17 @@ _LIBRARY = {"scl_chunk_body_launch": "scl_body", "scl_chunk_step_launch": "scl_d
             "scl_decode_mega_launch": "scl_mega"}
 
 
+def _library(library: str, L: int) -> str:
+    """The library whose launchers serve list ``L``: ``library``, or for an
+    XL list its XL source's (``scl_decode`` → ``scl_decode_xl``; no other
+    variant has XL instances)."""
+    if L <= WIDE_LIST_MAX:
+        return library
+    if library not in ("scl_body", "scl_decode", "scl_last"):
+        raise ValueError(f"{library} has no instances for lists above {WIDE_LIST_MAX}, got {L}")
+    return library + "_xl"
+
+
 def _launcher(name: str, argtypes: list, library: Optional[str] = None):
     lib = build.load(library or _LIBRARY[name])
     fn = getattr(lib, name)
@@ -347,14 +381,18 @@ def _launcher(name: str, argtypes: list, library: Optional[str] = None):
 
 def kernel_resources(L: int, S: int, N: int, t: int) -> list:
     """Registers, local memory (spills) and resident warps per SM of every
-    compiled variant of the four list kernels that serves list ``L`` (the
-    wide instances for ``L > NARROW_LIST_MAX``, else the others), each at the
-    launch plan its launcher makes for a code of length ``N``, chunk ``S``,
-    list ``L`` with ``t`` levels (the device-memory variants at theirs).
-    Needs a CUDA device."""
+    compiled variant of the four list kernels that serves list ``L`` (the XL
+    instances of ``L``'s paths a lane for ``L > WIDE_LIST_MAX``, the wide
+    ones for ``L > NARROW_LIST_MAX``, else the others), each at the launch
+    plan its launcher makes for a code of length ``N``, chunk ``S``, list
+    ``L`` with ``t`` levels (the device-memory variants at theirs).  Needs a
+    CUDA device."""
     out = []
     wide = L > NARROW_LIST_MAX
-    for library in ("scl_body", "scl_decode", "scl_last", "scl_mega"):
+    xl = f"_xl{paths_per_lane(L)}"
+    libraries = (("scl_body_xl", "scl_decode_xl", "scl_last_xl") if L > WIDE_LIST_MAX
+                 else ("scl_body", "scl_decode", "scl_last", "scl_mega"))
+    for library in libraries:
         lib = build.load(library)
         lib.scl_kernel_name.restype = ctypes.c_char_p
         lib.scl_kernel_name.argtypes = [_I]
@@ -362,7 +400,7 @@ def kernel_resources(L: int, S: int, N: int, t: int) -> list:
         lib.scl_kernel_report.argtypes = [_I] * 7 + [_P]
         for which in range(lib.scl_kernel_count()):
             name = lib.scl_kernel_name(which).decode()
-            if ("_wide" in name) != wide:
+            if not (xl in name if L > WIDE_LIST_MAX else ("_wide" in name) == wide):
                 continue
             vals = (ctypes.c_int * 5)()
             code = lib.scl_kernel_report(which, L, S, N, t, _MAX_WARPS, _DEVMEM_WARPS,
@@ -402,7 +440,8 @@ def launch_chunk_body(alpha: torch.Tensor, pm: torch.Tensor, program: SCLBodyPro
     _check_cuda_f32(pm, "pm", (B, L))
     dev = alpha.device
     warps, grid, ctx = _context_plan(L, S, 0, B, dev)
-    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 9 + [_P, _I, _P], library)
+    lib, fn = _launcher("scl_chunk_body_launch", [_P] * 6 + [_I] * 9 + [_P, _I, _P],
+                        _library(library, L))
     beta = torch.empty((B, L, S), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, L), dtype=torch.float32, device=dev)
     r_out = (torch.empty((B, L, L), dtype=torch.float32, device=dev) if program.onehot
@@ -443,20 +482,42 @@ def make_chunk_body_cuda(flags: np.ndarray, list_size: int, node_mode: str = "ex
 
 def path_word_dtype(L: int) -> torch.dtype:
     """The state's word of a position's path bits: int32 up to
-    ``NARROW_LIST_MAX`` paths, int64 for a wide list."""
-    return torch.int64 if L > NARROW_LIST_MAX else torch.int32
+    ``NARROW_LIST_MAX`` paths, int64 for a wide list, int32 (``kP`` of them a
+    position) for an XL list."""
+    return torch.int64 if NARROW_LIST_MAX < L <= WIDE_LIST_MAX else torch.int32
+
+
+def beta_shape(B: int, M: int, L: int) -> tuple:
+    """The shape of ``M`` positions' path bits of ``B`` frames: ``[B, M]``
+    words up to ``WIDE_LIST_MAX`` paths, ``[B, M, kP]`` for an XL list."""
+    return (B, M, paths_per_lane(L)) if L > WIDE_LIST_MAX else (B, M)
 
 
 def pack_paths(bits: torch.Tensor, L: Optional[int] = None) -> torch.Tensor:
-    """``[B, w, M]`` 0/1 int8 → ``[B, M]`` words (``path_word_dtype(L)``, L
-    the list size, ``w`` by default), bit l = path l."""
-    w = bits.shape[1]
-    sh = torch.arange(w, device=bits.device, dtype=torch.int64)[None, :, None]
-    return (bits.to(torch.int64) << sh).sum(dim=1).to(path_word_dtype(L or w))
+    """``[B, w, M]`` 0/1 int8 → words of ``beta_shape(B, M, L)``
+    (``path_word_dtype(L)``, L the list size, ``w`` by default): bit l =
+    path l, or for an XL list bit l mod 32 of word l // 32."""
+    B, w, M = bits.shape
+    L = L or w
+    if L <= WIDE_LIST_MAX:
+        sh = torch.arange(w, device=bits.device, dtype=torch.int64)[None, :, None]
+        return (bits.to(torch.int64) << sh).sum(dim=1).to(path_word_dtype(L))
+    kP = paths_per_lane(L)
+    full = torch.zeros((B, 32 * kP, M), dtype=torch.int64, device=bits.device)
+    full[:, :w] = bits
+    sh = torch.arange(32, device=bits.device, dtype=torch.int64)[None, None, :, None]
+    words = (full.view(B, kP, 32, M) << sh).sum(dim=2)  # [B, kP, M], 0 .. 2^32 - 1
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.transpose(1, 2).to(torch.int32).contiguous()
 
 
 def unpack_paths(words: torch.Tensor, L: int) -> torch.Tensor:
-    """``[B, M]`` int32 or int64 words → ``[B, L, M]`` int8 bit planes."""
+    """Words ``[B, M]`` (int32 or int64) or ``[B, M, kP]`` (int32, an XL
+    list) → ``[B, L, M]`` int8 bit planes of the first ``L`` paths."""
+    if words.dim() == 3:
+        paths = torch.arange(L, device=words.device)
+        sel = words[:, :, paths >> 5]  # [B, M, L]: each path's word
+        return ((sel >> (paths & 31).to(words.dtype)) & 1).transpose(1, 2).to(torch.int8)
     sh = torch.arange(L, device=words.device, dtype=words.dtype)[None, :, None]
     return ((words[:, None, :] >> sh) & 1).to(torch.int8)
 
@@ -465,7 +526,8 @@ class SCLState:
     """The level stacks of a batch of frames between chunk launches, in the
     layout the kernels read (see ``csrc/scl_kernels.cuh``): ``llr [B, N]``
     (bit-reversed storage), ``alpha [B, L·(N−S)]``, ``beta [B, N−S]`` packed
-    words (int32, int64 for a wide list: ``path_word_dtype``), ``pend_a`` /
+    words (int32, int64 for a wide list: ``path_word_dtype``; an XL list's
+    ``[B, N−S, kP]`` int32: ``beta_shape``), ``pend_a`` /
     ``pend_b [B, t, L]`` int32 rank vectors (with ``perm_impl="onehot"``:
     ``[B, t, L, L]`` one-hot planes in the LLRs' dtype), ``pm [B, L]``."""
 
@@ -477,7 +539,7 @@ class SCLState:
         B, dev = llr_rev.shape[0], llr_rev.device
         self.llr = llr_rev
         self.alpha = torch.zeros((B, L * (N - S)), dtype=llr_rev.dtype, device=dev)
-        self.beta = torch.zeros((B, N - S), dtype=path_word_dtype(L), device=dev)
+        self.beta = torch.zeros(beta_shape(B, N - S, L), dtype=path_word_dtype(L), device=dev)
         if self.onehot:
             eye = torch.eye(L, dtype=llr_rev.dtype, device=dev).expand(B, t, L, L)
         else:
@@ -693,7 +755,7 @@ def _check_state(state: SCLState, program: SCLBodyProgram) -> None:
     if state.onehot != program.onehot:
         raise ValueError("the state's permutation algebra is not the program's")
     pend = ((B, s.t, s.L, s.L), torch.float32) if state.onehot else ((B, s.t, s.L), torch.int32)
-    for name, (shape, dtype) in (("beta", ((B, s.N - s.S), path_word_dtype(s.L))),
+    for name, (shape, dtype) in (("beta", (beta_shape(B, s.N - s.S, s.L), path_word_dtype(s.L))),
                                  ("pend_a", pend), ("pend_b", pend)):
         x = getattr(state, name)
         if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() \
@@ -726,7 +788,8 @@ def launch_chunk_step(state: SCLState, spec: SCLStepSpec, library: str):
     B = state.pm.shape[0]
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev, s.t if state.onehot else 0)
-    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 16 + [_P, _I, _P], library)
+    lib, fn = _launcher("scl_chunk_step_launch", [_P] * 7 + [_I] * 16 + [_P, _I, _P],
+                        _library(library, s.L))
     ops = spec.program.device_ops(dev)
     code = build.launch_on(dev.index, fn, state.llr.data_ptr(), state.alpha.data_ptr(),
                            state.beta.data_ptr(), state.pend_a.data_ptr(),
@@ -754,7 +817,7 @@ def scl_narrow_prefix_cuda(state: SCLState, prefix: SCLPrefixSpec) -> None:
     ``PREFIX_PARAM_ROWS`` steps for a longer prefix).  Does not synchronise."""
     launches, ctx = launch_narrow_prefix(state, prefix, "scl_decode")
     for _ in range(launches):
-        count_launch("scl_narrow_prefix" + ("_wide" if state.sched.L > NARROW_LIST_MAX else "")
+        count_launch("scl_narrow_prefix" + _list_suffix(state.sched.L)
                      + ("_devmem" if ctx is not None else ""))
 
 
@@ -770,7 +833,8 @@ def launch_narrow_prefix(state: SCLState, prefix: SCLPrefixSpec, library: str):
     B = state.pm.shape[0]
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, 0, B, dev)
-    lib, fn = _launcher("scl_narrow_prefix_launch", [_P] * 8 + [_I] * 8 + [_P, _I, _P], library)
+    lib, fn = _launcher("scl_narrow_prefix_launch", [_P] * 8 + [_I] * 8 + [_P, _I, _P],
+                        _library(library, s.L))
     prog = prefix.device_prog(dev)
     launches = 0
     for lo in range(0, len(prefix.rows), PREFIX_PARAM_ROWS):
@@ -816,7 +880,8 @@ def launch_last_chunk(state: SCLState, spec: SCLStepSpec, library: str):
     dev = state.llr.device
     warps, grid, ctx = _context_plan(s.L, s.S, last_root_words(s.L, s.S, s.N), B, dev,
                                      s.t if state.onehot else 0)
-    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 10 + [_I] * 14 + [_P, _I, _P], library)
+    lib, fn = _launcher("scl_last_chunk_launch", [_P] * 10 + [_I] * 14 + [_P, _I, _P],
+                        _library(library, s.L))
     u = torch.empty((B, s.L, s.N), dtype=torch.int8, device=dev)
     pm_out = torch.empty((B, s.L), dtype=torch.float32, device=dev)
     top = torch.empty((B, s.L * s.S), dtype=torch.float32, device=dev)  # scratch

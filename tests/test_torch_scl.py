@@ -517,7 +517,7 @@ def test_wide_list_host_plans(what):
     mask = mask_of(1024, 512)
     sched = tscan.build_scl_schedule(1024, mask, 64, 128)
     if what == "sizes":
-        assert (scl_cuda.MAX_LIST, scl_cuda.NARROW_LIST_MAX) == (64, 32)
+        assert (scl_cuda.MAX_LIST, scl_cuda.NARROW_LIST_MAX) == (256, 32)
         # L = 64, S = 128: 69,120 B with a top plane, 36,352 B the kernels' context
         assert scl_cuda.smem_per_frame(64, 128) == 69120
         assert scl_cuda.smem_per_frame(64, 128, depth0=False) == 36352
@@ -556,11 +556,165 @@ def test_wide_list_host_plans(what):
             scl_cuda.SCLBodyProgram(flags, 64, perm_impl="onehot")
         with pytest.raises(ValueError, match="per-chunk kernels.*B6"):
             scl_cuda.SCLMegaPlan(sched)
-        with pytest.raises(ValueError, match="list sizes 1..64"):
-            scl_cuda.SCLBodyProgram(flags, 65)
+        with pytest.raises(ValueError, match="list sizes 1..256"):
+            scl_cuda.SCLBodyProgram(flags, 257)
         with pytest.raises(ValueError, match="B4"):
             tscl.make_scl_decoder(1024, mask, 64, node_mode="fast", control_impl="unroll-kernel",
                                   device="cpu")
+
+
+# -- XL lists: 64 < L <= 256, four or eight paths a lane ---------------------------------
+#
+# The same holds as for the wide lists, at L = 128 and 96 (and the host plans at
+# 256): whole decodes against the JAX package's float64 twin, the kernel controls
+# against the plain decoder in float32, and the XL instances' host side (their
+# context sizes, the device-memory threshold, the state's kP 32-bit words a
+# position).
+
+XL_CODES = ((128, 128), (256, 96))
+
+
+@pytest.fixture(scope="module")
+def jax_twin_xl():
+    """JAX's float64 twin on 4 frames of each XL code (K = N / 2)."""
+    out = {}
+    for N, L in XL_CODES:
+        mask = mask_of(N, N // 2)
+        llr = wide_llrs(N, 4, seed=N + L).astype(np.float64)
+        out[N, L] = mask, llr, [jpolar.scl_decode_np(r, mask, L) for r in llr]
+    return out
+
+
+@pytest.mark.parametrize("N,L", XL_CODES)
+@pytest.mark.parametrize("live", [False, True])
+def test_xl_list_decoder_equals_jax_twin(jax_twin_xl, N, L, live):
+    """L = 128 at N = 128 and L = 96 at N = 256, chunk 32, float64: the plain
+    decoder, full and live width, gives the twin's survivor paths in its slot
+    order and its metrics within 1e-12."""
+    mask, llr, ref = jax_twin_xl[N, L]
+    dec = tscl.make_scl_decoder(N, mask, L, torch.float64, chunk=32, live_width=live,
+                                device="cpu")
+    assert dec.live_width == live
+    u, pm = dec(torch.from_numpy(llr))
+    for i, (_, ref_m, ref_paths) in enumerate(ref):
+        assert np.array_equal(u[i].numpy(), ref_paths), i
+        close(pm[i].numpy(), ref_m, np.float64)
+
+
+def test_xl_list_cascl_selects_from_jax_paths(jax_twin_xl):
+    """CA-SCL-128 with CRC-8 in float64: the class's choice equals the CRC
+    selection over the twin's paths and metrics."""
+    mask, llr, ref = jax_twin_xl[128, 128]
+    dec = tfec.SCLDecoder(128, 64, 128, frozen_bits=np.nonzero(mask)[0], use_crc=True,
+                          dtype=torch.float64, chunk=32, device="cpu")
+    info = torch.as_tensor(np.nonzero(~mask)[0])
+    paths = torch.from_numpy(np.stack([r[2] for r in ref]))
+    metrics = torch.from_numpy(np.stack([r[1] for r in ref]))
+    want = tscl.select_best_path(paths[..., info], metrics, CRCCodec(64 - 8, "CRC-8", "cpu"))
+    assert torch.equal(dec.decode(torch.from_numpy(llr)), want)
+
+
+@pytest.mark.parametrize("N,L", [(128, 128), (128, 96)])
+def test_xl_list_controls_agree(N, L):
+    """An XL list under the port's controls on the CPU, float32: the kernel
+    control (its state's kP 32-bit words a position, the narrow prefix), live
+    width on and off, the chunk body wrapper and ``"mega"`` (the per-chunk
+    kernels past its reach) give the plain decoder's paths and metrics bit for
+    bit."""
+    mask = mask_of(N, N // 2)
+    llr = torch.from_numpy(wide_llrs(N, 8, seed=N + L))
+    want = tscl.make_scl_decoder(N, mask, L, chunk=32, live_width=False, device="cpu")(llr)
+    for kw in (dict(control_impl="unroll-kernel"),
+               dict(control_impl="unroll-kernel", live_width=False),
+               dict(control_impl="unroll-fused", body_impl="cuda", live_width=False),
+               dict(control_impl="mega")):
+        dec = tscl.make_scl_decoder(N, mask, L, chunk=32, device="cpu", **kw)
+        assert dec.control_impl == kw["control_impl"].replace("mega", "unroll-kernel")
+        u, m = dec(llr)
+        assert torch.equal(u, want[0]) and torch.equal(m, want[1]), kw
+
+
+@pytest.mark.parametrize("what", ["sizes", "state", "specs", "refusals"])
+def test_xl_list_host_plans(what):
+    """The host side of the XL kernels at L = 128 and 256: shared memory per
+    frame (S positions of kP 32-bit words, the saved rank vectors and the
+    prune's 2L words), the device-memory threshold at S = 64 and 128, the
+    warps per block, the last chunk's root plane, the state's words with a
+    pack / unpack round trip that reaches path 255, the step tables, and the
+    modes that still refuse above 64 paths."""
+    from polarcode_and_ldpc_tpu_torch.ops import scl_cuda
+
+    mask = mask_of(1024, 512)
+    if what == "sizes":
+        assert [scl_cuda.paths_per_lane(L) for L in (32, 33, 64, 65, 128, 129, 256)] == [
+            1, 2, 2, 4, 4, 8, 8]
+        # L = 128, S = 128: 16384 + 4 * 128 + 128 * 8 + 256 words of context
+        assert scl_cuda.smem_per_frame(128, 128, depth0=False) == 72704
+        assert scl_cuda.smem_per_frame(128, 128) == 72704 + 4 * 128 * 128
+        assert scl_cuda._warps_per_block(72704, "a chunk context") == 3
+        # L = 256: shared memory at S = 64 (76,800 B a frame), device memory at 128
+        assert scl_cuda.smem_per_frame(256, 64, depth0=False) == 76800
+        assert scl_cuda.smem_per_frame(256, 64) == 142336
+        assert scl_cuda.smem_per_frame(256, 128) == 276480
+        assert not scl_cuda.context_in_device_memory(256, 64)
+        assert scl_cuda.context_in_device_memory(256, 128)
+        assert not scl_cuda.context_in_device_memory(128, 128)
+        assert scl_cuda._warps_per_block(76800, "a chunk context") == 3
+        # the root plane (N positions of kP words) on the alpha region, or its own
+        assert scl_cuda.last_root_words(128, 128, 1024) == 0
+        assert scl_cuda.last_root_words(256, 64, 1024) == 0
+        assert scl_cuda.last_root_words(128, 4, 1024) == 4096
+        assert scl_cuda.last_root_words(256, 16, 1024) == 8192
+    elif what == "state":
+        rng = np.random.default_rng(2)
+        for L in (96, 256):
+            sched = tscan.build_scl_schedule(1024, mask, L, 128)
+            st = scl_cuda.SCLState(sched, torch.from_numpy(
+                rng.standard_normal((2, 1024)).astype(np.float32)))
+            kp = scl_cuda.paths_per_lane(L)
+            assert st.beta.dtype == torch.int32 and st.beta.shape == (2, 896, kp)
+            # the live paths' bits round-trip; a word's bits above path L - 1 are 0
+            bits = torch.from_numpy(rng.integers(0, 2, (2, L, 896)).astype(np.int8))
+            words = scl_cuda.pack_paths(bits, L)
+            assert words.shape == (2, 896, kp) and words.dtype == torch.int32
+            assert torch.equal(scl_cuda.unpack_paths(words, L), bits)
+            if L % 32:
+                assert not (words[..., L // 32] >> (L % 32)).any()
+            st.beta.copy_(words)
+            other = st.clone()
+            other.load_plain(*st.to_plain())
+            assert torch.equal(other.beta, st.beta)
+            narrow = scl_cuda.pack_paths(bits[:, :5], L)  # a narrow level: the first 5 paths
+            assert torch.equal(scl_cuda.unpack_paths(narrow, 5), bits[:, :5])
+        # path 255 is the sign bit of word 7; path 32 s + 31 of word s
+        one = torch.zeros((1, 256, 1), dtype=torch.int8)
+        one[0, 255] = 1
+        assert scl_cuda.pack_paths(one)[0, 0].tolist() == [0] * 7 + [-2 ** 31]
+    elif what == "specs":
+        for L in (128, 256):
+            sched = tscan.build_scl_schedule(1024, mask, L, 128)
+            prog = scl_cuda.SCLBodyProgram(sched.unique_flags[0], L)
+            assert not ((prog.ops[:, 0] & 0xFF) == scl_cuda.OP_SUBTREE).any()
+            (prefix, *rest), last = scl_cuda.make_step_specs(sched, live=True)
+            assert [r[8:10].tolist() for r in prefix.rows] == [
+                [sched.lv_in[c], sched.lv_out[c]] for c in range(len(prefix.rows))]
+            assert all(s.lv_in == s.lv_out == L for s in rest) and last.program.L == L
+            assert len(prefix.rows) + len(rest) == sched.C - 1
+    else:
+        sched = tscan.build_scl_schedule(1024, mask, 128, 128)
+        flags = sched.unique_flags[0]
+        with pytest.raises(ValueError, match="B4"):
+            scl_cuda.SCLBodyProgram(flags, 128, "fast")
+        with pytest.raises(ValueError, match="B5"):
+            scl_cuda.SCLBodyProgram(flags, 128, perm_impl="onehot")
+        with pytest.raises(ValueError, match="per-chunk kernels.*B6"):
+            scl_cuda.SCLMegaPlan(sched)
+        with pytest.raises(ValueError, match="list sizes 1..256.*B7"):
+            scl_cuda.SCLBodyProgram(flags, 257)
+        with pytest.raises(ValueError, match="no instances for lists above 64"):
+            scl_cuda._library("scl_decode_profile", 128)
+        assert scl_cuda._library("scl_decode", 128) == "scl_decode_xl"
+        assert scl_cuda._library("scl_decode", 64) == "scl_decode"
 
 
 # -- classes, selection, options ----------------------------------------------------------
@@ -677,7 +831,7 @@ def test_unported_options_raise_with_their_name():
     assert not tscl.make_scl_decoder(32, mask, 4, node_mode="fast", device="cpu").live_width
     with pytest.warns(UserWarning, match="small-list serving mode"):
         tscl.make_scl_decoder(32, mask, 32, node_mode="fast", device="cpu")
-    # the kernels are float32 and hold lists up to 64; a single-chunk code is
+    # the kernels are float32 and hold lists up to 256; a single-chunk code is
     # one chunk-body launch, at full width
     with pytest.raises(TypeError, match="float32"):
         tscl.make_scl_decoder(32, mask, 2, torch.float64, control_impl="unroll-kernel",
@@ -690,7 +844,7 @@ def test_unported_options_raise_with_their_name():
     assert tscl.make_scl_decoder(32, mask, 64, control_impl="unroll-kernel",
                                  device="cpu").control_impl == "unroll-kernel"
     with pytest.raises(ValueError, match="list sizes"):
-        tscl.make_scl_decoder(32, mask, 65, control_impl="unroll-kernel", device="cpu")
+        tscl.make_scl_decoder(32, mask, 257, control_impl="unroll-kernel", device="cpu")
 
 
 def test_defaults_follow_the_device():

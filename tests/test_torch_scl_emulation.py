@@ -1297,7 +1297,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_oversize():
     with pytest.raises(ValueError, match="shared memory"):
         scl_cuda._warps_per_block(scl_cuda.smem_per_frame(32, 4096), "a chunk")
     with pytest.raises(ValueError, match="list sizes"):
-        SCLBodyProgram(np.zeros(8, bool), 65)
+        SCLBodyProgram(np.zeros(8, bool), 257)
 
 
 @pytest.mark.cuda
